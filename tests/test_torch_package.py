@@ -1,0 +1,96 @@
+"""Boundary checks of the PyTorch port: it imports neither JAX nor the JAX
+package, shares the JAX package's tiling and configs, and never drops to
+the CPU unless asked."""
+
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import ever_tpu_torch
+from ever_tpu.core import builder as jbuilder
+from ever_tpu.core.config import AttrDict as JaxAttrDict
+from ever_tpu.magic.sliding_window import sliding_window as jax_sliding_window
+from ever_tpu_torch.core import builder as tbuilder
+from ever_tpu_torch.core.config import AttrDict, import_config
+from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.magic.sliding_window import sliding_window
+from ever_tpu_torch.magic.tiled import tiled_inference
+
+PKG = os.path.dirname(os.path.abspath(ever_tpu_torch.__file__))
+REPO = os.path.dirname(PKG)
+
+
+def test_import_pulls_in_neither_jax_nor_ever_tpu():
+    code = ('import sys, ever_tpu_torch, ever_tpu_torch.util.weight_io;'
+            'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
+            ' or m == "ever_tpu" or m.startswith("ever_tpu.")];'
+            'print(bad); sys.exit(1 if bad else 0)')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_source_has_no_jax_or_ever_tpu_import():
+    bad = re.compile(r'^\s*(import\s+(jax|flax|ever_tpu)\b(?!_torch)'
+                     r'|from\s+(jax|flax|ever_tpu)\b(?!_torch))', re.M)
+    scanned = 0
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith('.py'):
+                with open(os.path.join(root, name)) as f:
+                    src = f.read()
+                assert not bad.search(src), os.path.join(root, name)
+                scanned += 1
+    assert scanned >= 10
+
+
+@pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
+                                      ((4096, 4096), 512, 512), ((97, 1000), (32, 64), (16, 60))])
+def test_sliding_window_boxes_equal_jax(size, k, s):
+    np.testing.assert_array_equal(sliding_window(size, k, s),
+                                  jax_sliding_window(size, k, s))
+
+
+def test_same_config_builds_dinoseg_in_both_registries():
+    cfg = dict(backbone=dict(name='vit_small', attn_impl='xla'), classes=5,
+               head=dict(n_taps=2))
+    jm = jbuilder.make_model({'type': 'DinoSeg', 'params': cfg})
+    tm = tbuilder.make_model({'type': 'DinoSeg', 'params': cfg}, device='cpu')
+    assert jm.config.to_dict() == tm.config.to_dict()
+    assert tm.vit.depth == 12 and tm.vit.embed_dim == 384
+    assert tm.head_classifier.out_features == 5
+    assert tm.head_classifier.in_features == 2 * 384
+
+
+def test_attrdict_overrides_match_jax(tmp_path):
+    base = dict(model=dict(type='DinoSeg', params=dict(classes=7)), flag=False)
+    opts = ['model.params.classes', '5', 'flag', 'TRUE', 'new.key', 'null',
+            'name', 'plain-string']
+    assert AttrDict(base).update_from_list(opts).to_dict() == \
+        JaxAttrDict(base).update_from_list(opts).to_dict()
+    path = tmp_path / 'cfg.py'
+    path.write_text('config = dict(model=dict(type="DinoSeg", params=dict(classes=3)))\n')
+    cfg = import_config(str(path))
+    assert cfg.model.params.classes == 3
+    with pytest.raises(FileNotFoundError):
+        import_config(str(tmp_path / 'missing.py'))
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_device()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tbuilder.make_model({'type': 'vit_small', 'params': {}})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tiled_inference(lambda t: t, np.zeros((8, 8, 1), np.float32), 8, 8, 1)
+    assert get_device('cpu') == torch.device('cpu')
+    out = tiled_inference(lambda t: t, np.ones((8, 8, 1), np.float32), 8, 8, 1,
+                          device='cpu')
+    assert out.device.type == 'cpu' and float(out.min()) == 1.0
