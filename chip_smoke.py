@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the last line is printed):
 1. build   — compile every CUDA kernel of the path from ``ever_tpu_torch/csrc``
              (one ``nvcc`` per source, all started together).
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main path's shapes, then timed beside its bound and one
-             PyTorch library call computing the same function.
+             the main path's shapes (and, for attention, also at head dim
+             128 without RoPE), then timed beside its bound and one PyTorch
+             library call computing the same function.
 3. slice   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
              16 heads) in bf16 with seeded random weights, served through
              ``tiled_inference`` over one 4096² scene (512² tiles, stride
@@ -82,12 +83,10 @@ def rope_tables(n_tokens: int, device) -> tuple:
     """The main path's RoPE tables at 512² tiles: the ViT's 32×32 patch
     tables with identity rows for the 5 prefix tokens (cls + 4 storage) and
     for any tail pad rows, in bf16 — as ``SelfAttention`` builds them."""
-    from ever_tpu_torch.module.vit import RopePositionEmbedding
+    from ever_tpu_torch.module.vit import RopePositionEmbedding, token_rope
     sin, cos = RopePositionEmbedding(EMBED, H, rescale_coords=2.0)(
         TILE // 16, TILE // 16, device=device)
-    prefix, tail = 5, n_tokens - 5 - sin.shape[0]
-    sin = torch.cat([sin.new_zeros(prefix, D), sin, sin.new_zeros(tail, D)])
-    cos = torch.cat([cos.new_ones(prefix, D), cos, cos.new_ones(tail, D)])
+    sin, cos = token_rope(sin, cos, prefix=5, tail=n_tokens - 5 - sin.shape[0])
     return sin.to(torch.bfloat16), cos.to(torch.bfloat16)
 
 
@@ -96,25 +95,30 @@ def phase_kernels(gen) -> dict:
 
     dev = torch.device('cuda')
     errs = []
-    for s, n_valid in ((S, None), (S + 3, S)):
-        qkv = torch.randn(B, s, 3, H, D, generator=gen, device=dev).to(torch.bfloat16)
+    # (batch, heads, tokens, n_valid, head dim, RoPE): the main path's shape,
+    # the same with stack padding, and ViT-7B's head dim 128 without RoPE
+    for b, h, s, n_valid, d, with_rope in ((B, H, S, None, D, True),
+                                           (B, H, S + 3, S, D, True),
+                                           (1, 32, S, S - 100, 128, False)):
+        qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(torch.bfloat16)
         q, k, v = qkv.unbind(2)                      # strided views, as in the model
-        rope = rope_tables(s, dev)
+        rope = rope_tables(s, dev) if with_rope else None
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         torch.cuda.synchronize()
         ro, rlse = A.attention_reference(
             q.float(), k.float(), v.float(), n_valid=n_valid,
-            rope=(rope[0].float(), rope[1].float()), return_lse=True)
-        n = S
+            rope=None if rope is None else (rope[0].float(), rope[1].float()),
+            return_lse=True)
+        n = n_valid or s                             # rows past n_valid are garbage
         err_o = (o[:, :n].float() - ro[:, :n]).abs().max().item()
         err_l = (lse[..., :n] - rlse[..., :n]).abs().max().item()
         finite = bool(torch.isfinite(o[:, :n]).all() and torch.isfinite(lse[..., :n]).all())
-        print(f'kernels: attention_fwd S={s} n_valid={n_valid}: max|o-plain| '
-              f'{err_o:.3e}, max|lse-plain| {err_l:.3e} (tolerance {ATTN_TOL})',
-              flush=True)
-        check(finite, f'attention_fwd S={s}: non-finite output')
+        name = f'attention_fwd B={b} H={h} S={s} D={d} n_valid={n_valid} rope={with_rope}'
+        print(f'kernels: {name}: max|o-plain| {err_o:.3e}, max|lse-plain| '
+              f'{err_l:.3e} (tolerance {ATTN_TOL})', flush=True)
+        check(finite, f'{name}: non-finite output')
         check(err_o <= ATTN_TOL and err_l <= ATTN_TOL,
-              f'attention_fwd S={s} disagrees with its plain version')
+              f'{name} disagrees with its plain version')
         errs.append(max(err_o, err_l))
 
     # timing at the main path's shape: S=1029, no pad, RoPE on

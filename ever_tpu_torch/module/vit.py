@@ -28,7 +28,7 @@ from ever_tpu_torch.module.ops import resize
 from ever_tpu_torch.ops.attention import attention, pad_target
 
 __all__ = ['RopePositionEmbedding', 'RMSNorm', 'LayerScale', 'Mlp',
-           'SwiGLUFFN', 'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
+           'SwiGLUFFN', 'token_rope', 'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
            'DinoVisionTransformer', 'DinoSeg', 'VIT_SPECS', 'SAT_CONFIGS']
 
 
@@ -140,6 +140,17 @@ class SwiGLUFFN(nn.Module):
         return self.w3(F.silu(self.w1(x)) * self.w2(x))
 
 
+def token_rope(sin: torch.Tensor, cos: torch.Tensor, prefix: int,
+               tail: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Patch RoPE tables ``[HW, D]`` → tables for the whole token stack
+    ``[prefix | HW patches | tail pads]``: the prefix (cls + storage) and
+    the tail get identity rows (sin=0, cos=1), so those tokens do not
+    rotate."""
+    d = sin.shape[1]
+    return (torch.cat([sin.new_zeros(prefix, d), sin, sin.new_zeros(tail, d)]),
+            torch.cat([cos.new_ones(prefix, d), cos, cos.new_ones(tail, d)]))
+
+
 class SelfAttention(nn.Module):
     """Fused-QKV multi-head attention with RoPE on the patch tokens.
 
@@ -162,16 +173,8 @@ class SelfAttention(nn.Module):
         q, k, v = self.qkv(x).view(b, n, 3, h, c // h).unbind(2)   # [B, N, H, D]
         rope2d = None
         if rope is not None:
-            sin, cos = rope                                         # [HW, D]
-            # token layout [prefix | HW patches | tail pads]: the prefix
-            # (cls + storage) and the tail get identity rows (sin=0, cos=1)
             real = n if n_valid is None else n_valid
-            prefix, tail = real - sin.shape[0], n - real
-            d = sin.shape[1]
-            zeros = sin.new_zeros
-            ones = cos.new_ones
-            sin = torch.cat([zeros(prefix, d), sin, zeros(tail, d)])
-            cos = torch.cat([ones(prefix, d), cos, ones(tail, d)])
+            sin, cos = token_rope(*rope, prefix=real - rope[0].shape[0], tail=n - real)
             rope2d = (sin.to(q.dtype), cos.to(q.dtype))
         out = attention(q, k, v, impl=self.attn_impl, layout='bnhd',
                         n_valid=n_valid, rope=rope2d)
