@@ -7,7 +7,10 @@
 // with a sign-folded sin table; here one thread owns both halves, so the
 // sign goes into the arithmetic and the tables arrive as they are); key
 // columns >= n_valid are masked with -1e30;
-// outputs o (normalised, bf16) and lse = m + log(l) (f32, [B,H,S]).
+// outputs o (normalised, in the input type) and lse = m + log(l) (f32,
+// [B,H,S]).  Inputs are bf16 or f32; f32 operands are rounded to bf16 for
+// the tensor cores (q after RoPE and the scale, K after RoPE, V as is),
+// while scores, softmax, accumulation, lse and o stay f32.
 //
 // Bound on an H100 SXM at the ViT-L/16 serving shape (B=8, H=16, S=1029,
 // D=64, bf16): 4*B*H*S^2*D = 34.7 GFLOP, 35 us at 989 TFLOP/s, against
@@ -31,9 +34,10 @@
 // - RoPE: the q tile is rotated and scaled once per CTA on its way into
 //   registers (one thread owns each (i, i+D/2) chunk pair, so the roll
 //   needs no exchange).  K is rotated once per (b, h) by a small
-//   memory-bound prologue kernel into a scratch buffer, instead of once per
-//   q tile (9 times per head at S=1029), which keeps the K tiles plain
-//   asynchronous copies;
+//   memory-bound prologue kernel into a bf16 scratch buffer, instead of once
+//   per q tile (9 times per head at S=1029), which keeps the K tiles plain
+//   asynchronous copies.  With f32 inputs the same prologue also rounds K
+//   and V to bf16 scratch, so the main loop is the same for both types;
 // - key tiles wholly at or past n_valid are skipped, so no tile is all
 //   -1e30; the ragged tail of S is zero-filled and masked, and warps whose
 //   rows all lie past S skip the products;
@@ -54,13 +58,16 @@ constexpr int BK = 64;          // keys per K/V tile
 constexpr float MASK = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// T: the element type of q, o and the RoPE tables (bf16 or f32).  K and V
+// always reach the main kernel as bf16.
+template <typename T>
 struct Params {
-  const __nv_bfloat16* q;
+  const T* q;
   const __nv_bfloat16* k;     // rotated by RoPE already, when RoPE is on
   const __nv_bfloat16* v;
-  const __nv_bfloat16* sin_tab;  // [S, D] RoPE tables for q, or null
-  const __nv_bfloat16* cos_tab;  // [S, D]
-  __nv_bfloat16* o;
+  const T* sin_tab;           // [S, D] RoPE tables for q, or null
+  const T* cos_tab;           // [S, D]
+  T* o;
   float* lse;                 // [B, H, S]
   int64_t q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
@@ -90,6 +97,27 @@ __device__ __forceinline__ uint4 pack8(const float f[8]) {
   u.z = pack_bf16(f[4], f[5]);
   u.w = pack_bf16(f[6], f[7]);
   return u;
+}
+
+// Eight consecutive elements as floats; `p` is 16-byte aligned.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float f[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Two consecutive output elements.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -144,27 +172,25 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// RoPE of one row's 16-byte chunk pair (c, c + D/16), times `scale`:
-// rotated[i] = x[i]*cos[i] - x[i+D/2]*sin[i] on the low half and
-// x[i]*cos[i] + x[i-D/2]*sin[i] on the high half.  `t` points at the row's
-// table entries; null tables mean no rotation.
-template <int D>
-__device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi,
-                                          const __nv_bfloat16* sin_tab,
-                                          const __nv_bfloat16* cos_tab,
+// RoPE of one row's 8-element chunk pair (c, c + D/16), times `scale`,
+// rounded to bf16: rotated[i] = x[i]*cos[i] - x[i+D/2]*sin[i] on the low
+// half and x[i]*cos[i] + x[i-D/2]*sin[i] on the high half.  `row` is the
+// row's first element and `t` its offset into the tables; null tables mean
+// no rotation.
+template <int D, typename T>
+__device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi, const T* row,
+                                          const T* sin_tab, const T* cos_tab,
                                           int64_t t, int c, float scale) {
   constexpr int HALF = D / 16;
   float xl[8], xh[8], yl[8], yh[8];
-  unpack8(lo, xl);
-  unpack8(hi, xh);
+  load8(row + c * 8, xl);
+  load8(row + (c + HALF) * 8, xh);
   if (sin_tab != nullptr) {
     float cl[8], ch[8], sl[8], sh[8];
-    const __nv_bfloat16* cr = cos_tab + t;
-    const __nv_bfloat16* sr = sin_tab + t;
-    unpack8(*reinterpret_cast<const uint4*>(cr + c * 8), cl);
-    unpack8(*reinterpret_cast<const uint4*>(cr + (c + HALF) * 8), ch);
-    unpack8(*reinterpret_cast<const uint4*>(sr + c * 8), sl);
-    unpack8(*reinterpret_cast<const uint4*>(sr + (c + HALF) * 8), sh);
+    load8(cos_tab + t + c * 8, cl);
+    load8(cos_tab + t + (c + HALF) * 8, ch);
+    load8(sin_tab + t + c * 8, sl);
+    load8(sin_tab + t + (c + HALF) * 8, sh);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       yl[j] = (xl[j] * cl[j] - xh[j] * sl[j]) * scale;
@@ -184,22 +210,17 @@ __device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi,
 // Stage the BQ rows [row0, row0+BQ) of a [S, D] head slice into shared
 // memory, rotated (when sin_tab != null) and multiplied by `scale`.  Rows past
 // S are zero.
-template <int D, int LD>
+template <int D, int LD, typename T>
 __device__ __forceinline__ void load_q_rope(
-    __nv_bfloat16* dst, const __nv_bfloat16* src, int64_t ss, int row0,
-    int S, const __nv_bfloat16* sin_tab, const __nv_bfloat16* cos_tab,
-    float scale, int tid) {
+    __nv_bfloat16* dst, const T* src, int64_t ss, int row0, int S,
+    const T* sin_tab, const T* cos_tab, float scale, int tid) {
   constexpr int HALF = D / 16;
   for (int u = tid; u < BQ * HALF; u += THREADS) {
     const int r = u / HALF, c = u % HALF, gr = row0 + r;
     uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
-    if (gr < S) {
-      const __nv_bfloat16* p = src + gr * ss;
-      lo = *reinterpret_cast<const uint4*>(p + c * 8);
-      hi = *reinterpret_cast<const uint4*>(p + (c + HALF) * 8);
-      rope_pair<D>(lo, hi, sin_tab, cos_tab, static_cast<int64_t>(gr) * D, c,
-                   scale);
-    }
+    if (gr < S)
+      rope_pair<D>(lo, hi, src + gr * ss, sin_tab, cos_tab,
+                   static_cast<int64_t>(gr) * D, c, scale);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = lo;
     *reinterpret_cast<uint4*>(dst + r * LD + (c + HALF) * 8) = hi;
   }
@@ -220,15 +241,14 @@ __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
   }
 }
 
-// Prologue: out[b, h, s, :] = RoPE(k[b, s, h, :]) for every row, contiguous
-// [B, H, S, D].  One thread per (row, chunk pair).
-template <int D>
-__global__ void rope_k_kernel(const __nv_bfloat16* k, int64_t k_sb,
-                              int64_t k_sh, int64_t k_ss,
-                              const __nv_bfloat16* sin_tab,
-                              const __nv_bfloat16* cos_tab,
-                              __nv_bfloat16* out,
-                              int H, int S, int64_t n_units) {
+// Prologue: out[b, h, s, :] = bf16(RoPE(x[b, s, h, :])) for every row,
+// contiguous [B, H, S, D]; null tables copy without rotating.  One thread
+// per (row, chunk pair).
+template <int D, typename T>
+__global__ void stage_kernel(const T* x, int64_t x_sb, int64_t x_sh,
+                             int64_t x_ss, const T* sin_tab, const T* cos_tab,
+                             __nv_bfloat16* out, int H, int S,
+                             int64_t n_units) {
   constexpr int HALF = D / 16;
   const int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (u >= n_units) return;
@@ -236,10 +256,9 @@ __global__ void rope_k_kernel(const __nv_bfloat16* k, int64_t k_sb,
   const int c = static_cast<int>(u % HALF);
   const int s = static_cast<int>(row % S);
   const int64_t bh = row / S;
-  const __nv_bfloat16* src = k + (bh / H) * k_sb + (bh % H) * k_sh + s * k_ss;
-  uint4 lo = *reinterpret_cast<const uint4*>(src + c * 8);
-  uint4 hi = *reinterpret_cast<const uint4*>(src + (c + HALF) * 8);
-  rope_pair<D>(lo, hi, sin_tab, cos_tab, static_cast<int64_t>(s) * D, c, 1.f);
+  uint4 lo, hi;
+  rope_pair<D>(lo, hi, x + (bh / H) * x_sb + (bh % H) * x_sh + s * x_ss,
+               sin_tab, cos_tab, static_cast<int64_t>(s) * D, c, 1.f);
   __nv_bfloat16* dst = out + row * D;
   *reinterpret_cast<uint4*>(dst + c * 8) = lo;
   *reinterpret_cast<uint4*>(dst + (c + HALF) * 8) = hi;
@@ -252,9 +271,9 @@ constexpr int smem_bytes() {
 
 static_assert(BQ == 2 * BK, "the q tile is staged in one ring stage");
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, D == 64 ? 2 : 1)
-attn_fwd_kernel(const Params p) {
+attn_fwd_kernel(const Params<T> p) {
   constexpr int LD = D + 8;       // padded shared row: conflict-free ldmatrix
   constexpr int TILE = BK * LD;   // elements of one K or V tile
   constexpr int KSTEPS = D / 16;  // k-steps of Q*K^T
@@ -268,7 +287,7 @@ attn_fwd_kernel(const Params p) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const T* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
   const int n_kt = (p.n_valid + BK - 1) / BK;
@@ -408,91 +427,131 @@ attn_fwd_kernel(const Params p) {
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  T* ob = p.o + b * p.o_sb + h * p.o_sh;
   float* lb = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.S;
   if (r0 < p.S) {
     const float inv = 1.f / l0;
-    __nv_bfloat16* orow = ob + r0 * p.o_ss + 2 * t;
+    T* orow = ob + r0 * p.o_ss + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(acc[dt][0] * inv, acc[dt][1] * inv);
+      store2(orow + dt * 8, acc[dt][0] * inv, acc[dt][1] * inv);
     if (t == 0) lb[r0] = m0 + logf(l0);
   }
   if (r1 < p.S) {
     const float inv = 1.f / l1;
-    __nv_bfloat16* orow = ob + r1 * p.o_ss + 2 * t;
+    T* orow = ob + r1 * p.o_ss + 2 * t;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(acc[dt][2] * inv, acc[dt][3] * inv);
+      store2(orow + dt * 8, acc[dt][2] * inv, acc[dt][3] * inv);
     if (t == 0) lb[r1] = m1 + logf(l1);
   }
 }
 
-template <int D>
-int launch(Params p, int B, void* krot, cudaStream_t st) {
-  if (p.sin_tab != nullptr) {
-    // rotate K once into the contiguous [B, H, S, D] scratch buffer
-    const int64_t units = static_cast<int64_t>(B) * p.H * p.S * (D / 16);
-    const int threads = 256;
-    const int64_t blocks = (units + threads - 1) / threads;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    rope_k_kernel<D><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
-        p.k, p.k_sb, p.k_sh, p.k_ss, p.sin_tab, p.cos_tab,
-        static_cast<__nv_bfloat16*>(krot), p.H, p.S, units);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    p.k = static_cast<const __nv_bfloat16*>(krot);
-    p.k_sb = static_cast<int64_t>(p.H) * p.S * D;
-    p.k_sh = static_cast<int64_t>(p.S) * D;
-    p.k_ss = D;
+// x -> bf16(RoPE(x)) as contiguous [B, H, S, D] in `out`.
+template <int D, typename T>
+int stage(const T* x, int64_t sb, int64_t sh, int64_t ss, const T* sin_tab,
+          const T* cos_tab, void* out, int B, int H, int S, cudaStream_t st) {
+  const int64_t units = static_cast<int64_t>(B) * H * S * (D / 16);
+  const int threads = 256;
+  const int64_t blocks = (units + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  stage_kernel<D, T><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+      x, sb, sh, ss, sin_tab, cos_tab, static_cast<__nv_bfloat16*>(out), H, S,
+      units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k/v/kbuf/vbuf as in ever_attn_fwd; p.k/p.v are filled in here.
+template <int D, typename T>
+int launch(Params<T> p, int B, const T* k, const int64_t ks[3], const T* v,
+           const int64_t vs[3], void* kbuf, void* vbuf, cudaStream_t st) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  const int64_t sb = static_cast<int64_t>(p.H) * p.S * D, sh = static_cast<int64_t>(p.S) * D;
+  if (p.sin_tab != nullptr || kF32) {
+    // rotate (and for f32 round) K once into the bf16 scratch buffer
+    const int err = stage<D, T>(k, ks[0], ks[1], ks[2], p.sin_tab, p.cos_tab,
+                                kbuf, B, p.H, p.S, st);
+    if (err != 0) return err;
+    p.k = static_cast<const __nv_bfloat16*>(kbuf);
+    p.k_sb = sb; p.k_sh = sh; p.k_ss = D;
+  } else {
+    p.k = reinterpret_cast<const __nv_bfloat16*>(k);
+    p.k_sb = ks[0]; p.k_sh = ks[1]; p.k_ss = ks[2];
+  }
+  if (kF32) {
+    const int err = stage<D, T>(v, vs[0], vs[1], vs[2], nullptr, nullptr, vbuf,
+                                B, p.H, p.S, st);
+    if (err != 0) return err;
+    p.v = static_cast<const __nv_bfloat16*>(vbuf);
+    p.v_sb = sb; p.v_sh = sh; p.v_ss = D;
+  } else {
+    p.v = reinterpret_cast<const __nv_bfloat16*>(v);
+    p.v_sb = vs[0]; p.v_sh = vs[1]; p.v_ss = vs[2];
   }
   constexpr int smem = smem_bytes<D>();
   if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB (D=128)
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid((p.S + BQ - 1) / BQ, p.H, B);
-  attn_fwd_kernel<D><<<grid, THREADS, smem, st>>>(p);
+  attn_fwd_kernel<D, T><<<grid, THREADS, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const void* sin_tab,
+             const void* cos_tab, void* kbuf, void* vbuf, void* o, void* lse,
+             int B, int H, int S, int D, int n_valid, const int64_t qs[3],
+             const int64_t ks[3], const int64_t vs[3], const int64_t os[3],
+             float scale, cudaStream_t st) {
+  Params<T> p;
+  p.q = static_cast<const T*>(q);
+  p.sin_tab = static_cast<const T*>(sin_tab);
+  p.cos_tab = static_cast<const T*>(cos_tab);
+  p.o = static_cast<T*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.q_sb = qs[0]; p.q_sh = qs[1]; p.q_ss = qs[2];
+  p.o_sb = os[0]; p.o_sh = os[1]; p.o_ss = os[2];
+  p.S = S; p.H = H; p.n_valid = n_valid; p.scale = scale;
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if (D == 64) return launch<64, T>(p, B, kt, ks, vt, vs, kbuf, vbuf, st);
+  if (D == 128) return launch<128, T>(p, B, kt, ks, vt, vs, kbuf, vbuf, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // C entry, bound with ctypes.  Pointers are device addresses; strides are in
-// elements, and the last (D) stride of q/k/v/o is 1.  With RoPE (sin_tab
-// and cos_tab non-null) `krot` is a [B, H, S, D] bf16 scratch buffer for the
-// rotated K.  Launches on `stream` without synchronising and returns the
-// first cudaError_t met (0 = success).
+// elements, and the last (D) stride of q/k/v/o is 1.  `dtype` is the element
+// type of q/k/v/o and the tables: 0 = bf16, 1 = f32.  `kbuf` is a [B, H, S, D]
+// bf16 scratch buffer for the staged K, needed with RoPE (sin_tab and cos_tab
+// non-null) or f32; `vbuf` is the same for V, needed with f32.  Launches on
+// `stream` without synchronising and returns the first cudaError_t met
+// (0 = success).
 extern "C" int ever_attn_fwd(
     const void* q, const void* k, const void* v, const void* sin_tab,
-    const void* cos_tab, void* krot, void* o, void* lse, int B, int H,
-    int S, int D, int n_valid, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, float scale, void* stream) {
+    const void* cos_tab, void* kbuf, void* vbuf, void* o, void* lse,
+    int dtype, int B, int H, int S, int D, int n_valid, long long q_sb,
+    long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+    long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+    long long o_sb, long long o_sh, long long o_ss, float scale,
+    void* stream) {
   if (B < 1 || H < 1 || S < 1 || n_valid < 1 || n_valid > S ||
-      B > 65535 || H > 65535 ||
+      B > 65535 || H > 65535 || (dtype != 0 && dtype != 1) ||
       (sin_tab == nullptr) != (cos_tab == nullptr) ||
-      (sin_tab != nullptr && krot == nullptr))
+      ((sin_tab != nullptr || dtype == 1) && kbuf == nullptr) ||
+      (dtype == 1 && vbuf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.sin_tab = static_cast<const __nv_bfloat16*>(sin_tab);
-  p.cos_tab = static_cast<const __nv_bfloat16*>(cos_tab);
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.S = S; p.H = H; p.n_valid = n_valid; p.scale = scale;
+  const int64_t qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss};
+  const int64_t vs[3] = {v_sb, v_sh, v_ss}, os[3] = {o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(p, B, krot, st);
-  if (D == 128) return launch<128>(p, B, krot, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return dispatch<__nv_bfloat16>(q, k, v, sin_tab, cos_tab, kbuf, vbuf, o,
+                                   lse, B, H, S, D, n_valid, qs, ks, vs, os,
+                                   scale, st);
+  return dispatch<float>(q, k, v, sin_tab, cos_tab, kbuf, vbuf, o, lse, B, H,
+                         S, D, n_valid, qs, ks, vs, os, scale, st);
 }

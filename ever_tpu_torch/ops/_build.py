@@ -50,35 +50,28 @@ def _lib_path(name: str) -> str:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named kernel libraries (default: all), one ``nvcc`` per
-    source, all started together.  Returns seconds per library (0.0 when it
-    was already built); raises with nvcc's output on a failed build."""
-    names = list(SOURCES if names is None else names)
-    todo = {n: _lib_path(n) for n in names if not os.path.isfile(_lib_path(n))}
-    secs = {n: 0.0 for n in names}
-    if not todo:
-        return secs
-    os.makedirs(_BUILD, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, out in todo.items():
+    """Compile the named kernel libraries (default: all).  Returns seconds
+    per library (0.0 when it was already built); raises with nvcc's output
+    on a failed build."""
+    secs = {}
+    for name in (SOURCES if names is None else names):
+        out = _lib_path(name)
+        secs[name] = 0.0
+        if os.path.isfile(out):
+            continue
+        os.makedirs(_BUILD, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD)
         os.close(fd)
-        cmd = [nvcc, *_NVCC_FLAGS, '-o', tmp, os.path.join(_CSRC, SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, '-o', tmp,
+                               os.path.join(_CSRC, SOURCES[name])],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
         secs[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f'{SOURCES[name]}:\n{log}')
-            continue
+            raise RuntimeError(f'nvcc failed for {SOURCES[name]}:\n{proc.stdout}')
         os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
     return secs
 
 

@@ -23,14 +23,16 @@ from typing import Optional, Tuple
 import torch
 
 __all__ = ['attention', 'attention_reference', 'fused_attention',
-           'pad_target', 'FUSED_TOKEN_THRESHOLD', 'FLASH_TOKEN_THRESHOLD']
+           'pad_target', 'FUSED_TOKEN_THRESHOLD']
 
-# auto-dispatch boundaries (tokens), kept from the JAX package: below
-# FUSED_TOKEN_THRESHOLD → the plain path, from it up → the kernel.  Past
-# FLASH_TOKEN_THRESHOLD the JAX package switches to its library flash
-# kernel; the streaming CUDA kernel covers that regime as well.
+# auto-dispatch boundary (tokens), kept from the JAX package: below it the
+# plain path, from it up the kernel.  Past 16384 tokens the JAX package
+# switches to its library flash kernel; the streaming CUDA kernel covers
+# that regime as well.
 FUSED_TOKEN_THRESHOLD = 512
-FLASH_TOKEN_THRESHOLD = 16384
+
+# element types the kernel takes, with its code for each
+_KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 # key columns at or past n_valid get this score: finite, so rows whose keys
 # are all masked stay NaN-free
@@ -125,9 +127,9 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_fwd(q, k, v, layout, n_valid, rope):
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f'the attention kernel takes bfloat16 q/k/v, got '
-                        f'{q.dtype}/{k.dtype}/{v.dtype}')
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f'the attention kernel takes bfloat16 or float32 '
+                        f'q/k/v of one type, got {q.dtype}/{k.dtype}/{v.dtype}')
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f'q/k/v must share one 4-d shape, got '
                          f'{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}')
@@ -146,14 +148,20 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
         raise ValueError(f'n_valid must lie in [1, {s}], got {n_valid}')
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    sin = cos = krot = None
+    sin = cos = None
     if rope is not None:
-        sin, cos = (t.to(torch.bfloat16).contiguous() for t in rope)
+        sin, cos = (t.to(q.dtype).contiguous() for t in rope)
         if tuple(sin.shape) != (s, d) or tuple(cos.shape) != (s, d):
             raise ValueError(f'rope tables must be [{s}, {d}], got '
                              f'{tuple(sin.shape)}/{tuple(cos.shape)}')
-        # the kernel rotates K into this buffer once, then streams it
-        krot = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
+    # bf16 scratch the kernel stages K into (rotated, and rounded from f32)
+    # and, for f32, V into, before it streams them
+    f32 = q.dtype == torch.float32
+    kbuf = vbuf = None
+    if rope is not None or f32:
+        kbuf = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
+    if f32:
+        vbuf = torch.empty_like(kbuf)
     st = [[t.stride(i) for i in perm[:3]] for t in (q, k, v, o)]
     lib = _load_fwd()
     with torch.cuda.device(q.device):
@@ -162,8 +170,9 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if sin is None else sin.data_ptr(),
             None if cos is None else cos.data_ptr(),
-            None if krot is None else krot.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), b, h, s, d, n,
+            None if kbuf is None else kbuf.data_ptr(),
+            None if vbuf is None else vbuf.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, s, d, n,
             *st[0], *st[1], *st[2], *st[3], 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f'attention kernel launch failed: CUDA error {err}')
@@ -176,7 +185,7 @@ def _load_fwd():
     lib = load('attention_fwd')
     fn = lib.ever_attn_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong] * 12
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -194,9 +203,10 @@ def fused_attention(q, k, v, layout: str = 'bnhd',
     the first ``n_valid`` keys are real; query rows past it are garbage by
     contract.
 
-    On a CUDA tensor this launches the kernel (bf16, head dim 64 or 128) or
-    raises; on a CPU tensor it runs :func:`attention_reference`, the plain
-    version of the same function.  ``fused_attention.launches`` counts
+    On a CUDA tensor this launches the kernel (bf16 or f32, head dim 64 or
+    128) or raises; on a CPU tensor it runs :func:`attention_reference`, the
+    plain version of the same function.  With f32 inputs the kernel rounds
+    q, K and V to bf16 for the tensor cores; scores, softmax and o stay f32.  ``fused_attention.launches`` counts
     kernel launches.
     """
     if q.device.type == 'cuda':
@@ -216,8 +226,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Multi-head attention with automatic kernel choice.
 
     ``impl``: None (auto) | ``'xla'`` | ``'fused'`` | ``'flash'``.  Auto picks
-    the kernel for bfloat16 CUDA tensors with at least
-    ``FUSED_TOKEN_THRESHOLD`` tokens, and the plain path otherwise.
+    the kernel for CUDA tensors with at least ``FUSED_TOKEN_THRESHOLD``
+    tokens, whatever their type (the kernel raises on one it does not take),
+    and the plain path otherwise.
     ``n_valid``: only the first ``n_valid`` tokens are real (stack-level
     padding); pad keys are masked out, pad query rows are garbage.
     ``rope``: optional ``(sin, cos)`` [N, D] tables (identity rows where
@@ -225,7 +236,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     n = q.shape[2 if layout == 'bhnd' else 1]
     if impl is None:
-        impl = ('fused' if q.is_cuda and q.dtype == torch.bfloat16
+        impl = ('fused' if q.device.type == 'cuda'
                 and n >= FUSED_TOKEN_THRESHOLD else 'xla')
     if impl in ('fused', 'flash'):
         return fused_attention(q, k, v, layout=layout, n_valid=n_valid,

@@ -115,8 +115,8 @@ def test_wrapper_raises_off_cpu_and_cuda():
 
 
 def test_auto_dispatch_keeps_cpu_and_float32_on_plain_path():
-    """Auto picks the kernel only for bf16 CUDA tensors past the threshold;
-    anything else takes the plain path (no launch)."""
+    """A CPU tensor (float32 here) takes the plain path under auto dispatch,
+    even past the threshold: no launch."""
     q, k, v, _ = _inputs(6, 1, 1, TA.FUSED_TOKEN_THRESHOLD, 16, rope=False)
     before = TA.fused_attention.launches
     out = TA.attention(*(torch.from_numpy(t) for t in (q, k, v)))
@@ -127,8 +127,39 @@ def test_auto_dispatch_keeps_cpu_and_float32_on_plain_path():
         TA.attention(*(torch.from_numpy(t) for t in (q, k, v)), impl='cudnn')
 
 
+class _CudaStub:
+    """Stands for a CUDA tensor: what the dispatch reads, nothing more."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = shape, dtype
+        self.device = torch.device('cuda')
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32, torch.float16])
+@pytest.mark.parametrize('impl', [None, 'fused', 'flash'])
+def test_cuda_tensors_reach_the_kernel_wrapper_whatever_their_type(
+        monkeypatch, dtype, impl):
+    """On the card, auto dispatch past the threshold (and 'fused'/'flash')
+    goes to the kernel launcher for every dtype, which launches or raises;
+    the plain path is never taken there."""
+    calls = []
+
+    def launch(q, k, v, layout, n_valid, rope):
+        calls.append((q.dtype, layout, n_valid))
+        return 'o', 'lse'
+
+    def plain(*args, **kwargs):
+        raise AssertionError('a CUDA tensor reached the plain path')
+
+    monkeypatch.setattr(TA, '_launch_fwd', launch)
+    monkeypatch.setattr(TA, 'attention_reference', plain)
+    q = _CudaStub((2, TA.FUSED_TOKEN_THRESHOLD, 4, 64), dtype)
+    assert TA.attention(q, q, q, impl=impl, n_valid=500) == 'o'
+    assert calls == [(dtype, 'bnhd', 500)]
+
+
 @pytest.mark.parametrize('change,error', [
-    (dict(dtype=torch.float32), TypeError),
+    (dict(dtype=torch.float16), TypeError),
     (dict(d=32), ValueError),
     (dict(n_valid=0), ValueError),
     (dict(n_valid=9), ValueError),
