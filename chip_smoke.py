@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check its kernels.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check its kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits non-zero before the last line is printed):
 
-1. build   — compile every CUDA kernel of the path from ``ever_tpu_torch/csrc``
-             with ``nvcc``.
-2. kernels — each kernel against its plain PyTorch version on the card, at
-             the main path's shapes (and, for attention, also at head dim
-             128 without RoPE, and from float32 inputs, the type of a
-             default DinoSeg), then timed beside its bound and one PyTorch
-             library call computing the same function.
-3. slice   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
-             16 heads) in bf16 with seeded random weights, served through
-             ``tiled_inference`` over one 4096² scene (512² tiles, stride
-             512, ``tile_batch=8``: 64 tiles, 8 batches).  Every attention
-             call (N = 1029 tokens) goes through the kernel: 24 × 8 = 192
+1. build   — compile every CUDA kernel of the paths from ``ever_tpu_torch/csrc``
+             with ``nvcc``, one process per source, all at once.
+2. kernels — each kernel against its plain PyTorch version on the card:
+             the attention forward (K1) and backward (K2) at the main
+             paths' shape (B=8, H=16, N=1029, D=64, bf16, RoPE), with stack
+             padding (N=1032, ``n_valid=1029``), at head dim 128 without RoPE,
+             and from float32 inputs; then each timed beside its bound and
+             one PyTorch library call computing the same function.
+3. serve   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
+             16 heads) with bf16 parameters and seeded random weights,
+             served through ``tiled_inference`` over one 4096² scene (512²
+             tiles, stride 512, ``tile_batch=8``: 64 tiles, 8 batches).  Every
+             attention call (N = 1029 tokens) goes through K1: 24 × 8 = 192
              launches per scene.  The output must be finite probabilities,
-             and one tile batch through the kernel must match the same batch
-             with the kernel swapped for its plain version.
-4. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
+             one tile batch through the kernel must match the same batch with
+             plain attention, and a float32 model must launch K1 too.
+4. train   — the same model as the JAX package's ``vit512`` bench section:
+             bf16 compute with float32 parameters, AdamW (weight decay 0.05)
+             with a cosine schedule (base_lr 1e-4, 1000 iterations), built
+             through ``builder`` and ``parallel.spmd``; 8 seeded random 512²
+             tiles with labels in [0, 7), RoPE rescale augmentation on.  Two
+             warm-up and ten timed steps: 24 K1 and 24 K2 launches per step, a
+             finite loss and grad_norm every step, parameters still float32.
+             Then the gradients of 2 tiles through the kernels against the
+             same step with plain attention, one 1024² step at B=2 with
+             ``remat='full'`` (48 K1 and 24 K2 launches) against the same
+             step without remat, and one forward and backward through
+             ``impl='flash'`` at N=16389 (a 2048² tile) against the plain
+             versions.
+5. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds a ``torch.profiler`` trace of one tile batch to phase 3:
-device busy time against wall time, and the kernels that take the most
-device time.
+``--profile`` adds ``torch.profiler`` traces of one tile batch (serving) and
+one train step: device busy time against wall time, and the kernels that
+take the most device time.
 
 It imports nothing of JAX and needs one CUDA card; without one it exits 1.
 """
@@ -57,9 +71,41 @@ SCENE, TILE, STRIDE, TILE_BATCH, CLASSES = 4096, 512, 512, 8, 7
 # fault in P·V (a wrong V row in a tile) moves far more than rounding does.
 # lse is about log(S) ~ 7, so its limit is a fraction of a percent.
 ATTN_O_MAX_TOL, ATTN_O_RMS_TOL, ATTN_LSE_TOL = 8e-3, 1e-2, 2e-2
+# K2 vs its plain version (f32 from the same inputs, real rows), on each
+# gradient's own scale: the largest error against the gradient's largest
+# value, and ||dg|| / ||g||.  The kernel rounds scale*rope(q), rope(k), v
+# and do to bf16 (2^-9 relative each) and p and ds again before the
+# products that make dq, dk and dv, so ds carries two roundings into two
+# chained products: about 4e-3 relative, measured at every shape.  A wrong
+# row or lane in one product (one key row of dV read from its neighbour)
+# moves the relative error of that gradient to O(0.1).
+ATTN_BWD_MAX_TOL, ATTN_BWD_RMS_TOL = 3e-2, 1.5e-2
 # one tile batch, kernel path vs plain path, both bf16 through 24 blocks:
 # the two attentions round differently in every block
 SLICE_MAX_TOL, SLICE_MEAN_TOL = 5e-2, 5e-3
+# the train step: DinoSeg ViT-L/16 at 512², as the JAX package's vit512
+# bench section
+TRAIN_BATCH, WARMUP_STEPS, TIMED_STEPS = 8, 2, 10
+# useful work of one train step, as the JAX bench counts it (no remat, no
+# padding): the matmuls are 24·C² FLOP per token per block forward (qkv 6C²,
+# proj 2C², fc1 8C², fc2 8C²), three times that with the backward; attention
+# 4·B·H·N²·D forward and 8·B·H·N²·D backward, over 24 blocks
+TRAIN_FLOPS = 24 * (3 * 24 * EMBED ** 2 * TRAIN_BATCH * S
+                    + 12 * TRAIN_BATCH * H * S * S * D)
+# kernels vs plain attention on 2 tiles in the same train step (bf16
+# compute): global ||dg|| / ||g|| and the worst per-tensor cosine.  The
+# first run measured 8.8e-4 and 0.99994: the two attentions round p, ds and
+# their outputs differently in every block.  The limits sit ten times
+# further out; a kernel path that sends no gradient into q, k or v leaves
+# the qkv weights a cosine near 0.
+GRAD_REL_TOL, GRAD_COS_MIN = 1e-2, 0.999
+# remat='full' vs no remat: the same kernels on the same inputs, recomputed.
+# PyTorch's bf16 LayerNorm and bias-gradient reductions are not
+# deterministic, so two runs without remat already differ (printed beside
+# it, about 1e-4 in the first run)
+REMAT_REL_TOL = 1e-3
+# impl='flash' at a 2048² tile: N = 128² + 5 tokens, B=1, H=2
+FLASH_N = 128 * 128 + 5
 
 
 class SmokeFailure(RuntimeError):
@@ -85,38 +131,53 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rope_tables(n_tokens: int, device, dtype=torch.bfloat16) -> tuple:
-    """The main path's RoPE tables at 512² tiles: the ViT's 32×32 patch
-    tables with identity rows for the 5 prefix tokens (cls + 4 storage) and
-    for any tail pad rows, in ``dtype`` — as ``SelfAttention`` builds them."""
+def rope_tables(n_tokens: int, device, dtype=torch.bfloat16,
+                grid: int = TILE // 16) -> tuple:
+    """The main paths' RoPE tables at 512² tiles: the ViT's 32×32 patch
+    tables (``grid``² patches) with identity rows for the 5 prefix tokens
+    (cls + 4 storage) and for any tail pad rows, in ``dtype``, as
+    ``SelfAttention`` builds them."""
     from ever_tpu_torch.module.vit import RopePositionEmbedding, token_rope
     sin, cos = RopePositionEmbedding(EMBED, H, rescale_coords=2.0)(
-        TILE // 16, TILE // 16, device=device)
+        grid, grid, device=device)
     sin, cos = token_rope(sin, cos, prefix=5, tail=n_tokens - 5 - sin.shape[0])
     return sin.to(dtype), cos.to(dtype)
 
 
-def phase_kernels(gen) -> dict:
+# (batch, heads, tokens, n_valid, head dim, RoPE, type): the main paths'
+# shape, the same with stack padding, ViT-7B's head dim 128 without RoPE,
+# and the main paths' shape from float32 inputs
+KERNEL_CASES = ((B, H, S, None, D, True, torch.bfloat16),
+                (B, H, S + 3, S, D, True, torch.bfloat16),
+                (1, 32, S, S - 100, 128, False, torch.bfloat16),
+                (B, H, S, None, D, True, torch.float32))
+
+
+def case_inputs(gen, b, h, s, d, with_rope, dtype):
+    """q/k/v as strided views of one packed [B, N, 3, H, D] tensor, as the
+    model makes them, and the RoPE tables (or None)."""
+    dev = torch.device('cuda')
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    return q, k, v, rope_tables(s, dev, dtype) if with_rope else None
+
+
+def f32_rope(rope):
+    return None if rope is None else (rope[0].float(), rope[1].float())
+
+
+def check_fwd(gen) -> float:
+    """K1 against its plain version at every case; the largest error."""
     from ever_tpu_torch.ops import attention as A
 
-    dev = torch.device('cuda')
     errs = []
-    bf16, f32 = torch.bfloat16, torch.float32
-    # (batch, heads, tokens, n_valid, head dim, RoPE, type): the main path's
-    # shape, the same with stack padding, ViT-7B's head dim 128 without
-    # RoPE, and the main path's shape from float32 inputs
-    for b, h, s, n_valid, d, with_rope, dtype in (
-            (B, H, S, None, D, True, bf16), (B, H, S + 3, S, D, True, bf16),
-            (1, 32, S, S - 100, 128, False, bf16), (B, H, S, None, D, True, f32)):
-        qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(dtype)
-        q, k, v = qkv.unbind(2)                      # strided views, as in the model
-        rope = rope_tables(s, dev, dtype) if with_rope else None
+    for b, h, s, n_valid, d, with_rope, dtype in KERNEL_CASES:
+        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         torch.cuda.synchronize()
-        ro, rlse = A.attention_reference(
-            q.float(), k.float(), v.float(), n_valid=n_valid,
-            rope=None if rope is None else (rope[0].float(), rope[1].float()),
-            return_lse=True)
+        ro, rlse = A.attention_reference(q.float(), k.float(), v.float(),
+                                         n_valid=n_valid, rope=f32_rope(rope),
+                                         return_lse=True)
         n = n_valid or s                             # rows past n_valid are garbage
         do = o[:, :n].float() - ro[:, :n]
         err_o = do.abs().max().item()
@@ -134,15 +195,67 @@ def phase_kernels(gen) -> dict:
         check(err_o <= ATTN_O_MAX_TOL and rms_o <= ATTN_O_RMS_TOL
               and err_l <= ATTN_LSE_TOL, f'{name} disagrees with its plain version')
         errs.append(max(err_o, err_l))
+    return max(errs)
 
-    # timing at the main path's shape: S=1029, no pad, RoPE on
-    qkv = torch.randn(B, S, 3, H, D, generator=gen, device=dev).to(torch.bfloat16)
-    q, k, v = qkv.unbind(2)
-    rope = rope_tables(S, dev)
+
+def check_bwd(gen) -> float:
+    """K2 against its plain version at every case, from K1's o and lse and
+    a random upstream gradient; the largest error."""
+    from ever_tpu_torch.ops import attention as A
+
+    errs = []
+    for b, h, s, n_valid, d, with_rope, dtype in KERNEL_CASES:
+        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
+        o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
+        do = torch.randn(o.shape, generator=gen, device=o.device).to(dtype)
+        grads = A.fused_attention_bwd(q, k, v, o, lse, do, n_valid=n_valid, rope=rope)
+        torch.cuda.synchronize()
+        refs = A.attention_bwd_reference(q.float(), k.float(), v.float(), o.float(),
+                                         lse, do.float(), n_valid=n_valid,
+                                         rope=f32_rope(rope))
+        n = n_valid or s
+        name = (f'attention_bwd B={b} H={h} S={s} D={d} n_valid={n_valid} '
+                f'rope={with_rope} {str(dtype)[6:]}')
+        parts, fails = [], []
+        for gname, g, r in zip(('dq', 'dk', 'dv'), grads, refs):
+            delta = g[:, :n].float() - r[:, :n]
+            err, scale = delta.abs().max().item(), r[:, :n].abs().max().item()
+            rms = (delta.norm() / r[:, :n].norm()).item()
+            parts.append(f'{gname} max|d| {err:.3e} (max|{gname}| {scale:.3e}) '
+                         f'rel {rms:.3e}')
+            if g.dtype != dtype or not bool(torch.isfinite(g[:, :n]).all()):
+                fails.append(f'{gname} is {g.dtype} or not finite')
+            if err > ATTN_BWD_MAX_TOL * scale or rms > ATTN_BWD_RMS_TOL:
+                fails.append(f'{gname} disagrees with its plain version')
+            errs.append(err)
+        zero_tail = all(not t[:, n:].any() for t in grads[1:])
+        print(f'kernels: {name}: {"; ".join(parts)}; dk, dv zero past n_valid: '
+              f'{zero_tail} (tolerances {ATTN_BWD_MAX_TOL}·max, {ATTN_BWD_RMS_TOL})',
+              flush=True)
+        check(not fails, f'{name}: {", ".join(fails)}')
+        check(zero_tail, f'{name}: dk or dv not zero on rows past n_valid')
+    return max(errs)
+
+
+def bound(flops: float, nbytes: float):
+    """(bound ms, 'operations' or 'bytes') on the H100's bf16 and memory peaks."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def phase_kernels(gen):
+    """Both attention kernels checked and timed at the main shape: their
+    records for the report."""
+    from ever_tpu_torch.ops import attention as A
+
+    fwd_err, bwd_err = check_fwd(gen), check_bwd(gen)
+
+    # timing at the main paths' shape: S=1029, no pad, RoPE on
+    q, k, v, rope = case_inputs(gen, B, H, S, D, True, torch.bfloat16)
     ms = cuda_ms(lambda: A.fused_attention(q, k, v, rope=rope), iters=50)
     # the float32 instance (a default DinoSeg's type), for the record only
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    rope32 = rope_tables(S, dev, torch.float32)
+    rope32 = f32_rope(rope)
     f32_ms = cuda_ms(lambda: A.fused_attention(q32, k32, v32, rope=rope32), iters=50)
     plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, rope=rope), iters=10)
     # yardstick only: one PyTorch call on the same, already rotated, tensors
@@ -152,19 +265,48 @@ def phase_kernels(gen) -> dict:
         qr, kr, vr), iters=50)
     flops = 4.0 * B * H * S * S * D
     nbytes = 4 * B * S * H * D * 2 + B * H * S * 4 + 2 * S * D * 2
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f'kernels: attention_fwd {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, '
-          f'SDPA {library_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms '
+          f'SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms '
           f'({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), '
           f'{flops / ms / 1e9:.1f} TFLOP/s; float32 inputs {f32_ms:.4f} ms/launch',
           flush=True)
-    return dict(name='attention_fwd', route='cuda',
-                source='ever_tpu_torch/csrc/attention_fwd.cu',
-                replaces='ever_tpu/ops/attention.py:175', launches=None,
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by='operations' if t_ops >= t_bytes else 'bytes',
-                library_ms=library_ms)
+    fwd = dict(name='attention_fwd', route='cuda',
+               source='ever_tpu_torch/csrc/attention_fwd.cu',
+               replaces='ever_tpu/ops/attention.py:175', launches=None,
+               max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms)
+
+    o, lse = A.fused_attention(q, k, v, rope=rope)
+    do = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+    bwd_ms = cuda_ms(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope),
+                     iters=30)
+    bwd32_ms = cuda_ms(lambda: A.fused_attention_bwd(
+        q32, k32, v32, o.float(), lse, do.float(), rope=rope32), iters=10)
+    bwd_plain_ms = cuda_ms(lambda: A.attention_bwd_reference(
+        q, k, v, o, lse, do, rope=rope), iters=5)
+    # yardstick only: SDPA's backward on the rotated tensors, graph kept
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qr, kr, vr))
+    og = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
+    dog = do.transpose(1, 2).contiguous()
+    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(
+        og, (qg, kg, vg), dog, retain_graph=True), iters=30)
+    # five products of 2·B·H·N²·D; q, k, v, o, do read, dq, dk, dv written
+    bflops = 10.0 * B * H * S * S * D
+    bbytes = 8 * B * S * H * D * 2 + B * H * S * 4 + 2 * S * D * 2
+    bwd_bound_ms, bwd_bound_by = bound(bflops, bbytes)
+    print(f'kernels: attention_bwd {bwd_ms:.4f} ms/launch, plain {bwd_plain_ms:.4f} ms, '
+          f'SDPA backward {bwd_library_ms:.4f} ms, bound {bwd_bound_ms:.4f} ms '
+          f'({bflops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB), '
+          f'{bflops / bwd_ms / 1e9:.1f} TFLOP/s; float32 inputs {bwd32_ms:.4f} ms/launch',
+          flush=True)
+    bwd = dict(name='attention_bwd', route='cuda',
+               source='ever_tpu_torch/csrc/attention_bwd.cu',
+               replaces='ever_tpu/ops/attention.py:207', launches=None,
+               max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+               bound_ms=bwd_bound_ms, bound_by=bwd_bound_by,
+               library_ms=bwd_library_ms)
+    return fwd, bwd
 
 
 def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -181,42 +323,50 @@ def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
                 p.copy_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
 
 
-def profile_batch(model, tiles) -> None:
-    """Device time of one tile batch by kernel, from ``torch.profiler``."""
+def profile_run(label: str, fn) -> None:
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(tiles)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
-    print(f'profile: one tile batch under the profiler: {wall_ms:.2f} ms wall, '
+    print(f'profile: {label} under the profiler: {wall_ms:.2f} ms wall, '
           f'{busy_ms:.2f} ms of kernels, {len(kernels)} kernel names', flush=True)
-    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:20]:
         print(f'profile: {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x '
               f'{e.key[:100]}', flush=True)
 
 
-def phase_slice(gen, kernel: dict, profile: bool) -> None:
-    from ever_tpu_torch import tiled_inference
+def build_dinoseg(gen, **backbone):
+    """DinoSeg vitl16_sat493m with bf16 compute, float32 parameters and
+    seeded random weights, on the card."""
     from ever_tpu_torch.core.builder import make_model
-    from ever_tpu_torch.module.vit import SelfAttention
-    from ever_tpu_torch.ops import attention as A
 
     cfg = {'type': 'DinoSeg', 'params': dict(
-        backbone=dict(name='vitl16_sat493m'), classes=CLASSES, dtype='bfloat16')}
-    t0 = time.perf_counter()
+        backbone=dict(name='vitl16_sat493m', **backbone), classes=CLASSES,
+        dtype='bfloat16')}
     with torch.device('cuda'):                      # initialise on the card
         model = make_model(cfg)
     seeded_init_(model, gen)
-    model.eval()
+    return model
+
+
+def phase_serve(gen, profile: bool) -> int:
+    """The serving path; returns its K1 launches per scene."""
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.module.vit import SelfAttention
+    from ever_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    model = build_dinoseg(gen).to(torch.bfloat16)   # serving keeps bf16 parameters
     scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
     torch.cuda.synchronize()
-    print(f'slice: DinoSeg vitl16_sat493m bf16, '
+    print(f'serve: DinoSeg vitl16_sat493m bf16, '
           f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
           f'built in {time.perf_counter() - t0:.1f} s', flush=True)
 
@@ -228,19 +378,18 @@ def phase_slice(gen, kernel: dict, profile: bool) -> None:
 
     serve()                                         # warm-up scene
     torch.cuda.reset_peak_memory_stats()
-    A.fused_attention.launches = 0
+    A.fused_attention.launches = A.fused_attention_bwd.launches = 0
     t0 = time.perf_counter()
     out = serve()
     secs = time.perf_counter() - t0
-    launches = A.fused_attention.launches
-    kernel['launches'] = launches
+    launches, bwd_launches = A.fused_attention.launches, A.fused_attention_bwd.launches
     n_tiles = (SCENE // STRIDE) ** 2
-    print(f'slice: {n_tiles} tiles in {secs * 1e3:.1f} ms/scene = '
+    print(f'serve: {n_tiles} tiles in {secs * 1e3:.1f} ms/scene = '
           f'{n_tiles / secs:.1f} tiles/s; attention_fwd launches {launches} '
-          f'(expected {24 * n_tiles // TILE_BATCH}); peak memory '
-          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
-    check(launches == 24 * n_tiles // TILE_BATCH,
-          f'attention kernel launched {launches} times, expected 192')
+          f'(expected {24 * n_tiles // TILE_BATCH}), attention_bwd {bwd_launches}; '
+          f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    check(launches == 24 * n_tiles // TILE_BATCH and bwd_launches == 0,
+          f'attention kernels launched {launches}/{bwd_launches} times, expected 192/0')
     check(tuple(out.shape) == (SCENE, SCENE, CLASSES), f'bad output shape {tuple(out.shape)}')
     check(bool(torch.isfinite(out).all()), 'non-finite probabilities')
     sums = out.sum(-1)
@@ -262,7 +411,7 @@ def phase_slice(gen, kernel: dict, profile: bool) -> None:
             m.attn_impl = None
     diff = (p_kernel - p_plain).abs()
     agree = (p_kernel.argmax(-1) == p_plain.argmax(-1)).float().mean().item()
-    print(f'slice: tile batch of {TILE_BATCH}: {batch_ms:.2f} ms with the kernel, '
+    print(f'serve: tile batch of {TILE_BATCH}: {batch_ms:.2f} ms with the kernel, '
           f'{plain_batch_ms:.2f} ms with plain attention; kernel vs plain '
           f'max|dp| {diff.max().item():.3e}, mean|dp| {diff.mean().item():.3e} '
           f'(tolerances {SLICE_MAX_TOL}, {SLICE_MEAN_TOL}), argmax agreement '
@@ -270,7 +419,9 @@ def phase_slice(gen, kernel: dict, profile: bool) -> None:
     check(diff.max().item() <= SLICE_MAX_TOL and diff.mean().item() <= SLICE_MEAN_TOL,
           'kernel path and plain path disagree on a tile batch')
 
-    # a default DinoSeg is float32: its attention goes through the kernel too
+    # a default DinoSeg computes in float32: its attention goes through the
+    # kernel too
+    model.config.dtype = 'float32'
     model.float()
     with torch.no_grad():
         f32_batch_ms = cuda_ms(lambda: model(tiles), iters=3, warmup=1)
@@ -279,20 +430,191 @@ def phase_slice(gen, kernel: dict, profile: bool) -> None:
         torch.cuda.synchronize()
     launches32 = A.fused_attention.launches
     agree32 = (p32.argmax(-1) == p_kernel.argmax(-1)).float().mean().item()
-    print(f'slice: the same tile batch in float32: {f32_batch_ms:.2f} ms, '
+    print(f'serve: the same tile batch in float32: {f32_batch_ms:.2f} ms, '
           f'attention_fwd launches {launches32} (expected 24), argmax agreement '
           f'with bf16 {agree32:.4f}', flush=True)
     check(launches32 == 24, f'float32 model launched the kernel {launches32} times')
     check(bool(torch.isfinite(p32).all()), 'non-finite float32 probabilities')
-    model.to(torch.bfloat16)
     if profile:
-        profile_batch(model, tiles)
+        model.config.dtype = 'bfloat16'
+        model.to(torch.bfloat16)
+        with torch.no_grad():
+            profile_run('one serving tile batch', lambda: model(tiles))
+    return launches
+
+
+def loss_and_grads(model, x, y, seed: int):
+    """One train forward and backward: the loss and every parameter's
+    gradient (float32 copies)."""
+    model.zero_grad(set_to_none=True)
+    out = model(x, y, train=True,
+                generator=torch.Generator(device='cuda').manual_seed(seed))
+    out['cls_loss'].backward()
+    grads = [p.grad.detach().float().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return out['cls_loss'].item(), grads
+
+
+def compare_grads(got, want):
+    """(global ||got - want|| / ||want||, worst per-tensor cosine, every
+    tensor's cosine) over matching gradient lists; a tensor whose wanted
+    gradient is zero counts as cosine 1."""
+    num = sum(((g - w) ** 2).sum() for g, w in zip(got, want)).sqrt()
+    den = sum((w ** 2).sum() for w in want).sqrt()
+    cos = [float((g * w).sum() / (g.norm() * w.norm()).clamp_min(1e-30))
+           if w.norm() > 0 else 1.0 for g, w in zip(got, want)]
+    return float(num / den), min(cos), cos
+
+
+def phase_train(gen, profile: bool):
+    """The train path, then the gradient, remat and flash-route checks;
+    returns the K1 and K2 launches of the timed steps."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.module.vit import SelfAttention
+    from ever_tpu_torch.ops import attention as A
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    model = build_dinoseg(gen)
+    schedule = make_learningrate({'type': 'cosine', 'params': dict(
+        base_lr=1e-4, max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
+    tx = factory.build(schedule)
+    state = create_train_state(model, tx)
+    step = build_train_step(model, tx, schedule)
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen,
+                      device='cuda')
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.fused_attention.launches = A.fused_attention_bwd.launches = 0
+    # an event at every step boundary and one synchronize at the end, as a
+    # training loop runs: the host dispatches the next step while the card
+    # works, and a step's time is the interval between its two events
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        state, m = step(state, (x, y))
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    med = sorted(times)[len(times) // 2]
+    losses = [m['cls_loss'].item() for m in metrics]
+    norms = [m['grad_norm'].item() for m in metrics]
+    print(f'train: DinoSeg vitl16_sat493m, bf16 compute, float32 params, AdamW + '
+          f'cosine; {TRAIN_BATCH} tiles of {TILE}²; median {med * 1e3:.2f} ms/step '
+          f'(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = '
+          f'{TRAIN_BATCH / med:.1f} tiles/s; MFU {TRAIN_FLOPS / med / PEAK_BF16_FLOPS:.4f} '
+          f'({TRAIN_FLOPS / 1e12:.2f} TFLOP/step / step time / 989 TFLOP/s); '
+          f'peak memory {peak:.2f} GiB', flush=True)
+    print(f'train: loss per step {" ".join(f"{v:.5f}" for v in losses)}', flush=True)
+    print(f'train: grad_norm per step {" ".join(f"{v:.4f}" for v in norms)}; '
+          f'learning_rate {metrics[-1]["learning_rate"].item():.6e}', flush=True)
+    print(f'train: launches in {TIMED_STEPS} steps: attention_fwd {launches[0]}, '
+          f'attention_bwd {launches[1]} (expected {24 * TIMED_STEPS} each)', flush=True)
+    check(launches == (24 * TIMED_STEPS, 24 * TIMED_STEPS),
+          f'train steps launched the attention kernels {launches} times')
+    check(all(math.isfinite(v) for v in losses + norms), 'non-finite loss or grad_norm')
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          'parameters left float32')
+    check(all(st['exp_avg'].dtype == torch.float32
+              for st in state.optimizer.state.values()), 'AdamW state left float32')
+    if profile:
+        profile_run('one train step', lambda: step(state, (x, y)))
+
+    # gradients of 2 tiles: kernels vs plain attention, same draws
+    attns = [m for m in model.modules() if isinstance(m, SelfAttention)]
+    loss_k, g_kernel = loss_and_grads(model, x[:2], y[:2], seed=5)
+    for m in attns:
+        m.attn_impl = 'xla'
+    loss_p, g_plain = loss_and_grads(model, x[:2], y[:2], seed=5)
+    for m in attns:
+        m.attn_impl = None
+    rel, worst, cos = compare_grads(g_kernel, g_plain)
+    names = [n for n, _ in model.named_parameters()]
+    qkv_cos = cos[names.index('vit.blocks.0.attn.qkv.weight')]
+    print(f'train: gradients of 2 tiles, kernels vs plain attention: loss '
+          f'{loss_k:.6f} vs {loss_p:.6f}; ||dg||/||g|| {rel:.3e}, worst per-tensor '
+          f'cosine {worst:.6f}, block 0 qkv weight cosine {qkv_cos:.6f} '
+          f'(limits {GRAD_REL_TOL}, {GRAD_COS_MIN})', flush=True)
+    check(rel <= GRAD_REL_TOL and worst >= GRAD_COS_MIN,
+          'kernel gradients disagree with plain attention gradients')
+    del g_kernel, g_plain, state, step, metrics
+    torch.cuda.empty_cache()
+
+    # one 1024² step at B=2 with remat='full' against the same without
+    xr = torch.randn(2, 2 * TILE, 2 * TILE, 3, generator=gen, device='cuda')
+    yr = torch.randint(0, CLASSES, (2, 2 * TILE, 2 * TILE), generator=gen, device='cuda')
+    torch.cuda.reset_peak_memory_stats()
+    loss_n, g_plain = loss_and_grads(model, xr, yr, seed=7)
+    peak_n = torch.cuda.max_memory_allocated() / 2**30
+    noise = compare_grads(loss_and_grads(model, xr, yr, seed=7)[1], g_plain)[0]
+    model.vit.remat = 'full'
+    torch.cuda.reset_peak_memory_stats()
+    A.fused_attention.launches = A.fused_attention_bwd.launches = 0
+    loss_r, g_remat = loss_and_grads(model, xr, yr, seed=7)
+    remat_launches = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    peak_r = torch.cuda.max_memory_allocated() / 2**30
+    model.vit.remat = None
+    rel_r, worst_r, _ = compare_grads(g_remat, g_plain)
+    print(f'train: 1024² step at B=2 (N=4101), remat=full vs none: loss {loss_r:.6f} '
+          f'vs {loss_n:.6f}; ||dg||/||g|| {rel_r:.3e} (two runs without remat: '
+          f'{noise:.3e}), worst cosine {worst_r:.6f} (limit {REMAT_REL_TOL}); '
+          f'launches {remat_launches} (expected (48, 24)); '
+          f'peak memory {peak_r:.2f} vs {peak_n:.2f} GiB', flush=True)
+    check(remat_launches == (48, 24), f'remat step launched {remat_launches}')
+    check(math.isfinite(loss_r) and rel_r <= REMAT_REL_TOL,
+          'remat gradients disagree with the step without remat')
+    del model, g_plain, g_remat
+    torch.cuda.empty_cache()
+    check_flash_route(gen)
+    return launches
+
+
+def check_flash_route(gen) -> None:
+    """impl='flash' at N=16389 (a 2048² tile; B=1, H=2, D=64), forward and
+    backward through the kernels, against the plain versions: the regime
+    that the TPU's library flash kernel serves."""
+    from ever_tpu_torch.ops import attention as A
+
+    qkv = torch.randn(1, FLASH_N, 3, 2, D, generator=gen, device='cuda').to(torch.bfloat16)
+    qkv.requires_grad_()
+    q, k, v = qkv.unbind(2)
+    rope = rope_tables(FLASH_N, 'cuda', torch.bfloat16, grid=128)
+    do = torch.randn(1, FLASH_N, 2, D, generator=gen, device='cuda').to(torch.bfloat16)
+    A.fused_attention.launches = A.fused_attention_bwd.launches = 0
+    o = A.attention(q, k, v, impl='flash', rope=rope)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launches = (A.fused_attention.launches, A.fused_attention_bwd.launches)
+    q32, k32, v32 = (t.detach().float() for t in (q, k, v))
+    ro, rlse = A.attention_reference(q32, k32, v32, rope=f32_rope(rope), return_lse=True)
+    refs = A.attention_bwd_reference(q32, k32, v32, ro, rlse, do.float(),
+                                     rope=f32_rope(rope))
+    delta = o.detach().float() - ro
+    rms_o = (delta.norm() / ro.norm()).item()
+    parts, ok = [], rms_o <= ATTN_O_RMS_TOL and delta.abs().max().item() <= ATTN_O_MAX_TOL
+    for name, g, r in zip(('dq', 'dk', 'dv'), qkv.grad.unbind(2), refs):
+        d = g.float() - r
+        rel, err = (d.norm() / r.norm()).item(), d.abs().max().item()
+        parts.append(f'{name} rel {rel:.3e} max|d| {err:.3e}')
+        ok = ok and rel <= ATTN_BWD_RMS_TOL and err <= ATTN_BWD_MAX_TOL * r.abs().max().item()
+    print(f'train: impl=flash at N={FLASH_N} (B=1, H=2): ||do||/||o|| {rms_o:.3e}, '
+          f'{"; ".join(parts)}; launches {launches} (expected (1, 1))', flush=True)
+    check(launches == (1, 1), f'flash route launched {launches}')
+    check(ok, 'flash route disagrees with the plain versions')
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
-                        help='trace one tile batch with torch.profiler')
+                        help='trace one tile batch and one train step with '
+                             'torch.profiler')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -312,13 +634,15 @@ def main() -> int:
           f'total {time.perf_counter() - t0:.1f} s', flush=True)
 
     gen = torch.Generator(device='cuda').manual_seed(0)
-    kernel = phase_kernels(gen)
-    phase_slice(gen, kernel, args.profile)
+    fwd, bwd = phase_kernels(gen)
+    phase_serve(gen, args.profile)
+    fwd['launches'], bwd['launches'] = phase_train(gen, args.profile)
 
-    for key, value in kernel.items():
-        check(value is not None and (not isinstance(value, float) or math.isfinite(value)),
-              f'kernel record {key} missing')
-    print(json.dumps({'kernels': [kernel]}), flush=True)
+    for kernel in (fwd, bwd):
+        for key, value in kernel.items():
+            check(value is not None and (not isinstance(value, float) or math.isfinite(value)),
+                  f'kernel record {kernel["name"]} {key} missing')
+    print(json.dumps({'kernels': [fwd, bwd]}), flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -2,7 +2,7 @@
 
 Counterpart of ``ever_tpu/core/registry.py``: a ``Registry`` is a dict from
 name to callable, populated by decorator or direct call.  The port so far
-needs only ``MODEL``.
+needs ``MODEL``, ``LR``, ``OPT`` and ``LOSS``.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional, TypeVar
 
-__all__ = ['Registry', 'MODEL']
+__all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS']
 
 logger = logging.getLogger('ever_tpu_torch.registry')
 
@@ -58,4 +58,7 @@ class Registry(dict):
         return f'Registry(name={self._name!r}, items={sorted(self.keys())})'
 
 
+LR = Registry('learning_rate')
+OPT = Registry('optimizer')
 MODEL = Registry('model')
+LOSS = Registry('loss')

@@ -1,0 +1,218 @@
+// Device helpers shared by the attention kernels (attention_fwd.cu,
+// attention_bwd.cu): bf16 packing, tensor-core MMA and ldmatrix wrappers,
+// cp.async copies, and the RoPE staging prologue.  Each kernel source
+// compiles on its own and includes this header.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float MASK = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float f[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float f[8]) {
+  uint4 u;
+  u.x = pack_bf16(f[0], f[1]);
+  u.y = pack_bf16(f[2], f[3]);
+  u.z = pack_bf16(f[4], f[5]);
+  u.w = pack_bf16(f[6], f[7]);
+  return u;
+}
+
+// Eight consecutive elements as floats; `p` is 16-byte aligned.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float f[8]) {
+  unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+__device__ __forceinline__ void load8(const float* p, float f[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Two consecutive elements as floats; `p` is aligned to two elements.
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Two consecutive output elements.
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D = A*B + D for one 16x8x16 tile: A row-major (4 regs), B col-major (2).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 tiles from shared memory; lanes 8i..8i+7 address tile i.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The same, each tile transposed (B operands whose k runs along rows).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* smem) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16-byte asynchronous copy global -> shared; `valid` false zero-fills.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
+}
+
+// 4-byte asynchronous copy global -> shared; `valid` false zero-fills.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(addr), "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Start the copy of `rows` rows [row0, row0+rows) of a [S, D] bf16 slice
+// into shared memory (row pitch LD); rows past S are zero-filled.
+template <int D, int LD>
+__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                int64_t ss, int row0, int rows,
+                                                int S, int tid, int threads) {
+  constexpr int CH = D / 8;
+  for (int u = tid; u < rows * CH; u += threads) {
+    const int r = u / CH, c = u % CH, gr = row0 + r;
+    const bool ok = gr < S;
+    cp_async16(dst + r * LD + c * 8, src + (ok ? gr : 0) * ss + c * 8, ok);
+  }
+}
+
+// RoPE of one row's 8-element chunk pair (c, c + D/16), times `scale`,
+// rounded to bf16: rotated[i] = x[i]*cos[i] - x[i+D/2]*sin[i] on the low
+// half and x[i]*cos[i] + x[i-D/2]*sin[i] on the high half.  `row` is the
+// row's first element and `t` its offset into the tables; null tables mean
+// no rotation.
+template <int D, typename T>
+__device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi, const T* row,
+                                          const T* sin_tab, const T* cos_tab,
+                                          int64_t t, int c, float scale) {
+  constexpr int HALF = D / 16;
+  float xl[8], xh[8], yl[8], yh[8];
+  load8(row + c * 8, xl);
+  load8(row + (c + HALF) * 8, xh);
+  if (sin_tab != nullptr) {
+    float cl[8], ch[8], sl[8], sh[8];
+    load8(cos_tab + t + c * 8, cl);
+    load8(cos_tab + t + (c + HALF) * 8, ch);
+    load8(sin_tab + t + c * 8, sl);
+    load8(sin_tab + t + (c + HALF) * 8, sh);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      yl[j] = (xl[j] * cl[j] - xh[j] * sl[j]) * scale;
+      yh[j] = (xh[j] * ch[j] + xl[j] * sh[j]) * scale;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      yl[j] = xl[j] * scale;
+      yh[j] = xh[j] * scale;
+    }
+  }
+  lo = pack8(yl);
+  hi = pack8(yh);
+}
+
+// Prologue: out[b, h, s, :] = bf16(scale * RoPE(x[b, s, h, :])) for every
+// row, contiguous [B, H, S, D]; null tables copy without rotating.  One
+// thread per (row, chunk pair).
+template <int D, typename T>
+__global__ void stage_kernel(const T* x, int64_t x_sb, int64_t x_sh,
+                             int64_t x_ss, const T* sin_tab, const T* cos_tab,
+                             float scale, __nv_bfloat16* out, int H, int S,
+                             int64_t n_units) {
+  constexpr int HALF = D / 16;
+  const int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (u >= n_units) return;
+  const int64_t row = u / HALF;
+  const int c = static_cast<int>(u % HALF);
+  const int s = static_cast<int>(row % S);
+  const int64_t bh = row / S;
+  uint4 lo, hi;
+  rope_pair<D>(lo, hi, x + (bh / H) * x_sb + (bh % H) * x_sh + s * x_ss,
+               sin_tab, cos_tab, static_cast<int64_t>(s) * D, c, scale);
+  __nv_bfloat16* dst = out + row * D;
+  *reinterpret_cast<uint4*>(dst + c * 8) = lo;
+  *reinterpret_cast<uint4*>(dst + (c + HALF) * 8) = hi;
+}
+
+// x -> bf16(scale * RoPE(x)) as contiguous [B, H, S, D] in `out`.
+template <int D, typename T>
+int stage(const T* x, int64_t sb, int64_t sh, int64_t ss, const T* sin_tab,
+          const T* cos_tab, float scale, void* out, int B, int H, int S,
+          cudaStream_t st) {
+  const int64_t units = static_cast<int64_t>(B) * H * S * (D / 16);
+  const int threads = 256;
+  const int64_t blocks = (units + threads - 1) / threads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  stage_kernel<D, T><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+      x, sb, sh, ss, sin_tab, cos_tab, scale,
+      static_cast<__nv_bfloat16*>(out), H, S, units);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace

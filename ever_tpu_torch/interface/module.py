@@ -10,13 +10,14 @@ training with labels, predictions otherwise.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import torch
 import torch.nn as nn
 
 from ever_tpu_torch.core.config import AttrDict
 
-__all__ = ['ERModule']
+__all__ = ['ERModule', 'sum_losses', 'split_metrics']
 
 
 class ERModule(nn.Module):
@@ -44,3 +45,18 @@ class ERModule(nn.Module):
 
     def forward(self, x, y=None, train: bool = False):
         raise NotImplementedError
+
+
+def sum_losses(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sum every ``*loss`` entry of a forward output dict into the objective,
+    in float32.  Other keys are metrics and are left out."""
+    total = torch.zeros(())
+    for k, v in loss_dict.items():
+        if k.endswith('loss'):
+            total = total.to(v.device) + v.float()
+    return total
+
+
+def split_metrics(loss_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """All entries (losses and metrics) as detached float32 scalars."""
+    return {k: torch.as_tensor(v).detach().float() for k, v in loss_dict.items()}

@@ -1,42 +1,80 @@
 """DINOv3-style Vision Transformer and the DinoSeg head (PyTorch port).
 
 Counterpart of ``ever_tpu/module/vit.py``: ``DinoVisionTransformer`` with
-axial RoPE, storage tokens, LayerScale, Mlp/SwiGLU FFN and
+axial RoPE (with its train-time coordinate augmentation), storage tokens,
+LayerScale, Mlp/SwiGLU FFN, stochastic depth, per-block ``remat`` and
 ``get_intermediate_layers``; the size ladder ``VIT_SPECS``, the satellite
-configs ``SAT_CONFIGS``; and ``DinoSeg``'s inference path.  Inputs are NHWC,
-as in the JAX package.  Parameter names follow the torch DINOv3 reference
-(``blocks.{i}.attn.qkv.weight`` …), so ``util.weight_io`` moves weights
-across.
+configs ``SAT_CONFIGS``; and ``DinoSeg`` with its eval and train branches.
+Inputs are NHWC, as in the JAX package.  Parameter names follow the torch
+DINOv3 reference (``blocks.{i}.attn.qkv.weight`` …), so ``util.weight_io``
+moves weights across.
 
-Not ported yet (the ViT training slice): the training branch of DinoSeg and
-its losses, drop-path in training, RoPE coordinate augmentation, ``remat``,
+Precision: explicit casts, no ``torch.autocast``.  Every layer computes in
+its input's dtype and casts its own parameters to it (flax ``Dense(dtype=)``
+does the same), so the parameters stay float32 while ``DinoSeg`` with
+``dtype='bfloat16'`` runs in bf16: it casts its input, ``_tokens`` casts the
+cls/storage tokens to the input's dtype, and the residual stream stays bf16
+through every block.  A cast of a parameter that already has the compute
+dtype is free, so a serving model may hold bf16 parameters
+(``model.to(torch.bfloat16)``) and computes the same numbers.
+
+Randomness in training (RoPE coordinate augmentation, drop-path) comes from
+an explicit ``torch.Generator`` passed to ``forward(..., generator=)``, never
+from the global one, and is drawn outside the blocks, so that a block
+recomputed under ``remat`` sees the same draws.
+
+Not ported yet: the multi-crop list forward with its local-crop cls norm,
 and the causal text-attention family.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
+from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.ops import resize
 from ever_tpu_torch.ops.attention import attention, pad_target
 
-__all__ = ['RopePositionEmbedding', 'RMSNorm', 'LayerScale', 'Mlp',
-           'SwiGLUFFN', 'token_rope', 'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
+__all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
+           'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
+           'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
            'DinoVisionTransformer', 'DinoSeg', 'VIT_SPECS', 'SAT_CONFIGS']
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in its input's dtype (see the module
+    docstring)."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that computes in its input's dtype (its statistics in
+    float32, as PyTorch's kernels keep them)."""
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
+                            self.bias.to(x.dtype), self.eps)
 
 
 class RopePositionEmbedding(nn.Module):
     """Axial RoPE angle tables ``(sin, cos)``, each ``[H*W, D_head]`` f32.
 
-    Inference only: the train-time coordinate augmentations (shift, jitter,
-    rescale) are kept as configuration for the training slice.
+    The train-time coordinate augmentation (``shift_coords``,
+    ``jitter_coords``, ``rescale_coords``) is one :meth:`draw` from a
+    generator, passed to ``forward`` as ``shift`` ([2], added), ``jitter``
+    ([2], multiplied) and ``rescale`` ([1], multiplied), in that order.
     """
 
     def __init__(self, embed_dim: int, num_heads: int,
@@ -71,7 +109,33 @@ class RopePositionEmbedding(nn.Module):
         periods = base ** torch.linspace(0, 1, n, dtype=torch.float32, device=device)
         return periods / base * self.max_period
 
-    def forward(self, H: int, W: int, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    @property
+    def augments(self) -> bool:
+        return any(r is not None for r in (self.shift_coords, self.jitter_coords,
+                                           self.rescale_coords))
+
+    def draw(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One draw of the configured coordinate augmentations, on the
+        generator's device: shift ~ U(-s, s), jitter = exp(U(-log j, log j)),
+        rescale = exp(U(-log r, log r)), as the JAX package draws them."""
+        def uniform(n, bound):
+            u = torch.rand(n, generator=generator, device=generator.device)
+            return (2 * u - 1) * bound
+
+        aug = {}
+        if self.shift_coords is not None:
+            aug['shift'] = uniform(2, self.shift_coords)
+        if self.jitter_coords is not None:
+            aug['jitter'] = torch.exp(uniform(2, math.log(self.jitter_coords)))
+        if self.rescale_coords is not None:
+            aug['rescale'] = torch.exp(uniform(1, math.log(self.rescale_coords)))
+        return aug
+
+    def forward(self, H: int, W: int, device=None,
+                shift: Optional[torch.Tensor] = None,
+                jitter: Optional[torch.Tensor] = None,
+                rescale: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.normalize_coords == 'max':
             denom_h = denom_w = max(H, W)
         elif self.normalize_coords == 'min':
@@ -82,6 +146,12 @@ class RopePositionEmbedding(nn.Module):
         cw = (torch.arange(W, dtype=torch.float32, device=device) + 0.5) / denom_w
         coords = torch.stack(torch.meshgrid(ch, cw, indexing='ij'), dim=-1)
         coords = coords.reshape(H * W, 2) * 2.0 - 1.0
+        if shift is not None:
+            coords = coords + shift.to(coords.device)[None, :]
+        if jitter is not None:
+            coords = coords * jitter.to(coords.device)[None, :]
+        if rescale is not None:
+            coords = coords * rescale.to(coords.device)
         periods = self.periods(device)
         angles = 2 * math.pi * coords[:, :, None] / periods[None, None, :]
         angles = angles.reshape(H * W, -1).repeat(1, 2)
@@ -116,8 +186,8 @@ class Mlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int, out: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, out)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate='tanh'))
@@ -132,9 +202,9 @@ class SwiGLUFFN(nn.Module):
         super().__init__()
         d = int(hidden * 2 / 3)
         gate = d + (-d % align_to)
-        self.w1 = nn.Linear(dim, gate)
-        self.w2 = nn.Linear(dim, gate)
-        self.w3 = nn.Linear(gate, out)
+        self.w1 = Linear(dim, gate)
+        self.w2 = Linear(dim, gate)
+        self.w3 = Linear(gate, out)
 
     def forward(self, x):
         return self.w3(F.silu(self.w1(x)) * self.w2(x))
@@ -151,6 +221,25 @@ def token_rope(sin: torch.Tensor, cos: torch.Tensor, prefix: int,
             torch.cat([cos.new_ones(prefix, d), cos, cos.new_ones(tail, d)]))
 
 
+def drop_path_mask(batch: int, rate: float,
+                   generator: torch.Generator) -> torch.Tensor:
+    """The [B] keep mask of one residual branch: each sample keeps it with
+    probability ``1 - rate`` (a Bernoulli draw, as ``jax.random.bernoulli``),
+    drawn from ``generator`` on its device."""
+    u = torch.rand(batch, generator=generator, device=generator.device)
+    return u < 1.0 - rate
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-sample stochastic depth: ``x * keep / (1 - rate)`` with ``keep``
+    the [B] 0/1 mask of the samples that keep the branch (None: no drop)."""
+    if keep is None or rate == 0.0:
+        return x
+    mask = keep.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    return x * mask / (1.0 - rate)
+
+
 class SelfAttention(nn.Module):
     """Fused-QKV multi-head attention with RoPE on the patch tokens.
 
@@ -163,8 +252,8 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.attn_impl = attn_impl
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim, bias=proj_bias)
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim, bias=proj_bias)
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 n_valid: Optional[int] = None):
@@ -182,15 +271,17 @@ class SelfAttention(nn.Module):
 
 
 class SelfAttentionBlock(nn.Module):
-    """Pre-norm attention + FFN block with optional LayerScale."""
+    """Pre-norm attention + FFN block with optional LayerScale and
+    stochastic depth (``drop_path_rate``; the masks come in as ``drop``)."""
 
     def __init__(self, dim: int, num_heads: int, ffn_ratio: float = 4.0,
                  qkv_bias: bool = False, layerscale_init: Optional[float] = None,
                  ffn_layer: str = 'mlp', norm: str = 'ln', norm_eps: float = 1e-6,
-                 attn_impl: Optional[str] = None):
+                 attn_impl: Optional[str] = None, drop_path_rate: float = 0.0):
         super().__init__()
         hidden = int(dim * ffn_ratio)
-        norm_cls = RMSNorm if norm == 'rms' else nn.LayerNorm
+        self.drop_path_rate = drop_path_rate
+        norm_cls = RMSNorm if norm == 'rms' else LayerNorm
         self.norm1 = norm_cls(dim, norm_eps)
         self.attn = SelfAttention(dim, num_heads, qkv_bias, attn_impl=attn_impl)
         self.norm2 = norm_cls(dim, norm_eps)
@@ -203,20 +294,29 @@ class SelfAttentionBlock(nn.Module):
         self.ls1 = LayerScale(dim, layerscale_init) if use_ls else nn.Identity()
         self.ls2 = LayerScale(dim, layerscale_init) if use_ls else nn.Identity()
 
-    def forward(self, x, rope=None, n_valid: Optional[int] = None):
-        x = x + self.ls1(self.attn(self.norm1(x), rope, n_valid))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+    def forward(self, x, rope=None, n_valid: Optional[int] = None,
+                drop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """``drop``: the [B] keep masks of the two residual branches, or
+        None (no stochastic depth)."""
+        keep1, keep2 = (None, None) if drop is None else drop
+        y = self.ls1(self.attn(self.norm1(x), rope, n_valid))
+        x = x + drop_path(y, self.drop_path_rate, keep1)
+        y = self.ls2(self.mlp(self.norm2(x)))
+        return x + drop_path(y, self.drop_path_rate, keep2)
 
 
 class PatchEmbed(nn.Module):
-    """Conv patchifier: NHWC image → ``[N, h*w, C]`` tokens and ``(h, w)``."""
+    """Conv patchifier: NHWC image → ``[N, h*w, C]`` tokens and ``(h, w)``,
+    in the image's dtype."""
 
     def __init__(self, in_chans: int, embed_dim: int, patch_size: int = 16):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, patch_size, stride=patch_size)
 
     def forward(self, x):
-        y = self.proj(x.permute(0, 3, 1, 2))
+        p = self.proj
+        y = F.conv2d(x.permute(0, 3, 1, 2), p.weight.to(x.dtype),
+                     p.bias.to(x.dtype), stride=p.stride)
         n, c, h, w = y.shape
         return y.flatten(2).transpose(1, 2), (h, w)
 
@@ -247,16 +347,39 @@ SAT_CONFIGS = {
 }
 
 
+_REMAT_MODES = (None, 'full', 'dots')
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat='dots'``: keep the outputs of
+    the 2-d matrix products (the linear layers), recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class DinoVisionTransformer(nn.Module):
     """ViT trunk.  ``forward`` returns a dict with ``x_norm_clstoken``,
     ``x_storage_tokens``, ``x_norm_patchtokens`` and the patch ``grid``.
 
-    ``pad_tokens=True`` pads the token stack once after the patch embedding
-    to :func:`~ever_tpu_torch.ops.attention.pad_target` and threads
-    ``n_valid`` through every block, as the JAX model does on the TPU.  The
-    CUDA kernel masks a ragged length itself, so the default (None) is off.
-    ``drop_path_rate`` and ``untie_global_and_local_cls_norm`` only act in
-    training, which this port does not run yet.
+    It computes in its input's dtype.  ``pad_tokens=True`` pads the token
+    stack once after the patch embedding to
+    :func:`~ever_tpu_torch.ops.attention.pad_target` and threads ``n_valid``
+    through every block, as the JAX model does on the TPU.  The CUDA kernels
+    mask a ragged length themselves, so the default (None) is off.
+
+    Training follows the ``train`` argument (not ``nn.Module.training``), as
+    in the JAX package: with ``train=True`` every block gets freshly drawn
+    RoPE coordinate augmentations, when configured, and per-sample
+    stochastic depth at the same ``drop_path_rate`` for every block, both
+    drawn from ``generator`` outside the blocks.  ``remat`` (None | 'full' |
+    'dots') checkpoints each block with ``torch.utils.checkpoint`` when a
+    gradient is recorded: 'full' recomputes the whole block in the backward,
+    'dots' keeps the outputs of its 2-d matrix products (selective
+    checkpointing), the counterpart of JAX's
+    ``dots_with_no_batch_dims_saveable``.  ``untie_global_and_local_cls_norm``
+    only acts in the multi-crop list forward, which is not ported yet.
     """
 
     def __init__(self, vit_type: str = 'vit_large', patch_size: int = 16,
@@ -276,14 +399,15 @@ class DinoVisionTransformer(nn.Module):
                  pad_tokens: Optional[bool] = None,
                  remat: Optional[str] = None, in_chans: int = 3):
         super().__init__()
-        if remat is not None:
-            raise NotImplementedError('remat arrives with the ViT training slice')
+        if remat not in _REMAT_MODES:
+            raise ValueError(f"remat must be None, 'full' or 'dots', got {remat!r}")
         depth, dim, heads, ffn_ratio, spec_ffn = VIT_SPECS[vit_type]
         self.embed_dim, self.num_heads, self.depth = dim, heads, depth
         self.n_storage_tokens = n_storage_tokens
         self.drop_path_rate = drop_path_rate
         self.untie_global_and_local_cls_norm = untie_global_and_local_cls_norm
         self.pad_tokens = pad_tokens
+        self.remat = remat
         if norm_eps is None:
             norm_eps = 1e-5 if norm == 'rms' else 1e-6
         self.patch_embed = PatchEmbed(in_chans, dim, patch_size)
@@ -303,9 +427,10 @@ class DinoVisionTransformer(nn.Module):
         self.blocks = nn.ModuleList([SelfAttentionBlock(
             dim, heads, ffn_ratio, qkv_bias=qkv_bias,
             layerscale_init=layerscale_init, ffn_layer=ffn_layer or spec_ffn,
-            norm=norm, norm_eps=norm_eps, attn_impl=attn_impl)
+            norm=norm, norm_eps=norm_eps, attn_impl=attn_impl,
+            drop_path_rate=drop_path_rate)
             for _ in range(depth)])
-        norm_cls = RMSNorm if norm == 'rms' else nn.LayerNorm
+        norm_cls = RMSNorm if norm == 'rms' else LayerNorm
         self.norm = norm_cls(dim, norm_eps)
         self.cls_norm = norm_cls(dim, norm_eps) if untie_cls_and_patch_norms else None
         for m in self.modules():
@@ -315,13 +440,12 @@ class DinoVisionTransformer(nn.Module):
                     nn.init.zeros_(m.bias)
 
     def _tokens(self, x):
-        x = x.to(self.cls_token.dtype)
         tokens, (h, w) = self.patch_embed(x)
         n = tokens.shape[0]
         prefix = [self.cls_token.expand(n, -1, -1)]
         if self.n_storage_tokens > 0:
             prefix.append(self.storage_tokens.expand(n, -1, -1))
-        return torch.cat(prefix + [tokens], dim=1), (h, w)
+        return torch.cat([t.to(x.dtype) for t in prefix] + [tokens], dim=1), (h, w)
 
     def _stack_pad(self, tokens):
         """Stack-level token padding (see ``pad_tokens``): ``(tokens,
@@ -332,15 +456,38 @@ class DinoVisionTransformer(nn.Module):
             return tokens, None
         return F.pad(tokens, (0, 0, 0, target - n)), n
 
-    def _run_blocks(self, x, keep):
+    def _block(self, blk, tokens, rope, n_valid, drop):
+        if self.remat is None or not torch.is_grad_enabled():
+            return blk(tokens, rope, n_valid, drop)
+        context = _ckpt.noop_context_fn
+        if self.remat == 'dots':
+            context = functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_matmuls)
+        return _ckpt.checkpoint(blk, tokens, rope, n_valid, drop,
+                                use_reentrant=False, context_fn=context)
+
+    def _run_blocks(self, x, keep, train: bool = False,
+                    generator: Optional[torch.Generator] = None):
         """Tokens through every block: the outputs of the blocks in ``keep``
         and the patch grid ``(h, w)``."""
         tokens, hw = self._tokens(x)
         tokens, n_valid = self._stack_pad(tokens)
-        rope = self.rope_embed(*hw, device=tokens.device)
+        augs = train and self.rope_embed.augments
+        drops = train and self.drop_path_rate > 0
+        if (augs or drops) and generator is None:
+            raise ValueError('training with RoPE augmentation or drop-path '
+                             'draws from a generator: pass generator=')
+        rope = None if augs else self.rope_embed(*hw, device=tokens.device)
         outs = []
         for i, blk in enumerate(self.blocks):
-            tokens = blk(tokens, rope, n_valid)
+            if augs:
+                rope = self.rope_embed(*hw, device=tokens.device,
+                                       **self.rope_embed.draw(generator))
+            drop = None
+            if drops:
+                drop = tuple(drop_path_mask(tokens.shape[0], self.drop_path_rate,
+                                            generator) for _ in range(2))
+            tokens = self._block(blk, tokens, rope, n_valid, drop)
             if i in keep:
                 outs.append(tokens)
         return outs, hw
@@ -354,8 +501,9 @@ class DinoVisionTransformer(nn.Module):
         normed = self.norm(t)
         return normed[:, :n_prefix], normed[:, n_prefix:n_prefix + h * w]
 
-    def forward_features(self, x):
-        (tokens,), hw = self._run_blocks(x, {self.depth - 1})
+    def forward_features(self, x, train: bool = False,
+                         generator: Optional[torch.Generator] = None):
+        (tokens,), hw = self._run_blocks(x, {self.depth - 1}, train, generator)
         cls_and_storage, patches = self._norm_prefix_patches(tokens, hw)
         return dict(x_norm_clstoken=cls_and_storage[:, 0],
                     x_storage_tokens=cls_and_storage[:, 1:],
@@ -364,11 +512,12 @@ class DinoVisionTransformer(nn.Module):
     def get_intermediate_layers(self, x, n: Union[int, Sequence[int]] = 1,
                                 reshape: bool = False,
                                 return_class_token: bool = False,
-                                norm: bool = True):
+                                norm: bool = True, train: bool = False,
+                                generator: Optional[torch.Generator] = None):
         """Dense features of the last ``n`` blocks (or the listed blocks)."""
         idxs = (set(range(self.depth - n, self.depth)) if isinstance(n, int)
                 else set(i % self.depth for i in n))
-        outs, (h, w) = self._run_blocks(x, idxs)
+        outs, (h, w) = self._run_blocks(x, idxs, train, generator)
         n_prefix = 1 + self.n_storage_tokens
         results = []
         for t in outs:
@@ -382,8 +531,9 @@ class DinoVisionTransformer(nn.Module):
             results.append((patches, cls) if return_class_token else patches)
         return results
 
-    def forward(self, x):
-        return self.forward_features(x)
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        return self.forward_features(x, train, generator)
 
 
 for _name in VIT_SPECS:
@@ -399,10 +549,14 @@ class DinoSeg(ERModule):
     """DINOv3 dense segmentation: ViT trunk + light 1x1 head + bilinear
     upsample to the input resolution.
 
-    ``forward(x)`` takes NHWC ``[B, H, W, C]`` and returns class
-    probabilities ``[B, H, W, classes]`` in f32.  The training branch
-    (``train=True`` with labels → loss dict) arrives with the ViT training
-    slice.
+    ``forward(x, y=None, train=False, generator=None)`` takes NHWC
+    ``[B, H, W, C]`` and computes in ``config.dtype`` (the parameters stay
+    float32 unless the caller casts them).  With ``train=True`` and labels
+    ``y`` ``[B, H, W]`` it returns the loss dict: ``cls_loss`` (softmax
+    cross-entropy) and, when ``loss.dice`` is configured, ``dice_loss``;
+    otherwise the class probabilities ``[B, H, W, classes]`` in f32.  The
+    logits are upsampled in f32.  ``generator`` feeds the trunk's train-time
+    draws.
     """
 
     def set_default_config(self):
@@ -411,7 +565,7 @@ class DinoSeg(ERModule):
                 name='vitl16_sat493m',   # SAT_CONFIGS key or VIT_SPECS key
                 drop_path_rate=0.0,
                 attn_impl=None,          # None=auto | 'xla' | 'fused' | 'flash'
-                remat=None,
+                remat=None,              # None | 'full' | 'dots' (per block)
             ),
             classes=7,
             head=dict(hidden=0, n_taps=1),
@@ -435,20 +589,27 @@ class DinoSeg(ERModule):
         n_taps = int(self.config.head.get('n_taps', 1))
         feat = self.vit.embed_dim * n_taps
         hidden = int(self.config.head.get('hidden', 0))
-        self.head_hidden = nn.Linear(feat, hidden) if hidden else None
-        self.head_classifier = nn.Linear(hidden or feat, int(self.config.classes))
-        self.to(getattr(torch, self.config.dtype))
+        self.head_hidden = Linear(feat, hidden) if hidden else None
+        self.head_classifier = Linear(hidden or feat, int(self.config.classes))
 
-    def forward(self, x, y=None, train: bool = False):
-        if train:
-            raise NotImplementedError('DinoSeg training arrives with the ViT '
-                                      'training slice')
+    def forward(self, x, y=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         n_taps = int(self.config.head.get('n_taps', 1))
-        taps = self.vit.get_intermediate_layers(x, n=n_taps, reshape=True)
+        taps = self.vit.get_intermediate_layers(
+            x.to(getattr(torch, self.config.dtype)), n=n_taps, reshape=True,
+            train=train, generator=generator)
         feat = taps[0] if n_taps == 1 else torch.cat(taps, dim=-1)
         if self.head_hidden is not None:
             feat = F.gelu(self.head_hidden(feat), approximate='tanh')
-        logits = self.head_classifier(feat)
-        logits = resize(logits, scale=x.shape[1] / logits.shape[1],
-                        method='bilinear').float()
+        logits = self.head_classifier(feat).float()
+        logits = resize(logits, scale=x.shape[1] / logits.shape[1], method='bilinear')
+        if train and y is not None:
+            lcfg = self.config.loss
+            ignore = int(lcfg.get('ignore_index', 255))
+            out = dict(cls_loss=L.softmax_ce_loss_with_logits(
+                logits, y, ignore_index=ignore))
+            if lcfg.get('dice'):
+                out['dice_loss'] = L.dice_loss_with_logits(
+                    logits, y, ignore_index=ignore, **dict(lcfg.dice))
+            return out
         return torch.softmax(logits, dim=-1)

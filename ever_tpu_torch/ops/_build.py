@@ -3,8 +3,9 @@
 Each source under ``ever_tpu_torch/csrc/`` has a plain C interface and
 compiles on its own into a shared library for ``sm_90a``, at first use, into
 ``ever_tpu_torch/_build/`` (listed in ``.gitignore``).  A library is keyed by
-the hash of its source, so an edited source rebuilds.  Nothing here runs at
-import time.
+the hash of its source and of the shared headers (``csrc/*.cuh``), so an
+edited source or header rebuilds.  ``build`` starts one ``nvcc`` per source,
+all at once.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
 
 # kernel library name → source file under csrc/
-SOURCES = {'attention_fwd': 'attention_fwd.cu'}
+SOURCES = {'attention_fwd': 'attention_fwd.cu',
+           'attention_bwd': 'attention_bwd.cu'}
 
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC']
@@ -44,16 +46,21 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(_CSRC, SOURCES[name]), 'rb') as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(_BUILD, f'lib{name}-{digest}.so')
+    digest = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith('.cuh'))
+    for fname in [SOURCES[name]] + headers:
+        with open(os.path.join(_CSRC, fname), 'rb') as f:
+            digest.update(f.read())
+    return os.path.join(_BUILD, f'lib{name}-{digest.hexdigest()[:12]}.so')
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named kernel libraries (default: all).  Returns seconds
-    per library (0.0 when it was already built); raises with nvcc's output
-    on a failed build."""
-    secs = {}
+    """Compile the named kernel libraries (default: all), one ``nvcc`` per
+    library, all started together.  Returns seconds per library (0.0 when
+    it was already built); raises with nvcc's output on a failed build,
+    after every started compiler has ended."""
+    secs: Dict[str, float] = {}
+    jobs = []
     for name in (SOURCES if names is None else names):
         out = _lib_path(name)
         secs[name] = 0.0
@@ -62,16 +69,22 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         os.makedirs(_BUILD, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD)
         os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, '-o', tmp,
-                               os.path.join(_CSRC, SOURCES[name])],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+        proc = subprocess.Popen([_nvcc(), *_NVCC_FLAGS, '-o', tmp,
+                                 os.path.join(_CSRC, SOURCES[name])],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, out, tmp, proc, t0 in jobs:
+        log = proc.communicate()[0]
         secs[name] = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f'nvcc failed for {SOURCES[name]}:\n{proc.stdout}')
-        os.replace(tmp, out)      # atomic: a concurrent loader never sees half a file
+            failed.append(f'nvcc failed for {SOURCES[name]}:\n{log}')
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError('\n'.join(failed))
     return secs
 
 

@@ -5,10 +5,13 @@ count (or forced through ``impl``):
 
 - ``'xla'`` — few hundred tokens: :func:`attention_reference`, plain matmul +
   softmax in PyTorch (the counterpart of the JAX ``'xla'`` branch).
-- ``'fused'`` / ``'flash'`` — 512 tokens and up: :func:`fused_attention`,
-  the streaming CUDA kernel in ``csrc/attention_fwd.cu``.  On the TPU the two
-  names are two kernels (VMEM-resident and library flash); the Hopper kernel
-  streams K/V through shared memory, so one kernel covers both regimes.
+- ``'fused'`` / ``'flash'`` — 512 tokens and up: the streaming CUDA
+  kernels, :func:`fused_attention` (``csrc/attention_fwd.cu``) forward and
+  :func:`fused_attention_bwd` (``csrc/attention_bwd.cu``) backward, joined
+  by a ``torch.autograd.Function`` (the counterpart of the JAX package's
+  ``custom_vjp``).  On the TPU the two names are two kernels (VMEM-resident
+  and library flash); the Hopper kernels stream K/V through shared memory,
+  so one pair covers both regimes.
 
 Shapes follow the flax convention: q/k/v are ``[B, N, H, D]`` (``'bnhd'``),
 or ``[B, H, N, D]`` with ``layout='bhnd'``.
@@ -21,9 +24,11 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-__all__ = ['attention', 'attention_reference', 'fused_attention',
-           'pad_target', 'FUSED_TOKEN_THRESHOLD']
+__all__ = ['attention', 'attention_reference', 'attention_bwd_reference',
+           'fused_attention', 'fused_attention_bwd', 'pad_target',
+           'FUSED_TOKEN_THRESHOLD']
 
 # auto-dispatch boundary (tokens), kept from the JAX package: below it the
 # plain path, from it up the kernel.  Past 16384 tokens the JAX package
@@ -79,6 +84,11 @@ def _to_bhnd(t: torch.Tensor, layout: str) -> torch.Tensor:
     return t if layout == 'bhnd' else t.transpose(1, 2)
 
 
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
 def _rope_outside(q, k, rope, layout):
     """Rotate q and k by ``rope=(sin, cos)`` ([N, D] tables) in q's dtype."""
     sin, cos = rope
@@ -86,12 +96,7 @@ def _rope_outside(q, k, rope, layout):
     shape = (1, 1, n, d) if layout == 'bhnd' else (1, n, 1, d)
     sin = sin.to(q.dtype).reshape(shape)
     cos = cos.to(q.dtype).reshape(shape)
-
-    def rot(x):
-        x1, x2 = x.chunk(2, dim=-1)
-        return torch.cat([-x2, x1], dim=-1)
-
-    return q * cos + rot(q) * sin, k * cos + rot(k) * sin
+    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
 def attention_reference(q, k, v, layout: str = 'bnhd',
@@ -117,6 +122,44 @@ def attention_reference(q, k, v, layout: str = 'bnhd',
     return (o, lse) if return_lse else o
 
 
+def attention_bwd_reference(q, k, v, o, lse, do, layout: str = 'bnhd',
+                            n_valid: Optional[int] = None, rope=None):
+    """Plain PyTorch attention backward: ``(dq, dk, dv)``.
+
+    The plain version of :func:`fused_attention_bwd`, the formulas of the
+    JAX kernel ``_fa_bwd_kernel`` written out in float32: with ``Rq, Rk``
+    the rotated q and k and ``scale = 1/sqrt(D)``,
+    ``p = exp(scale·Rq·Rkᵀ − lse)`` (0 on key columns at or past
+    ``n_valid``), ``ds = p∘(do·vᵀ − rowsum(do∘o))``, ``dq = Rᵀ(scale·ds·Rk)``,
+    ``dk = Rᵀ(scale·dsᵀ·Rq)``, ``dv = pᵀ·do``, where
+    ``Rᵀ(y) = y·cos − rotate_half(y)·sin`` (the transpose of the rotation for
+    half-tiled tables, the only kind the ViT builds).  ``o`` and ``lse`` are
+    the forward's.  Returns the gradients in q's dtype and layout.
+    """
+    dtype = q.dtype
+    qt, kt, vt, ot, dot = (_to_bhnd(t, layout).float() for t in (q, k, v, o, do))
+    n, d = qt.shape[-2], qt.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    if rope is not None:
+        sin, cos = (t.float().reshape(1, 1, n, d) for t in rope)
+        qt = qt * cos + _rotate_half(qt) * sin
+        kt = kt * cos + _rotate_half(kt) * sin
+    p = torch.matmul(qt, kt.transpose(-1, -2)).mul_(scale)
+    if n_valid is not None and n_valid < n:
+        p[..., n_valid:] = _MASK
+    p = p.sub_(lse.float()[..., None]).exp_()
+    ds = torch.matmul(dot, vt.transpose(-1, -2))
+    ds = ds.sub_((dot * ot).sum(-1, keepdim=True)).mul_(p)
+    dv = torch.matmul(p.transpose(-1, -2), dot)
+    del p
+    dq = torch.matmul(ds, kt).mul_(scale)
+    dk = torch.matmul(ds.transpose(-1, -2), qt).mul_(scale)
+    if rope is not None:
+        dq = dq * cos - _rotate_half(dq) * sin
+        dk = dk * cos - _rotate_half(dk) * sin
+    return tuple(_to_bhnd(t, layout).to(dtype) for t in (dq, dk, dv))
+
+
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it through its strides (unit
     last stride, 16-byte aligned rows), else a contiguous copy."""
@@ -126,34 +169,48 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch_fwd(q, k, v, layout, n_valid, rope):
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f'the attention kernel takes bfloat16 or float32 '
-                        f'q/k/v of one type, got {q.dtype}/{k.dtype}/{v.dtype}')
-    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
-        raise ValueError(f'q/k/v must share one 4-d shape, got '
-                         f'{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}')
-    if not (q.device == k.device == v.device):
-        raise ValueError('q/k/v must be on one device')
+def _kernel_inputs(ts, layout, n_valid, rope):
+    """Check what both attention kernels take and prepare it: the [B,N,H,D]
+    (or [B,H,N,D]) tensors ``ts`` as kernel views, the dims ``(b, h, s, d,
+    n)``, the (b, h, s) axis order of ``layout`` and the tables in the
+    tensors' type.  Raises before any kernel library is loaded."""
+    q = ts[0]
+    if any(t.dtype != q.dtype for t in ts) or q.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f'the attention kernels take bfloat16 or float32 '
+                        f'tensors of one type, got {[t.dtype for t in ts]}')
+    if any(t.shape != q.shape for t in ts) or q.dim() != 4:
+        raise ValueError(f'attention tensors must share one 4-d shape, got '
+                         f'{[tuple(t.shape) for t in ts]}')
+    if any(t.device != q.device for t in ts):
+        raise ValueError('attention tensors must be on one device')
     if layout not in ('bnhd', 'bhnd'):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     # dims as (b, h, s, d) whatever the layout
     perm = (0, 2, 1, 3) if layout == 'bnhd' else (0, 1, 2, 3)
-    q, k, v = (_kernel_view(t) for t in (q, k, v))
     b, h, s, d = (q.shape[i] for i in perm)
     if d not in (64, 128):
-        raise ValueError(f'the attention kernel takes head dim 64 or 128, got {d}')
+        raise ValueError(f'the attention kernels take head dim 64 or 128, got {d}')
     n = s if n_valid is None else int(n_valid)
     if not 1 <= n <= s:
         raise ValueError(f'n_valid must lie in [1, {s}], got {n_valid}')
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     sin = cos = None
     if rope is not None:
         sin, cos = (t.to(q.dtype).contiguous() for t in rope)
         if tuple(sin.shape) != (s, d) or tuple(cos.shape) != (s, d):
             raise ValueError(f'rope tables must be [{s}, {d}], got '
                              f'{tuple(sin.shape)}/{tuple(cos.shape)}')
+    return [_kernel_view(t) for t in ts], (b, h, s, d, n), perm, sin, cos
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_fwd(q, k, v, layout, n_valid, rope):
+    (q, k, v), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
+        (q, k, v), layout, n_valid, rope)
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     # bf16 scratch the kernel stages K into (rotated, and rounded from f32)
     # and, for f32, V into, before it streams them
     f32 = q.dtype == torch.float32
@@ -163,16 +220,13 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
     if f32:
         vbuf = torch.empty_like(kbuf)
     st = [[t.stride(i) for i in perm[:3]] for t in (q, k, v, o)]
-    lib = _load_fwd()
+    lib = _load('attention_fwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.ever_attn_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if sin is None else sin.data_ptr(),
-            None if cos is None else cos.data_ptr(),
-            None if kbuf is None else kbuf.data_ptr(),
-            None if vbuf is None else vbuf.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), _KERNEL_DTYPES[q.dtype], b, h, s, d, n,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(sin), _ptr(cos),
+            _ptr(kbuf), _ptr(vbuf), o.data_ptr(), lse.data_ptr(),
+            _KERNEL_DTYPES[q.dtype], b, h, s, d, n,
             *st[0], *st[1], *st[2], *st[3], 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f'attention kernel launch failed: CUDA error {err}')
@@ -180,13 +234,61 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
     return o, lse
 
 
-def _load_fwd():
+def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
+    (q, k, v, o, do), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
+        (q, k, v, o, do), layout, n_valid, rope)
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
+        raise ValueError(f'lse must be float32 [{b}, {h}, {s}], got '
+                         f'{lse.dtype} {tuple(lse.shape)}')
+    if lse.device != q.device:
+        raise ValueError('lse must be on the device of q')
+    lse = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
+                  for _ in range(3))
+    # bf16 scratch: scale*rope(q) always, rope(k) with RoPE or f32, v and do
+    # with f32; delta = rowsum(do*o) in f32
+    f32 = q.dtype == torch.float32
+
+    def scratch(needed):
+        return (torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
+                if needed else None)
+
+    qbuf, kbuf = scratch(True), scratch(rope is not None or f32)
+    vbuf, dobuf = scratch(f32), scratch(f32)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    st = [t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in perm[:3]]
+    lib = _load('attention_bwd')
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ever_attn_bwd(
+            *(_ptr(t) for t in (q, k, v, o, do, lse, sin, cos, qbuf, kbuf,
+                                vbuf, dobuf, delta, dq, dk, dv)),
+            _KERNEL_DTYPES[q.dtype], b, h, s, d, n, *st,
+            1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f'attention backward kernel launch failed: CUDA '
+                           f'error {err}')
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+# ctypes signatures: (pointers, ints, strides) of each C entry
+_SIGNATURES = {
+    'attention_fwd': ('ever_attn_fwd', 9, 6, 12),
+    'attention_bwd': ('ever_attn_bwd', 16, 6, 24),
+}
+
+
+def _load(name: str):
     from ever_tpu_torch.ops._build import load
-    lib = load('attention_fwd')
-    fn = lib.ever_attn_fwd
+    lib = load(name)
+    fn_name, n_ptr, n_int, n_stride = _SIGNATURES[name]
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 12
+        # every pointer and the stream as c_void_p: a plain int would be cut
+        # to 32 bits
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_longlong] * n_stride
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -220,25 +322,81 @@ def fused_attention(q, k, v, layout: str = 'bnhd',
 fused_attention.launches = 0
 
 
+def fused_attention_bwd(q, k, v, o, lse, do, layout: str = 'bnhd',
+                        n_valid: Optional[int] = None, rope=None):
+    """Attention backward through the hand-written kernel: ``(dq, dk, dv)``.
+
+    Port of the JAX fused backward (``_fused_bwd_impl`` / ``_fa_bwd_kernel``)
+    from the unrotated q/k/v, the forward's o and lse, and the upstream
+    gradient ``do``; dq and dk leave inverse-rotated (half-tiled tables).
+    Key rows at or past ``n_valid`` get zero dk/dv; query rows past it are
+    garbage by contract.
+
+    On a CUDA tensor this launches the kernel (bf16 or f32, head dim 64 or
+    128) or raises; on a CPU tensor it runs :func:`attention_bwd_reference`,
+    the plain version of the same function.  ``fused_attention_bwd.launches``
+    counts kernel launches.
+    """
+    if q.device.type == 'cuda':
+        return _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope)
+    if q.device.type == 'cpu':
+        return attention_bwd_reference(q, k, v, o, lse, do, layout=layout,
+                                       n_valid=n_valid, rope=rope)
+    raise RuntimeError(f'no attention kernel for device {q.device}')
+
+
+fused_attention_bwd.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    """o = attention(q, k, v) with :func:`fused_attention` as the forward
+    and :func:`fused_attention_bwd` as the backward: the kernels on CUDA
+    tensors, their plain versions on CPU tensors.  The RoPE tables get no
+    gradient, as in the JAX package's ``_fused_core_rope``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sin, cos, layout, n_valid):
+        rope = None if sin is None else (sin, cos)
+        o, lse = fused_attention(q, k, v, layout=layout, n_valid=n_valid,
+                                 rope=rope)
+        ctx.save_for_backward(q, k, v, sin, cos, o, lse)
+        ctx.layout, ctx.n_valid = layout, n_valid
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, sin, cos, o, lse = ctx.saved_tensors
+        rope = None if sin is None else (sin, cos)
+        dq, dk, dv = fused_attention_bwd(q, k, v, o, lse, do, layout=ctx.layout,
+                                         n_valid=ctx.n_valid, rope=rope)
+        return dq, dk, dv, None, None, None, None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               impl: Optional[str] = None, layout: str = 'bnhd',
               n_valid: Optional[int] = None, rope=None) -> torch.Tensor:
     """Multi-head attention with automatic kernel choice.
 
     ``impl``: None (auto) | ``'xla'`` | ``'fused'`` | ``'flash'``.  Auto picks
-    the kernel for CUDA tensors with at least ``FUSED_TOKEN_THRESHOLD``
-    tokens, whatever their type (the kernel raises on one it does not take),
-    and the plain path otherwise.
+    the kernels for CUDA tensors with at least ``FUSED_TOKEN_THRESHOLD``
+    tokens, whatever their type (the kernels raise on one they do not take),
+    and the plain path otherwise.  On the kernel path a gradient flows
+    through the backward kernel when q, k or v requires one.
     ``n_valid``: only the first ``n_valid`` tokens are real (stack-level
     padding); pad keys are masked out, pad query rows are garbage.
     ``rope``: optional ``(sin, cos)`` [N, D] tables (identity rows where
-    tokens must not rotate).
+    tokens must not rotate; half-tiled, as the backward assumes).
     """
     n = q.shape[2 if layout == 'bhnd' else 1]
     if impl is None:
         impl = ('fused' if q.device.type == 'cuda'
                 and n >= FUSED_TOKEN_THRESHOLD else 'xla')
     if impl in ('fused', 'flash'):
+        if torch.is_grad_enabled() and any(
+                getattr(t, 'requires_grad', False) for t in (q, k, v)):
+            sin, cos = (None, None) if rope is None else rope
+            return _FusedAttention.apply(q, k, v, sin, cos, layout, n_valid)
         return fused_attention(q, k, v, layout=layout, n_valid=n_valid,
                                rope=rope)[0]
     if impl != 'xla':

@@ -184,3 +184,164 @@ def test_kernel_view_keeps_aligned_strided_views_and_copies_the_rest():
     odd = torch.zeros((2, 8, 3, 2, 60), dtype=torch.bfloat16)[..., :56].unbind(2)[0]
     copy = TA._kernel_view(odd)
     assert copy is not odd and copy.is_contiguous() and torch.equal(copy, odd)
+
+
+# -- the backward: K2's plain version and the autograd Function ---------------
+
+def _jax_fused_bwd(q, k, v, tables, n, do):
+    """The JAX backward kernel launcher on the inputs ``_fused`` would give
+    it (see ``_jax_fused_fwd``), with ``do`` zero on the pad rows.  Returns
+    dq with respect to the UNscaled q, dk and dv, as [B,S,H,D]."""
+    b, s, h, d = q.shape
+    target = JA.pad_target(s)
+    pad = ((0, 0), (0, 0), (0, target - s), (0, 0))
+    qt, kt, vt, dot = (jnp.pad(jnp.swapaxes(jnp.asarray(t), 1, 2), pad)
+                       for t in (q, k, v, do))
+    scale = 1.0 / d ** 0.5
+    qt = qt * scale
+    rope = None
+    if tables is not None:
+        sign = np.where(np.arange(d) < d // 2, -1.0, 1.0).astype(np.float32)
+        sinp = np.concatenate([tables[0] * sign, np.zeros((target - s, d), np.float32)])
+        cosp = np.concatenate([tables[1], np.ones((target - s, d), np.float32)])
+        rope = (jnp.asarray(sinp), jnp.asarray(cosp))
+    o, lse = JA._fused_fwd_impl(qt, kt, vt, rope, n, interpret=True)
+    dq, dk, dv = JA._fused_bwd_impl(qt, kt, vt, rope, o, lse, dot, n, interpret=True)
+    back = lambda t: np.array(np.swapaxes(np.asarray(t), 1, 2)[:, :s])  # noqa: E731
+    return (back(o), np.asarray(lse)[:, :, :s, 0],
+            back(dq) * scale, back(dk), back(dv))
+
+
+# float32 on both sides; the gradients sum over all keys or all queries in
+# different orders, so they agree to a few 1e-6 at O(1) values
+BWD_TOL = dict(rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize('s,d', [(40, 16), (77, 64)])
+@pytest.mark.parametrize('rope', [False, True])
+@pytest.mark.parametrize('short', [False, True])
+def test_bwd_reference_matches_jax_fused_kernel(s, d, rope, short):
+    """dq, dk, dv of the port's plain backward against the JAX backward
+    kernel (interpret mode) from the same o, lse and do, with and without
+    RoPE and n_valid.  dq rows past n_valid are garbage by contract; dk and
+    dv past it are zero in both."""
+    q, k, v, tables = _inputs(s * d + rope + 2 * short + 1, 2, 2, s, d, rope)
+    do = np.random.default_rng(s + d).normal(size=q.shape).astype(np.float32)
+    n = s - 7 if short else s
+    jo, jlse, jdq, jdk, jdv = _jax_fused_bwd(q, k, v, tables, n, do)
+    dq, dk, dv = TA.attention_bwd_reference(
+        *(torch.from_numpy(t) for t in (q, k, v, jo, jlse, do)),
+        n_valid=n if short else None,
+        rope=None if tables is None else tuple(map(torch.from_numpy, tables)))
+    np.testing.assert_allclose(dq.numpy()[:, :n], jdq[:, :n], **BWD_TOL)
+    np.testing.assert_allclose(dk.numpy(), jdk, **BWD_TOL)
+    np.testing.assert_allclose(dv.numpy(), jdv, **BWD_TOL)
+    if short:
+        assert not dk[:, n:].any() and not dv[:, n:].any()
+
+
+@pytest.mark.parametrize('rope', [False, True])
+@pytest.mark.parametrize('layout', ['bnhd', 'bhnd'])
+@pytest.mark.parametrize('short', [False, True])
+def test_bwd_reference_matches_autograd(rope, layout, short):
+    """The written-out backward against autograd of the plain forward
+    (half-tiled tables, where the inverse rotation is the transpose)."""
+    q, k, v, tables = _inputs(11 + rope, 2, 3, 33, 16, rope)
+    if layout == 'bhnd':
+        q, k, v = (np.ascontiguousarray(np.swapaxes(t, 1, 2)) for t in (q, k, v))
+    n_valid = 29 if short else None
+    rope_t = None if tables is None else tuple(map(torch.from_numpy, tables))
+    qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    o = TA.attention_reference(*qkv, layout=layout, n_valid=n_valid, rope=rope_t)
+    do = torch.from_numpy(np.random.default_rng(5).normal(size=o.shape).astype(np.float32))
+    want = torch.autograd.grad(o, qkv, do)
+    o2, lse = TA.attention_reference(*(t.detach() for t in qkv), layout=layout,
+                                     n_valid=n_valid, rope=rope_t, return_lse=True)
+    got = TA.attention_bwd_reference(*(t.detach() for t in qkv), o2, lse, do,
+                                     layout=layout, n_valid=n_valid, rope=rope_t)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize('layout', ['bnhd', 'bhnd'])
+@pytest.mark.parametrize('impl', ['fused', 'flash'])
+def test_kernel_path_gradient_is_the_plain_backward_on_cpu(layout, impl):
+    """attention(impl='fused'/'flash') with requires_grad on CPU tensors goes
+    through the autograd Function: the plain forward and the written-out
+    backward, bit for bit, with no launch counted and no table gradient."""
+    q, k, v, tables = _inputs(13, 2, 2, 40, 16, rope=True)
+    if layout == 'bhnd':
+        q, k, v = (np.ascontiguousarray(np.swapaxes(t, 1, 2)) for t in (q, k, v))
+    sin, cos = (torch.from_numpy(t).requires_grad_() for t in tables)
+    qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
+    before = (TA.fused_attention.launches, TA.fused_attention_bwd.launches)
+    o = TA.attention(*qkv, impl=impl, layout=layout, n_valid=37, rope=(sin, cos))
+    assert o.grad_fn is not None and 'FusedAttention' in type(o.grad_fn).__name__
+    do = torch.from_numpy(np.random.default_rng(2).normal(size=o.shape).astype(np.float32))
+    o.backward(do)
+    o2, lse = TA.attention_reference(*(t.detach() for t in qkv), layout=layout,
+                                     n_valid=37, rope=(sin.detach(), cos.detach()),
+                                     return_lse=True)
+    want = TA.attention_bwd_reference(*(t.detach() for t in qkv), o2, lse, do,
+                                      layout=layout, n_valid=37,
+                                      rope=(sin.detach(), cos.detach()))
+    assert torch.equal(o.detach(), o2)
+    for t, w in zip(qkv, want):
+        assert torch.equal(t.grad, w)
+    assert sin.grad is None and cos.grad is None
+    assert (TA.fused_attention.launches, TA.fused_attention_bwd.launches) == before
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32, torch.float16])
+def test_cuda_gradients_reach_the_backward_kernel_launcher(monkeypatch, dtype):
+    """On the card the Function's backward goes to the K2 launcher (which
+    launches or raises) with the saved unrotated q/k/v, tables, o and lse;
+    the plain backward is never taken there."""
+    calls = []
+
+    def launch(q, k, v, o, lse, do, layout, n_valid, rope):
+        calls.append((q.dtype, layout, n_valid, rope is not None, o, lse, do))
+        return 'dq', 'dk', 'dv'
+
+    def plain(*args, **kwargs):
+        raise AssertionError('a CUDA tensor reached the plain backward')
+
+    monkeypatch.setattr(TA, '_launch_bwd', launch)
+    monkeypatch.setattr(TA, 'attention_bwd_reference', plain)
+    q = _CudaStub((2, TA.FUSED_TOKEN_THRESHOLD, 4, 64), dtype)
+    ctx = type('Ctx', (), dict(saved_tensors=(q, q, q, 'sin', 'cos', 'o', 'lse'),
+                               layout='bnhd', n_valid=500))()
+    grads = TA._FusedAttention.backward(ctx, 'do')
+    assert grads == ('dq', 'dk', 'dv', None, None, None, None)
+    assert calls == [(dtype, 'bnhd', 500, True, 'o', 'lse', 'do')]
+
+
+@pytest.mark.parametrize('change,error', [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(do_dtype=torch.float32), TypeError),
+    (dict(d=32), ValueError),
+    (dict(n_valid=0), ValueError),
+    (dict(n_valid=9), ValueError),
+    (dict(layout='nbhd'), ValueError),
+    (dict(rope_rows=7), ValueError),
+    (dict(lse_shape=(1, 2, 7)), ValueError),
+    (dict(lse_dtype=torch.bfloat16), ValueError),
+])
+def test_backward_launcher_rejects_what_the_kernel_does_not_take(
+        monkeypatch, change, error):
+    """The K2 launcher's checks (the forward's, plus o, do and lse) run
+    before the kernel library is built or loaded."""
+    def no_load(name):
+        raise AssertionError('the kernel library was loaded before the checks')
+
+    monkeypatch.setattr(TA, '_load', no_load)
+    p = dict(dtype=torch.bfloat16, do_dtype=None, d=64, n_valid=None,
+             layout='bnhd', rope_rows=8, lse_shape=(1, 2, 8),
+             lse_dtype=torch.float32)
+    p.update(change)
+    q = torch.zeros((1, 8, 2, p['d']), dtype=p['dtype'])
+    do = q if p['do_dtype'] is None else q.to(p['do_dtype'])
+    lse = torch.zeros(p['lse_shape'], dtype=p['lse_dtype'])
+    rope = (torch.zeros(p['rope_rows'], p['d']), torch.ones(p['rope_rows'], p['d']))
+    with pytest.raises(error):
+        TA._launch_bwd(q, q, q, q, lse, do, p['layout'], p['n_valid'], rope)

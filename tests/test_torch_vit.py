@@ -141,11 +141,153 @@ def test_resize_matches_jax(method, shape):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
-def test_training_branch_not_ported_yet():
-    m = tbuilder.make_model({'type': 'DinoSeg', 'params': _dinoseg_config()},
+# -- training parts of the trunk -------------------------------------------------
+
+_AUGS = {'shift': dict(shift_coords=0.5), 'jitter': dict(jitter_coords=1.5),
+         'rescale': dict(rescale_coords=2.0),
+         'all': dict(shift_coords=0.3, jitter_coords=1.4, rescale_coords=2.0)}
+
+
+@pytest.mark.parametrize('kind', sorted(_AUGS))
+def test_rope_augmentation_matches_jax_at_given_draws(monkeypatch, kind):
+    """The train-time RoPE tables at fixed uniform draws: the JAX module's
+    ``jax.random.uniform`` returns the given u, and the port gets the same u
+    through its draw formula.  Float32 angles, tolerance 1e-5."""
+    aug = _AUGS[kind]
+    values = {'shift': [0.13, 0.71], 'jitter': [0.42, 0.95], 'rescale': [0.27]}
+    order = [k for k in ('shift', 'jitter', 'rescale') if f'{k}_coords' in aug]
+    jax_u = [np.array(values[k], np.float32) for k in order]
+
+    def fake_uniform(key, shape, minval=0.0, maxval=1.0, **kw):
+        draw = jax_u.pop(0)
+        assert draw.shape == tuple(shape)
+        return minval + jnp.asarray(draw) * (maxval - minval)
+
+    monkeypatch.setattr(jax.random, 'uniform', fake_uniform)
+    jrope = jvit.RopePositionEmbedding(embed_dim=384, num_heads=6, **aug)
+    jsin, jcos = jrope.apply({}, 6, 9, train=True, rngs={'dropout': jax.random.key(0)})
+    assert not jax_u
+    trope = tvit.RopePositionEmbedding(384, 6, **aug)
+
+    class Gen:          # a generator whose rand() returns the same u in turn
+        device = torch.device('cpu')
+
+    torch_u = [torch.tensor(values[k]) for k in order]
+    monkeypatch.setattr(torch, 'rand', lambda n, generator, device: torch_u.pop(0))
+    draws = trope.draw(Gen())
+    assert set(draws) == {k for k in ('shift', 'jitter', 'rescale')
+                          if f'{k}_coords' in aug}
+    tsin, tcos = trope(6, 9, **draws)
+    np.testing.assert_allclose(tsin.numpy(), np.asarray(jsin), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tcos.numpy(), np.asarray(jcos), rtol=1e-5, atol=1e-5)
+
+
+def _trunk(**kw):
+    torch.manual_seed(0)
+    return tvit.DinoVisionTransformer('vit_small', n_storage_tokens=4,
+                                      layerscale_init=1.0, **kw)
+
+
+def test_rope_augmentation_draws_anew_for_every_block():
+    """In training every block gets its own tables, drawn from the given
+    generator (the same seed gives the same tables); in eval every block
+    gets the plain tables."""
+    vit = _trunk(pos_embed_rope_rescale_coords=2.0)
+    seen = []
+    for blk in vit.blocks:
+        blk.attn.register_forward_pre_hook(lambda m, a: seen.append(a[1][0].clone()))
+    x = torch.randn(1, 32, 32, 3)
+    with torch.no_grad():
+        vit(x, train=True, generator=torch.Generator().manual_seed(1))
+        first, seen[:] = list(seen), []
+        vit(x, train=True, generator=torch.Generator().manual_seed(1))
+        again, seen[:] = list(seen), []
+        vit(x, train=False)
+    assert len(first) == 12
+    assert all(not torch.equal(a, b) for a, b in zip(first, first[1:]))
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    plain = tvit.RopePositionEmbedding(384, 6)(2, 2)[0]
+    assert all(torch.equal(t, plain) for t in seen)
+
+
+@pytest.mark.parametrize('rate', [0.1, 0.5])
+def test_drop_path_with_the_mask_fed_in_matches_jax(rate):
+    """Per-sample stochastic depth from the JAX package's Bernoulli mask,
+    fed to the port: the same output (x·mask / keep)."""
+    x = np.random.default_rng(4).normal(size=(16, 5, 8)).astype(np.float32)
+    key = jax.random.key(9)
+    want = np.asarray(jvit.drop_path(jnp.asarray(x), rate, False, key))
+    mask = np.array(jax.random.bernoulli(key, 1.0 - rate, (16, 1, 1)))[:, 0, 0]
+    got = tvit.drop_path(torch.from_numpy(x), rate, torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert torch.equal(tvit.drop_path(torch.from_numpy(x), rate, None), torch.from_numpy(x))
+
+
+@pytest.mark.parametrize('rate', [0.1, 0.4])
+def test_drop_path_keep_rate_over_many_draws(rate):
+    """The masks keep each sample with probability 1 - rate: 40000 draws
+    land within 4.5 standard deviations of it."""
+    gen = torch.Generator().manual_seed(3)
+    keep = torch.stack([tvit.drop_path_mask(400, rate, gen) for _ in range(100)])
+    n = keep.numel()
+    sd = (rate * (1 - rate) / n) ** 0.5
+    assert abs(keep.float().mean().item() - (1 - rate)) < 4.5 * sd
+    assert keep.dtype == torch.bool
+
+
+def test_training_draws_need_a_generator():
+    vit = _trunk(drop_path_rate=0.2)
+    with pytest.raises(ValueError, match='generator'):
+        vit(torch.zeros(1, 32, 32, 3), train=True)
+    vit(torch.zeros(1, 32, 32, 3), train=False)      # eval draws nothing
+
+
+@pytest.mark.parametrize('mode', ['full', 'dots'])
+def test_remat_grads_equal_plain_with_drop_path_and_rope_augmentation(mode):
+    """Per-block remat recomputes the blocks in the backward.  The RoPE
+    tables and drop-path masks are drawn outside the checkpointed blocks,
+    so the recompute sees the same draws and the gradients equal those of
+    the trunk without remat (a draw inside a block would take other numbers
+    from the generator on recompute).  Same ops in the same order: 1e-6."""
+    kw = dict(drop_path_rate=0.3, pos_embed_rope_rescale_coords=2.0,
+              pos_embed_rope_shift_coords=0.2, attn_impl='fused')
+    plain, remat = _trunk(**kw), _trunk(remat=mode, **kw)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(5))
+    grads = []
+    for m in (plain, remat):
+        out = m(x, train=True, generator=torch.Generator().manual_seed(11))
+        (out['x_norm_patchtokens'].square().mean() + out['x_norm_clstoken'].sum()).backward()
+        grads.append({k: p.grad for k, p in m.named_parameters()})
+    for k, g in grads[0].items():
+        np.testing.assert_allclose(grads[1][k].numpy(), g.numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+
+
+def test_remat_invalid_mode_raises():
+    with pytest.raises(ValueError, match='remat'):
+        tbuilder.make_model({'type': 'DinoSeg', 'params': _dinoseg_config(remat='bogus')},
                             device='cpu')
-    with pytest.raises(NotImplementedError):
-        m(torch.zeros(1, 32, 32, 3), torch.zeros(1, 32, 32, dtype=torch.long), train=True)
-    with pytest.raises(NotImplementedError):
-        tbuilder.make_model({'type': 'DinoSeg', 'params': _dinoseg_config(remat='full')},
-                            device='cpu')
+
+
+@pytest.mark.parametrize('dice', [None, dict(smooth_value=1.0, ignore_channel=0)])
+def test_dinoseg_train_branch_matches_jax(dinoseg_weights, dice):
+    """``forward(x, y, train=True)`` returns the JAX loss dict (cls_loss, and
+    dice_loss when configured) on the same weights and labels; with
+    ``y=None`` it returns probabilities.  Float32, 12 blocks: 1e-5."""
+    cfg = dict(_dinoseg_config(attn_impl='xla'), loss=dict(ignore_index=255, dice=dice))
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 64, 64, 3)).astype(np.float32)
+    y = rng.integers(0, 5, size=(2, 64, 64)).astype(np.int32)
+    y[0, :8] = 255
+    jmodel = jbuilder.make_model({'type': 'DinoSeg', 'params': cfg})
+    want = jmodel.apply(dinoseg_weights, jnp.asarray(x), jnp.asarray(y), train=True)
+    tmodel = tbuilder.make_model({'type': 'DinoSeg', 'params': cfg}, device='cpu')
+    tmodel.load_state_dict(convert_flax_dinoseg(dinoseg_weights), strict=True)
+    got = tmodel(torch.from_numpy(x), torch.from_numpy(y), train=True)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k].detach()), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+    probs = tmodel(torch.from_numpy(x), None, train=True)
+    assert probs.shape == (2, 64, 64, 5)
