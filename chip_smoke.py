@@ -356,8 +356,9 @@ def build_dinoseg(gen, **backbone):
     return model
 
 
-def phase_serve(gen, profile: bool) -> int:
-    """The serving path; returns its K1 launches per scene."""
+def phase_serve(gen, profile: bool) -> None:
+    """The serving path: one scene, one tile batch against plain attention,
+    one float32 tile batch."""
     from ever_tpu_torch import tiled_inference
     from ever_tpu_torch.module.vit import SelfAttention
     from ever_tpu_torch.ops import attention as A
@@ -440,7 +441,6 @@ def phase_serve(gen, profile: bool) -> int:
         model.to(torch.bfloat16)
         with torch.no_grad():
             profile_run('one serving tile batch', lambda: model(tiles))
-    return launches
 
 
 def loss_and_grads(model, x, y, seed: int):

@@ -21,11 +21,9 @@ __all__ = ['softmax_ce_loss_with_logits', 'dice_loss_with_logits']
 
 
 def _flatten(y_pred, y_true):
-    """Logits as f32 ``[P, C]``, labels as ``[P]``, the valid-pixel mask and
-    the labels with ignored pixels set to class 0."""
+    """Logits as f32 ``[P, C]`` and labels as ``[P]``."""
     c = y_pred.shape[-1]
-    y_pred, y_true = y_pred.reshape(-1, c).float(), y_true.reshape(-1)
-    return y_pred, y_true
+    return y_pred.reshape(-1, c).float(), y_true.reshape(-1)
 
 
 @registry.LOSS.register('softmax_ce')

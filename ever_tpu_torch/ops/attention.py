@@ -394,7 +394,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 and n >= FUSED_TOKEN_THRESHOLD else 'xla')
     if impl in ('fused', 'flash'):
         if torch.is_grad_enabled() and any(
-                getattr(t, 'requires_grad', False) for t in (q, k, v)):
+                t.requires_grad for t in (q, k, v)):
             sin, cos = (None, None) if rope is None else rope
             return _FusedAttention.apply(q, k, v, sin, cos, layout, n_valid)
         return fused_attention(q, k, v, layout=layout, n_valid=n_valid,

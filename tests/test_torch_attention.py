@@ -133,6 +133,7 @@ class _CudaStub:
     def __init__(self, shape, dtype):
         self.shape, self.dtype = shape, dtype
         self.device = torch.device('cuda')
+        self.requires_grad = False
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32, torch.float16])
