@@ -19,11 +19,13 @@ import torch
 
 from ever_tpu.core import builder as jbuilder
 from ever_tpu.module import loss as jloss
+from ever_tpu.module import vit as jvit
 from ever_tpu.opt import learning_rate as jlr
 from ever_tpu.opt import optimizer as jopt
 from ever_tpu.parallel import spmd as jspmd
 from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.module import loss as tloss
+from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.opt import learning_rate as tlr
 from ever_tpu_torch.opt import optimizer as topt
 from ever_tpu_torch.parallel import spmd as tspmd
@@ -266,6 +268,14 @@ def _opt(jsched_or_t, which):
     return factory.build(jsched_or_t, grad_clip=dict(max_norm=1.0))
 
 
+def _jax_state(tx, params):
+    """The JAX package's TrainState from given weights: what
+    ``create_train_state(..., init_params=params)`` returns, without the
+    eager ``model.init`` it runs first (seconds of op-by-op tracing)."""
+    return jspmd.TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                            batch_stats={}, opt_state=tx.init(params))
+
+
 def _schedules():
     cfg = {'type': 'cosine', 'params': dict(
         base_lr=1e-3, max_iters=10, warmup=dict(type='linear', step=2, ratio=0.1))}
@@ -312,7 +322,7 @@ def test_slice_dinoseg_fused_kernels_train_like_jax():
 
     jsched, tsched = _schedules()
     tx = _opt(jsched, 'jax')
-    jstate = jspmd.create_train_state(jmodel, tx, (x, y), init_params=params)
+    jstate = _jax_state(tx, params)
     jstep = jspmd.build_train_step(jmodel, tx, jsched, donate=False)
     rule = _opt(tsched, 'torch')
     tstate = tspmd.create_train_state(tmodel, rule)
@@ -329,13 +339,17 @@ def test_slice_dinoseg_fused_kernels_train_like_jax():
     assert all(p.dtype == torch.float32 for p in tmodel.parameters())
 
 
-def test_train_step_microbatches_match_jax():
+def test_train_step_microbatches_match_jax(monkeypatch):
     """forward_times=2: the microbatches' gradients and metrics averaged,
-    against the JAX step's scan, on a small DinoSeg (plain attention, 32²
-    tiles) with SGD + momentum at a constant LR.  Metrics and params after
-    one step; float32 in both, rtol 2e-5 on metrics, 1e-6 absolute on params
-    moved by lr·|g| ≈ 1e-2 · O(0.1)."""
-    cfg = _small_dinoseg_cfg(attn_impl='xla')
+    against the JAX step's scan, on a 2-block DinoSeg (vit_small's width,
+    registered for this test in both packages' VIT_SPECS, so that the JAX
+    step compiles quickly; plain attention, 32² tiles) with SGD + momentum
+    at a constant LR.  Metrics and params after one step; float32 in both,
+    rtol 2e-5 on metrics, 1e-6 absolute on params moved by
+    lr·|g| ≈ 1e-2 · O(0.1)."""
+    for specs in (jvit.VIT_SPECS, tvit.VIT_SPECS):
+        monkeypatch.setitem(specs, 'vit_2block', (2, 384, 6, 4.0, 'mlp'))
+    cfg = _small_dinoseg_cfg(attn_impl='xla', name='vit_2block')
     x, y = _batch(4, 32, seed=5)
     xs, ys = x.reshape(2, 2, *x.shape[1:]), y.reshape(2, 2, *y.shape[1:])
     jmodel = jbuilder.make_model({'type': 'DinoSeg', 'params': cfg})
@@ -343,7 +357,7 @@ def test_train_step_microbatches_match_jax():
     _, tmodel = _both(cfg, x, {'params': params})
     opt_cfg = {'type': 'sgd', 'params': dict(momentum=0.9)}
     tx = jbuilder.make_optimizer(opt_cfg)[0].build(0.01)
-    jstate = jspmd.create_train_state(jmodel, tx, (x, y), init_params=params)
+    jstate = _jax_state(tx, params)
     jstep = jspmd.build_train_step(jmodel, tx, forward_times=2, donate=False)
     jstate, jm = jstep(jstate, (jnp.asarray(xs), jnp.asarray(ys)))
     rule = tbuilder.make_optimizer(opt_cfg)[0].build(0.01)
