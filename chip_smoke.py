@@ -7,7 +7,7 @@ Phases (any failure exits non-zero before the last line is printed):
 
 1. build   — compile every CUDA kernel of the paths from ``ever_tpu_torch/csrc``
              with ``nvcc``, one process per source, all at once.
-2. kernels — each kernel against its plain PyTorch version on the card:
+2. kernels — each attention kernel against its plain PyTorch version on the card:
              the attention forward (K1) and backward (K2) at the main
              paths' shape (B=8, H=16, N=1029, D=64, bf16, RoPE), with stack
              padding (N=1032, ``n_valid=1029``), at head dim 128 without RoPE,
@@ -34,12 +34,28 @@ Phases (any failure exits non-zero before the last line is printed):
              step without remat, and one forward and backward through
              ``impl='flash'`` at N=16389 (a 2048² tile) against the plain
              versions.
-5. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
+5. farseg  — FarSeg-R50 (the JAX package's ``farseg`` bench section, without
+             its TPU-only layouts) with ``maxpool_impl='pallas'``: first the
+             stem's max pool backward (K8) against its plain version at the
+             main shape ([8, 256, 256, 64] bf16), in float32, at [2, 30, 22, 5]
+             (the unaligned path) and on inputs with ties, then timed.  Then
+             the train step: 512² tiles, batch 8, bf16 compute with float32
+             parameters, SGD with momentum 0.9 and a poly schedule (base_lr
+             0.01, power 0.9, 1000 iterations), built through ``builder`` and
+             ``parallel.spmd``; two warm-up and ten timed steps, one K8
+             launch per step, a finite loss and grad_norm every step,
+             parameters still float32, running statistics finite and moved;
+             the step's FLOPs counted once by ``FlopCounterMode`` for MFU.
+             Then the gradients of 2 tiles at float32 compute through K8
+             against ``maxpool_impl='reduce_window'``.  Then one 4096² scene
+             through ``tiled_inference`` (512² tiles, stride 512,
+             ``tile_batch=8``, bf16): no K8 launch, as K8 is a backward.
+6. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds ``torch.profiler`` traces of one tile batch (serving) and
-one train step: device busy time against wall time, and the kernels that
-take the most device time.
+``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
+step of each model: device busy time against wall time, device time by kind
+of kernel, and the kernels that take the most of it.
 
 It imports nothing of JAX and needs one CUDA card; without one it exits 1.
 """
@@ -106,6 +122,42 @@ GRAD_REL_TOL, GRAD_COS_MIN = 1e-2, 0.999
 REMAT_REL_TOL = 1e-3
 # impl='flash' at a 2048² tile: N = 128² + 5 tokens, B=1, H=2
 FLASH_N = 128 * 128 + 5
+# CUDA-core float32 peak (NVIDIA data sheet): K8's compares and adds
+PEAK_F32_FLOPS = 67e12
+# K8 (the stem max pool's backward) at FarSeg-R50's 512², batch-8 stem
+POOL_SHAPE = (8, 256, 256, 64)
+# (shape, type, ties): the main shape, in float32, an H and W that are even
+# but leave a ragged block with C off the 8-wide vector (the kernel's
+# element-by-element path), and small integers (many exact ties)
+POOL_CASES = ((POOL_SHAPE, torch.bfloat16, False), (POOL_SHAPE, torch.float32, False),
+              ((2, 30, 22, 5), torch.bfloat16, False), ((8, 64, 64, 64), torch.bfloat16, True))
+# K8 vs its plain version: both compare the same values exactly and sum the
+# same <= 4 float32 terms before one rounding, so they should agree to the
+# bit; the limit is one bf16 ulp of the largest |dx| (2^-8 relative), which
+# a dropped or misplaced window term exceeds (it moves dx by a whole g)
+POOL_TOL = 2.0 ** -8
+# the FarSeg-R50 train step: the JAX package's farseg bench section
+FARSEG = dict(encoder=dict(resnet_type='resnet50', maxpool_impl='pallas'),
+              classes=CLASSES, dtype='bfloat16')
+# K8 vs maxpool_impl='reduce_window' on 2 tiles at float32 compute: the two
+# backwards differ at the exact ties of the stem's BatchNorm output (float32
+# values of 8 M pixels: a few windows hold two equal maxima), where K8 sends
+# the gradient to each and the library to one; that moves the stem's
+# gradients, above all the cancelling sums of its BatchNorm's.  Two runs of
+# the same step differ far less (cuDNN's backward convolutions, printed
+# beside).  The first run measured 4.8e-4 and a worst cosine of 0.99987;
+# the limits sit ten times further out.  A K8 that drops a window's term
+# moves the stem conv's cosine far below them.
+FARSEG_GRAD_REL_TOL, FARSEG_GRAD_COS_MIN = 5e-3, 0.9987
+
+
+# kernel-name words that sort a profile's device time by kind
+PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'maxpool32')),
+                 ('convolutions and matmuls', ('xmma', 'gemm', 'nvjet', 'cutlass', 'conv')),
+                 ('normalization', ('batch_norm', 'layer_norm', 'GammaBeta')),
+                 ('resizes', ('upsample',)),
+                 ('optimizer', ('multi_tensor_apply',)),
+                 ('reductions', ('reduce_kernel',)))
 
 
 class SmokeFailure(RuntimeError):
@@ -237,9 +289,10 @@ def check_bwd(gen) -> float:
     return max(errs)
 
 
-def bound(flops: float, nbytes: float):
-    """(bound ms, 'operations' or 'bytes') on the H100's bf16 and memory peaks."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    """(bound ms, 'operations' or 'bytes') on the H100's memory peak and
+    ``peak_flops`` (the bf16 tensor-core peak unless given)."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
@@ -333,10 +386,21 @@ def profile_run(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # rows named like 'Optimizer.step#SGD.step' are annotations spanning
+    # kernels, not kernels
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and '#' not in e.key]
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     print(f'profile: {label} under the profiler: {wall_ms:.2f} ms wall, '
           f'{busy_ms:.2f} ms of kernels, {len(kernels)} kernel names', flush=True)
+    kinds = {}
+    for e in kernels:
+        kind = next((k for k, words in PROFILE_KINDS if any(w in e.key for w in words)),
+                    'elementwise, copies and the rest')
+        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
+    print('profile: by kind: ' + '; '.join(
+        f'{k} {v:.3f} ms' for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+        flush=True)
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:20]:
         print(f'profile: {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x '
               f'{e.key[:100]}', flush=True)
@@ -610,11 +674,260 @@ def check_flash_route(gen) -> None:
     check(ok, 'flash route disagrees with the plain versions')
 
 
+def pool_inputs(gen, shape, dtype, ties):
+    """x (a BatchNorm output's scale, or small integers for ties), the
+    forward's out and a random upstream gradient, all [N, H, W, C] views of
+    NCHW tensors in channels_last memory, as the ResNet stem makes them."""
+    if ties:
+        x = torch.randint(-2, 3, shape, generator=gen, device='cuda').to(dtype)
+    else:
+        x = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    out = torch.nn.functional.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+    g = torch.randn(out.shape, generator=gen, device='cuda').to(dtype)
+    return x, out, g
+
+
+def check_maxpool(gen) -> float:
+    """K8 against its plain version at every case, and against the library
+    backward on float32 inputs without ties; the largest error."""
+    from ever_tpu_torch.ops import pool as P
+
+    errs = []
+    for shape, dtype, ties in POOL_CASES:
+        x, out, g = pool_inputs(gen, shape, dtype, ties)
+        dx = P.max_pool_32_bwd(x, out, g)
+        torch.cuda.synchronize()
+        ref = P.max_pool_32_bwd_reference(x, out, g)
+        err = (dx.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        name = f'maxpool_bwd {list(shape)} {str(dtype)[6:]}{" ties" if ties else ""}'
+        extra = ''
+        if ties:
+            # with ties a window's gradient reaches every tied maximum:
+            # more of dx is nonzero than the library's one-winner backward
+            lib = torch.ops.aten.max_pool2d_with_indices_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), [3, 3], [2, 2], [1, 1],
+                [1, 1], False, torch.nn.functional.max_pool2d(
+                    x.permute(0, 3, 1, 2), 3, 2, 1, return_indices=True)[1])
+            extra = (f', nonzero dx {int((dx != 0).sum())} vs '
+                     f'{int((lib != 0).sum())} with one winner per window')
+        print(f'kernels: {name}: max|dx-plain| {err:.3e} (max|dx| {scale:.3e}, '
+              f'tolerance {POOL_TOL}·max){extra}', flush=True)
+        check(dx.dtype == dtype and dx.shape == x.shape, f'{name}: dx is {dx.dtype} '
+              f'{tuple(dx.shape)}')
+        check(bool(torch.isfinite(dx).all()), f'{name}: non-finite dx')
+        check(err <= POOL_TOL * scale, f'{name} disagrees with its plain version')
+        errs.append(err)
+
+    # against the library backward where no window holds a tie: distinct
+    # float32 integers (float32 normals at the main shape hold some
+    # exact ties), so both give each window's gradient to its one maximum
+    shape = (2, 64, 64, 64)
+    x = torch.randperm(math.prod(shape), generator=gen, device='cuda').float().view(shape)
+    xc = x.permute(0, 3, 1, 2)
+    out, idx = torch.nn.functional.max_pool2d(xc, 3, 2, 1, return_indices=True)
+    g = torch.randn(out.shape, generator=gen, device='cuda').permute(0, 2, 3, 1).contiguous()
+    dx = P.max_pool_32_bwd(x, out.permute(0, 2, 3, 1).contiguous(), g)
+    lib = torch.ops.aten.max_pool2d_with_indices_backward(
+        g.permute(0, 3, 1, 2), xc, [3, 3], [2, 2], [1, 1], [1, 1], False, idx)
+    lib_err = (dx - lib.permute(0, 2, 3, 1)).abs().max().item()
+    print(f'kernels: maxpool_bwd {list(shape)} float32 without ties: max|dx-library| '
+          f'{lib_err:.3e} (max|dx| {dx.abs().max().item():.3e}, tolerance 1e-6·max)',
+          flush=True)
+    check(lib_err <= 1e-6 * dx.abs().max().item(),
+          'maxpool_bwd disagrees with the library backward without ties')
+    return max(errs)
+
+
+def phase_maxpool(gen):
+    """K8 checked at every case and timed at the main shape: its record."""
+    from ever_tpu_torch.ops import pool as P
+
+    err = check_maxpool(gen)
+    x, out, g = pool_inputs(gen, POOL_SHAPE, torch.bfloat16, False)
+    ms = cuda_ms(lambda: P.max_pool_32_bwd(x, out, g), iters=100)
+    plain_ms = cuda_ms(lambda: P.max_pool_32_bwd_reference(x, out, g), iters=5)
+    x32, out32, g32 = (t.float().contiguous() for t in (x, out, g))
+    f32_ms = cuda_ms(lambda: P.max_pool_32_bwd(x32, out32, g32), iters=50)
+    # yardstick only: the library backward given the forward's indices
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+    idx = torch.nn.functional.max_pool2d(xc, 3, 2, 1, return_indices=True)[1]
+    library_ms = cuda_ms(lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+        gc, xc, [3, 3], [2, 2], [1, 1], [1, 1], False, idx), iters=100)
+    # x, out and g read once, dx written once; a compare and an add for each
+    # window covering each input (1, 2 or 4 by row and column parity: 2.25
+    # on average), on the CUDA cores
+    n = x.numel()
+    nbytes = (2 * n + 2 * out.numel()) * x.element_size()
+    flops = 2 * 2.25 * n
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_F32_FLOPS)
+    print(f'kernels: maxpool_bwd {ms:.4f} ms/launch ({nbytes / ms / 1e9:.3f} TB/s), '
+          f'plain {plain_ms:.4f} ms, library (max_pool2d_with_indices_backward) '
+          f'{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, '
+          f'{flops / 1e6:.0f} M operations); float32 inputs {f32_ms:.4f} ms/launch',
+          flush=True)
+    return dict(name='maxpool_bwd', route='cuda', source='ever_tpu_torch/csrc/maxpool_bwd.cu',
+                replaces='ever_tpu/ops/pool.py:53', launches=None, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def seeded_conv_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded random weights for a conv net: kernels ~N(0, 2/fan_in) (He),
+    BatchNorm weights ~N(1, 0.1²), biases ~N(0, 0.02²)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() >= 2:
+                fan_in = p[0].numel()
+                p.copy_((2.0 / fan_in) ** 0.5 * torch.randn(p.shape, generator=gen,
+                                                            device=p.device))
+            elif name.endswith('weight'):
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=gen, device=p.device))
+            else:
+                p.copy_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
+def set_compute_dtype(model, dtype: str) -> None:
+    """FarSeg and its encoder each cast their input to their config's dtype."""
+    model.config.dtype = model.encoder.config.dtype = dtype
+
+
+def phase_farseg_train(gen, profile: bool):
+    """The FarSeg train path, then the float32 gradient check; returns the
+    trained model and the K8 launches of the timed steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
+    from ever_tpu_torch.ops import pool as P
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    t0 = time.perf_counter()
+    model = make_model({'type': 'FarSeg', 'params': FARSEG})
+    seeded_conv_init_(model, gen)
+    stats0 = {n: b.clone() for n, b in model.named_buffers()}
+    schedule = make_learningrate({'type': 'poly', 'params': dict(
+        base_lr=0.01, power=0.9, max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})
+    tx = factory.build(schedule)
+    state = create_train_state(model, tx)
+    step = build_train_step(model, tx, schedule)
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    print(f'farseg: FarSeg-R50 bf16 compute, '
+          f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    with FlopCounterMode(display=False) as counter:   # the first warm-up step
+        state, _ = step(state, (x, y))
+    step_flops = counter.get_total_flops()
+    for _ in range(WARMUP_STEPS - 1):
+        state, _ = step(state, (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    P.max_pool_32_bwd.launches = 0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        state, m = step(state, (x, y))
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = P.max_pool_32_bwd.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    med = sorted(times)[len(times) // 2]
+    losses = [m['cls_loss'].item() for m in metrics]
+    norms = [m['grad_norm'].item() for m in metrics]
+    print(f'farseg: train, bf16 compute, float32 params, SGD momentum 0.9 + poly; '
+          f'{TRAIN_BATCH} tiles of {TILE}²; median {med * 1e3:.2f} ms/step (min '
+          f'{min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) = {TRAIN_BATCH / med:.1f} '
+          f'tiles/s; MFU {step_flops / med / PEAK_BF16_FLOPS:.4f} ({step_flops / 1e12:.3f} '
+          f'TFLOP/step by FlopCounterMode / step time / 989 TFLOP/s); peak memory '
+          f'{peak:.2f} GiB', flush=True)
+    print(f'farseg: loss per step {" ".join(f"{v:.5f}" for v in losses)}', flush=True)
+    print(f'farseg: grad_norm per step {" ".join(f"{v:.4f}" for v in norms)}; '
+          f'learning_rate {metrics[-1]["learning_rate"].item():.6e}', flush=True)
+    moved = sum(not torch.equal(b, stats0[n]) for n, b in model.named_buffers())
+    finite = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+    print(f'farseg: maxpool_bwd launches in {TIMED_STEPS} steps: {launches} (expected '
+          f'{TIMED_STEPS}); running statistics moved in {moved} of '
+          f'{len(stats0)} buffers, all finite: {finite}', flush=True)
+    check(launches == TIMED_STEPS, f'FarSeg steps launched K8 {launches} times')
+    check(all(math.isfinite(v) for v in losses + norms), 'non-finite loss or grad_norm')
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          'parameters left float32')
+    check(finite and moved == len(stats0), 'running statistics not finite or not moved')
+    if profile:
+        profile_run('one FarSeg train step', lambda: step(state, (x, y)))
+    del state, step, metrics
+    torch.cuda.empty_cache()
+
+    # gradients of 2 tiles at float32 compute: K8 against the library backward
+    set_compute_dtype(model, 'float32')
+    resnet = model.encoder.resnet
+    loss_k, g_kernel = loss_and_grads(model, x[:2], y[:2], seed=0)
+    resnet.maxpool_impl = 'reduce_window'
+    loss_l, g_lib = loss_and_grads(model, x[:2], y[:2], seed=0)
+    noise = compare_grads(loss_and_grads(model, x[:2], y[:2], seed=0)[1], g_lib)[0]
+    resnet.maxpool_impl = 'pallas'
+    set_compute_dtype(model, 'bfloat16')
+    rel, worst, cos = compare_grads(g_kernel, g_lib)
+    names = [n for n, _ in model.named_parameters()]
+    stem_cos = cos[names.index('encoder.resnet.conv1.weight')]
+    print(f'farseg: gradients of 2 tiles at float32, K8 vs reduce_window: loss '
+          f'{loss_k:.6f} vs {loss_l:.6f}; ||dg||/||g|| {rel:.3e} (two runs of '
+          f'reduce_window: {noise:.3e}), worst per-tensor cosine {worst:.7f} '
+          f'({names[cos.index(worst)]}), stem conv cosine {stem_cos:.7f} (limits '
+          f'{FARSEG_GRAD_REL_TOL}, {FARSEG_GRAD_COS_MIN})', flush=True)
+    check(rel <= FARSEG_GRAD_REL_TOL and worst >= FARSEG_GRAD_COS_MIN,
+          'K8 gradients disagree with the library max pool backward')
+    del g_kernel, g_lib
+    torch.cuda.empty_cache()
+    return model, launches
+
+
+def phase_farseg_serve(gen, model, profile: bool) -> None:
+    """One 4096² scene through tiled_inference with the trained FarSeg in
+    bf16 compute; the forward launches no K8."""
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.ops import pool as P
+
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+
+    def serve():
+        out = tiled_inference(model, scene, TILE, STRIDE, CLASSES, tile_batch=TILE_BATCH)
+        torch.cuda.synchronize()
+        return out
+
+    serve()                                         # warm-up scene
+    torch.cuda.reset_peak_memory_stats()
+    P.max_pool_32_bwd.launches = 0
+    t0 = time.perf_counter()
+    out = serve()
+    secs = time.perf_counter() - t0
+    launches = P.max_pool_32_bwd.launches
+    n_tiles = (SCENE // STRIDE) ** 2
+    tiles = torch.stack([scene[i * TILE:(i + 1) * TILE, :TILE] for i in range(TILE_BATCH)])
+    with torch.no_grad():
+        batch_ms = cuda_ms(lambda: model(tiles), iters=5, warmup=2)
+    print(f'farseg: serve {n_tiles} tiles in {secs * 1e3:.1f} ms/scene = '
+          f'{n_tiles / secs:.1f} tiles/s; tile batch of {TILE_BATCH}: {batch_ms:.2f} ms; '
+          f'maxpool_bwd launches {launches} (K8 is a backward: serving launches none); '
+          f'peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB', flush=True)
+    if profile:
+        with torch.no_grad():
+            profile_run('one FarSeg serving tile batch', lambda: model(tiles))
+    check(launches == 0, f'serving launched K8 {launches} times')
+    check(tuple(out.shape) == (SCENE, SCENE, CLASSES), f'bad output shape {tuple(out.shape)}')
+    check(bool(torch.isfinite(out).all()), 'non-finite probabilities')
+    check(float((out.sum(-1) - 1).abs().max()) < 1e-3, 'class probabilities do not sum to 1')
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
-                        help='trace one tile batch and one train step with '
-                             'torch.profiler')
+                        help='trace one tile batch and one train step of each '
+                             'model with torch.profiler')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -635,14 +948,17 @@ def main() -> int:
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     fwd, bwd = phase_kernels(gen)
+    pool = phase_maxpool(gen)
     phase_serve(gen, args.profile)
     fwd['launches'], bwd['launches'] = phase_train(gen, args.profile)
+    model, pool['launches'] = phase_farseg_train(gen, args.profile)
+    phase_farseg_serve(gen, model, args.profile)
 
-    for kernel in (fwd, bwd):
+    for kernel in (fwd, bwd, pool):
         for key, value in kernel.items():
             check(value is not None and (not isinstance(value, float) or math.isfinite(value)),
                   f'kernel record {kernel["name"]} {key} missing')
-    print(json.dumps({'kernels': [fwd, bwd]}), flush=True)
+    print(json.dumps({'kernels': [fwd, bwd, pool]}), flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -27,7 +27,8 @@ _BUILD = os.path.join(_PKG, '_build')
 
 # kernel library name → source file under csrc/
 SOURCES = {'attention_fwd': 'attention_fwd.cu',
-           'attention_bwd': 'attention_bwd.cu'}
+           'attention_bwd': 'attention_bwd.cu',
+           'maxpool_bwd': 'maxpool_bwd.cu'}
 
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC']

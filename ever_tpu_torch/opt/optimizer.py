@@ -44,8 +44,7 @@ def clip_by_global_norm_recording(params: Iterable[torch.Tensor],
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(
-        torch._foreach_norm(grads, 2, dtype=torch.float32)))
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2))).float()
     if max_norm is not None:
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         torch._foreach_mul_(grads, scale)

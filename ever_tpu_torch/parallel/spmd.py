@@ -9,6 +9,12 @@ optimizer).  PyTorch runs eagerly, so there is no ``jit``: the state is
 updated in place and returned.  The parameters and the optimizer state stay
 float32 whatever the model's compute dtype.
 
+BatchNorm's running statistics (the JAX ``TrainState.batch_stats``) are the
+model's buffers: each train forward moves them in place, so with
+``forward_times > 1`` they move once per microbatch, in order, as the JAX
+step's scan carries them; ``init_params`` loads them with the parameters,
+and the eval step normalises by them.
+
 Each step's generator for the model's train-time draws (RoPE augmentation,
 drop-path) is seeded from ``(rng_seed, step)``, and a microbatch's from
 ``(rng_seed, step, i)``: the counterpart of ``fold_in``.  ``mesh=`` (data
