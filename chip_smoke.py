@@ -50,12 +50,38 @@ Phases (any failure exits non-zero before the last line is printed):
              against ``maxpool_impl='reduce_window'``.  Then one 4096² scene
              through ``tiled_inference`` (512² tiles, stride 512,
              ``tile_batch=8``, bf16): no K8 launch, as K8 is a backward.
-6. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
+6. layernorm — the fused LayerNorm's forward (K4) and backward (K5) against
+             their plain versions at DinoSeg's shape ([8232, 1024] bf16,
+             float32 γ and β), in float32, at [37, 203] (a width off the
+             16-byte vector: the element-by-element path) and at [517, 768]
+             (partial last CTAs); then each timed beside its bound, its plain
+             version and the library's LayerNorm forward and backward.
+7. fused-LN DinoSeg — the DinoSeg ViT-L/16 of phases 3 and 4 built with
+             ``EVER_FUSED_LN=1``, full depth: 2 + 10 train steps at 512² B=8
+             (49 K4 and 49 K5, 24 K1 and 24 K2 launches a step), 2 tiles'
+             gradients against the default-LN model with the same weights,
+             one 4096² scene in bf16 (392 K4 and 192 K1 launches) and one
+             tile batch against the default-LN model.
+8. quant   — the int8 serving layer: the quantize pass (K6) against its plain
+             version, exactly, in both rounding modes at the three shapes of
+             ``tools/quant_check.py``, the stochastic mode's error statistics
+             at [32808, 4096]; the int8 matmul (K7) against its plain version,
+             exactly, at [32808, 4096] x [4096, 1024] (ViT-L/16's fc2 over 8
+             tiles of 1024²), (300, 128, 130) and a K off the 16-byte copy;
+             ``QuantDense.from_params`` of a seeded [4096, 1024] kernel with
+             bias, applied to [32808, 4096], against float32 within 1.1× the
+             error its stochastic rounding noise predicts (the card's
+             default), and the same product composed from K6 to nearest and
+             K7 within 0.02 (``tools/quant_check.py``'s limit); then K6,
+             K7 and the layer timed beside bounds, plain versions and library
+             calls.
+9. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
-step of each model: device busy time against wall time, device time by kind
-of kernel, and the kernels that take the most of it.
+step of each model, and of one fused-LN DinoSeg train step: device busy time
+against wall time, device time by kind of kernel, and the kernels that take
+the most of it.
 
 It imports nothing of JAX and needs one CUDA card; without one it exits 1.
 """
@@ -63,8 +89,10 @@ It imports nothing of JAX and needs one CUDA card; without one it exits 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -149,10 +177,51 @@ FARSEG = dict(encoder=dict(resnet_type='resnet50', maxpool_impl='pallas'),
 # the limits sit ten times further out.  A K8 that drops a window's term
 # moves the stem conv's cosine far below them.
 FARSEG_GRAD_REL_TOL, FARSEG_GRAD_COS_MIN = 5e-3, 0.9987
+# K4/K5 (the fused LayerNorm) at DinoSeg ViT-L/16's 512² batch of 8: one
+# row per token, 8 · 1029 rows of width 1024; the sat preset's eps
+LN_ROWS, LN_EPS = TRAIN_BATCH * S, 1e-5
+# (rows, width, type): the main shape, in float32, a width off the 16-byte
+# vector (the kernels' element-by-element path; 37 rows leave K5's second
+# CTA 5 rows), and 517 rows (K4's last CTA 5 rows of 8, K5's 5 of 32)
+LN_CASES = ((LN_ROWS, EMBED, torch.bfloat16), (LN_ROWS, EMBED, torch.float32),
+            (37, 203, torch.bfloat16), (517, 768, torch.bfloat16))
+# K4/K5 vs their plain versions on the same inputs (K5 given K4's mean and
+# rstd).  y and dx: the same float32 arithmetic with the row sums in another
+# order, rounded once to the output type, so at most a bf16 ulp of the
+# largest value apart (2^-8 relative); a wrong row statistic or a misplaced
+# vector moves them by O(1).  mean and rstd: float32 row sums in another
+# order, 1e-5 relative.  dγ and dβ: float32 sums over all rows, per CTA and
+# then across CTAs, against torch's reduction: ||d|| / ||ref|| <= 1e-5; the
+# partial sums of one lost CTA (8 to 32 of 8232 rows) move them by 3e-2 to
+# 6e-2.
+LN_TOL, LN_STAT_TOL, LN_DW_TOL = 2.0 ** -8, 1e-5, 1e-5
+# DinoSeg with EVER_FUSED_LN=1 against the default LayerNorm, same weights:
+# the fused norm takes its statistics in one pass (E[x²] - mu²) and applies
+# float32 γ and β, the default two-pass statistics with γ and β rounded to
+# bf16.  One tile batch in bf16, probabilities: the limits of the attention
+# comparison above.  2 tiles' gradients: ||dg|| / ||g|| and the worst
+# per-tensor cosine: the first run measured 3.2e-3 and 0.99991 (vit.cls_token);
+# the limits sit ten times further out.
+FUSED_LN_GRAD_REL_TOL, FUSED_LN_GRAD_COS_MIN = 3e-2, 0.999
+# DinoSeg's LayerNorms per forward: two per block and the trunk's final norm
+LN_PER_FORWARD = 2 * 24 + 1
+# the int8 serving layer, at the shapes of tools/quant_check.py: quantize at
+# 8 tiles of 1024² (4101 tokens each) x 4096, [4096, 16384] and [512, 768];
+# the matmul as ViT-L/16's fc2 over those tokens, (300, 128, 130) from the
+# JAX tests (M, N ragged) and a K off the 16-byte copy (byte loads)
+QUANT_SHAPES = ((8 * 4101, 4096), (4096, 16384), (512, 768))
+MM_CASES = ((8 * 4101, 4096, 1024), (300, 128, 130), (77, 45, 100))   # (M, K, N)
+# QuantDense's product rounded to nearest against float32 x @ w + b
+# (tools/quant_check.py's limit); stochastic rounding, the layer's own mode
+# on the card, doubles the error's variance and is held to its own
+# prediction instead (phase_quant)
+QUANT_REL_TOL = 0.02
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12
 
 
 # kernel-name words that sort a profile's device time by kind
-PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'maxpool32')),
+PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'maxpool32', 'ever_')),
                  ('convolutions and matmuls', ('xmma', 'gemm', 'nvjet', 'cutlass', 'conv')),
                  ('normalization', ('batch_norm', 'layer_norm', 'GammaBeta')),
                  ('resizes', ('upsample',)),
@@ -180,6 +249,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device time of ``fn()`` in ms, from CUDA events around the replay of
+    one CUDA graph holding ``iters`` calls: the host's cost of each call
+    (Python, allocation, the launch itself) stays out, which matters for
+    kernels that take tens of microseconds."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):                 # warm up where it is captured
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -923,6 +1017,430 @@ def phase_farseg_serve(gen, model, profile: bool) -> None:
     check(float((out.sum(-1) - 1).abs().max()) < 1e-3, 'class probabilities do not sum to 1')
 
 
+def ln_inputs(gen, rows, width, dtype):
+    """x with a nonzero row mean, γ ~ U(0.5, 1.5), β ~ N(0, 0.1²) (float32)
+    and an upstream gradient dy, on the card."""
+    x = (2 * torch.randn(rows, width, generator=gen, device='cuda') + 1).to(dtype)
+    w = torch.rand(width, generator=gen, device='cuda') + 0.5
+    b = 0.1 * torch.randn(width, generator=gen, device='cuda')
+    dy = torch.randn(rows, width, generator=gen, device='cuda').to(dtype)
+    return x, w, b, dy
+
+
+def rel_norm(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def check_layernorm(gen):
+    """K4 and K5 against their plain versions at every case (K5 given K4's
+    mean and rstd); the largest error of each, on its output's scale."""
+    from ever_tpu_torch.ops import norm as N
+
+    fwd_errs, bwd_errs = [], []
+    for rows, width, dtype in LN_CASES:
+        x, w, b, dy = ln_inputs(gen, rows, width, dtype)
+        y, mean, rstd = N.layer_norm_fwd(x, w, b, LN_EPS)
+        dx, dw, db = N.layer_norm_bwd(x, dy, w, mean, rstd)
+        torch.cuda.synchronize()
+        ry, rmean, rrstd = N.layer_norm_reference(x, w, b, LN_EPS)
+        rdx, rdw, rdb = N.layer_norm_bwd_reference(x, dy, w, mean, rstd)
+        err_y = (y.float() - ry.float()).abs().max().item() / ry.float().abs().max().item()
+        err_dx = (dx.float() - rdx.float()).abs().max().item() / rdx.float().abs().max().item()
+        err_stat = max((mean - rmean).abs().max().item() / rmean.abs().max().item(),
+                       (rstd - rrstd).abs().max().item() / rrstd.abs().max().item())
+        err_dw, err_db = rel_norm(dw, rdw), rel_norm(db, rdb)
+        name = f'layernorm [{rows}, {width}] {str(dtype)[6:]}'
+        print(f'kernels: {name}: max|y-plain| {err_y:.3e}·max|y|, mean/rstd {err_stat:.3e} '
+              f'relative; max|dx-plain| {err_dx:.3e}·max|dx|, ||d dgamma||/||dgamma|| '
+              f'{err_dw:.3e}, ||d dbeta||/||dbeta|| {err_db:.3e} (tolerances {LN_TOL}·max, '
+              f'{LN_STAT_TOL}, {LN_DW_TOL})', flush=True)
+        outs = (y, dx, mean, rstd, dw, db)
+        check(y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
+              and dw.dtype == db.dtype == torch.float32, f'{name}: wrong output types')
+        check(all(bool(torch.isfinite(t).all()) for t in outs), f'{name}: non-finite output')
+        check(err_y <= LN_TOL and err_stat <= LN_STAT_TOL, f'{name}: K4 disagrees with '
+              'its plain version')
+        check(err_dx <= LN_TOL and err_dw <= LN_DW_TOL and err_db <= LN_DW_TOL,
+              f'{name}: K5 disagrees with its plain version')
+        fwd_errs.append((y.float() - ry.float()).abs().max().item())
+        bwd_errs.append(max((dx.float() - rdx.float()).abs().max().item(),
+                            (dw - rdw).abs().max().item(), (db - rdb).abs().max().item()))
+    return max(fwd_errs), max(bwd_errs)
+
+
+def phase_layernorm(gen):
+    """K4 and K5 checked at every case and timed at the main shape: their
+    records for the report."""
+    from ever_tpu_torch.ops import norm as N
+
+    fwd_err, bwd_err = check_layernorm(gen)
+    x, w, b, dy = ln_inputs(gen, LN_ROWS, EMBED, torch.bfloat16)
+    _, mean, rstd = N.layer_norm_fwd(x, w, b, LN_EPS)
+    # device times from CUDA graphs: a launch's host cost is larger than
+    # these kernels' time (host_ms, printed beside, times back-to-back
+    # calls from Python)
+    fwd_ms = graph_ms(lambda: N.layer_norm_fwd(x, w, b, LN_EPS), iters=200)
+    bwd_ms = graph_ms(lambda: N.layer_norm_bwd(x, dy, w, mean, rstd), iters=200)
+    fwd_host = cuda_ms(lambda: N.layer_norm_fwd(x, w, b, LN_EPS), iters=200)
+    fwd_plain = graph_ms(lambda: N.layer_norm_reference(x, w, b, LN_EPS), iters=20)
+    bwd_plain = graph_ms(lambda: N.layer_norm_bwd_reference(x, dy, w, mean, rstd), iters=20)
+    x32, dy32 = x.float(), dy.float()
+    f32_fwd = graph_ms(lambda: N.layer_norm_fwd(x32, w, b, LN_EPS), iters=100)
+    f32_bwd = graph_ms(lambda: N.layer_norm_bwd(x32, dy32, w, mean, rstd), iters=100)
+    # yardsticks only: the library's LayerNorm forward and backward on the
+    # same bf16 tensors (γ and β in bf16, as the port's default LayerNorm)
+    wb, bb = w.to(x.dtype), b.to(x.dtype)
+    fwd_lib = graph_ms(lambda: torch.ops.aten.native_layer_norm(x, [EMBED], wb, bb, LN_EPS),
+                       iters=200)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [EMBED], wb, bb, LN_EPS)
+    bwd_lib = graph_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        dy, x, [EMBED], lmean, lrstd, wb, bb, [True, True, True]), iters=200)
+    # bytes: K4 reads x, γ, β and writes y, mean, rstd; K5 reads x, dy, γ,
+    # mean, rstd and writes dx, dγ, dβ.  About 8 and 12 float32 operations
+    # per element on the CUDA cores, far below the bytes' time
+    n, e = x.numel(), x.element_size()
+    fwd_bytes = 2 * n * e + 2 * EMBED * 4 + 2 * LN_ROWS * 4
+    bwd_bytes = 3 * n * e + 3 * EMBED * 4 + 2 * LN_ROWS * 4
+    fwd_bound, fwd_by = bound(8.0 * n, fwd_bytes, PEAK_F32_FLOPS)
+    bwd_bound, bwd_by = bound(12.0 * n, bwd_bytes, PEAK_F32_FLOPS)
+    print(f'kernels: layernorm_fwd {fwd_ms:.4f} ms/launch ({fwd_bytes / fwd_ms / 1e9:.3f} '
+          f'TB/s), plain {fwd_plain:.4f} ms, library (native_layer_norm) {fwd_lib:.4f} ms, '
+          f'bound {fwd_bound:.4f} ms ({fwd_bytes / 1e6:.1f} MB); float32 inputs '
+          f'{f32_fwd:.4f} ms/launch; host_ms {fwd_host:.4f} (calls from Python)', flush=True)
+    print(f'kernels: layernorm_bwd {bwd_ms:.4f} ms/launch ({bwd_bytes / bwd_ms / 1e9:.3f} '
+          f'TB/s), plain {bwd_plain:.4f} ms, library (native_layer_norm_backward) '
+          f'{bwd_lib:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_bytes / 1e6:.1f} MB); float32 '
+          f'inputs {f32_bwd:.4f} ms/launch', flush=True)
+    src = 'ever_tpu_torch/csrc/layernorm.cu'
+    return (dict(name='layernorm_fwd', route='cuda', source=src,
+                 replaces='ever_tpu/ops/norm.py:48', launches=None, max_abs_err=fwd_err,
+                 ms=fwd_ms, plain_ms=fwd_plain, bound_ms=fwd_bound, bound_by=fwd_by,
+                 library_ms=fwd_lib),
+            dict(name='layernorm_bwd', route='cuda', source=src,
+                 replaces='ever_tpu/ops/norm.py:61', launches=None, max_abs_err=bwd_err,
+                 ms=bwd_ms, plain_ms=bwd_plain, bound_ms=bwd_bound, bound_by=bwd_by,
+                 library_ms=bwd_lib))
+
+
+@contextlib.contextmanager
+def fused_layer_norm():
+    """``EVER_FUSED_LN=1`` while a model is built (the port reads it then)."""
+    old = os.environ.get('EVER_FUSED_LN')
+    os.environ['EVER_FUSED_LN'] = '1'
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ['EVER_FUSED_LN']
+        else:
+            os.environ['EVER_FUSED_LN'] = old
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    from ever_tpu_torch.ops import attention as A, norm as N, pool as P, quant as Q
+
+    for fn in (A.fused_attention, A.fused_attention_bwd, P.max_pool_32_bwd,
+               N.layer_norm_fwd, N.layer_norm_bwd, Q.quantize_int8_values,
+               Q.int8_matmul_t):
+        fn.launches = 0
+
+
+def counts():
+    """(K1, K2, K4, K5) launches since the last reset."""
+    from ever_tpu_torch.ops import attention as A, norm as N
+
+    return (A.fused_attention.launches, A.fused_attention_bwd.launches,
+            N.layer_norm_fwd.launches, N.layer_norm_bwd.launches)
+
+
+def phase_fused_ln(gen, profile: bool):
+    """DinoSeg ViT-L/16 under EVER_FUSED_LN=1: train steps, gradients and
+    a tile batch against the default-LN model, one scene; returns the K4
+    and K5 launches of the timed steps."""
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.ops.norm import FusedLayerNorm
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    with fused_layer_norm():
+        model = build_dinoseg(gen)
+    n_fused = sum(isinstance(m, FusedLayerNorm) for m in model.modules())
+    check(n_fused == LN_PER_FORWARD, f'{n_fused} FusedLayerNorm modules, expected '
+          f'{LN_PER_FORWARD}')
+    plain = build_dinoseg(gen)                      # the default LayerNorm
+    schedule = make_learningrate({'type': 'cosine', 'params': dict(
+        base_lr=1e-4, max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
+    tx = factory.build(schedule)
+    state = create_train_state(model, tx)
+    step = build_train_step(model, tx, schedule)
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    metrics = []
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        state, m = step(state, (x, y))
+        events[i + 1].record()
+        metrics.append(m)
+    torch.cuda.synchronize()
+    launches = train_launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = [a.elapsed_time(b) / 1e3 for a, b in zip(events, events[1:])]
+    med = sorted(times)[len(times) // 2]
+    losses = [m['cls_loss'].item() for m in metrics]
+    norms = [m['grad_norm'].item() for m in metrics]
+    want = (24 * TIMED_STEPS, 24 * TIMED_STEPS, LN_PER_FORWARD * TIMED_STEPS,
+            LN_PER_FORWARD * TIMED_STEPS)
+    print(f'fused-LN: train, DinoSeg vitl16_sat493m with EVER_FUSED_LN=1, bf16 compute, '
+          f'float32 params, AdamW + cosine; {TRAIN_BATCH} tiles of {TILE}²; median '
+          f'{med * 1e3:.2f} ms/step (min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}) '
+          f'= {TRAIN_BATCH / med:.1f} tiles/s; MFU {TRAIN_FLOPS / med / PEAK_BF16_FLOPS:.4f}; '
+          f'peak memory {peak:.2f} GiB', flush=True)
+    print(f'fused-LN: loss per step {" ".join(f"{v:.5f}" for v in losses)}; grad_norm '
+          f'{" ".join(f"{v:.4f}" for v in norms)}', flush=True)
+    print(f'fused-LN: launches in {TIMED_STEPS} steps (K1, K2, K4, K5): {launches} '
+          f'(expected {want})', flush=True)
+    check(launches == want, f'fused-LN train steps launched {launches}, expected {want}')
+    check(all(math.isfinite(v) for v in losses + norms), 'non-finite loss or grad_norm')
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          'parameters left float32')
+    if profile:
+        profile_run('one fused-LN train step', lambda: step(state, (x, y)))
+    del state, step, metrics
+    torch.cuda.empty_cache()
+
+    # gradients of 2 tiles: fused LayerNorm vs the default one, same weights
+    plain.load_state_dict(model.state_dict())
+    loss_f, g_fused = loss_and_grads(model, x[:2], y[:2], seed=5)
+    loss_p, g_plain = loss_and_grads(plain, x[:2], y[:2], seed=5)
+    rel, worst, cos = compare_grads(g_fused, g_plain)
+    names = [n for n, _ in model.named_parameters()]
+    print(f'fused-LN: gradients of 2 tiles, fused vs default LayerNorm: loss {loss_f:.6f} '
+          f'vs {loss_p:.6f}; ||dg||/||g|| {rel:.3e}, worst per-tensor cosine {worst:.6f} '
+          f'({names[cos.index(worst)]}), block 0 norm1 weight cosine '
+          f'{cos[names.index("vit.blocks.0.norm1.weight")]:.6f} (limits '
+          f'{FUSED_LN_GRAD_REL_TOL}, {FUSED_LN_GRAD_COS_MIN})', flush=True)
+    check(rel <= FUSED_LN_GRAD_REL_TOL and worst >= FUSED_LN_GRAD_COS_MIN,
+          'fused-LN gradients disagree with the default LayerNorm\'s')
+    del g_fused, g_plain
+    torch.cuda.empty_cache()
+
+    # serving: bf16 parameters, one scene, one tile batch against the default
+    model.to(torch.bfloat16)
+    plain.to(torch.bfloat16)
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+
+    def serve():
+        out = tiled_inference(model, scene, TILE, STRIDE, CLASSES, tile_batch=TILE_BATCH)
+        torch.cuda.synchronize()
+        return out
+
+    serve()                                         # warm-up scene
+    reset_counts()
+    t0 = time.perf_counter()
+    out = serve()
+    secs = time.perf_counter() - t0
+    launches = counts()
+    n_tiles = (SCENE // STRIDE) ** 2
+    batches = n_tiles // TILE_BATCH
+    want = (24 * batches, 0, LN_PER_FORWARD * batches, 0)
+    print(f'fused-LN: serve {n_tiles} tiles in {secs * 1e3:.1f} ms/scene = '
+          f'{n_tiles / secs:.1f} tiles/s; launches (K1, K2, K4, K5) {launches} (expected '
+          f'{want})', flush=True)
+    check(launches == want, f'fused-LN scene launched {launches}, expected {want}')
+    check(tuple(out.shape) == (SCENE, SCENE, CLASSES), f'bad output shape {tuple(out.shape)}')
+    check(bool(torch.isfinite(out).all()), 'non-finite probabilities')
+    check(float((out.sum(-1) - 1).abs().max()) < 1e-3, 'class probabilities do not sum to 1')
+    tiles = torch.stack([scene[i * TILE:(i + 1) * TILE, :TILE] for i in range(TILE_BATCH)])
+    with torch.no_grad():
+        fused_ms = cuda_ms(lambda: model(tiles), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: plain(tiles), iters=3, warmup=1)
+        p_fused, p_plain = model(tiles), plain(tiles)
+    diff = (p_fused - p_plain).abs()
+    agree = (p_fused.argmax(-1) == p_plain.argmax(-1)).float().mean().item()
+    print(f'fused-LN: tile batch of {TILE_BATCH}: {fused_ms:.2f} ms with the fused '
+          f'LayerNorm, {plain_ms:.2f} ms with the default; max|dp| {diff.max().item():.3e}, '
+          f'mean|dp| {diff.mean().item():.3e} (tolerances {SLICE_MAX_TOL}, {SLICE_MEAN_TOL}), '
+          f'argmax agreement {agree:.4f}', flush=True)
+    check(diff.max().item() <= SLICE_MAX_TOL and diff.mean().item() <= SLICE_MEAN_TOL,
+          'fused-LN and default-LN models disagree on a tile batch')
+    if profile:
+        with torch.no_grad():
+            profile_run('one fused-LN serving tile batch', lambda: model(tiles))
+    return train_launches[2], train_launches[3]
+
+
+def check_quantize(gen) -> int:
+    """K6 against its plain version in both modes at every shape (exactly),
+    and the stochastic mode's error statistics at the first; the largest
+    |kernel - plain| over all of them, in int8 steps."""
+    from ever_tpu_torch.ops import quant as Q
+
+    worst = 0
+    for i, (m, k) in enumerate(QUANT_SHAPES):
+        x = torch.randn(m, k, generator=gen, device='cuda')
+        for stochastic in (True, False):
+            q, s = Q.quantize_int8(x, seed=1, stochastic=stochastic)
+            torch.cuda.synchronize()
+            rq, rs = Q.quantize_int8_reference(x, seed=1, stochastic=stochastic)
+            same = torch.equal(q, rq) and torch.equal(s, rs)
+            worst = max(worst, int((q.int() - rq.int()).abs().max()))
+            mode = 'stochastic' if stochastic else 'nearest'
+            print(f'kernels: quantize [{m}, {k}] {mode}: equal to the plain version '
+                  f'{same} ({int((q != rq).sum())} values differ), scale {s.item():.6g}',
+                  flush=True)
+            check(q.dtype == torch.int8 and q.shape == x.shape, f'quantize [{m}, {k}]: '
+                  f'values are {q.dtype} {tuple(q.shape)}')
+            check(same, f'quantize [{m}, {k}] {mode} differs from its plain version')
+        if i:
+            continue
+        # stochastic rounding: |q·s - x| < s, and unbiased.  The error of one
+        # element is (1 - f)·s or -f·s with f the fraction of x/s, of
+        # variance f(1 - f)·s²: the mean's σ follows from the data.  float32
+        # rounding of x/s, of the added u and of q·s at |x/s| <= 127 adds at
+        # most three half-ulps of 127, 1.2e-5·s.
+        q, s = Q.quantize_int8(x, seed=1, stochastic=True)
+        s = s.item()
+        err = q.float() * s - x
+        v = x / s
+        frac = v - torch.floor(v)
+        sigma = s * math.sqrt((frac * (1 - frac)).double().mean().item() / x.numel())
+        mean_err = err.double().mean().item()
+        q2, _ = Q.quantize_int8(x, seed=2, stochastic=True)
+        differ = (q2 != q).float().mean().item()
+        print(f'kernels: quantize [{m}, {k}] stochastic: max|q·s-x| '
+              f'{err.abs().max().item():.4e} (scale {s:.4e}), mean(q·s-x) {mean_err:.3e} '
+              f'(σ {sigma:.3e}, limit 5σ); seed 2 vs seed 1: {differ:.4f} of the values '
+              f'differ', flush=True)
+        check(err.abs().max().item() <= s * (1 + 2 ** -15), 'stochastic rounding error '
+              'exceeds one step')
+        check(abs(mean_err) <= 5 * sigma, 'stochastic rounding is biased')
+        check(differ > 0.1, 'seeds 1 and 2 round alike')
+    return worst
+
+
+def check_int8_matmul(gen) -> float:
+    """K7 against its plain version at every case, exactly; the largest
+    |kernel - plain| over the cases."""
+    from ever_tpu_torch.ops import quant as Q
+
+    worst = 0.0
+    for m, k, n in MM_CASES:
+        xq = torch.randint(-128, 128, (m, k), generator=gen, device='cuda', dtype=torch.int8)
+        wq = torch.randint(-128, 128, (k, n), generator=gen, device='cuda', dtype=torch.int8)
+        xs = torch.tensor([[0.0131]], device='cuda')
+        ws = torch.tensor([[0.00217]], device='cuda')
+        out = Q.int8_matmul(xq, xs, wq, ws)
+        torch.cuda.synchronize()
+        ref = Q.int8_matmul_reference(xq, xs, wq, ws)
+        same = torch.equal(out, ref)
+        err = (out - ref).abs().max().item()
+        worst = max(worst, err)
+        print(f'kernels: int8_matmul [{m}, {k}] x [{k}, {n}]: equal to the plain version '
+              f'{same} (max|d| {err:.3e}, max|out| '
+              f'{ref.abs().max().item():.3e})', flush=True)
+        check(out.dtype == torch.float32 and out.shape == (m, n), f'int8_matmul: out is '
+              f'{out.dtype} {tuple(out.shape)}')
+        check(same, f'int8_matmul [{m}, {k}] x [{k}, {n}] differs from its plain version')
+    return worst
+
+
+def phase_quant(gen):
+    """K6 and K7 checked, the QuantDense layer driven at the serving shape
+    and held against float32, then all timed: their records."""
+    from ever_tpu_torch.ops import quant as Q
+
+    q_err, mm_err = check_quantize(gen), check_int8_matmul(gen)
+    m, k = QUANT_SHAPES[0]
+    n = MM_CASES[0][2]
+    kernel = 0.02 * torch.randn(k, n, generator=gen, device='cuda')
+    bias = 0.02 * torch.randn(n, generator=gen, device='cuda')
+    x = torch.randn(m, k, generator=gen, device='cuda')
+    reset_counts()
+    layer = Q.QuantDense.from_params({'kernel': kernel, 'bias': bias}, seed=3, device='cuda')
+    out = layer(x)
+    torch.cuda.synchronize()
+    launches = (Q.quantize_int8_values.launches, Q.int8_matmul_t.launches)
+    ref = x @ kernel + bias
+    rel = rel_norm(out, ref)
+    # each operand's rounding error has variance s²·E[f(1 - f)] per element,
+    # s²/6 stochastically and s²/12 to nearest, independent of the values:
+    # the product's relative error is about the root of the two operands'
+    # error-to-signal ratios
+    noise = (layer.w_scale.item() ** 2 / kernel.square().mean().item()
+             + (x.abs().amax().item() / 127) ** 2 / x.square().mean().item())
+    # the same product rounded to nearest, composed from its parts as the
+    # layer composes them: tools/quant_check.py's mode and limit
+    w_n, ws_n = Q.quantize_int8(kernel, stochastic=False)
+    x_n, xs_n = Q.quantize_int8(x, stochastic=False)
+    rel_nearest = rel_norm(Q.int8_matmul_t(x_n, xs_n, w_n.t().contiguous(), ws_n) + bias, ref)
+    print(f'quant: QuantDense.from_params [{k}, {n}] with bias, x [{m}, {k}]: '
+          f'||y - (x @ w + b)|| / ||x @ w + b|| {rel:.4e} with stochastic rounding (the '
+          f'card\'s default; its noise predicts {math.sqrt(noise / 6):.4e}, limit 1.1× that), '
+          f'{rel_nearest:.4e} to nearest (predicted {math.sqrt(noise / 12):.4e}, limit '
+          f'{QUANT_REL_TOL}); launches (K6, K7) {launches} (expected (2, 1): the weights, then '
+          f'the activation)', flush=True)
+    check(out.dtype == torch.float32 and out.shape == (m, n) and bool(torch.isfinite(out).all()),
+          'QuantDense output is not finite float32 of the right shape')
+    check(rel <= 1.1 * math.sqrt(noise / 6), 'stochastic QuantDense disagrees with float32')
+    check(rel_nearest < QUANT_REL_TOL, 'QuantDense to nearest disagrees with float32')
+    check(launches == (2, 1), f'QuantDense launched {launches}')
+
+    # K6 alone: the values of the activation at its scale, stochastic (the
+    # serving path) and to nearest
+    s = torch.clamp(x.abs().amax() / 127.0, min=1e-8).reshape(1, 1)
+    q_ms = graph_ms(lambda: Q.quantize_int8_values(x, s, 1, True), iters=50)
+    qn_ms = graph_ms(lambda: Q.quantize_int8_values(x, s, 1, False), iters=50)
+    q_plain = graph_ms(lambda: Q.quantize_int8_values_reference(x, s, 1, True), iters=3)
+    # yardstick only: the library's per-tensor quantization, to nearest
+    s_value = s.item()
+    q_lib = graph_ms(lambda: torch.quantize_per_tensor(x, s_value, 0, torch.qint8), iters=50)
+    q_bytes = x.numel() * 5
+    q_bound, q_by = bound(3.0 * x.numel(), q_bytes, PEAK_F32_FLOPS)
+    print(f'kernels: quantize_int8 [{m}, {k}] {q_ms:.4f} ms/launch stochastic '
+          f'({q_bytes / q_ms / 1e9:.3f} TB/s), {qn_ms:.4f} to nearest; plain {q_plain:.4f} ms; '
+          f'library (quantize_per_tensor, nearest) {q_lib:.4f} ms; bound {q_bound:.4f} ms '
+          f'({q_bytes / 1e6:.1f} MB)', flush=True)
+
+    # K7 alone on QuantDense's operands; the [K, N] API with its per-call
+    # transpose; the library's int8 and bf16 products of the same shape
+    xq, xs = Q.quantize_int8(x, seed=1)
+    wt, ws = layer.weight_t, layer.w_scale
+    wq = wt.t().contiguous()
+    mm_ms = graph_ms(lambda: Q.int8_matmul_t(xq, xs, wt, ws), iters=20)
+    api_ms = graph_ms(lambda: Q.int8_matmul(xq, xs, wq, ws), iters=20)
+    mm_plain = graph_ms(lambda: Q.int8_matmul_reference(xq, xs, wq, ws), iters=3)
+    mm_lib = graph_ms(lambda: torch._int_mm(xq, wt.t()), iters=20)
+    xb, wb = x.to(torch.bfloat16), kernel.to(torch.bfloat16)
+    bf16_ms = graph_ms(lambda: xb @ wb, iters=20)
+    layer_ms = cuda_ms(lambda: layer(x), iters=20)
+    ops = 2.0 * m * k * n
+    mm_bytes = m * k + k * n + 4 * m * n
+    mm_bound, mm_by = bound(ops, mm_bytes, PEAK_INT8_OPS)
+    print(f'kernels: int8_matmul [{m}, {k}] x [{k}, {n}] {mm_ms:.4f} ms/launch '
+          f'({ops / mm_ms / 1e9:.1f} TOP/s), with the [K, N] transpose {api_ms:.4f} ms; plain '
+          f'{mm_plain:.4f} ms; library torch._int_mm {mm_lib:.4f} ms, bf16 matmul '
+          f'{bf16_ms:.4f} ms; bound {mm_bound:.4f} ms ({ops / 1e9:.1f} G operations)',
+          flush=True)
+    print(f'quant: QuantDense layer at x [{m}, {k}]: {layer_ms:.4f} ms per call from Python '
+          f'(scale, K6, K7, bias)', flush=True)
+    return (dict(name='quantize_int8', route='cuda', source='ever_tpu_torch/csrc/quant_int8.cu',
+                 replaces='ever_tpu/ops/quant.py:35', launches=launches[0],
+                 max_abs_err=float(q_err), ms=q_ms, plain_ms=q_plain, bound_ms=q_bound,
+                 bound_by=q_by, library_ms=q_lib),
+            dict(name='int8_matmul', route='cuda', source='ever_tpu_torch/csrc/int8_matmul.cu',
+                 replaces='ever_tpu/ops/quant.py:110', launches=launches[1],
+                 max_abs_err=mm_err, ms=mm_ms, plain_ms=mm_plain, bound_ms=mm_bound,
+                 bound_by=mm_by, library_ms=mm_lib))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -953,12 +1471,18 @@ def main() -> int:
     fwd['launches'], bwd['launches'] = phase_train(gen, args.profile)
     model, pool['launches'] = phase_farseg_train(gen, args.profile)
     phase_farseg_serve(gen, model, args.profile)
+    del model
+    torch.cuda.empty_cache()
+    ln_fwd, ln_bwd = phase_layernorm(gen)
+    ln_fwd['launches'], ln_bwd['launches'] = phase_fused_ln(gen, args.profile)
+    quant, matmul = phase_quant(gen)
 
-    for kernel in (fwd, bwd, pool):
+    records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
+    for kernel in records:
         for key, value in kernel.items():
             check(value is not None and (not isinstance(value, float) or math.isfinite(value)),
                   f'kernel record {kernel["name"]} {key} missing')
-    print(json.dumps({'kernels': [fwd, bwd, pool]}), flush=True)
+    print(json.dumps({'kernels': records}), flush=True)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True, timeout=60)

@@ -18,6 +18,11 @@ through every block.  A cast of a parameter that already has the compute
 dtype is free, so a serving model may hold bf16 parameters
 (``model.to(torch.bfloat16)``) and computes the same numbers.
 
+LayerNorm: ``LayerNorm`` (torch's two-pass statistics) by default; with
+``EVER_FUSED_LN=1`` set when the model is built, the fused LayerNorm of
+``ops/norm.py`` (the JAX kernels' one-pass statistics, K4 and K5 on the
+card), with the same parameters.
+
 Randomness in training (RoPE coordinate augmentation, drop-path) comes from
 an explicit ``torch.Generator`` passed to ``forward(..., generator=)``, never
 from the global one, and is drawn outside the blocks, so that a block
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -43,6 +49,7 @@ from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.ops import resize
 from ever_tpu_torch.ops.attention import attention, pad_target
+from ever_tpu_torch.ops.norm import FusedLayerNorm
 
 __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
@@ -66,6 +73,19 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight.to(x.dtype),
                             self.bias.to(x.dtype), self.eps)
+
+
+def _make_layer_norm(dim: int, eps: float) -> nn.LayerNorm:
+    """The ViT's LayerNorm: :class:`LayerNorm`, or with ``EVER_FUSED_LN=1``
+    the fused one (:class:`~ever_tpu_torch.ops.norm.FusedLayerNorm`: K4
+    forward, K5 backward on the card), as ``ever_tpu/module/vit.py``'s
+    ``_make_layer_norm`` picks.  Both hold the same float32 ``weight`` and
+    ``bias``.  The JAX module reads the variable each time it is applied;
+    the port reads it when the model is built.  Default off, as in the JAX
+    package."""
+    if os.environ.get('EVER_FUSED_LN', '0') == '1':
+        return FusedLayerNorm(dim, eps)
+    return LayerNorm(dim, eps)
 
 
 class RopePositionEmbedding(nn.Module):
@@ -281,7 +301,7 @@ class SelfAttentionBlock(nn.Module):
         super().__init__()
         hidden = int(dim * ffn_ratio)
         self.drop_path_rate = drop_path_rate
-        norm_cls = RMSNorm if norm == 'rms' else LayerNorm
+        norm_cls = RMSNorm if norm == 'rms' else _make_layer_norm
         self.norm1 = norm_cls(dim, norm_eps)
         self.attn = SelfAttention(dim, num_heads, qkv_bias, attn_impl=attn_impl)
         self.norm2 = norm_cls(dim, norm_eps)
@@ -430,7 +450,7 @@ class DinoVisionTransformer(nn.Module):
             norm=norm, norm_eps=norm_eps, attn_impl=attn_impl,
             drop_path_rate=drop_path_rate)
             for _ in range(depth)])
-        norm_cls = RMSNorm if norm == 'rms' else LayerNorm
+        norm_cls = RMSNorm if norm == 'rms' else _make_layer_norm
         self.norm = norm_cls(dim, norm_eps)
         self.cls_norm = norm_cls(dim, norm_eps) if untie_cls_and_patch_norms else None
         for m in self.modules():

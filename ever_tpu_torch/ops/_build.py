@@ -19,7 +19,7 @@ import tempfile
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ['SOURCES', 'build', 'load']
+__all__ = ['SOURCES', 'build', 'load', 'function']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -28,7 +28,10 @@ _BUILD = os.path.join(_PKG, '_build')
 # kernel library name → source file under csrc/
 SOURCES = {'attention_fwd': 'attention_fwd.cu',
            'attention_bwd': 'attention_bwd.cu',
-           'maxpool_bwd': 'maxpool_bwd.cu'}
+           'maxpool_bwd': 'maxpool_bwd.cu',
+           'layernorm': 'layernorm.cu',
+           'quant_int8': 'quant_int8.cu',
+           'int8_matmul': 'int8_matmul.cu'}
 
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC']
@@ -97,3 +100,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_lib_path(name))
         _LIBS[name] = lib
     return lib
+
+
+def function(lib: str, name: str, argtypes: Iterable):
+    """The C entry point ``name`` of kernel library ``lib``, typed as the
+    port's entry points all are: ``argtypes``, then the CUDA stream, and an
+    ``int`` CUDA error code back.  Pointers belong in ``argtypes`` as
+    ``c_void_p``, as the stream is: a plain int would be cut to 32 bits."""
+    fn = getattr(load(lib), name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn

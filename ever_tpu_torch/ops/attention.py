@@ -220,10 +220,10 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
     if f32:
         vbuf = torch.empty_like(kbuf)
     st = [[t.stride(i) for i in perm[:3]] for t in (q, k, v, o)]
-    lib = _load('attention_fwd')
+    fn = _load('attention_fwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ever_attn_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(sin), _ptr(cos),
             _ptr(kbuf), _ptr(vbuf), o.data_ptr(), lse.data_ptr(),
             _KERNEL_DTYPES[q.dtype], b, h, s, d, n,
@@ -257,10 +257,10 @@ def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
     vbuf, dobuf = scratch(f32), scratch(f32)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     st = [t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in perm[:3]]
-    lib = _load('attention_bwd')
+    fn = _load('attention_bwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.ever_attn_bwd(
+        err = fn(
             *(_ptr(t) for t in (q, k, v, o, do, lse, sin, cos, qbuf, kbuf,
                                 vbuf, dobuf, delta, dq, dk, dv)),
             _KERNEL_DTYPES[q.dtype], b, h, s, d, n, *st,
@@ -280,18 +280,10 @@ _SIGNATURES = {
 
 
 def _load(name: str):
-    from ever_tpu_torch.ops._build import load
-    lib = load(name)
+    from ever_tpu_torch.ops._build import function
     fn_name, n_ptr, n_int, n_stride = _SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        # every pointer and the stream as c_void_p: a plain int would be cut
-        # to 32 bits
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_longlong] * n_stride
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return lib
+    return function(name, fn_name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                    + [ctypes.c_longlong] * n_stride + [ctypes.c_float])
 
 
 def fused_attention(q, k, v, layout: str = 'bnhd',

@@ -97,13 +97,9 @@ def _launch(x, out, g):
 
 
 def _kernel():
-    from ever_tpu_torch.ops._build import load
-    fn = load('maxpool_bwd').ever_maxpool32_bwd
-    if fn.argtypes is None:
-        # pointers and the stream as c_void_p: a plain int would be cut to 32 bits
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    from ever_tpu_torch.ops._build import function
+    return function('maxpool_bwd', 'ever_maxpool32_bwd',
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
 
 
 def max_pool_32_bwd(x: torch.Tensor, out: torch.Tensor,

@@ -29,7 +29,8 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
     code = ('import sys, ever_tpu_torch, ever_tpu_torch.util.weight_io,'
             ' ever_tpu_torch.opt, ever_tpu_torch.parallel.spmd,'
             ' ever_tpu_torch.module.loss, ever_tpu_torch.ops._build,'
-            ' ever_tpu_torch.ops.pool, ever_tpu_torch.module.fs_relation;'
+            ' ever_tpu_torch.ops.pool, ever_tpu_torch.module.fs_relation,'
+            ' ever_tpu_torch.ops.norm, ever_tpu_torch.ops.quant;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")];'
             'print(bad); sys.exit(1 if bad else 0)')
@@ -49,14 +50,15 @@ def test_source_has_no_jax_or_ever_tpu_import():
         with open(path) as f:
             assert not bad.search(f.read()), path
     scanned = {os.path.relpath(p, REPO) for p in paths}
-    assert len(scanned) >= 31
+    assert len(scanned) >= 33
     assert {'chip_smoke.py', 'ever_tpu_torch/ops/attention.py',
             'ever_tpu_torch/opt/optimizer.py', 'ever_tpu_torch/opt/learning_rate.py',
             'ever_tpu_torch/interface/learning_rate.py',
             'ever_tpu_torch/module/loss.py',
             'ever_tpu_torch/parallel/spmd.py', 'ever_tpu_torch/ops/pool.py',
             'ever_tpu_torch/module/resnet.py', 'ever_tpu_torch/module/fpn.py',
-            'ever_tpu_torch/module/fs_relation.py'} <= scanned
+            'ever_tpu_torch/module/fs_relation.py', 'ever_tpu_torch/ops/norm.py',
+            'ever_tpu_torch/ops/quant.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),

@@ -22,6 +22,7 @@ from ever_tpu.module.ops import resize as jresize
 from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.module.ops import resize as tresize
+from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg
 
 SAT_STYLE = dict(name='vit_small', layerscale_init=1e-5, n_storage_tokens=4,
@@ -70,6 +71,28 @@ def test_dinoseg_probabilities_match_jax(dinoseg_weights, attn_impl, pad_tokens)
         got = tmodel(torch.from_numpy(x)).numpy()
     assert got.shape == (1, 64, 64, 5)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_fused_layer_norm_dinoseg_probabilities_match_jax(dinoseg_weights, monkeypatch):
+    """DinoSeg with ``EVER_FUSED_LN=1`` in both packages (the JAX module
+    reads it when applied, the port when built): every LayerNorm of the
+    trunk is the fused one, whose CPU math is the JAX kernel's one-pass
+    statistics in both.  The probabilities agree within 5e-6 (6e-7
+    measured: float32 sums in other orders), where the default LayerNorm's
+    comparison above allows 1e-4 for torch's two-pass variance against
+    flax's one-pass one."""
+    monkeypatch.setenv('EVER_FUSED_LN', '1')
+    cfg = _dinoseg_config(attn_impl='xla')
+    x = np.random.default_rng(11).normal(size=(1, 64, 64, 3)).astype(np.float32)
+    jmodel = jbuilder.make_model({'type': 'DinoSeg', 'params': cfg})
+    want = np.asarray(jmodel.apply(dinoseg_weights, jnp.asarray(x), train=False))
+    tmodel = tbuilder.make_model({'type': 'DinoSeg', 'params': cfg}, device='cpu')
+    norms = [m for m in tmodel.modules() if isinstance(m, torch.nn.LayerNorm)]
+    assert len(norms) == 2 * 12 + 1 and all(isinstance(m, FusedLayerNorm) for m in norms)
+    tmodel.load_state_dict(convert_flax_dinoseg(dinoseg_weights), strict=True)
+    with torch.no_grad():
+        got = tmodel(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-6)
 
 
 @pytest.mark.parametrize('kw', [
@@ -254,6 +277,27 @@ def test_remat_grads_equal_plain_with_drop_path_and_rope_augmentation(mode):
     plain, remat = _trunk(**kw), _trunk(remat=mode, **kw)
     remat.load_state_dict(plain.state_dict())
     x = torch.randn(4, 32, 32, 3, generator=torch.Generator().manual_seed(5))
+    grads = []
+    for m in (plain, remat):
+        out = m(x, train=True, generator=torch.Generator().manual_seed(11))
+        (out['x_norm_patchtokens'].square().mean() + out['x_norm_clstoken'].sum()).backward()
+        grads.append({k: p.grad for k, p in m.named_parameters()})
+    for k, g in grads[0].items():
+        np.testing.assert_allclose(grads[1][k].numpy(), g.numpy(), rtol=1e-6, atol=1e-7,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize('mode', ['full', 'dots'])
+def test_remat_with_fused_layer_norm_grads_equal_plain(monkeypatch, mode):
+    """The same with ``EVER_FUSED_LN=1``: a recomputed block runs the
+    LayerNorm's autograd Function again (under 'dots' inside a selective
+    checkpoint), and the gradients still equal those without remat."""
+    monkeypatch.setenv('EVER_FUSED_LN', '1')
+    kw = dict(drop_path_rate=0.3, pos_embed_rope_rescale_coords=2.0, attn_impl='fused')
+    plain, remat = _trunk(**kw), _trunk(remat=mode, **kw)
+    assert isinstance(remat.blocks[0].norm1, FusedLayerNorm)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(5))
     grads = []
     for m in (plain, remat):
         out = m(x, train=True, generator=torch.Generator().manual_seed(11))
