@@ -12,7 +12,9 @@ Phases (any failure exits non-zero before the last line is printed):
              paths' shape (B=8, H=16, N=1029, D=64, bf16, RoPE), with stack
              padding (N=1032, ``n_valid=1029``), at head dim 128 without RoPE,
              and from float32 inputs; then each timed beside its bound and
-             one PyTorch library call computing the same function.
+             one PyTorch library call computing the same function, and the
+             backward split by kernel (its prologue, dK/dV pass and dQ pass,
+             from ``torch.profiler``) with each pass's TFLOP/s.
 3. serve   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
              16 heads) with bf16 parameters and seeded random weights,
              served through ``tiled_inference`` over one 4096² scene (512²
@@ -67,7 +69,10 @@ Phases (any failure exits non-zero before the last line is printed):
              ``tools/quant_check.py``, the stochastic mode's error statistics
              at [32808, 4096]; the int8 matmul (K7) against its plain version,
              exactly, at [32808, 4096] x [4096, 1024] (ViT-L/16's fc2 over 8
-             tiles of 1024²), (300, 128, 130) and a K off the 16-byte copy;
+             tiles of 1024²), (300, 128, 130), a K of 80 with N = 257 (TMA's
+             zero fill past K) on its ``wgmma`` path, and on its ``mma.sync``
+             path a K of 45 and an x_q off 16-byte alignment, each case
+             checking that the wrapper and the kernel pick the path it wants;
              ``QuantDense.from_params`` of a seeded [4096, 1024] kernel with
              bias, applied to [32808, 4096], against float32 within 1.1× the
              error its stochastic rounding noise predicts (the card's
@@ -206,11 +211,17 @@ FUSED_LN_GRAD_REL_TOL, FUSED_LN_GRAD_COS_MIN = 3e-2, 0.999
 # DinoSeg's LayerNorms per forward: two per block and the trunk's final norm
 LN_PER_FORWARD = 2 * 24 + 1
 # the int8 serving layer, at the shapes of tools/quant_check.py: quantize at
-# 8 tiles of 1024² (4101 tokens each) x 4096, [4096, 16384] and [512, 768];
-# the matmul as ViT-L/16's fc2 over those tokens, (300, 128, 130) from the
-# JAX tests (M, N ragged) and a K off the 16-byte copy (byte loads)
+# 8 tiles of 1024² (4101 tokens each) x 4096, [4096, 16384] and [512, 768]
 QUANT_SHAPES = ((8 * 4101, 4096), (4096, 16384), (512, 768))
-MM_CASES = ((8 * 4101, 4096, 1024), (300, 128, 130), (77, 45, 100))   # (M, K, N)
+# K7: (M, K, N, byte offset of x_q, path).  ViT-L/16's fc2 over those tokens
+# (M = 256·128 + 40 rows: a ragged last tile of 128); (300, 128, 130) from
+# the JAX tests (M and N ragged, N below one 256-wide tile); a K that is a
+# multiple of 16 but not of TMA's 128-byte slice (zero-filled past K) with an
+# odd N; then the mma.sync path: a K off 16 bytes, and an x_q starting 1 byte
+# past 16-byte alignment
+MM_CASES = ((8 * 4101, 4096, 1024, 0, 'wgmma'), (300, 128, 130, 0, 'wgmma'),
+            (1000, 80, 257, 0, 'wgmma'), (77, 45, 100, 0, 'mma_sync'),
+            (64, 128, 64, 1, 'mma_sync'))
 # QuantDense's product rounded to nearest against float32 x @ w + b
 # (tools/quant_check.py's limit); stochastic rounding, the layer's own mode
 # on the card, doubles the error's variance and is held to its own
@@ -221,7 +232,8 @@ PEAK_INT8_OPS = 1979e12
 
 
 # kernel-name words that sort a profile's device time by kind
-PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'maxpool32', 'ever_')),
+PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'prologue_kernel',
+                                         'maxpool32', 'int8_gemm', 'ever_')),
                  ('convolutions and matmuls', ('xmma', 'gemm', 'nvjet', 'cutlass', 'conv')),
                  ('normalization', ('batch_norm', 'layer_norm', 'GammaBeta')),
                  ('resizes', ('upsample',)),
@@ -244,6 +256,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time of ``fn()`` in ms, from CUDA events over ``iters`` calls
+    queued behind a spin of the card long enough (about 1 ms a call) for the
+    host to queue every call before the first one starts: a host slower than
+    the kernel then cannot starve the card between calls, as it can in
+    ``cuda_ms``.  For calls that a CUDA graph cannot capture (autograd)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(iters * 2e6))
     start.record()
     for _ in range(iters):
         fn()
@@ -390,6 +422,31 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
+# K2's launches by kernel name, for its split
+BWD_KERNELS = (('prologue', 'prologue_kernel'), ('dK/dV pass', 'attn_bwd_dkdv'),
+               ('dQ pass', 'attn_bwd_dq'))
+
+
+def kernel_split(fn, calls: int = 10) -> dict:
+    """Device ms per call of each of K2's kernels over ``calls`` calls of
+    ``fn``, from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {part: 0.0 for part, _ in BWD_KERNELS}
+    for event in prof.key_averages():
+        for part, word in BWD_KERNELS:
+            if word in event.key:
+                split[part] += event.device_time_total / calls / 1e3
+    check(all(ms > 0 for ms in split.values()), f'the profiler saw no K2 kernel: {split}')
+    return split
+
+
 def phase_kernels(gen):
     """Both attention kernels checked and timed at the main shape: their
     records for the report."""
@@ -399,16 +456,16 @@ def phase_kernels(gen):
 
     # timing at the main paths' shape: S=1029, no pad, RoPE on
     q, k, v, rope = case_inputs(gen, B, H, S, D, True, torch.bfloat16)
-    ms = cuda_ms(lambda: A.fused_attention(q, k, v, rope=rope), iters=50)
+    ms = device_ms(lambda: A.fused_attention(q, k, v, rope=rope), iters=50)
     # the float32 instance (a default DinoSeg's type), for the record only
     q32, k32, v32 = (t.float() for t in (q, k, v))
     rope32 = f32_rope(rope)
-    f32_ms = cuda_ms(lambda: A.fused_attention(q32, k32, v32, rope=rope32), iters=50)
+    f32_ms = device_ms(lambda: A.fused_attention(q32, k32, v32, rope=rope32), iters=50)
     plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, rope=rope), iters=10)
     # yardstick only: one PyTorch call on the same, already rotated, tensors
     qr, kr = A._rope_outside(q, k, rope, 'bnhd')
     qr, kr, vr = (t.transpose(1, 2).contiguous() for t in (qr, kr, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qr, kr, vr), iters=50)
     flops = 4.0 * B * H * S * S * D
     nbytes = 4 * B * S * H * D * 2 + B * H * S * 4 + 2 * S * D * 2
@@ -426,9 +483,9 @@ def phase_kernels(gen):
 
     o, lse = A.fused_attention(q, k, v, rope=rope)
     do = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
-    bwd_ms = cuda_ms(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope),
-                     iters=30)
-    bwd32_ms = cuda_ms(lambda: A.fused_attention_bwd(
+    bwd_ms = device_ms(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope),
+                       iters=30)
+    bwd32_ms = device_ms(lambda: A.fused_attention_bwd(
         q32, k32, v32, o.float(), lse, do.float(), rope=rope32), iters=10)
     bwd_plain_ms = cuda_ms(lambda: A.attention_bwd_reference(
         q, k, v, o, lse, do, rope=rope), iters=5)
@@ -436,7 +493,7 @@ def phase_kernels(gen):
     qg, kg, vg = (t.detach().requires_grad_() for t in (qr, kr, vr))
     og = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg)
     dog = do.transpose(1, 2).contiguous()
-    bwd_library_ms = cuda_ms(lambda: torch.autograd.grad(
+    bwd_library_ms = device_ms(lambda: torch.autograd.grad(
         og, (qg, kg, vg), dog, retain_graph=True), iters=30)
     # five products of 2·B·H·N²·D; q, k, v, o, do read, dq, dk, dv written
     bflops = 10.0 * B * H * S * S * D
@@ -447,6 +504,13 @@ def phase_kernels(gen):
           f'({bflops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB), '
           f'{bflops / bwd_ms / 1e9:.1f} TFLOP/s; float32 inputs {bwd32_ms:.4f} ms/launch',
           flush=True)
+    split = kernel_split(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope))
+    # the dK/dV pass runs four products, the dQ pass three (it repeats s and dp)
+    work = {'prologue': None, 'dK/dV pass': 4, 'dQ pass': 3}
+    print('kernels: attention_bwd split by kernel (profiler, device ms per call): '
+          + '; '.join(f'{part} {ms:.4f}' + (
+              f' ({work[part] * bflops / 5 / ms / 1e9:.1f} TFLOP/s)' if work.get(part) else '')
+              for part, ms in split.items()), flush=True)
     bwd = dict(name='attention_bwd', route='cuda',
                source='ever_tpu_torch/csrc/attention_bwd.cu',
                replaces='ever_tpu/ops/attention.py:207', launches=None,
@@ -1326,26 +1390,44 @@ def check_quantize(gen) -> int:
     return worst
 
 
+def kernel_mm_path(x_q, w_t) -> str:
+    """The path the built K7 library picks for these operands."""
+    import ctypes
+    from ever_tpu_torch.ops import _build
+    from ever_tpu_torch.ops import quant as Q
+
+    fn = _build.load('int8_matmul').ever_int8_matmul_path
+    fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    return Q.MM_PATHS[fn(x_q.data_ptr(), w_t.data_ptr(), x_q.shape[1])]
+
+
 def check_int8_matmul(gen) -> float:
-    """K7 against its plain version at every case, exactly; the largest
-    |kernel - plain| over the cases."""
+    """K7 against its plain version at every case, exactly, on the path the
+    case is meant to take (the wrapper's prediction and the kernel's own
+    choice must both name it); the largest |kernel - plain| over the cases."""
     from ever_tpu_torch.ops import quant as Q
 
     worst = 0.0
-    for m, k, n in MM_CASES:
-        xq = torch.randint(-128, 128, (m, k), generator=gen, device='cuda', dtype=torch.int8)
+    for m, k, n, offset, path in MM_CASES:
+        buf = torch.randint(-128, 128, (m * k + 16,), generator=gen, device='cuda',
+                            dtype=torch.int8)
+        xq = buf[offset:offset + m * k].view(m, k)
         wq = torch.randint(-128, 128, (k, n), generator=gen, device='cuda', dtype=torch.int8)
+        wt = wq.t().contiguous()
         xs = torch.tensor([[0.0131]], device='cuda')
         ws = torch.tensor([[0.00217]], device='cuda')
-        out = Q.int8_matmul(xq, xs, wq, ws)
+        paths = (Q.int8_matmul_path(xq, wt), kernel_mm_path(xq, wt))
+        out = Q.int8_matmul_t(xq, xs, wt, ws)
         torch.cuda.synchronize()
         ref = Q.int8_matmul_reference(xq, xs, wq, ws)
         same = torch.equal(out, ref)
         err = (out - ref).abs().max().item()
         worst = max(worst, err)
-        print(f'kernels: int8_matmul [{m}, {k}] x [{k}, {n}]: equal to the plain version '
-              f'{same} (max|d| {err:.3e}, max|out| '
+        print(f'kernels: int8_matmul [{m}, {k}] x [{k}, {n}] (x_q offset {offset}): path '
+              f'{paths[1]} (wrapper predicts {paths[0]}, case wants {path}); equal to the '
+              f'plain version {same} (max|d| {err:.3e}, max|out| '
               f'{ref.abs().max().item():.3e})', flush=True)
+        check(paths == (path, path), f'int8_matmul [{m}, {k}] x [{k}, {n}] took {paths}')
         check(out.dtype == torch.float32 and out.shape == (m, n), f'int8_matmul: out is '
               f'{out.dtype} {tuple(out.shape)}')
         check(same, f'int8_matmul [{m}, {k}] x [{k}, {n}] differs from its plain version')

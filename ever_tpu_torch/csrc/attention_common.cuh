@@ -1,7 +1,8 @@
-// Device helpers shared by the attention kernels (attention_fwd.cu,
-// attention_bwd.cu): bf16 packing, tensor-core MMA and ldmatrix wrappers,
-// cp.async copies, and the RoPE staging prologue.  Each kernel source
-// compiles on its own and includes this header.
+// Device helpers of the attention kernels: bf16 packing, loads and stores
+// of 2 and 8 elements and exp2 (attention_fwd.cu, attention_bwd.cu); the
+// mma.sync and ldmatrix wrappers, cp.async copies and the RoPE staging
+// prologue of the forward (attention_fwd.cu).  Each kernel source compiles
+// on its own and includes this header.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,14 +109,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-// 4-byte asynchronous copy global -> shared; `valid` false zero-fills.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool valid) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

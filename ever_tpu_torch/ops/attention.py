@@ -234,6 +234,26 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
     return o, lse
 
 
+# K2's table of lse·log2(e) and delta per q row is padded to this many rows,
+# so that TMA fetches any q tile's entries from 16-byte-aligned rows
+_STATS_PAD = 64
+
+
+def _bwd_scratch(b, h, s, d, rope: bool, f32: bool, device):
+    """K2's scratch, none of it zeroed (its prologue writes all of it):
+    bf16 ``[B, H, S, D]`` copies of scale·rope(q) always, of rope(k) with
+    RoPE or float32 inputs, of v and do with float32 inputs (else None); and
+    the float32 ``[B, H, 2, S_pad]`` table of lse·log2(e) and delta =
+    rowsum(do∘o), ``S_pad`` = S rounded up to a multiple of 64."""
+    def seq(needed):
+        return (torch.empty((b, h, s, d), dtype=torch.bfloat16, device=device)
+                if needed else None)
+
+    s_pad = -(-s // _STATS_PAD) * _STATS_PAD
+    stats = torch.empty((b, h, 2, s_pad), dtype=torch.float32, device=device)
+    return seq(True), seq(rope or f32), seq(f32), seq(f32), stats
+
+
 def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
     (q, k, v, o, do), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
         (q, k, v, o, do), layout, n_valid, rope)
@@ -245,24 +265,15 @@ def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
     lse = lse.contiguous()
     dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
                   for _ in range(3))
-    # bf16 scratch: scale*rope(q) always, rope(k) with RoPE or f32, v and do
-    # with f32; delta = rowsum(do*o) in f32
-    f32 = q.dtype == torch.float32
-
-    def scratch(needed):
-        return (torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
-                if needed else None)
-
-    qbuf, kbuf = scratch(True), scratch(rope is not None or f32)
-    vbuf, dobuf = scratch(f32), scratch(f32)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    qbuf, kbuf, vbuf, dobuf, stats = _bwd_scratch(
+        b, h, s, d, rope is not None, q.dtype == torch.float32, q.device)
     st = [t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in perm[:3]]
     fn = _load('attention_bwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             *(_ptr(t) for t in (q, k, v, o, do, lse, sin, cos, qbuf, kbuf,
-                                vbuf, dobuf, delta, dq, dk, dv)),
+                                vbuf, dobuf, stats, dq, dk, dv)),
             _KERNEL_DTYPES[q.dtype], b, h, s, d, n, *st,
             1.0 / math.sqrt(d), stream)
     if err != 0:

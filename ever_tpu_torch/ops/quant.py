@@ -14,7 +14,11 @@ Counterpart of ``ever_tpu/ops/quant.py``:
   asked for on either device.
 - :func:`int8_matmul` — ``float(x_q · w_q) · (x_scale · w_scale)`` with
   int32 accumulation, by :func:`int8_matmul_t`, K7 (``csrc/int8_matmul.cu``,
-  replacing ``_matmul_kernel``), which takes W transposed, ``[N, K]``.
+  replacing ``_matmul_kernel``), which takes W transposed, ``[N, K]``.  K7
+  has two paths, picked from the operands before the launch
+  (:func:`int8_matmul_path`): ``'wgmma'`` (TMA and ``wgmma``) when K is a
+  positive multiple of 16 and both operands start on 16 bytes, else
+  ``'mma_sync'`` (byte loads and ``mma.sync``).
 - :func:`quantize_params` and :class:`QuantDense`, the serving layer built
   from a trained flax ``Dense``'s params.
 
@@ -40,7 +44,8 @@ from ever_tpu_torch.core.device import get_device
 
 __all__ = ['quantize_int8', 'quantize_int8_values', 'quantize_int8_reference',
            'quantize_int8_values_reference', 'int8_matmul', 'int8_matmul_t',
-           'int8_matmul_reference', 'quantize_params', 'QuantDense']
+           'int8_matmul_reference', 'int8_matmul_path', 'quantize_params',
+           'QuantDense']
 
 _MASK32 = 0xFFFFFFFF
 _MIX1, _MIX2 = 0x85EBCA6B, 0xC2B2AE35
@@ -181,6 +186,20 @@ def int8_matmul_reference(x_q: torch.Tensor, x_scale: torch.Tensor, w_q: torch.T
     wide = torch.float64 if x_q.device.type == 'cuda' else torch.int64
     acc = (x_q.to(wide) @ w_q.to(wide)).to(torch.int32)
     return acc.float() * (x_scale.float().reshape(()) * w_scale.float().reshape(()))
+
+
+# K7's paths, as ``ever_int8_matmul_path`` numbers them
+MM_PATHS = ('wgmma', 'mma_sync')
+
+
+def int8_matmul_path(x_q: torch.Tensor, w_t: torch.Tensor) -> str:
+    """The path K7 takes for ``x_q`` ``[M, K]`` and ``w_t`` ``[N, K]``:
+    ``'wgmma'`` when TMA can address both operands (K a positive multiple of
+    16, both starting on 16 bytes), else ``'mma_sync'``.  The kernel makes
+    the same choice from the same facts (``ever_int8_matmul_path``)."""
+    k = x_q.shape[1]
+    aligned = (x_q.data_ptr() | w_t.data_ptr()) % 16 == 0
+    return MM_PATHS[0] if k > 0 and k % 16 == 0 and aligned else MM_PATHS[1]
 
 
 def _launch_mm(x_q, x_scale, w_t, w_scale):

@@ -346,3 +346,21 @@ def test_backward_launcher_rejects_what_the_kernel_does_not_take(
     rope = (torch.zeros(p['rope_rows'], p['d']), torch.ones(p['rope_rows'], p['d']))
     with pytest.raises(error):
         TA._launch_bwd(q, q, q, q, lse, do, p['layout'], p['n_valid'], rope)
+
+
+@pytest.mark.parametrize('s,s_pad', [(1029, 1088), (64, 64), (1, 64), (16389, 16448)])
+@pytest.mark.parametrize('rope,f32', [(False, False), (True, False), (False, True),
+                                      (True, True)])
+def test_backward_scratch_shapes_and_types(s, s_pad, rope, f32):
+    """K2's scratch: bf16 [B, H, S, D] copies of q always, of k with RoPE or
+    float32, of v and do with float32; the float32 [B, H, 2, S_pad] table of
+    lse·log2(e) and delta, S_pad a multiple of 64 (TMA reads its rows from
+    16-byte boundaries)."""
+    qbuf, kbuf, vbuf, dobuf, stats = TA._bwd_scratch(2, 3, s, 64, rope, f32, 'cpu')
+    assert qbuf.shape == (2, 3, s, 64) and qbuf.dtype == torch.bfloat16
+    assert (kbuf is not None) == (rope or f32)
+    assert (vbuf is not None) == f32 and (dobuf is not None) == f32
+    for t in (kbuf, vbuf, dobuf):
+        assert t is None or (t.shape == qbuf.shape and t.dtype == torch.bfloat16)
+    assert stats.shape == (2, 3, 2, s_pad) and stats.dtype == torch.float32
+    assert stats.is_contiguous() and (s_pad * 4) % 16 == 0

@@ -105,3 +105,42 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     out = tiled_inference(lambda t: t, np.ones((8, 8, 1), np.float32), 8, 8, 1,
                           device='cpu')
     assert out.device.type == 'cpu' and float(out.min()) == 1.0
+
+
+def _pallas_kernels():
+    """{'ever_tpu/<path>:<line>'} of every function the JAX package hands to
+    ``pl.pallas_call`` (by name or through ``functools.partial``): the
+    def line of each TPU kernel."""
+    import ast
+    found = set()
+    root = os.path.join(REPO, 'ever_tpu')
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            if not name.endswith('.py'):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            defs = {n.name: n.lineno for n in ast.walk(tree)
+                    if isinstance(n, ast.FunctionDef)}
+            for call in ast.walk(tree):
+                if not (isinstance(call, ast.Call) and isinstance(call.func, ast.Attribute)
+                        and call.func.attr == 'pallas_call' and call.args):
+                    continue
+                kernel = call.args[0]
+                if isinstance(kernel, ast.Call) and kernel.args:   # functools.partial(f, ...)
+                    kernel = kernel.args[0]
+                assert isinstance(kernel, ast.Name) and kernel.id in defs, (path, call.lineno)
+                found.add(f'{os.path.relpath(path, REPO)}:{defs[kernel.id]}')
+    return found
+
+
+def test_every_tpu_kernel_has_one_chip_smoke_record_and_no_record_names_another():
+    """Each ``replaces='ever_tpu/...:line'`` of chip_smoke.py's kernel
+    records names a function that reaches ``pl.pallas_call`` in the JAX
+    package, and each such function has exactly one record."""
+    with open(os.path.join(REPO, 'chip_smoke.py')) as f:
+        records = re.findall(r"replaces='(ever_tpu/[^']+)'", f.read())
+    kernels = _pallas_kernels()
+    assert len(kernels) == 7
+    assert sorted(records) == sorted(kernels)

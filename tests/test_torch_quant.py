@@ -170,3 +170,58 @@ def test_cpu_wrappers_count_no_launch_and_bad_inputs_raise():
     with pytest.raises(RuntimeError, match='no int8 matmul kernel'):
         Q.int8_matmul_t(meta.to(torch.int8), torch.ones(1, 1), meta.to(torch.int8),
                         torch.ones(1, 1))
+
+
+def _int8_at(shape, offset):
+    """An int8 tensor of ``shape`` whose data starts ``offset`` bytes into a
+    16-byte-aligned buffer."""
+    rows, cols = shape
+    buf = torch.zeros(rows * cols + 64, dtype=torch.int8)
+    start = (-buf.data_ptr()) % 16 + offset
+    return buf[start:start + rows * cols].view(rows, cols)
+
+
+@pytest.mark.parametrize('k,x_off,w_off,path', [
+    (4096, 0, 0, 'wgmma'),          # fc2: the main path
+    (128, 0, 0, 'wgmma'),
+    (80, 0, 0, 'wgmma'),            # a multiple of 16, not of TMA's 128-byte slice
+    (16, 0, 0, 'wgmma'),
+    (45, 0, 0, 'mma_sync'),         # K off 16 bytes: rows not addressable by TMA
+    (100, 0, 0, 'mma_sync'),
+    (0, 0, 0, 'mma_sync'),          # an empty contraction
+    (128, 1, 0, 'mma_sync'),        # x_q off 16 bytes
+    (128, 0, 8, 'mma_sync'),        # w_t off 16 bytes
+])
+def test_int8_matmul_path_follows_the_shapes_and_alignment(k, x_off, w_off, path):
+    """K7 takes TMA and wgmma exactly when TMA can address both operands: K a
+    positive multiple of 16 and both starting on 16 bytes; else the
+    mma.sync kernel with byte loads."""
+    x_q, w_t = _int8_at((3, k), x_off), _int8_at((5, k), w_off)
+    assert (x_q.data_ptr() % 16, w_t.data_ptr() % 16) == (x_off, w_off)
+    assert Q.int8_matmul_path(x_q, w_t) == path
+    assert path in Q.MM_PATHS
+
+
+@pytest.mark.parametrize('change,error', [
+    (dict(x_contiguous=False), ValueError),
+    (dict(w_contiguous=False), ValueError),
+    (dict(scale_device='meta'), ValueError),
+])
+def test_int8_matmul_launcher_rejects_before_loading_the_kernel(monkeypatch, change, error):
+    """K7's launcher checks run before the kernel library is built or
+    loaded."""
+    def no_load(*args):
+        raise AssertionError('the kernel library was loaded before the checks')
+
+    monkeypatch.setattr(Q, '_load', no_load)
+    p = dict(x_contiguous=True, w_contiguous=True, scale_device='cpu')
+    p.update(change)
+    x_q = torch.zeros(8, 32, dtype=torch.int8)
+    w_t = torch.zeros(4, 32, dtype=torch.int8)
+    if not p['x_contiguous']:
+        x_q = torch.zeros(32, 8, dtype=torch.int8).t()
+    if not p['w_contiguous']:
+        w_t = torch.zeros(32, 4, dtype=torch.int8).t()
+    scale = torch.ones(1, 1, device=p['scale_device'])
+    with pytest.raises(error):
+        Q._launch_mm(x_q, scale, w_t, torch.ones(1, 1))
