@@ -6,15 +6,19 @@
 Phases (any failure exits non-zero before the last line is printed):
 
 1. build   — compile every CUDA kernel of the paths from ``ever_tpu_torch/csrc``
-             with ``nvcc``, one process per source, all at once.
+             with ``nvcc``, one process per source, all at once; print each
+             library's most registers and spills from ptxas's report, and
+             fail on a ``wgmma`` that ptxas serialized.
 2. kernels — each attention kernel against its plain PyTorch version on the card:
              the attention forward (K1) and backward (K2) at the main
              paths' shape (B=8, H=16, N=1029, D=64, bf16, RoPE), with stack
              padding (N=1032, ``n_valid=1029``), at head dim 128 without RoPE,
              and from float32 inputs; then each timed beside its bound and
-             one PyTorch library call computing the same function, and the
-             backward split by kernel (its prologue, dK/dV pass and dQ pass,
-             from ``torch.profiler``) with each pass's TFLOP/s.
+             one PyTorch library call computing the same function (K1 also
+             at head dim 128 and from float32 inputs), and both split by
+             kernel from ``torch.profiler`` (K1: its K staging launch and
+             main kernel; K2: its prologue, dK/dV pass and dQ pass) with each
+             main kernel's TFLOP/s.
 3. serve   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
              16 heads) with bf16 parameters and seeded random weights,
              served through ``tiled_inference`` over one 4096² scene (512²
@@ -55,9 +59,13 @@ Phases (any failure exits non-zero before the last line is printed):
 6. layernorm — the fused LayerNorm's forward (K4) and backward (K5) against
              their plain versions at DinoSeg's shape ([8232, 1024] bf16,
              float32 γ and β), in float32, at [37, 203] (a width off the
-             16-byte vector: the element-by-element path) and at [517, 768]
-             (partial last CTAs); then each timed beside its bound, its plain
-             version and the library's LayerNorm forward and backward.
+             16-byte vector: the element-by-element path), at [517, 768]
+             (partial last CTAs) and at [300, 4096] (K5's two-sweep path),
+             each on the K5 path the wrapper predicts and the kernel takes;
+             two K5 calls on the same inputs must give the same bits; then
+             each timed beside its bound, its plain version and the
+             library's LayerNorm forward and backward, K5 split by kernel
+             (rows, partial sums).
 7. fused-LN DinoSeg — the DinoSeg ViT-L/16 of phases 3 and 4 built with
              ``EVER_FUSED_LN=1``, full depth: 2 + 10 train steps at 512² B=8
              (49 K4 and 49 K5, 24 K1 and 24 K2 launches a step), 2 tiles'
@@ -185,11 +193,14 @@ FARSEG_GRAD_REL_TOL, FARSEG_GRAD_COS_MIN = 5e-3, 0.9987
 # K4/K5 (the fused LayerNorm) at DinoSeg ViT-L/16's 512² batch of 8: one
 # row per token, 8 · 1029 rows of width 1024; the sat preset's eps
 LN_ROWS, LN_EPS = TRAIN_BATCH * S, 1e-5
-# (rows, width, type): the main shape, in float32, a width off the 16-byte
-# vector (the kernels' element-by-element path; 37 rows leave K5's second
-# CTA 5 rows), and 517 rows (K4's last CTA 5 rows of 8, K5's 5 of 32)
-LN_CASES = ((LN_ROWS, EMBED, torch.bfloat16), (LN_ROWS, EMBED, torch.float32),
-            (37, 203, torch.bfloat16), (517, 768, torch.bfloat16))
+# (rows, width, type, K5's path): the main shape, in float32, a width off
+# the 16-byte vector (the kernels' element-by-element path; 37 rows leave
+# K5's second CTA 5 rows), 517 rows (K4's last CTA 5 rows of 8, K5's 5 of
+# 32), and a width past K5's one-pass registers (ViT-g's 4096: two sweeps)
+LN_CASES = ((LN_ROWS, EMBED, torch.bfloat16, 'one_pass'),
+            (LN_ROWS, EMBED, torch.float32, 'one_pass'),
+            (37, 203, torch.bfloat16, 'elementwise'), (517, 768, torch.bfloat16, 'one_pass'),
+            (300, 4096, torch.bfloat16, 'two_sweep'))
 # K4/K5 vs their plain versions on the same inputs (K5 given K4's mean and
 # rstd).  y and dx: the same float32 arithmetic with the row sums in another
 # order, rounded once to the output type, so at most a bf16 ulp of the
@@ -232,8 +243,9 @@ PEAK_INT8_OPS = 1979e12
 
 
 # kernel-name words that sort a profile's device time by kind
-PROFILE_KINDS = (('the port\'s kernels', ('attn_', 'stage_kernel', 'prologue_kernel',
-                                         'maxpool32', 'int8_gemm', 'ever_')),
+PROFILE_KINDS = (('the port\'s kernels', ('attn_fwd_kernel', 'stage_kernel', 'attn_bwd_',
+                                         'prologue_kernel', 'maxpool32', 'int8_gemm',
+                                         'ever_ln_', 'ever_quant')),
                  ('convolutions and matmuls', ('xmma', 'gemm', 'nvjet', 'cutlass', 'conv')),
                  ('normalization', ('batch_norm', 'layer_norm', 'GammaBeta')),
                  ('resizes', ('upsample',)),
@@ -310,13 +322,14 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def rope_tables(n_tokens: int, device, dtype=torch.bfloat16,
-                grid: int = TILE // 16) -> tuple:
+                grid: int = TILE // 16, head_dim: int = D) -> tuple:
     """The main paths' RoPE tables at 512² tiles: the ViT's 32×32 patch
     tables (``grid``² patches) with identity rows for the 5 prefix tokens
     (cls + 4 storage) and for any tail pad rows, in ``dtype``, as
-    ``SelfAttention`` builds them."""
+    ``SelfAttention`` builds them; ``head_dim`` wide (the width split
+    into fewer heads for 128)."""
     from ever_tpu_torch.module.vit import RopePositionEmbedding, token_rope
-    sin, cos = RopePositionEmbedding(EMBED, H, rescale_coords=2.0)(
+    sin, cos = RopePositionEmbedding(EMBED, EMBED // head_dim, rescale_coords=2.0)(
         grid, grid, device=device)
     sin, cos = token_rope(sin, cos, prefix=5, tail=n_tokens - 5 - sin.shape[0])
     return sin.to(dtype), cos.to(dtype)
@@ -337,7 +350,7 @@ def case_inputs(gen, b, h, s, d, with_rope, dtype):
     dev = torch.device('cuda')
     qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(dtype)
     q, k, v = qkv.unbind(2)
-    return q, k, v, rope_tables(s, dev, dtype) if with_rope else None
+    return q, k, v, rope_tables(s, dev, dtype, head_dim=d) if with_rope else None
 
 
 def f32_rope(rope):
@@ -422,14 +435,19 @@ def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     return max(t_ops, t_bytes), 'operations' if t_ops >= t_bytes else 'bytes'
 
 
-# K2's launches by kernel name, for its split
-BWD_KERNELS = (('prologue', 'prologue_kernel'), ('dK/dV pass', 'attn_bwd_dkdv'),
-               ('dQ pass', 'attn_bwd_dq'))
+# each kernel's launches by part, as (part, words of its kernel names), for
+# its split: K1's staging launch and main kernel; K2's prologue and passes;
+# K5's rows (one pass, or the two-sweep kernel) and its partial sums
+FWD_KERNELS = (('K staging', ('stage_kernel',)), ('main kernel', ('attn_fwd_kernel',)))
+BWD_KERNELS = (('prologue', ('prologue_kernel',)), ('dK/dV pass', ('attn_bwd_dkdv',)),
+               ('dQ pass', ('attn_bwd_dq',)))
+LN_BWD_KERNELS = (('rows', ('ever_ln_bwd_rows', 'ever_ln_bwd<')),
+                  ('partial sums', ('ever_ln_bwd_reduce',)))
 
 
-def kernel_split(fn, calls: int = 10) -> dict:
-    """Device ms per call of each of K2's kernels over ``calls`` calls of
-    ``fn``, from ``torch.profiler``."""
+def kernel_split(fn, parts, calls: int = 10) -> dict:
+    """Device ms per call of each part of a kernel (``parts`` as in
+    ``BWD_KERNELS``) over ``calls`` calls of ``fn``, from ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -438,12 +456,12 @@ def kernel_split(fn, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    split = {part: 0.0 for part, _ in BWD_KERNELS}
+    split = {part: 0.0 for part, _ in parts}
     for event in prof.key_averages():
-        for part, word in BWD_KERNELS:
-            if word in event.key:
+        for part, words in parts:
+            if any(w in event.key for w in words):
                 split[part] += event.device_time_total / calls / 1e3
-    check(all(ms > 0 for ms in split.values()), f'the profiler saw no K2 kernel: {split}')
+    check(all(ms > 0 for ms in split.values()), f'the profiler missed a kernel: {split}')
     return split
 
 
@@ -457,10 +475,14 @@ def phase_kernels(gen):
     # timing at the main paths' shape: S=1029, no pad, RoPE on
     q, k, v, rope = case_inputs(gen, B, H, S, D, True, torch.bfloat16)
     ms = device_ms(lambda: A.fused_attention(q, k, v, rope=rope), iters=50)
-    # the float32 instance (a default DinoSeg's type), for the record only
+    # the float32 instance (a default DinoSeg's type) and head dim 128 at the
+    # same width and work (8 heads), for the record only
     q32, k32, v32 = (t.float() for t in (q, k, v))
     rope32 = f32_rope(rope)
     f32_ms = device_ms(lambda: A.fused_attention(q32, k32, v32, rope=rope32), iters=50)
+    q128, k128, v128, rope128 = case_inputs(gen, B, H // 2, S, 2 * D, True, torch.bfloat16)
+    d128_ms = device_ms(lambda: A.fused_attention(q128, k128, v128, rope=rope128), iters=50)
+    del q128, k128, v128
     plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, rope=rope), iters=10)
     # yardstick only: one PyTorch call on the same, already rotated, tensors
     qr, kr = A._rope_outside(q, k, rope, 'bnhd')
@@ -473,8 +495,12 @@ def phase_kernels(gen):
     print(f'kernels: attention_fwd {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, '
           f'SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms '
           f'({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), '
-          f'{flops / ms / 1e9:.1f} TFLOP/s; float32 inputs {f32_ms:.4f} ms/launch',
-          flush=True)
+          f'{flops / ms / 1e9:.1f} TFLOP/s; float32 inputs {f32_ms:.4f} ms/launch; '
+          f'head dim 128 (H={H // 2}, RoPE) {d128_ms:.4f} ms/launch', flush=True)
+    split = kernel_split(lambda: A.fused_attention(q, k, v, rope=rope), FWD_KERNELS)
+    print('kernels: attention_fwd split by kernel (profiler, device ms per call): '
+          f'K staging {split["K staging"]:.4f}; main kernel {split["main kernel"]:.4f} '
+          f'({flops / split["main kernel"] / 1e9:.1f} TFLOP/s)', flush=True)
     fwd = dict(name='attention_fwd', route='cuda',
                source='ever_tpu_torch/csrc/attention_fwd.cu',
                replaces='ever_tpu/ops/attention.py:175', launches=None,
@@ -504,7 +530,8 @@ def phase_kernels(gen):
           f'({bflops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB), '
           f'{bflops / bwd_ms / 1e9:.1f} TFLOP/s; float32 inputs {bwd32_ms:.4f} ms/launch',
           flush=True)
-    split = kernel_split(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope))
+    split = kernel_split(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope),
+                         BWD_KERNELS)
     # the dK/dV pass runs four products, the dQ pass three (it repeats s and dp)
     work = {'prologue': None, 'dK/dV pass': 4, 'dQ pass': 3}
     print('kernels: attention_bwd split by kernel (profiler, device ms per call): '
@@ -534,6 +561,13 @@ def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
                 p.copy_(0.02 * torch.randn(p.shape, generator=gen, device=p.device))
 
 
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel without its return type, namespace and
+    arguments: 'attn_fwd_kernel<64, __nv_bfloat16>'."""
+    key = key.replace('(anonymous namespace)::', '')
+    return key.removeprefix('void ').split('(')[0]
+
+
 def profile_run(label: str, fn) -> None:
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``."""
     from torch.autograd import DeviceType
@@ -559,6 +593,10 @@ def profile_run(label: str, fn) -> None:
     print('profile: by kind: ' + '; '.join(
         f'{k} {v:.3f} ms' for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
         flush=True)
+    port = [e for e in kernels if any(w in e.key for w in PROFILE_KINDS[0][1])]
+    print('profile: the port\'s kernels: ' + ('; '.join(
+        f'{kernel_name(e.key)} {e.device_time_total / 1e3:.3f} ms ({e.count}x)'
+        for e in sorted(port, key=lambda e: -e.device_time_total)) or 'none'), flush=True)
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:20]:
         print(f'profile: {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x '
               f'{e.key[:100]}', flush=True)
@@ -1095,17 +1133,37 @@ def rel_norm(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
 
+def kernel_ln_bwd_path(x, dy, w) -> str:
+    """The path the built K5 library picks for these operands (with a fresh
+    dx and partial-sum buffer, as the wrapper gives it)."""
+    import ctypes
+    from ever_tpu_torch.ops import _build
+    from ever_tpu_torch.ops import norm as N
+
+    fn = _build.load('layernorm').ever_layernorm_bwd_path
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    dx, partial = torch.empty_like(x), N._bwd_partial(*x.shape, x.device)
+    return N.BWD_PATHS[fn(x.data_ptr(), dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                          partial.data_ptr(), N._KERNEL_DTYPES[x.dtype], x.shape[1])]
+
+
 def check_layernorm(gen):
     """K4 and K5 against their plain versions at every case (K5 given K4's
-    mean and rstd); the largest error of each, on its output's scale."""
+    mean and rstd, on the path the case wants, which the wrapper must
+    predict and the kernel take), and K5 twice on the same inputs (the same
+    bits); the largest error of each, on its output's scale."""
     from ever_tpu_torch.ops import norm as N
 
     fwd_errs, bwd_errs = [], []
-    for rows, width, dtype in LN_CASES:
+    for rows, width, dtype, path in LN_CASES:
         x, w, b, dy = ln_inputs(gen, rows, width, dtype)
+        paths = (N.layer_norm_bwd_path(x, dy, w), kernel_ln_bwd_path(x, dy, w))
         y, mean, rstd = N.layer_norm_fwd(x, w, b, LN_EPS)
         dx, dw, db = N.layer_norm_bwd(x, dy, w, mean, rstd)
+        dx2, dw2, db2 = N.layer_norm_bwd(x, dy, w, mean, rstd)
         torch.cuda.synchronize()
+        same = torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(db, db2)
         ry, rmean, rrstd = N.layer_norm_reference(x, w, b, LN_EPS)
         rdx, rdw, rdb = N.layer_norm_bwd_reference(x, dy, w, mean, rstd)
         err_y = (y.float() - ry.float()).abs().max().item() / ry.float().abs().max().item()
@@ -1117,7 +1175,10 @@ def check_layernorm(gen):
         print(f'kernels: {name}: max|y-plain| {err_y:.3e}·max|y|, mean/rstd {err_stat:.3e} '
               f'relative; max|dx-plain| {err_dx:.3e}·max|dx|, ||d dgamma||/||dgamma|| '
               f'{err_dw:.3e}, ||d dbeta||/||dbeta|| {err_db:.3e} (tolerances {LN_TOL}·max, '
-              f'{LN_STAT_TOL}, {LN_DW_TOL})', flush=True)
+              f'{LN_STAT_TOL}, {LN_DW_TOL}); K5 path {paths[1]} (wrapper predicts '
+              f'{paths[0]}, case wants {path}); two K5 calls bit-equal: {same}', flush=True)
+        check(paths == (path, path), f'{name}: K5 took the path {paths}')
+        check(same, f'{name}: two K5 calls on the same inputs differ')
         outs = (y, dx, mean, rstd, dw, db)
         check(y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
               and dw.dtype == db.dtype == torch.float32, f'{name}: wrong output types')
@@ -1175,6 +1236,11 @@ def phase_layernorm(gen):
           f'TB/s), plain {bwd_plain:.4f} ms, library (native_layer_norm_backward) '
           f'{bwd_lib:.4f} ms, bound {bwd_bound:.4f} ms ({bwd_bytes / 1e6:.1f} MB); float32 '
           f'inputs {f32_bwd:.4f} ms/launch', flush=True)
+    split = kernel_split(lambda: N.layer_norm_bwd(x, dy, w, mean, rstd), LN_BWD_KERNELS,
+                         calls=50)
+    print('kernels: layernorm_bwd split by kernel (profiler, device ms per call): '
+          f'rows {split["rows"]:.4f} ({bwd_bytes / split["rows"] / 1e9:.3f} TB/s); '
+          f'partial sums {split["partial sums"]:.4f}', flush=True)
     src = 'ever_tpu_torch/csrc/layernorm.cu'
     return (dict(name='layernorm_fwd', route='cuda', source=src,
                  replaces='ever_tpu/ops/norm.py:48', launches=None, max_abs_err=fwd_err,
@@ -1523,6 +1589,26 @@ def phase_quant(gen):
                  bound_by=mm_by, library_ms=mm_lib))
 
 
+def check_build_notes() -> None:
+    """ptxas's report on every kernel library: each library's most registers
+    a thread and its spilled bytes, and no note that a ``wgmma`` was
+    serialized (C7510-C7520)."""
+    import re
+    from ever_tpu_torch.ops import _build
+
+    notes = []
+    for name in _build.SOURCES:
+        log = _build.build_log(name)
+        regs = [int(n) for n in re.findall(r'Used (\d+) registers', log)]
+        spills = sum(int(n) for n in re.findall(r'(\d+) bytes spill stores', log))
+        notes += [line.strip() for line in log.splitlines() if 'serialized' in line]
+        print(f'build: {name}: {len(regs)} kernels, at most {max(regs, default=0)} '
+              f'registers a thread, {spills} bytes of spill stores', flush=True)
+    for line in notes:
+        print(f'build: {line}', flush=True)
+    check(not notes, f'ptxas serialized wgmmas: {len(notes)} notes')
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', action='store_true',
@@ -1545,6 +1631,7 @@ def main() -> int:
     secs = _build.build()
     print(f'build: {", ".join(f"{n} {s:.1f} s" for n, s in secs.items())}; '
           f'total {time.perf_counter() - t0:.1f} s', flush=True)
+    check_build_notes()
 
     gen = torch.Generator(device='cuda').manual_seed(0)
     fwd, bwd = phase_kernels(gen)

@@ -1,8 +1,7 @@
 // Device helpers of the attention kernels: bf16 packing, loads and stores
-// of 2 and 8 elements and exp2 (attention_fwd.cu, attention_bwd.cu); the
-// mma.sync and ldmatrix wrappers, cp.async copies and the RoPE staging
-// prologue of the forward (attention_fwd.cu).  Each kernel source compiles
-// on its own and includes this header.
+// of 2 and 8 elements and exp2 (attention_fwd.cu, attention_bwd.cu), and
+// the RoPE staging launch of the forward (attention_fwd.cu).  Each kernel
+// source compiles on its own and includes this header.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,67 +73,6 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// D = A*B + D for one 16x8x16 tile: A row-major (4 regs), B col-major (2).
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 tiles from shared memory; lanes 8i..8i+7 address tile i.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The same, each tile transposed (B operands whose k runs along rows).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// 16-byte asynchronous copy global -> shared; `valid` false zero-fills.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(gmem), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// Start the copy of `rows` rows [row0, row0+rows) of a [S, D] bf16 slice
-// into shared memory (row pitch LD); rows past S are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                int64_t ss, int row0, int rows,
-                                                int S, int tid, int threads) {
-  constexpr int CH = D / 8;
-  for (int u = tid; u < rows * CH; u += threads) {
-    const int r = u / CH, c = u % CH, gr = row0 + r;
-    const bool ok = gr < S;
-    cp_async16(dst + r * LD + c * 8, src + (ok ? gr : 0) * ss + c * 8, ok);
-  }
-}
-
 // RoPE of one row's 8-element chunk pair (c, c + D/16), times `scale`,
 // rounded to bf16: rotated[i] = x[i]*cos[i] - x[i+D/2]*sin[i] on the low
 // half and x[i]*cos[i] + x[i-D/2]*sin[i] on the high half.  `row` is the
@@ -170,9 +108,10 @@ __device__ __forceinline__ void rope_pair(uint4& lo, uint4& hi, const T* row,
   hi = pack8(yh);
 }
 
-// Prologue: out[b, h, s, :] = bf16(scale * RoPE(x[b, s, h, :])) for every
+// Staging: out[b, h, s, :] = bf16(scale * RoPE(x[b, s, h, :])) for every
 // row, contiguous [B, H, S, D]; null tables copy without rotating.  One
-// thread per (row, chunk pair).
+// thread per (row, chunk pair), rows taken in (b, s, h) order, the memory
+// order of the [B, N, H, D] inputs.
 template <int D, typename T>
 __global__ void stage_kernel(const T* x, int64_t x_sb, int64_t x_sh,
                              int64_t x_ss, const T* sin_tab, const T* cos_tab,
@@ -181,14 +120,15 @@ __global__ void stage_kernel(const T* x, int64_t x_sb, int64_t x_sh,
   constexpr int HALF = D / 16;
   const int64_t u = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (u >= n_units) return;
-  const int64_t row = u / HALF;
+  const int64_t row = u / HALF;              // over B*S*H
   const int c = static_cast<int>(u % HALF);
-  const int s = static_cast<int>(row % S);
-  const int64_t bh = row / S;
+  const int h = static_cast<int>(row % H);
+  const int64_t bs = row / H, b = bs / S;
+  const int s = static_cast<int>(bs % S);
   uint4 lo, hi;
-  rope_pair<D>(lo, hi, x + (bh / H) * x_sb + (bh % H) * x_sh + s * x_ss,
+  rope_pair<D>(lo, hi, x + b * x_sb + h * x_sh + s * x_ss,
                sin_tab, cos_tab, static_cast<int64_t>(s) * D, c, scale);
-  __nv_bfloat16* dst = out + row * D;
+  __nv_bfloat16* dst = out + ((b * H + h) * S + s) * D;
   *reinterpret_cast<uint4*>(dst + c * 8) = lo;
   *reinterpret_cast<uint4*>(dst + (c + HALF) * 8) = hi;
 }

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels that use the
 // Tensor Memory Accelerator and warpgroup MMAs (int8_matmul.cu,
-// attention_bwd.cu): mbarriers, TMA descriptors and loads, shared-memory
-// matrix descriptors for 128-byte-swizzled tiles, and the wgmma
-// instructions these kernels issue.  Each kernel source compiles on its own
-// and includes this header.
+// attention_fwd.cu, attention_bwd.cu): mbarriers, TMA descriptors and
+// loads, shared-memory matrix descriptors for 128-byte-swizzled tiles, and
+// the wgmma instructions these kernels issue.  Each kernel source compiles
+// on its own and includes this header.
 //
 // Conventions.  A tile that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B has
 // rows of exactly 128 bytes (64 bf16 or 128 int8 values; wider rows are
@@ -279,7 +279,8 @@ __device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t a,
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], bf16 in, f32 accumulate; A from
 // registers (the m16n8k16 A-fragment layout per warp, rows 16w..16w+15),
-// B MN-major in shared memory.
+// B in shared memory, MN-major (TRANS_B = 1) or K-major (TRANS_B = 0).
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
                                                  const uint32_t (&a)[4],
                                                  uint64_t b, int scale_d) {
@@ -290,7 +291,7 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
       "%26, %27, %28, %29, %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -299,7 +300,8 @@ __device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TRANS_B));
 }
 
 // D[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 in, f32 accumulate; A from

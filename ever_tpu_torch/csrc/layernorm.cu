@@ -14,23 +14,37 @@
 //
 // Bound on an H100 SXM at DinoSeg ViT-L/16's shape (x [8232, 1024] bf16):
 // K4 reads x (16.9 MB) and writes y (16.9 MB), 33.8 MB, 10.1 us at 3.35
-// TB/s; K5 reads x and dy and writes dx, 50.6 MB, 15.1 us.  A few flops per
+// TB/s; K5 reads x and dy and writes dx, 50.7 MB, 15.1 us.  A few flops per
 // element: memory bounds both.
 //
 // Design.  K4: one warp per row, eight rows per CTA.  A lane reads 16-byte
 // vectors of the row (8 bf16 or 4 f32), keeps sum(x) and sum(x*x) in f32
 // registers, and the warp adds them with shuffles; a second sweep over the
 // same row (from L1, so device memory sees one read) writes y.  The loops
-// are unrolled by 4 so that a lane has several loads in flight.  K5: the
-// TPU kernel carries dgamma/dbeta in VMEM along its sequential row grid;
-// Hopper CTAs run in no order and carry nothing between them, and float
-// atomics would make two runs differ.  So a CTA takes 32 rows: first one
-// warp per row finds mean(dxh) and mean(dxh*xh); then each thread owns a
-// vector of columns, walks the 32 rows writing dx and summing dy*xh and
-// dy, and writes the CTA's [2, C] f32 partial sums; a second small launch
-// adds the partials of all CTAs in a fixed order.  When C is not a
-// multiple of the vector width, or a pointer is not 16-byte aligned, the
-// same kernels load and store element by element.
+// are unrolled by 4 so that a lane has several loads in flight.
+//
+// K5: the TPU kernel carries dgamma/dbeta in VMEM along its sequential row
+// grid; Hopper CTAs run in no order and carry nothing between them, and
+// float atomics would make two runs differ.  So every CTA takes 32 rows and
+// writes one [2, C] f32 row of partial sums (dgamma | dbeta), and a second
+// launch adds the partial rows of all CTAs in a fixed order (each thread a
+// fixed stride of rows, then a fixed tree): the same inputs give the same
+// bits.  Three paths, chosen from the width and the pointers before the
+// launch (``ever_layernorm_bwd_path``):
+// - one pass (C a multiple of 32 vectors, C <= 1280: every ViT width up to
+//   ViT-H's): one warp per row, 8 warps of 4 rows each.  A lane holds its
+//   C/32 values of x and dy in 16-byte vectors, the warp finds mean(dxh)
+//   and mean(dxh*xh) with shuffles, and the lane writes dx straight from
+//   its registers, so x and dy are read from device memory once.  Each
+//   warp adds dy*xh and dy for its lanes' columns over its rows into its
+//   own slice of shared memory (kept in registers, they spilled at C =
+//   1024), and the CTA adds the 8 slices in warp order.  Two CTAs of 256
+//   threads fit an SM: 16 warps with a whole row of loads in flight each.
+// - two sweeps (wider rows, C a multiple of the vector): first one warp per
+//   row finds the two means; then each thread owns a vector of columns and
+//   walks the CTA's 32 rows (from L2) writing dx and adding the column sums.
+// - element by element: the two-sweep kernels with scalar loads, for a C
+//   off the 16-byte vector or a pointer off 16 bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,7 +56,12 @@ namespace {
 
 constexpr int kFwdWarps = 8;      // K4: rows (warps) per CTA
 constexpr int kBwdRows = 32;      // K5: rows per CTA (_BWD_ROWS_PER_CTA in ops/norm.py)
-constexpr int kBwdThreads = 128;  // K5: threads per CTA
+constexpr int kBwdThreads = 128;  // K5, two sweeps: threads per CTA
+constexpr int kRowWarps = 8;      // K5, one pass: warps per CTA, kBwdRows / 8 rows each
+constexpr int kOnePassMaxWidth = 1280;  // K5, one pass: widest row in registers
+
+// K5's paths (ever_layernorm_bwd_path; BWD_PATHS in ops/norm.py)
+enum BwdPath { kOnePass = 0, kTwoSweep = 1, kElementwise = 2 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -95,6 +114,19 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&f)[V]
 #pragma unroll
     for (int k = 0; k < V; ++k)
       if (k < n) p[k] = from_f32<T>(f[k]);
+  }
+}
+
+// V consecutive floats of shared memory (16-byte aligned), V a multiple of 4.
+template <int V>
+__device__ __forceinline__ void load4s(float (&f)[V], const float* p) {
+#pragma unroll
+  for (int j = 0; j < V / 4; ++j) {
+    const float4 u = reinterpret_cast<const float4*>(p)[j];
+    f[4 * j] = u.x;
+    f[4 * j + 1] = u.y;
+    f[4 * j + 2] = u.z;
+    f[4 * j + 3] = u.w;
   }
 }
 
@@ -151,8 +183,9 @@ ever_ln_fwd(const T* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
-// K5, first launch: dx for kBwdRows rows, and their [2, C] partial sums
-// (dgamma | dbeta) as row blockIdx.x of `partial`.
+// K5, two sweeps (kVector) or element by element: dx for kBwdRows rows,
+// and their [2, C] partial sums (dgamma | dbeta) as row blockIdx.x of
+// `partial`.
 template <typename T, bool kVector>
 __global__ void __launch_bounds__(kBwdThreads)
 ever_ln_bwd(const T* __restrict__ x, const T* __restrict__ dy,
@@ -226,26 +259,135 @@ ever_ln_bwd(const T* __restrict__ x, const T* __restrict__ dy,
   }
 }
 
+// K5, one pass: rows [32 * blockIdx.x, +32) of x, dy [R, C], C = 32 * V * NV
+// (NV 16-byte vectors of V values a lane).  Writes dx and the CTA's [2, C]
+// partial sums (dgamma | dbeta) as row blockIdx.x of `partial`.  Dynamic
+// shared memory: gamma [C], then each warp's column sums, 2C floats, laid
+// out so that value e of lane l sits at float4 (e / 4) * 32 + l: a lane's
+// read-modify-write of its sums touches 32 consecutive float4s a warp.
+template <typename T, int NV>
+__host__ __device__ constexpr int rows_smem_bytes() {
+  return (32 * (16 / static_cast<int>(sizeof(T))) * NV) * (1 + 2 * kRowWarps) * 4;
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(kRowWarps * 32, 2)
+ever_ln_bwd_rows(const T* __restrict__ x, const T* __restrict__ dy,
+                 const float* __restrict__ gamma, const float* __restrict__ mean,
+                 const float* __restrict__ rstd, T* __restrict__ dx,
+                 float* __restrict__ partial, int R) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int C = 32 * V * NV;
+  constexpr int E = V * NV;                      // values a lane holds
+  extern __shared__ __align__(16) float smem[];
+  float* s_g = smem;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float4* acc = reinterpret_cast<float4*>(smem + C + warp * 2 * C) + lane;
+  for (int c = threadIdx.x; c < C; c += kRowWarps * 32) s_g[c] = gamma[c];
+#pragma unroll
+  for (int j = 0; j < 2 * E / 4; ++j) acc[32 * j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // the lane's vector v covers columns (32 v + lane) V .. + V - 1; its sums
+  // of dy*xh are values 0..E-1, of dy values E..2E-1
+  for (int i = warp; i < kBwdRows; i += kRowWarps) {
+    const int r = blockIdx.x * kBwdRows + i;
+    if (r >= R) break;                           // whole warps leave together
+    const int64_t off = static_cast<int64_t>(r) * C;
+    uint4 xr[NV], dr[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      xr[v] = __ldg(reinterpret_cast<const uint4*>(x + off) + 32 * v + lane);
+      dr[v] = __ldg(reinterpret_cast<const uint4*>(dy + off) + 32 * v + lane);
+    }
+    const float mu = mean[r], rs = rstd[r];
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const T* xe = reinterpret_cast<const T*>(&xr[v]);
+      const T* de = reinterpret_cast<const T*>(&dr[v]);
+      float g[V];
+      load4s<V>(g, s_g + (32 * v + lane) * V);
+#pragma unroll
+      for (int j = 0; j < V / 4; ++j) {
+        float4 ag = acc[32 * (v * V / 4 + j)], ab = acc[32 * ((E + v * V) / 4 + j)];
+        float* agp = &ag.x;
+        float* abp = &ab.x;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float xh = (to_f32(xe[4 * j + k]) - mu) * rs, d = to_f32(de[4 * j + k]);
+          const float dxh = d * g[4 * j + k];
+          a += dxh;
+          b += dxh * xh;
+          agp[k] += d * xh;
+          abp[k] += d;
+        }
+        acc[32 * (v * V / 4 + j)] = ag;
+        acc[32 * ((E + v * V) / 4 + j)] = ab;
+      }
+    }
+    const float m1 = warp_sum(a) / static_cast<float>(C);
+    const float m2 = warp_sum(b) / static_cast<float>(C);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const T* xe = reinterpret_cast<const T*>(&xr[v]);
+      const T* de = reinterpret_cast<const T*>(&dr[v]);
+      uint4 u;
+      T* oe = reinterpret_cast<T*>(&u);
+      float g[V];
+      load4s<V>(g, s_g + (32 * v + lane) * V);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float xh = (to_f32(xe[k]) - mu) * rs;
+        const float dxh = to_f32(de[k]) * g[k];
+        oe[k] = from_f32<T>(rs * (dxh - m1 - xh * m2));
+      }
+      reinterpret_cast<uint4*>(dx + off)[32 * v + lane] = u;
+    }
+  }
+  __syncthreads();
+  // the CTA's sums: float4 group j of lane l, added over the warps in warp
+  // order, is columns (32 v + l) V + 4 (j mod V/4) .. + 3 of vector
+  // v = (j mod E/4) / (V/4), in dgamma (j < E/4) or dbeta
+  float* prow = partial + static_cast<int64_t>(blockIdx.x) * 2 * C;
+  for (int j = warp; j < 2 * E / 4; j += kRowWarps) {
+    const float4* src = reinterpret_cast<const float4*>(smem + C) + 32 * j + lane;
+    float4 t = src[0];
+#pragma unroll
+    for (int w = 1; w < kRowWarps; ++w) {
+      const float4 u = src[w * 2 * C / 4];
+      t.x += u.x;
+      t.y += u.y;
+      t.z += u.z;
+      t.w += u.w;
+    }
+    const int jj = j % (E / 4), v = jj / (V / 4);
+    const int c = (32 * v + lane) * V + 4 * (jj % (V / 4));
+    reinterpret_cast<float4*>(prow + (j < E / 4 ? 0 : C) + c)[0] = t;
+  }
+}
+
 // K5, second launch: out[c] = sum over the P partial rows of partial[p, c],
-// c < C2 = 2C, in a fixed order (rows p = y, y+8, ... per thread, then the
-// eight threads' sums in order).  Block (32, 8).
-__global__ void __launch_bounds__(256)
+// c < C2 = 2C, in a fixed order: thread (x, y) of a (32, 32) block adds rows
+// y, y + 32, ... of column 32 * blockIdx.x + x, then the 32 sums of a column
+// are added as a fixed tree.
+__global__ void __launch_bounds__(1024)
 ever_ln_bwd_reduce(const float* __restrict__ partial, float* __restrict__ out,
                    int P, int C2) {
-  __shared__ float s[8][33];
+  __shared__ float s[32][33];
   const int c = blockIdx.x * 32 + threadIdx.x;
   float acc = 0.f;
   if (c < C2)
-    for (int p = threadIdx.y; p < P; p += 8)
+    for (int p = threadIdx.y; p < P; p += 32)
       acc += partial[static_cast<int64_t>(p) * C2 + c];
   s[threadIdx.y][threadIdx.x] = acc;
   __syncthreads();
-  if (threadIdx.y == 0 && c < C2) {
-    float t = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) t += s[j][threadIdx.x];
-    out[c] = t;
+  for (int half = 16; half > 0; half >>= 1) {
+    if (threadIdx.y < half) s[threadIdx.y][threadIdx.x] += s[threadIdx.y + half][threadIdx.x];
+    __syncthreads();
   }
+  if (threadIdx.y == 0 && c < C2) out[c] = s[0][threadIdx.x];
 }
 
 bool aligned16(std::initializer_list<const void*> ptrs) {
@@ -275,6 +417,33 @@ int launch_fwd(const void* x, const void* g, const void* b, void* y, void* mean,
 }
 
 template <typename T>
+BwdPath choose_bwd(const void* x, const void* dy, const void* g, const void* dx,
+                   const void* partial, int C) {
+  constexpr int V = 16 / sizeof(T);
+  if (C % V != 0 || !aligned16({x, dy, g, dx, partial})) return kElementwise;
+  if (C % (32 * V) == 0 && C <= kOnePassMaxWidth) return kOnePass;
+  return kTwoSweep;
+}
+
+// The one-pass kernel for C = 32 * V * NV, NV = C / (32 V) <= NV_MAX.
+template <typename T, int NV_MAX>
+int launch_rows(int nv, const T* x, const T* dy, const float* g, const float* mean,
+                 const float* rstd, T* dx, float* partial, int R, int ctas,
+                 cudaStream_t st) {
+  if constexpr (NV_MAX > 1) {
+    if (nv < NV_MAX)
+      return launch_rows<T, NV_MAX - 1>(nv, x, dy, g, mean, rstd, dx, partial, R, ctas, st);
+  }
+  constexpr int smem = rows_smem_bytes<T, NV_MAX>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      ever_ln_bwd_rows<T, NV_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ever_ln_bwd_rows<T, NV_MAX><<<ctas, kRowWarps * 32, smem, st>>>(x, dy, g, mean, rstd,
+                                                                 dx, partial, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int launch_bwd(const void* x, const void* dy, const void* g, const void* mean,
                const void* rstd, void* dx, void* partial, void* dwb, int R,
                int C, cudaStream_t st) {
@@ -287,16 +456,25 @@ int launch_bwd(const void* x, const void* dy, const void* g, const void* mean,
   const float* rp = static_cast<const float*>(rstd);
   T* dxp = static_cast<T*>(dx);
   float* pp = static_cast<float*>(partial);
-  if (C % V == 0 && aligned16({x, dy, g, dx, partial}))
-    ever_ln_bwd<T, true><<<ctas, kBwdThreads, 0, st>>>(xp, dyp, gp, mp, rp, dxp,
-                                                       pp, R, C);
-  else
-    ever_ln_bwd<T, false><<<ctas, kBwdThreads, 0, st>>>(xp, dyp, gp, mp, rp, dxp,
-                                                        pp, R, C);
+  switch (choose_bwd<T>(x, dy, g, dx, partial, C)) {
+    case kOnePass: {
+      const int err = launch_rows<T, kOnePassMaxWidth / (32 * V)>(
+          C / (32 * V), xp, dyp, gp, mp, rp, dxp, pp, R, ctas, st);
+      if (err != 0) return err;
+      break;
+    }
+    case kTwoSweep:
+      ever_ln_bwd<T, true><<<ctas, kBwdThreads, 0, st>>>(xp, dyp, gp, mp, rp, dxp,
+                                                         pp, R, C);
+      break;
+    default:
+      ever_ln_bwd<T, false><<<ctas, kBwdThreads, 0, st>>>(xp, dyp, gp, mp, rp, dxp,
+                                                          pp, R, C);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((2 * C + 31) / 32);
-  ever_ln_bwd_reduce<<<blocks, dim3(32, 8), 0, st>>>(
+  ever_ln_bwd_reduce<<<blocks, dim3(32, 32), 0, st>>>(
       pp, static_cast<float*>(dwb), ctas, 2 * C);
   return static_cast<int>(cudaGetLastError());
 }
@@ -319,11 +497,22 @@ extern "C" int ever_layernorm_fwd(const void* x, const void* gamma,
   return launch_fwd<float>(x, gamma, beta, y, mean, rstd, R, C, eps, st);
 }
 
+// The path K5 takes for these operands (0 one pass, 1 two sweeps, 2
+// element by element); `dtype` as in ever_layernorm_bwd, -1 if invalid.
+extern "C" int ever_layernorm_bwd_path(const void* x, const void* dy, const void* gamma,
+                                       const void* dx, const void* partial, int dtype,
+                                       int C) {
+  if (C < 1 || (dtype != 0 && dtype != 1)) return -1;
+  return static_cast<int>(dtype == 0
+                              ? choose_bwd<__nv_bfloat16>(x, dy, gamma, dx, partial, C)
+                              : choose_bwd<float>(x, dy, gamma, dx, partial, C));
+}
+
 // x, dy, dx: [R, C] contiguous, of one type (dtype 0 = bf16, 1 = f32);
 // gamma: f32 [C]; mean, rstd: f32 [R] from the forward; partial: f32
 // scratch of partial_rows >= ceil(R / 32) rows of 2C; dwb: f32 [2C], out
-// (dgamma then dbeta).  Two launches on ``stream``; returns the first CUDA
-// error (0 on success).
+// (dgamma then dbeta).  Two launches on ``stream`` (the rows, then the
+// partial sums); returns the first CUDA error (0 on success).
 extern "C" int ever_layernorm_bwd(const void* x, const void* dy, const void* gamma,
                                   const void* mean, const void* rstd, void* dx,
                                   void* partial, void* dwb, int dtype, int R,

@@ -5,7 +5,9 @@ compiles on its own into a shared library for ``sm_90a``, at first use, into
 ``ever_tpu_torch/_build/`` (listed in ``.gitignore``).  A library is keyed by
 the hash of its source and of the shared headers (``csrc/*.cuh``), so an
 edited source or header rebuilds.  ``build`` starts one ``nvcc`` per source,
-all at once.  Nothing here runs at import time.
+all at once, and keeps the compiler's report (``-Xptxas -v``: registers,
+spills, and ptxas's notes such as a serialized ``wgmma``) beside each
+library; :func:`build_log` reads it.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import tempfile
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ['SOURCES', 'build', 'load', 'function']
+__all__ = ['SOURCES', 'build', 'build_log', 'load', 'function']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -34,7 +36,7 @@ SOURCES = {'attention_fwd': 'attention_fwd.cu',
            'int8_matmul': 'int8_matmul.cu'}
 
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC']
+               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -86,10 +88,20 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             os.unlink(tmp)
             failed.append(f'nvcc failed for {SOURCES[name]}:\n{log}')
         else:
+            with open(out[:-3] + '.log', 'w') as f:
+                f.write(log)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError('\n'.join(failed))
     return secs
+
+
+def build_log(name: str) -> str:
+    """nvcc's report from the build of kernel library ``name`` (built first
+    if needed)."""
+    build([name])
+    with open(_lib_path(name)[:-3] + '.log') as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

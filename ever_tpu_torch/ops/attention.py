@@ -161,12 +161,15 @@ def attention_bwd_reference(q, k, v, o, lse, do, layout: str = 'bnhd',
 
 
 def _kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it through its strides (unit
-    last stride, 16-byte aligned rows), else a contiguous copy."""
+    """``t`` itself when the kernels can read it through its strides (unit
+    last stride, a 16-byte aligned start and strides that are multiples of
+    16 bytes, as TMA needs), else a contiguous copy."""
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(s % 8 == 0 for s in t.stride()[:-1])):
         return t
-    return t.contiguous()
+    # a fresh copy: .contiguous() would hand back a contiguous view as it is,
+    # start and all
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _kernel_inputs(ts, layout, n_valid, rope):
@@ -206,19 +209,26 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _fwd_scratch(b, h, s, d, rope: bool, f32: bool, device):
+    """K1's scratch, none of it zeroed: the bf16 ``[B, H, S, D]`` buffers
+    its staging launch writes and its main kernel streams by TMA, K
+    (rotated, or rounded from float32) with RoPE or float32 inputs and V
+    (rounded) with float32 inputs, else None (the main kernel then reads
+    the bf16 input in place)."""
+    def seq(needed):
+        return (torch.empty((b, h, s, d), dtype=torch.bfloat16, device=device)
+                if needed else None)
+
+    return seq(rope or f32), seq(f32)
+
+
 def _launch_fwd(q, k, v, layout, n_valid, rope):
     (q, k, v), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
         (q, k, v), layout, n_valid, rope)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    # bf16 scratch the kernel stages K into (rotated, and rounded from f32)
-    # and, for f32, V into, before it streams them
-    f32 = q.dtype == torch.float32
-    kbuf = vbuf = None
-    if rope is not None or f32:
-        kbuf = torch.empty((b, h, s, d), dtype=torch.bfloat16, device=q.device)
-    if f32:
-        vbuf = torch.empty_like(kbuf)
+    kbuf, vbuf = _fwd_scratch(b, h, s, d, rope is not None,
+                              q.dtype == torch.float32, q.device)
     st = [[t.stride(i) for i in perm[:3]] for t in (q, k, v, o)]
     fn = _load('attention_fwd')
     with torch.cuda.device(q.device):
@@ -304,15 +314,19 @@ def fused_attention(q, k, v, layout: str = 'bnhd',
 
     Port of the JAX fused kernel (``_fused`` / ``_fa_fwd_kernel``): o in q's
     layout, lse ``[B, H, N]`` f32.  ``rope=(sin, cos)`` are the unfolded
-    [N, D] tables; the kernel rotates q and k in-kernel.  ``n_valid``: only
-    the first ``n_valid`` keys are real; query rows past it are garbage by
-    contract.
+    [N, D] tables.  K is rotated once per (b, h) by a staging launch into a
+    bf16 scratch buffer; q is rotated and scaled inside the main kernel,
+    once per q tile, on its way from device memory into registers.
+    ``n_valid``: only the first ``n_valid`` keys are real; query rows past
+    it are garbage by contract.
 
     On a CUDA tensor this launches the kernel (bf16 or f32, head dim 64 or
     128) or raises; on a CPU tensor it runs :func:`attention_reference`, the
-    plain version of the same function.  With f32 inputs the kernel rounds
-    q, K and V to bf16 for the tensor cores; scores, softmax and o stay f32.  ``fused_attention.launches`` counts
-    kernel launches.
+    plain version of the same function.  With f32 inputs the staging launch
+    rounds K and V to bf16 and the main kernel rounds q, for the tensor
+    cores; scores, softmax and o stay f32.  ``fused_attention.launches``
+    counts calls that launched the kernel (its staging launch and main
+    kernel count as one).
     """
     if q.device.type == 'cuda':
         return _launch_fwd(q, k, v, layout, n_valid, rope)

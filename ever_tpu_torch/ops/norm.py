@@ -29,13 +29,17 @@ import torch.nn as nn
 from torch.autograd.function import once_differentiable
 
 __all__ = ['layer_norm', 'layer_norm_fwd', 'layer_norm_bwd', 'layer_norm_reference',
-           'layer_norm_bwd_reference', 'FusedLayerNorm']
+           'layer_norm_bwd_reference', 'layer_norm_bwd_path', 'FusedLayerNorm']
 
 # element types the kernels take, with their code for each
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 # rows per CTA of K5 (kBwdRows in csrc/layernorm.cu): the partial sums'
 # row count is ceil(R / this); the kernel refuses a smaller buffer
 _BWD_ROWS_PER_CTA = 32
+# K5's paths, as ``ever_layernorm_bwd_path`` numbers them, and the widest
+# row its one-pass path keeps in registers (kOnePassMaxWidth)
+BWD_PATHS = ('one_pass', 'two_sweep', 'elementwise')
+_ONE_PASS_MAX_WIDTH = 1280
 
 
 def _check(x, weight, *rest):
@@ -113,6 +117,31 @@ def _launch_fwd(x, weight, bias, eps):
     return y, mean, rstd
 
 
+def layer_norm_bwd_path(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor) -> str:
+    """The path K5 takes for ``x``, ``dy`` ``[R, C]`` and float32
+    ``weight`` (its fresh dx and partial sums start on 16 bytes):
+    ``'one_pass'`` when C is a multiple of 32 16-byte vectors and at most
+    1280 (each row read once, held in a warp's registers), ``'two_sweep'``
+    for other widths that are a multiple of the vector (the rows read twice),
+    ``'elementwise'`` when C is off the vector or a pointer off 16 bytes
+    (scalar loads).  The kernel makes the same choice from the same facts
+    (``ever_layernorm_bwd_path``)."""
+    c = x.shape[-1]
+    per_vector = 16 // x.element_size()
+    if c % per_vector or any(t.data_ptr() % 16 for t in (x, dy, weight)):
+        return BWD_PATHS[2]
+    if c % (32 * per_vector) == 0 and c <= _ONE_PASS_MAX_WIDTH:
+        return BWD_PATHS[0]
+    return BWD_PATHS[1]
+
+
+def _bwd_partial(r: int, c: int, device) -> torch.Tensor:
+    """K5's scratch: one [2C] float32 row of partial sums (dweight | dbias)
+    per CTA of 32 rows, on every path."""
+    return torch.empty((-(-r // _BWD_ROWS_PER_CTA), 2 * c), dtype=torch.float32,
+                       device=device)
+
+
 def _launch_bwd(x, dy, weight, mean, rstd):
     weight = weight.float().contiguous()
     _ready(x, dy, weight, mean, rstd)
@@ -120,15 +149,13 @@ def _launch_bwd(x, dy, weight, mean, rstd):
         raise TypeError(f'dy must have x\'s type {x.dtype}, got {dy.dtype}')
     r, c = x.shape
     dx = torch.empty_like(x)
-    # one [2C] row of float32 partial sums (dweight | dbias) per CTA
-    n_ctas = -(-r // _BWD_ROWS_PER_CTA)
-    partial = torch.empty((n_ctas, 2 * c), dtype=torch.float32, device=x.device)
+    partial = _bwd_partial(r, c, x.device)
     dwb = torch.empty(2 * c, dtype=torch.float32, device=x.device)
     fn = _kernel('ever_layernorm_bwd', 8, 4)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), mean.data_ptr(),
                  rstd.data_ptr(), dx.data_ptr(), partial.data_ptr(), dwb.data_ptr(),
-                 _KERNEL_DTYPES[x.dtype], r, c, n_ctas, _stream(x))
+                 _KERNEL_DTYPES[x.dtype], r, c, partial.shape[0], _stream(x))
     if err != 0:
         raise RuntimeError(f'LayerNorm backward kernel launch failed: CUDA error {err}')
     layer_norm_bwd.launches += 1
@@ -161,10 +188,13 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     upstream gradient ``dy``.
 
     On a CUDA tensor this launches K5 (``csrc/layernorm.cu``: one kernel for
-    dx and per-CTA partial sums of dweight and dbias, a second that adds the
-    partials in a fixed order; counted as one launch) or raises; on a CPU
-    tensor it runs :func:`layer_norm_bwd_reference`.
-    ``layer_norm_bwd.launches`` counts kernel launches.
+    dx and a row of partial sums of dweight and dbias per 32 rows, on the
+    path :func:`layer_norm_bwd_path` names (at ViT widths one pass, each row
+    of x and dy read once), and a second that adds the partial rows in a
+    fixed order, so the same inputs give the same bits; counted as one
+    launch) or raises; on a CPU tensor it runs
+    :func:`layer_norm_bwd_reference`.  ``layer_norm_bwd.launches`` counts
+    kernel launches.
     """
     _check(x, weight)
     if x.device.type == 'cuda':

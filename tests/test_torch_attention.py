@@ -364,3 +364,61 @@ def test_backward_scratch_shapes_and_types(s, s_pad, rope, f32):
         assert t is None or (t.shape == qbuf.shape and t.dtype == torch.bfloat16)
     assert stats.shape == (2, 3, 2, s_pad) and stats.dtype == torch.float32
     assert stats.is_contiguous() and (s_pad * 4) % 16 == 0
+
+
+# -- the forward's rules in plain Python ---------------------------------------
+
+@pytest.mark.parametrize('s', [1029, 64, 1, 16389])
+@pytest.mark.parametrize('rope,f32', [(False, False), (True, False), (False, True),
+                                      (True, True)])
+def test_forward_scratch_shapes_and_types(s, rope, f32):
+    """K1's scratch: a bf16 [B, H, S, D] buffer for K (rotated or rounded)
+    with RoPE or float32 inputs, and one for V with float32 inputs; bf16
+    inputs without RoPE stream K and V in place (None)."""
+    kbuf, vbuf = TA._fwd_scratch(2, 3, s, 64, rope, f32, 'cpu')
+    assert (kbuf is not None) == (rope or f32) and (vbuf is not None) == f32
+    for t in (kbuf, vbuf):
+        assert t is None or (t.shape == (2, 3, s, 64) and t.dtype == torch.bfloat16
+                             and t.is_contiguous())
+
+
+@pytest.mark.parametrize('change,error', [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(k_dtype=torch.float32), TypeError),
+    (dict(d=32), ValueError),
+    (dict(d=96), ValueError),
+    (dict(n_valid=0), ValueError),
+    (dict(n_valid=9), ValueError),
+    (dict(layout='nbhd'), ValueError),
+    (dict(rope_rows=7), ValueError),
+    (dict(v_shape=(1, 8, 2, 32)), ValueError),
+])
+def test_forward_launcher_checks_before_loading_the_library(monkeypatch, change, error):
+    """K1's launcher raises on what its kernel does not take before the
+    kernel library is built or loaded."""
+    def no_load(name):
+        raise AssertionError('the kernel library was loaded before the checks')
+
+    monkeypatch.setattr(TA, '_load', no_load)
+    p = dict(dtype=torch.bfloat16, k_dtype=None, d=64, n_valid=None, layout='bnhd',
+             rope_rows=8, v_shape=None)
+    p.update(change)
+    q = torch.zeros((1, 8, 2, p['d']), dtype=p['dtype'])
+    k = q if p['k_dtype'] is None else q.to(p['k_dtype'])
+    v = q if p['v_shape'] is None else torch.zeros(p['v_shape'], dtype=p['dtype'])
+    rope = (torch.zeros(p['rope_rows'], p['d']), torch.ones(p['rope_rows'], p['d']))
+    with pytest.raises(error):
+        TA._launch_fwd(q, k, v, p['layout'], p['n_valid'], rope)
+
+
+@pytest.mark.parametrize('offset,copied', [(0, False), (8, False), (4, True), (1, True)])
+def test_kernel_view_copies_a_start_off_sixteen_bytes(offset, copied):
+    """TMA reads K and V from a 16-byte-aligned start: a bf16 view that
+    starts ``offset`` elements into an aligned buffer is kept at a multiple
+    of 8 elements and copied otherwise."""
+    buf = torch.zeros(offset + 2 * 8 * 2 * 64, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    t = buf[offset:offset + 2 * 8 * 2 * 64].view(2, 8, 2, 64)
+    view = TA._kernel_view(t)
+    assert (view is not t) == copied and torch.equal(view, t)
+    assert view.data_ptr() % 16 == 0

@@ -156,3 +156,60 @@ def test_wrong_shapes_and_devices_raise():
     with pytest.raises(RuntimeError, match='no LayerNorm kernel'):
         N.layer_norm_fwd(meta, torch.ones(8, device='meta'), torch.zeros(8, device='meta'),
                          EPS)
+
+
+@pytest.mark.parametrize('rows,width,dtype,offset,path', [
+    (8232, 1024, torch.bfloat16, 0, 'one_pass'),     # DinoSeg ViT-L/16
+    (8232, 1024, torch.float32, 0, 'one_pass'),
+    (517, 768, torch.bfloat16, 0, 'one_pass'),       # ViT-B
+    (64, 1280, torch.bfloat16, 0, 'one_pass'),       # ViT-H, the widest in registers
+    (64, 1280, torch.float32, 0, 'one_pass'),
+    (64, 384, torch.float32, 0, 'one_pass'),         # ViT-S in float32 (3 vectors of 4)
+    (64, 384, torch.bfloat16, 0, 'two_sweep'),       # not 32 vectors of 8
+    (64, 1536, torch.bfloat16, 0, 'two_sweep'),      # past the registers
+    (300, 4096, torch.bfloat16, 0, 'two_sweep'),     # ViT-g
+    (37, 203, torch.bfloat16, 0, 'elementwise'),     # off the 16-byte vector
+    (64, 768, torch.bfloat16, 8, 'one_pass'),        # x starts 16 bytes in: aligned
+    (64, 768, torch.bfloat16, 3, 'elementwise'),     # x off 16 bytes
+])
+def test_backward_path_rule(rows, width, dtype, offset, path):
+    """K5's path from the width and the pointers: one pass for widths of 32
+    16-byte vectors up to 1280, two sweeps for other multiples of the
+    vector, element by element off the vector or off 16 bytes."""
+    buf = torch.zeros(offset + rows * width, dtype=dtype)
+    x = buf[offset:].view(rows, width)
+    dy = torch.zeros(rows, width, dtype=dtype)
+    assert N.layer_norm_bwd_path(x, dy, torch.ones(width)) == path
+
+
+@pytest.mark.parametrize('rows,width,partial_shape', [
+    (1, 8, (1, 16)), (32, 8, (1, 16)), (33, 203, (2, 406)), (517, 768, (17, 1536)),
+    (8232, 1024, (258, 2048)), (32808, 1024, (1026, 2048))])
+def test_backward_partial_sums_shape(rows, width, partial_shape):
+    """K5's scratch: one float32 [2C] row of partial sums (dγ | dβ) per CTA
+    of 32 rows, the same on every path."""
+    partial = N._bwd_partial(rows, width, 'cpu')
+    assert partial.shape == partial_shape and partial.dtype == torch.float32
+    assert partial.is_contiguous()
+
+
+@pytest.mark.parametrize('change,error', [
+    (dict(dtype=torch.float16), TypeError),
+    (dict(dy_dtype=torch.float32), TypeError),
+    (dict(strided=True), ValueError),
+])
+def test_backward_launcher_checks_before_loading_the_library(monkeypatch, change, error):
+    """K5's launcher raises on what its kernels do not take (a type, dy of
+    another type, a non-contiguous x) before the library is loaded."""
+    def no_load(*args, **kwargs):
+        raise AssertionError('the kernel library was loaded before the checks')
+
+    monkeypatch.setattr(N, '_kernel', no_load)
+    p = dict(dtype=torch.bfloat16, dy_dtype=None, strided=False)
+    p.update(change)
+    x = torch.zeros(16, 256, dtype=p['dtype'])
+    if p['strided']:
+        x = torch.zeros(16, 512, dtype=p['dtype'])[:, ::2]
+    dy = torch.zeros(16, 256, dtype=p['dy_dtype'] or p['dtype'])
+    with pytest.raises(error):
+        N._launch_bwd(x, dy, torch.ones(256), torch.zeros(16), torch.ones(16))
