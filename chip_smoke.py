@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU and check its kernels.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--seed N]
 
 Phases (any failure exits non-zero before the last line is printed):
 
@@ -39,7 +39,8 @@ Phases (any failure exits non-zero before the last line is printed):
              ``remat='full'`` (48 K1 and 24 K2 launches) against the same
              step without remat, and one forward and backward through
              ``impl='flash'`` at N=16389 (a 2048² tile) against the plain
-             versions.
+             versions; one step runs under ``torch.cuda.set_sync_debug_mode
+             ('error')``: the step never makes the host wait for the card.
 5. farseg  — FarSeg-R50 (the JAX package's ``farseg`` bench section, without
              its TPU-only layouts) with ``maxpool_impl='pallas'``: first the
              stem's max pool backward (K8) against its plain version at the
@@ -88,7 +89,27 @@ Phases (any failure exits non-zero before the last line is printed):
              K7 within 0.02 (``tools/quant_check.py``'s limit); then K6,
              K7 and the layer timed beside bounds, plain versions and library
              calls.
-9. report  — a ``{"kernels": [...]}`` line, the card's name and power limit,
+9. trainer — the config-driven run: the project template's
+             ``configs/dinoseg_vitl_loveda.py`` as it is (DinoSeg ViT-L/16 in
+             bf16, AdamW, cosine with warmup, ``grad_clip``) with its data
+             replaced by seeded in-memory crops (16 of 512², batch 8; 4
+             test scenes of 1024², batch 2) and its run cut to 8 steps,
+             through ``get_trainer('th_ddp', argv=...)().run()``: finite
+             losses, the last checkpoint in ``checkpoint_info.json``, and
+             exactly 24 K1 launches a train step and an eval batch and 24 K2
+             a train step; the automatic evaluation's confusion matrix,
+             counted on the card, equal to ``np.bincount`` of the same
+             predictions on the host; a resume to 10 steps against 10 steps
+             at once, bit for bit; the trained model under
+             ``tiled_inference(tta='d4')`` (one 1024² scene, ``tile_batch=2``:
+             16 tiles and 24 K1 launches a call) against per-tile ``tta()``
+             calls; and the times: ms/step through the ``Launcher`` (a
+             12-step run without periodic checkpoints, its loop under
+             ``torch.cuda.set_sync_debug_mode('error')``, and the 10-step run
+             with one every 2 steps) beside the bare train step, the
+             checkpoint saves, s per evaluated scene, tiles/s with and
+             without TTA, each with the card's name and power limit.
+10. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -157,9 +178,10 @@ TRAIN_FLOPS = 24 * (3 * 24 * EMBED ** 2 * TRAIN_BATCH * S
 # the qkv weights a cosine near 0.
 GRAD_REL_TOL, GRAD_COS_MIN = 1e-2, 0.999
 # remat='full' vs no remat: the same kernels on the same inputs, recomputed.
-# PyTorch's bf16 LayerNorm and bias-gradient reductions are not
-# deterministic, so two runs without remat already differ (printed beside
-# it, about 1e-4 in the first run)
+# Two runs without remat (printed beside it) differed by about 1e-4 while
+# the logits' upsample was F.interpolate, whose CUDA backward adds with
+# atomics; as two matrix products (module/ops.py upsample_bilinear) both
+# comparisons read 0
 REMAT_REL_TOL = 1e-3
 # impl='flash' at a 2048² tile: N = 128² + 5 tokens, B=1, H=2
 FLASH_N = 128 * 128 + 5
@@ -728,7 +750,8 @@ def compare_grads(got, want):
 
 def phase_train(gen, profile: bool):
     """The train path, then the gradient, remat and flash-route checks;
-    returns the K1 and K2 launches of the timed steps."""
+    returns the K1 and K2 launches of the timed steps and their median
+    ms/step."""
     from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
     from ever_tpu_torch.module.vit import SelfAttention
     from ever_tpu_torch.ops import attention as A
@@ -784,6 +807,15 @@ def phase_train(gen, profile: bool):
           'parameters left float32')
     check(all(st['exp_avg'].dtype == torch.float32
               for st in state.optimizer.state.values()), 'AdamW state left float32')
+    # the step never makes the host wait for the card: torch raises on any
+    # synchronizing CUDA call in this mode
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        state, _ = step(state, (x, y))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print('train: one more step under torch.cuda.set_sync_debug_mode("error"): no host sync',
+          flush=True)
     if profile:
         profile_run('one train step', lambda: step(state, (x, y)))
 
@@ -833,7 +865,7 @@ def phase_train(gen, profile: bool):
     del model, g_plain, g_remat
     torch.cuda.empty_cache()
     check_flash_route(gen)
-    return launches
+    return launches, med * 1e3
 
 
 def check_flash_route(gen) -> None:
@@ -1589,6 +1621,336 @@ def phase_quant(gen):
                  bound_by=mm_by, library_ms=mm_lib))
 
 
+# the trainer phase: the project template's DinoSeg config, its data and
+# run length replaced by seeded in-memory crops (LoveDA needs image files)
+TEMPLATE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               'project_template', 'configs', 'dinoseg_vitl_loveda.py')
+TRAINER_ITERS, RESUME_ITERS, EVAL_SCENE, EVAL_BATCH = 8, 10, 2 * TILE, 2
+# a timing run without periodic checkpoints: every logged interval of the
+# runs above holds one 3.6 GB save
+TIMING_ITERS = 12
+# d4 TTA of a 1024² scene against per-tile tta() calls: the same model and
+# kernels, but 16 tiles a forward against 1, so cuBLAS tiles the bf16
+# products differently and each of the 24 blocks rounds differently: the
+# regime of the serve phase's kernel-against-plain tile batch, with its limits
+TTA_MAX_TOL, TTA_MEAN_TOL = SLICE_MAX_TOL, SLICE_MEAN_TOL
+
+
+def register_smoke_data():
+    """Register ``smoke_scenes`` in the port's DATASET registry: seeded
+    float32 images ``[n, size, size, 3]`` with uint8 masks over 7 classes
+    and 2 % ignored (255) pixels, made in bulk from ``seed``."""
+    import numpy as np
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.interface import ERDataset
+
+    @registry.DATASET.register('smoke_scenes')
+    class SmokeScenes(ERDataset):
+        def set_default_config(self):
+            self.config.update(dict(num_samples=16, image_size=TILE, seed=0))
+
+        def __init__(self, config=None):
+            super().__init__(config)
+            c = self.config
+            rng = np.random.default_rng(c.seed)
+            shape = (c.num_samples, c.image_size, c.image_size)
+            self.x = rng.standard_normal(shape + (3,), dtype=np.float32)
+            self.y = rng.integers(0, CLASSES, shape, dtype=np.uint8)
+            self.y[rng.random(shape, dtype=np.float32) < 0.02] = 255
+
+        def __len__(self):
+            return self.config.num_samples
+
+        def __getitem__(self, idx):
+            return self.x[idx], self.y[idx]
+
+
+def d4_transforms():
+    """The 8 symmetries in ``d4_tta``'s order, as the port's transforms:
+    rotations by 0-3 quarter turns, then the same after a horizontal flip."""
+    from ever_tpu_torch.interface.transform_base import Transform
+    from ever_tpu_torch.magic import transform as T
+
+    class FlipThen(Transform):
+        """A horizontal flip, then ``rotation``; inverted in reverse."""
+
+        def __init__(self, rotation):
+            self.flip, self.rotation = T.HorizontalFlip(), rotation
+
+        def transform(self, x):
+            return self.rotation.transform(self.flip.transform(x))
+
+        def inv_transform(self, y):
+            return self.flip.inv_transform(self.rotation.inv_transform(y))
+
+    rots = [T.Identity(), T.Rotate90k(1), T.Rotate90k(2), T.Rotate90k(3)]
+    return rots + [FlipThen(r) for r in rots]
+
+
+def trainer_run(model_dir: str, num_iters: int, seed: int, init_state=None, opts=(),
+                sync_free: bool = False):
+    """``get_trainer('th_ddp')().run()`` of the template config into
+    ``model_dir`` (``opts``: more config overrides); returns the launcher
+    and what it logged, evaluated and saved.  ``sync_free``: the training
+    loop runs under ``torch.cuda.set_sync_debug_mode('error')``, which
+    raises on any synchronizing CUDA call (the logged steps' event waits are
+    not one)."""
+    from ever_tpu_torch.trainer import get_trainer
+
+    train = dict(num_samples=16, image_size=TILE, seed=seed, total_batch_size=TRAIN_BATCH,
+                 sampler_type='StepDistributedSampler')
+    test = dict(num_samples=4, image_size=EVAL_SCENE, seed=seed + 1, batch_size=EVAL_BATCH,
+                sampler_type='SequentialSampler')
+    argv = ['--config_path', TEMPLATE_CONFIG, '--model_dir', model_dir,
+            'data.train.type', 'smoke_scenes', 'data.train.params', repr(train),
+            'data.test.type', 'smoke_scenes', 'data.test.params', repr(test),
+            'train.num_iters', str(num_iters), 'train.save_ckpt_interval_epoch', '1',
+            'train.eval_after_train', 'True', 'train.log_interval_step', '2', *opts]
+    record = dict(logged=[], evals=[], saves=[])
+
+    def wire(launcher):
+        if init_state is not None:
+            launcher.set_pretrained_state(init_state)
+        train_log, evaluate = launcher.logger.train_log, launcher.evaluate
+        save = launcher.checkpoint.save
+
+        def timed_save(filename=None):
+            t0 = time.perf_counter()
+            save(filename)
+            record['saves'].append(time.perf_counter() - t0)
+
+        def logged(step, num_iters, loss_dict, data_time, time_cost, lr):
+            record['logged'].append((step, dict(loss_dict), data_time, time_cost))
+            return train_log(step, num_iters, loss_dict, data_time, time_cost, lr)
+
+        def evaluated(data_loader, config=None):
+            torch.cuda.synchronize()
+            before, t0 = counts(), time.perf_counter()
+            table = evaluate(data_loader, config)
+            torch.cuda.synchronize()
+            record['evals'].append((table, time.perf_counter() - t0,
+                                    [a - b for a, b in zip(counts(), before)],
+                                    len(data_loader)))
+            return table
+
+        launcher.logger.train_log, launcher.evaluate = logged, evaluated
+        launcher.checkpoint.save = timed_save
+        if sync_free:
+            loop = launcher._train_loop
+
+            def checked_loop(*args, **kwargs):
+                torch.cuda.set_sync_debug_mode('error')
+                try:
+                    return loop(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            launcher._train_loop = checked_loop
+
+    reset_counts()
+    out = get_trainer('th_ddp', argv=argv)().run(after_construct_launcher_callbacks=[wire])
+    torch.cuda.synchronize()
+    record['launches'] = counts()
+    return out['launcher'], record
+
+
+def record_confusion(seen: list):
+    """Wrap ``ConfusionMatrix.forward`` to keep, for every batch counted, the
+    device it counted on, its matrix and the labels and predictions copied
+    to the host; returns the undo."""
+    from ever_tpu_torch.metric.confusion_matrix import ConfusionMatrix
+
+    forward = ConfusionMatrix.forward
+
+    def recorded(self, y_true, y_pred):
+        cm = forward(self, y_true, y_pred)
+        pred = y_pred.argmax(dim=-1) if y_pred.ndim == y_true.ndim + 1 else y_pred
+        seen.append((y_pred.device.type, cm, torch.as_tensor(y_true).cpu().numpy(),
+                     pred.cpu().numpy()))
+        return cm
+
+    ConfusionMatrix.forward = ConfusionMatrix.update = recorded
+
+    def undo():
+        ConfusionMatrix.forward = ConfusionMatrix.update = forward
+    return undo
+
+
+def check_run(name: str, launcher, record: dict, steps: int, evals: int) -> None:
+    """Finite losses, the step count, the checkpoint index and the exact
+    launches of a trainer run: K1 24 a train step and an eval batch, K2 24
+    a train step; the evaluation's own share of K1 and no K2."""
+    from ever_tpu_torch.core.checkpoint import CheckPoint
+
+    losses = [d['total_loss'] for _, d, _, _ in record['logged']]
+    k1, k2 = record['launches'][:2]
+    want_k1 = 24 * (steps + evals * record['evals'][-1][3])
+    info = CheckPoint.load_checkpoint_info(launcher.model_dir)
+    print(f'trainer: {name}: step {launcher.global_step}, logged steps '
+          f'{[s for s, _, _, _ in record["logged"]]}, loss {" ".join(f"{v:.5f}" for v in losses)}; '
+          f'last checkpoint {info["last"]}; attention_fwd {k1} (expected {want_k1}), '
+          f'attention_bwd {k2} (expected {24 * steps}); evaluation launches '
+          f'{[e[2][:2] for e in record["evals"]]}', flush=True)
+    check(all(math.isfinite(v) for v in losses), f'{name}: non-finite loss')
+    check(info['last']['name'] == f'checkpoint-{launcher.global_step}.ckpt'
+          and os.path.exists(os.path.join(launcher.model_dir, info['last']['name'])),
+          f'{name}: checkpoint_info names no last checkpoint')
+    check((k1, k2) == (want_k1, 24 * steps), f'{name}: launches {(k1, k2)}')
+    check(len(record['evals']) == evals and all(
+        tuple(e[2][:2]) == (24 * e[3], 0) for e in record['evals']),
+        f'{name}: evaluation launches')
+
+
+def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
+    """The config-driven run: train, evaluate, checkpoint, resume and serve
+    under d4 TTA the template's DinoSeg ViT-L/16 through the port's
+    ``Trainer``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.magic.transform import tta
+    from ever_tpu_torch.ops import attention as A
+
+    register_smoke_data()
+    init = build_dinoseg(gen)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_trainer_') as tmp:
+        # a: the run, b: the evaluation's matrix against the host's
+        seen = []
+        undo = record_confusion(seen)
+        try:
+            la, ra = trainer_run(os.path.join(tmp, 'a'), TRAINER_ITERS, seed, init_state)
+        finally:
+            undo()
+        check_run('run', la, ra, TRAINER_ITERS, 1)
+        table = ra['evals'][0][0]
+        print(f'trainer: evaluation of {len(seen)} batches of {EVAL_BATCH} {EVAL_SCENE}² '
+              f'scenes after {TRAINER_ITERS} steps:\n{table}', flush=True)
+        dumps = sorted(os.listdir(os.path.join(la.model_dir, 'cm')))
+        card_cm = np.load(os.path.join(la.model_dir, 'cm', dumps[-1]))
+        truth = np.concatenate([y.reshape(-1) for _, _, y, _ in seen])
+        pred = np.concatenate([p.reshape(-1) for _, _, _, p in seen])
+        valid = truth != 255
+        host_cm = np.bincount(truth[valid].astype(np.int64) * CLASSES + pred[valid],
+                              minlength=CLASSES * CLASSES).reshape(CLASSES, CLASSES)
+        print(f'trainer: confusion matrix counted on {sorted({d for d, _, _, _ in seen})}, '
+              f'{int(card_cm.sum())} pixels; equal to np.bincount of the host copies: '
+              f'{bool(np.array_equal(card_cm, host_cm))}', flush=True)
+        check(len(seen) == 2 and all(d == 'cuda' for d, _, _, _ in seen),
+              'the evaluation did not count its matrix on the card')
+        check(np.array_equal(card_cm, host_cm) and int(host_cm.sum()) == int(valid.sum()),
+              "the card's confusion matrix differs from the host's")
+        del la, ra, seen
+        torch.cuda.empty_cache()
+
+        # c: resume to 10 steps against a fresh 10-step run
+        lb, rb = trainer_run(os.path.join(tmp, 'a'), RESUME_ITERS, seed)
+        check_run('resumed run', lb, rb, RESUME_ITERS - TRAINER_ITERS, 1)
+        check(rb['logged'][0][0] == TRAINER_ITERS + 2, 'the resumed run did not start at '
+              f'step {TRAINER_ITERS}')
+        resumed = [p.detach().clone() for p in lb.model.parameters()]
+        del lb, rb
+        shutil.rmtree(os.path.join(tmp, 'a'))
+        torch.cuda.empty_cache()
+        lc, rc = trainer_run(os.path.join(tmp, 'c'), RESUME_ITERS, seed, init_state)
+        check_run('fresh run', lc, rc, RESUME_ITERS, 1)
+        # the train step is deterministic (K1, K2, cuBLAS, and DinoSeg's
+        # logits upsampled by matrix products, whose backward adds no atomics)
+        # and the batches are seeded by the step: the two runs agree bit for bit
+        delta = max(float((a - b.detach()).abs().max())
+                    for a, b in zip(resumed, lc.model.parameters()))
+        print(f'trainer: {TRAINER_ITERS} steps + resume to {RESUME_ITERS} against '
+              f'{RESUME_ITERS} steps at once: max|dp| {delta:.3e} (gate: equal bits)',
+              flush=True)
+        check(delta == 0.0, 'the resumed run differs from the unbroken run')
+        del resumed
+
+        # e: times through the Launcher (with a save every 2 steps, then
+        # without), the checkpoint saves, the evaluation and the TTA scene
+        def medians(record):
+            logged = record['logged'][2:]
+            return ([s for s, _, _, _ in logged],
+                    sorted(t for _, _, _, t in logged)[len(logged) // 2],
+                    sorted(d for _, _, d, _ in logged)[len(logged) // 2])
+
+        steps_c, per_step_c, data_c = medians(rc)
+        saves = sorted(rc['saves'])
+        size = os.path.getsize(os.path.join(lc.model_dir, f'checkpoint-{RESUME_ITERS}.ckpt'))
+        eval_secs = rc['evals'][0][1]
+        model = lc.model
+        del lc, rc
+        shutil.rmtree(os.path.join(tmp, 'c'))
+        torch.cuda.empty_cache()
+        ld, rd = trainer_run(os.path.join(tmp, 'd'), TIMING_ITERS, seed, init_state,
+                             opts=('train.save_ckpt_interval_epoch', '1000',
+                                   'train.eval_after_train', 'False'), sync_free=True)
+        check(rd['launches'][:2] == (24 * TIMING_ITERS, 24 * TIMING_ITERS)
+              and len(rd['saves']) == 1 and not rd['evals'],
+              f'timing run: launches {rd["launches"][:2]}, {len(rd["saves"])} saves')
+        steps_d, per_step_d, data_d = medians(rd)
+        del ld, rd
+        torch.cuda.empty_cache()
+        print(f'trainer: {smi}: through the Launcher median {per_step_d * 1e3:.2f} ms/step '
+              f'over logged steps {steps_d} without periodic checkpoints and without a host sync (loading, '
+              f'callbacks and copies {data_d * 1e3:.2f} ms/step of it), against '
+              f'{bare_ms:.2f} ms/step for build_train_step alone (train phase); with a '
+              f'checkpoint every 2 steps {per_step_c * 1e3:.2f} ms/step over logged steps '
+              f'{steps_c} ({data_c * 1e3:.2f} of it loading and callbacks); '
+              f'{len(saves)} checkpoint saves of {size / 1e9:.2f} GB, median '
+              f'{saves[len(saves) // 2]:.2f} s ({size / 1e9 / saves[len(saves) // 2]:.2f} '
+              f'GB/s); evaluation {eval_secs / 4:.3f} s per {EVAL_SCENE}² scene', flush=True)
+
+    # d: the trained model under d4 TTA against per-tile tta() calls
+    scene = torch.randn(EVAL_SCENE, EVAL_SCENE, 3, generator=gen, device='cuda')
+    sizes = []
+
+    def predict(tiles):
+        sizes.append(tiles.shape[0])
+        return model(tiles)
+
+    def scene_secs(**kw):
+        tiled_inference(model, scene, TILE, TILE, CLASSES, tile_batch=2, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tiled_inference(model, scene, TILE, TILE, CLASSES, tile_batch=2, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    reset_counts()
+    got = tiled_inference(predict, scene, TILE, TILE, CLASSES, tile_batch=2, tta='d4')
+    torch.cuda.synchronize()
+    k1 = A.fused_attention.launches
+    want = torch.zeros_like(got)
+    d4 = d4_transforms()
+    with torch.no_grad():
+        for y in range(0, EVAL_SCENE, TILE):
+            for x in range(0, EVAL_SCENE, TILE):
+                tile = scene[None, y:y + TILE, x:x + TILE]
+                want[y:y + TILE, x:x + TILE] = tta(model, tile, d4)[0].float()
+    diff = (got - want).abs()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    n_tiles = (EVAL_SCENE // TILE) ** 2
+    print(f'trainer: tiled_inference(tta="d4") of a {EVAL_SCENE}² scene, tile_batch=2: '
+          f'model calls of {sizes} tiles, attention_fwd {k1} (expected '
+          f'{24 * n_tiles // 2}); against per-tile tta() max|dprob| {diff.max().item():.3e}, '
+          f'mean {diff.mean().item():.3e} (limits {TTA_MAX_TOL}, {TTA_MEAN_TOL}), argmax '
+          f'agreement {agree:.4f}', flush=True)
+    check(sizes == [8 * 2] * (n_tiles // 2) and k1 == 24 * n_tiles // 2,
+          f'd4 TTA ran {sizes} tiles a call and {k1} K1 launches')
+    check(bool(torch.isfinite(got).all()) and diff.max().item() <= TTA_MAX_TOL
+          and diff.mean().item() <= TTA_MEAN_TOL, 'd4 TTA disagrees with per-tile tta()')
+    plain, _ = scene_secs()
+    d4_secs, _ = scene_secs(tta='d4')
+    print(f'trainer: {smi}: the {EVAL_SCENE}² scene at {n_tiles / plain:.1f} tiles/s '
+          f'({plain * 1e3:.1f} ms) without TTA, {n_tiles / d4_secs:.1f} tiles/s '
+          f'({d4_secs * 1e3:.1f} ms) with tta="d4"', flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -1614,6 +1976,9 @@ def main() -> int:
     parser.add_argument('--profile', action='store_true',
                         help='trace one tile batch and one train step of each '
                              'model with torch.profiler')
+    parser.add_argument('--seed', type=int, default=0,
+                        help="seed of the random weights, inputs and the trainer "
+                             "phase's data")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
@@ -1633,11 +1998,14 @@ def main() -> int:
           f'total {time.perf_counter() - t0:.1f} s', flush=True)
     check_build_notes()
 
-    gen = torch.Generator(device='cuda').manual_seed(0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    gen = torch.Generator(device='cuda').manual_seed(args.seed)
     fwd, bwd = phase_kernels(gen)
     pool = phase_maxpool(gen)
     phase_serve(gen, args.profile)
-    fwd['launches'], bwd['launches'] = phase_train(gen, args.profile)
+    (fwd['launches'], bwd['launches']), bare_ms = phase_train(gen, args.profile)
     model, pool['launches'] = phase_farseg_train(gen, args.profile)
     phase_farseg_serve(gen, model, args.profile)
     del model
@@ -1645,6 +2013,7 @@ def main() -> int:
     ln_fwd, ln_bwd = phase_layernorm(gen)
     ln_fwd['launches'], ln_bwd['launches'] = phase_fused_ln(gen, args.profile)
     quant, matmul = phase_quant(gen)
+    phase_trainer(gen, args.seed, bare_ms, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:
@@ -1652,10 +2021,7 @@ def main() -> int:
             check(value is not None and (not isinstance(value, float) or math.isfinite(value)),
                   f'kernel record {kernel["name"]} {key} missing')
     print(json.dumps({'kernels': records}), flush=True)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,8 @@ from ever_tpu_torch.core import registry
 from ever_tpu_torch.core.config import AttrDict
 from ever_tpu_torch.core.device import get_device
 
-__all__ = ['make_model', 'make_learningrate', 'make_optimizer']
+__all__ = ['make_model', 'make_dataloader', 'make_learningrate', 'make_optimizer',
+           'make_callback']
 
 
 def _params(config, what: str) -> dict:
@@ -53,3 +54,20 @@ def make_optimizer(config) -> Tuple[Any, AttrDict]:
     import ever_tpu_torch.opt  # noqa: F401  (registers the optimizers)
     factory = registry.OPT[config['type']](**_params(config, 'optimizer'))
     return factory, AttrDict(config)
+
+
+def make_dataloader(config):
+    """Build a dataloader from the DATALOADER registry, or a DATASET entry
+    turned into one by its ``to_dataloader()``."""
+    params = _params(config, 'dataloader')
+    t = config['type']
+    if t in registry.DATALOADER:
+        return registry.DATALOADER[t](params)
+    if t in registry.DATASET:
+        return registry.DATASET[t](params).to_dataloader()
+    raise KeyError(f'{t!r} is registered in neither DATALOADER nor DATASET')
+
+
+def make_callback(config):
+    """Build a callback from the CALLBACK registry."""
+    return registry.CALLBACK[config['type']](**_params(config, 'callback'))

@@ -16,7 +16,7 @@ import pickle
 from collections import OrderedDict
 from typing import Any, Iterable, Sequence
 
-__all__ = ['AttrDict', 'from_dict', 'import_config']
+__all__ = ['AttrDict', 'from_dict', 'import_config', 'save_pkl']
 
 
 class AttrDict(OrderedDict):
@@ -158,6 +158,12 @@ def _recursive_update(dst: dict, src) -> None:
 
 def from_dict(d: dict) -> AttrDict:
     return AttrDict(d)
+
+
+def save_pkl(config: AttrDict, path: str) -> None:
+    """Pickle a config (``import_config`` reads it back from ``.pkl``)."""
+    with open(path, 'wb') as f:
+        pickle.dump(config, f)
 
 
 def import_config(config_path: str, prefix: str = 'configs') -> AttrDict:

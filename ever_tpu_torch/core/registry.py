@@ -2,7 +2,8 @@
 
 Counterpart of ``ever_tpu/core/registry.py``: a ``Registry`` is a dict from
 name to callable, populated by decorator or direct call.  The port so far
-needs ``MODEL``, ``LR``, ``OPT`` and ``LOSS``.
+needs ``MODEL``, ``LR``, ``OPT``, ``LOSS``, ``DATASET``, ``DATALOADER``
+and ``CALLBACK``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,8 @@ from __future__ import annotations
 import logging
 from typing import Callable, Optional, TypeVar
 
-__all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS']
+__all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS', 'DATASET', 'DATALOADER',
+           'CALLBACK']
 
 logger = logging.getLogger('ever_tpu_torch.registry')
 
@@ -62,3 +64,6 @@ LR = Registry('learning_rate')
 OPT = Registry('optimizer')
 MODEL = Registry('model')
 LOSS = Registry('loss')
+DATASET = Registry('dataset')
+DATALOADER = Registry('dataloader')
+CALLBACK = Registry('callback')

@@ -49,11 +49,15 @@ class ERModule(nn.Module):
 
 def sum_losses(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Sum every ``*loss`` entry of a forward output dict into the objective,
-    in float32.  Other keys are metrics and are left out."""
-    total = torch.zeros(())
-    for k, v in loss_dict.items():
-        if k.endswith('loss'):
-            total = total.to(v.device) + v.float()
+    in float32.  Other keys are metrics and are left out.  The sum stays on
+    the losses' device: a host-made zero copied there would make the host
+    wait for the card in every step."""
+    losses = [v.float() for k, v in loss_dict.items() if k.endswith('loss')]
+    if not losses:
+        return torch.zeros(())
+    total = losses[0]
+    for v in losses[1:]:
+        total = total + v
     return total
 
 

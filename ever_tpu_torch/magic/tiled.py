@@ -5,7 +5,8 @@ Every sliding-window tile of the scene is predicted in batches of
 together with an overlap count, and the canvas is normalised once at the
 end.  The tail batch is filled with repeats of the last box at weight 0, so
 ``predict_fn`` always sees the same batch shape and the pad tiles change
-nothing.
+nothing.  With ``tta='d4'`` each tile batch of B becomes its 8·B dihedral
+variants, predicted in one call and averaged back before pasting.
 """
 
 from __future__ import annotations
@@ -18,29 +19,35 @@ import torch
 import torch.nn.functional as F
 
 from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.magic._transform_impl import d4_tta
 from ever_tpu_torch.magic.sliding_window import sliding_window
 
 __all__ = ['tiled_inference']
 
 
-def tiled_inference(predict_fn: Callable[[torch.Tensor], torch.Tensor],
+def tiled_inference(predict_fn: Callable,
                     image: Union[np.ndarray, torch.Tensor],
                     kernel_size: int, stride: int, num_classes: int,
-                    tile_batch: int = 8, mesh=None, tta: Optional[str] = None,
+                    tile_batch: int = 8, mesh=None, axis: str = 'data',
+                    tta: Optional[str] = None, variables=None,
                     device: Optional[Union[str, torch.device]] = None
                     ) -> torch.Tensor:
     """Run ``predict_fn`` over every sliding-window tile and average overlaps.
 
     Args:
         predict_fn: ``[B, k, k, C] -> [B, k, k, num_classes]`` (probabilities
-            or logits; whatever it returns is averaged).
+            or logits; whatever it returns is averaged), or
+            ``(variables, tiles) -> ...`` when ``variables`` is given (e.g. a
+            ``state_dict`` for ``torch.func.functional_call``).
         image: ``[H, W, C]`` scene (numpy array or tensor).
         kernel_size/stride: tiling geometry; ``stride > kernel_size`` would
             leave uncovered pixels and raises.
         num_classes: output channels.
         tile_batch: tiles per ``predict_fn`` call.
-        mesh, tta: multi-device tiling and D4 test-time augmentation
-            are not ported yet and raise ``NotImplementedError``.
+        mesh, axis: tiles split over several cards: the parallel slice,
+            which raises ``NotImplementedError``.
+        tta: None or ``'d4'`` (square tiles).
+        variables: passed to ``predict_fn`` first, as in the JAX package.
         device: where the scene and the canvas live (the GPU unless
             ``device='cpu'``).
 
@@ -51,10 +58,11 @@ def tiled_inference(predict_fn: Callable[[torch.Tensor], torch.Tensor],
                          f'({kernel_size}) or the tiling leaves uncovered '
                          f'pixels')
     if mesh is not None:
-        raise NotImplementedError('multi-device tiled inference (mesh) is not '
-                                  'ported yet')
-    if tta is not None:
-        raise NotImplementedError('test-time augmentation (tta) is not ported yet')
+        raise NotImplementedError('multi-device tiled inference (mesh) is the '
+                                  'parallel slice (ROADMAP.md A.9)')
+    if tta not in (None, 'd4'):
+        raise ValueError(f"tta must be None or 'd4', got {tta!r}")
+    predict = predict_fn if variables is None else (lambda t: predict_fn(variables, t))
     image = torch.as_tensor(image, device=get_device(device))
     h0, w0, _ = image.shape
     k = kernel_size
@@ -77,7 +85,7 @@ def tiled_inference(predict_fn: Callable[[torch.Tensor], torch.Tensor],
             idx = range(start, start + tile_batch)
             tiles = torch.stack([image[ys[i]:ys[i] + k, xs[i]:xs[i] + k]
                                  for i in idx])
-            preds = predict_fn(tiles).float()
+            preds = (d4_tta(predict, tiles) if tta else predict(tiles)).float()
             for j, i in enumerate(idx):
                 if i >= n_tiles:          # pad tile: weight 0
                     continue

@@ -14,14 +14,15 @@ Training follows a ``train`` argument, not ``nn.Module.training``.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ['resize', 'global_avg_pool', 'max_pool', 'Conv2d', 'BatchNorm2d',
-           'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen']
+__all__ = ['resize', 'upsample_bilinear', 'global_avg_pool', 'max_pool', 'Conv2d',
+           'BatchNorm2d', 'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen']
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -53,6 +54,37 @@ def resize(x: torch.Tensor, scale: Optional[float] = None,
     else:
         raise ValueError(f"method must be 'nearest' or 'bilinear', got {method!r}")
     return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _bilinear_weights(n_in: int, n_out: int, dtype: torch.dtype,
+                      device: torch.device) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of a bilinear resize along one axis, with
+    half-pixel centres and the edges clamped (``F.interpolate``'s
+    ``align_corners=False``), made on ``device``."""
+    src = ((torch.arange(n_out, dtype=torch.float64, device=device) + 0.5)
+           * (n_in / n_out) - 0.5).clamp(min=0)
+    i0 = src.floor().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    frac = (src - i0)[:, None]
+    cols = torch.arange(n_in, dtype=torch.float64, device=device)[None]
+    w = (cols == i0[:, None]) * (1 - frac) + (cols == i1[:, None]) * frac
+    return w.to(dtype)
+
+
+def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear upsampling of an NHWC tensor to ``shape`` (half-pixel
+    centres): ``resize``'s numbers, computed as one matrix product per axis,
+    as ``jax.image.resize`` computes them.  Unlike ``F.interpolate``, whose
+    CUDA backward adds into the input gradient with atomics, the backward is
+    two matrix products, so a train step's gradients are the same bits every
+    run."""
+    n, h, w, c = x.shape
+    if shape[0] < h or shape[1] < w:
+        raise ValueError(f'upsample_bilinear grows each axis; {(h, w)} -> {tuple(shape)} '
+                         'shrinks one (resize antialiases that)')
+    y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
+    return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:

@@ -47,7 +47,7 @@ from torch.utils import checkpoint as _ckpt
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
-from ever_tpu_torch.module.ops import resize
+from ever_tpu_torch.module.ops import upsample_bilinear
 from ever_tpu_torch.ops.attention import attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 
@@ -622,7 +622,9 @@ class DinoSeg(ERModule):
         if self.head_hidden is not None:
             feat = F.gelu(self.head_hidden(feat), approximate='tanh')
         logits = self.head_classifier(feat).float()
-        logits = resize(logits, scale=x.shape[1] / logits.shape[1], method='bilinear')
+        scale = x.shape[1] / logits.shape[1]
+        logits = upsample_bilinear(logits, (int(logits.shape[1] * scale),
+                                            int(logits.shape[2] * scale)))
         if train and y is not None:
             lcfg = self.config.loss
             ignore = int(lcfg.get('ignore_index', 255))

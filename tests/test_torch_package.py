@@ -16,10 +16,13 @@ from ever_tpu.core import builder as jbuilder
 from ever_tpu.core.config import AttrDict as JaxAttrDict
 from ever_tpu.magic.sliding_window import sliding_window as jax_sliding_window
 from ever_tpu_torch.core import builder as tbuilder
+from ever_tpu_torch.core.checkpoint import CheckPoint
 from ever_tpu_torch.core.config import AttrDict, import_config
 from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.core.launcher import Launcher
 from ever_tpu_torch.magic.sliding_window import sliding_window
 from ever_tpu_torch.magic.tiled import tiled_inference
+from ever_tpu_torch.trainer import Trainer, get_trainer, parse_args
 
 PKG = os.path.dirname(os.path.abspath(ever_tpu_torch.__file__))
 REPO = os.path.dirname(PKG)
@@ -30,7 +33,9 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.opt, ever_tpu_torch.parallel.spmd,'
             ' ever_tpu_torch.module.loss, ever_tpu_torch.ops._build,'
             ' ever_tpu_torch.ops.pool, ever_tpu_torch.module.fs_relation,'
-            ' ever_tpu_torch.ops.norm, ever_tpu_torch.ops.quant;'
+            ' ever_tpu_torch.ops.norm, ever_tpu_torch.ops.quant,'
+            ' ever_tpu_torch.trainer, ever_tpu_torch.metric, ever_tpu_torch.data,'
+            ' ever_tpu_torch.core.launcher, ever_tpu_torch.magic.transform;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")];'
             'print(bad); sys.exit(1 if bad else 0)')
@@ -58,7 +63,10 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/parallel/spmd.py', 'ever_tpu_torch/ops/pool.py',
             'ever_tpu_torch/module/resnet.py', 'ever_tpu_torch/module/fpn.py',
             'ever_tpu_torch/module/fs_relation.py', 'ever_tpu_torch/ops/norm.py',
-            'ever_tpu_torch/ops/quant.py'} <= scanned
+            'ever_tpu_torch/ops/quant.py', 'ever_tpu_torch/core/launcher.py',
+            'ever_tpu_torch/core/checkpoint.py', 'ever_tpu_torch/trainer/trainer.py',
+            'ever_tpu_torch/metric/evaluate_fn.py', 'ever_tpu_torch/data/distributed.py',
+            'ever_tpu_torch/magic/_transform_impl.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -93,7 +101,7 @@ def test_attrdict_overrides_match_jax(tmp_path):
         import_config(str(tmp_path / 'missing.py'))
 
 
-def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         get_device()
@@ -101,10 +109,29 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
         tbuilder.make_model({'type': 'vit_small', 'params': {}})
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tiled_inference(lambda t: t, np.zeros((8, 8, 1), np.float32), 8, 8, 1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tiled_inference(lambda t: t, np.zeros((8, 8, 1), np.float32), 8, 8, 1, tta='d4')
+    cfg = tmp_path / 'cfg.py'
+    cfg.write_text('config = dict(model=dict(type="DinoSeg", params=dict(classes=3)))\n')
+    argv = ['--config_path', str(cfg), '--model_dir', str(tmp_path / 'run')]
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_trainer('th_ddp', argv=argv)()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Trainer(parse_args(argv))
+    assert not (tmp_path / 'run').exists()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Launcher(str(tmp_path / 'run'), torch.nn.Linear(2, 2), None)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        CheckPoint.load(str(tmp_path / 'missing.ckpt'))
     assert get_device('cpu') == torch.device('cpu')
     out = tiled_inference(lambda t: t, np.ones((8, 8, 1), np.float32), 8, 8, 1,
                           device='cpu')
     assert out.device.type == 'cpu' and float(out.min()) == 1.0
+    out = tiled_inference(lambda t: t, np.ones((8, 8, 1), np.float32), 8, 8, 1,
+                          tta='d4', device='cpu')
+    assert out.device.type == 'cpu' and float(out.min()) == 1.0
+    trainer = get_trainer('th_ddp', argv=argv + ['--device', 'cpu'])()
+    assert trainer.device == torch.device('cpu') and (tmp_path / 'run' / 'config.pkl').exists()
 
 
 def _pallas_kernels():

@@ -57,8 +57,10 @@ def test_stride_larger_than_tile_raises_in_both():
         torch_tiled(torch_predict, image, 32, 40, K, device='cpu')
 
 
-@pytest.mark.parametrize('kw', [dict(mesh=object()), dict(tta='d4')])
+@pytest.mark.parametrize('kw', [dict(mesh=object()), dict(mesh=object(), tta='d4')])
 def test_mesh_and_tta_not_ported_yet(kw):
+    """Tiles split over several cards (``mesh``) are the parallel slice, with
+    or without d4 TTA (which runs on one card: ``test_torch_transform.py``)."""
     with pytest.raises(NotImplementedError):
         torch_tiled(torch_predict, _scene(64, 64), 32, 32, K, device='cpu', **kw)
 

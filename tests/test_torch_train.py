@@ -81,6 +81,37 @@ def test_dice_matches_jax(kw, c):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
+def test_sum_losses_stays_on_the_losses_device():
+    """The objective is summed where the losses live: no tensor is made on
+    another device (on the card a host-made zero copied over made the host
+    wait for every step's forward).  Recorded with a dispatch mode over
+    losses on the meta device; the values as the JAX sum's on the CPU."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from ever_tpu_torch.interface.module import sum_losses
+
+    class Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.seen.add(t.device.type)
+            return out
+
+    losses = {'cls_loss': torch.ones((), device='meta', dtype=torch.bfloat16),
+              'dice_loss': torch.ones((), device='meta'), 'acc': torch.ones((), device='meta')}
+    with Devices() as mode:
+        total = sum_losses(losses)
+    assert total.device.type == 'meta' and total.dtype == torch.float32
+    assert mode.seen == {'meta'}
+    cpu = {'cls_loss': torch.tensor(0.7, dtype=torch.bfloat16), 'dice_loss': torch.tensor(0.25),
+           'acc': torch.tensor(3.0)}
+    assert float(sum_losses(cpu)) == float(torch.tensor(0.7, dtype=torch.bfloat16)) + 0.25
+
+
 def test_losses_are_registered_under_the_jax_names():
     from ever_tpu_torch.core import registry
     assert registry.LOSS['softmax_ce'] is tloss.softmax_ce_loss_with_logits

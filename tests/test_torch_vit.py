@@ -164,6 +164,27 @@ def test_resize_matches_jax(method, shape):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize('hw,shape', [((32, 32), (512, 512)), ((5, 7), (20, 21)),
+                                      ((4, 3), (4, 48))])
+def test_upsample_bilinear_matches_resize_and_jax(hw, shape):
+    """DinoSeg's logits upsample as two matrix products: the JAX package's
+    bilinear resize to 1e-5 and the port's ``resize`` (``F.interpolate``),
+    forward and backward, to float32 rounding (sums in other orders)."""
+    from ever_tpu_torch.module.ops import upsample_bilinear
+    x = np.random.default_rng(4).normal(size=(2, *hw, 7)).astype(np.float32)
+    want = np.asarray(jresize(jnp.asarray(x), shape=shape, method='bilinear'))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = upsample_bilinear(xt, shape)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-5)
+    ref = tresize(xt, shape=shape, method='bilinear')
+    g = torch.from_numpy(np.random.default_rng(5).normal(size=want.shape).astype(np.float32))
+    (dgot,), (dref,) = torch.autograd.grad(got, xt, g), torch.autograd.grad(ref, xt, g)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dgot, dref, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match='shrinks'):
+        upsample_bilinear(xt, (hw[0] - 1, shape[1]))
+
+
 # -- training parts of the trunk -------------------------------------------------
 
 _AUGS = {'shift': dict(shift_coords=0.5), 'jitter': dict(jitter_coords=1.5),
