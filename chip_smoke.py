@@ -109,7 +109,34 @@ Phases (any failure exits non-zero before the last line is printed):
              with one every 2 steps) beside the bare train step, the
              checkpoint saves, s per evaluated scene, tiles/s with and
              without TTA, each with the card's name and power limit.
-10. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+10. workflow — the user's workflow from files on disk: ``python -m
+             ever_tpu_torch create`` makes a project (scripts that import
+             ``ever_tpu_torch`` alone, the template's configs); a seeded
+             LoveDA tree of 1024² RGB PNG scenes (2 domains x 4 train, x 1
+             val) written by the port's codec with the five row filters in
+             turn, each decoded exactly, and the decode ms per scene; a
+             seeded ViT-L/16 state_dict in the reference DINOv3 layout
+             (``qkv.bias_mask``, ``mask_token``, ``rope_embed.periods``) as
+             ``GLOBAL.weight.path``: every trunk tensor loaded bit-equal to
+             the file's converted one, the head reported missing; the
+             project's ``train.py`` on ``configs/dinoseg_vitl_loveda.py``
+             (6 steps, 4 loader workers, one checkpoint, evaluation of the 2
+             val scenes): finite losses, 24 K1 and 24 K2 a step, data ms a
+             step from disk; the prefetcher held against a delayed copy
+             stream; the same run with ``train.iterator_type='prefetched'``
+             and its loop under ``set_sync_debug_mode('error')``: losses and
+             final parameters bit-equal; the project's ``infer.py``
+             ``build_from_model_dir``: the last checkpoint, parameters and a
+             val scene's forward bit-equal to the trained model's, then
+             ``tiled_inference`` of both val scenes (finite probabilities
+             summing to 1, mIoU, tiles/s); ``configs/farseg_r50_loveda.py``
+             at batch 8 with ``maxpool_impl='pallas'``, ``freeze_at`` 2 and a
+             seeded torchvision ResNet-50 file: 1 K8 a step, the encoder
+             loaded bit-equal to the file, the stem and layer1 unchanged and
+             every other parameter moved after 4 steps; ``GeoTileDataset``
+             over two PNG scenes and a ``.npy`` scene: ``read_batch`` through
+             the host library equal to the per-item path.
+11. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -1951,6 +1978,419 @@ def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the workflow phase: a project made by `create`, a LoveDA tree on disk
+# (1024² RGB scenes, the LoveDA layout and mask encoding), pretrained weights
+# from files, the project's train.py and infer.py
+WORKFLOW_SCENE, WORKFLOW_TRAIN, WORKFLOW_VAL = 1024, 4, 1      # scenes per domain
+WORKFLOW_ITERS, FARSEG_ITERS, WORKFLOW_WORKERS = 6, 4, 4
+# tiled_inference of the served model: probabilities sum to 1 (bf16 model,
+# f32 canvas); one bf16 ulp at 1 is 2^-8, the average of overlaps keeps it
+PROB_SUM_TOL = 1e-3
+
+
+def write_loveda(root: str, seed: int) -> list:
+    """A LoveDA tree (Train and Val, Urban and Rural) of seeded 1024² scenes:
+    blocky class regions, each class its own colour plus noise, masks in
+    the official encoding (0 = no-data).  The images are written with the
+    five PNG filters in turn; returns (path, array, filter) of each."""
+    import numpy as np
+    from ever_tpu_torch.data._png import write_png
+
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(30, 220, (CLASSES, 3))
+    written = []
+    for split, n in (('Train', WORKFLOW_TRAIN), ('Val', WORKFLOW_VAL)):
+        for dom in ('Urban', 'Rural'):
+            for d in ('images_png', 'masks_png'):
+                os.makedirs(os.path.join(root, split, dom, d))
+            for i in range(n):
+                blocks = WORKFLOW_SCENE // 64
+                label = np.kron(rng.integers(0, CLASSES, (blocks, blocks)),
+                                np.ones((64, 64), np.int64))
+                noise = rng.integers(-20, 21, (WORKFLOW_SCENE, WORKFLOW_SCENE, 3))
+                img = np.clip(palette[label] + noise, 0, 255).astype(np.uint8)
+                mask = (label + 1).astype(np.uint8)
+                mask[:32, :32] = 0                                   # no-data
+                name = f'{len(written)}.png'
+                ft = len(written) % 5
+                path = os.path.join(root, split, dom, 'images_png', name)
+                write_png(path, img, filter_type=ft)
+                write_png(os.path.join(root, split, dom, 'masks_png', name), mask)
+                written.append((path, img, ft))
+    return written
+
+
+def run_project_script(script: str, argv: list, wire) -> dict:
+    """``runpy`` of a project's ``train.py`` with ``argv``, ``wire`` added to
+    the trainer's launcher callbacks; returns the run's ``{'config',
+    'launcher'}``."""
+    import runpy
+    from ever_tpu_torch.trainer.trainer import Trainer
+
+    run, out = Trainer.run, {}
+
+    def wired(self, after_construct_launcher_callbacks=None):
+        out.update(run(self, [wire]))
+        return out
+
+    Trainer.run, old_argv = wired, sys.argv
+    sys.argv = [script, *argv]
+    try:
+        runpy.run_path(script, run_name='__main__')
+    finally:
+        Trainer.run, sys.argv = run, old_argv
+    return out
+
+
+def recorded_run(script: str, argv: list, sync_free: bool = False):
+    """A project train.py run with its logged steps, the model's state just
+    after ``init_state`` (weights loaded), ``load_weights``' report and the
+    K1, K2 and K8 launches; ``sync_free`` runs the loop under
+    ``torch.cuda.set_sync_debug_mode('error')``."""
+    from ever_tpu_torch.ops import attention as A, pool as P
+    from ever_tpu_torch.util import weight_io
+
+    record = dict(logged=[], reports=[])
+    load = weight_io.load_weights
+
+    def loaded(*args, **kwargs):
+        record['reports'].append(load(*args, **kwargs))
+        return record['reports'][-1]
+
+    def wire(launcher):
+        train_log, init_state = launcher.logger.train_log, launcher.init_state
+
+        def logged(step, num_iters, loss_dict, data_time, time_cost, lr):
+            record['logged'].append((step, dict(loss_dict), data_time, time_cost))
+            return train_log(step, num_iters, loss_dict, data_time, time_cost, lr)
+
+        def snapshot():
+            first = launcher.state is None
+            init_state()
+            if first:
+                record['init'] = {k: v.detach().clone()
+                                  for k, v in launcher.model.state_dict().items()}
+
+        launcher.logger.train_log, launcher.init_state = logged, snapshot
+        if sync_free:
+            loop = launcher._train_loop
+
+            def checked_loop(*args, **kwargs):
+                torch.cuda.set_sync_debug_mode('error')
+                try:
+                    return loop(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+
+            launcher._train_loop = checked_loop
+
+    reset_counts()
+    weight_io.load_weights = loaded
+    try:
+        out = run_project_script(script, argv, wire)
+    finally:
+        weight_io.load_weights = load
+    torch.cuda.synchronize()
+    record['launches'] = (A.fused_attention.launches, A.fused_attention_bwd.launches,
+                          P.max_pool_32_bwd.launches)
+    return out['launcher'], record
+
+
+def logged_medians(logged: list):
+    """(ms/step, data ms/step): medians over the logged steps after the
+    first.  A logged step's data time is that of the batch loaded while it
+    ran (the Launcher logs a step after queuing the next), so the last
+    step, with none after it, is left out of the data median."""
+    steps = sorted(t for _, _, _, t in logged[1:])
+    data = sorted(d for _, _, d, _ in logged[1:-1])
+    return steps[len(steps) // 2] * 1e3, data[len(data) // 2] * 1e3
+
+
+def check_prefetch_waits() -> None:
+    """The prefetcher's consumer waits for the copies: its side stream is
+    held back by a ~0.1 s sleep kernel, so a batch read without the wait
+    would read memory the copy has not filled yet."""
+    from ever_tpu_torch.core.prefetch import prefetch_to_device
+
+    stream = torch.cuda.Stream
+
+    def delayed(*args, **kwargs):
+        s = stream(*args, **kwargs)
+        if not kwargs:                 # a new stream; current_stream() wraps one by id
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(200_000_000)
+        return s
+
+    batches = [torch.full((1024, 1024), float(i + 1)) for i in range(3)]
+    torch.cuda.Stream = delayed
+    try:
+        sums = [float(b.sum()) for b in prefetch_to_device(iter(batches))]
+    finally:
+        torch.cuda.Stream = stream
+    want = [float((i + 1) * 1024 * 1024) for i in range(3)]
+    print(f'workflow: prefetch behind a delayed copy stream: batch sums {sums} '
+          f'(expected {want})', flush=True)
+    check(sums == want, 'the prefetched batches were read before their copies')
+
+
+def phase_workflow(gen, seed: int, smi: str) -> None:
+    """The user's workflow from files on disk: create a project, read a
+    LoveDA tree, load pretrained weights, train the template's DinoSeg
+    ViT-L/16 (normal and prefetched iterators) and FarSeg-R50 (stages
+    frozen) through the project's train.py, serve the model dir through its
+    infer.py, and read GeoTile patches in batches."""
+    import re
+    import tempfile
+
+    import numpy as np
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.data._png import read_png
+    from ever_tpu_torch.data.geotile import GeoTileDataset
+    from ever_tpu_torch.data.loveda import LoveDA
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_workflow_') as tmp:
+        # a: create
+        proj = os.path.join(tmp, 'proj')
+        r = subprocess.run([sys.executable, '-m', 'ever_tpu_torch', 'create', proj], cwd=repo,
+                           env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f'create failed: {r.stderr[-2000:]}')
+        for script in ('train.py', 'infer.py'):
+            with open(os.path.join(proj, script)) as f:
+                text = f.read()
+            check('import ever_tpu_torch as er' in text
+                  and not re.search(r'^\s*(import|from)\s+ever_tpu\b(?!_torch)', text, re.M),
+                  f'{script} does not import ever_tpu_torch alone')
+        configs = sorted(os.listdir(os.path.join(proj, 'configs')))
+        print(f'workflow: python -m ever_tpu_torch create: {configs}', flush=True)
+        check('dinoseg_vitl_loveda.py' in configs and 'farseg_r50_loveda.py' in configs,
+              'create copied no LoveDA configs')
+
+        # b: the LoveDA tree, each filter decoded exactly, the decode time
+        root = os.path.join(tmp, 'LoveDA')
+        t0 = time.perf_counter()
+        written = write_loveda(root, seed)
+        write_s = time.perf_counter() - t0
+        decode_ms = {}
+        for path, img, ft in written[:5]:
+            got = read_png(path)
+            check(got.shape == img.shape and np.array_equal(got, img),
+                  f'PNG filter {ft} decodes wrongly')
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                read_png(path)
+                times.append(time.perf_counter() - t0)
+            decode_ms[ft] = sorted(times)[1] * 1e3
+        print(f'workflow: {smi}: {len(written)} scenes of {WORKFLOW_SCENE}² RGB written in '
+              f'{write_s:.2f} s; each of the five PNG filters decodes exactly; decode ms per '
+              f'{WORKFLOW_SCENE}² scene by filter: '
+              + ', '.join(f'{ft} {ms:.2f}' for ft, ms in sorted(decode_ms.items()))
+              + f' (mean {sum(decode_ms.values()) / 5:.2f})', flush=True)
+
+        # c: a ViT-L/16 state_dict in the reference DINOv3 layout
+        ref = build_dinoseg(gen)
+        trunk = {k[len('vit.'):]: v.detach().cpu() for k, v in ref.state_dict().items()
+                 if k.startswith('vit.')}
+        del ref
+        dim = EMBED
+        for i in range(24):
+            mask = torch.ones(3 * dim)
+            mask[dim:2 * dim] = 0.0
+            trunk[f'blocks.{i}.attn.qkv.bias_mask'] = mask
+            trunk[f'blocks.{i}.attn.qkv.bias'][dim:2 * dim] = 1.0     # masked away on load
+        trunk['mask_token'] = torch.zeros(1, dim)
+        trunk['rope_embed.periods'] = torch.ones(D // 4)
+        vit_pth = os.path.join(tmp, 'dinov3_vitl16_sat493m.pth')
+        torch.save(trunk, vit_pth)
+
+        # d: train the template's DinoSeg from the files, then prefetched
+        cfg = os.path.join(proj, 'configs', 'dinoseg_vitl_loveda.py')
+
+        def dinoseg_argv(model_dir):
+            return ['--config_path', cfg, '--model_dir', model_dir,
+                    'model.params.GLOBAL', repr(dict(weight=dict(path=vit_pth))),
+                    'data.train.params.root', root, 'data.test.params.root', root,
+                    'data.train.params.num_workers', str(WORKFLOW_WORKERS),
+                    'train.num_iters', str(WORKFLOW_ITERS), 'train.log_interval_step', '1',
+                    'train.save_ckpt_interval_epoch', '1000', 'train.eval_after_train', 'True']
+
+        train_py = os.path.join(proj, 'train.py')
+        la, ra = recorded_run(train_py, dinoseg_argv(os.path.join(tmp, 'run')))
+        report = ra['reports'][0]
+        init = ra['init']
+        # the file's tensors as the reference converts them: the K bias masked
+        converted = {k: v * trunk[k + '_mask'] if k.endswith('qkv.bias') else v
+                     for k, v in trunk.items() if f'vit.{k}' in init}
+        bad = [k for k, v in converted.items() if not torch.equal(init[f'vit.{k}'].cpu(), v)]
+        dropped = [k for k in trunk if k not in converted]
+        print(f'workflow: load_weights: {report.loaded} tensors loaded, missing {report.missing}, '
+              f'{len(report.unexpected)} unexpected; {len(trunk) - len(dropped)} trunk tensors '
+              f'bit-equal to the file\'s converted ones: {not bad}; dropped {len(dropped)} '
+              f'(bias masks, mask_token, rope periods)', flush=True)
+        check(not bad and len(dropped) == 26 and sorted(report.missing) == [
+            'head_classifier.bias', 'head_classifier.weight'] and not report.mismatched,
+            f'the trunk was not loaded from the file: {bad[:3]}')
+        losses = [d['total_loss'] for _, d, _, _ in ra['logged']]
+        k1, k2, _ = ra['launches']
+        evals = 1                              # the 2 val scenes in one batch of 8
+        print(f'workflow: DinoSeg ViT-L/16 from disk: steps {[s for s, _, _, _ in ra["logged"]]}, '
+              f'loss {" ".join(f"{v:.5f}" for v in losses)}; attention_fwd {k1} (expected '
+              f'{24 * (WORKFLOW_ITERS + evals)}), attention_bwd {k2} (expected '
+              f'{24 * WORKFLOW_ITERS})', flush=True)
+        check(len(losses) == WORKFLOW_ITERS and all(math.isfinite(v) for v in losses),
+              'non-finite or missing losses')
+        check((k1, k2) == (24 * (WORKFLOW_ITERS + evals), 24 * WORKFLOW_ITERS),
+              f'DinoSeg launches {(k1, k2)}')
+        trained_model = la.model.eval()
+        trained = {k: v.detach().clone() for k, v in trained_model.state_dict().items()}
+        model_dir = la.model_dir
+        step_ms, data_ms = logged_medians(ra['logged'])
+        del la
+        torch.cuda.empty_cache()
+
+        check_prefetch_waits()
+        lp, rp = recorded_run(train_py, dinoseg_argv(os.path.join(tmp, 'prefetched')) + [
+            'train.iterator_type', 'prefetched'], sync_free=True)
+        same_losses = [d for _, d, _, _ in rp['logged']] == [d for _, d, _, _ in ra['logged']]
+        same_params = all(torch.equal(v, trained[k]) for k, v in lp.model.state_dict().items())
+        pf_step_ms, pf_data_ms = logged_medians(rp['logged'])
+        print(f'workflow: {smi}: medians over steps 2-{WORKFLOW_ITERS}: normal iterator '
+              f'{step_ms:.2f} ms/step, {data_ms:.2f} of it loading from disk; prefetched '
+              f'{pf_step_ms:.2f} ms/step, '
+              f'data {pf_data_ms:.2f} ms/step, its loop without a host sync; losses bit-equal: '
+              f'{same_losses}, final parameters bit-equal: {same_params}; launches '
+              f'{rp["launches"][:2]}', flush=True)
+        check(same_losses and same_params, 'the prefetched run differs from the normal run')
+        check(rp['launches'][:2] == (k1, k2), 'the prefetched run launched other kernels')
+        del lp
+        torch.cuda.empty_cache()
+
+        # e: serve the model dir through the project's infer.py
+        import runpy
+        infer = runpy.run_path(os.path.join(proj, 'infer.py'))
+        with open(os.path.join(model_dir, 'checkpoint_info.json')) as f:
+            last = json.load(f)['last']
+        served, state, step = infer['er'].infer_tool.build_from_model_dir(model_dir)
+        same = all(torch.equal(state[k], v) for k, v in trained.items())
+        val = LoveDA(dict(root=root, split='val'))
+        x, y = val[0]
+        xt = torch.from_numpy(x)[None].cuda()
+        with torch.no_grad():
+            fwd_equal = torch.equal(served(xt), trained_model(xt))
+        del trained_model, trained
+        print(f'workflow: build_from_model_dir: step {step} (checkpoint_info last {last}), '
+              f'eval mode {not served.training}; parameters bit-equal to the trained model: '
+              f'{same}; a {WORKFLOW_SCENE}² val scene\'s forward bit-equal: {fwd_equal}',
+              flush=True)
+        check(step == WORKFLOW_ITERS and last['name'] == f'checkpoint-{WORKFLOW_ITERS}.ckpt'
+              and not served.training, f'build_from_model_dir chose step {step}')
+        check(same and fwd_equal, 'the served model differs from the trained model')
+        cm = np.zeros((CLASSES, CLASSES), np.int64)
+        n_tiles = len(val) * (WORKFLOW_SCENE // TILE) ** 2
+        tiled_inference(served, x, TILE, TILE, CLASSES, tile_batch=TILE_BATCH)   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = [tiled_inference(served, val[i][0], TILE, TILE, CLASSES, tile_batch=TILE_BATCH)
+                 for i in range(len(val))]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        sums_ok = True
+        for i, prob in enumerate(probs):
+            p = prob.cpu().numpy()
+            sums_ok &= bool(np.isfinite(p).all()) and float(np.abs(p.sum(-1) - 1).max()) <= PROB_SUM_TOL
+            mask = val[i][1]
+            ok = mask != 255
+            cm += np.bincount(mask[ok] * CLASSES + p.argmax(-1)[ok],
+                              minlength=CLASSES * CLASSES).reshape(CLASSES, CLASSES)
+        iou = np.diag(cm) / np.maximum(cm.sum(0) + cm.sum(1) - np.diag(cm), 1)
+        print(f'workflow: {smi}: tiled_inference over the {len(val)} val scenes '
+              f'({TILE}² tiles, tile_batch={TILE_BATCH}, bf16): {n_tiles / serve_s:.1f} tiles/s; '
+              f'probabilities finite and summing to 1 within {PROB_SUM_TOL}: {sums_ok}; '
+              f'mIoU {iou.mean():.4f} (random weights, {WORKFLOW_ITERS} steps)', flush=True)
+        check(sums_ok, 'the served probabilities are not finite or do not sum to 1')
+        del served, state, probs
+        torch.cuda.empty_cache()
+
+        # f: FarSeg-R50, torchvision weights, the stem and layer1 frozen
+        from ever_tpu_torch.module.resnet import ResNet
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            r50 = {k: v.detach().clone() for k, v in ResNet('resnet50').state_dict().items()}
+        r50 = {k: (v.abs() + 0.5 if k.endswith('running_var') else v + 0.01 * torch.randn_like(v))
+               for k, v in r50.items()}
+        r50.update({k[:-len('running_var')] + 'num_batches_tracked': torch.tensor(100)
+                    for k in list(r50) if k.endswith('running_var')})
+        r50['fc.weight'], r50['fc.bias'] = torch.randn(1000, 2048), torch.randn(1000)
+        r50_pth = os.path.join(tmp, 'resnet50.pth')
+        torch.save(r50, r50_pth)
+        lf, rf = recorded_run(train_py, [
+            '--config_path', os.path.join(proj, 'configs', 'farseg_r50_loveda.py'),
+            '--model_dir', os.path.join(tmp, 'farseg'),
+            'model.params.GLOBAL', repr(dict(weight=dict(path=r50_pth))),
+            'model.params.encoder.maxpool_impl', 'pallas',
+            'model.params.encoder.freeze_at', '2',
+            'data.train.params.root', root, 'data.test.params.root', root,
+            'data.train.params.total_batch_size', str(TRAIN_BATCH),
+            'data.train.params.num_workers', str(WORKFLOW_WORKERS),
+            'train.num_iters', str(FARSEG_ITERS), 'train.log_interval_step', '1',
+            'train.save_ckpt_interval_epoch', '1000'])
+        init = rf['init']
+        loaded_ok = all(torch.equal(init[f'encoder.resnet.{k}'].cpu(), v) for k, v in r50.items()
+                        if not (k.startswith('fc.') or k.endswith('num_batches_tracked')))
+        frozen = ('encoder.resnet.conv1', 'encoder.resnet.bn1', 'encoder.resnet.layer1.')
+        params = dict(lf.model.named_parameters())
+        still = [k for k, p in params.items() if k.startswith(frozen)
+                 and not torch.equal(p.detach(), init[k])]
+        unmoved = [k for k, p in params.items() if not k.startswith(frozen)
+                   and torch.equal(p.detach(), init[k])]
+        f_losses = [d['total_loss'] for _, d, _, _ in rf['logged']]
+        k8 = rf['launches'][2]
+        print(f'workflow: FarSeg-R50 from disk, freeze_at 2: loss '
+              f'{" ".join(f"{v:.5f}" for v in f_losses)}; max_pool_32_bwd {k8} (expected '
+              f'{FARSEG_ITERS}); encoder tensors bit-equal to the file: {loaded_ok}; '
+              f'{sum(k.startswith(frozen) for k in params)} frozen parameters, {len(still)} moved; '
+              f'{len(unmoved)} of the other {sum(not k.startswith(frozen) for k in params)} '
+              f'did not move', flush=True)
+        check(len(f_losses) == FARSEG_ITERS and all(math.isfinite(v) for v in f_losses),
+              'FarSeg: non-finite or missing losses')
+        check(k8 == FARSEG_ITERS, f'FarSeg: {k8} K8 launches in {FARSEG_ITERS} steps')
+        check(loaded_ok, 'FarSeg: the encoder was not loaded from the file')
+        check(not still and not unmoved, f'FarSeg: frozen moved {still[:3]}, '
+              f'trainable unmoved {unmoved[:3]}')
+        del lf, params, init
+        torch.cuda.empty_cache()
+
+        # g: GeoTile patches of two PNG scenes and a .npy scene
+        rng = np.random.default_rng(seed)
+        np.save(os.path.join(tmp, 'scene.npy'),
+                rng.integers(0, 256, (WORKFLOW_SCENE, WORKFLOW_SCENE, 3), dtype=np.uint8))
+        np.save(os.path.join(tmp, 'scene_mask.npy'),
+                rng.integers(0, CLASSES, (WORKFLOW_SCENE, WORKFLOW_SCENE), dtype=np.uint8))
+        pairs = [(p, p.replace('images_png', 'masks_png')) for p, _, _ in written[:2]]
+        pairs.append((os.path.join(tmp, 'scene.npy'), os.path.join(tmp, 'scene_mask.npy')))
+        ds = GeoTileDataset(dict(scene_pairs=pairs, patch_size=TILE, stride=TILE,
+                                 cache_scenes=len(pairs) * 2))
+        idx = list(range(len(ds)))
+        ds.read_batch(idx)                                            # decodes the scenes
+        t0 = time.perf_counter()
+        xb, yb = ds.read_batch(idx)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        items = [ds[i] for i in idx]
+        item_ms = (time.perf_counter() - t0) * 1e3
+        equal = (np.array_equal(xb, np.stack([a for a, _ in items]))
+                 and np.array_equal(yb, np.stack([b for _, b in items])))
+        print(f'workflow: {smi}: GeoTileDataset over 2 PNG scenes and a .npy scene: '
+              f'{len(ds)} patches of {TILE}²; read_batch {batch_ms:.2f} ms against '
+              f'{item_ms:.2f} ms item by item; equal: {equal}', flush=True)
+        check(equal and xb.shape == (len(ds), TILE, TILE, 3), 'read_batch differs from the '
+              'per-item path')
+    print(f'workflow: {smi}: phase wall time {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -2014,6 +2454,7 @@ def main() -> int:
     ln_fwd['launches'], ln_bwd['launches'] = phase_fused_ln(gen, args.profile)
     quant, matmul = phase_quant(gen)
     phase_trainer(gen, args.seed, bare_ms, smi)
+    phase_workflow(gen, args.seed, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

@@ -16,7 +16,8 @@ import pickle
 from collections import OrderedDict
 from typing import Any, Iterable, Sequence
 
-__all__ = ['AttrDict', 'from_dict', 'import_config', 'save_pkl']
+__all__ = ['AttrDict', 'FrozenConfig', 'from_dict', 'from_pickle', 'import_config',
+           'save_pkl', 'to_dict']
 
 
 class AttrDict(OrderedDict):
@@ -156,8 +157,89 @@ def _recursive_update(dst: dict, src) -> None:
             dst[k] = _promote(v)
 
 
+class FrozenConfig:
+    """Read-only view of an :class:`AttrDict` (counterpart of the JAX
+    package's ``FrozenConfig``): attribute and item access, iteration and
+    ``get``; any assignment raises.  ``unfrozen()`` gives a mutable deep
+    copy."""
+
+    __slots__ = ('_d',)
+
+    def __init__(self, d: dict):
+        object.__setattr__(self, '_d', d if isinstance(d, AttrDict) else AttrDict(d))
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self._d[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        raise AttributeError('FrozenConfig is read-only')
+
+    def __getitem__(self, key):
+        return self._d[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def __iter__(self):
+        return iter(self._d)
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def get(self, key, default=None):
+        return self._d.get(key, default)
+
+    def keys(self):
+        return self._d.keys()
+
+    def items(self):
+        return self._d.items()
+
+    def values(self):
+        return self._d.values()
+
+    def to_dict(self) -> dict:
+        return self._d.to_dict()
+
+    def unfrozen(self) -> AttrDict:
+        return _copy.deepcopy(self._d)
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, FrozenConfig):
+            return self._d == other._d
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(repr(self._d))
+
+    def __repr__(self) -> str:
+        return f'FrozenConfig({dict(self._d)!r})'
+
+
 def from_dict(d: dict) -> AttrDict:
     return AttrDict(d)
+
+
+def from_pickle(path: str) -> AttrDict:
+    """A config pickled by :func:`save_pkl` (every model dir's
+    ``config.pkl``)."""
+    with open(path, 'rb') as f:
+        cfg = pickle.load(f)
+    return cfg if isinstance(cfg, AttrDict) else from_dict(cfg)
+
+
+def to_dict(obj):
+    """AttrDicts and FrozenConfigs, recursively, as plain containers."""
+    if isinstance(obj, FrozenConfig):
+        return obj.to_dict()
+    if isinstance(obj, dict):
+        return {k: to_dict(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [to_dict(v) for v in obj]
+    return obj
 
 
 def save_pkl(config: AttrDict, path: str) -> None:

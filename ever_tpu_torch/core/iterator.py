@@ -19,10 +19,13 @@ from __future__ import annotations
 import warnings
 from typing import List, Optional
 
+from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.core.dist import is_main_process, synchronize
+from ever_tpu_torch.core.prefetch import prefetch_to_device
 from ever_tpu_torch.interface.callback import Callback
 
-__all__ = ['get_iterator', 'Iterator', 'run_callbacks', 'ITERATOR_TYPE']
+__all__ = ['get_iterator', 'Iterator', 'PrefetchedIterator', 'run_callbacks',
+           'ITERATOR_TYPE']
 
 
 def run_callbacks(callbacks, current_epoch: int, is_master: bool) -> None:
@@ -127,13 +130,27 @@ class Iterator:
         self._reseed(self._seed)
 
 
-ITERATOR_TYPE = dict(normal=Iterator)
+class PrefetchedIterator(Iterator):
+    """An :class:`Iterator` whose batches are on ``device`` already, copied
+    one batch ahead of the loop by :func:`~ever_tpu_torch.core.prefetch.
+    prefetch_to_device` (``iterator_type='prefetched'``).  The loader's
+    iterator is made when the normal one's would be, so the batches, and
+    their order, are the normal iterator's."""
+
+    def __init__(self, data_loader, prefetch_size: int = 2, device=None):
+        super().__init__(data_loader)
+        self._prefetch_size = prefetch_size
+        self._device = get_device(device)
+
+    def reset(self) -> None:
+        self._iterator = prefetch_to_device(iter(self._data_loader),
+                                            size=self._prefetch_size, device=self._device)
+
+
+ITERATOR_TYPE = dict(normal=Iterator, prefetched=PrefetchedIterator)
 
 
 def get_iterator(type_name: str):
-    if type_name == 'prefetched':
-        raise NotImplementedError('the prefetched iterator is not ported yet '
-                                  '(ROADMAP.md A.5, prefetch/PrefetchedIterator)')
     if type_name in ITERATOR_TYPE:
         return ITERATOR_TYPE[type_name]
     raise KeyError(f'{type_name} is not supported.')

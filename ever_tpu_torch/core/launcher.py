@@ -23,7 +23,6 @@ import types
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
-from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.core import dist
 from ever_tpu_torch.core.checkpoint import CheckPoint
@@ -31,6 +30,7 @@ from ever_tpu_torch.core.config import AttrDict
 from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.core.iterator import get_iterator
 from ever_tpu_torch.core.logger import Logger
+from ever_tpu_torch.core.to import to_device
 from ever_tpu_torch.interface.callback import (
     Callback,
     EvaluationCallback,
@@ -185,15 +185,18 @@ class Launcher:
     def init_state(self) -> None:
         """Make the train state (optimizer and step 0) once.  A PyTorch model
         holds its parameters already, so unlike the JAX launcher this needs
-        no sample batch."""
+        no sample batch.  The model's ``GLOBAL.weight.path`` (with its
+        ``excepts``) is then loaded into it by ``util.weight_io``."""
         if self._state is not None:
             return
-        weight = (self._model_config().get('GLOBAL') or {}).get('weight') or {}
-        if weight.get('path'):
-            raise NotImplementedError('GLOBAL.weight.path needs weight_io.load_weights, '
-                                      'not ported yet (ROADMAP.md A.4)')
         self._state = create_train_state(self._model, self._tx,
                                          init_params=self._init_state_dict)
+        weight = (self._model_config().get('GLOBAL') or {}).get('weight') or {}
+        if weight.get('path'):
+            from ever_tpu_torch.util import weight_io
+            weight_io.load_weights(weight['path'], self._model,
+                                   excepts=weight.get('excepts', None), device=self._device)
+            self.info(f"loaded init weights from {weight['path']}")
 
     def restore_state(self, model_state, opt_state, global_step: int) -> None:
         if self._state is None:
@@ -299,15 +302,11 @@ class Launcher:
         return self._eval_step
 
     def _to_device(self, batch):
-        """The batch on the launcher's device.  Host memory is pinned first:
-        a copy from pageable memory would wait for the card to finish every
-        queued step."""
-        def move(t):
-            t = torch.as_tensor(t)
-            if self._device.type == 'cuda' and t.device.type == 'cpu' and not t.is_pinned():
-                t = t.pin_memory()
-            return t.to(self._device, non_blocking=True)
-        return tree_map(move, batch)
+        """The batch on the launcher's device (``core.to.to_device``): host
+        memory is pinned first, as a copy from pageable memory would wait
+        for the card to finish every queued step, and a batch already there
+        (the prefetched iterator's) is not copied again."""
+        return to_device(batch, self._device)
 
     # -- training loop -------------------------------------------------------
     def train_iters(self, train_data_loader, test_data_loader=None, **kwargs):
@@ -328,7 +327,9 @@ class Launcher:
         dist_eval = kwargs.get('distributed_evaluate', False)
         distributed = kwargs.get('distributed', True)
 
-        iterator = get_iterator(iterator_type)(train_data_loader)
+        # the prefetched iterator copies batches to the launcher's device
+        extra = dict(device=self._device) if iterator_type == 'prefetched' else {}
+        iterator = get_iterator(iterator_type)(train_data_loader, **extra)
         iterator.set_start_step(self._ckpt.global_step)
 
         # a previous train_iters call's auto-registered callbacks go; the

@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 from ever_tpu_torch.core.dist import is_main_process
 
-__all__ = ['Logger', 'SmoothedValue', 'TrainLogHook', 'get_console_file_logger',
+__all__ = ['info', 'Logger', 'SmoothedValue', 'TrainLogHook', 'get_console_file_logger',
            'get_logger']
 
 _FORMAT = '%(asctime)s %(name)s %(levelname)s: %(message)s'
@@ -37,6 +37,12 @@ def get_logger(name: str = 'ever_tpu_torch') -> logging.Logger:
         logger.setLevel(logging.INFO)
         logger.propagate = False
     return logger
+
+
+def info(msg: str) -> None:
+    """Log ``msg`` on rank 0 through the port's logger."""
+    if is_main_process():
+        get_logger().info(msg)
 
 
 def get_console_file_logger(name: str, logdir: str) -> logging.Logger:

@@ -1,18 +1,25 @@
 """Component registries (PyTorch port's own copy).
 
 Counterpart of ``ever_tpu/core/registry.py``: a ``Registry`` is a dict from
-name to callable, populated by decorator or direct call.  The port so far
-needs ``MODEL``, ``LR``, ``OPT``, ``LOSS``, ``DATASET``, ``DATALOADER``
-and ``CALLBACK``.
+name to callable, populated by decorator or direct call.  A user project's
+``module/`` and ``data/`` files register their classes when
+:func:`register_dir` imports them (``register_all`` and friends take the
+project's conventional directories).
 """
 
 from __future__ import annotations
 
+import glob
+import hashlib
+import importlib.util
 import logging
+import os
+import sys
 from typing import Callable, Optional, TypeVar
 
 __all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS', 'DATASET', 'DATALOADER',
-           'CALLBACK']
+           'CALLBACK', 'register_file', 'register_dir', 'register_modules',
+           'register_dataloaders', 'register_callbacks', 'register_all']
 
 logger = logging.getLogger('ever_tpu_torch.registry')
 
@@ -67,3 +74,59 @@ LOSS = Registry('loss')
 DATASET = Registry('dataset')
 DATALOADER = Registry('dataloader')
 CALLBACK = Registry('callback')
+
+_REGISTERED_FILES: dict = {}
+
+
+def register_file(py_file: str) -> None:
+    """Import one ``.py`` file so that its registration decorators run,
+    once per absolute path; a failed import can be retried."""
+    py_file = os.path.abspath(py_file)
+    if py_file in _REGISTERED_FILES:
+        return
+    base = os.path.splitext(os.path.basename(py_file))[0].replace('-', '_')
+    digest = hashlib.sha1(py_file.encode('utf-8')).hexdigest()[:10]
+    mod_name = f'ever_tpu_torch._user.{base}_{digest}'
+    spec = importlib.util.spec_from_file_location(mod_name, py_file)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = module
+    try:
+        spec.loader.exec_module(module)  # type: ignore[union-attr]
+    except BaseException:
+        sys.modules.pop(mod_name, None)
+        raise
+    _REGISTERED_FILES[py_file] = mod_name
+
+
+def register_dir(dir_path: str, recursive: bool = False) -> None:
+    """Import every ``.py`` file of a directory (its subdirectories too
+    with ``recursive``), in sorted order, skipping names that start with
+    ``_``."""
+    pattern = (os.path.join(dir_path, '**', '*.py') if recursive
+               else os.path.join(dir_path, '*.py'))
+    for py_file in sorted(glob.glob(pattern, recursive=recursive)):
+        if not os.path.basename(py_file).startswith('_'):
+            register_file(py_file)
+
+
+def register_modules() -> None:
+    """Import the project's ``module/`` directory (relative to the working
+    directory)."""
+    register_dir('module')
+
+
+def register_dataloaders() -> None:
+    """Import the project's ``data/`` directory."""
+    register_dir('data')
+
+
+def register_callbacks() -> None:
+    """Import the project's ``callback/`` directory."""
+    register_dir('callback')
+
+
+def register_all() -> None:
+    """Import whichever of ``data/``, ``module/`` and ``callback/`` exist."""
+    for d in ('data', 'module', 'callback'):
+        if os.path.isdir(d):
+            register_dir(d)

@@ -1,0 +1,128 @@
+// tilekit: the port's host-side data-path routines, in C++ with a plain C
+// interface for ctypes (the GIL is released for the duration of a call).
+//
+//   1. ever_extract_tiles_u8: gather N fixed-size tiles from a uint8 HWC
+//      scene, one row memcpy at a time, tiles on parallel threads;
+//      GeoTileDataset's batched read (the tile gather of the JAX package's
+//      ever_tpu/native/tilekit.cpp, without its dihedral codes).
+//   2. ever_png_unfilter: undo PNG's per-row filters (None, Sub, Up,
+//      Average, Paeth) for bit depth 8.  Average and Paeth read the byte
+//      just decoded to their left, so rows are decoded in order; this is
+//      the hot loop of data/_png.py's decoder.
+//
+// Built with g++ at first use by ever_tpu_torch/ops/_build.py.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+namespace {
+
+inline int nthreads_for(int64_t work_items) {
+  unsigned hw = std::thread::hardware_concurrency();
+  if (hw == 0) hw = 4;
+  int64_t t = std::min<int64_t>(hw, work_items);
+  return static_cast<int>(std::max<int64_t>(t, 1));
+}
+
+template <typename F>
+void parallel_for(int64_t n, F&& body) {
+  int nt = nthreads_for(n);
+  if (nt <= 1) {
+    for (int64_t i = 0; i < n; ++i) body(i);
+    return;
+  }
+  std::vector<std::thread> ts;
+  ts.reserve(nt);
+  for (int t = 0; t < nt; ++t) {
+    ts.emplace_back([=]() {
+      for (int64_t i = t; i < n; i += nt) body(i);
+    });
+  }
+  for (auto& th : ts) th.join();
+}
+
+// the PNG predictor, without branches: p = a + b - c, and the neighbour
+// nearest to p, ties to a, then b
+inline int paeth(int a, int b, int c) {
+  int pa = std::abs(b - c), pb = std::abs(a - c), pc = std::abs(a + b - 2 * c);
+  int ab = pb < pa ? b : a;
+  int pab = pb < pa ? pb : pa;
+  return pc < pab ? c : ab;
+}
+
+}  // namespace
+
+extern "C" {
+
+// scene: [H, W, C] u8 contiguous; boxes: [N, 2] int64 (y0, x0);
+// out: [N, th, tw, C] u8.  Returns 0, or a negative code for a bad
+// argument (nothing written).
+int ever_extract_tiles_u8(const uint8_t* scene, int64_t H, int64_t W,
+                          int64_t C, const int64_t* boxes, int64_t N,
+                          int64_t th, int64_t tw, uint8_t* out) {
+  if (!scene || !boxes || !out || C <= 0 || th <= 0 || tw <= 0) return -1;
+  for (int64_t i = 0; i < N; ++i) {
+    int64_t y0 = boxes[2 * i], x0 = boxes[2 * i + 1];
+    if (y0 < 0 || x0 < 0 || y0 + th > H || x0 + tw > W) return -2;
+  }
+  const int64_t row_bytes = tw * C;
+  parallel_for(N, [=](int64_t i) {
+    int64_t y0 = boxes[2 * i], x0 = boxes[2 * i + 1];
+    uint8_t* dst = out + i * th * tw * C;
+    for (int64_t r = 0; r < th; ++r) {
+      std::memcpy(dst + r * row_bytes, scene + ((y0 + r) * W + x0) * C, row_bytes);
+    }
+  });
+  return 0;
+}
+
+// in: H rows of (1 + stride) bytes, each a filter-type byte and the
+// filtered row; out: [H, stride] raw bytes; bpp: bytes per pixel (>= 1).
+// Returns 0, -1 for a bad argument, or -(2 + y) for an unknown filter type
+// on row y.
+int ever_png_unfilter(const uint8_t* in, int64_t H, int64_t stride,
+                      int64_t bpp, uint8_t* out) {
+  if (!in || !out || H < 0 || stride <= 0 || bpp <= 0 || bpp > stride) return -1;
+  const std::vector<uint8_t> zeros(stride, 0);  // the row above the first
+  for (int64_t y = 0; y < H; ++y) {
+    const uint8_t ft = in[y * (stride + 1)];
+    const uint8_t* src = in + y * (stride + 1) + 1;
+    uint8_t* dst = out + y * stride;
+    const uint8_t* prev = y ? dst - stride : zeros.data();
+    // the first pixel has no left neighbour (a = c = 0); the loops after it
+    // run without branches on the position
+    switch (ft) {
+      case 0:
+        std::memcpy(dst, src, stride);
+        break;
+      case 1:
+        std::memcpy(dst, src, bpp);
+        for (int64_t x = bpp; x < stride; ++x) dst[x] = src[x] + dst[x - bpp];
+        break;
+      case 2:
+        for (int64_t x = 0; x < stride; ++x) dst[x] = src[x] + prev[x];
+        break;
+      case 3:
+        for (int64_t x = 0; x < bpp; ++x) dst[x] = src[x] + (prev[x] >> 1);
+        for (int64_t x = bpp; x < stride; ++x)
+          dst[x] = static_cast<uint8_t>(src[x] + ((dst[x - bpp] + prev[x]) >> 1));
+        break;
+      case 4:
+        for (int64_t x = 0; x < bpp; ++x) dst[x] = src[x] + prev[x];  // paeth(0, b, 0) = b
+        for (int64_t x = bpp; x < stride; ++x)
+          dst[x] = static_cast<uint8_t>(src[x] + paeth(dst[x - bpp], prev[x], prev[x - bpp]));
+        break;
+      default:
+        return static_cast<int>(-(2 + y));
+    }
+  }
+  return 0;
+}
+
+int ever_tilekit_abi_version() { return 1; }
+
+}  // extern "C"

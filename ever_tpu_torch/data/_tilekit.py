@@ -1,0 +1,84 @@
+"""The port's host library (``csrc/tilekit.cpp``) through ``ctypes``.
+
+``extract_tiles`` is the tile gather of ``GeoTileDataset.read_batch`` and
+``png_unfilter`` the row unfilter of ``data/_png.py``.  The library is built
+with ``g++`` into ``ever_tpu_torch/_build/`` at first use (``ops/_build.py``);
+there is no numpy fallback: a failed build raises.  Call :func:`load` in the
+parent process before a ``DataLoader`` forks its workers, so that they share
+one build instead of each compiling.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+
+__all__ = ['load', 'extract_tiles', 'png_unfilter']
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64 = ctypes.c_int64
+
+
+def load() -> ctypes.CDLL:
+    """The host library, built and typed at first use."""
+    from ever_tpu_torch.ops import _build
+
+    lib = _build.load('tilekit')
+    if lib.ever_extract_tiles_u8.argtypes is None:
+        lib.ever_tilekit_abi_version.restype = ctypes.c_int
+        if lib.ever_tilekit_abi_version() != 1:
+            raise RuntimeError('tilekit ABI mismatch')
+        lib.ever_png_unfilter.restype = ctypes.c_int
+        lib.ever_png_unfilter.argtypes = [_u8p, _i64, _i64, _i64, _u8p]
+        lib.ever_extract_tiles_u8.restype = ctypes.c_int
+        lib.ever_extract_tiles_u8.argtypes = [
+            _u8p, _i64, _i64, _i64, ctypes.POINTER(ctypes.c_int64), _i64, _i64, _i64,
+            _u8p]
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def extract_tiles(scene: np.ndarray, boxes: np.ndarray, tile_hw=(512, 512)) -> np.ndarray:
+    """Gather N ``(th, tw)`` uint8 tiles at ``boxes[:, (y0, x0)]`` of an HWC
+    (or HW) uint8 scene: ``[N, th, tw, C]``."""
+    th, tw = int(tile_hw[0]), int(tile_hw[1])
+    scene = np.ascontiguousarray(scene)
+    if scene.ndim == 2:
+        scene = scene[..., None]
+    if scene.dtype != np.uint8:
+        raise ValueError(f'extract_tiles: scene must be uint8, got {scene.dtype}')
+    boxes = np.ascontiguousarray(boxes, dtype=np.int64)
+    if boxes.ndim != 2 or boxes.shape[-1] != 2:
+        raise ValueError(f'boxes must be [N, 2] (y0, x0) pairs, got shape {boxes.shape}')
+    h, w, c = scene.shape
+    n = len(boxes)
+    out = np.empty((n, th, tw, c), np.uint8)
+    rc = load().ever_extract_tiles_u8(
+        _ptr(scene, ctypes.c_uint8), h, w, c, _ptr(boxes, ctypes.c_int64),
+        n, th, tw, _ptr(out, ctypes.c_uint8))
+    if rc != 0:
+        raise ValueError(f'extract_tiles: a box outside the scene (rc={rc})')
+    return out
+
+
+def png_unfilter(filtered: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo PNG's row filters: ``filtered`` holds ``height`` rows of a filter
+    byte and ``stride`` bytes; returns the raw ``[height, stride]`` bytes.
+    Raises ``ValueError`` on a wrong length or an unknown filter type."""
+    src = np.frombuffer(filtered, np.uint8)
+    if src.size != height * (stride + 1):
+        raise ValueError(f'{src.size} bytes of image data for {height} rows of '
+                         f'{stride + 1}')
+    out = np.empty((height, stride), np.uint8)
+    rc = load().ever_png_unfilter(_ptr(src, ctypes.c_uint8), height, stride, bpp,
+                                  _ptr(out, ctypes.c_uint8))
+    if rc == -1:
+        raise ValueError('png_unfilter: bad arguments')
+    if rc != 0:
+        row = -rc - 2
+        raise ValueError(f'unknown PNG filter type {src[row * (stride + 1)]} on row {row}')
+    return out

@@ -64,8 +64,11 @@ class ERDataset(torch.utils.data.Dataset, ConfigurableMixin):
 
     ``sampler_type`` names one of :attr:`SUPPORT_SAMPLERS`.  ``drop_last``
     None drops the ragged tail batch of the training samplers and keeps it
-    for ``SequentialSampler`` (evaluation), as in the JAX package.
+    for ``SequentialSampler`` (evaluation), as in the JAX package.  The
+    loader batches with the class's ``collate_fn``.
     """
+
+    collate_fn = staticmethod(default_collate)
 
     SUPPORT_SAMPLERS = {
         'StepDistributedSampler': StepDistributedSampler,
@@ -124,4 +127,4 @@ class ERDataset(torch.utils.data.Dataset, ConfigurableMixin):
                                              else self.config.persistent_workers))
         return torch.utils.data.DataLoader(
             self, batch_size=bs, sampler=sampler, num_workers=workers,
-            collate_fn=default_collate, drop_last=drop_last, **extra)
+            collate_fn=self.collate_fn, drop_last=drop_last, **extra)

@@ -46,6 +46,13 @@ class ERModule(nn.Module):
     def forward(self, x, y=None, train: bool = False):
         raise NotImplementedError
 
+    def custom_param_groups(self, params=None):
+        """Optional optimizer groups: ``(labels, {label: lr_mult})``, with
+        ``labels`` a ``{dotted name prefix: label}`` dict or a ``name ->
+        label`` callable (``opt/optimizer.py`` ``UpdateRule``); ``None`` (the
+        default) for one group."""
+        return None
+
 
 def sum_losses(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Sum every ``*loss`` entry of a forward output dict into the objective,

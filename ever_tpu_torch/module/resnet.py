@@ -22,7 +22,7 @@ space-to-depth folded), SE and GC blocks are not ported yet.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -235,6 +235,13 @@ for _name in RESNET_SPECS:
 
 
 @registry.MODEL.register()
+def resnet_frozen_prefixes(freeze_at: int) -> List[str]:
+    """The ``ResNet`` parameter prefixes that ``freeze_at`` freezes: the
+    stem at 1 and more, then ``layer1`` .. ``layer4`` at 2 .. 5."""
+    prefixes = ['conv1', 'bn1', 'stem.'] if freeze_at >= 1 else []
+    return prefixes + [f'layer{i - 1}' for i in range(2, 6) if freeze_at >= i]
+
+
 class ResNetEncoder(ERModule):
     """The configurable encoder (``ever_tpu/module/resnet.py``
     ``ResNetEncoder``), with the same config keys.  ``forward(x, train)``
@@ -276,3 +283,8 @@ class ResNetEncoder(ERModule):
     def forward(self, x, train: bool = False):
         x = x.to(getattr(torch, self.config.dtype)).permute(0, 3, 1, 2)
         return self.resnet(x, train)
+
+    def frozen_param_prefixes(self) -> List[str]:
+        """Parameter prefixes the optimizer leaves out for ``freeze_at``
+        (the JAX package's ``resnet/conv1`` .. ``resnet/layer4``)."""
+        return ['resnet.' + p for p in resnet_frozen_prefixes(int(self.config.freeze_at))]

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+"""Build the port's CUDA kernels with ``nvcc``, and its host library with
+``g++``, and load them with ``ctypes``.
 
 Each source under ``ever_tpu_torch/csrc/`` has a plain C interface and
 compiles on its own into a shared library for ``sm_90a``, at first use, into
@@ -7,7 +8,10 @@ the hash of its source and of the shared headers (``csrc/*.cuh``), so an
 edited source or header rebuilds.  ``build`` starts one ``nvcc`` per source,
 all at once, and keeps the compiler's report (``-Xptxas -v``: registers,
 spills, and ptxas's notes such as a serialized ``wgmma``) beside each
-library; :func:`build_log` reads it.  Nothing here runs at import time.
+library; :func:`build_log` reads it.  The host library (``HOST_SOURCES``:
+the data path's tile gather and PNG unfilter) is built by ``g++`` the same
+way, keyed by its own source, when :func:`load` first asks for it; a failed
+build raises, as a failed ``nvcc`` does.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, Iterable, Optional
 
-__all__ = ['SOURCES', 'build', 'build_log', 'load', 'function']
+__all__ = ['SOURCES', 'HOST_SOURCES', 'build', 'build_host', 'build_log', 'load',
+           'function']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -35,10 +41,16 @@ SOURCES = {'attention_fwd': 'attention_fwd.cu',
            'quant_int8': 'quant_int8.cu',
            'int8_matmul': 'int8_matmul.cu'}
 
+# host library name → C++ source under csrc/
+HOST_SOURCES = {'tilekit': 'tilekit.cpp'}
+
 _NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
                '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
+_GXX_FLAGS = ['-O3', '-std=c++17', '-shared', '-fPIC', '-pthread']
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,8 +65,11 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     digest = hashlib.sha1()
-    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith('.cuh'))
-    for fname in [SOURCES[name]] + headers:
+    if name in HOST_SOURCES:
+        files = [HOST_SOURCES[name]]
+    else:
+        files = [SOURCES[name]] + sorted(f for f in os.listdir(_CSRC) if f.endswith('.cuh'))
+    for fname in files:
         with open(os.path.join(_CSRC, fname), 'rb') as f:
             digest.update(f.read())
     return os.path.join(_BUILD, f'lib{name}-{digest.hexdigest()[:12]}.so')
@@ -96,6 +111,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return secs
 
 
+def build_host(name: str) -> float:
+    """Compile host library ``name`` with ``g++`` unless it is built;
+    returns the seconds it took (0.0 when it was built already) and raises
+    with the compiler's output on a failure."""
+    out = _lib_path(name)
+    if os.path.isfile(out):
+        return 0.0
+    gxx = shutil.which('g++')
+    if gxx is None:
+        raise RuntimeError('g++ not found: it builds the port\'s host library '
+                           f'{HOST_SOURCES[name]}')
+    os.makedirs(_BUILD, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=_BUILD)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([gxx, *_GXX_FLAGS, '-o', tmp,
+                           os.path.join(_CSRC, HOST_SOURCES[name])],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'g++ failed for {HOST_SOURCES[name]}:\n{proc.stdout}')
+    os.replace(tmp, out)
+    return time.perf_counter() - t0
+
+
 def build_log(name: str) -> str:
     """nvcc's report from the build of kernel library ``name`` (built first
     if needed)."""
@@ -105,12 +145,19 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
+    """The loaded kernel or host library ``name``, built first if needed
+    (once, whichever thread asks first)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(_lib_path(name))
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                if name in HOST_SOURCES:
+                    build_host(name)
+                else:
+                    build([name])
+                lib = ctypes.CDLL(_lib_path(name))
+                _LIBS[name] = lib
     return lib
 
 

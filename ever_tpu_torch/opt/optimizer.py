@@ -15,7 +15,7 @@ kernels.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
@@ -55,20 +55,72 @@ class UpdateRule:
     """What :meth:`OptimizerFactory.build` returns: the update of one train
     step.  ``init(params)`` makes the ``torch.optim`` optimizer that holds
     the state; ``apply(optimizer, step)`` records (and clips) the global
-    gradient norm, sets the learning rate to ``lr_at(step)`` and steps."""
+    gradient norm, sets each group's learning rate to ``lr_at(step)`` times
+    the group's ``lr_mult`` and steps.
+
+    ``frozen`` (``name -> bool``) leaves parameters out of the optimizer:
+    they get exactly zero updates, no weight decay and no momentum, and the
+    recorded norm leaves their gradients out, as ``optax.set_to_zero`` in
+    the JAX package's ``multi_transform`` does.  ``groups``, ``(labels,
+    {label: lr_mult})``, puts each parameter into the group of its label:
+    ``labels`` maps dotted name prefixes to labels (a parameter takes the
+    label of the longest prefix that ends at a dot of its name) or is a
+    ``name -> label`` callable.  Both need named parameters: ``init`` then
+    takes ``(name, parameter)`` pairs."""
 
     def __init__(self, make: Callable[..., torch.optim.Optimizer],
-                 learning_rate: Schedule, max_norm: Optional[float]):
+                 learning_rate: Schedule, max_norm: Optional[float],
+                 frozen: Optional[Callable[[str], bool]] = None,
+                 groups: Optional[Tuple[Union[Dict[str, str], Callable[[str], str]],
+                                        Dict[str, float]]] = None):
         self._make = make
         self.learning_rate = learning_rate
         self.max_norm = max_norm
+        self.frozen = frozen
+        self.groups = groups
 
     def lr_at(self, step: int) -> float:
         lr = self.learning_rate
         return float(lr(step)) if callable(lr) else float(lr)
 
-    def init(self, params: Iterable[torch.nn.Parameter]) -> torch.optim.Optimizer:
-        return self._make(list(params), self.lr_at(0))
+    def with_frozen(self, frozen: Callable[[str], bool]) -> 'UpdateRule':
+        """This rule with the parameters ``frozen`` names frozen as well."""
+        old = self.frozen
+        both = frozen if old is None else (lambda n: old(n) or frozen(n))
+        return UpdateRule(self._make, self.learning_rate, self.max_norm, both, self.groups)
+
+    def _label(self, name: str) -> str:
+        labels = self.groups[0]
+        if callable(labels):
+            return labels(name)
+        hits = [k for k in labels if k == '' or name == k or name.startswith(k + '.')]
+        if not hits:
+            raise KeyError(f'parameter {name!r} has no label in the param groups '
+                           f'{sorted(labels)}')
+        return labels[max(hits, key=len)]
+
+    def init(self, params: Iterable) -> torch.optim.Optimizer:
+        """The optimizer over ``params``: parameters, or ``(name,
+        parameter)`` pairs (needed with ``frozen`` or ``groups``)."""
+        params = list(params)
+        named = bool(params) and all(isinstance(p, tuple) for p in params)
+        if (self.frozen is not None or self.groups is not None) and not named:
+            raise ValueError('frozen parameters and param groups need (name, '
+                             'parameter) pairs, e.g. model.named_parameters()')
+        if not named:
+            return self._make(params, self.lr_at(0))
+        kept = [(n, p) for n, p in params if self.frozen is None or not self.frozen(n)]
+        if self.groups is None:
+            return self._make([p for _, p in kept], self.lr_at(0))
+        mults = self.groups[1]
+        by_label: Dict[str, list] = {label: [] for label in mults}
+        for n, p in kept:
+            label = self._label(n)
+            if label not in by_label:
+                raise KeyError(f'label {label!r} of {n!r} has no lr multiplier')
+            by_label[label].append(p)
+        return self._make([dict(params=ps, lr_mult=float(mults[label]))
+                           for label, ps in by_label.items() if ps], self.lr_at(0))
 
     def apply(self, optimizer: torch.optim.Optimizer, step: int) -> torch.Tensor:
         """One update at the step count ``step`` (before its increment);
@@ -77,7 +129,7 @@ class UpdateRule:
         norm = clip_by_global_norm_recording(params, self.max_norm)
         lr = self.lr_at(step)
         for group in optimizer.param_groups:
-            group['lr'] = lr
+            group['lr'] = lr * group.get('lr_mult', 1.0)
         optimizer.step()
         return norm
 
@@ -94,17 +146,23 @@ class OptimizerFactory:
         """The full update: ``learning_rate`` is a float or a ``step -> lr``
         schedule; ``grad_clip={'max_norm': float}`` clips by the global norm,
         and without it the norm is only recorded (a reference config without
-        the key trains unclipped)."""
-        if param_groups is not None or frozen_prefixes:
-            raise NotImplementedError('param_groups and frozen_prefixes need '
-                                      'util/param_util, not ported yet')
+        the key trains unclipped).  ``param_groups``, ``(labels, {label:
+        lr_mult})``, gives groups their learning-rate multipliers;
+        ``frozen_prefixes`` freezes every parameter whose dotted name starts
+        with one of them (see :class:`UpdateRule`)."""
         max_norm = (float(grad_clip.get('max_norm', DEFAULT_GRAD_CLIP['max_norm']))
                     if grad_clip else None)
+        frozen = None
+        if frozen_prefixes:
+            prefixes = tuple(frozen_prefixes)
+
+            def frozen(name: str) -> bool:
+                return name.startswith(prefixes)
 
         def make(params, lr):
             return self._fn(params, lr, **self.params)
 
-        return UpdateRule(make, learning_rate, max_norm)
+        return UpdateRule(make, learning_rate, max_norm, frozen, param_groups)
 
 
 class Lamb(torch.optim.Optimizer):

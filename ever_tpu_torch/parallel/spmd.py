@@ -73,15 +73,15 @@ def step_generator(rng_seed: int, step: int, micro: Optional[int] = None,
 def create_train_state(model: torch.nn.Module, tx, sample_batch=None, rng=None,
                        init_params: Optional[Dict[str, torch.Tensor]] = None
                        ) -> TrainState:
-    """The model, its optimizer (``tx.init`` over its trainable parameters)
-    and step 0.  ``init_params``, a ``state_dict`` (pretrained weights, e.g.
+    """The model, its optimizer (``tx.init`` over its trainable parameters,
+    by name) and step 0.  ``init_params``, a ``state_dict`` (pretrained weights, e.g.
     from ``util.weight_io``), is loaded first.  ``sample_batch`` and ``rng``
     are the JAX initialiser's inputs, taken so that call sites read alike: a
     PyTorch module is built with its parameters, so neither is used."""
     del sample_batch, rng
     if init_params is not None:
         model.load_state_dict(init_params, strict=True)
-    optimizer = tx.init(p for p in model.parameters() if p.requires_grad)
+    optimizer = tx.init((n, p) for n, p in model.named_parameters() if p.requires_grad)
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
@@ -114,7 +114,8 @@ def build_train_step(model: torch.nn.Module, tx,
 
     def step(state: TrainState, batch):
         opt = state.optimizer
-        opt.zero_grad(set_to_none=True)
+        # the model's: frozen parameters' gradients are no optimizer's
+        model.zero_grad(set_to_none=True)
         dev = _device(model)
         if forward_times == 1:
             metrics = _forward_backward(

@@ -10,14 +10,18 @@ A.9).
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Callable, Optional
+
+import torch
 
 from ever_tpu_torch.core import builder, dist
 from ever_tpu_torch.core.config import AttrDict, import_config, save_pkl
 from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.core.launcher import Launcher
 from ever_tpu_torch.core.logger import Logger
+from ever_tpu_torch.module.resnet import resnet_frozen_prefixes
 
 __all__ = ['Trainer', 'merge_dict', 'half_bn']
 
@@ -78,11 +82,16 @@ class Trainer:
     # -- factories -----------------------------------------------------------
     def make_model(self):
         """Build the model on the trainer's device; ``--mixed_precision
-        bf16`` sets its compute dtype unless the config names one."""
+        bf16`` sets its compute dtype unless the config names one.  Its
+        initial weights are drawn from the config's ``seed`` (42 by
+        default), as the JAX launcher's are, without touching the caller's
+        generator."""
         model_cfg = self._config.model
         if getattr(self.args, 'mixed_precision', 'fp32') == 'bf16':
             model_cfg.setdefault('params', AttrDict()).setdefault('dtype', 'bfloat16')
-        model = builder.make_model(model_cfg, device=self._device)
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(self._config.get('seed', 42)))
+            model = builder.make_model(model_cfg, device=self._device)
         if self._model_fn is not None:
             model = self._model_fn(model)
         return model
@@ -96,13 +105,34 @@ class Trainer:
 
     def make_lr_optimizer(self, model):
         """(schedule, update rule), clipped only when the optimizer config
-        has a ``grad_clip`` key.  No ported model defines custom parameter
-        groups or frozen prefixes yet (``util/param_util``, ``ROADMAP.md``
-        A.4)."""
-        del model
+        has a ``grad_clip`` key, with the model's hooks as the JAX trainer
+        reads them: ``custom_param_groups`` gives learning-rate groups and
+        ``frozen_param_prefixes`` the frozen parameters; a model without
+        that hook whose ``encoder`` config is a ResNet's with ``freeze_at``
+        freezes that encoder's first stages."""
         schedule = builder.make_learningrate(self._config.learning_rate)
         factory, opt_config = builder.make_optimizer(self._config.optimizer)
-        return schedule, factory.build(schedule, grad_clip=opt_config.get('grad_clip', None))
+        param_groups = None
+        hook = getattr(model, 'custom_param_groups', None)
+        if callable(hook):
+            param_groups = hook(None)
+        frozen = None
+        hook = getattr(model, 'frozen_param_prefixes', None)
+        if callable(hook):
+            frozen = tuple(hook()) or None
+        if frozen is None and hasattr(model, 'config'):
+            enc_cfg = model.config.get('encoder', None)
+            if enc_cfg and int(enc_cfg.get('freeze_at', 0) or 0) >= 1:
+                if enc_cfg.get('resnet_type'):
+                    frozen = tuple('encoder.resnet.' + p for p in resnet_frozen_prefixes(
+                        int(enc_cfg.freeze_at)))
+                else:
+                    logging.getLogger('ever_tpu_torch').warning(
+                        'encoder.freeze_at=%s set but the model exposes no '
+                        'frozen_param_prefixes hook and the encoder is not a '
+                        'ResNet config: nothing will be frozen', enc_cfg.get('freeze_at'))
+        return schedule, factory.build(schedule, grad_clip=opt_config.get('grad_clip', None),
+                                       param_groups=param_groups, frozen_prefixes=frozen)
 
     def build_launcher(self) -> Launcher:
         model = self.make_model()

@@ -1,4 +1,20 @@
-"""Carry weights from the JAX package's models into the port.
+"""Weights into the port: from files (``load_weights``), and from the JAX
+package's models (the ``convert_flax_*`` converters).
+
+:func:`load_weights` (counterpart of ``ever_tpu/util/weight_io.py``
+``load_weights``) reads the reference's torch files of the ported families
+(a DINOv3 ViT, a torchvision ResNet, the reference ``FarSegHead``), ``.npz``
+archives of the JAX package's flat ``params/...`` keys, and the port's own
+checkpoints, and loads them non-strictly into a model: the subtree a file
+lands in is the one where most of its keys land, a stem conv of another
+channel count goes through :func:`patch_first_conv`, and missing,
+unexpected and mismatched keys are logged.  The reference files convert as
+the JAX package's ``convert_torch_*`` do: the DINOv3 ``qkv.bias_mask`` is
+baked into the bias and ``mask_token``, ``rope_embed.*`` and
+``local_cls_norm`` are dropped; a FarSeg head's content and re-encoder conv
+biases fold into their BatchNorms' running means.
+
+The converters below carry the JAX package's parameters into the port.
 
 The port names its parameters after the reference torch modules, so these
 converters are the inverses of the JAX package's ``convert_torch_*``: the
@@ -18,14 +34,22 @@ package's bias-free content and re-encoder convs).  Layout changes: Dense
 
 from __future__ import annotations
 
+import logging
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ever_tpu_torch.core.device import get_device
+
 __all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
-           'convert_flax_resnet', 'convert_flax_farseg']
+           'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_flat',
+           'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
+           'convert_torch_resnet', 'patch_first_conv', 'read_weights',
+           'load_weights', 'LoadReport']
+
+logger = logging.getLogger('ever_tpu_torch.weight_io')
 
 _BLOCK_RE = re.compile(r'^block(\d+)/(.+)$')
 
@@ -217,3 +241,203 @@ def convert_flax_farseg(params: Any, batch_stats: Any = None
     ``head/...``) → the port's ``FarSeg`` ``state_dict``, running buffers
     included.  Any variable left unmapped raises ``KeyError``."""
     return _convert_conv_net(_variables(params, batch_stats), _FARSEG_TREES, 'FarSeg')
+
+
+def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flat archive of the JAX package's variables (``params/...`` and
+    ``batch_stats/...`` keys, as its ``.npz`` files hold them) → port names:
+    a DinoSeg or a bare DINOv3 trunk, a FarSeg, a bare FarSeg head, or a
+    ResNet (bare or under ``resnet/``), told apart by their keys."""
+    flat = _variables(flat, None)
+    keys = list(flat)
+    if any(k.endswith('cls_token') for k in keys):
+        if any(k.startswith('vit/') for k in keys):
+            return convert_flax_dinoseg(flat)
+        return convert_flax_dinov3_vit(flat)
+    if any(k.startswith(('encoder/', 'head/')) for k in keys):
+        return convert_flax_farseg(flat)
+    if any(k.startswith(('fs_relation/', 'fpn/', 'fpn_decoder/')) for k in keys):
+        return _convert_conv_net(flat, [('', '', _FARSEG_HEAD_RULES)], 'FarSeg head')
+    return convert_flax_resnet(flat)
+
+
+# -- the reference's torch files ---------------------------------------------
+
+def _strip_prefixes(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Drop a leading DDP ``module.`` and torch.compile's ``_orig_mod.``
+    wherever it stands."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith('module.'):
+            k = k[len('module.'):]
+        out[k.replace('_orig_mod.', '')] = v
+    return out
+
+
+def convert_torch_dinov3_vit(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference DINOv3 ViT ``state_dict`` → the port's trunk: the
+    ``mask_k_bias`` buffer ``attn.qkv.bias_mask`` (0 over the K third,
+    NaN read as 1) multiplied into ``attn.qkv.bias``; ``mask_token``,
+    ``rope_embed.*`` and ``local_cls_norm.*`` (training-only, or recomputed
+    from the config) dropped."""
+    sd = dict(sd)
+    for k in [k for k in sd if k.endswith('attn.qkv.bias_mask')]:
+        mask = sd.pop(k)
+        bias_key = k[:-len('_mask')]
+        if bias_key in sd:
+            sd[bias_key] = sd[bias_key] * torch.nan_to_num(mask, nan=1.0)
+    return {k: v for k, v in sd.items()
+            if k != 'mask_token' and not k.startswith(('rope_embed.', 'local_cls_norm.'))}
+
+
+def convert_torch_farseg_head(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference ``FarSegHead`` ``state_dict`` → the port's head: the
+    content and re-encoder convs have a bias there and none here, so each
+    bias folds into its BatchNorm's running mean (``mean - bias``), exact in
+    evaluation and through training; ``num_batches_tracked`` dropped."""
+    out = {k: v for k, v in sd.items() if not k.endswith('num_batches_tracked')}
+    for k in [k for k in out if re.fullmatch(
+            r'fs_relation\.(content_encoders|feature_reencoders)\.\d+\.0\.bias', k)]:
+        bias = out.pop(k)
+        mean = k[:-len('0.bias')] + '1.running_mean'
+        if mean in out:
+            out[mean] = out[mean] - bias
+    return out
+
+
+def convert_torch_resnet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A torchvision ResNet ``state_dict`` → the port's ``ResNet`` (the same
+    names): the classifier ``fc.*`` and ``num_batches_tracked`` dropped."""
+    return {k: v for k, v in sd.items()
+            if not (k.startswith('fc.') or k.endswith('num_batches_tracked'))}
+
+
+# reference families whose models are not ported: a key that tells each apart
+_NOT_PORTED = (('denseblock', 'DenseNet'), ('fuse_layers', 'HRNet'),
+               ('downsample_layers.', 'ConvNeXt'), ('_conv_stem.', 'EfficientNet'),
+               ('.conv2.fc1.', 'ResNeSt'))
+
+
+def _convert_torch(sd: Dict[str, torch.Tensor], path: str) -> Dict[str, torch.Tensor]:
+    for marker, family in _NOT_PORTED:
+        if any(marker in k for k in sd):
+            raise NotImplementedError(f'{path}: a {family} checkpoint; the port has no '
+                                      f'{family} yet (ROADMAP.md A.7)')
+    if any(k.startswith('fs_relation.') for k in sd):
+        return convert_torch_farseg_head(sd)
+    if 'cls_token' in sd and any(k.startswith('blocks.') for k in sd):
+        return convert_torch_dinov3_vit(sd)
+    return convert_torch_resnet(sd)
+
+
+def read_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The tensors of a weight file under the port's names, on the host:
+    ``.npz`` (the JAX package's flat variables), a port checkpoint
+    (``{'model', 'opt', 'global_step'}``), or any other ``torch.save`` file
+    of a ``state_dict`` (bare, or under ``'state_dict'`` or ``'model'``) in
+    the reference's layout."""
+    if path.endswith('.npz'):
+        with np.load(path) as z:
+            return convert_flax_flat({k: z[k] for k in z.files})
+    obj = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(obj, dict) and all(k in obj for k in ('model', 'opt', 'global_step')):
+        return dict(obj['model'])                 # the port's own checkpoint
+    if isinstance(obj, dict) and isinstance(obj.get('state_dict'), dict):
+        obj = obj['state_dict']
+    if isinstance(obj, dict) and isinstance(obj.get('model'), dict):
+        obj = obj['model']
+    if not isinstance(obj, dict):
+        raise ValueError(f'{path}: holds a {type(obj).__name__}, not a state_dict')
+    return _convert_torch(_strip_prefixes(
+        {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}), path)
+
+
+def patch_first_conv(weight: torch.Tensor, new_in_channels: int,
+                     default_in_channels: int = 3) -> torch.Tensor:
+    """Recycle a stem conv's ``[O, I, kh, kw]`` weight for ``new_in_channels``
+    inputs: input channel ``i`` copies channel ``i % default_in_channels``,
+    and the whole weight is scaled by ``default_in_channels /
+    new_in_channels``."""
+    o, _, kh, kw = weight.shape
+    new = torch.empty((o, new_in_channels, kh, kw), dtype=weight.dtype)
+    for i in range(new_in_channels):
+        new[:, i] = weight[:, i % default_in_channels]
+    return new * (default_in_channels / new_in_channels)
+
+
+# prefixes a file's keys may need to land in the model: candidates in the
+# JAX package's order, with dots
+_OFFSETS = ('', 'resnet.', 'encoder.resnet.', 'densenet.', 'hrnet.', 'net.',
+            'encoder.densenet.', 'encoder.hrnet.', 'encoder.net.', 'head.', 'vit.',
+            'encoder.vit.')
+
+
+def _find_subtree_offset(src_keys, dst_keys) -> str:
+    """The prefix under which most of the file's keys land in the model."""
+    dst_keys = set(dst_keys)
+    best, best_hits = '', 0
+    for cand in _OFFSETS:
+        hits = sum(1 for k in src_keys if cand + k in dst_keys)
+        if hits > best_hits:
+            best, best_hits = cand, hits
+    return best
+
+
+class LoadReport(NamedTuple):
+    """What :func:`load_weights` did: the number of tensors loaded, the
+    model's keys the file left alone, the file's keys the model lacks, and
+    ``(key, file shape, model shape)`` of those skipped for their shape."""
+    loaded: int
+    missing: List[str]
+    unexpected: List[str]
+    mismatched: List[Tuple[str, tuple, tuple]]
+
+
+@torch.no_grad()
+def load_weights(path: str, model: torch.nn.Module, excepts: Optional[str] = None,
+                 log: bool = True, device=None) -> LoadReport:
+    """Load the weights of ``path`` into ``model``, in place and
+    non-strictly (its parameters and buffers keep their type), the tensors
+    copied to ``device`` (the GPU unless ``device='cpu'``), where the model
+    lives.
+
+    ``excepts`` is a regular expression: file keys it matches at their start
+    (``re.match``) are dropped first.  The file's keys land under the prefix
+    where most of them do.  A key whose shape differs is skipped, except a
+    stem ``conv1.weight`` with another input channel count, which goes
+    through :func:`patch_first_conv`.
+    """
+    dev = get_device(device)
+    src = read_weights(path)
+    if excepts:
+        pat = re.compile(excepts)
+        src = {k: v for k, v in src.items() if not pat.match(k)}
+    dst = model.state_dict()
+    offset = _find_subtree_offset(src, dst) if src else ''
+    new: Dict[str, torch.Tensor] = {}
+    unexpected: List[str] = []
+    mismatched: List[Tuple[str, tuple, tuple]] = []
+    for k, v in src.items():
+        k = offset + k
+        if k not in dst:
+            unexpected.append(k)
+            continue
+        want = dst[k]
+        if tuple(want.shape) != tuple(v.shape):
+            if (k.endswith('conv1.weight') and v.ndim == 4 and want.shape[0] == v.shape[0]
+                    and want.shape[2:] == v.shape[2:]):
+                v = patch_first_conv(v, want.shape[1], default_in_channels=v.shape[1])
+            else:
+                mismatched.append((k, tuple(v.shape), tuple(want.shape)))
+                continue
+        new[k] = v.to(device=dev, dtype=want.dtype)
+    landed = {offset + k for k in src}
+    missing = [k for k in dst if k not in landed]
+    model.load_state_dict(new, strict=False)
+    if log:
+        logger.info('load_weights(%s): loaded %d tensors; %d missing, %d unexpected, '
+                    '%d mismatched', path, len(new), len(missing), len(unexpected),
+                    len(mismatched))
+        for k, s_src, s_dst in mismatched:
+            logger.warning('shape mismatch %s: file %s vs model %s', k, s_src, s_dst)
+    return LoadReport(len(new), missing, unexpected, mismatched)

@@ -19,7 +19,11 @@ from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.core.checkpoint import CheckPoint
 from ever_tpu_torch.core.config import AttrDict, import_config
 from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.api import infer_tool
+from ever_tpu_torch.core.iterator import get_iterator
 from ever_tpu_torch.core.launcher import Launcher
+from ever_tpu_torch.core.prefetch import prefetch_to_device
+from ever_tpu_torch.util.weight_io import load_weights
 from ever_tpu_torch.magic.sliding_window import sliding_window
 from ever_tpu_torch.magic.tiled import tiled_inference
 from ever_tpu_torch.trainer import Trainer, get_trainer, parse_args
@@ -35,9 +39,17 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.ops.pool, ever_tpu_torch.module.fs_relation,'
             ' ever_tpu_torch.ops.norm, ever_tpu_torch.ops.quant,'
             ' ever_tpu_torch.trainer, ever_tpu_torch.metric, ever_tpu_torch.data,'
-            ' ever_tpu_torch.core.launcher, ever_tpu_torch.magic.transform;'
+            ' ever_tpu_torch.core.launcher, ever_tpu_torch.magic.transform,'
+            ' ever_tpu_torch.data._png, ever_tpu_torch.data._tilekit,'
+            ' ever_tpu_torch.data._scene, ever_tpu_torch.data.loveda,'
+            ' ever_tpu_torch.data.geotile, ever_tpu_torch.data.cross_validation,'
+            ' ever_tpu_torch.core.to, ever_tpu_torch.core.prefetch,'
+            ' ever_tpu_torch.core.iterator, ever_tpu_torch.util.seedlib,'
+            ' ever_tpu_torch.util.param_util, ever_tpu_torch.util._main,'
+            ' ever_tpu_torch.api.infer_tool, ever_tpu_torch.__main__;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
-            ' or m == "ever_tpu" or m.startswith("ever_tpu.")];'
+            ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
+            ' or m == "PIL" or m.startswith("PIL.")];'
             'print(bad); sys.exit(1 if bad else 0)')
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
@@ -46,8 +58,8 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
 
 
 def test_source_has_no_jax_or_ever_tpu_import():
-    bad = re.compile(r'^\s*(import\s+(jax|flax|ever_tpu)\b(?!_torch)'
-                     r'|from\s+(jax|flax|ever_tpu)\b(?!_torch))', re.M)
+    bad = re.compile(r'^\s*(import\s+(jax|flax|ever_tpu|PIL)\b(?!_torch)'
+                     r'|from\s+(jax|flax|ever_tpu|PIL)\b(?!_torch))', re.M)
     paths = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, files in os.walk(PKG):
         paths += [os.path.join(root, n) for n in files if n.endswith('.py')]
@@ -55,7 +67,7 @@ def test_source_has_no_jax_or_ever_tpu_import():
         with open(path) as f:
             assert not bad.search(f.read()), path
     scanned = {os.path.relpath(p, REPO) for p in paths}
-    assert len(scanned) >= 33
+    assert len(scanned) >= 48
     assert {'chip_smoke.py', 'ever_tpu_torch/ops/attention.py',
             'ever_tpu_torch/opt/optimizer.py', 'ever_tpu_torch/opt/learning_rate.py',
             'ever_tpu_torch/interface/learning_rate.py',
@@ -66,7 +78,13 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/ops/quant.py', 'ever_tpu_torch/core/launcher.py',
             'ever_tpu_torch/core/checkpoint.py', 'ever_tpu_torch/trainer/trainer.py',
             'ever_tpu_torch/metric/evaluate_fn.py', 'ever_tpu_torch/data/distributed.py',
-            'ever_tpu_torch/magic/_transform_impl.py'} <= scanned
+            'ever_tpu_torch/magic/_transform_impl.py', 'ever_tpu_torch/data/_png.py',
+            'ever_tpu_torch/data/_tilekit.py', 'ever_tpu_torch/data/_scene.py',
+            'ever_tpu_torch/data/loveda.py', 'ever_tpu_torch/data/geotile.py',
+            'ever_tpu_torch/data/cross_validation.py', 'ever_tpu_torch/core/to.py',
+            'ever_tpu_torch/core/prefetch.py', 'ever_tpu_torch/util/seedlib.py',
+            'ever_tpu_torch/util/param_util.py', 'ever_tpu_torch/util/_main.py',
+            'ever_tpu_torch/api/infer_tool.py', 'ever_tpu_torch/__main__.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -132,6 +150,23 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch, tmp_p
     assert out.device.type == 'cpu' and float(out.min()) == 1.0
     trainer = get_trainer('th_ddp', argv=argv + ['--device', 'cpu'])()
     assert trainer.device == torch.device('cpu') and (tmp_path / 'run' / 'config.pkl').exists()
+    # the workflow's entry points: serving a model dir, prefetching, weights
+    torch.save({'model': {}, 'opt': {}, 'global_step': 1}, tmp_path / 'run' / 'checkpoint-1.ckpt')
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        infer_tool.build_from_model_dir(str(tmp_path / 'run'))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        infer_tool.build_and_load_from_file(str(cfg), str(tmp_path / 'run' / 'checkpoint-1.ckpt'))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        prefetch_to_device(iter([np.zeros(2)]))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        get_iterator('prefetched')([np.zeros(2)])
+    torch.save({'weight': torch.ones(2, 2)}, tmp_path / 'w.pth')
+    lin = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        load_weights(str(tmp_path / 'w.pth'), lin)
+    assert [t.device.type for t in prefetch_to_device(iter([np.zeros(2)]), device='cpu')] == ['cpu']
+    assert load_weights(str(tmp_path / 'w.pth'), lin, device='cpu').loaded == 1
+    assert float(lin.weight.min()) == 1.0
 
 
 def _pallas_kernels():

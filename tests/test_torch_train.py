@@ -233,11 +233,14 @@ def test_clip_records_the_norm_before_clipping(max_norm):
 
 
 def test_param_groups_and_frozen_prefixes_are_not_ported_yet():
+    """They are ported now (tests/test_torch_param_util.py holds them against
+    optax); both need parameter names, and bare parameters raise."""
     factory, _ = tbuilder.make_optimizer({'type': 'sgd', 'params': {}})
-    with pytest.raises(NotImplementedError):
-        factory.build(0.1, param_groups=({}, {}))
-    with pytest.raises(NotImplementedError):
-        factory.build(0.1, frozen_prefixes=('vit/',))
+    params = [torch.nn.Parameter(torch.zeros(3))]
+    with pytest.raises(ValueError, match='name'):
+        factory.build(0.1, param_groups=({'': 'all'}, {'all': 1.0})).init(params)
+    with pytest.raises(ValueError, match='name'):
+        factory.build(0.1, frozen_prefixes=('vit.',)).init(params)
 
 
 def test_make_optimizer_returns_factory_and_config():

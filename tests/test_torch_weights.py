@@ -1,0 +1,368 @@
+"""``util/weight_io.load_weights`` against the JAX package's, on files on
+disk: seeded state_dicts in the reference's torch layouts (a depth-2 DINOv3
+with ``qkv.bias_mask``, ``mask_token``, ``rope_embed.periods`` and
+``local_cls_norm``; torchvision ResNet-18 and ResNet-50, with a 4-channel
+stem; a FarSeg head whose content and re-encoder convs have biases), the
+JAX package's ``.npz`` archives and the two packages' own checkpoints.  For
+each, the port's model after ``load_weights`` equals
+``convert_flax_*(jax load_weights(...))`` exactly, both models starting from
+the same weights.  Then ``GLOBAL.weight.path`` through both packages'
+``get_trainer``: the logged losses agree.
+"""
+
+import logging
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+import ever_tpu.module  # noqa: F401  (registers the JAX models)
+from ever_tpu.core import builder as jbuilder
+from ever_tpu.core import registry as jregistry
+from ever_tpu.interface import ERDataset as JERDataset
+from ever_tpu.module import resnet as jres
+from ever_tpu.module import vit as jvit
+from ever_tpu.trainer import get_trainer as jget_trainer
+from ever_tpu.util import weight_io as jwio
+from ever_tpu_torch.core import builder as tbuilder
+from ever_tpu_torch.core import registry as tregistry
+from ever_tpu_torch.core.logger import TrainLogHook
+from ever_tpu_torch.interface import ERDataset as TERDataset
+from ever_tpu_torch.module import resnet as tres
+from ever_tpu_torch.module import vit as tvit
+from ever_tpu_torch.trainer import get_trainer as tget_trainer
+from ever_tpu_torch.util import weight_io as twio
+from ever_tpu_torch.util.weight_io import (convert_flax_dinoseg, convert_flax_farseg,
+                                           convert_flax_resnet, load_weights,
+                                           patch_first_conv)
+
+TINY = ('vit_tiny_test', (2, 64, 2, 4.0, 'mlp'))
+# the sat preset's trunk options on the narrow spec
+BACKBONE = dict(name=TINY[0], n_storage_tokens=4, layerscale_init=1e-5, qkv_bias=True,
+                norm_eps=1e-5)
+DINOSEG = dict(backbone=BACKBONE, classes=5, dtype='float32')
+FARSEG = dict(encoder=dict(resnet_type='resnet18'), classes=5, dtype='float32',
+              head=dict(fpn=dict(in_channels_list=(64, 128, 256, 512), out_channels=32),
+                        fs_relation=dict(scene_embedding_channels=512, in_channels_list=(
+                            32, 32, 32, 32), out_channels=32),
+                        fpn_decoder=dict(in_channels=32, out_channels=32)))
+
+
+@pytest.fixture(scope='module', autouse=True)
+def tiny_vit():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(jvit.VIT_SPECS, *TINY)
+        mp.setitem(tvit.VIT_SPECS, *TINY)
+        yield
+
+
+def _jax_variables(model, x_shape, seed):
+    """Seeded random variables of a JAX model (params and batch_stats)."""
+    shapes = jax.eval_shape(lambda: model.init({'params': jax.random.key(0)},
+                                               jnp.zeros(x_shape, jnp.float32)))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        if 'var' in jax.tree_util.keystr(path):
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return rng.normal(scale=0.1, size=s.shape).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(draw, dict(shapes))
+
+
+def _randomized(sd, seed):
+    """The state_dict's names and shapes with seeded random float32 values."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.normal(scale=0.1, size=tuple(v.shape)).astype(np.float32))
+            for k, v in sd.items()}
+
+
+def _assert_state_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k].numpy(), want[k].numpy(), err_msg=k)
+
+
+def _both_load(kind, path, excepts=None, stem_channels=3, jax_path=None):
+    """(the port's state after load_weights, convert_flax(JAX load_weights),
+    the port's report, the port's model) from the same initial weights; the
+    JAX package reads ``jax_path`` when given."""
+    if kind == 'dinoseg':
+        jm = jbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG})
+        tm = tbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG}, device='cpu')
+        v = _jax_variables(jm, (1, 32, 32, 3), seed=1)
+        convert = lambda p, bs: convert_flax_dinoseg(p)  # noqa: E731
+    elif kind == 'farseg':
+        jm = jbuilder.make_model({'type': 'FarSeg', 'params': FARSEG})
+        tm = tbuilder.make_model({'type': 'FarSeg', 'params': FARSEG}, device='cpu')
+        v = _jax_variables(jm, (1, 64, 64, 3), seed=2)
+        convert = convert_flax_farseg
+    else:
+        cfg = dict(resnet_type=kind, in_channels=stem_channels)
+        jm, tm = jres.ResNetEncoder(cfg), tres.ResNetEncoder(cfg)
+        v = _jax_variables(jm, (1, 64, 64, stem_channels), seed=3)
+        convert = convert_flax_resnet
+    tm.load_state_dict(convert(v['params'], v.get('batch_stats')), strict=True)
+    params, bs = jwio.load_weights(jax_path or path, v['params'], v.get('batch_stats'),
+                                   excepts=excepts)
+    report = load_weights(path, tm, excepts=excepts, device='cpu')
+    return {k: t.detach().clone() for k, t in tm.state_dict().items()}, convert(params, bs), \
+        report, tm
+
+
+def _reference_dinov3(tmp_path, seed=0):
+    """A depth-2 DINOv3 trunk state_dict in the reference layout."""
+    tm = tbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG}, device='cpu')
+    sd = _randomized({k[len('vit.'):]: v for k, v in tm.state_dict().items()
+                      if k.startswith('vit.')}, seed)
+    dim = 64
+    for i in range(2):
+        mask = torch.ones(3 * dim)
+        mask[dim:2 * dim] = 0.0
+        mask[:4] = float('nan')                    # the reference's NaN fill reads as 1
+        sd[f'blocks.{i}.attn.qkv.bias_mask'] = mask
+    sd['mask_token'] = torch.randn(1, dim)
+    sd['rope_embed.periods'] = torch.arange(8, dtype=torch.float32)
+    sd['local_cls_norm.weight'] = torch.ones(dim)
+    sd['local_cls_norm.bias'] = torch.zeros(dim)
+    path = str(tmp_path / 'dinov3.pth')
+    torch.save({'model': sd}, path)
+    return path, sd
+
+
+def _torchvision_resnet(tmp_path, kind, seed=0):
+    tm = tres.ResNetEncoder(dict(resnet_type=kind))
+    sd = _randomized({k[len('resnet.'):]: v for k, v in tm.state_dict().items()}, seed)
+    for k in [k for k in sd if k.endswith('running_var')]:
+        sd[k] = sd[k].abs() + 0.5
+        sd[k[:-len('running_var')] + 'num_batches_tracked'] = torch.tensor(7)
+    width = 512 if kind == 'resnet18' else 2048
+    sd['fc.weight'] = torch.randn(10, width)
+    sd['fc.bias'] = torch.randn(10)
+    path = str(tmp_path / f'{kind}.pth')
+    torch.save(sd, path)
+    return path, sd
+
+
+def test_dinov3_file_loads_as_jax_loads_it(tmp_path):
+    path, sd = _reference_dinov3(tmp_path)
+    got, want, report, _ = _both_load('dinoseg', path)
+    _assert_state_equal(got, want)
+    # the K third of the qkv bias is zeroed by the mask, the rest kept
+    bias = got['vit.blocks.0.attn.qkv.bias']
+    assert float(bias[64:128].abs().max()) == 0.0
+    np.testing.assert_array_equal(bias[:64].numpy(), sd['blocks.0.attn.qkv.bias'][:64].numpy())
+    np.testing.assert_array_equal(got['vit.blocks.1.mlp.fc2.weight'].numpy(),
+                                  sd['blocks.1.mlp.fc2.weight'].numpy())
+    assert sorted(report.missing) == ['head_classifier.bias', 'head_classifier.weight']
+    assert not report.unexpected and not report.mismatched
+    # saved from a DDP or compiled model: the port strips the prefixes before
+    # it tells the family apart (the JAX reader looks for cls_token first)
+    torch.save({'state_dict': {f'module.{k}': v for k, v in sd.items()}},
+               tmp_path / 'ddp.pth')
+    tm = tbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG}, device='cpu')
+    tm.load_state_dict(got)
+    load_weights(str(tmp_path / 'ddp.pth'), tm, device='cpu')
+    _assert_state_equal({k: t.detach() for k, t in tm.state_dict().items()}, got)
+
+
+@pytest.mark.parametrize('kind,stem', [('resnet18', 3), ('resnet50', 3), ('resnet18', 4)])
+def test_torchvision_resnet_file_loads_as_jax_loads_it(tmp_path, kind, stem):
+    path, sd = _torchvision_resnet(tmp_path, kind)
+    got, want, report, _ = _both_load(kind, path, stem_channels=stem)
+    _assert_state_equal(got, want)
+    np.testing.assert_array_equal(got['resnet.layer1.0.bn1.running_mean'].numpy(),
+                                  sd['layer1.0.bn1.running_mean'].numpy())
+    assert not report.missing and not report.mismatched
+    if stem == 4:
+        np.testing.assert_array_equal(got['resnet.conv1.weight'].numpy(),
+                                      patch_first_conv(sd['conv1.weight'], 4).numpy())
+
+
+def test_excepts_drops_keys_as_jax_does(tmp_path):
+    path, sd = _torchvision_resnet(tmp_path, 'resnet18')
+    got, want, report, tm = _both_load('resnet18', path, excepts='layer4|bn1')
+    _assert_state_equal(got, want)
+    assert all(k.startswith('resnet.layer4') or k.startswith('resnet.bn1')
+               for k in report.missing)
+    assert not any(k.startswith('resnet.layer1') for k in report.missing)
+
+
+def test_farseg_head_file_folds_its_conv_biases_as_jax_does(tmp_path):
+    tm = tbuilder.make_model({'type': 'FarSeg', 'params': FARSEG}, device='cpu')
+    sd = _randomized({k[len('head.'):]: v for k, v in tm.state_dict().items()
+                      if k.startswith('head.')}, seed=5)
+    biased = [k[:-len('1.running_mean')] + '0.bias' for k in sd
+              if k.startswith(('fs_relation.content_encoders.',
+                               'fs_relation.feature_reencoders.'))
+              and k.endswith('1.running_mean')]
+    assert len(biased) == 8
+    for k in biased:
+        sd[k] = torch.randn(32)
+        sd[k[:-len('0.bias')] + '1.num_batches_tracked'] = torch.tensor(3)
+    path = str(tmp_path / 'farseg_head.pth')
+    torch.save(sd, path)
+    got, want, report, _ = _both_load('farseg', path)
+    _assert_state_equal(got, want)
+    k = biased[0]
+    mean = k[:-len('0.bias')] + '1.running_mean'
+    np.testing.assert_array_equal(got['head.' + mean].numpy(), (sd[mean] - sd[k]).numpy())
+    assert all(m.startswith('encoder.') for m in report.missing)
+
+
+def test_npz_and_both_checkpoints_load_as_jax_loads_them(tmp_path):
+    jm = jbuilder.make_model({'type': 'FarSeg', 'params': FARSEG})
+    v = _jax_variables(jm, (1, 64, 64, 3), seed=9)
+    flat = {f'params/{k}': a for k, a in jwio.flatten_tree(v['params']).items()}
+    flat.update({f'batch_stats/{k}': a for k, a in jwio.flatten_tree(v['batch_stats']).items()})
+    np.savez(tmp_path / 'farseg.npz', **flat)
+    got, want, report, _ = _both_load('farseg', str(tmp_path / 'farseg.npz'))
+    _assert_state_equal(got, want)
+    _assert_state_equal(got, convert_flax_farseg(v['params'], v['batch_stats']))
+    assert not report.missing and not report.unexpected
+
+    # the trunk's npz only: it lands under vit.
+    jd = jbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG})
+    dv = _jax_variables(jd, (1, 32, 32, 3), seed=4)
+    np.savez(tmp_path / 'trunk.npz', **{f'params/{k}': a for k, a in jwio.flatten_tree(
+        dv['params']['vit']).items()})
+    got, want, report, _ = _both_load('dinoseg', str(tmp_path / 'trunk.npz'))
+    _assert_state_equal(got, want)
+
+    # each package's own checkpoint of the same weights
+    with open(tmp_path / 'jax.ckpt', 'wb') as f:
+        f.write(serialization.msgpack_serialize(
+            {'model': {'params': v['params'], 'batch_stats': v['batch_stats']},
+             'opt': {}, 'global_step': 3}))
+    torch.save({'model': convert_flax_farseg(v['params'], v['batch_stats']), 'opt': {},
+                'global_step': 3}, tmp_path / 'port.ckpt')
+    got, want, report, _ = _both_load('farseg', str(tmp_path / 'port.ckpt'),
+                                      jax_path=str(tmp_path / 'jax.ckpt'))
+    _assert_state_equal(got, want)
+    assert not report.missing and not report.unexpected
+
+
+@pytest.mark.parametrize('family,key', [('DenseNet', 'features.denseblock1.denselayer1.conv1.weight'),
+                                        ('HRNet', 'stage2.0.fuse_layers.0.1.0.weight'),
+                                        ('ConvNeXt', 'downsample_layers.0.0.weight'),
+                                        ('EfficientNet', '_conv_stem.weight'),
+                                        ('ResNeSt', 'layer1.0.conv2.fc1.weight')])
+def test_unported_families_raise_naming_the_roadmap(tmp_path, family, key):
+    torch.save({key: torch.zeros(2)}, tmp_path / 'w.pth')
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(NotImplementedError, match=f'{family}.*A.7'):
+        load_weights(str(tmp_path / 'w.pth'), model, device='cpu')
+
+
+@pytest.mark.parametrize('new_in', [1, 4, 5, 7])
+def test_patch_first_conv_is_jax_s(new_in):
+    rng = np.random.default_rng(new_in)
+    w = rng.normal(size=(16, 3, 7, 7)).astype(np.float32)
+    got = patch_first_conv(torch.from_numpy(w), new_in)
+    want = jwio.patch_first_conv(np.transpose(w, (2, 3, 1, 0)), new_in)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.transpose(want, (3, 2, 0, 1)))
+
+
+def test_load_weights_logs_as_jax_does(tmp_path, caplog):
+    path, _ = _torchvision_resnet(tmp_path, 'resnet18')
+    tm = tres.ResNetEncoder(dict(resnet_type='resnet18'))
+    tm.resnet.conv1.weight.data = torch.zeros(64, 3, 3, 3)     # a mismatched shape
+    # the handler on the logger itself: the port's 'ever_tpu_torch' logger
+    # does not propagate to the root once get_logger has configured it
+    log = logging.getLogger('ever_tpu_torch.weight_io')
+    log.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.INFO, logger='ever_tpu_torch.weight_io'):
+            report = load_weights(path, tm, device='cpu')
+    finally:
+        log.removeHandler(caplog.handler)
+    assert report.mismatched == [('resnet.conv1.weight', (64, 3, 7, 7), (64, 3, 3, 3))]
+    text = caplog.text
+    assert f'load_weights({path}): loaded {report.loaded} tensors; 0 missing' in text
+    assert 'shape mismatch resnet.conv1.weight' in text
+    assert twio.read_weights(path)['conv1.weight'].shape == (64, 3, 7, 7)
+
+
+# -- GLOBAL.weight.path through the trainers -------------------------------------
+
+class _SegData:
+    def set_default_config(self):
+        self.config.update(dict(num_samples=16, image_size=32, seed=0))
+
+    def __len__(self):
+        return self.config.num_samples
+
+    def __getitem__(self, idx):
+        rng = np.random.default_rng(self.config.seed + int(idx))
+        size = self.config.image_size
+        x = rng.normal(size=(size, size, 3)).astype(np.float32)
+        y = rng.integers(0, 5, size=(size, size)).astype(np.uint8)
+        return x, y
+
+
+@jregistry.DATASET.register('torch_weights_seg')
+class JaxSegData(_SegData, JERDataset):
+    pass
+
+
+@tregistry.DATASET.register('torch_weights_seg')
+class TorchSegData(_SegData, TERDataset):
+    pass
+
+
+class _Losses(TrainLogHook):
+    def __init__(self):
+        self.steps = {}
+
+    def after_iter(self, global_step, loss_dict, learning_rate):
+        self.steps[global_step] = dict(loss_dict)
+
+
+def test_global_weight_path_through_both_trainers(tmp_path):
+    path, _ = _reference_dinov3(tmp_path, seed=8)
+    cfg = tmp_path / 'cfg.py'
+    cfg.write_text(f"""
+config = dict(
+    model=dict(type='DinoSeg', params=dict(
+        backbone={BACKBONE!r}, classes=5, dtype='float32',
+        GLOBAL=dict(weight=dict(path={path!r})))),
+    data=dict(train=dict(type='torch_weights_seg', params=dict(
+        batch_size=8, sampler_type='StepDistributedSampler'))),
+    learning_rate=dict(type='poly', params=dict(base_lr=1e-3, power=0.9, max_iters=3)),
+    optimizer=dict(type='adamw', params=dict(weight_decay=0.05)),
+    train=dict(num_iters=3, log_interval_step=1, save_ckpt_interval_epoch=100,
+               distributed=True),
+)
+""")
+    jm = jbuilder.make_model({'type': 'DinoSeg', 'params': DINOSEG})
+    head = _jax_variables(jm, (1, 32, 32, 3), seed=6)['params']
+    runs = []
+    for pkg in ('jax', 'port'):
+        rec = _Losses()
+
+        def wire(tl, pkg=pkg, rec=rec):
+            if pkg == 'jax':
+                tl.set_pretrained_state(params=head)
+                tl.logger.register_train_log_hook(rec)
+            else:
+                tl.set_pretrained_state(convert_flax_dinoseg({'params': head}))
+                tl.logger.register_train_log_hook(rec)
+        argv = ['--config_path', str(cfg), '--model_dir', str(tmp_path / pkg)]
+        if pkg == 'jax':
+            jget_trainer('th_ddp', argv=argv)().run(after_construct_launcher_callbacks=[wire])
+        else:
+            out = tget_trainer('th_ddp', argv=argv + ['--device', 'cpu'])().run(
+                after_construct_launcher_callbacks=[wire])
+            model = out['launcher'].model
+        runs.append(rec.steps)
+    assert sorted(runs[0]) == sorted(runs[1]) == [1, 2, 3]
+    for step in runs[0]:
+        for k in ('cls_loss', 'total_loss', 'grad_norm'):
+            np.testing.assert_allclose(runs[1][step][k], runs[0][step][k], rtol=2e-5,
+                                       err_msg=f'{step} {k}')
+    # the file's trunk reached the port's model: the K bias stays masked
+    assert float(model.vit.blocks[0].attn.qkv.bias.detach()[64:128].abs().max()) < 1e-2
