@@ -136,7 +136,37 @@ Phases (any failure exits non-zero before the last line is printed):
              every other parameter moved after 4 steps; ``GeoTileDataset``
              over two PNG scenes and a ``.npy`` scene: ``read_batch`` through
              the host library equal to the per-item path.
-11. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+11. ddp    — data parallel over processes, on the one card (phase_ddp): a
+             project from ``create`` and a seeded LoveDA tree (16 train
+             scenes of 512², read whole, no-data corners of three sizes in
+             turn; 3 val scenes of 1024²).  (a) its
+             train.py under ``torchrun --standalone --nproc_per_node 1`` on
+             ``configs/dinoseg_vitl_loveda.py`` (4 steps, NCCL): an
+             ``SPMDTrainer`` over an NCCL group, 24 K1 + 24 K2 a step, its
+             losses and final state bit-equal to ``--trainer base``'s, the
+             ms/step of both.  Then two gloo ranks sharing the card, started
+             by this script (``--ddp-worker``): (b) ``configs/
+             farseg_r50_loveda.py`` at a global batch of 16, K8, float32,
+             TF32 off, deterministic cuDNN, 6 steps with a checkpoint after
+             each: one K8 a rank a step, the ranks' states bit-equal, the
+             checkpoints' keys a one-process run's; one process (the base
+             trainer on the same global batches,
+             ``data.distributed.global_batches``) stepping from the 2-rank
+             state before each of steps 1-4: loss and new state within
+             1e-4 (the coupled steps are chaotic; their distance after 3
+             steps, and the 1-process resume's after 3 more, are printed);
+             the step-3 checkpoint resumed to 6 in 2 processes bit-equal to
+             the unbroken run;
+             (c) the DinoSeg config, 4 a rank, 2 steps: 24 K1 + 24 K2 a rank
+             a step, the ranks bit-equal, losses within 1e-3 of one
+             process's; (d) the distributed evaluation of the val scenes (2
+             and 1 a rank) equal to one process's confusion matrix; (e)
+             ``tiled_inference(mesh=)`` of a 4096² scene at stride 384 (121
+             tiles, 64 slots a rank) within 1e-6 of one process, after
+             checking that a tile's output does not depend on its slot in
+             the batch.  ms/step of each labelled with its backend, the
+             bytes all-reduced a step, the phase's seconds.
+12. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -151,6 +181,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
+import inspect
 import json
 import math
 import os
@@ -1988,35 +2020,41 @@ WORKFLOW_ITERS, FARSEG_ITERS, WORKFLOW_WORKERS = 6, 4, 4
 PROB_SUM_TOL = 1e-3
 
 
-def write_loveda(root: str, seed: int) -> list:
-    """A LoveDA tree (Train and Val, Urban and Rural) of seeded 1024² scenes:
+def write_loveda(root: str, seed: int, layout=None, nodata=lambda i: 32) -> list:
+    """A LoveDA tree (Train and Val, Urban and Rural) of seeded scenes:
     blocky class regions, each class its own colour plus noise, masks in
-    the official encoding (0 = no-data).  The images are written with the
+    the official encoding (0 = no-data, a corner of ``nodata(i)``² in scene
+    i).  ``layout`` lists (split, domain, scenes, size); by default 4 train
+    and 1 val scene of 1024² a domain.  The images are written with the
     five PNG filters in turn; returns (path, array, filter) of each."""
     import numpy as np
     from ever_tpu_torch.data._png import write_png
 
+    if layout is None:
+        layout = [(split, dom, n, WORKFLOW_SCENE)
+                  for split, n in (('Train', WORKFLOW_TRAIN), ('Val', WORKFLOW_VAL))
+                  for dom in ('Urban', 'Rural')]
     rng = np.random.default_rng(seed)
     palette = rng.integers(30, 220, (CLASSES, 3))
     written = []
-    for split, n in (('Train', WORKFLOW_TRAIN), ('Val', WORKFLOW_VAL)):
-        for dom in ('Urban', 'Rural'):
-            for d in ('images_png', 'masks_png'):
-                os.makedirs(os.path.join(root, split, dom, d))
-            for i in range(n):
-                blocks = WORKFLOW_SCENE // 64
-                label = np.kron(rng.integers(0, CLASSES, (blocks, blocks)),
-                                np.ones((64, 64), np.int64))
-                noise = rng.integers(-20, 21, (WORKFLOW_SCENE, WORKFLOW_SCENE, 3))
-                img = np.clip(palette[label] + noise, 0, 255).astype(np.uint8)
-                mask = (label + 1).astype(np.uint8)
-                mask[:32, :32] = 0                                   # no-data
-                name = f'{len(written)}.png'
-                ft = len(written) % 5
-                path = os.path.join(root, split, dom, 'images_png', name)
-                write_png(path, img, filter_type=ft)
-                write_png(os.path.join(root, split, dom, 'masks_png', name), mask)
-                written.append((path, img, ft))
+    for split, dom, n, size in layout:
+        for d in ('images_png', 'masks_png'):
+            os.makedirs(os.path.join(root, split, dom, d))
+        for i in range(n):
+            blocks = size // 64
+            label = np.kron(rng.integers(0, CLASSES, (blocks, blocks)),
+                            np.ones((64, 64), np.int64))
+            noise = rng.integers(-20, 21, (size, size, 3))
+            img = np.clip(palette[label] + noise, 0, 255).astype(np.uint8)
+            mask = (label + 1).astype(np.uint8)
+            c = nodata(len(written))
+            mask[:c, :c] = 0                                     # no-data
+            name = f'{len(written)}.png'
+            ft = len(written) % 5
+            path = os.path.join(root, split, dom, 'images_png', name)
+            write_png(path, img, filter_type=ft)
+            write_png(os.path.join(root, split, dom, 'masks_png', name), mask)
+            written.append((path, img, ft))
     return written
 
 
@@ -2391,6 +2429,560 @@ def phase_workflow(gen, seed: int, smi: str) -> None:
     print(f'workflow: {smi}: phase wall time {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# -- ddp: data parallel over processes ------------------------------------------------
+
+# the ddp phase's LoveDA tree: 512² train scenes (the configs' crop; with
+# random_crop off a sample is its whole scene, whatever the epoch) and
+# 1024² val scenes, 2 Urban and 1 Rural (a 2/1 partition over 2 ranks)
+DDP_LAYOUT = [('Train', 'Urban', 8, TILE), ('Train', 'Rural', 8, TILE),
+              ('Val', 'Urban', 2, 2 * TILE), ('Val', 'Rural', 1, 2 * TILE)]
+DDP_NCCL_ITERS = 4
+# one batch a rank an epoch: with a checkpoint every epoch, the 2-rank run
+# writes its state after each step (as the next epoch's batch is drawn)
+DDP_FARSEG_BATCH, DDP_FARSEG_ITERS, DDP_RESUME_AT = 16, 6, 3
+# FarSeg's steps are chaotic: a float32 rounding apart grows to 1e-3 in 3
+# steps, so one process is held to each 2-rank step from the same state
+DDP_FORCED_STEPS = 4
+DDP_DINO_BATCH, DDP_DINO_ITERS = 8, 2
+DDP_TILED_STRIDE = 384          # 11 x 11 = 121 overlapping tiles of a 4096² scene
+# limits stated before the first chip run (PERF.md): FarSeg in float32 with
+# TF32 off, 2 ranks against one process, of each tensor's max |value| and
+# relative for the losses; DinoSeg's losses in bf16, where cuBLAS tiles the
+# products of a batch of 4 and of 8 differently, relative
+DDP_FARSEG_TOL, DDP_DINO_LOSS_TOL = 1e-4, 1e-3
+DDP_TILED_TOL = 1e-6            # absolute, when a tile's bits do not depend on its slot
+DDP_WORKER_TIMEOUT = 600
+
+def state_digest(state_dict) -> str:
+    """sha256 of every tensor's name and bytes, in name order."""
+    h = hashlib.sha256()
+    for k in sorted(state_dict):
+        h.update(k.encode())
+        h.update(state_dict[k].detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+# recorder the ddp phase adds to the project's module/ (train.py registers
+# the directory): every logged step, the process group, the kernel
+# launches and a digest of the final model state, as JSON in the model dir
+DDP_RECORDER = '''\
+"""Record a train.py run for chip_smoke.py's ddp phase."""
+import hashlib
+import json
+import os
+
+import torch
+
+import ever_tpu_torch as er
+from ever_tpu_torch.ops import attention as A, pool as P
+from ever_tpu_torch.trainer.trainer import Trainer
+
+_run = Trainer.run
+
+
+# STATE_DIGEST
+
+
+def run(self, after_construct_launcher_callbacks=None):
+    logged = []
+
+    def wire(tl):
+        train_log = tl.logger.train_log
+
+        def log(step, num_iters, loss_dict, data_time, time_cost, lr):
+            logged.append([step, dict(loss_dict), time_cost])
+            return train_log(step, num_iters, loss_dict, data_time, time_cost, lr)
+
+        tl.logger.train_log = log
+
+    for fn in (A.fused_attention, A.fused_attention_bwd, P.max_pool_32_bwd):
+        fn.launches = 0
+    out = _run(self, [wire, *(after_construct_launcher_callbacks or [])])
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    init = torch.distributed.is_initialized()
+    record = dict(trainer=type(self).__name__, world=er.dist.get_world_size(),
+                  backend=torch.distributed.get_backend() if init else None,
+                  logged=logged, step=out['launcher'].global_step,
+                  launches=[A.fused_attention.launches, A.fused_attention_bwd.launches,
+                            P.max_pool_32_bwd.launches],
+                  digest=state_digest(out['launcher'].model.state_dict()))
+    name = f'record-{er.dist.get_world_size()}-{er.dist.get_rank()}.json'
+    with open(os.path.join(self.model_dir, name), 'w') as f:
+        json.dump(record, f)
+    return out
+
+
+Trainer.run = run
+'''.replace('# STATE_DIGEST', inspect.getsource(state_digest).strip())
+
+
+def step_ms(logged: list) -> float:
+    """Median wall ms of the logged steps after the first."""
+    times = sorted(t for _, _, t in logged[1:])
+    return times[len(times) // 2] * 1e3
+
+
+def timed_ms(step_s: list) -> float:
+    """Median ms of the timed train steps after the first."""
+    times = sorted(step_s[1:])
+    return times[len(times) // 2] * 1e3
+
+
+def ddp_opts(spec: dict, model: str) -> list:
+    """The command line's config overrides of a ddp run: the phase's LoveDA
+    tree without random crops; FarSeg with K8, float32 compute and a
+    global batch of 16, evaluated one val scene at a time."""
+    opts = ['data.train.params.root', spec['root'], 'data.test.params.root', spec['root'],
+            'data.train.params.random_crop', 'False', 'data.train.params.num_workers', '2',
+            'train.log_interval_step', '1']
+    if model == 'farseg':
+        opts += ['model.params.encoder.maxpool_impl', 'pallas', 'model.params.dtype', 'float32',
+                 'data.train.params.total_batch_size', str(DDP_FARSEG_BATCH),
+                 'data.test.params.batch_size', '1']
+    else:
+        opts += ['data.train.params.total_batch_size', str(DDP_DINO_BATCH)]
+    return opts
+
+
+def ddp_run(spec: dict, model: str, trainer: str, model_dir: str, opts=(), train_dl=None,
+            evaluate=None):
+    """A config-driven run of the project's ``model`` config through
+    ``get_trainer(trainer)`` on ``cuda:0``, optionally with an explicit
+    train loader and an evaluation; returns the launcher and its record
+    (logged steps, K1/K2/K8 launches, digest of the final model)."""
+    from ever_tpu_torch.trainer import get_trainer
+
+    logged, step_s = [], []
+
+    def wire(tl):
+        train_log, ensure = tl.logger.train_log, tl._ensure_train_step
+
+        def log(step, num_iters, loss_dict, data_time, time_cost, lr):
+            logged.append([step, dict(loss_dict), time_cost])
+            return train_log(step, num_iters, loss_dict, data_time, time_cost, lr)
+
+        def timed_steps(forward_times):
+            # each train step's host time to its end on the card
+            ensure(forward_times)
+            step = tl._train_step
+
+            def timed(state, batch):
+                t0 = time.perf_counter()
+                out = step(state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                return out
+
+            tl._train_step = timed
+            tl._ensure_train_step = ensure
+
+        tl.logger.train_log, tl._ensure_train_step = log, timed_steps
+        if evaluate is not None:
+            tl.override_evaluate(evaluate)
+
+    reset_counts()
+    t = get_trainer(trainer, argv=['--config_path', spec[model], '--model_dir', model_dir,
+                                   '--device', 'cuda:0', *ddp_opts(spec, model), *opts])()
+    out = t.run([wire]) if train_dl is None else t.train_with_dataloader(train_dl, None, [wire])
+    torch.cuda.synchronize()
+    from ever_tpu_torch.ops import attention as A, pool as P
+    launcher = out['launcher']
+    return launcher, dict(logged=logged, step=launcher.global_step, step_s=step_s,
+                          launches=[A.fused_attention.launches, A.fused_attention_bwd.launches,
+                                    P.max_pool_32_bwd.launches],
+                          digest=state_digest(launcher.model.state_dict()))
+
+
+def ddp_dinoseg(seed: int):
+    """The ddp phase's serving model: DinoSeg ViT-L/16 with seeded
+    weights, bf16, in eval mode."""
+    return build_dinoseg(torch.Generator(device='cuda').manual_seed(seed + 9)).eval()
+
+
+def ddp_tiled(seed: int, mesh=None):
+    """The serving model over the phase's 4096² scene at stride 384,
+    split over ``mesh``; (model, scene, canvas, seconds, K1)."""
+    from ever_tpu_torch import tiled_inference
+
+    import numpy as np
+
+    model = ddp_dinoseg(seed)
+    scene = np.random.default_rng(seed + 9).standard_normal((SCENE, SCENE, 3), dtype=np.float32)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    canvas = tiled_inference(model, scene, TILE, DDP_TILED_STRIDE, CLASSES, tile_batch=TILE_BATCH,
+                             mesh=mesh, device=next(model.parameters()).device)
+    torch.cuda.synchronize()
+    from ever_tpu_torch.ops import attention as A
+    return model, scene, canvas, time.perf_counter() - t0, A.fused_attention.launches
+
+
+def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
+    """One of the phase's gloo ranks, both on ``cuda:0``: ``job='main'``
+    trains FarSeg-R50 6 steps (a checkpoint after each) and evaluates the val
+    scenes distributed, trains DinoSeg ViT-L/16 2 steps, and serves the
+    4096² scene over the mesh; ``job='resume'`` resumes the FarSeg run's
+    step-3 checkpoint to 6.  Writes ``{job}-rank{rank}.json`` and rank r's
+    canvas; any failure raises and exits non-zero."""
+    from ever_tpu_torch.core import dist
+    from ever_tpu_torch.metric.evaluate_fn import distributed_evaluate_pixel_prediction_task
+    from ever_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dist.init_dist_env(init, world, rank, backend='gloo')
+    with open(os.path.join(out, 'spec.json')) as f:
+        spec = json.load(f)
+    result = {}
+    if job == 'main':
+        t0 = time.perf_counter()
+        launcher, rec = ddp_run(spec, 'farseg', 'th_ddp', spec['farseg_dir'], [
+            'train.num_iters', str(DDP_FARSEG_ITERS), 'train.eval_after_train', 'True',
+            'train.distributed_evaluate', 'True', 'train.save_ckpt_interval_epoch', '1'],
+            evaluate=distributed_evaluate_pixel_prediction_task(CLASSES))
+        rec['seconds'] = time.perf_counter() - t0
+        rec['mesh'] = [launcher.mesh.size(), launcher.mesh.rank()]
+        result['farseg'] = rec
+        del launcher
+        torch.cuda.empty_cache()
+        launcher, result['dinoseg'] = ddp_run(spec, 'dinoseg', 'th_ddp', spec['dino_dir'], [
+            'train.num_iters', str(DDP_DINO_ITERS), 'train.eval_after_train', 'False'])
+        del launcher
+        torch.cuda.empty_cache()
+        _, _, canvas, secs, k1 = ddp_tiled(spec['seed'], mesh=make_mesh())
+        torch.save(canvas.cpu(), os.path.join(out, f'tiled-rank{rank}.pt'))
+        result['tiled'] = dict(seconds=secs, launches=k1)
+    else:
+        _, result['farseg'] = ddp_run(spec, 'farseg', 'th_ddp', spec['resume_dir'], [
+            'train.num_iters', str(DDP_FARSEG_ITERS), 'train.eval_after_train', 'False',
+            'train.save_ckpt_interval_epoch', '1000'])
+    with open(os.path.join(out, f'{job}-rank{rank}.json'), 'w') as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_ddp_workers(job: str, out: str) -> tuple:
+    """Two gloo ranks of ``job`` (``chip_smoke.py --ddp-worker``) sharing
+    the card; when one fails the other is killed (it would wait in a
+    collective) and the phase fails with both logs.  Returns both ranks'
+    results and the wall seconds."""
+    init = f'file://{out}/rendezvous-{job}'
+    logs = [open(os.path.join(out, f'{job}-rank{r}.log'), 'w+') for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--ddp-worker', job,
+                               str(r), '2', init, out], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        deadline = time.monotonic() + DDP_WORKER_TIMEOUT
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    text = []
+    for r, f in enumerate(logs):
+        f.seek(0)
+        text.append(f'--- {job} rank {r} (exit {procs[r].returncode}) ---\n{f.read()[-5000:]}')
+        f.close()
+    check(all(p.returncode == 0 for p in procs), 'a ddp rank failed:\n' + '\n'.join(text))
+    results = []
+    for r in range(2):
+        with open(os.path.join(out, f'{job}-rank{r}.json')) as f:
+            results.append(json.load(f))
+    return results, time.perf_counter() - t0
+
+
+def run_train_py(cmd: list, cwd: str, model_dir: str, world: int) -> dict:
+    """The project's train.py as ``cmd`` (a plain process or torchrun);
+    fails with its output on a non-zero exit; returns rank 0's record."""
+    r = subprocess.run(cmd, cwd=cwd, env=dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__))), capture_output=True, text=True, timeout=DDP_WORKER_TIMEOUT)
+    check(r.returncode == 0, f'{cmd[:6]} exited {r.returncode}:\n{r.stdout[-3000:]}\n'
+          f'{r.stderr[-5000:]}')
+    with open(os.path.join(model_dir, f'record-{world}-0.json')) as f:
+        return json.load(f)
+
+
+def max_state_diff(got: dict, want: dict) -> float:
+    """Largest max |got - want| / max(1, max |want|) over the floating
+    tensors: relative for large tensors, absolute for small ones."""
+    worst = 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            scale = max(float(w.abs().max()), 1.0)
+            worst = max(worst, float((got[k].detach().float().cpu() - w.float().cpu())
+                                     .abs().max()) / scale)
+    return worst
+
+
+def rel_losses(got: list, want: list) -> float:
+    """Largest relative difference of the logged total losses."""
+    check([s for s, _, _ in got] == [s for s, _, _ in want],
+          f'logged steps {[s for s, _, _ in got]} and {[s for s, _, _ in want]}')
+    return max(abs(g[1]['total_loss'] - w[1]['total_loss']) / abs(w[1]['total_loss'])
+               for g, w in zip(got, want))
+
+
+def ddp_bytes(model, world: int) -> dict:
+    """Bytes one rank all-reduces a train step: the gradients (DDP's
+    buckets), each BatchNorm's rows forward and sums backward, the loss's
+    sums and the metrics."""
+    from ever_tpu_torch.module.ops import BatchNorm2d
+
+    grads = sum(p.numel() * p.element_size() for p in model.parameters() if p.requires_grad)
+    bn = sum((world * (2 * m.weight.numel() + 1) + 2 * m.weight.numel()) * 4
+             for m in model.modules() if isinstance(m, BatchNorm2d))
+    return dict(gradients=grads, batchnorm=bn, loss_and_metrics=2 * 2 * 4 + 4 * 8)
+
+
+def global_loader(spec: dict, model: str, steps: int, per_rank: int):
+    """A one-process loader of the global batches 2 ranks of ``per_rank``
+    draw in ``steps`` steps (``data.distributed.global_batches``), read
+    from the same dataset config in sequence."""
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.data.distributed import SubsetSampler, global_batches
+
+    cfg = import_config(spec[model])
+    cfg.update_from_list(ddp_opts(spec, model))
+    ds = registry.DATASET[cfg.data.train.type](cfg.data.train.params)
+    order = sum(global_batches(ds, 2, per_rank, steps), [])
+    return torch.utils.data.DataLoader(ds, batch_size=2 * per_rank, sampler=SubsetSampler(order),
+                                       collate_fn=ds.collate_fn, num_workers=2)
+
+
+def resume_copy(src: str, dst: str, step: int) -> None:
+    """A copy of model dir ``src`` whose last checkpoint is ``step``."""
+    import shutil
+
+    os.makedirs(dst)
+    for name in ('config.pkl', f'checkpoint-{step}.ckpt'):
+        shutil.copy(os.path.join(src, name), dst)
+    with open(os.path.join(dst, 'checkpoint_info.json'), 'w') as f:
+        json.dump({'last': dict(step=step, name=f'checkpoint-{step}.ckpt'),
+                   str(step): f'checkpoint-{step}.ckpt'}, f)
+
+
+def phase_ddp(seed: int, smi: str) -> None:
+    """Data parallel over processes (gates in ``PERF.md`` and the module
+    docstring): (a) the project's train.py under ``torchrun`` with one NCCL
+    rank against the ``'base'`` trainer; (b) FarSeg-R50 over 2 gloo ranks
+    on the one card against one process, and its resume in 2 processes and
+    in 1; (c) DinoSeg ViT-L/16 over 2 gloo ranks; (d) the distributed
+    evaluation; (e) ``tiled_inference(mesh=)``."""
+    import tempfile
+
+    import numpy as np
+    from ever_tpu_torch import sliding_window
+    from ever_tpu_torch.core.builder import make_model
+    from ever_tpu_torch.core.checkpoint import CheckPoint
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.trainer import get_trainer
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True         # a resumed run's bits
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_ddp_') as tmp:
+        proj = os.path.join(tmp, 'proj')
+        r = subprocess.run([sys.executable, '-m', 'ever_tpu_torch', 'create', proj], cwd=repo,
+                           env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f'create failed: {r.stderr[-2000:]}')
+        with open(os.path.join(proj, 'module', 'chip_smoke_record.py'), 'w') as f:
+            f.write(DDP_RECORDER)
+        root = os.path.join(tmp, 'LoveDA')
+        # no-data corners of 32², 128² and 224² in turn: the ranks' batches
+        # hold different numbers of valid pixels
+        write_loveda(root, seed, DDP_LAYOUT, nodata=lambda i: 32 + 96 * (i % 3))
+        spec = dict(root=root, seed=seed,
+                    farseg=os.path.join(proj, 'configs', 'farseg_r50_loveda.py'),
+                    dinoseg=os.path.join(proj, 'configs', 'dinoseg_vitl_loveda.py'),
+                    farseg_dir=os.path.join(tmp, 'farseg'), dino_dir=os.path.join(tmp, 'dino'),
+                    resume_dir=os.path.join(tmp, 'farseg_resumed'))
+        with open(os.path.join(tmp, 'spec.json'), 'w') as f:
+            json.dump(spec, f)
+
+        # a: torchrun, one NCCL rank, against the 'base' trainer
+        train_py = os.path.join(proj, 'train.py')
+        argv = ['--config_path', spec['dinoseg'], 'data.train.params.root', root,
+                'data.test.params.root', root, 'data.train.params.random_crop', 'False',
+                'train.num_iters', str(DDP_NCCL_ITERS), 'train.log_interval_step', '1']
+        t0 = time.perf_counter()
+        ra = run_train_py([sys.executable, '-m', 'torch.distributed.run', '--standalone',
+                           '--nproc_per_node', '1', train_py, '--model_dir',
+                           os.path.join(tmp, 'nccl'), *argv], proj, os.path.join(tmp, 'nccl'), 1)
+        rb = run_train_py([sys.executable, train_py, '--trainer', 'base', '--model_dir',
+                           os.path.join(tmp, 'base'), *argv], proj, os.path.join(tmp, 'base'), 1)
+        a_secs = time.perf_counter() - t0
+        evals = 1                              # the 3 val scenes in one batch of 8
+        want = [24 * (DDP_NCCL_ITERS + evals), 24 * DDP_NCCL_ITERS, 0]
+        same_losses = [d for _, d, _ in ra['logged']] == [d for _, d, _ in rb['logged']]
+        same_state = ra['digest'] == rb['digest']
+        print(f'ddp: a: {smi}: torchrun --nproc_per_node 1 train.py on dinoseg_vitl_loveda.py: '
+              f'{ra["trainer"]}, backend {ra["backend"]}, world {ra["world"]}, steps '
+              f'{[s for s, _, _ in ra["logged"]]}, loss '
+              f'{" ".join(f"{d["total_loss"]:.5f}" for _, d, _ in ra["logged"])}; launches '
+              f'{ra["launches"]} (expected {want}); {step_ms(ra["logged"]):.2f} ms/step (nccl, '
+              f'one rank) against {step_ms(rb["logged"]):.2f} ms/step for the base trainer '
+              f'({rb["trainer"]}, no process group); losses bit-equal {same_losses}, final state '
+              f'bit-equal {same_state}', flush=True)
+        check(ra['trainer'] == 'SPMDTrainer' and ra['backend'] == 'nccl' and ra['world'] == 1
+              and rb['backend'] is None, f'a: {ra["trainer"]} {ra["backend"]} {rb["backend"]}')
+        check(ra['launches'] == want and rb['launches'] == want,
+              f'a: launches {ra["launches"]}, {rb["launches"]}')
+        check(len(ra['logged']) == DDP_NCCL_ITERS and all(
+            math.isfinite(d['total_loss']) for _, d, _ in ra['logged']), 'a: losses')
+        if not (same_losses and same_state):
+            got, ref = (CheckPoint.load(os.path.join(tmp, d, f'checkpoint-{DDP_NCCL_ITERS}.ckpt'),
+                                        'cpu') for d in ('nccl', 'base'))
+            print(f'ddp: a: one NCCL rank against base: largest loss difference '
+                  f'{rel_losses(ra["logged"], rb["logged"]):.3e} relative, state '
+                  f'{max_state_diff(got["model"], ref["model"]):.3e} of max |value|', flush=True)
+        check(same_losses and same_state, 'a: the one-rank NCCL run differs from the base trainer')
+        for d in ('nccl', 'base'):
+            os.remove(os.path.join(tmp, d, f'checkpoint-{DDP_NCCL_ITERS}.ckpt'))
+
+        # b-e: the two gloo ranks on the one card
+        main, main_s = run_ddp_workers('main', tmp)
+        f0, f1 = main[0]['farseg'], main[1]['farseg']
+        check(f0['digest'] == f1['digest'], 'b: the two ranks\' FarSeg states differ')
+        check(f0['mesh'] == [2, 0] and f1['mesh'] == [2, 1], f'b: mesh {f0["mesh"]}')
+        check(f0['launches'][2] == DDP_FARSEG_ITERS and f1['launches'][2] == DDP_FARSEG_ITERS,
+              f'b: K8 launches {f0["launches"]}, {f1["launches"]}')
+        def two_ranks(step):
+            """The 2-rank run's model state after ``step`` steps (rank 0's file)."""
+            return CheckPoint.load(os.path.join(spec['farseg_dir'], f'checkpoint-{step}.ckpt'),
+                                   'cpu')['model']
+
+        one_keys = set(make_model(import_config(spec['farseg']).model, device='cpu').state_dict())
+        keys_same = all(set(two_ranks(k)) == one_keys for k in range(1, DDP_FARSEG_ITERS + 1))
+        check(keys_same, 'b: the checkpoint keys are not those of one process')
+        resume_copy(spec['farseg_dir'], spec['resume_dir'], DDP_RESUME_AT)
+        resumed, resume_s = run_ddp_workers('resume', tmp)
+
+        # b: one process on the same global batches, each step from the
+        # 2-rank run's state before it; then 3 coupled steps, and the resume
+        def one_process(name, start, steps):
+            """The base trainer from the 2-rank run's checkpoint ``start`` (its
+            initial weights for 0) to ``steps`` on the global batches."""
+            d = os.path.join(tmp, name)
+            if start:
+                resume_copy(spec['farseg_dir'], d, start)
+            return ddp_run(spec, 'farseg', 'base', d, [
+                'train.num_iters', str(steps), 'train.eval_after_train', 'False'],
+                train_dl=global_loader(spec, 'farseg', steps, DDP_FARSEG_BATCH // 2))
+
+        forced = []
+        for t in range(DDP_FORCED_STEPS):
+            launcher, rec = one_process(f'farseg_from_{t}', t, t + 1)
+            forced.append((rel_losses(f0['logged'][t:t + 1], rec['logged']),
+                           max_state_diff(launcher.model.state_dict(), two_ranks(t + 1))))
+            if t == 0:
+                bytes_b = ddp_bytes(launcher.model, 2)
+            del launcher
+        launcher, coupled = one_process('farseg_one', 0, DDP_RESUME_AT)
+        coupled_diff = (rel_losses(f0['logged'][:DDP_RESUME_AT], coupled['logged']),
+                        max_state_diff(launcher.model.state_dict(), two_ranks(DDP_RESUME_AT)))
+        launcher, _ = one_process('farseg_one_resumed', DDP_RESUME_AT, DDP_FARSEG_ITERS)
+        resume1_diff = max_state_diff(launcher.model.state_dict(), two_ranks(DDP_FARSEG_ITERS))
+        del launcher
+        resume2_equal = (resumed[0]['farseg']['digest'] == f0['digest']
+                         and [s[:2] for s in resumed[0]['farseg']['logged']]
+                         == [s[:2] for s in f0['logged'][DDP_RESUME_AT:]])
+        worst = tuple(max(v) for v in zip(*forced))
+        print(f'ddp: b: {smi}: FarSeg-R50 farseg_r50_loveda.py at a global batch of '
+              f'{DDP_FARSEG_BATCH} (8 a rank), float32, TF32 off, deterministic cuDNN, K8: gloo, '
+              f'two ranks sharing one card: {timed_ms(f0["step_s"]):.2f} ms/step (steps '
+              f'2-{DDP_FARSEG_ITERS}, each to its end on the card); K8 launches a rank '
+              f'{f0["launches"][2]} in {DDP_FARSEG_ITERS} steps; the ranks\' states bit-equal; '
+              f'bytes all-reduced a rank a step {bytes_b}; one process stepping from the 2-rank '
+              f'state before each of steps 1-{DDP_FORCED_STEPS}: losses '
+              f'{" ".join(f"{a:.2e}" for a, _ in forced)} relative, the state after '
+              f'{" ".join(f"{b:.2e}" for _, b in forced)} of max(1, |value|) (limit '
+              f'{DDP_FARSEG_TOL}); {DDP_RESUME_AT} coupled steps in one process from the same '
+              f'weights: losses {coupled_diff[0]:.3e}, state {coupled_diff[1]:.3e}; checkpoint '
+              f'keys those of one process: {keys_same}; step-{DDP_RESUME_AT} checkpoint resumed '
+              f'to {DDP_FARSEG_ITERS} in 2 processes bit-equal to the unbroken run: '
+              f'{resume2_equal}, in 1 process {resume1_diff:.3e} after '
+              f'{DDP_FARSEG_ITERS - DDP_RESUME_AT} coupled steps', flush=True)
+        check(all(math.isfinite(d['total_loss']) for _, d, _ in f0['logged']), 'b: losses')
+        check(max(worst) <= DDP_FARSEG_TOL, 'b: a 2-rank step differs from one process\'s')
+        check(resume2_equal, 'b: the 2-process resume differs from the unbroken run')
+        torch.cuda.empty_cache()
+
+        # d: the distributed evaluation against one process on the same checkpoint
+        eval_dir = os.path.join(tmp, 'farseg_eval')
+        resume_copy(spec['farseg_dir'], eval_dir, DDP_FARSEG_ITERS)
+        get_trainer('base', argv=['--config_path', spec['farseg'], '--model_dir', eval_dir,
+                                  '--device', 'cuda:0', *ddp_opts(spec, 'farseg')])().evaluate()
+        cms = [np.load(os.path.join(d, 'cm', sorted(os.listdir(os.path.join(d, 'cm')))[-1]))
+               for d in (spec['farseg_dir'], eval_dir)]
+        print(f'ddp: d: distributed evaluation of 3 val scenes of {2 * TILE}² (2 on rank 0, 1 '
+              f'on rank 1): confusion matrix equal to one process\'s: '
+              f'{np.array_equal(*cms)}; {int(cms[0].sum())} pixels counted', flush=True)
+        check(np.array_equal(*cms), 'd: the distributed confusion matrix differs')
+
+        # c: DinoSeg over 2 ranks against one process's batch-8 steps
+        d0, d1 = main[0]['dinoseg'], main[1]['dinoseg']
+        one_launcher, dref = ddp_run(spec, 'dinoseg', 'base', os.path.join(tmp, 'dino_one'), [
+            'train.num_iters', str(DDP_DINO_ITERS), 'train.eval_after_train', 'False'],
+            train_dl=global_loader(spec, 'dinoseg', DDP_DINO_ITERS, DDP_DINO_BATCH // 2))
+        bytes_c = ddp_bytes(one_launcher.model, 2)
+        del one_launcher
+        torch.cuda.empty_cache()
+        dino_diff = rel_losses(d0['logged'], dref['logged'])
+        want = [24 * DDP_DINO_ITERS, 24 * DDP_DINO_ITERS, 0]
+        print(f'ddp: c: {smi}: DinoSeg ViT-L/16 dinoseg_vitl_loveda.py, 4 a rank, bf16: gloo, '
+              f'two ranks sharing one card: {timed_ms(d0["step_s"]):.2f} '
+              f'ms/step; launches a rank {d0["launches"]}, {d1["launches"]} (expected {want}); '
+              f'the ranks\' states bit-equal {d0["digest"] == d1["digest"]}; bytes all-reduced '
+              f'a rank a step {bytes_c}; losses against one process\'s batch-8 steps '
+              f'{dino_diff:.3e} relative (limit {DDP_DINO_LOSS_TOL})', flush=True)
+        check(d0['launches'] == want and d1['launches'] == want, 'c: launches')
+        check(d0['digest'] == d1['digest'], 'c: the two ranks\' DinoSeg states differ')
+        check(dino_diff <= DDP_DINO_LOSS_TOL, 'c: DinoSeg over 2 ranks differs from one process')
+
+        # e: tiled_inference(mesh=) against one process
+        model, scene, want_canvas, one_s, one_k1 = ddp_tiled(seed)
+        boxes = sliding_window((SCENE, SCENE), TILE, DDP_TILED_STRIDE)
+        slots = math.ceil(len(boxes) / (2 * TILE_BATCH)) * TILE_BATCH      # a rank's
+        tiles = torch.stack([torch.from_numpy(scene[y:y + TILE, x:x + TILE]) for x, y in
+                             boxes[::13][:TILE_BATCH, :2].tolist()]).to(
+                                 next(model.parameters()).device)
+        with torch.no_grad():
+            a, b = model(tiles), model(tiles.roll(1, dims=0)).roll(-1, dims=0)
+        slot_diff = float((a.float() - b.float()).abs().max())
+        limit = max(DDP_TILED_TOL, slot_diff)
+        del model, a, b
+        canvases = [torch.load(os.path.join(tmp, f'tiled-rank{r}.pt')) for r in range(2)]
+        ranks_equal = torch.equal(canvases[0], canvases[1])
+        tiled_diff = float((canvases[0] - want_canvas.cpu()).abs().max())
+        print(f'ddp: e: {smi}: tiled_inference(mesh=) of a {SCENE}² scene, {TILE}² tiles at '
+              f'stride {DDP_TILED_STRIDE} ({len(boxes)} tiles, {slots} slots a rank), DinoSeg '
+              f'bf16: a tile\'s '
+              f'output in another slot of its batch differs by {slot_diff:.3e}; both ranks '
+              f'return the same scene: {ranks_equal}; against one process {tiled_diff:.3e} '
+              f'(limit {limit:.1e}); K1 launches a rank {main[0]["tiled"]["launches"]}, one '
+              f'process {one_k1}; {main[0]["tiled"]["seconds"]:.2f} s over two ranks sharing '
+              f'one card against {one_s:.2f} s in one process', flush=True)
+        check(ranks_equal and tiled_diff <= limit, 'e: the tiled scene over 2 ranks differs')
+        check(main[0]['tiled']['launches'] == 24 * slots // TILE_BATCH
+              and one_k1 == 24 * math.ceil(len(boxes) / TILE_BATCH), 'e: K1 launches')
+    torch.backends.cudnn.deterministic = deterministic
+    print(f'ddp: {smi}: processes {main_s:.1f} s (b-e) and {resume_s:.1f} s (resume), a '
+          f'{a_secs:.1f} s; phase wall time {time.perf_counter() - t_phase:.1f} s', flush=True)
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -2419,7 +3011,12 @@ def main() -> int:
     parser.add_argument('--seed', type=int, default=0,
                         help="seed of the random weights, inputs and the trainer "
                              "phase's data")
+    parser.add_argument('--ddp-worker', nargs=5, metavar=('JOB', 'RANK', 'WORLD', 'INIT', 'OUT'),
+                        help='run one rank of the ddp phase (the phase starts them)')
     args = parser.parse_args()
+    if args.ddp_worker:
+        job, rank, world, init, out = args.ddp_worker
+        return ddp_worker(job, int(rank), int(world), init, out)
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; this script needs one GPU',
               file=sys.stderr)
@@ -2455,6 +3052,7 @@ def main() -> int:
     quant, matmul = phase_quant(gen)
     phase_trainer(gen, args.seed, bare_ms, smi)
     phase_workflow(gen, args.seed, smi)
+    phase_ddp(args.seed, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

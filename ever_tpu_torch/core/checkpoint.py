@@ -76,7 +76,11 @@ class CheckPoint:
     # -- save ----------------------------------------------------------------
     def save(self, filename: Optional[str] = None) -> None:
         """Write the launcher's model, optimizer and step (rank 0) and
-        record the file in ``checkpoint_info.json``."""
+        record the file in ``checkpoint_info.json``.  The model is the
+        unwrapped one (``TrainState.model``, never its
+        ``DistributedDataParallel`` wrapper), so a data-parallel run's
+        checkpoint has a one-process run's keys.  No collective: a crashed
+        rank saves alone."""
         if filename is None:
             filename = self.get_checkpoint_name(self.global_step)
         if is_main_process():

@@ -8,6 +8,15 @@ callbacks (checkpoints, evaluation), the batches' copy to the device,
 logging, evaluation routing, resume, and a checkpoint of the step a crash
 interrupted.
 
+With ``mesh=`` (``parallel/mesh.py``, one process a card) the steps are
+data parallel and the logged metrics are their means over the ranks, as the
+JAX launcher's are global values; rank 0 writes the checkpoints, and after
+each stage of callbacks every rank waits for the others.  The automatic
+evaluation is off in a multi-process run (as in the JAX package); wire
+``distributed_evaluate_pixel_prediction_task`` with
+``train.distributed_evaluate=True``.  A crash-save runs on whichever rank
+raised and enters no collective: the other ranks are not there.
+
 The host never waits for the card except where it must.  Batches are
 pinned and copied asynchronously; a step's metrics are copied to the host
 only when the step is logged (every ``log_interval_step``), asynchronously
@@ -95,11 +104,11 @@ class Launcher:
                  logger: Optional[Logger] = None,
                  seed: int = 42,
                  checkpoint_backend: str = 'msgpack',
-                 device: Optional[Union[str, torch.device]] = None):
-        if mesh is not None:
-            raise NotImplementedError('mesh= (several cards) is the parallel '
-                                      'slice (ROADMAP.md A.9)')
+                 device: Optional[Union[str, torch.device]] = None,
+                 find_unused_parameters: bool = False):
         self._device = get_device(device)
+        self._mesh = mesh
+        self._find_unused = find_unused_parameters
         self._model_dir = model_dir
         self._model = model.to(self._device)
         self._tx = optimizer
@@ -163,7 +172,7 @@ class Launcher:
 
     @property
     def mesh(self):
-        return None
+        return self._mesh
 
     @property
     def mixed_precision(self) -> str:
@@ -225,6 +234,8 @@ class Launcher:
         for f in self._callbacks:
             if getattr(f, stage_name) and (not f.only_master or self._master):
                 f.func()
+        # rank 0's checkpoint is on disk before any rank goes on
+        dist.synchronize()
 
     # -- evaluation ----------------------------------------------------------
     def override_evaluate(self, fn: Callable) -> None:
@@ -294,11 +305,13 @@ class Launcher:
             self._forward_times = forward_times
             self._train_step = build_train_step(
                 self._model, self._tx, self._lr_schedule,
-                forward_times=forward_times, rng_seed=self._seed)
+                forward_times=forward_times, mesh=self._mesh, rng_seed=self._seed,
+                find_unused_parameters=self._find_unused)
 
     def get_eval_step(self):
+        """The rank-local eval step."""
         if self._eval_step is None:
-            self._eval_step = build_eval_step(self._model)
+            self._eval_step = build_eval_step(self._model, mesh=self._mesh)
         return self._eval_step
 
     def _to_device(self, batch):
@@ -359,7 +372,8 @@ class Launcher:
             self._train_loop(iterator, num_iters, forward_times, distributed,
                              log_interval_step, steps_per_loop)
         except (KeyboardInterrupt, Exception):
-            # make the interrupted step resumable
+            # make the interrupted step resumable; only this rank is here, so
+            # the save enters no collective
             if self._state is not None and self._ckpt.global_step > 0:
                 try:
                     self._ckpt.save()
@@ -402,7 +416,8 @@ class Launcher:
                 if k not in loops:
                     loops[k] = build_train_loop(
                         self._model, self._tx, self._lr_schedule, steps_per_loop=k,
-                        forward_times=forward_times, rng_seed=self._seed)
+                        forward_times=forward_times, mesh=self._mesh, rng_seed=self._seed,
+                        find_unused_parameters=self._find_unused)
                 self._state, metrics = loops[k](self._state, batch)
             for _ in range(k):
                 self._ckpt.step()

@@ -274,3 +274,29 @@ def as_ddp_inference_loader(dataloader):
     else:
         new_sampler = DistributedNonOverlapSeqSampler(dataloader.dataset)
     return with_sampler(dataloader, new_sampler)
+
+
+def global_batches(dataset, world_size: int, batch_size: int, num_steps: int,
+                   seed: int = 0) -> list:
+    """Each step's global batch, as dataset indices, of a run over
+    ``world_size`` processes with ``batch_size`` a process: every rank's
+    :class:`StepDistributedSampler` drawn through the launcher's iterator
+    (reseeded with the step before each draw), the ranks' batches
+    concatenated in rank order, as JAX's ``host_to_global`` assembles the
+    global batch.  A one-process run fed these batches in order (e.g. a
+    :class:`SubsetSampler` over their concatenation, batches of
+    ``world_size · batch_size``) sees what the ranks see together."""
+    from ever_tpu_torch.core.iterator import Iterator
+
+    ranks = []
+    for rank in range(world_size):
+        sampler = StepDistributedSampler(dataset, num_replicas=world_size, rank=rank,
+                                         seed=seed)
+        it = Iterator(torch.utils.data.DataLoader(range(len(dataset)), batch_size=batch_size,
+                                                  sampler=sampler, drop_last=True))
+        draws = []
+        for step in range(num_steps):
+            it.set_seed_for_dist_sampler(step)
+            draws.append(it.next(1, is_master=False)[0].tolist())
+        ranks.append(draws)
+    return [sum((r[step] for r in ranks), []) for step in range(num_steps)]

@@ -7,6 +7,13 @@ end.  The tail batch is filled with repeats of the last box at weight 0, so
 ``predict_fn`` always sees the same batch shape and the pad tiles change
 nothing.  With ``tta='d4'`` each tile batch of B becomes its 8·B dihedral
 variants, predicted in one call and averaged back before pasting.
+
+With ``mesh`` (``parallel/mesh.py``) the tile list is split over the
+mesh's processes, one card each, as ``_tiled_inference_sharded`` splits it
+over devices in the JAX package: the list is padded with weight-0 repeats
+of the last box to a whole number of batches on every rank, each rank
+predicts its contiguous share into its own canvas, and one ``all_reduce``
+of canvas and counts gives every rank the whole scene.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 from ever_tpu_torch.core.device import get_device
@@ -44,8 +52,9 @@ def tiled_inference(predict_fn: Callable,
             leave uncovered pixels and raises.
         num_classes: output channels.
         tile_batch: tiles per ``predict_fn`` call.
-        mesh, axis: tiles split over several cards: the parallel slice,
-            which raises ``NotImplementedError``.
+        mesh, axis: split the tiles over the processes of the mesh's
+            ``axis`` (module docstring); every rank calls with the same scene
+            and gets the whole of it.
         tta: None or ``'d4'`` (square tiles).
         variables: passed to ``predict_fn`` first, as in the JAX package.
         device: where the scene and the canvas live (the GPU unless
@@ -57,9 +66,6 @@ def tiled_inference(predict_fn: Callable,
         raise ValueError(f'stride ({stride}) must be <= kernel_size '
                          f'({kernel_size}) or the tiling leaves uncovered '
                          f'pixels')
-    if mesh is not None:
-        raise NotImplementedError('multi-device tiled inference (mesh) is the '
-                                  'parallel slice (ROADMAP.md A.9)')
     if tta not in (None, 'd4'):
         raise ValueError(f"tta must be None or 'd4', got {tta!r}")
     predict = predict_fn if variables is None else (lambda t: predict_fn(variables, t))
@@ -73,15 +79,18 @@ def tiled_inference(predict_fn: Callable,
     boxes = sliding_window((h, w), k, stride)
     ys, xs = boxes[:, 1].tolist(), boxes[:, 0].tolist()
     n_tiles = len(ys)
-    n_batches = math.ceil(n_tiles / tile_batch)
-    pad = n_batches * tile_batch - n_tiles
+    group = None if mesh is None else mesh.axis_group(axis)
+    ranks = 1 if group is None else tdist.get_world_size(group)
+    rank = 0 if group is None else tdist.get_rank(group)
+    per_rank = math.ceil(n_tiles / (ranks * tile_batch)) * tile_batch
+    pad = per_rank * ranks - n_tiles
     ys += [ys[-1]] * pad
     xs += [xs[-1]] * pad
 
-    acc = torch.zeros((h, w, num_classes), dtype=torch.float32, device=image.device)
-    cnt = torch.zeros((h, w, 1), dtype=torch.float32, device=image.device)
+    # the class sums and, in the last channel, the overlap count
+    acc = torch.zeros((h, w, num_classes + 1), dtype=torch.float32, device=image.device)
     with torch.no_grad():
-        for start in range(0, n_batches * tile_batch, tile_batch):
+        for start in range(rank * per_rank, (rank + 1) * per_rank, tile_batch):
             idx = range(start, start + tile_batch)
             tiles = torch.stack([image[ys[i]:ys[i] + k, xs[i]:xs[i] + k]
                                  for i in idx])
@@ -89,7 +98,9 @@ def tiled_inference(predict_fn: Callable,
             for j, i in enumerate(idx):
                 if i >= n_tiles:          # pad tile: weight 0
                     continue
-                acc[ys[i]:ys[i] + k, xs[i]:xs[i] + k] += preds[j]
-                cnt[ys[i]:ys[i] + k, xs[i]:xs[i] + k] += 1.0
-    out = acc / cnt.clamp_min(1.0)
+                acc[ys[i]:ys[i] + k, xs[i]:xs[i] + k, :num_classes] += preds[j]
+                acc[ys[i]:ys[i] + k, xs[i]:xs[i] + k, num_classes] += 1.0
+    if ranks > 1:
+        tdist.all_reduce(acc, group=group)
+    out = acc[..., :num_classes] / acc[..., num_classes:].clamp_min(1.0)
     return out[:h0, :w0] if (h, w) != (h0, w0) else out

@@ -4,10 +4,13 @@
 Each closure runs the launcher's eval step over the test loader, counts
 every batch's confusion matrix on the card (``PixelMetric.forward``) and
 returns ``summary_all``'s table.  The distributed variant gives each
-process a disjoint, non-overlapping share of the samples and sums the
-matrices on the host.  A tail batch that does not divide the launcher's
-mesh is padded with repeats of its last sample, whose predictions are
-dropped after the step.
+process a disjoint, non-overlapping share of the samples
+(``DistributedNonOverlapSeqSampler``: the ranks may see different numbers
+of batches), predicts it with the launcher's rank-local eval step and sums
+the matrices over the ranks on the host.  A process drives one card, so no
+batch is padded.  The single-process variant summarises its own matrix and
+enters no collective, so it may run on rank 0 alone (an
+``EvaluationCallback`` with ``only_master``).
 """
 
 from __future__ import annotations
@@ -15,7 +18,6 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.data.distributed import DistributedNonOverlapSeqSampler, with_sampler
 from ever_tpu_torch.metric.pixel import PixelMetric
@@ -47,23 +49,15 @@ def _make_eval_loop(num_classes, data_parse_fn, tune_model_fn, prediction_fn,
             loader = with_sampler(loader, DistributedNonOverlapSeqSampler(loader.dataset))
         pm = PixelMetric(num_classes, self.model_dir, logger=self.logger)
         eval_step = tune_model_fn(self.get_eval_step())
-        n_dev = 1 if self.mesh is None else self.mesh.size()
         if desc:
             self.info(f'evaluating: {desc}')
         for data in loader:
             x, y_true, other_info = data_parse_fn(data)
-            x = torch.as_tensor(x)
-            n = x.shape[0]
-            pad = (-n) % n_dev
-            if pad:
-                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-            y_pred = eval_step(self.state, (x,))
-            if pad:
-                y_pred = tree_map(lambda p: p[:n], y_pred)
+            y_pred = eval_step(self.state, (torch.as_tensor(x),))
             y_true, y_pred = prediction_fn(y_true, y_pred, other_info,
                                            self.model_dir, self.checkpoint)
             pm.forward(y_true, y_pred)
-        acc_tb = pm.summary_all()
+        acc_tb = pm.summary_all(None if distributed else pm.dense_cm)
         if acc_table_based_callback is not None:
             acc_table_based_callback(self, acc_tb)
         if cuda_empty_cache and torch.cuda.is_initialized():

@@ -14,17 +14,33 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import torch
 import torch.nn as nn
 
-from ever_tpu_torch.module.ops import ConvBlock, resize
+from ever_tpu_torch.module.ops import ConvBlock, resize, upsample_bilinear
 
-__all__ = ['FPN', 'AssymetricDecoder', 'resize_nchw']
+__all__ = ['FPN', 'AssymetricDecoder', 'resize_nchw', 'upsample_bilinear_nchw']
 
 
 def resize_nchw(x, scale=None, shape=None, method: str = 'nearest'):
     """:func:`~ever_tpu_torch.module.ops.resize` of an NCHW tensor (a view
     each way when it lies in ``channels_last`` memory)."""
     return resize(x.permute(0, 2, 3, 1), scale, shape, method).permute(0, 3, 1, 2)
+
+
+def upsample_bilinear_nchw(x: torch.Tensor, scale) -> torch.Tensor:
+    """Bilinear upsampling of an NCHW tensor by ``scale``: ``resize_nchw(x,
+    scale=scale, method='bilinear')``'s numbers (float32 unless x is
+    bfloat16, returned in x's dtype), computed by
+    :func:`~ever_tpu_torch.module.ops.upsample_bilinear`'s two matrix
+    products.  ``F.interpolate``'s CUDA backward adds into the input
+    gradient with atomics; this one does not, so a train step's gradients
+    are the same bits every run, as a resumed or data-parallel run needs."""
+    h, w = x.shape[2:]
+    xh = x.permute(0, 2, 3, 1)
+    xh = xh if xh.dtype == torch.bfloat16 else xh.float()
+    y = upsample_bilinear(xh, (int(h * scale), int(w * scale)))
+    return y.to(x.dtype).permute(0, 3, 1, 2)
 
 
 def check_widths(what: str, feats, want: Sequence[int]) -> None:
@@ -113,11 +129,11 @@ class AssymetricDecoder(nn.Module):
             for layer in layers:
                 y = layer(y, train)
                 if n_up > 0:
-                    y = resize_nchw(y, scale=2, method='bilinear')
+                    y = upsample_bilinear_nchw(y, 2)
             inner.append(y)
         out = sum(inner) / len(inner)
         if self.classifier is not None:
             out = self.classifier(out)
             if self.scale_factor > 1:
-                out = resize_nchw(out, scale=float(self.scale_factor), method='bilinear')
+                out = upsample_bilinear_nchw(out, float(self.scale_factor))
         return out

@@ -6,6 +6,16 @@ mask arithmetic, so a batch whose labels are all ``ignore_index`` gives a
 cross-entropy of 0 (``F.cross_entropy(ignore_index=...)`` gives NaN there).
 Logits are ``[N, H, W, C]``; labels are ``[N, H, W]`` integers.  The rest of
 the JAX package's loss family is not ported yet.
+
+Inside a data-parallel step over more than one rank (``with mesh:``; see
+``parallel/mesh.py``) the batch sums are global, as they are in the JAX
+package under a sharded batch: the cross-entropy's mean is Σnll / Σvalid·w
+over every rank's pixels and the dice statistics are summed over the ranks,
+each through one :func:`all_reduce_sum`.  The loss is then the same on
+every rank, and its gradient reaches each rank's logits R times over (the
+sum's gradient is the sum of the R ranks' gradients); DDP's average of the
+parameter gradients over R ranks divides that out, so the step's gradient
+is the global loss's.
 """
 
 from __future__ import annotations
@@ -16,8 +26,16 @@ import torch
 import torch.nn.functional as F
 
 from ever_tpu_torch.core import registry
+from ever_tpu_torch.parallel import mesh as _mesh
 
-__all__ = ['softmax_ce_loss_with_logits', 'dice_loss_with_logits']
+__all__ = ['softmax_ce_loss_with_logits', 'dice_loss_with_logits', 'all_reduce_sum']
+
+
+def all_reduce_sum(x: torch.Tensor, axis_name: Optional[str] = None) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the current mesh's ``axis_name``
+    axis (``ever_tpu/module/loss.py`` ``all_reduce_sum``): the identity
+    outside a data-parallel step or with one rank."""
+    return _mesh.all_reduce_sum(x, _mesh.reduction_group(axis_name))
 
 
 def _flatten(y_pred, y_true):
@@ -31,7 +49,9 @@ def softmax_ce_loss_with_logits(y_pred, y_true, ignore_index: int = 255,
                                 reduction: str = 'mean',
                                 class_weight: Optional[Sequence[float]] = None):
     """Masked-mean pixel cross-entropy: ``sum(nll·valid) / max(sum(valid·w),
-    1)``, with ``w`` the labels' class weights (1 without ``class_weight``)."""
+    1)``, with ``w`` the labels' class weights (1 without ``class_weight``);
+    both sums (and ``reduction='sum'``) over every rank's pixels inside a
+    data-parallel step."""
     y_pred, y_true = _flatten(y_pred, y_true)
     ignored = y_true == ignore_index
     valid = (~ignored).float()
@@ -45,19 +65,25 @@ def softmax_ce_loss_with_logits(y_pred, y_true, ignore_index: int = 255,
         valid_w = valid * w
     nll = nll * valid
     if reduction == 'mean':
-        return nll.sum() / torch.clamp(valid_w.sum(), min=1.0)
+        group = _mesh.reduction_group()
+        if group is None:
+            return nll.sum() / torch.clamp(valid_w.sum(), min=1.0)
+        sums = _mesh.all_reduce_sum(torch.stack([nll.sum(), valid_w.sum()]), group)
+        return sums[0] / torch.clamp(sums[1], min=1.0)
     if reduction == 'sum':
-        return nll.sum()
+        return all_reduce_sum(nll.sum())
     return nll
 
 
 @registry.LOSS.register('dice')
 def dice_loss_with_logits(y_pred, y_true, smooth_value: float = 1.0,
                           ignore_index: int = 255, ignore_channel: int = -1,
-                          **_compat):
+                          axis_name: Optional[str] = None, **_compat):
     """Dice loss over the valid pixels: ``1 - mean_c (2·I_c + s)/(Z_c + s)``
     (mean over the channels other than ``ignore_channel``); one channel
-    means a sigmoid and float labels."""
+    means a sigmoid and float labels.  ``I`` and ``Z`` are summed over the
+    current mesh's ``axis_name`` axis (the data axis by default) inside a
+    data-parallel step."""
     c = y_pred.shape[-1]
     y_pred, y_true = _flatten(y_pred, y_true)
     valid = (y_true != ignore_index).float()[:, None]
@@ -71,6 +97,9 @@ def dice_loss_with_logits(y_pred, y_true, smooth_value: float = 1.0,
     y_prob, y_onehot = y_prob * valid, y_onehot * valid
     inter = (y_prob * y_onehot).sum(0)
     z = y_prob.sum(0) + y_onehot.sum(0)
+    group = _mesh.reduction_group(axis_name)
+    if group is not None:
+        inter, z = _mesh.all_reduce_sum(torch.stack([inter, z]), group)
     coeff = (2.0 * inter + smooth_value) / (z + smooth_value)
     if ignore_channel != -1 and c > 1:
         keep = torch.ones(c, dtype=torch.bool, device=coeff.device)

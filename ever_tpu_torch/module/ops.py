@@ -20,6 +20,9 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.distributed as tdist
+
+from ever_tpu_torch.parallel.mesh import reduction_group
 
 __all__ = ['resize', 'upsample_bilinear', 'global_avg_pool', 'max_pool', 'Conv2d',
            'BatchNorm2d', 'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen']
@@ -183,6 +186,12 @@ class BatchNorm2d(nn.Module):
     ``running_var``).  ``update_running_stats=False`` (see
     :func:`running_stats_frozen`) keeps the train-mode normalisation but
     leaves the running statistics alone.
+
+    Inside a data-parallel step over more than one rank (``with mesh:``,
+    :func:`~ever_tpu_torch.parallel.mesh.reduction_group`) train mode uses
+    the **global** batch statistics, as the JAX package's are under a
+    sharded batch: :class:`_GlobalBatchNorm`.  With one rank the code path
+    is the one above.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.9,
@@ -199,14 +208,80 @@ class BatchNorm2d(nn.Module):
         if not train or self.frozen:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y, mean, invstd = torch.ops.aten.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        group = reduction_group()
+        if group is None:
+            y, mean, invstd = torch.ops.aten.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = invstd.pow(-2) - self.eps
+        else:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, group)
         if self.update_running_stats:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean, alpha=1 - m)
-                self.running_var.mul_(m).add_(invstd.pow(-2) - self.eps, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=1 - m)
         return y
+
+
+def _per_channel(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of an NCHW tensor over the batch of every rank
+    of ``group``, in float32 (float64 for float64 input).
+
+    Forward: one ``all_reduce`` of each rank's count, mean and centred sum
+    of squares per channel, each rank writing its own row of an ``[R, 2C+1]``
+    zero tensor, so that the sum is a gather; every rank then combines the
+    rows in rank order (Chan's pairwise formula: no large sums of squares
+    cancel).  Backward: one ``all_reduce`` of Σdy and Σdy·x̂ per channel for
+    dx; dγ and dβ are the rank's own sums, which the data-parallel step
+    reduces with the other gradients.  Returns y in x's dtype, and the
+    global mean and biased variance for the running statistics.
+    """
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+        xc = x.to(ct)
+        c = x.shape[1]
+        var, mean = torch.var_mean(xc, dim=(0, 2, 3), correction=0)
+        n = x.numel() // c
+        rows = xc.new_zeros(tdist.get_world_size(group), 2 * c + 1)
+        row = rows[tdist.get_rank(group)]
+        row[0] = n
+        row[1:c + 1] = mean
+        row[c + 1:] = var * n
+        tdist.all_reduce(rows, group=group)
+        counts = rows[:, :1]
+        total = counts.sum()
+        gmean = (counts * rows[:, 1:c + 1]).sum(0) / total
+        m2 = rows[:, c + 1:].sum(0) + (counts * (rows[:, 1:c + 1] - gmean) ** 2).sum(0)
+        gvar = m2 / total
+        rstd = torch.rsqrt(gvar + eps)
+        y = ((xc - _per_channel(gmean)) * _per_channel(rstd * weight.to(ct))
+             + _per_channel(bias.to(ct)))
+        ctx.save_for_backward(x, weight, gmean, rstd)
+        ctx.total, ctx.group = total, group
+        ctx.mark_non_differentiable(gmean, gvar)
+        return y.to(x.dtype), gmean, gvar
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, rstd = ctx.saved_tensors
+        ct = mean.dtype
+        xhat = (x.to(ct) - _per_channel(mean)) * _per_channel(rstd)
+        dy = dy.to(ct)
+        c = x.shape[1]
+        sums = torch.cat([dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))])
+        local = sums.clone()
+        tdist.all_reduce(sums, group=ctx.group)
+        g_dy, g_dy_xhat = sums[:c] / ctx.total, sums[c:] / ctx.total
+        dx = (dy - _per_channel(g_dy) - xhat * _per_channel(g_dy_xhat)) * _per_channel(
+            rstd * weight.to(ct))
+        return (dx.to(x.dtype), local[c:].to(weight.dtype), local[:c].to(weight.dtype),
+                None, None)
 
 
 @contextlib.contextmanager

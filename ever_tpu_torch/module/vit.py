@@ -50,6 +50,7 @@ from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.ops import upsample_bilinear
 from ever_tpu_torch.ops.attention import attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
+from ever_tpu_torch.parallel.mesh import data_shard
 
 __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
@@ -245,9 +246,13 @@ def drop_path_mask(batch: int, rate: float,
                    generator: torch.Generator) -> torch.Tensor:
     """The [B] keep mask of one residual branch: each sample keeps it with
     probability ``1 - rate`` (a Bernoulli draw, as ``jax.random.bernoulli``),
-    drawn from ``generator`` on its device."""
-    u = torch.rand(batch, generator=generator, device=generator.device)
-    return u < 1.0 - rate
+    drawn from ``generator`` on its device.  Inside a data-parallel step
+    over R ranks the draws are those of the global batch of R·B, and rank r
+    keeps its slice ``[r·B, (r+1)·B)``: the step then draws what one process
+    draws for the global batch."""
+    rank, ranks = data_shard()
+    u = torch.rand(batch * ranks, generator=generator, device=generator.device)
+    return (u < 1.0 - rate)[rank * batch:(rank + 1) * batch]
 
 
 def drop_path(x: torch.Tensor, rate: float,

@@ -17,16 +17,28 @@ and the eval step normalises by them.
 
 Each step's generator for the model's train-time draws (RoPE augmentation,
 drop-path) is seeded from ``(rng_seed, step)``, and a microbatch's from
-``(rng_seed, step, i)``: the counterpart of ``fold_in``.  ``mesh=`` (data
-parallel over several cards) is the parallel slice and raises here.
+``(rng_seed, step, i)``: the counterpart of ``fold_in``.
+
+``mesh=`` (``parallel/mesh.py``) makes the step data parallel over the
+mesh's processes, one card each, as the JAX step is over a batch sharded on
+``'data'``: each process passes its share of the global batch.  The model
+is wrapped once in ``DistributedDataParallel``, which averages the
+gradients over the ranks (microbatches before the last run under
+``no_sync()``), and the forward runs inside ``with mesh:``, where the
+BatchNorm statistics, the losses' sums and the drop-path draws are those of
+the global batch.  The metrics are averaged over the ranks with one
+``all_reduce``, so they are the global values the JAX step reports.  The
+eval step stays rank-local: each process predicts its own batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as tdist
 
 from ever_tpu_torch.interface.module import split_metrics, sum_losses
 
@@ -41,11 +53,6 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-
-
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError('mesh= is the parallel slice, not ported yet')
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -85,9 +92,8 @@ def create_train_state(model: torch.nn.Module, tx, sample_batch=None, rng=None,
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
-def _forward_backward(model, batch, generator) -> Metrics:
-    out = model(*_model_args(batch, _device(model)), train=True,
-                generator=generator)
+def _forward_backward(model, net, batch, generator) -> Metrics:
+    out = net(*_model_args(batch, _device(model)), train=True, generator=generator)
     if not isinstance(out, dict):
         raise TypeError('training forward must return a dict of losses/metrics '
                         '(keys ending in "loss" are summed)')
@@ -98,10 +104,20 @@ def _forward_backward(model, batch, generator) -> Metrics:
     return metrics
 
 
+def _mean_over(mesh, metrics: Metrics) -> Metrics:
+    """Every metric's mean over the mesh's ranks: one ``all_reduce`` of the
+    stacked values."""
+    keys = list(metrics)
+    values = torch.stack([metrics[k].double() for k in keys])
+    tdist.all_reduce(values, group=mesh.group)
+    values /= mesh.size()
+    return {k: v.to(metrics[k].dtype) for k, v in zip(keys, values)}
+
+
 def build_train_step(model: torch.nn.Module, tx,
                      lr_schedule: Optional[Callable[[int], float]] = None,
-                     forward_times: int = 1, mesh=None, rng_seed: int = 0
-                     ) -> Callable:
+                     forward_times: int = 1, mesh=None, rng_seed: int = 0,
+                     find_unused_parameters: bool = False) -> Callable:
     """``step(state, batch) -> (state, metrics)``.
 
     ``batch`` is a tuple of the model's positional inputs (``(x, y)``),
@@ -109,26 +125,39 @@ def build_train_step(model: torch.nn.Module, tx,
     ``forward_times > 1``.  Metrics are 0-d float32 tensors on the device:
     the model's loss entries, ``total_loss``, ``grad_norm`` (before the
     clip) and, with ``lr_schedule``, ``learning_rate`` at the step's count.
+    With ``mesh`` over a process group, ``batch`` is this process's share
+    and the step is data parallel (module docstring);
+    ``find_unused_parameters`` is passed to ``DistributedDataParallel``.
     """
-    _no_mesh(mesh)
+    grouped = mesh is not None and mesh.group is not None
+    net = mesh.data_parallel(model, find_unused_parameters) if grouped else model
+    scope = mesh if mesh is not None else contextlib.nullcontext()
 
     def step(state: TrainState, batch):
         opt = state.optimizer
         # the model's: frozen parameters' gradients are no optimizer's
         model.zero_grad(set_to_none=True)
         dev = _device(model)
-        if forward_times == 1:
-            metrics = _forward_backward(
-                model, batch, step_generator(rng_seed, state.step, device=dev))
-        else:
-            parts = [_forward_backward(model, _index(batch, i),
-                                       step_generator(rng_seed, state.step, i, dev))
-                     for i in range(forward_times)]
-            metrics = {k: sum(m[k] for m in parts) / forward_times for k in parts[0]}
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(forward_times)
+        with scope:
+            if forward_times == 1:
+                metrics = _forward_backward(
+                    model, net, batch, step_generator(rng_seed, state.step, device=dev))
+            else:
+                parts = []
+                for i in range(forward_times):
+                    # DDP reduces the gradients once, after the last microbatch
+                    with (net.no_sync() if grouped and i < forward_times - 1
+                          else contextlib.nullcontext()):
+                        parts.append(_forward_backward(
+                            model, net, _index(batch, i),
+                            step_generator(rng_seed, state.step, i, dev)))
+                metrics = {k: sum(m[k] for m in parts) / forward_times for k in parts[0]}
+                for p in model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(forward_times)
         metrics['grad_norm'] = tx.apply(opt, state.step)
+        if grouped and mesh.size() > 1:
+            metrics = _mean_over(mesh, metrics)
         if lr_schedule is not None:
             metrics['learning_rate'] = torch.tensor(float(lr_schedule(state.step)))
         state.step += 1
@@ -140,12 +169,13 @@ def build_train_step(model: torch.nn.Module, tx,
 def build_train_loop(model: torch.nn.Module, tx,
                      lr_schedule: Optional[Callable[[int], float]] = None,
                      steps_per_loop: int = 1, forward_times: int = 1, mesh=None,
-                     rng_seed: int = 0) -> Callable:
+                     rng_seed: int = 0, find_unused_parameters: bool = False) -> Callable:
     """K optimizer steps per call: ``loop(state, batches) -> (state,
     metrics)``, where every input of ``batches`` carries a leading
     ``steps_per_loop`` axis.  Metrics are the mean over the K steps, except
     ``learning_rate`` and ``grad_norm``, which report the last step."""
-    step = build_train_step(model, tx, lr_schedule, forward_times, mesh, rng_seed)
+    step = build_train_step(model, tx, lr_schedule, forward_times, mesh, rng_seed,
+                            find_unused_parameters)
 
     def loop(state: TrainState, batches):
         per_step = []
@@ -161,8 +191,10 @@ def build_train_loop(model: torch.nn.Module, tx,
 
 
 def build_eval_step(model: torch.nn.Module, mesh=None) -> Callable:
-    """``eval_step(state, batch) -> model output`` (eval mode, no grad)."""
-    _no_mesh(mesh)
+    """``eval_step(state, batch) -> model output`` (eval mode, no grad).
+    Rank-local with or without ``mesh``: each process predicts its own
+    batches, which may differ in number between the ranks."""
+    del mesh
 
     def eval_step(state: TrainState, batch):
         with torch.no_grad():

@@ -2,19 +2,25 @@
 ``ever_tpu/trainer/__init__.py``).
 
 ``get_trainer(name, argv)`` parses the command line and returns a zero-arg
-factory of the trainer.  ``base``, ``th_ddp`` and ``spmd`` all train on one
-card (several cards are ``ROADMAP.md`` A.9); the GAN trainers are not
-ported.  ``--device`` picks the card (``cuda``, the default) or ``cpu``.
+factory of the trainer.  ``base`` trains in one process; ``th_ddp`` and
+``spmd`` are :class:`SPMDTrainer`, data parallel over the processes
+``torchrun`` starts (one card each), and the same as ``base`` in one plain
+process.  The GAN trainers are not ported.  ``--device`` picks the card
+(``cuda``, the default: the process's own under torchrun) or ``cpu``
+(gloo).
 """
 
 from __future__ import annotations
 
 import argparse
 
-from ever_tpu_torch.trainer.trainer import Trainer, half_bn, merge_dict  # noqa: F401
+from ever_tpu_torch.trainer.trainer import SPMDTrainer, Trainer, half_bn, merge_dict  # noqa: F401
+
+# the reference's class spelling: the data-parallel trainer
+THDDPTrainer = SPMDTrainer
 
 __all__ = ['get_trainer', 'parse_args', 'get_default_parser', 'TRAINER',
-           'Trainer', 'merge_dict', 'half_bn']
+           'Trainer', 'SPMDTrainer', 'THDDPTrainer', 'merge_dict', 'half_bn']
 
 
 def _gan_trainer(args):
@@ -23,8 +29,8 @@ def _gan_trainer(args):
 
 TRAINER = {
     'base': Trainer,
-    'th_ddp': Trainer,
-    'spmd': Trainer,
+    'th_ddp': SPMDTrainer,
+    'spmd': SPMDTrainer,
     'gan_th_ddp': _gan_trainer,
     'gan_spmd': _gan_trainer,
 }
@@ -47,9 +53,10 @@ def get_default_parser() -> argparse.ArgumentParser:
     parser.add_argument('--project', default=None, type=str)
     parser.add_argument('--entity', default=None, type=str)
     parser.add_argument('--local_rank', default=0, type=int,
-                        help='accepted for the reference command line; unused')
+                        help='accepted for the reference command line; torchrun '
+                             'sets LOCAL_RANK')
     parser.add_argument('--find_unused_parameters', action='store_true',
-                        help='accepted for the reference command line; unused')
+                        help='passed to DistributedDataParallel')
     parser.add_argument('opts', nargs=argparse.REMAINDER,
                         help='dotted-key overrides: k v [k v ...]')
     return parser

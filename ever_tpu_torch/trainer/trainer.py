@@ -3,9 +3,13 @@
 Import the config file and apply the command line's ``opts``, pickle the
 config into the model dir, build the dataloaders, the model (on the card
 unless ``--device cpu``), the LR schedule and the optimizer through the
-registries, then ``Launcher.train_by_config``.  ``th_ddp`` and ``spmd`` run
-on one card here: several cards are the parallel slice (``ROADMAP.md``
-A.9).
+registries, then ``Launcher.train_by_config``.
+
+:class:`SPMDTrainer` (``th_ddp`` and ``spmd``) is the data-parallel trainer
+of ``torchrun --nproc_per_node=N train.py``: it starts the process group
+from torchrun's environment and trains over the data mesh, one card a
+process (``parallel/spmd.py``); in one plain process it computes what
+:class:`Trainer` does.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.core.launcher import Launcher
 from ever_tpu_torch.core.logger import Logger
 from ever_tpu_torch.module.resnet import resnet_frozen_prefixes
+from ever_tpu_torch.parallel.mesh import make_mesh
 
-__all__ = ['Trainer', 'merge_dict', 'half_bn']
+__all__ = ['Trainer', 'SPMDTrainer', 'merge_dict', 'half_bn']
 
 
 def merge_dict(a: dict, b: dict) -> dict:
@@ -134,6 +139,10 @@ class Trainer:
         return schedule, factory.build(schedule, grad_clip=opt_config.get('grad_clip', None),
                                        param_groups=param_groups, frozen_prefixes=frozen)
 
+    def make_mesh(self):
+        """None: one process, no data mesh."""
+        return None
+
     def build_launcher(self) -> Launcher:
         model = self.make_model()
         schedule, tx = self.make_lr_optimizer(model)
@@ -145,7 +154,8 @@ class Trainer:
             mixed_precision=getattr(self.args, 'mixed_precision', 'fp32'),
             logger=logger, seed=int(self._config.get('seed', 42)),
             checkpoint_backend=self._config.get('checkpoint_backend', 'msgpack'),
-            device=self._device)
+            device=self._device, mesh=self.make_mesh(),
+            find_unused_parameters=getattr(self.args, 'find_unused_parameters', False))
         return self._launcher
 
     # -- entries -------------------------------------------------------------
@@ -183,3 +193,20 @@ class Trainer:
                 'the last checkpoint: train first or point --model_dir at '
                 'a trained run')
         return tl.evaluate(test_dl, self._config.get('train', None))
+
+
+class SPMDTrainer(Trainer):
+    """The data-parallel trainer (``ever_tpu/trainer/trainer.py``
+    ``SPMDTrainer``; the reference's ``THDDPTrainer``): the process group
+    from ``torchrun``'s environment (``nccl`` on the card, ``gloo`` with
+    ``--device cpu``; a no-op in one plain process or when the caller
+    started one), one card a process, and the data mesh over every process.
+    The BatchNorm statistics, losses and logged metrics are those of the
+    global batch, as under the JAX package's sharded batch."""
+
+    def __init__(self, args):
+        dist.init_dist_env(device=getattr(args, 'device', None))
+        super().__init__(args)
+
+    def make_mesh(self):
+        return make_mesh(('data',))

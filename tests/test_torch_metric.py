@@ -253,8 +253,10 @@ class _Items:
 @pytest.mark.parametrize('task', ['pixel', 'distributed_pixel', 'change', 'damage'])
 def test_evaluation_closures_match_jax(tmp_path, task, n_dev):
     """7 samples in batches of 3 (a tail of 1) through each closure: the
-    table to 1e-6; with a 4-way mesh on the stub every batch is padded to 4
-    before the step and the padding dropped after it."""
+    table to 1e-6.  With a 4-way mesh on the stub the JAX package pads every
+    batch to 4 before its step (one program over the mesh's devices) and
+    drops the padding after it; the port's eval step is rank-local, one
+    card a process, and gets the batches as they are."""
     from ever_tpu_torch.interface.dataloader import default_collate
     items = _logit_stream()
     if task == 'change':
@@ -277,5 +279,5 @@ def test_evaluation_closures_match_jax(tmp_path, task, n_dev):
             loader = torch.utils.data.DataLoader(_Items(items), batch_size=3,
                                                  collate_fn=default_collate)
         tables[side] = make(mod)(stub, loader)
-        assert seen == ([3, 3, 1] if n_dev == 1 else [4, 4, 4]), (side, seen)
+        assert seen == ([3, 3, 1] if n_dev == 1 or side == 'port' else [4, 4, 4]), (side, seen)
     _assert_tables_close(tables['port'], tables['jax'])

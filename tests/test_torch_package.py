@@ -26,7 +26,9 @@ from ever_tpu_torch.core.prefetch import prefetch_to_device
 from ever_tpu_torch.util.weight_io import load_weights
 from ever_tpu_torch.magic.sliding_window import sliding_window
 from ever_tpu_torch.magic.tiled import tiled_inference
-from ever_tpu_torch.trainer import Trainer, get_trainer, parse_args
+from ever_tpu_torch.core.dist import init_dist_env
+from ever_tpu_torch.parallel.mesh import make_mesh
+from ever_tpu_torch.trainer import SPMDTrainer, Trainer, get_trainer, parse_args
 
 PKG = os.path.dirname(os.path.abspath(ever_tpu_torch.__file__))
 REPO = os.path.dirname(PKG)
@@ -46,7 +48,9 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.core.to, ever_tpu_torch.core.prefetch,'
             ' ever_tpu_torch.core.iterator, ever_tpu_torch.util.seedlib,'
             ' ever_tpu_torch.util.param_util, ever_tpu_torch.util._main,'
-            ' ever_tpu_torch.api.infer_tool, ever_tpu_torch.__main__;'
+            ' ever_tpu_torch.api.infer_tool, ever_tpu_torch.__main__,'
+            ' ever_tpu_torch.core.dist, ever_tpu_torch.parallel.mesh,'
+            ' ever_tpu_torch.trainer.th_ddp_trainer;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -84,7 +88,11 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/data/cross_validation.py', 'ever_tpu_torch/core/to.py',
             'ever_tpu_torch/core/prefetch.py', 'ever_tpu_torch/util/seedlib.py',
             'ever_tpu_torch/util/param_util.py', 'ever_tpu_torch/util/_main.py',
-            'ever_tpu_torch/api/infer_tool.py', 'ever_tpu_torch/__main__.py'} <= scanned
+            'ever_tpu_torch/api/infer_tool.py', 'ever_tpu_torch/__main__.py',
+            'ever_tpu_torch/core/dist.py', 'ever_tpu_torch/core/device.py',
+            'ever_tpu_torch/parallel/mesh.py', 'ever_tpu_torch/module/ops.py',
+            'ever_tpu_torch/magic/tiled.py',
+            'ever_tpu_torch/trainer/th_ddp_trainer.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -141,6 +149,31 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch, tmp_p
         Launcher(str(tmp_path / 'run'), torch.nn.Linear(2, 2), None)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         CheckPoint.load(str(tmp_path / 'missing.ckpt'))
+    # the data-parallel entry points: the process group's backend follows
+    # the device (nccl for the card), a torchrun rank's card is its own
+    monkeypatch.setenv('WORLD_SIZE', '2')
+    monkeypatch.setenv('RANK', '0')
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        init_dist_env()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SPMDTrainer(parse_args(argv))
+    monkeypatch.delenv('WORLD_SIZE')
+    monkeypatch.delenv('RANK')
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tiled_inference(lambda t: t, np.zeros((8, 8, 1), np.float32), 8, 8, 1,
+                        mesh=make_mesh())
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+    monkeypatch.setattr(torch.cuda, 'set_device', lambda d: None)
+    monkeypatch.setenv('LOCAL_RANK', '1')
+    with pytest.raises(RuntimeError, match='LOCAL_RANK 1 but 1 CUDA'):
+        get_device()
+    assert get_device('cuda:0') == torch.device('cuda', 0)       # named: shared
+    monkeypatch.setenv('LOCAL_RANK', '0')
+    assert get_device() == get_device('cuda') == torch.device('cuda', 0)
+    monkeypatch.delenv('LOCAL_RANK')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     assert get_device('cpu') == torch.device('cpu')
     out = tiled_inference(lambda t: t, np.ones((8, 8, 1), np.float32), 8, 8, 1,
                           device='cpu')

@@ -57,12 +57,17 @@ def test_stride_larger_than_tile_raises_in_both():
         torch_tiled(torch_predict, image, 32, 40, K, device='cpu')
 
 
-@pytest.mark.parametrize('kw', [dict(mesh=object()), dict(mesh=object(), tta='d4')])
+@pytest.mark.parametrize('kw', [dict(), dict(tta='d4')])
 def test_mesh_and_tta_not_ported_yet(kw):
-    """Tiles split over several cards (``mesh``) are the parallel slice, with
-    or without d4 TTA (which runs on one card: ``test_torch_transform.py``)."""
-    with pytest.raises(NotImplementedError):
-        torch_tiled(torch_predict, _scene(64, 64), 32, 32, K, device='cpu', **kw)
+    """``mesh=`` splits the tiles over the mesh's processes; the data mesh
+    of one plain process gives the canvas without a mesh bit for bit, with
+    or without d4 TTA.  Over two processes: ``test_torch_dist.py``."""
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    image = _scene(100, 90)
+    want = torch_tiled(torch_predict, image, 32, 24, K, tile_batch=3, device='cpu', **kw)
+    got = torch_tiled(torch_predict, image, 32, 24, K, tile_batch=3, device='cpu',
+                      mesh=make_mesh(), axis='data', **kw)
+    assert torch.equal(got, want)
 
 
 def test_dinoseg_scene_matches_jax():

@@ -497,8 +497,31 @@ def test_bf16_compute_keeps_f32_params_and_a_bf16_residual_stream():
 
 
 def test_mesh_is_the_parallel_slice():
-    model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError):
-        tspmd.build_train_step(model, None, mesh=object())
-    with pytest.raises(NotImplementedError):
-        tspmd.build_eval_step(model, mesh=object())
+    """The data mesh of one plain process (no process group): the train
+    step wraps nothing in DDP, reduces nothing, and computes the bits of the
+    step without a mesh; the eval step is the rank-local one.  Over several
+    processes: ``test_torch_dist.py`` and ``test_torch_ddp.py``."""
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    from test_torch_farseg import NARROW
+    mesh = make_mesh(('data',))
+    assert mesh.size() == 1 and mesh.shape == {'data': 1} and mesh.group is None
+    x, y = _batch(2, 64, seed=9)
+    runs = []
+    for m in (None, mesh):
+        torch.manual_seed(0)
+        model = tbuilder.make_model({'type': 'FarSeg', 'params': NARROW}, device='cpu')
+        sched = tbuilder.make_learningrate({'type': 'poly', 'params': dict(
+            base_lr=0.01, power=0.9, max_iters=10)})
+        rule = _opt(sched, 'torch')
+        state = tspmd.create_train_state(model, rule)
+        step = tspmd.build_train_step(model, rule, sched, mesh=m)
+        for _ in range(2):
+            state, metrics = step(state, (torch.from_numpy(x), torch.from_numpy(y)))
+        with torch.no_grad():
+            pred = tspmd.build_eval_step(model, mesh=m)(state, (torch.from_numpy(x),))
+        runs.append((metrics, model.state_dict(), pred))
+    (m0, sd0, p0), (m1, sd1, p1) = runs
+    assert all(torch.equal(m0[k], m1[k]) for k in m0 if k != 'learning_rate')
+    assert all(torch.equal(sd0[k], sd1[k]) for k in sd0) and torch.equal(p0, p1)
+    with pytest.raises(NotImplementedError, match='1-D data mesh'):
+        make_mesh(('data', 'model'))
