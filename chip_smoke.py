@@ -166,7 +166,46 @@ Phases (any failure exits non-zero before the last line is printed):
              checking that a tile's output does not depend on its slot in
              the batch.  ms/step of each labelled with its backend, the
              bytes all-reduced a step, the phase's seconds.
-12. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+12. models — the rest of the ported models (``phase_models``): a project
+             from ``create`` and a seeded LoveDA tree (16 train scenes of
+             512², 2 val scenes of 1024²).  (a) ``LoveDA(layout='s2d')``
+             items equal to the port's ``SpaceToDepth`` of the ``'hwc'``
+             items bit for bit, masks at full resolution, and
+             ``GeoTileDataset(layout='s2d').read_batch`` through the host
+             library equal to its per-item path; (b) FarSeg++-R50 from a
+             config written beside ``configs/farseg_r50_loveda.py``
+             (``relation_type='v2'``, channel dropout 0.1,
+             ``stem='s2d_input'``, K8, LoveDA ``layout='s2d'``, batch 8 of
+             512², bf16, SGD momentum 0.9 + poly) through the project's
+             train.py: 3 steps, a resume to 6, against 6 steps at once and
+             the evaluation of the val scenes, deterministic cuDNN: finite
+             losses, 1 K8 a step, the dropout masks differing between steps
+             and bit-equal across the repeat, the resumed state bit-equal
+             to the unbroken run's, the card's confusion matrix equal to
+             ``np.bincount`` on the host; ms/step through the ``Launcher``
+             and of the bare step, and its FLOPs for MFU; (c) the trained
+             ``state_dict`` in a ``stem='s2d'`` model on the unfolded val
+             scenes bit-equal to the ``s2d_input`` model on the folded ones;
+             (d) that model through ``tiled_inference`` over a 4096² scene
+             (bf16, 512² tiles, stride 512, ``tile_batch=8``): finite
+             probabilities summing to 1, no K8; (e) at full width, one
+             forward and backward at B=2, 512², bf16 of FarSeg-R50 with
+             ``se_ratio=16``, with ``gc_ratio=1/16``, FarSeg++ with the
+             decoder's ``norm='gn'``, ``align_corners`` and classifier
+             dropout 0.1, and FPNs with ``top_blocks='p6p7'`` and
+             ``'maxpool'`` over ResNet-50 features: finite, 1 K8 each, three
+             repeats from the same state and generator bit-equal to the
+             first (the corner-aligned resizes are matrix products), the
+             median ms; (f) ``vitl16_sat493m`` with
+             ``untie_global_and_local_cls_norm``, bf16, train mode, RoPE
+             rescale, over [2 global crops of 512², 8 local crops of 112²]
+             with ``DINOHead`` (65536 out, hidden 2048, bottleneck 256) on
+             each crop's cls token and a sum loss: 24 K1 and 24 K2 a forward
+             and backward (the local crops' 54 tokens take the plain path),
+             gradients within phase 4's limits of ``attn_impl='xla'``,
+             ``local_cls_norm``'s gradient non-zero and from crop 1 alone.
+             The phase's K1, K2 and K8 launches join the kernels line.
+13. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -2983,6 +3022,451 @@ def phase_ddp(seed: int, smi: str) -> None:
           f'{a_secs:.1f} s; phase wall time {time.perf_counter() - t_phase:.1f} s', flush=True)
 
 
+# -- models: FarSeg++ on the folded stem, SE/GC ResNets, FPN and decoder variants,
+# and DINOv3's multi-crop forward -------------------------------------------------
+
+# 16 train scenes of 512² (a crop is the whole scene) and 2 val scenes of 1024²
+MODELS_LAYOUT = [('Train', 'Urban', 8, TILE), ('Train', 'Rural', 8, TILE),
+                 ('Val', 'Urban', 1, 2 * TILE), ('Val', 'Rural', 1, 2 * TILE)]
+MODELS_ITERS, MODELS_RESUME_AT, MODELS_WORKERS = 6, 3, 4
+MODELS_VARIANT_BATCH = 2
+# the multi-crop forward: DINOv3's 2 global crops of 512² and 8 local ones of
+# 112² (7² + 5 = 54 tokens: below FUSED_TOKEN_THRESHOLD, the plain path)
+GLOBAL_CROPS, LOCAL_CROPS, LOCAL_SIZE = 2, 8, 112
+DINO_HEAD = dict(out_dim=65536, hidden_dim=2048, bottleneck_dim=256)
+
+
+def farseg_pp_config(proj: str, root: str) -> str:
+    """The project's ``configs/farseg_r50_loveda.py`` made FarSeg++ on the
+    folded stem: ``relation_type='v2'`` (channel dropout 0.1),
+    ``stem='s2d_input'``, ``maxpool_impl='pallas'``, LoveDA read with
+    ``layout='s2d'``, batch 8 of 512² crops, bf16, SGD momentum 0.9 + poly;
+    written beside it, its path returned."""
+    from ever_tpu_torch.core.config import import_config
+
+    cfg = import_config(os.path.join(proj, 'configs', 'farseg_r50_loveda.py')).to_dict()
+    params = cfg['model']['params']
+    params['encoder'].update(stem='s2d_input', maxpool_impl='pallas')
+    params['head'] = dict(relation_type='v2', fs_relation=dict(dropout_rate=0.1))
+    cfg['data']['train']['params'].update(root=root, layout='s2d', total_batch_size=TRAIN_BATCH,
+                                          num_workers=MODELS_WORKERS, crop_size=TILE)
+    cfg['data']['test']['params'].update(root=root, layout='s2d', batch_size=2)
+    cfg['train'].update(num_iters=MODELS_ITERS, log_interval_step=1,
+                        save_ckpt_interval_epoch=1000, eval_after_train=True)
+    path = os.path.join(proj, 'configs', 'farseg_pp_r50_s2d_loveda.py')
+    with open(path, 'w') as f:
+        f.write('# FarSeg++-R50 on the space-to-depth input stem, from farseg_r50_loveda.py\n'
+                f'config = {cfg!r}\n')
+    return path
+
+
+def record_masks(masks: list):
+    """Keep every dropout keep-mask drawn (``module.ops._keep_mask``), on the
+    card; returns the undo."""
+    from ever_tpu_torch.module import ops
+
+    keep = ops._keep_mask
+
+    def recorded(shape, rate, generator):
+        mask = keep(shape, rate, generator)
+        masks.append(mask.clone())
+        return mask
+
+    ops._keep_mask = recorded
+
+    def undo():
+        ops._keep_mask = keep
+    return undo
+
+
+def fwd_bwd(model, loss_fn, seed: int):
+    """One forward and backward of ``loss_fn(model, generator)``: the loss,
+    every parameter's gradient (None where it got none), and the K8
+    launches."""
+    from ever_tpu_torch.ops import pool as P
+
+    model.zero_grad(set_to_none=True)
+    before = P.max_pool_32_bwd.launches
+    loss = loss_fn(model, torch.Generator(device='cuda').manual_seed(seed))
+    loss.backward()
+    grads = [None if p.grad is None else p.grad.detach().clone() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads, P.max_pool_32_bwd.launches - before
+
+
+def repeat_step(name: str, model, loss_fn, smi: str, k8_each: int) -> float:
+    """A train forward and backward, then three more from the same state
+    and generator, each timed by CUDA events: finite, bit-equal to the
+    first, ``k8_each`` K8 launches each.  Returns the median ms."""
+    loss_a, grads_a, k8_a = fwd_bwd(model, loss_fn, seed=11)
+    finite = bool(torch.isfinite(loss_a)) and all(
+        g is None or bool(torch.isfinite(g).all()) for g in grads_a)
+    missing = sum(g is None for g in grads_a)
+    equal, k8s, times = True, [k8_a], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss_b, grads_b, k8_b = fwd_bwd(model, loss_fn, seed=11)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        k8s.append(k8_b)
+        equal &= torch.equal(loss_a, loss_b) and all(
+            (a is None and b is None) or torch.equal(a, b) for a, b in zip(grads_a, grads_b))
+    ms = sorted(times)[1]
+    print(f'models: e: {smi}: {name}: loss {loss_a.item():.5f}, loss and gradients finite '
+          f'{finite} ({missing} parameters without a gradient), 3 repeats bit-equal to the '
+          f'first {equal}, K8 launches {k8s} (expected {k8_each} each); forward and backward '
+          f'at B={MODELS_VARIANT_BATCH}, {TILE}², bf16: median {ms:.2f} ms of '
+          f'{" ".join(f"{t:.2f}" for t in times)}', flush=True)
+    check(finite and missing == 0, f'e: {name}: non-finite or missing gradients')
+    check(equal, f'e: {name}: two runs from the same state differ')
+    check(all(k == k8_each for k in k8s), f'e: {name}: K8 launches {k8s}')
+    return ms
+
+
+def phase_models(gen, seed: int, smi: str):
+    """The rest of the ported models on the card (module docstring, phase
+    12): (a) the s2d readers, (b) FarSeg++-R50 from a config through the
+    project's train.py with a resume, (c) the stem fold, (d) serving, (e)
+    the SE, GC, decoder and FPN variants at full width, (f) DINOv3's
+    multi-crop forward with DINOHead.  Returns this phase's (K1, K2, K8)
+    launches."""
+    import tempfile
+
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.data import SpaceToDepth
+    from ever_tpu_torch.data.geotile import GeoTileDataset
+    from ever_tpu_torch.data.loveda import LoveDA
+    from ever_tpu_torch.module.fpn import FPN
+    from ever_tpu_torch.module.resnet import ResNetEncoder
+    from ever_tpu_torch.module.vit import SAT_CONFIGS, DINOHead, DinoVisionTransformer
+    from ever_tpu_torch.ops import attention as A, pool as P
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True          # a resumed run's and a repeat's bits
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_models_') as tmp:
+        # a: create, the LoveDA tree, the s2d readers
+        proj = os.path.join(tmp, 'proj')
+        r = subprocess.run([sys.executable, '-m', 'ever_tpu_torch', 'create', proj], cwd=repo,
+                           env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f'create failed: {r.stderr[-2000:]}')
+        root = os.path.join(tmp, 'LoveDA')
+        written = write_loveda(root, seed, MODELS_LAYOUT)
+        fold = SpaceToDepth()
+        n_items, same = 0, True
+        for split in ('train', 'val'):
+            hwc = LoveDA(dict(root=root, split=split, crop_size=TILE))
+            s2d = LoveDA(dict(root=root, split=split, crop_size=TILE, layout='s2d'))
+            for i in range(len(hwc)):
+                (x, y), (xs, ys) = hwc[i], s2d[i]
+                same &= (xs.shape == (x.shape[0] // 2, x.shape[1] // 2, 12)
+                         and np.array_equal(xs, fold(x)[0]) and np.array_equal(ys, y))
+                n_items += 1
+        val_pairs = [(p, p.replace('images_png', 'masks_png'))
+                     for p, _, _ in written if f'{os.sep}Val{os.sep}' in p]
+        geo = GeoTileDataset(dict(scene_pairs=val_pairs, patch_size=TILE, stride=TILE,
+                                  layout='s2d'))
+        idx = list(range(len(geo)))
+        xb, yb = geo.read_batch(idx)
+        items = [geo[i] for i in idx]
+        geo_equal = (np.array_equal(xb, np.stack([a for a, _ in items]))
+                     and np.array_equal(yb, np.stack([b for _, b in items])))
+        print(f'models: a: LoveDA(layout=\'s2d\'): {n_items} items (train crops of {TILE}², '
+              f'val scenes of {2 * TILE}²) equal to SpaceToDepth of the \'hwc\' items bit for '
+              f'bit, masks at full resolution: {same}; GeoTileDataset(layout=\'s2d\') '
+              f'read_batch of {len(geo)} patches {tuple(xb.shape)} through the host library '
+              f'equal to the per-item path: {geo_equal}', flush=True)
+        check(same and n_items == sum(n for _, _, n, _ in MODELS_LAYOUT),
+              'a: the s2d LoveDA items are not the folded hwc items')
+        check(geo_equal and xb.shape == (len(geo), TILE // 2, TILE // 2, 12),
+              'a: the s2d read_batch differs from the per-item path')
+
+        # b: FarSeg++-R50 from the config through the project's train.py
+        cfg_path = farseg_pp_config(proj, root)
+        train_py = os.path.join(proj, 'train.py')
+
+        def argv(model_dir, iters, evaluate=True):
+            return ['--config_path', cfg_path, '--model_dir', model_dir,
+                    'train.num_iters', str(iters), 'train.eval_after_train', str(evaluate)]
+
+        masks_a, masks_b = [], []
+        undo = record_masks(masks_a)
+        try:
+            _, ra = recorded_run(train_py, argv(os.path.join(tmp, 'a'), MODELS_RESUME_AT, False))
+            la, ra2 = recorded_run(train_py, argv(os.path.join(tmp, 'a'), MODELS_ITERS, False))
+        finally:
+            undo()
+        resumed = {k: v.detach().clone() for k, v in la.model.state_dict().items()}
+        del la
+        seen = []
+        undo_cm, undo = record_confusion(seen), record_masks(masks_b)
+        try:
+            lb, rb = recorded_run(train_py, argv(os.path.join(tmp, 'b'), MODELS_ITERS))
+        finally:
+            undo()
+            undo_cm()
+        model = lb.model
+        trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        resume_equal = all(torch.equal(resumed[k], v) for k, v in trained.items())
+        losses = [d['total_loss'] for _, d, _, _ in rb['logged']]
+        k8_b = rb['launches'][2]
+        per_step = len(masks_b) // MODELS_ITERS
+        step_masks = [masks_b[i * per_step:(i + 1) * per_step] for i in range(MODELS_ITERS)]
+        masks_differ = all(not all(torch.equal(a, b) for a, b in zip(s, t))
+                           for s, t in zip(step_masks, step_masks[1:]))
+        masks_repeat = (len(masks_a) == len(masks_b) and
+                        all(torch.equal(a, b) for a, b in zip(masks_a, masks_b)))
+        dumps = sorted(os.listdir(os.path.join(lb.model_dir, 'cm')))
+        card_cm = np.load(os.path.join(lb.model_dir, 'cm', dumps[-1]))
+        truth = np.concatenate([y.reshape(-1) for _, _, y, _ in seen])
+        pred = np.concatenate([p.reshape(-1) for _, _, _, p in seen])
+        valid = truth != 255
+        host_cm = np.bincount(truth[valid].astype(np.int64) * CLASSES + pred[valid],
+                              minlength=CLASSES * CLASSES).reshape(CLASSES, CLASSES)
+        # 2-step epochs: the loader's workers start anew at each, so the
+        # steps alternate between a wait and none; the mean says what a run takes
+        logged = rb['logged'][1:]
+        launcher_ms = sum(t for _, _, _, t in logged) / len(logged) * 1e3
+        data_ms = sum(d for _, _, d, _ in logged) / len(logged) * 1e3
+        print(f'models: b: {smi}: FarSeg++-R50 ({os.path.basename(cfg_path)}: relation v2, '
+              f'channel dropout 0.1, stem s2d_input, K8, LoveDA layout s2d, batch '
+              f'{TRAIN_BATCH} of {TILE}², bf16, SGD momentum 0.9 + poly) through train.py: '
+              f'steps {[s for s, _, _, _ in rb["logged"]]}, loss '
+              f'{" ".join(f"{v:.5f}" for v in losses)}; K8 launches {k8_b} (expected '
+              f'{MODELS_ITERS}), K1/K2 {rb["launches"][:2]}; {per_step} dropout masks a step, '
+              f'differing between steps {masks_differ}, bit-equal in the {MODELS_RESUME_AT} + '
+              f'resumed {MODELS_ITERS - MODELS_RESUME_AT} steps {masks_repeat}; resumed from '
+              f'step {MODELS_RESUME_AT} to {MODELS_ITERS} bit-equal to the unbroken run: '
+              f'{resume_equal}; the evaluation of {len(seen)} batch(es) of the 2 val scenes: '
+              f'confusion matrix ({int(card_cm.sum())} pixels) equal to np.bincount on the '
+              f'host {bool(np.array_equal(card_cm, host_cm))}; through the Launcher '
+              f'{launcher_ms:.2f} ms/step ({data_ms:.2f} of it loading), the means of steps '
+              f'2-{MODELS_ITERS} (per step: '
+              f'{" ".join(f"{t * 1e3:.1f}/{d * 1e3:.1f}" for _, _, d, t in logged)} ms '
+              f'step/loading), deterministic cuDNN', flush=True)
+        check(len(losses) == MODELS_ITERS and all(math.isfinite(v) for v in losses),
+              'b: non-finite or missing losses')
+        check(k8_b == MODELS_ITERS and ra['launches'][2] + ra2['launches'][2] == MODELS_ITERS,
+              f'b: K8 launches {k8_b}, {ra["launches"][2]} + {ra2["launches"][2]}')
+        check(per_step == 4 and masks_differ, 'b: the dropout masks repeat between steps')
+        check(masks_repeat, 'b: the dropout masks differ across a repeat')
+        check(resume_equal, 'b: the resumed run differs from the unbroken run')
+        check(all(d == 'cuda' for d, _, _, _ in seen) and np.array_equal(card_cm, host_cm)
+              and int(host_cm.sum()) == int(valid.sum()),
+              "b: the card's confusion matrix differs from the host's")
+        del lb, resumed
+        torch.cuda.empty_cache()
+
+        # b: the bare step on the trained model, and its FLOPs
+        torch.backends.cudnn.deterministic = deterministic
+        schedule = make_learningrate({'type': 'poly', 'params': dict(
+            base_lr=0.01, power=0.9, max_iters=1000)})
+        factory, _ = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})
+        tx = factory.build(schedule)
+        state = create_train_state(model, tx)
+        step = build_train_step(model, tx, schedule)
+        x = torch.randn(TRAIN_BATCH, TILE // 2, TILE // 2, 12, generator=gen, device='cuda')
+        y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+        with FlopCounterMode(display=False) as counter:
+            state, _ = step(state, (x, y))
+        step_flops = counter.get_total_flops()
+        for _ in range(WARMUP_STEPS - 1):
+            state, _ = step(state, (x, y))
+        torch.cuda.synchronize()
+        before = P.max_pool_32_bwd.launches
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+        events[0].record()
+        for i in range(TIMED_STEPS):
+            state, m = step(state, (x, y))
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        bare_ms = times[len(times) // 2]
+        bare_k8 = P.max_pool_32_bwd.launches - before
+        print(f'models: b: {smi}: the bare FarSeg++ step (build_train_step, folded batch of '
+              f'{TRAIN_BATCH}): median {bare_ms:.2f} ms/step (min {times[0]:.2f}, max '
+              f'{times[-1]:.2f}) = {TRAIN_BATCH / bare_ms * 1e3:.1f} tiles/s; MFU '
+              f'{step_flops / (bare_ms / 1e3) / PEAK_BF16_FLOPS:.4f} ({step_flops / 1e12:.3f} '
+              f'TFLOP/step by FlopCounterMode / step time / 989 TFLOP/s); K8 {bare_k8} in '
+              f'{TIMED_STEPS} steps; loss {m["cls_loss"].item():.5f}', flush=True)
+        check(bare_k8 == TIMED_STEPS and math.isfinite(m['cls_loss'].item()),
+              f'b: the bare step launched K8 {bare_k8} times in {TIMED_STEPS}')
+        del state, step, m
+        model.load_state_dict(trained, strict=True)       # the weights train.py left
+        torch.backends.cudnn.deterministic = True
+
+        # c: the trained weights in a stem='s2d' model on the unfolded batch
+        cfg = import_config(cfg_path).model
+        cfg.params.encoder.stem = 's2d'
+        plain = make_model(cfg)
+        plain.load_state_dict(trained, strict=True)
+        model.eval()
+        plain.eval()
+        hwc = LoveDA(dict(root=root, split='val'))
+        s2d = LoveDA(dict(root=root, split='val', layout='s2d'))
+        xh = torch.from_numpy(np.stack([hwc[i][0] for i in range(2)])).cuda()
+        xs = torch.from_numpy(np.stack([s2d[i][0] for i in range(2)])).cuda()
+        with torch.no_grad():
+            folded, unfolded = model(xs), plain(xh)
+        fold_equal = torch.equal(folded, unfolded)
+        print(f'models: c: the trained state_dict in a stem=\'s2d\' model on the 2 unfolded '
+              f'val scenes {tuple(xh.shape)} against the s2d_input model on the folded '
+              f'{tuple(xs.shape)}, eval mode, bf16: bit-equal {fold_equal} (max |dp| '
+              f'{float((folded - unfolded).abs().max()):.3e})', flush=True)
+        check(fold_equal, 'c: the folded stem differs from the conv stem on the unfolded batch')
+        del model, folded, unfolded, trained
+
+        # d: serving a 4096² scene with the stem='s2d' model
+        scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+
+        def serve():
+            out = tiled_inference(plain, scene, TILE, STRIDE, CLASSES, tile_batch=TILE_BATCH)
+            torch.cuda.synchronize()
+            return out
+
+        serve()
+        before = P.max_pool_32_bwd.launches
+        t0 = time.perf_counter()
+        out = serve()
+        serve_s = time.perf_counter() - t0
+        serve_k8 = P.max_pool_32_bwd.launches - before
+        n_tiles = (SCENE // STRIDE) ** 2
+        sums = float((out.sum(-1) - 1).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        print(f'models: d: {smi}: FarSeg++ (stem s2d) tiled_inference of a {SCENE}² scene, '
+              f'{TILE}² tiles, stride {STRIDE}, tile_batch {TILE_BATCH}, bf16: '
+              f'{serve_s * 1e3:.1f} ms/scene = {n_tiles / serve_s:.1f} tiles/s; probabilities '
+              f'finite {finite}, sums within {sums:.2e} of 1; K8 launches {serve_k8}', flush=True)
+        check(finite and sums <= PROB_SUM_TOL and tuple(out.shape) == (SCENE, SCENE, CLASSES),
+              'd: the served probabilities are not finite or do not sum to 1')
+        check(serve_k8 == 0, f'd: serving launched K8 {serve_k8} times')
+        del plain, out, scene
+        torch.cuda.empty_cache()
+
+    # e: the variants at full width, one 512² step each at B=2, bf16
+    x = torch.randn(MODELS_VARIANT_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (MODELS_VARIANT_BATCH, TILE, TILE), generator=gen,
+                      device='cuda')
+
+    def seg_loss(model, generator):
+        return model(x, y, train=True, generator=generator)['cls_loss']
+
+    variants = [
+        ('FarSeg-R50 se_ratio=16', dict(encoder=dict(se_ratio=16))),
+        ('FarSeg-R50 gc_ratio=1/16', dict(encoder=dict(gc_ratio=1 / 16))),
+        ('FarSeg++ decoder norm=gn, align_corners, classifier dropout 0.1', dict(head=dict(
+            relation_type='v2', fpn_decoder=dict(norm='gn', align_corners=True,
+                                                 classifier_config=dict(dropout_rate=0.1))))),
+    ]
+    variant_ms = {}
+    for name, extra in variants:
+        cfg = dict(FARSEG, encoder=dict(FARSEG['encoder'], **extra.get('encoder', {})),
+                   **({'head': extra['head']} if 'head' in extra else {}))
+        model = make_model({'type': 'FarSeg', 'params': cfg})
+        seeded_conv_init_(model, gen)
+        variant_ms[name] = repeat_step(name, model, seg_loss, smi, k8_each=1)
+        del model
+    for top in ('p6p7', 'maxpool'):
+        net = torch.nn.ModuleDict(dict(
+            encoder=ResNetEncoder(dict(resnet_type='resnet50', maxpool_impl='pallas',
+                                       dtype='bfloat16')),
+            fpn=FPN((256, 512, 1024, 2048), 256, top_blocks=top))).cuda()
+        seeded_conv_init_(net, gen)
+        levels = []
+
+        def fpn_loss(net, generator):
+            out = net['fpn'](net['encoder'](x, train=True), train=True)
+            levels.append(len(out))
+            return sum(level.float().square().mean() for level in out)
+
+        name = f'FPN top_blocks={top!r} over ResNet-50 features'
+        variant_ms[name] = repeat_step(name, net, fpn_loss, smi, k8_each=1)
+        check(levels[-1] == (6 if top == 'p6p7' else 5), f'e: FPN {top} gave {levels[-1]} levels')
+        del net
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+
+    # f: DINOv3's multi-crop forward with DINOHead, K1/K2 against attn_impl='xla'
+    with torch.device('cuda'):
+        vit = DinoVisionTransformer(**{**SAT_CONFIGS['vitl16_sat493m'],
+                                       'untie_global_and_local_cls_norm': True})
+        head = DINOHead(vit.embed_dim, **DINO_HEAD)
+    seeded_init_(vit, gen)
+    seeded_init_(head, gen)
+    net = torch.nn.ModuleDict(dict(vit=vit, head=head))
+    crops = [torch.randn(GLOBAL_CROPS, TILE, TILE, 3, generator=gen, device='cuda').bfloat16(),
+             torch.randn(LOCAL_CROPS, LOCAL_SIZE, LOCAL_SIZE, 3, generator=gen,
+                         device='cuda').bfloat16()]
+
+    def dino_loss(net, generator, which=(0, 1)):
+        outs = net['vit'](crops, train=True, generator=generator)
+        return sum(net['head'](outs[i]['x_norm_clstoken']).float().sum() for i in which)
+
+    def run(seed=3, which=(0, 1)):
+        net.zero_grad(set_to_none=True)
+        dino_loss(net, torch.Generator(device='cuda').manual_seed(seed), which).backward()
+        grads = {n: None if p.grad is None else p.grad.detach().float().clone()
+                 for n, p in net.named_parameters()}
+        net.zero_grad(set_to_none=True)
+        return grads
+
+    run()                                                        # warm-up
+    torch.cuda.synchronize()
+    k1_0, k2_0 = A.fused_attention.launches, A.fused_attention_bwd.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    g_kernel = run()
+    end.record()
+    torch.cuda.synchronize()
+    dino_ms = start.elapsed_time(end)
+    k1 = A.fused_attention.launches - k1_0
+    k2 = A.fused_attention_bwd.launches - k2_0
+    only_global = run(which=(0,))['vit.local_cls_norm.weight']
+    for blk in vit.blocks:
+        blk.attn.attn_impl = 'xla'
+    g_plain = run()
+    for blk in vit.blocks:
+        blk.attn.attn_impl = None
+    names = [n for n, g in g_plain.items() if g is not None]
+    rel, worst, cos = compare_grads([g_kernel[n] for n in names], [g_plain[n] for n in names])
+    local = g_kernel['vit.local_cls_norm.weight']
+    local_ok = (local is not None and float(local.abs().sum()) > 0 and only_global is None)
+    print(f'models: f: {smi}: vitl16_sat493m untie_global_and_local_cls_norm, bf16, train, '
+          f'RoPE rescale, list of {GLOBAL_CROPS} x {TILE}² and {LOCAL_CROPS} x '
+          f'{LOCAL_SIZE}², DINOHead {DINO_HEAD} on each crop\'s cls token, sum loss: '
+          f'{dino_ms:.2f} ms forward and backward; attention_fwd {k1}, attention_bwd {k2} '
+          f'(expected 24 and 24: the local crops\' 54 tokens take the plain path); gradients '
+          f'against attn_impl=\'xla\': ||dg||/||g|| {rel:.3e}, worst cosine {worst:.7f} '
+          f'({names[cos.index(worst)]}) (limits {GRAD_REL_TOL}, {GRAD_COS_MIN}); '
+          f'local_cls_norm gradient |sum| {0.0 if local is None else float(local.abs().sum()):.4e}'
+          f', from the global crop alone {only_global}', flush=True)
+    check((k1, k2) == (24, 24), f'f: K1/K2 launches {(k1, k2)}')
+    check(rel <= GRAD_REL_TOL and worst >= GRAD_COS_MIN,
+          'f: the multi-crop gradients disagree with plain attention')
+    check(local_ok, 'f: local_cls_norm gets its gradient from another crop than index 1')
+    del vit, head, net, g_kernel, g_plain
+    torch.cuda.empty_cache()
+    # the counts run on from the last train.py run's reset; the two before it
+    launches = tuple(c + a + b for c, a, b in zip(
+        (A.fused_attention.launches, A.fused_attention_bwd.launches, P.max_pool_32_bwd.launches),
+        ra['launches'], ra2['launches']))
+    print(f'models: {smi}: launches in the phase (K1, K2, K8) {launches}; phase wall time '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return launches
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -3053,6 +3537,10 @@ def main() -> int:
     phase_trainer(gen, args.seed, bare_ms, smi)
     phase_workflow(gen, args.seed, smi)
     phase_ddp(args.seed, smi)
+    k1, k2, k8 = phase_models(gen, args.seed, smi)
+    fwd['launches'] += k1
+    bwd['launches'] += k2
+    pool['launches'] += k8
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

@@ -88,10 +88,9 @@ class Iterator:
         if is_master is None:
             is_master = is_main_process()
         self._step += 1
-        if self._step == 1 and self._start_step > 0:
-            self._resume(forward_times)
-        ep = self.epoch(forward_times)
-        # the dataset's epoch is that of the batch about to be drawn
+        # the dataset's epoch is that of the batch about to be drawn, set
+        # before a resume makes the loader's iterator: its worker processes
+        # take the dataset as it is when they start
         ds = getattr(self._data_loader, 'dataset', None)
         if hasattr(ds, 'set_epoch'):
             ds_ep = ((self._start_step + self._step - 1) * forward_times
@@ -99,6 +98,9 @@ class Iterator:
             if ds_ep != self._ds_epoch:
                 ds.set_epoch(ds_ep)
                 self._ds_epoch = ds_ep
+        if self._step == 1 and self._start_step > 0:
+            self._resume(forward_times)
+        ep = self.epoch(forward_times)
         if ep not in self._look_up:
             # a resumed run's first epoch is marked, not fired: saving or
             # evaluating at once would repeat what it resumed from

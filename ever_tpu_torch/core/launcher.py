@@ -328,7 +328,7 @@ class Launcher:
             raise ValueError('num_iters must be positive')
         if kwargs.get('profile_dir', None):
             raise NotImplementedError('profile_dir (a trace of the loop) is not '
-                                      'ported yet')
+                                      'ported yet (ROADMAP.md A.5, the loop\'s trace)')
         forward_times = kwargs.get('forward_times', 1)
         steps_per_loop = int(kwargs.get('steps_per_loop', 1))
         eval_per_epoch = kwargs.get('eval_per_epoch', False)

@@ -80,6 +80,36 @@ int ever_extract_tiles_u8(const uint8_t* scene, int64_t H, int64_t W,
   return 0;
 }
 
+// The same gather emitting 2x2 space-to-depth tiles: out [N, th/2, tw/2,
+// 4*C] with channel (dy*2 + dx)*C + c, what encoders with stem='s2d_input'
+// take.  th and tw must be even (-5 otherwise).
+int ever_extract_tiles_s2d_u8(const uint8_t* scene, int64_t H, int64_t W,
+                              int64_t C, const int64_t* boxes, int64_t N,
+                              int64_t th, int64_t tw, uint8_t* out) {
+  if (!scene || !boxes || !out || C <= 0 || th <= 0 || tw <= 0) return -1;
+  if ((th | tw) & 1) return -5;
+  for (int64_t i = 0; i < N; ++i) {
+    int64_t y0 = boxes[2 * i], x0 = boxes[2 * i + 1];
+    if (y0 < 0 || x0 < 0 || y0 + th > H || x0 + tw > W) return -2;
+  }
+  const int64_t oh = th / 2, ow = tw / 2, oc = 4 * C;
+  parallel_for(N, [=](int64_t i) {
+    int64_t y0 = boxes[2 * i], x0 = boxes[2 * i + 1];
+    uint8_t* dst = out + i * oh * ow * oc;
+    for (int64_t r = 0; r < oh; ++r) {
+      const uint8_t* row0 = scene + ((y0 + 2 * r) * W + x0) * C;
+      const uint8_t* row1 = row0 + W * C;
+      uint8_t* d = dst + r * ow * oc;
+      for (int64_t c2 = 0; c2 < ow; ++c2) {
+        std::memcpy(d, row0 + 2 * c2 * C, 2 * C);          // dy = 0: dx = 0, 1
+        std::memcpy(d + 2 * C, row1 + 2 * c2 * C, 2 * C);  // dy = 1: dx = 0, 1
+        d += oc;
+      }
+    }
+  });
+  return 0;
+}
+
 // in: H rows of (1 + stride) bytes, each a filter-type byte and the
 // filtered row; out: [H, stride] raw bytes; bpp: bytes per pixel (>= 1).
 // Returns 0, -1 for a bad argument, or -(2 + y) for an unknown filter type

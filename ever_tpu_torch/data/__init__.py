@@ -24,3 +24,4 @@ from ever_tpu_torch.data import cross_validation, geotile, loveda  # noqa: F401
 from ever_tpu_torch.data.cross_validation import CrossValSamplerGenerator, make_CVSamplers  # noqa: F401
 from ever_tpu_torch.data.geotile import GeoTileDataset, read_raster  # noqa: F401
 from ever_tpu_torch.data.loveda import LoveDA  # noqa: F401
+from ever_tpu_torch.data._scene import SpaceToDepth  # noqa: F401

@@ -6,6 +6,9 @@ than a crop still train.
 
 The crop generator is ``np.random.default_rng((seed*1000003 + epoch)
 *1000003 + idx)``, the JAX package's, so both packages cut the same crops.
+
+``SpaceToDepth`` is the readers' ``layout='s2d'`` fold (the port's copy of
+``ever_tpu/preprocess/segm.py`` ``SpaceToDepth``).
 """
 
 from __future__ import annotations
@@ -16,7 +19,25 @@ import numpy as np
 
 from ever_tpu_torch.interface.dataloader import ERDataset
 
-__all__ = ['CroppedSceneDataset', 'require_all_or_none']
+__all__ = ['CroppedSceneDataset', 'SpaceToDepth', 'require_all_or_none']
+
+
+class SpaceToDepth:
+    """Host-side 2×2 space-to-depth of a sample: ``[H, W, C]`` →
+    ``[H/2, W/2, 4C]`` with channel ``(dy·2 + dx)·C + c``, what encoders
+    with ``stem='s2d_input'`` take; the mask is returned untouched (labels
+    stay at full resolution)."""
+
+    def __init__(self, block: int = 2):
+        self.block = int(block)
+
+    def __call__(self, image, mask=None):
+        b = self.block
+        image = np.asarray(image)
+        h, w, c = image.shape
+        image = image.reshape(h // b, b, w // b, b, c)
+        image = np.ascontiguousarray(image.transpose(0, 2, 1, 3, 4))
+        return image.reshape(h // b, w // b, b * b * c), mask
 
 
 def require_all_or_none(pairs, what: str) -> None:

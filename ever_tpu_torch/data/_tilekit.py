@@ -1,6 +1,7 @@
 """The port's host library (``csrc/tilekit.cpp``) through ``ctypes``.
 
-``extract_tiles`` is the tile gather of ``GeoTileDataset.read_batch`` and
+``extract_tiles`` is the tile gather of ``GeoTileDataset.read_batch``
+(``extract_tiles_s2d`` its space-to-depth form, for ``layout='s2d'``) and
 ``png_unfilter`` the row unfilter of ``data/_png.py``.  The library is built
 with ``g++`` into ``ever_tpu_torch/_build/`` at first use (``ops/_build.py``);
 there is no numpy fallback: a failed build raises.  Call :func:`load` in the
@@ -14,7 +15,7 @@ import ctypes
 
 import numpy as np
 
-__all__ = ['load', 'extract_tiles', 'png_unfilter']
+__all__ = ['load', 'extract_tiles', 'extract_tiles_s2d', 'png_unfilter']
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i64 = ctypes.c_int64
@@ -31,10 +32,10 @@ def load() -> ctypes.CDLL:
             raise RuntimeError('tilekit ABI mismatch')
         lib.ever_png_unfilter.restype = ctypes.c_int
         lib.ever_png_unfilter.argtypes = [_u8p, _i64, _i64, _i64, _u8p]
-        lib.ever_extract_tiles_u8.restype = ctypes.c_int
-        lib.ever_extract_tiles_u8.argtypes = [
-            _u8p, _i64, _i64, _i64, ctypes.POINTER(ctypes.c_int64), _i64, _i64, _i64,
-            _u8p]
+        for fn in (lib.ever_extract_tiles_u8, lib.ever_extract_tiles_s2d_u8):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [_u8p, _i64, _i64, _i64, ctypes.POINTER(ctypes.c_int64), _i64,
+                           _i64, _i64, _u8p]
     return lib
 
 
@@ -45,7 +46,20 @@ def _ptr(a: np.ndarray, ctype):
 def extract_tiles(scene: np.ndarray, boxes: np.ndarray, tile_hw=(512, 512)) -> np.ndarray:
     """Gather N ``(th, tw)`` uint8 tiles at ``boxes[:, (y0, x0)]`` of an HWC
     (or HW) uint8 scene: ``[N, th, tw, C]``."""
+    return _extract(load().ever_extract_tiles_u8, scene, boxes, tile_hw, s2d=False)
+
+
+def extract_tiles_s2d(scene: np.ndarray, boxes: np.ndarray, tile_hw=(512, 512)) -> np.ndarray:
+    """:func:`extract_tiles` emitting each tile 2×2 space-to-depth folded:
+    ``[N, th/2, tw/2, 4C]`` with channel ``(dy·2 + dx)·C + c``; th and tw
+    even."""
+    return _extract(load().ever_extract_tiles_s2d_u8, scene, boxes, tile_hw, s2d=True)
+
+
+def _extract(fn, scene, boxes, tile_hw, s2d: bool) -> np.ndarray:
     th, tw = int(tile_hw[0]), int(tile_hw[1])
+    if s2d and (th % 2 or tw % 2):
+        raise ValueError(f'extract_tiles_s2d: tile sides must be even, got {th}x{tw}')
     scene = np.ascontiguousarray(scene)
     if scene.ndim == 2:
         scene = scene[..., None]
@@ -56,10 +70,10 @@ def extract_tiles(scene: np.ndarray, boxes: np.ndarray, tile_hw=(512, 512)) -> n
         raise ValueError(f'boxes must be [N, 2] (y0, x0) pairs, got shape {boxes.shape}')
     h, w, c = scene.shape
     n = len(boxes)
-    out = np.empty((n, th, tw, c), np.uint8)
-    rc = load().ever_extract_tiles_u8(
-        _ptr(scene, ctypes.c_uint8), h, w, c, _ptr(boxes, ctypes.c_int64),
-        n, th, tw, _ptr(out, ctypes.c_uint8))
+    shape = (n, th // 2, tw // 2, 4 * c) if s2d else (n, th, tw, c)
+    out = np.empty(shape, np.uint8)
+    rc = fn(_ptr(scene, ctypes.c_uint8), h, w, c, _ptr(boxes, ctypes.c_int64), n, th, tw,
+            _ptr(out, ctypes.c_uint8))
     if rc != 0:
         raise ValueError(f'extract_tiles: a box outside the scene (rc={rc})')
     return out

@@ -28,6 +28,7 @@ import torch
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.data import _tilekit
 from ever_tpu_torch.data._png import png_size, read_png
+from ever_tpu_torch.data._scene import SpaceToDepth
 from ever_tpu_torch.interface.dataloader import ERDataset, default_collate
 from ever_tpu_torch.magic.sliding_window import sliding_window
 
@@ -133,7 +134,7 @@ class GeoTileDataset(ERDataset):
             stride=512,
             transforms=None,
             cache_scenes=4,
-            layout='hwc',            # 's2d' comes with stem='s2d_input'
+            layout='hwc',            # 'hwc' | 's2d' (stem='s2d_input')
             image_dtype='float32',   # 'uint8' keeps the raw bytes
             mask_dtype='int32',
         ))
@@ -141,10 +142,8 @@ class GeoTileDataset(ERDataset):
     def __init__(self, config=None):
         super().__init__(config)
         cfg = self.config
-        if cfg.get('layout', 'hwc') != 'hwc':
-            raise NotImplementedError(
-                f"GeoTileDataset layout={cfg.layout!r}: the space-to-depth layout "
-                "comes with the ResNet stem='s2d_input' (ROADMAP.md A.6)")
+        if cfg.get('layout', 'hwc') not in ('hwc', 's2d'):
+            raise ValueError(f"layout must be 'hwc' or 's2d', got {cfg.layout!r}")
         if cfg.scene_pairs:
             pairs = [tuple(p) for p in cfg.scene_pairs]
         else:
@@ -181,12 +180,15 @@ class GeoTileDataset(ERDataset):
     def read_batch(self, indices):
         """The patches of ``indices`` stacked, gathered by the host library
         in one call per scene: ``(images [n, k, k, C], masks [n, k, k])``
-        (or the images alone), equal to the per-item path's.  Returns
+        (or the images alone; with ``layout='s2d'`` the images folded by
+        the gather itself, ``[n, k/2, k/2, 4C]``), equal to the per-item
+        path's.  Returns
         ``NotImplemented`` where it does not apply (python transforms,
         scenes that are not C-contiguous uint8, a mix of scenes with and
         without masks); the caller then takes the per-item path."""
         if self.config.get('transforms', None):
             return NotImplemented
+        s2d = self.config.get('layout', 'hwc') == 's2d'
         k = int(self.config.patch_size)
         items = [self._index[int(i)] for i in indices]
         by_scene = {}
@@ -208,12 +210,13 @@ class GeoTileDataset(ERDataset):
                     return NotImplemented
             c = scene.shape[2] if scene.ndim == 3 else 1
             if images is None:
-                images = np.empty((n, k, k, c), np.uint8)
-            elif c != images.shape[-1]:
+                images = np.empty((n, k // 2, k // 2, 4 * c) if s2d else (n, k, k, c),
+                                  np.uint8)
+            elif (4 * c if s2d else c) != images.shape[-1]:
                 raise ValueError(
                     f'scene {img_path!r} has {c} channels; the batch was '
-                    f'allocated for {images.shape[-1]}: all scenes of a '
-                    'GeoTileDataset must share a channel count')
+                    f'allocated for {images.shape[-1] // (4 if s2d else 1)}: all scenes '
+                    'of a GeoTileDataset must share a channel count')
             if mask_scene is not None:
                 mc = mask_scene.shape[2] if mask_scene.ndim == 3 else 1
                 if masks is None:
@@ -224,7 +227,8 @@ class GeoTileDataset(ERDataset):
                         f'was allocated for {masks.shape[-1]}')
             boxes = np.asarray([(y0, x0) for _, x0, y0 in entries], np.int64)
             pos = [p for p, _, _ in entries]
-            images[pos] = _tilekit.extract_tiles(scene, boxes, (k, k))
+            gather = _tilekit.extract_tiles_s2d if s2d else _tilekit.extract_tiles
+            images[pos] = gather(scene, boxes, (k, k))
             if mask_scene is not None:
                 masks[pos] = _tilekit.extract_tiles(mask_scene, boxes, (k, k))
         if self.config.get('image_dtype', 'float32') != 'uint8':
@@ -257,6 +261,8 @@ class GeoTileDataset(ERDataset):
                               dtype=np.dtype(self.config.get('mask_dtype', 'int32')))
         for t in self.config.get('transforms', None) or ():
             image, mask = t(image, mask)
+        if self.config.get('layout', 'hwc') == 's2d':
+            image, mask = SpaceToDepth()(image, mask)
         if mask is None:
             return image
         return image, mask

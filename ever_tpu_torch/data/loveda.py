@@ -10,7 +10,9 @@ the ignore index), classes 1..7 → 0..6.  Each scene is one sample: training
 crops it to ``crop_size`` with the shared seeded crop and flip
 (``data/_scene.py``); the other splits give the whole scene, or a centre
 crop with ``eval_crop=True``.  Samples are ``(image [H, W, 3] float32, mask
-[H, W] int32)``, or the image alone without masks.
+[H, W] int32)``, or the image alone without masks.  ``layout='s2d'`` folds
+the image after the transforms (``SpaceToDepth``: ``[H/2, W/2, 12]``, for
+``stem='s2d_input'``); the mask stays at full resolution.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.data import _tilekit
 from ever_tpu_torch.data._png import read_png
-from ever_tpu_torch.data._scene import CroppedSceneDataset, require_all_or_none
+from ever_tpu_torch.data._scene import CroppedSceneDataset, SpaceToDepth, require_all_or_none
 
 __all__ = ['LoveDA']
 
@@ -37,16 +39,14 @@ class LoveDA(CroppedSceneDataset):
         super().set_default_config()
         self.config.update(dict(
             domains=('Urban', 'Rural'),
-            layout='hwc',         # 's2d' comes with stem='s2d_input'
+            layout='hwc',         # 'hwc' | 's2d' (stem='s2d_input')
         ))
 
     def __init__(self, config=None):
         super().__init__(config)
         cfg = self.config
-        if cfg.get('layout', 'hwc') != 'hwc':
-            raise NotImplementedError(
-                f"LoveDA layout={cfg.layout!r}: the space-to-depth layout comes "
-                "with the ResNet stem='s2d_input' (ROADMAP.md A.6)")
+        if cfg.get('layout', 'hwc') not in ('hwc', 's2d'):
+            raise ValueError(f"layout must be 'hwc' or 's2d', got {cfg.layout!r}")
         split = _SPLIT_DIR.get(str(cfg.split).lower(), cfg.split)
         pairs: List[Tuple[str, Optional[str]]] = []
         for dom in cfg.domains:
@@ -86,6 +86,8 @@ class LoveDA(CroppedSceneDataset):
             mask = np.ascontiguousarray(mask)
         for t in self.config.get('transforms', None) or ():
             image, mask = t(image, mask)
+        if self.config.get('layout', 'hwc') == 's2d':
+            image, mask = SpaceToDepth()(image, mask)
         if mask is None:
             return image
         return image, mask

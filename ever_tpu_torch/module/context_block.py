@@ -1,0 +1,82 @@
+"""The GCNet global-context block (counterpart of
+``ever_tpu/module/context_block.py``).
+
+``ContextBlock2d`` pools the pixels (a softmax attention map, ``'att'``,
+or their mean, ``'avg'``), transforms the pooled context (1×1 reduce →
+LayerNorm → ReLU → 1×1 expand, the expand zero-initialised so that the
+block starts as the identity) and fuses it into x (``channel_mul``: a
+sigmoid gate, ``channel_add``: an addition).  Tensors are NCHW.  Names
+follow GCNet's torch modules and map one to one onto the JAX package's:
+``conv_mask`` is flax's ``Conv_0``, ``channel_add_conv.{0,1,3}`` its
+``channel_add_{reduce,ln,expand}`` (and ``channel_mul_*`` alike).
+
+The transform's LayerNorm is flax's default, over the inner channels with
+eps 1e-6 (torch's default would be 1e-5); the attention pool accumulates in
+float32 and casts to x's dtype, as the JAX package's ``einsum`` with
+``preferred_element_type=float32`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
+from ever_tpu_torch.module.se_block import with_ratio
+
+__all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet']
+
+_FUSIONS = ('channel_add', 'channel_mul')
+
+
+class ContextBlock2d(nn.Module):
+    def __init__(self, channels: int, inner_ratio: float = 1.0 / 16, pool: str = 'att',
+                 fusions: Sequence[str] = ('channel_add',)):
+        super().__init__()
+        if pool not in ('att', 'avg'):
+            raise ValueError(pool)
+        if not fusions or not all(f in _FUSIONS for f in fusions):
+            raise ValueError(f'bad fusions: {fusions}')
+        self.pool, self.fusions = pool, tuple(fusions)
+        inner = max(int(channels * inner_ratio), 1)
+        if pool == 'att':
+            self.conv_mask = Conv2d(channels, 1, 1, bias=True)
+        for f in _FUSIONS:
+            if f in self.fusions:
+                expand = Conv2d(inner, channels, 1, bias=True)
+                nn.init.zeros_(expand.weight)
+                nn.init.zeros_(expand.bias)
+                self.add_module(f'{f}_conv', nn.Sequential(
+                    Conv2d(channels, inner, 1, bias=True), LayerNorm2d(inner, eps=1e-6),
+                    nn.ReLU(), expand))
+
+    def forward(self, x):
+        n, c, h, w = x.shape
+        if self.pool == 'att':
+            mask = torch.softmax(self.conv_mask(x).reshape(n, h * w, 1), dim=1)
+            feats = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
+            ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+            context = torch.einsum('npc,npo->nco', feats.to(ct), mask.to(ct))
+            context = context.reshape(n, c, 1, 1).to(x.dtype)
+        else:
+            context = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+        out = x
+        if 'channel_mul' in self.fusions:
+            out = out * torch.sigmoid(self.channel_mul_conv(context))
+        if 'channel_add' in self.fusions:
+            out = out + self.channel_add_conv(context)
+        return out
+
+
+def plugin_to_basicblock(module: nn.Module, ratio: float) -> nn.Module:
+    """GC-augmented BasicBlocks: a copy of the block, stage, trunk or
+    encoder with ``gc_ratio=ratio``, the existing parameters kept
+    (:func:`~ever_tpu_torch.module.se_block.with_ratio`)."""
+    return with_ratio(module, 'gc_ratio', ratio)
+
+
+def plugin_to_resnet(module: nn.Module, ratio: float) -> nn.Module:
+    """GC-augmented Bottlenecks: as :func:`plugin_to_basicblock`."""
+    return with_ratio(module, 'gc_ratio', ratio)

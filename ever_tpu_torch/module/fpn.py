@@ -5,8 +5,9 @@ config, as torch needs them when a module is built (flax infers them); a
 feature list whose widths differ from the config raises.  Parameter names
 follow the reference torch modules (``fpn_inner1.0.weight``,
 ``blocks.0.0.1.running_mean``, ``classifier.0.weight``), the inverse of the
-JAX package's ``convert_torch_farseg_head``.  ``LastLevelMaxPool``,
-``LastLevelP6P7``, ``Fusion`` and ``BiFPN`` are not ported yet.
+JAX package's ``convert_torch_farseg_head``; the P6/P7 convs are
+``top_blocks.p6``/``top_blocks.p7``.  ``Fusion`` and ``BiFPN`` come with
+the models that use them (``ROADMAP.md`` A.7).
 """
 
 from __future__ import annotations
@@ -16,10 +17,13 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ever_tpu_torch.module.ops import ConvBlock, resize, upsample_bilinear
+from ever_tpu_torch.module.ops import (Conv2d, ConvBlock, dropout, max_pool, resize,
+                                       resize_align_corners, upsample_bilinear)
 
-__all__ = ['FPN', 'AssymetricDecoder', 'resize_nchw', 'upsample_bilinear_nchw']
+__all__ = ['FPN', 'LastLevelMaxPool', 'LastLevelP6P7', 'AssymetricDecoder',
+           'resize_nchw', 'upsample_bilinear_nchw']
 
 
 def resize_nchw(x, scale=None, shape=None, method: str = 'nearest'):
@@ -28,19 +32,24 @@ def resize_nchw(x, scale=None, shape=None, method: str = 'nearest'):
     return resize(x.permute(0, 2, 3, 1), scale, shape, method).permute(0, 3, 1, 2)
 
 
-def upsample_bilinear_nchw(x: torch.Tensor, scale) -> torch.Tensor:
+def upsample_bilinear_nchw(x: torch.Tensor, scale, align_corners: bool = False
+                           ) -> torch.Tensor:
     """Bilinear upsampling of an NCHW tensor by ``scale``: ``resize_nchw(x,
     scale=scale, method='bilinear')``'s numbers (float32 unless x is
     bfloat16, returned in x's dtype), computed by
     :func:`~ever_tpu_torch.module.ops.upsample_bilinear`'s two matrix
-    products.  ``F.interpolate``'s CUDA backward adds into the input
-    gradient with atomics; this one does not, so a train step's gradients
-    are the same bits every run, as a resumed or data-parallel run needs."""
+    products; with ``align_corners`` by
+    :func:`~ever_tpu_torch.module.ops.resize_align_corners`' (float32).
+    ``F.interpolate``'s CUDA backward adds into the input gradient with
+    atomics; these do not, so a train step's gradients are the same bits
+    every run, as a resumed or data-parallel run needs."""
     h, w = x.shape[2:]
+    shape = (int(h * scale), int(w * scale))
     xh = x.permute(0, 2, 3, 1)
+    if align_corners:
+        return resize_align_corners(xh, shape).permute(0, 3, 1, 2)
     xh = xh if xh.dtype == torch.bfloat16 else xh.float()
-    y = upsample_bilinear(xh, (int(h * scale), int(w * scale)))
-    return y.to(x.dtype).permute(0, 3, 1, 2)
+    return upsample_bilinear(xh, shape).to(x.dtype).permute(0, 3, 1, 2)
 
 
 def check_widths(what: str, feats, want: Sequence[int]) -> None:
@@ -54,21 +63,28 @@ class FPN(nn.Module):
     """Feature Pyramid Network over ``[c2, c3, c4, c5]``: bias-free 1×1
     lateral convs (``fpn_inner{i}``) and 3×3 output convs (``fpn_layer{i}``),
     with optional BN (``conv_norm='bn'``) and ReLU (``conv_act``); nearest
-    top-down upsampling.  Returns the levels highest resolution first."""
+    top-down upsampling.  Returns the levels highest resolution first, then
+    those of ``top_blocks``: ``'maxpool'`` (:class:`LastLevelMaxPool` of
+    the last level) or ``'p6p7'`` (:class:`LastLevelP6P7` of it)."""
 
     def __init__(self, in_channels_list: Sequence[int], out_channels: int = 256,
                  conv_norm: Optional[str] = None, conv_act: bool = False,
                  top_blocks: Optional[str] = None):
         super().__init__()
-        if top_blocks is not None:
-            raise NotImplementedError(f'FPN top_blocks={top_blocks!r} is not '
-                                      f'ported yet (ROADMAP.md A.15)')
         self.in_channels_list = tuple(in_channels_list)
         for i, cin in enumerate(self.in_channels_list, start=1):
             self.add_module(f'fpn_inner{i}', ConvBlock(
                 cin, out_channels, 1, norm=conv_norm, act=conv_act))
             self.add_module(f'fpn_layer{i}', ConvBlock(
                 out_channels, out_channels, 3, norm=conv_norm, act=conv_act))
+        if top_blocks == 'maxpool':
+            self.top_blocks = LastLevelMaxPool()
+        elif top_blocks == 'p6p7':
+            self.top_blocks = LastLevelP6P7(out_channels)
+        elif top_blocks is None:
+            self.top_blocks = None
+        else:
+            raise ValueError(f"top_blocks must be None, 'maxpool' or 'p6p7', got {top_blocks!r}")
 
     def forward(self, feats, train: bool = False):
         check_widths('FPN', feats, self.in_channels_list)
@@ -80,14 +96,50 @@ class FPN(nn.Module):
             top_down = resize_nchw(last_inner, shape=tuple(lateral.shape[2:]))
             last_inner = lateral + top_down
             results.insert(0, getattr(self, f'fpn_layer{idx + 1}')(last_inner, train))
+        if self.top_blocks is not None:
+            results.extend(self.top_blocks(results[-1]))
         return tuple(results)
 
 
+class LastLevelMaxPool(nn.Module):
+    """One more level: a 1×1 max pool with stride 2 (VALID) of the last."""
+
+    def forward(self, p):
+        return [max_pool(p.permute(0, 2, 3, 1), 1, 2, padding='VALID').permute(0, 3, 1, 2)]
+
+
+class LastLevelP6P7(nn.Module):
+    """RetinaNet's P6 and P7 from P5: 3×3/2 convs with a bias and lax's
+    ``'SAME'`` padding (asymmetric at stride 2), a ReLU between them;
+    kaiming-uniform (a=1) weights and zero biases, as the JAX package
+    initialises them."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.p6 = Conv2d(channels, channels, 3, 2, 'same', bias=True)
+        self.p7 = Conv2d(channels, channels, 3, 2, 'same', bias=True)
+        for conv in (self.p6, self.p7):
+            nn.init.kaiming_uniform_(conv.weight, a=1)
+            nn.init.zeros_(conv.bias)
+
+    def forward(self, p5):
+        p6 = self.p6(p5)
+        return [p6, self.p7(F.relu(p6))]
+
+
 class AssymetricDecoder(nn.Module):
-    """FarSeg decoder (the reference's spelling): per scale, conv → BN →
-    ReLU layers each followed by a half-pixel bilinear ×2 until the output
+    """FarSeg decoder (the reference's spelling): per scale, conv → norm →
+    activation layers each followed by a bilinear ×2 until the output
     stride, the mean over the scales, then the optional classifier (a conv
-    with bias) and its bilinear upsampling by ``scale_factor``."""
+    with bias) and its bilinear upsampling by ``scale_factor``.
+
+    ``norm='bn'`` takes ReLU; ``'gn'``, ``'ln'`` and None take GELU (the
+    tanh approximation, flax's ``nn.gelu``), as in the JAX package.
+    ``align_corners=True`` resizes with torch's corner-aligned grid (the
+    reference's ``UpsamplingBilinear2d``), otherwise with half-pixel
+    centres.  ``classifier_config['dropout_rate']`` drops elements of the
+    classifier's input in training, drawn from ``forward``'s ``generator``.
+    """
 
     def __init__(self, in_channels: int = 256, out_channels: int = 256,
                  in_feat_output_strides: Sequence[int] = (4, 8, 16, 32),
@@ -95,33 +147,31 @@ class AssymetricDecoder(nn.Module):
                  classifier_config: Optional[dict] = None,
                  align_corners: bool = False):
         super().__init__()
-        if norm != 'bn':
-            raise NotImplementedError(f'AssymetricDecoder norm={norm!r} (GELU) is '
-                                      f'not ported yet (ROADMAP.md A.15)')
-        if align_corners:
-            raise NotImplementedError('align_corners=True resizing is not ported '
-                                      'yet (ROADMAP.md A.15)')
         self.in_channels = in_channels
+        self.align_corners = align_corners
+        act = True if norm == 'bn' else 'gelu'
         self.num_upsample = [int(math.log2(s)) - int(math.log2(out_feat_output_stride))
                              for s in in_feat_output_strides]
         self.blocks = nn.ModuleList()
         for n_up in self.num_upsample:
             self.blocks.append(nn.ModuleList(
                 ConvBlock(in_channels if layer == 0 else out_channels,
-                          out_channels, 3) for layer in range(max(n_up, 1))))
+                          out_channels, 3, norm=norm, act=act)
+                for layer in range(max(n_up, 1))))
         self.classifier = None
         self.scale_factor = 1
+        self.dropout_rate = 0.0
         if classifier_config:
             cfg = dict(classifier_config)
-            if (cfg.get('dropout_rate', -1) or 0) > 0:
-                raise NotImplementedError('classifier dropout is not ported yet '
-                                          '(ROADMAP.md A.15)')
+            self.dropout_rate = max(float(cfg.get('dropout_rate', 0) or 0), 0.0)
             self.classifier = ConvBlock(out_channels, int(cfg['num_classes']),
                                         int(cfg.get('kernel_size', 1)),
                                         use_bias=True, norm=None, act=False)
             self.scale_factor = cfg.get('scale_factor', 1) or 1
 
-    def forward(self, feat_list, train: bool = False):
+    def forward(self, feat_list, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        feat_list = feat_list[:len(self.blocks)]     # as the JAX package, extra levels unused
         check_widths('AssymetricDecoder', feat_list,
                      [self.in_channels] * len(self.blocks))
         inner = []
@@ -129,11 +179,12 @@ class AssymetricDecoder(nn.Module):
             for layer in layers:
                 y = layer(y, train)
                 if n_up > 0:
-                    y = upsample_bilinear_nchw(y, 2)
+                    y = upsample_bilinear_nchw(y, 2, self.align_corners)
             inner.append(y)
         out = sum(inner) / len(inner)
         if self.classifier is not None:
-            out = self.classifier(out)
+            out = self.classifier(dropout(out, self.dropout_rate, train, generator))
             if self.scale_factor > 1:
-                out = upsample_bilinear_nchw(out, float(self.scale_factor))
+                out = upsample_bilinear_nchw(out, float(self.scale_factor),
+                                             self.align_corners)
         return out

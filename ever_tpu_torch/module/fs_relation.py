@@ -1,14 +1,14 @@
 """FarSeg: foreground-scene relation, its head and the full model
 (counterpart of ``ever_tpu/module/fs_relation.py``).
 
-``FSRelation`` (FarSeg, CVPR'20), ``FarSegHead`` (FPN → scene pooling →
-FSRelation → AssymetricDecoder) and ``FarSeg`` (ResNet encoder + head +
-loss), the JAX package's flagship model.  Parameter names follow the
-reference torch modules (``scene_encoder.0.0.weight``,
-``content_encoders.0.1.running_var``, ``feature_reencoders.0.0.weight``).
-The content and re-encoder convs have no bias, as in the JAX package: a
-bias before a train-mode BatchNorm cancels.  ``FSRelationV2`` (FarSeg++)
-waits for GroupNorm and channel dropout.
+``FSRelation`` (FarSeg, CVPR'20), ``FSRelationV2`` (FarSeg++),
+``FarSegHead`` (FPN → scene pooling → FSRelation → AssymetricDecoder) and
+``FarSeg`` (ResNet encoder + head + loss), the JAX package's flagship
+model.  Parameter names follow the reference torch modules
+(``scene_encoder.0.0.weight``, ``content_encoders.0.1.running_var``,
+``feature_reencoders.0.0.weight``; FarSeg++'s ``project.0.0.weight``).
+The content, re-encoder and projection convs have no bias, as in the JAX
+package: a bias before a train-mode BatchNorm cancels.
 """
 
 from __future__ import annotations
@@ -22,10 +22,11 @@ from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, check_widths
-from ever_tpu_torch.module.ops import Conv2d, ConvBlock, Sequential, global_avg_pool
+from ever_tpu_torch.module.ops import (Conv2d, ConvBlock, GroupNorm2d, Sequential,
+                                       channel_dropout, global_avg_pool)
 from ever_tpu_torch.module.resnet import ResNetEncoder
 
-__all__ = ['FSRelation', 'FarSegHead', 'FarSeg']
+__all__ = ['FSRelation', 'FSRelationV2', 'FarSegHead', 'FarSeg']
 
 
 def _relation(scene_feat, content_feat):
@@ -48,20 +49,23 @@ class FSRelation(nn.Module):
         self.scene_embedding_channels = scene_embedding_channels
         self.in_channels_list = tuple(in_channels_list)
         self.scale_aware_proj = scale_aware_proj
-
-        def scene_encoder():
-            return Sequential(Conv2d(scene_embedding_channels, out_channels, 1, bias=True),
-                              nn.ReLU(),
-                              Conv2d(out_channels, out_channels, 1, bias=True))
-
-        self.scene_encoder = (nn.ModuleList(scene_encoder() for _ in in_channels_list)
-                              if scale_aware_proj else scene_encoder())
+        self.scene_encoder = (
+            nn.ModuleList(self._scene_encoder(scene_embedding_channels, out_channels)
+                          for _ in in_channels_list)
+            if scale_aware_proj else self._scene_encoder(scene_embedding_channels, out_channels))
         self.content_encoders = nn.ModuleList(
             ConvBlock(c, out_channels, 1) for c in in_channels_list)
         self.feature_reencoders = nn.ModuleList(
             ConvBlock(c, out_channels, 1) for c in in_channels_list)
 
-    def forward(self, scene_feature, features, train: bool = False):
+    @staticmethod
+    def _scene_encoder(cin: int, cout: int) -> Sequential:
+        return Sequential(Conv2d(cin, cout, 1, bias=True), nn.ReLU(),
+                          Conv2d(cout, cout, 1, bias=True))
+
+    def forward(self, scene_feature, features, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` is FSRelationV2's; FSRelation draws nothing."""
         check_widths('FSRelation', features, self.in_channels_list)
         check_widths('FSRelation scene encoder', [scene_feature],
                      [self.scene_embedding_channels])
@@ -74,11 +78,45 @@ class FSRelation(nn.Module):
         return [_relation(s, c) * p for s, c, p in zip(scene_feats, content, re_enc)]
 
 
+class FSRelationV2(FSRelation):
+    """FarSeg++'s relation: the scene encoder is 1×1 conv → GroupNorm →
+    ReLU, twice (``min(32, C)`` groups, flax's default eps 1e-6); each
+    scale's gated features are concatenated with the scale's input and
+    projected back to ``out_channels`` by a 1×1 conv → BN → ReLU, then
+    channel dropout (``dropout_rate``, the reference's ``Dropout2d``) in
+    training, drawn from ``forward``'s ``generator``."""
+
+    def __init__(self, scene_embedding_channels: int,
+                 in_channels_list: Sequence[int], out_channels: int,
+                 scale_aware_proj: bool = False, dropout_rate: float = 0.1):
+        super().__init__(scene_embedding_channels, in_channels_list, out_channels,
+                         scale_aware_proj)
+        self.dropout_rate = dropout_rate
+        self.project = nn.ModuleList(
+            ConvBlock(out_channels + c, out_channels, 1) for c in in_channels_list)
+
+    @staticmethod
+    def _scene_encoder(cin: int, cout: int) -> Sequential:
+        groups = min(32, cout)
+        return Sequential(Conv2d(cin, cout, 1, bias=True), GroupNorm2d(groups, cout, eps=1e-6),
+                          nn.ReLU(), Conv2d(cout, cout, 1, bias=True),
+                          GroupNorm2d(groups, cout, eps=1e-6), nn.ReLU())
+
+    def forward(self, scene_feature, features, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        gated = super().forward(scene_feature, features, train)
+        return [channel_dropout(proj(torch.cat([g, f], dim=1), train), self.dropout_rate,
+                                train, generator)
+                for proj, g, f in zip(self.project, gated, features)]
+
+
 @registry.MODEL.register()
 class FarSegHead(ERModule):
-    """FPN → scene average pool of the last feature → FSRelation →
+    """FPN → scene average pool of the last feature → FSRelation
+    (``relation_type='v1'``) or FSRelationV2 (``'v2'``, FarSeg++) →
     AssymetricDecoder, with the JAX package's config keys.
-    ``forward(features, train)`` takes and returns NCHW tensors."""
+    ``forward(features, train, generator)`` takes and returns NCHW tensors;
+    the generator feeds the dropouts in training."""
 
     def set_default_config(self):
         self.config.update(dict(
@@ -97,18 +135,20 @@ class FarSegHead(ERModule):
 
     def __init__(self, config: Optional[dict] = None):
         super().__init__(config)
-        if self.config.get('relation_type', 'v1') != 'v1':
-            raise NotImplementedError('FarSegHead relation_type v2 (FSRelationV2) is '
-                                      'not ported yet (ROADMAP.md A.8)')
+        relation = self.config.get('relation_type', 'v1')
+        if relation not in ('v1', 'v2'):
+            raise ValueError(f"relation_type must be 'v1' or 'v2', got {relation!r}")
         self.fpn = FPN(**self.config.fpn.to_dict())
-        self.fs_relation = FSRelation(**self.config.fs_relation.to_dict())
+        self.fs_relation = (FSRelationV2 if relation == 'v2' else FSRelation)(
+            **self.config.fs_relation.to_dict())
         self.fpn_decoder = AssymetricDecoder(**self.config.fpn_decoder.to_dict())
 
-    def forward(self, feature_list, train: bool = False):
+    def forward(self, feature_list, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         fpn_feats = self.fpn(feature_list, train)
         scene = global_avg_pool(feature_list[-1].permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-        refined = self.fs_relation(scene, list(fpn_feats), train)
-        return self.fpn_decoder(refined, train)
+        refined = self.fs_relation(scene, list(fpn_feats), train, generator)
+        return self.fpn_decoder(refined, train, generator)
 
 
 @registry.MODEL.register()
@@ -120,8 +160,9 @@ class FarSeg(ERModule):
     float32).  The logits are cast to float32; with ``train=True`` and labels
     ``y`` ``[B, H, W]`` it returns ``cls_loss`` (and ``dice_loss`` when
     ``loss.dice`` is set), otherwise the class probabilities
-    ``[B, H, W, classes]``.  FarSeg draws nothing: ``generator`` is taken
-    because the train step passes one.
+    ``[B, H, W, classes]``.  ``generator`` feeds the dropouts in training
+    (FarSeg++'s channel dropout, the classifier's), as the train step seeds
+    it for each step.
     """
 
     def set_default_config(self):
@@ -149,16 +190,19 @@ class FarSeg(ERModule):
         enc_cfg.setdefault('dtype', dtype)
         self.encoder = ResNetEncoder(enc_cfg)
         head_cfg = self.config.head.to_dict()
-        head_cfg['fpn_decoder'] = dict(head_cfg['fpn_decoder'], classifier_config=dict(
-            scale_factor=4.0, num_classes=int(self.config.classes), kernel_size=1))
+        # the classifier is FarSeg's (×4, 1×1, config.classes); a user's
+        # dropout_rate is kept, which the JAX package's FarSeg drops
+        dec = head_cfg['fpn_decoder']
+        head_cfg['fpn_decoder'] = dict(dec, classifier_config=dict(
+            dec.get('classifier_config') or {}, scale_factor=4.0,
+            num_classes=int(self.config.classes), kernel_size=1))
         head_cfg['dtype'] = dtype
         self.head = FarSegHead(head_cfg)
 
     def forward(self, x, y=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
-        del generator
         feats = self.encoder(x.to(getattr(torch, self.config.dtype)), train)
-        logits = self.head(feats, train).permute(0, 2, 3, 1).float()
+        logits = self.head(feats, train, generator).permute(0, 2, 3, 1).float()
         if train and y is not None:
             lcfg = self.config.loss
             ignore = int(lcfg.get('ignore_index', 255))

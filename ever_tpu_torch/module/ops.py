@@ -2,13 +2,15 @@
 
 The functions (``resize``, ``global_avg_pool``, ``max_pool``) take NHWC
 tensors, as the JAX package's do.  The modules (``Conv2d``, ``BatchNorm2d``,
-``ConvBlock``) take NCHW tensors, which the conv-net models keep in
-``torch.channels_last`` memory: a permute between the two is then a view.
+``GroupNorm2d``, ``LayerNorm2d``, ``ConvBlock``) and the dropouts take NCHW
+tensors, which the conv-net models keep in ``torch.channels_last`` memory:
+a permute between the two is then a view.
 
 Precision: a layer computes in its input's dtype and casts its float32
 parameters to it, as flax's ``dtype=`` does; BatchNorm computes its
-statistics and normalisation in float32 and returns the input's dtype.
-Training follows a ``train`` argument, not ``nn.Module.training``.
+statistics and normalisation in float32 and returns the input's dtype, as
+do GroupNorm and LayerNorm.  Training follows a ``train`` argument, not
+``nn.Module.training``; dropout draws from the step's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.distributed as tdist
 
-from ever_tpu_torch.parallel.mesh import reduction_group
+from ever_tpu_torch.parallel.mesh import data_shard, reduction_group
 
 __all__ = ['resize', 'upsample_bilinear', 'global_avg_pool', 'max_pool', 'Conv2d',
-           'BatchNorm2d', 'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen']
+           'BatchNorm2d', 'GroupNorm2d', 'LayerNorm2d', 'Norm', 'ConvBlock', 'Sequential',
+           'running_stats_frozen', 'dropout', 'channel_dropout']
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -34,18 +37,21 @@ def _pair(v) -> Tuple[int, int]:
 
 def resize(x: torch.Tensor, scale: Optional[float] = None,
            shape: Optional[Tuple[int, int]] = None,
-           method: str = 'nearest') -> torch.Tensor:
+           method: str = 'nearest', align_corners: bool = False) -> torch.Tensor:
     """Spatial resize of an NHWC tensor, returned in x's dtype.
 
     Both methods use half-pixel centres (``jax.image.resize``'s convention;
     torch's ``'nearest-exact'`` for nearest).  Bilinear is computed in
     float32 except for bfloat16 input, which stays bfloat16 as in the JAX
     package.  Downsampling bilinear antialiases, as ``jax.image.resize``
-    does.
+    does.  ``align_corners=True`` (bilinear only) is
+    :func:`resize_align_corners`.
     """
     n, h, w, c = x.shape
     if shape is None:
         shape = (int(h * scale), int(w * scale))
+    if method == 'bilinear' and align_corners:
+        return resize_align_corners(x, shape)
     xc = x.permute(0, 3, 1, 2)
     if method == 'nearest':
         y = F.interpolate(xc, size=shape, mode='nearest-exact')
@@ -59,14 +65,34 @@ def resize(x: torch.Tensor, scale: Optional[float] = None,
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
+def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an NHWC tensor with torch's ``align_corners=True``
+    (the reference's ``UpsamplingBilinear2d``), computed in float32 as one
+    matrix product per axis and returned in x's dtype, as the JAX package
+    computes it.  Its backward is two matrix products too: no atomics, so a
+    train step's gradients are the same bits every run (``F.interpolate``'s
+    CUDA backward adds with atomics)."""
+    f32 = torch.float32
+    y = torch.einsum('oh,nhwc->nowc',
+                     _bilinear_weights(x.shape[1], shape[0], f32, x.device, True), x.float())
+    y = torch.einsum('pw,nowc->nopc',
+                     _bilinear_weights(x.shape[2], shape[1], f32, x.device, True), y)
+    return y.to(x.dtype)
+
+
 @functools.lru_cache(maxsize=16)
 def _bilinear_weights(n_in: int, n_out: int, dtype: torch.dtype,
-                      device: torch.device) -> torch.Tensor:
-    """``[n_out, n_in]`` weights of a bilinear resize along one axis, with
-    half-pixel centres and the edges clamped (``F.interpolate``'s
-    ``align_corners=False``), made on ``device``."""
-    src = ((torch.arange(n_out, dtype=torch.float64, device=device) + 0.5)
-           * (n_in / n_out) - 0.5).clamp(min=0)
+                      device: torch.device, align_corners: bool = False) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of a bilinear resize along one axis, made
+    on ``device``: with half-pixel centres and the edges clamped
+    (``F.interpolate``'s ``align_corners=False``), or output i sampling
+    input i·(n_in−1)/(n_out−1) (``align_corners=True``, where an output of
+    size 1 takes input 0, torch's convention and the JAX package's)."""
+    i = torch.arange(n_out, dtype=torch.float64, device=device)
+    if align_corners:
+        src = i * (n_in - 1) / max(n_out - 1, 1)
+    else:
+        src = ((i + 0.5) * (n_in / n_out) - 0.5).clamp(min=0)
     i0 = src.floor().clamp(max=n_in - 1)
     i1 = (i0 + 1).clamp(max=n_in - 1)
     frac = (src - i0)[:, None]
@@ -145,9 +171,11 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that computes in its input's dtype.
 
-    ``padding='same'`` pads as flax's ``'SAME'`` where that is symmetric
-    (stride 1 and an odd dilated kernel, all the FarSeg path uses); lax's
-    asymmetric strided ``'SAME'`` is not ported.  Integer padding is
+    ``padding='same'`` pads as flax's ``'SAME'``: symmetric where that is
+    (stride 1 and an odd dilated kernel), otherwise lax's asymmetric
+    padding, worked out from each input's size (``_lax_same``: the output
+    has ⌈n/s⌉ positions and the odd pixel of padding goes after) and
+    applied by ``F.pad`` before a conv without padding.  Integer padding is
     symmetric, as the ResNet's ``_conv`` pads.
     """
 
@@ -155,14 +183,21 @@ class Conv2d(nn.Conv2d):
                  stride=1, padding: Union[str, int] = 'same', dilation=1,
                  groups: int = 1, bias: bool = False):
         k, s, d = _pair(kernel_size), _pair(stride), _pair(dilation)
+        lax_same = False
         if padding == 'same':
             totals = [(k[i] - 1) * d[i] for i in range(2)]
-            if s != (1, 1) or any(t % 2 for t in totals):
-                raise NotImplementedError("asymmetric 'SAME' padding is not ported yet")
-            padding = (totals[0] // 2, totals[1] // 2)
+            if s == (1, 1) and not any(t % 2 for t in totals):
+                padding = (totals[0] // 2, totals[1] // 2)
+            else:
+                lax_same, padding = True, 0
         super().__init__(in_channels, out_channels, k, s, padding, d, groups, bias)
+        self.lax_same = lax_same
 
     def forward(self, x):
+        if self.lax_same:
+            (t, b), (l, r) = (_lax_same(x.shape[2 + i], self.kernel_size[i], self.stride[i],
+                                        self.dilation[i]) for i in range(2))
+            x = F.pad(x, (l, r, t, b))
         return F.conv2d(x, self.weight.to(x.dtype),
                         None if self.bias is None else self.bias.to(x.dtype),
                         self.stride, self.padding, self.dilation, self.groups)
@@ -301,17 +336,93 @@ def running_stats_frozen(module: nn.Module):
             m.update_running_stats = s
 
 
+class GroupNorm2d(nn.GroupNorm):
+    """GroupNorm of an NCHW tensor with flax's semantics: statistics and
+    normalisation in float32 (float64 for float64 input), the output in x's
+    dtype; float32 ``weight`` and ``bias`` (flax's ``scale`` and ``bias``).
+    The eps is each call site's: 1e-5 in ``Norm('gn')``, flax's default
+    1e-6 in FarSeg++'s scene encoders."""
+
+    def forward(self, x):
+        ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+        return F.group_norm(x.to(ct), self.num_groups, self.weight.to(ct),
+                            self.bias.to(ct), self.eps).to(x.dtype)
+
+
+class LayerNorm2d(nn.Module):
+    """LayerNorm over the channels of each pixel of an NCHW tensor (flax's
+    ``nn.LayerNorm`` over the last axis of NHWC), in float32 (float64 for
+    float64 input), the output in x's dtype; flax's default eps 1e-6."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+        y = F.layer_norm(x.to(ct).permute(0, 2, 3, 1), self.weight.shape,
+                         self.weight.to(ct), self.bias.to(ct), self.eps)
+        return y.permute(0, 3, 1, 2).to(x.dtype)
+
+
 def Norm(kind: Optional[str], channels: int, frozen: bool = False,
-         eps: float = 1e-5) -> Optional[nn.Module]:
-    """The JAX package's pluggable norm: ``'bn'`` or None.  GroupNorm and
-    LayerNorm (``'gn'``, ``'ln'``) wait for the modules that use them."""
+         eps: float = 1e-5, groups: int = 32) -> Optional[nn.Module]:
+    """The JAX package's pluggable norm: ``'bn'`` (eps ``eps``), ``'gn'``
+    (``min(groups, channels)`` groups, lowered until they divide the
+    channels, eps 1e-5), ``'ln'`` (over the channels, eps 1e-6) or None,
+    with the JAX package's eps for each."""
     if kind is None:
         return None
     if kind == 'bn':
         return BatchNorm2d(channels, eps=eps, frozen=frozen)
-    if kind in ('gn', 'ln'):
-        raise NotImplementedError(f'norm {kind!r} is not ported yet (ROADMAP.md A.15)')
+    if kind == 'gn':
+        g = min(groups, channels)
+        while channels % g:
+            g -= 1
+        return GroupNorm2d(g, channels, eps=1e-5)
+    if kind == 'ln':
+        return LayerNorm2d(channels, eps=1e-6)
     raise ValueError(f'unknown norm kind: {kind!r}')
+
+
+def _keep_mask(shape, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """A 0/1 keep mask of ``shape`` (batch first), each entry kept with
+    probability ``1 - rate``, drawn from ``generator`` on its device.
+    Inside a data-parallel step over R ranks the draw is the global batch's
+    (R·B rows) and rank r keeps rows ``[r·B, (r+1)·B)``, so R ranks draw
+    what one process draws for the global batch."""
+    rank, ranks = data_shard()
+    b = shape[0]
+    u = torch.rand((b * ranks,) + tuple(shape[1:]), generator=generator,
+                   device=generator.device)
+    return (u < 1.0 - rate)[rank * b:(rank + 1) * b]
+
+
+def _dropout(x, rate, train, generator, mask_shape):
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError('dropout in training draws from a generator: pass generator=')
+    keep = _keep_mask(mask_shape, rate, generator).to(x.device)
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element dropout (flax ``nn.Dropout``): in training each element is
+    kept with probability ``1 - rate`` and scaled by ``1/(1 - rate)``; the
+    identity otherwise."""
+    return _dropout(x, rate, train, generator, x.shape)
+
+
+def channel_dropout(x: torch.Tensor, rate: float, train: bool,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Channel dropout of an NCHW tensor (flax ``nn.Dropout(broadcast_dims=
+    (1, 2))`` on NHWC, torch's ``Dropout2d``): one draw per sample and
+    channel, broadcast over the pixels."""
+    return _dropout(x, rate, train, generator, x.shape[:2] + (1, 1))
 
 
 class Sequential(nn.Sequential):
@@ -325,20 +436,23 @@ class Sequential(nn.Sequential):
 
 
 class ConvBlock(Sequential):
-    """conv → [norm] → [ReLU] with ``'SAME'`` padding, bias off by default
-    (``ever_tpu/module/ops.py`` ``ConvBlock``).  Children ``0`` (conv),
-    ``1`` (norm) and then the activation, as the reference's
-    ``nn.Sequential`` numbers them."""
+    """conv → [norm] → [activation] with ``'SAME'`` padding, bias off by
+    default (``ever_tpu/module/ops.py`` ``ConvBlock``).  ``act``: True
+    (ReLU), ``'gelu'`` (flax's ``nn.gelu``, the tanh approximation) or
+    False.  Children ``0`` (conv), ``1`` (norm) and then the activation, as
+    the reference's ``nn.Sequential`` numbers them."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=3,
                  stride=1, dilation=1, groups: int = 1, use_bias: bool = False,
-                 norm: Optional[str] = 'bn', act: bool = True,
+                 norm: Optional[str] = 'bn', act: Union[bool, str] = True,
                  bn_frozen: bool = False):
         layers = [Conv2d(in_channels, features, kernel_size, stride, 'same',
                          dilation, groups, use_bias)]
         bn = Norm(norm, features, frozen=bn_frozen)
         if bn is not None:
             layers.append(bn)
-        if act:
+        if act == 'gelu':
+            layers.append(nn.GELU(approximate='tanh'))
+        elif act:
             layers.append(nn.ReLU())
         super().__init__(*layers)

@@ -15,9 +15,23 @@ pool reads the BatchNorm output, where exact ties are rare, and
 
 The JAX package's TPU layouts compute the same function with the same
 parameters, so ``stem='s2d'|'s2dw'|'s2d3'`` (and their ``_pack2``
-variants) is the plain 7×7/2 conv here and
-``pack2_layer1`` changes nothing.  ``stem='s2d_input'`` (the input arrives
-space-to-depth folded), SE and GC blocks are not ported yet.
+variants) is the plain 7×7/2 conv here and ``pack2_layer1`` changes
+nothing.  ``stem='s2d_input'`` (and ``'s2d_input_pack2'``) takes the input
+already space-to-depth folded, ``[B, H/2, W/2, 4C]`` in channel order
+``(dy·2 + dx)·C + c`` (what ``data.SpaceToDepth`` and the readers'
+``layout='s2d'`` give): depth-to-space, a reshape and a permute, restores
+``[B, C, H, W]`` for the same 7×7/2 conv, so the parameter stays
+``conv1.weight`` ``[64, C, 7, 7]`` with ``in_channels`` = C, a checkpoint
+moves between stems unchanged, and the features are the bits of
+``stem='conv'`` on the unfolded batch.  The deep (v1c) stem ignores
+``stem`` in the JAX package and convolves the folded input as it comes, 4C
+channels in; the port does the same.
+
+``se_ratio`` and ``gc_ratio`` add an SE (``se``) or a GCNet context
+(``gc``) branch to every block, after its last BatchNorm and before the
+residual add, as the JAX package does; ``set_branch`` adds or removes one
+on a built block (the plugin functions of ``se_block`` and
+``context_block``).
 """
 
 from __future__ import annotations
@@ -31,11 +45,13 @@ from torch.utils import checkpoint as _ckpt
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
+from ever_tpu_torch.module.context_block import ContextBlock2d
 from ever_tpu_torch.module.ops import (BatchNorm2d, Conv2d, Sequential, max_pool,
                                        running_stats_frozen)
+from ever_tpu_torch.module.se_block import SEBlock
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetStage', 'ResNet', 'ResNetEncoder',
-           'RESNET_SPECS']
+           'RESNET_SPECS', 'depth_to_space']
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1, groups=1):
@@ -44,16 +60,40 @@ def _conv(cin, cout, kernel, stride=1, dilation=1, groups=1):
                   dilation, groups)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f'{what} is not ported yet (ROADMAP.md A.7)')
+class _Block(nn.Module):
+    """What BasicBlock and Bottleneck share: the optional SE and GC
+    branches on the residual branch's output, and the residual add."""
+
+    def _branches(self, out: int, se_ratio, gc_ratio):
+        self.out_channels = out
+        self.se = self.gc = None
+        self.set_branch('se_ratio', se_ratio)
+        self.set_branch('gc_ratio', gc_ratio)
+
+    def set_branch(self, key: str, ratio) -> None:
+        """Add (a ratio) or remove (None) the SE (``key='se_ratio'``, as
+        ``se``) or GC (``'gc_ratio'``, as ``gc``) branch; a new branch is
+        freshly initialised on the block's device."""
+        make = {'se_ratio': SEBlock, 'gc_ratio': ContextBlock2d}[key]
+        branch = make(self.out_channels, ratio).to(self.bn1.weight.device) if ratio else None
+        setattr(self, key[:2], branch)
+
+    def _join(self, y, x, train):
+        if self.se is not None:
+            y = self.se(y)
+        if self.gc is not None:
+            y = self.gc(y)
+        identity = x if self.downsample is None else self.downsample(x, train)
+        return F.relu(y + identity)
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(_Block):
     expansion = 1
 
     def __init__(self, inplanes: int, filters: int, stride: int = 1,
                  dilation: int = 1, conv_dilation: int = 1,
-                 downsample: bool = False, bn_frozen: bool = False):
+                 downsample: bool = False, bn_frozen: bool = False,
+                 se_ratio=None, gc_ratio=None):
         super().__init__()
         self.conv1 = _conv(inplanes, filters, 3, stride, conv_dilation)
         self.bn1 = BatchNorm2d(filters, frozen=bn_frozen)
@@ -62,21 +102,21 @@ class BasicBlock(nn.Module):
         self.downsample = (Sequential(_conv(inplanes, filters, 1, stride),
                                       BatchNorm2d(filters, frozen=bn_frozen))
                            if downsample else None)
+        self._branches(filters, se_ratio, gc_ratio)
 
     def forward(self, x, train: bool = False):
         y = F.relu(self.bn1(self.conv1(x), train))
-        y = self.bn2(self.conv2(y), train)
-        identity = x if self.downsample is None else self.downsample(x, train)
-        return F.relu(y + identity)
+        return self._join(self.bn2(self.conv2(y), train), x, train)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_Block):
     expansion = 4
 
     def __init__(self, inplanes: int, filters: int, stride: int = 1,
                  dilation: int = 1, conv_dilation: int = 1,
                  downsample: bool = False, groups: int = 1,
-                 width_per_group: int = 64, bn_frozen: bool = False):
+                 width_per_group: int = 64, bn_frozen: bool = False,
+                 se_ratio=None, gc_ratio=None):
         super().__init__()
         width = int(filters * (width_per_group / 64.0)) * groups
         out = filters * self.expansion
@@ -90,13 +130,24 @@ class Bottleneck(nn.Module):
         self.downsample = (Sequential(_conv(inplanes, out, 1, stride),
                                       BatchNorm2d(out, frozen=bn_frozen))
                            if downsample else None)
+        self._branches(out, se_ratio, gc_ratio)
 
     def forward(self, x, train: bool = False):
         y = F.relu(self.bn1(self.conv1(x), train))
         y = F.relu(self.bn2(self.conv2(y), train))
-        y = self.bn3(self.conv3(y), train)
-        identity = x if self.downsample is None else self.downsample(x, train)
-        return F.relu(y + identity)
+        return self._join(self.bn3(self.conv3(y), train), x, train)
+
+
+def depth_to_space(x: torch.Tensor) -> torch.Tensor:
+    """The inverse of the 2×2 space-to-depth fold of an NCHW tensor:
+    ``[B, 4C, h, w]`` with channel ``(dy·2 + dx)·C + c`` → ``[B, C, 2h, 2w]``,
+    a reshape and a permute, copied into ``channels_last`` memory as the
+    unfolded batch lies (the stem conv then takes the same kernel and gives
+    the same bits)."""
+    b, c4, h, w = x.shape
+    c = c4 // 4
+    y = x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(b, c, 2 * h, 2 * w).contiguous(memory_format=torch.channels_last)
 
 
 class ResNetStage(nn.ModuleList):
@@ -107,8 +158,8 @@ class ResNetStage(nn.ModuleList):
     def __init__(self, block, inplanes: int, filters: int, num_blocks: int,
                  stride: int = 1, dilation: int = 1, first_dilation: int = 1,
                  groups: int = 1, width_per_group: int = 64,
-                 bn_frozen: bool = False):
-        kw = dict(bn_frozen=bn_frozen)
+                 bn_frozen: bool = False, se_ratio=None, gc_ratio=None):
+        kw = dict(bn_frozen=bn_frozen, se_ratio=se_ratio, gc_ratio=gc_ratio)
         if block is Bottleneck:
             kw.update(groups=groups, width_per_group=width_per_group)
         out = filters * block.expansion
@@ -170,18 +221,17 @@ class ResNet(nn.Module):
                  in_channels: int = 3):
         super().__init__()
         del pack2_layer1          # a TPU layout of the same function
-        if se_ratio:
-            _not_ported('the SE block (se_ratio)')
-        if gc_ratio:
-            _not_ported('the GC block (gc_ratio)')
-        if stem.startswith('s2d_input') or not (stem == 'conv' or stem.startswith('s2d')):
-            _not_ported(f'stem={stem!r}')
+        if not (stem == 'conv' or stem.startswith('s2d')):
+            raise ValueError(f'unknown stem {stem!r}')
         block, sizes, groups, wpg, deep_stem = RESNET_SPECS[resnet_type]
         self.maxpool_impl = maxpool_impl
         self.with_cp = tuple(with_cp)
+        self.folded_input = stem.startswith('s2d_input')
         if deep_stem:
+            # the JAX package's deep stem takes the folded input as it comes
+            cin = 4 * in_channels if self.folded_input else in_channels
             self.stem = Sequential(
-                _conv(in_channels, 32, 3, 2), BatchNorm2d(32, frozen=bn_frozen),
+                _conv(cin, 32, 3, 2), BatchNorm2d(32, frozen=bn_frozen),
                 nn.ReLU(), _conv(32, 32, 3), BatchNorm2d(32, frozen=bn_frozen),
                 nn.ReLU(), _conv(32, 64, 3), BatchNorm2d(64, frozen=bn_frozen))
         else:
@@ -194,7 +244,7 @@ class ResNet(nn.Module):
             filters = 64 * 2 ** i
             self.add_module(f'layer{i + 1}', ResNetStage(
                 block, inplanes, filters, sizes[i], stride, dil, first_dil,
-                groups, wpg, bn_frozen))
+                groups, wpg, bn_frozen, se_ratio, gc_ratio))
             inplanes = filters * block.expansion
         self.n_stages = i + 1
 
@@ -217,6 +267,8 @@ class ResNet(nn.Module):
         if self.deep_stem:
             x = self.stem(x, train)
         else:
+            if self.folded_input:
+                x = depth_to_space(x)
             x = self.bn1(self.conv1(x), train)
         # the pool reads the BatchNorm output; ReLU after it (max commutes
         # with ReLU, and K8's equality test sees pre-ReLU values)
@@ -245,7 +297,8 @@ def resnet_frozen_prefixes(freeze_at: int) -> List[str]:
 class ResNetEncoder(ERModule):
     """The configurable encoder (``ever_tpu/module/resnet.py``
     ``ResNetEncoder``), with the same config keys.  ``forward(x, train)``
-    takes NHWC ``[B, H, W, in_channels]`` and returns the NCHW features.
+    takes NHWC ``[B, H, W, in_channels]`` (``[B, H/2, W/2, 4·in_channels]``
+    with ``stem='s2d_input'``) and returns the NCHW features.
     ``pretrained`` and ``freeze_at`` are the trainer's business, as in the
     JAX package; ``batchnorm_trainable=False`` pins the running statistics.
     """

@@ -1,0 +1,94 @@
+"""Squeeze-and-Excitation blocks (counterpart of ``ever_tpu/module/se_block.py``).
+
+``SEBlock`` (channel attention), ``SCSEModule`` (concurrent spatial and
+channel SE in its modes ``'concat'``, ``'maxout'`` and ``'add'``) and the
+plugin functions that give a ResNet's blocks an SE branch.  Tensors are
+NCHW; each conv is 1×1 with a bias and computes in its input's dtype.
+Parameter names map one to one onto the JAX package's: ``fc1``/``fc2`` are
+flax's ``Conv_0``/``Conv_1``, SCSE's ``spatial`` its ``Conv_2``.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+import torch.nn as nn
+
+from ever_tpu_torch.module.ops import Conv2d
+
+__all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck']
+
+
+def _squeeze(x: torch.Tensor) -> torch.Tensor:
+    """The spatial mean of an NCHW tensor, accumulated in float32, as
+    ``[N, C, 1, 1]`` in x's dtype."""
+    return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+
+
+class SEBlock(nn.Module):
+    """Channel SE: global pool → 1×1 reduce to ``max(C // inv_ratio, 1)`` →
+    ReLU → 1×1 expand → sigmoid gate on x."""
+
+    def __init__(self, channels: int, inv_ratio: int = 16):
+        super().__init__()
+        mid = max(channels // inv_ratio, 1)
+        self.fc1 = Conv2d(channels, mid, 1, bias=True)
+        self.fc2 = Conv2d(mid, channels, 1, bias=True)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.fc2(torch.relu(self.fc1(_squeeze(x)))))
+
+
+class SCSEModule(nn.Module):
+    """Concurrent spatial and channel SE: the channel gate of
+    :class:`SEBlock` and a spatial gate (a bias-free 1×1 conv to one map,
+    sigmoid), joined by ``mode``: ``'concat'`` (2C channels out, the
+    reference's default), ``'maxout'`` (the larger) or ``'add'``."""
+
+    def __init__(self, channels: int, inv_ratio: int = 16, mode: str = 'concat'):
+        super().__init__()
+        if mode not in ('concat', 'maxout', 'add'):
+            raise ValueError(f"mode must be 'concat', 'maxout' or 'add', got {mode!r}")
+        self.mode = mode
+        mid = max(channels // inv_ratio, 1)
+        self.fc1 = Conv2d(channels, mid, 1, bias=True)
+        self.fc2 = Conv2d(mid, channels, 1, bias=True)
+        self.spatial = Conv2d(channels, 1, 1, bias=False)
+
+    def forward(self, x):
+        cse = x * torch.sigmoid(self.fc2(torch.relu(self.fc1(_squeeze(x)))))
+        sse = x * torch.sigmoid(self.spatial(x))
+        if self.mode == 'concat':
+            return torch.cat([cse, sse], dim=1)
+        if self.mode == 'maxout':
+            return torch.maximum(cse, sse)
+        return cse + sse
+
+
+def with_ratio(module: nn.Module, key: str, ratio) -> nn.Module:
+    """A copy of ``module`` (a ResNet block, stage, trunk or
+    ``ResNetEncoder``) whose every BasicBlock and Bottleneck has the branch
+    ``key`` names (``'se_ratio'`` or ``'gc_ratio'``) at ``ratio``.  The copy
+    keeps the existing parameters and buffers; the new branches are freshly
+    initialised, as the JAX package's config transform means with its
+    parameters held outside the module."""
+    from ever_tpu_torch.module.resnet import BasicBlock, Bottleneck
+
+    out = copy.deepcopy(module)
+    if hasattr(out, 'config') and key in out.config:
+        out.config[key] = ratio
+    for m in out.modules():
+        if isinstance(m, (BasicBlock, Bottleneck)):
+            m.set_branch(key, ratio)
+    return out
+
+
+def plugin_to_basicblock(module: nn.Module, ratio: int) -> nn.Module:
+    """SE-augmented BasicBlocks: :func:`with_ratio` with ``se_ratio``."""
+    return with_ratio(module, 'se_ratio', ratio)
+
+
+def plugin_to_bottleneck(module: nn.Module, ratio: int) -> nn.Module:
+    """SE-augmented Bottlenecks: :func:`with_ratio` with ``se_ratio``."""
+    return with_ratio(module, 'se_ratio', ratio)

@@ -28,8 +28,13 @@ an explicit ``torch.Generator`` passed to ``forward(..., generator=)``, never
 from the global one, and is drawn outside the blocks, so that a block
 recomputed under ``remat`` sees the same draws.
 
-Not ported yet: the multi-crop list forward with its local-crop cls norm,
-and the causal text-attention family.
+The trunk's ``forward`` also takes a list of crops (DINOv3's multi-crop
+forward: global crops, then local ones, each a batch) and returns a list
+of feature dicts; ``DINOHead`` is the DINO projection head over the cls
+tokens.  The causal text-attention family (``CausalSelfAttention``,
+``CausalSelfAttentionBlock``, ``LinearKMaskedBias``, ``ListForwardMixin``)
+is plain PyTorch: the JAX package computes it through XLA's
+``dot_product_attention``, no Pallas kernel.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ from ever_tpu_torch.parallel.mesh import data_shard
 __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
            'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
-           'DinoVisionTransformer', 'DinoSeg', 'VIT_SPECS', 'SAT_CONFIGS']
+           'DinoVisionTransformer', 'DinoSeg', 'VIT_SPECS', 'SAT_CONFIGS',
+           'cat_keep_shapes', 'uncat_with_shapes', 'DINOHead', 'ListForwardMixin',
+           'LinearKMaskedBias', 'CausalSelfAttention', 'CausalSelfAttentionBlock']
 
 
 class Linear(nn.Linear):
@@ -403,8 +410,15 @@ class DinoVisionTransformer(nn.Module):
     gradient is recorded: 'full' recomputes the whole block in the backward,
     'dots' keeps the outputs of its 2-d matrix products (selective
     checkpointing), the counterpart of JAX's
-    ``dots_with_no_batch_dims_saveable``.  ``untie_global_and_local_cls_norm``
-    only acts in the multi-crop list forward, which is not ported yet.
+    ``dots_with_no_batch_dims_saveable``.
+
+    ``forward`` of a list (or tuple) of crops returns a list of feature
+    dicts, one a crop, with the same parameters.  With
+    ``untie_global_and_local_cls_norm`` and ``train``, crop index 1, and
+    only that one, normalises its cls and storage tokens with
+    ``local_cls_norm`` (the reference's "assume second entry of list
+    corresponds to local crops"); every other crop and call takes
+    ``cls_norm`` (``untie_cls_and_patch_norms``) or the final ``norm``.
     """
 
     def __init__(self, vit_type: str = 'vit_large', patch_size: int = 16,
@@ -458,6 +472,8 @@ class DinoVisionTransformer(nn.Module):
         norm_cls = RMSNorm if norm == 'rms' else _make_layer_norm
         self.norm = norm_cls(dim, norm_eps)
         self.cls_norm = norm_cls(dim, norm_eps) if untie_cls_and_patch_norms else None
+        self.local_cls_norm = (norm_cls(dim, norm_eps) if untie_global_and_local_cls_norm
+                               else None)
         for m in self.modules():
             if isinstance(m, nn.Linear):
                 nn.init.trunc_normal_(m.weight, std=0.02)
@@ -517,19 +533,28 @@ class DinoVisionTransformer(nn.Module):
                 outs.append(tokens)
         return outs, hw
 
-    def _norm_prefix_patches(self, t, hw):
+    def _norm_prefix_patches(self, t, hw, local_crop: bool = False):
         n_prefix = 1 + self.n_storage_tokens
         h, w = hw
-        if self.cls_norm is not None:
-            return (self.cls_norm(t[:, :n_prefix]),
+        prefix_norm = self.cls_norm
+        if local_crop and self.local_cls_norm is not None:
+            prefix_norm = self.local_cls_norm
+        if prefix_norm is not None:
+            return (prefix_norm(t[:, :n_prefix]),
                     self.norm(t[:, n_prefix:n_prefix + h * w]))
         normed = self.norm(t)
         return normed[:, :n_prefix], normed[:, n_prefix:n_prefix + h * w]
 
     def forward_features(self, x, train: bool = False,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         local_crop: bool = False):
+        """The last block's tokens normalised: a dict of
+        ``x_norm_clstoken``, ``x_storage_tokens``, ``x_norm_patchtokens``
+        and the patch ``grid``.  ``local_crop`` (in training) takes
+        ``local_cls_norm`` for the cls and storage tokens, where the model
+        has one."""
         (tokens,), hw = self._run_blocks(x, {self.depth - 1}, train, generator)
-        cls_and_storage, patches = self._norm_prefix_patches(tokens, hw)
+        cls_and_storage, patches = self._norm_prefix_patches(tokens, hw, local_crop and train)
         return dict(x_norm_clstoken=cls_and_storage[:, 0],
                     x_storage_tokens=cls_and_storage[:, 1:],
                     x_norm_patchtokens=patches, grid=hw)
@@ -558,7 +583,126 @@ class DinoVisionTransformer(nn.Module):
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None):
+        if isinstance(x, (list, tuple)):
+            return [self.forward_features(xi, train, generator, local_crop=i == 1)
+                    for i, xi in enumerate(x)]
         return self.forward_features(x, train, generator)
+
+
+def cat_keep_shapes(x_list):
+    """``[B, N_i, D]`` token tensors flattened into one ``[ΣB·N_i, D]``,
+    with what :func:`uncat_with_shapes` needs to split it back: one call of
+    a token-wise module serves crops of several sizes."""
+    shapes = [x.shape for x in x_list]
+    num_tokens = [math.prod(s[:-1]) for s in shapes]
+    flat = torch.cat([x.reshape(-1, x.shape[-1]) for x in x_list], dim=0)
+    return flat, shapes, num_tokens
+
+
+def uncat_with_shapes(flat, shapes, num_tokens):
+    """The inverse of :func:`cat_keep_shapes` (the last axis may have
+    changed width)."""
+    return [part.reshape(*s[:-1], flat.shape[-1])
+            for part, s in zip(torch.split(flat, list(num_tokens)), shapes)]
+
+
+class DINOHead(nn.Module):
+    """The DINO projection head: an MLP (``mlp0`` .. ``mlp{n-2}``, each
+    followed by tanh GELU) to ``bottleneck_dim`` (``mlp{n-1}``), the rows
+    L2-normalised (norm in float32, floored at 1e-6), then the
+    weight-normalised prototypes: ``prototypes`` is a ``[bottleneck_dim,
+    out_dim]`` matrix whose columns are normalised (floor 1e-6) when
+    applied, as the JAX package's ``DINOHead`` holds them."""
+
+    def __init__(self, in_dim: int, out_dim: int = 65536, hidden_dim: int = 2048,
+                 bottleneck_dim: int = 256, n_layers: int = 3):
+        super().__init__()
+        self.n_layers = n_layers
+        dims = [in_dim] + [hidden_dim] * (n_layers - 1) + [bottleneck_dim]
+        for i in range(n_layers):
+            self.add_module(f'mlp{i}', Linear(dims[i], dims[i + 1]))
+        self.prototypes = nn.Parameter(0.02 * torch.randn(bottleneck_dim, out_dim))
+
+    def forward(self, x):
+        for i in range(self.n_layers):
+            x = getattr(self, f'mlp{i}')(x)
+            if i < self.n_layers - 1:
+                x = F.gelu(x, approximate='tanh')
+        norm = torch.linalg.vector_norm(x.float(), dim=-1, keepdim=True)
+        x = x / norm.clamp(min=1e-6).to(x.dtype)
+        w = self.prototypes
+        w = w / torch.linalg.vector_norm(w, dim=0, keepdim=True).clamp(min=1e-6)
+        return x @ w.to(x.dtype)
+
+
+class ListForwardMixin:
+    """Runs a token-wise module over a list of ``[B, N_i, C]`` tensors as
+    one call on their concatenation (:func:`cat_keep_shapes`)."""
+
+    def forward_list(self, x_list):
+        flat, shapes, num_tokens = cat_keep_shapes(x_list)
+        return uncat_with_shapes(self(flat), shapes, num_tokens)
+
+
+class LinearKMaskedBias(Linear):
+    """The fused-QKV projection whose bias is multiplied by the buffer
+    ``bias_mask`` (ones, zeros over the K third): a K bias only shifts
+    every logit of a softmax row equally.  The mask is a buffer, so a
+    checkpoint may override it."""
+
+    def __init__(self, in_features: int, out_features: int):
+        if out_features % 3:
+            raise ValueError(f'out_features must be a multiple of 3, got {out_features}')
+        super().__init__(in_features, out_features)
+        nn.init.zeros_(self.bias)
+        mask = torch.ones(out_features)
+        mask[out_features // 3:2 * out_features // 3] = 0.0
+        self.register_buffer('bias_mask', mask)
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), (self.bias * self.bias_mask).to(x.dtype))
+
+
+class CausalSelfAttention(nn.Module):
+    """Multi-head attention with a fused QKV projection and a causal mask
+    (``is_causal``), by PyTorch's ``scaled_dot_product_attention``."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 proj_bias: bool = True):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim, bias=proj_bias)
+
+    def forward(self, x, is_causal: bool = True):
+        b, n, c = x.shape
+        h = self.num_heads
+        q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=is_causal)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class CausalSelfAttentionBlock(nn.Module):
+    """Pre-norm causal attention + MLP block (``attention_norm``,
+    ``attention``, ``ffn_norm``, ``feed_forward``), with LayerScale when
+    ``ls_init_value`` is set."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_ratio: float = 4.0,
+                 ls_init_value: Optional[float] = None, is_causal: bool = True,
+                 norm_eps: float = 1e-6):
+        super().__init__()
+        self.is_causal = is_causal
+        self.attention_norm = LayerNorm(dim, norm_eps)
+        self.attention = CausalSelfAttention(dim, num_heads)
+        self.ffn_norm = LayerNorm(dim, norm_eps)
+        self.feed_forward = Mlp(dim, int(dim * ffn_ratio), dim)
+        use_ls = bool(ls_init_value)
+        self.ls1 = LayerScale(dim, ls_init_value) if use_ls else nn.Identity()
+        self.ls2 = LayerScale(dim, ls_init_value) if use_ls else nn.Identity()
+
+    def forward(self, x):
+        x = x + self.ls1(self.attention(self.attention_norm(x), self.is_causal))
+        return x + self.ls2(self.feed_forward(self.ffn_norm(x)))
 
 
 for _name in VIT_SPECS:

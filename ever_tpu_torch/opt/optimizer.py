@@ -202,7 +202,8 @@ class Lamb(torch.optim.Optimizer):
 def _sgd(params, lr, momentum: float = 0.0, weight_decay: float = 0.0,
          nesterov: bool = False, dampening: float = 0.0):
     if dampening:
-        raise NotImplementedError('sgd dampening is not supported')
+        raise NotImplementedError('sgd dampening is not supported, as in the JAX package '
+                                  '(ROADMAP.md C, known reference behaviours)')
     # torch adds the L2 term to the gradient before momentum, as the JAX chain
     return torch.optim.SGD(params, lr=lr, momentum=momentum,
                            weight_decay=weight_decay,

@@ -25,7 +25,10 @@ ViT after torch DINOv3 (``blocks.{i}.attn.qkv.weight``,
 ``layer2.0.downsample.0.weight``), the inverse of ``convert_torch_resnet``;
 the FarSeg head after the reference ``FarSegHead``, the inverse of
 ``convert_torch_farseg_head`` without its bias fold (the port has the JAX
-package's bias-free content and re-encoder convs).  Layout changes: Dense
+package's bias-free content and re-encoder convs).  Modules the reference
+files do not cover (FarSeg++'s relation, the SE and GC branches, P6/P7,
+the decoder's GN and LN, ``DINOHead``) take names that map one to one onto
+the JAX package's, each listed in the rules below.  Layout changes: Dense
 ``[in, out]`` → Linear ``[out, in]``; conv HWIO → OIHW; norm ``scale`` →
 ``weight``; BatchNorm's ``batch_stats`` ``mean``/``var`` → the buffers
 ``running_mean``/``running_var``; the fused SwiGLU ``w12`` splits into
@@ -44,6 +47,7 @@ import torch
 from ever_tpu_torch.core.device import get_device
 
 __all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
+           'convert_flax_dino_head',
            'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_flat',
            'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
            'convert_torch_resnet', 'patch_first_conv', 'read_weights',
@@ -92,10 +96,10 @@ def _norm(sd, name, leaf, v):
 
 
 def convert_flax_dinov3_vit(params: Any) -> Dict[str, torch.Tensor]:
-    """JAX ``DinoVisionTransformer`` params → the port's trunk ``state_dict``.
-
-    The training-only ``local_cls_norm`` is dropped; any other key the port
-    does not know raises ``KeyError``.
+    """JAX ``DinoVisionTransformer`` params → the port's trunk ``state_dict``
+    (``local_cls_norm`` included, for a trunk with
+    ``untie_global_and_local_cls_norm``); a key the port does not know
+    raises ``KeyError``.
     """
     sd: Dict[str, torch.Tensor] = {}
     for key, v in flatten_params(params).items():
@@ -105,11 +109,9 @@ def convert_flax_dinov3_vit(params: Any) -> Dict[str, torch.Tensor]:
             sd['patch_embed.proj.weight'] = _tensor(np.transpose(v, (3, 2, 0, 1)))
         elif key == 'patch_embed/proj/bias':
             sd['patch_embed.proj.bias'] = _tensor(v)
-        elif key.split('/')[0] in ('norm', 'cls_norm'):
+        elif key.split('/')[0] in ('norm', 'cls_norm', 'local_cls_norm'):
             base, leaf = key.split('/')
             _norm(sd, base, leaf, v)
-        elif key.startswith('local_cls_norm/'):
-            continue
         else:
             m = _BLOCK_RE.match(key)
             if m is None:
@@ -147,6 +149,21 @@ def convert_flax_dinoseg(params: Any) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def convert_flax_dino_head(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX ``DINOHead`` params → the port's ``DINOHead`` ``state_dict``:
+    ``mlp{i}`` Dense → Linear, ``prototypes`` the same ``[bottleneck, out]``
+    matrix."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in flatten_params(params).items():
+        if key == 'prototypes':
+            sd[key] = _tensor(v)
+        elif re.fullmatch(r'mlp\d+/(kernel|bias)', key):
+            _linear(sd, *key.split('/'), v)
+        else:
+            raise KeyError(f'unmapped DINOHead parameter {key!r}')
+    return sd
+
+
 # -- conv nets: ResNet and FarSeg -------------------------------------------
 
 # flax leaf → torch leaf (conv kernels are also transposed HWIO → OIHW)
@@ -164,28 +181,59 @@ _RESNET_RULES = [
     (r'layer(\d)/block(\d+)/(bn\d)' + _BN, r'layer\1.\2.\3'),
     (r'layer(\d)/block(\d+)/downsample_conv', r'layer\1.\2.downsample.0'),
     (r'layer(\d)/block(\d+)/downsample_bn' + _BN, r'layer\1.\2.downsample.1'),
+    # the SE and GC branches: flax's auto-named modules → se.fc1/fc2, and
+    # GCNet's conv_mask and channel_{add,mul}_conv.{0,1,3}
+    (r'layer(\d)/block(\d+)/SEBlock_0/Conv_0', r'layer\1.\2.se.fc1'),
+    (r'layer(\d)/block(\d+)/SEBlock_0/Conv_1', r'layer\1.\2.se.fc2'),
+    (r'layer(\d)/block(\d+)/ContextBlock2d_0/Conv_0', r'layer\1.\2.gc.conv_mask'),
+    (r'layer(\d)/block(\d+)/ContextBlock2d_0/channel_(add|mul)_reduce',
+     r'layer\1.\2.gc.channel_\3_conv.0'),
+    (r'layer(\d)/block(\d+)/ContextBlock2d_0/channel_(add|mul)_ln',
+     r'layer\1.\2.gc.channel_\3_conv.1'),
+    (r'layer(\d)/block(\d+)/ContextBlock2d_0/channel_(add|mul)_expand',
+     r'layer\1.\2.gc.channel_\3_conv.3'),
 ]
 # JAX FarSegHead module path → the reference FarSegHead's module name
+_NORM = r'/Norm_0/(BatchNorm|GroupNorm|LayerNorm)_0'
 _FARSEG_HEAD_RULES = [
     (r'fpn/(fpn_inner\d+|fpn_layer\d+)(/Conv_0)?', r'fpn.\1.0'),
     (r'fpn/(fpn_inner\d+|fpn_layer\d+)/Norm_0' + _BN, r'fpn.\1.1'),
-    (r'fs_relation/scene_enc(\d+)_fc1', r'fs_relation.scene_encoder.\1.0'),
-    (r'fs_relation/scene_enc(\d+)_fc2', r'fs_relation.scene_encoder.\1.2'),
-    ('fs_relation/scene_enc_fc1', 'fs_relation.scene_encoder.0'),
-    ('fs_relation/scene_enc_fc2', 'fs_relation.scene_encoder.2'),
+    (r'fpn/top_blocks/(p6|p7)', r'fpn.top_blocks.\1'),
     (r'fs_relation/content_enc(\d+)/Conv_0', r'fs_relation.content_encoders.\1.0'),
     (r'fs_relation/content_enc(\d+)/Norm_0' + _BN, r'fs_relation.content_encoders.\1.1'),
     (r'fs_relation/feature_reenc(\d+)/Conv_0', r'fs_relation.feature_reencoders.\1.0'),
     (r'fs_relation/feature_reenc(\d+)/Norm_0' + _BN,
      r'fs_relation.feature_reencoders.\1.1'),
     (r'fpn_decoder/block(\d+)_conv(\d+)/Conv_0', r'fpn_decoder.blocks.\1.\2.0'),
-    (r'fpn_decoder/block(\d+)_conv(\d+)/Norm_0' + _BN, r'fpn_decoder.blocks.\1.\2.1'),
+    (r'fpn_decoder/block(\d+)_conv(\d+)' + _NORM, r'fpn_decoder.blocks.\1.\2.1'),
     ('fpn_decoder/classifier', 'fpn_decoder.classifier.0'),
+]
+# FarSeg's scene encoder: conv, ReLU, conv
+_FS_RELATION_RULES = [
+    (r'fs_relation/scene_enc(\d+)_fc1', r'fs_relation.scene_encoder.\1.0'),
+    (r'fs_relation/scene_enc(\d+)_fc2', r'fs_relation.scene_encoder.\1.2'),
+    ('fs_relation/scene_enc_fc1', 'fs_relation.scene_encoder.0'),
+    ('fs_relation/scene_enc_fc2', 'fs_relation.scene_encoder.2'),
+]
+# FarSeg++'s (FSRelationV2): conv, GroupNorm, ReLU, twice; the projections
+_SCENE_V2 = (('fc1', 0), ('gn1', 1), ('fc2', 3), ('gn2', 4))
+_FS_RELATION_V2_RULES = [
+    (rf'fs_relation/scene_enc(\d+)_{layer}', rf'fs_relation.scene_encoder.\1.{i}')
+    for layer, i in _SCENE_V2] + [
+    (f'fs_relation/scene_enc_{layer}', f'fs_relation.scene_encoder.{i}')
+    for layer, i in _SCENE_V2] + [
+    (r'fs_relation/project(\d+)_conv/Conv_0', r'fs_relation.project.\1.0'),
+    (r'fs_relation/project(\d+)_conv/Norm_0' + _BN, r'fs_relation.project.\1.1'),
 ]
 # the port's module prefix → (JAX path prefix, rules below it)
 _RESNET_TREES = [('', '', _RESNET_RULES), ('resnet.', 'resnet/', _RESNET_RULES)]
-_FARSEG_TREES = [('encoder.resnet.', 'encoder/resnet/', _RESNET_RULES),
-                 ('head.', 'head/', _FARSEG_HEAD_RULES)]
+
+
+def _head_rules(flat: Dict[str, np.ndarray]):
+    """The FarSeg head's rules: FarSeg++'s where its scene encoder has
+    GroupNorms, else FarSeg's."""
+    v2 = any(re.search(r'fs_relation/scene_enc\d*_?gn1/', k) for k in flat)
+    return _FARSEG_HEAD_RULES + (_FS_RELATION_V2_RULES if v2 else _FS_RELATION_RULES)
 
 
 def _variables(params: Any, batch_stats: Any) -> Dict[str, np.ndarray]:
@@ -239,8 +287,13 @@ def convert_flax_farseg(params: Any, batch_stats: Any = None
                         ) -> Dict[str, torch.Tensor]:
     """JAX ``FarSeg`` params and batch statistics (``encoder/resnet/...``,
     ``head/...``) → the port's ``FarSeg`` ``state_dict``, running buffers
-    included.  Any variable left unmapped raises ``KeyError``."""
-    return _convert_conv_net(_variables(params, batch_stats), _FARSEG_TREES, 'FarSeg')
+    included: FarSeg and FarSeg++ (``relation_type='v2'``), the SE and GC
+    branches, FPN ``top_blocks``, the decoder's BN, GN or LN.  Any variable
+    left unmapped raises ``KeyError``."""
+    flat = _variables(params, batch_stats)
+    trees = [('encoder.resnet.', 'encoder/resnet/', _RESNET_RULES),
+             ('head.', 'head/', _head_rules(flat))]
+    return _convert_conv_net(flat, trees, 'FarSeg')
 
 
 def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -257,7 +310,7 @@ def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     if any(k.startswith(('encoder/', 'head/')) for k in keys):
         return convert_flax_farseg(flat)
     if any(k.startswith(('fs_relation/', 'fpn/', 'fpn_decoder/')) for k in keys):
-        return _convert_conv_net(flat, [('', '', _FARSEG_HEAD_RULES)], 'FarSeg head')
+        return _convert_conv_net(flat, [('', '', _head_rules(flat))], 'FarSeg head')
     return convert_flax_resnet(flat)
 
 

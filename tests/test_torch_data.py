@@ -5,7 +5,10 @@ as the JAX package reads them): training crops over three epochs, full
 validation scenes, ``eval_crop``, the no-data mapping and a test split
 without masks give the JAX dataset's samples exactly.  ``GeoTileDataset``
 gives the JAX dataset's patch index, patches and ``read_batch``, and its own
-batched read (through a ``DataLoader``) equals its per-item path.  The
+batched read (through a ``DataLoader``) equals its per-item path.  Both
+readers' ``layout='s2d'`` (the space-to-depth fold that ``stem='s2d_input'``
+takes) equals the JAX readers' and the port's own ``SpaceToDepth`` of the
+``'hwc'`` samples, and the host library's s2d gather the JAX one's.  The
 cross-validation splits are the JAX ones.
 """
 
@@ -19,6 +22,7 @@ from ever_tpu.data.geotile import GeoTileDataset as JaxGeoTile
 from ever_tpu.data.loveda import LoveDA as JaxLoveDA
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.data import cross_validation as tcv
+from ever_tpu_torch.data import SpaceToDepth
 from ever_tpu_torch.data._png import write_png
 from ever_tpu_torch.data.geotile import GeoTileDataset
 from ever_tpu_torch.data.loveda import LoveDA
@@ -103,8 +107,12 @@ def test_loveda_missing_masks_and_layouts_raise(tmp_path, loveda_root):
         LoveDA(dict(root=root, split='train'))
     with pytest.raises(FileNotFoundError, match='no LoveDA images'):
         LoveDA(dict(root=str(tmp_path / 'nowhere'), split='train'))
-    with pytest.raises(NotImplementedError, match='A.6'):
-        LoveDA(dict(root=loveda_root, split='train', layout='s2d'))
+    # layout='s2d' reads (it raised until the folded stem was ported): its
+    # samples are the JAX reader's
+    cfg = dict(root=loveda_root, split='train', crop_size=48, layout='s2d')
+    _assert_same_samples(LoveDA(cfg), JaxLoveDA(cfg))
+    with pytest.raises(ValueError, match='layout'):
+        LoveDA(dict(root=loveda_root, split='train', layout='chw'))
 
 
 # -- GeoTile --------------------------------------------------------------------
@@ -182,8 +190,90 @@ def test_geotile_falls_back_and_checks_channels(geotile_scenes, tmp_path):
         mixed.read_batch([0, len(mixed) - 1])
     with pytest.raises(ValueError, match='smaller than'):
         GeoTileDataset(dict(scene_pairs=pairs, patch_size=128))
-    with pytest.raises(NotImplementedError, match='A.6'):
-        GeoTileDataset(_geotile_cfg(geotile_scenes, layout='s2d'))
+    # layout='s2d' reads (it raised until the folded stem was ported): its
+    # read_batch, through the host library's s2d gather, is the JAX one's
+    cfg = _geotile_cfg(geotile_scenes, layout='s2d')
+    idx = [0, 7, 3]
+    for a, b in zip(GeoTileDataset(cfg).read_batch(idx), JaxGeoTile(cfg).read_batch(idx),
+                    strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match='layout'):
+        GeoTileDataset(_geotile_cfg(geotile_scenes, layout='chw'))
+
+
+@pytest.mark.parametrize('cfg', [
+    dict(split='train', crop_size=48, seed=3),
+    dict(split='val', crop_size=48),                            # full scenes
+    dict(split='test', crop_size=48),                           # no masks
+], ids=['train', 'val', 'test'])
+def test_loveda_s2d_equals_jax_and_folds_the_hwc_items(loveda_root, cfg):
+    """``layout='s2d'``: every sample (epochs 0 and 1) equals the JAX
+    reader's, and is the port's ``SpaceToDepth`` of the ``'hwc'`` sample,
+    bit for bit: the image ``[H/2, W/2, 12]`` in channel order
+    ``(dy·2 + dx)·3 + c``, the mask untouched at full resolution."""
+    got_ds = LoveDA(dict(root=loveda_root, layout='s2d', **cfg))
+    want_ds = JaxLoveDA(dict(root=loveda_root, layout='s2d', **cfg))
+    hwc = LoveDA(dict(root=loveda_root, **cfg))
+    for epoch in range(2):
+        for ds in (got_ds, want_ds, hwc):
+            ds.set_epoch(epoch)
+        _assert_same_samples(got_ds, want_ds)
+        for i in range(len(hwc)):
+            plain, folded = hwc[i], got_ds[i]
+            plain = plain if isinstance(plain, tuple) else (plain, None)
+            folded = folded if isinstance(folded, tuple) else (folded, None)
+            img, mask = SpaceToDepth()(*plain)
+            h, w, _ = plain[0].shape
+            assert folded[0].shape == (h // 2, w // 2, 12)
+            np.testing.assert_array_equal(folded[0], img)
+            assert mask is plain[1] or np.array_equal(folded[1], mask)
+    x = hwc[0][0] if cfg['split'] != 'test' else hwc[0]
+    np.testing.assert_array_equal(SpaceToDepth()(x)[0][3, 5, 7:9],
+                                  x[6 + 1, 10 + 0, 1:3])     # dy=1, dx=0: block 2
+
+
+@pytest.mark.parametrize('image_dtype', ['float32', 'uint8'])
+def test_geotile_s2d_read_batch_equals_jax_and_the_per_item_path(geotile_scenes,
+                                                                 image_dtype):
+    """``GeoTileDataset(layout='s2d')``: the patch index and every per-item
+    sample equal the JAX dataset's; ``read_batch``, gathered and folded by
+    the host library (``extract_tiles_s2d``), equals both the JAX
+    ``read_batch`` and the port's per-item path; a loader's batches come
+    through it.  The masks stay [n, 64, 64]."""
+    cfg = _geotile_cfg(geotile_scenes, layout='s2d', image_dtype=image_dtype)
+    got, want = GeoTileDataset(cfg), JaxGeoTile(cfg)
+    assert got._index == want._index
+    _assert_same_samples(got, want)
+    idx = [5, 0, len(got) - 1, 3, 3]
+    g, w = got.read_batch(idx), want.read_batch(idx)
+    assert g[0].shape == (5, 32, 32, 12) and g[1].shape == (5, 64, 64)
+    for a, b in zip(g, w, strict=True):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for pos, i in enumerate(idx):
+        img, mask = got[i]
+        np.testing.assert_array_equal(g[0][pos], img)
+        np.testing.assert_array_equal(g[1][pos], mask)
+
+
+def test_extract_tiles_s2d_equals_the_jax_host_gather():
+    """The port's host gather in its s2d form against the JAX package's
+    native ``extract_tiles_s2d``, byte for byte, over a 4-channel scene;
+    odd tile sides and boxes outside the scene raise."""
+    from ever_tpu.native import extract_tiles_s2d as jax_s2d
+    from ever_tpu_torch.data import _tilekit
+
+    scene = np.random.default_rng(3).integers(0, 256, size=(50, 70, 4), dtype=np.uint8)
+    boxes = np.array([[0, 0], [10, 14], [34, 50], [2, 3]], np.int64)
+    got = _tilekit.extract_tiles_s2d(scene, boxes, (16, 20))
+    np.testing.assert_array_equal(got, jax_s2d(scene, boxes, (16, 20)))
+    np.testing.assert_array_equal(
+        got, np.stack([SpaceToDepth()(scene[y:y + 16, x:x + 20])[0] for y, x in boxes]))
+    with pytest.raises(ValueError, match='even'):
+        _tilekit.extract_tiles_s2d(scene, boxes, (15, 20))
+    with pytest.raises(ValueError, match='outside'):
+        _tilekit.extract_tiles_s2d(scene, np.array([[40, 0]]), (16, 20))
 
 
 def test_png_written_by_the_port_reads_in_both_packages(tmp_path):

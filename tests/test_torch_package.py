@@ -50,7 +50,8 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.util.param_util, ever_tpu_torch.util._main,'
             ' ever_tpu_torch.api.infer_tool, ever_tpu_torch.__main__,'
             ' ever_tpu_torch.core.dist, ever_tpu_torch.parallel.mesh,'
-            ' ever_tpu_torch.trainer.th_ddp_trainer;'
+            ' ever_tpu_torch.trainer.th_ddp_trainer, ever_tpu_torch.module.se_block,'
+            ' ever_tpu_torch.module.context_block, ever_tpu_torch.module.vit;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -78,6 +79,7 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/module/loss.py',
             'ever_tpu_torch/parallel/spmd.py', 'ever_tpu_torch/ops/pool.py',
             'ever_tpu_torch/module/resnet.py', 'ever_tpu_torch/module/fpn.py',
+            'ever_tpu_torch/module/se_block.py', 'ever_tpu_torch/module/context_block.py',
             'ever_tpu_torch/module/fs_relation.py', 'ever_tpu_torch/ops/norm.py',
             'ever_tpu_torch/ops/quant.py', 'ever_tpu_torch/core/launcher.py',
             'ever_tpu_torch/core/checkpoint.py', 'ever_tpu_torch/trainer/trainer.py',

@@ -2,8 +2,10 @@
 
 Blocks in eval and train mode, ResNet-50's features at 64², output strides
 8 and 16, the deep v1c stem and grouped convs, the running statistics after
-one train forward (flax's biased-variance update), frozen BatchNorm, and
-``with_cp`` against no checkpointing.  Weights are seeded random draws in
+one train forward (flax's biased-variance update), frozen BatchNorm,
+``with_cp`` against no checkpointing, the SE and GC branches and their
+plugin functions, and the folded-input stem (``stem='s2d_input'``) against
+the JAX stem and the port's own conv stem.  Weights are seeded random draws in
 the JAX tree, carried over by ``convert_flax_resnet``; inputs come from
 numpy with a seed.  Tolerances: 1e-5 of the output's scale in eval mode
 (float32 sums in other orders); 1e-4 in train mode, where the batch
@@ -200,11 +202,158 @@ def test_with_cp_matches_no_checkpointing():
     assert not torch.equal(bufs['bn1.running_mean'], stem_mean)
 
 
+def _fold(x):
+    """The 2×2 space-to-depth of an NHWC batch, channel (dy·2 + dx)·C + c."""
+    b, h, w, c = x.shape
+    return np.ascontiguousarray(x.reshape(b, h // 2, 2, w // 2, 2, c)
+                                .transpose(0, 1, 3, 2, 4, 5).reshape(b, h // 2, w // 2, 4 * c))
+
+
 @pytest.mark.parametrize('kw', [dict(stem='s2d_input'), dict(se_ratio=16),
                                 dict(gc_ratio=0.25)])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tres.ResNet(resnet_type='resnet18', **kw)
+    """The options that raised ``NotImplementedError`` before they were
+    ported (the folded-input stem, the SE and the GC block) now build, and
+    ResNet-18's features match the JAX package's with the same variables
+    (every SE/GC weight a seeded draw, the GC expand not zero) at 64²,
+    batch 2: in eval mode in float32 to 1e-5 of the scale, and after one
+    train forward in float64 in both packages (the running statistics too)
+    to 1e-6, float32's limit, as both packages pool the SE squeeze and the
+    GC context in float32 (1e-6 measured at the GC's last stage; the
+    folded stem alone agrees to 1e-13)."""
+    x = _x((2, 64, 64, 3))
+    if 'stem' in kw:
+        x = _fold(x)
+    jm = jres.ResNet(resnet_type='resnet18', **kw)
+    v = seeded_variables(jm, x)
+    tm = tres.ResNet(resnet_type='resnet18', **kw)
+    tm.load_state_dict(convert_flax_resnet(v), strict=True)
+    want = jm.apply(v, jnp.asarray(x))
+    with torch.no_grad():
+        got = tm(nchw(x))
+    for g, w in zip(got, want):
+        close(nhwc(g), w, 1e-5)
+    with jax.enable_x64(True):
+        jm = jres.ResNet(resnet_type='resnet18', dtype=jnp.float64, **kw)
+        v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), v)
+        want, mut = jm.apply(v64, jnp.asarray(x, jnp.float64), train=True,
+                             mutable=['batch_stats'])
+        want = [np.asarray(w) for w in want]
+        moved = convert_flax_resnet({}, mut['batch_stats'])
+    tm.double()
+    tm.load_state_dict(convert_flax_resnet(v64), strict=True)
+    with torch.no_grad():
+        got = tm(nchw(x).double(), train=True)
+    for g, w in zip(got, want):
+        close(nhwc(g), w, 1e-6)
+    sd = tm.state_dict()
+    for k, w in moved.items():
+        close(sd[k].numpy(), w.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize('block', ['resnext_tiny'])
+@pytest.mark.parametrize('kw', [dict(se_ratio=8), dict(gc_ratio=1 / 16),
+                                dict(se_ratio=4, gc_ratio=1 / 8)])
+def test_se_gc_blocks_match_jax(block, kw):
+    """Grouped Bottlenecks (the BasicBlocks are above) with an SE branch,
+    a GC branch or both (SE first, as in the JAX blocks): the last feature
+    in eval mode to 1e-5 of its scale."""
+    jm = jres.ResNet(resnet_type=block, **kw)
+    x = _x((2, 32, 32, 3), seed=4)
+    v = seeded_variables(jm, x)
+    tm = tres.ResNet(resnet_type=block, **kw)
+    tm.load_state_dict(convert_flax_resnet(v), strict=True)
+    with torch.no_grad():
+        close(nhwc(tm(nchw(x))[-1]), jm.apply(v, jnp.asarray(x))[-1], 1e-5)
+
+
+@pytest.mark.parametrize('stem', ['s2d_input', 's2d_input_pack2'])
+def test_folded_input_stem_is_the_conv_stem(stem):
+    """``stem='s2d_input'`` (and its pack2 variant) on the folded batch:
+    the same bits as the port's ``stem='conv'`` on the unfolded batch with
+    the same state_dict (depth-to-space is a permutation), and the JAX
+    package's folded stem within 1e-5 of the scale.  A checkpoint moves
+    between the stems unchanged."""
+    x = _x((2, 48, 64, 3), seed=6)
+    jm = jres.ResNet(resnet_type='resnet18', stem=stem)
+    v = seeded_variables(jm, _fold(x))
+    folded = tres.ResNet(resnet_type='resnet18', stem=stem)
+    folded.load_state_dict(convert_flax_resnet(v), strict=True)
+    plain = tres.ResNet(resnet_type='resnet18')
+    plain.load_state_dict(folded.state_dict(), strict=True)
+    assert folded.conv1.weight.shape == (64, 3, 7, 7)
+    with torch.no_grad():
+        got, ref = folded(nchw(_fold(x))), plain(nchw(x))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    want = jm.apply(v, jnp.asarray(_fold(x)))
+    for g, w in zip(got, want):
+        close(nhwc(g), w, 1e-5)
+
+
+def test_folded_input_stem_takes_odd_folded_sizes():
+    """A folded batch of odd size (17×13 → 34×26 unfolded) runs, as in the
+    JAX package (``tests/test_model_zoo.py``), and matches it."""
+    x = _x((1, 17, 13, 12), seed=8)
+    jm = jres.ResNet(resnet_type='resnet18', stem='s2d_input')
+    v = seeded_variables(jm, x)
+    assert v['params']['conv1']['kernel'].shape == (7, 7, 3, 64)
+    tm = tres.ResNet(resnet_type='resnet18', stem='s2d_input')
+    tm.load_state_dict(convert_flax_resnet(v), strict=True)
+    with torch.no_grad():
+        got = tm(nchw(x))
+    want = jm.apply(v, jnp.asarray(x))
+    assert tuple(got[0].shape[2:]) == want[0].shape[1:3] == (9, 7)
+    for g, w in zip(got, want):
+        close(nhwc(g), w, 1e-5)
+
+
+def test_deep_stem_takes_the_folded_input_as_it_comes():
+    """The deep (v1c) stem ignores ``stem`` in the JAX package: its first
+    3×3/2 conv reads the folded input's 4C channels.  The port does the
+    same, and the features match to 1e-5 of the scale."""
+    x = _fold(_x((2, 32, 32, 3), seed=10))
+    jm = jres.ResNet(resnet_type='resnet_v1c_tiny', stem='s2d_input')
+    v = seeded_variables(jm, x)
+    assert v['params']['stem_conv1']['kernel'].shape == (3, 3, 12, 32)
+    tm = tres.ResNet(resnet_type='resnet_v1c_tiny', stem='s2d_input')
+    tm.load_state_dict(convert_flax_resnet(v), strict=True)
+    with torch.no_grad():
+        close(nhwc(tm(nchw(x))[-1]), jm.apply(v, jnp.asarray(x))[-1], 1e-5)
+
+
+@pytest.mark.parametrize('plugin', ['se_basic', 'se_bottleneck', 'gc_basic', 'gc_resnet'])
+def test_plugins_keep_the_weights(plugin):
+    """The plugin functions return a copy of the module with the branch in
+    every block: the copy keeps every existing parameter and buffer, the
+    original is unchanged, the new GC branch starts as the identity (so the
+    features are unchanged), and an encoder's config carries the ratio."""
+    from ever_tpu_torch.module import context_block as tgc, se_block as tse
+
+    fn, ratio, key = {'se_basic': (tse.plugin_to_basicblock, 8, 'se_ratio'),
+                      'se_bottleneck': (tse.plugin_to_bottleneck, 8, 'se_ratio'),
+                      'gc_basic': (tgc.plugin_to_basicblock, 0.25, 'gc_ratio'),
+                      'gc_resnet': (tgc.plugin_to_resnet, 0.25, 'gc_ratio')}[plugin]
+    kind = 'resnet18' if plugin.endswith('basic') else 'resnext_tiny'
+    enc = tres.ResNetEncoder(dict(resnet_type=kind))
+    before = {k: t.clone() for k, t in enc.state_dict().items()}
+    out = fn(enc, ratio)
+    assert out.config[key] == ratio and enc.config[key] is None
+    assert set(enc.state_dict()) == set(before)
+    sd = out.state_dict()
+    added = set(sd) - set(before)
+    branch = 'se.' if key == 'se_ratio' else 'gc.'
+    assert added and all(branch in k for k in added)
+    for k, t in before.items():
+        torch.testing.assert_close(sd[k], t, rtol=0, atol=0)
+    stage = fn(enc.resnet.layer2, ratio)
+    assert all(getattr(b, key[:2]) is not None for b in stage)
+    assert enc.resnet.layer2[0].se is None and enc.resnet.layer2[0].gc is None
+    if key == 'gc_ratio':
+        x = torch.from_numpy(_x((1, 32, 32, 3), seed=12))
+        with torch.no_grad():
+            for a, b in zip(enc(x), out(x)):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('stem', ['s2d', 's2dw', 's2d3'])

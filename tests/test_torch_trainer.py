@@ -395,3 +395,42 @@ def test_a_dataset_failure_crash_saves_the_step(tiny_vit, tmp_path):
     assert os.path.exists(tmp_path / 'run' / 'checkpoint-3.ckpt')
     ckpt = torch.load(tmp_path / 'run' / 'checkpoint-3.ckpt', weights_only=True)
     assert ckpt['global_step'] == 3
+
+
+class _EpochData(torch.utils.data.Dataset):
+    """Samples that depend on the epoch the iterator tells the dataset, as
+    LoveDA's crops and flips do: ``100·epoch + index``."""
+
+    def __init__(self):
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        return torch.tensor(100 * self.epoch + i)
+
+
+@pytest.mark.parametrize('num_workers', [0, 2])
+def test_resume_mid_epoch_tells_the_workers_their_epoch(num_workers):
+    """A resume in the middle of an epoch draws an unbroken run's batches
+    also when the loader forks worker processes: the dataset learns its
+    epoch before the resumed iterator starts the workers (they copy the
+    dataset as it is then).  8 samples in batches of 4, resumed after step 3
+    (the first batch of epoch 1) and drawn to step 6."""
+    from ever_tpu_torch.core.iterator import Iterator
+
+    def loader():
+        return torch.utils.data.DataLoader(_EpochData(), batch_size=4,
+                                           num_workers=num_workers)
+
+    whole = Iterator(loader())
+    want = [whole.next()[0].tolist() for _ in range(6)]
+    resumed = Iterator(loader())
+    resumed.set_start_step(3)
+    got = [resumed.next()[0].tolist() for _ in range(3)]
+    assert want[:4] == [[0, 1, 2, 3], [4, 5, 6, 7], [100, 101, 102, 103], [104, 105, 106, 107]]
+    assert got == want[3:]
