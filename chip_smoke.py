@@ -44,8 +44,9 @@ Phases (any failure exits non-zero before the last line is printed):
 5. farseg  — FarSeg-R50 (the JAX package's ``farseg`` bench section, without
              its TPU-only layouts) with ``maxpool_impl='pallas'``: first the
              stem's max pool backward (K8) against its plain version at the
-             main shape ([8, 256, 256, 64] bf16), in float32, at [2, 30, 22, 5]
-             (the unaligned path) and on inputs with ties, then timed.  Then
+             main shape ([8, 256, 256, 64] bf16), in float32, at the siamese
+             detectors' [16, 256, 256, 64] bf16, at [2, 30, 22, 5] (the
+             unaligned path) and on inputs with ties, then timed.  Then
              the train step: 512² tiles, batch 8, bf16 compute with float32
              parameters, SGD with momentum 0.9 and a poly schedule (base_lr
              0.01, power 0.9, 1000 iterations), built through ``builder`` and
@@ -205,7 +206,44 @@ Phases (any failure exits non-zero before the last line is printed):
              gradients within phase 4's limits of ``attn_impl='xla'``,
              ``local_cls_norm``'s gradient non-zero and from crop 1 alone.
              The phase's K1, K2 and K8 launches join the kernels line.
-13. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+13. change — FactSeg and the change detectors from the project template's
+             configs (``phase_change``): a project from ``create`` and seeded
+             trees of 1024² PNG scenes written by the port's codec (iSAID:
+             8 train and 2 val, devkit-palette masks with an off-palette
+             square each; LEVIR-CD: 8 train and 2 test pairs, grey 0/255
+             labels; xView2: 8 train and 2 hold pairs, targets 0..5).
+             (a) the ``ISAID``, ``LEVIRCD`` and ``XView2`` items finite, their
+             labels in their sets, the whole scenes' labels the written ones
+             (off-palette colours and damage 5 read as 255); (b)
+             FactSeg-R50 from a config written beside
+             ``configs/factseg_r50_isaid.py`` (batch 8 of 512² crops, K8,
+             bf16, SGD + poly) through the project's train.py, 3 steps and a
+             resume to 6 against 6 at once, deterministic cuDNN: finite
+             ``cls_loss``, ``fa_loss`` and ``dice_loss``, 1 K8 a step, the
+             resumed state bit-equal, the evaluation's confusion matrix equal
+             to ``np.bincount`` on the host; ms/step through the ``Launcher``
+             and of the bare step with its FLOPs for MFU; a 4096² scene
+             through ``tiled_inference`` (bf16, 512² tiles, stride 512,
+             ``tile_batch=8``): joint probabilities finite and summing to 1,
+             no K8; (c) ChangeStar-R18 (SGD) and ChangeMask-R18 (AdamW +
+             cosine) from configs beside theirs on the LEVIR-CD tree, batch
+             8 of 512² pairs, K8, bf16, 3 steps each: ChangeStar's
+             ``seg_loss`` exactly 0 (the masks are all ignored) with a zero
+             gradient to ``seg_cls`` and 1 K8 in that backward, finite
+             change and consistency losses, 1 K8 a step (one encoder pass
+             over both dates), the auto-routed change evaluation's 2 × 2
+             matrix equal to the host's, the bare steps timed (after a
+             counted and two warm-up steps, ten by CUDA events: median, min
+             and max, as every bare step); (d) ChangeOS-R50 the same on the xView2 tree, its
+             damage evaluation's 5 × 5 matrix, and a 4096² pre/post scene
+             (6 channels) through ``tiled_inference`` with a ``predict_fn``
+             concatenating ``(loc_prob, damage_prob)``: finite, the damage
+             channels summing to 1, no K8.  Cuts of the configs:
+             ``total_batch_size`` 32 or 16 → 8, ``num_iters`` → 6 or 3,
+             ``maxpool_impl='pallas'``; widths, bf16, optimizers and
+             schedules as written.  The phase's K8 launches join the
+             kernels line.
+14. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -287,10 +325,12 @@ FLASH_N = 128 * 128 + 5
 PEAK_F32_FLOPS = 67e12
 # K8 (the stem max pool's backward) at FarSeg-R50's 512², batch-8 stem
 POOL_SHAPE = (8, 256, 256, 64)
-# (shape, type, ties): the main shape, in float32, an H and W that are even
-# but leave a ragged block with C off the 8-wide vector (the kernel's
+# (shape, type, ties): the main shape, in float32, the siamese detectors'
+# stem (both dates of the batch stacked), an H and W that are even but
+# leave a ragged block with C off the 8-wide vector (the kernel's
 # element-by-element path), and small integers (many exact ties)
 POOL_CASES = ((POOL_SHAPE, torch.bfloat16, False), (POOL_SHAPE, torch.float32, False),
+              ((2 * TRAIN_BATCH, 256, 256, 64), torch.bfloat16, False),
               ((2, 30, 22, 5), torch.bfloat16, False), ((8, 64, 64, 64), torch.bfloat16, True))
 # K8 vs its plain version: both compare the same values exactly and sum the
 # same <= 4 float32 terms before one rounding, so they should agree to the
@@ -3136,10 +3176,9 @@ def phase_models(gen, seed: int, smi: str):
     import tempfile
 
     import numpy as np
-    from torch.utils.flop_counter import FlopCounterMode
 
     from ever_tpu_torch import tiled_inference
-    from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
+    from ever_tpu_torch.core.builder import make_model
     from ever_tpu_torch.core.config import import_config
     from ever_tpu_torch.data import SpaceToDepth
     from ever_tpu_torch.data.geotile import GeoTileDataset
@@ -3148,7 +3187,6 @@ def phase_models(gen, seed: int, smi: str):
     from ever_tpu_torch.module.resnet import ResNetEncoder
     from ever_tpu_torch.module.vit import SAT_CONFIGS, DINOHead, DinoVisionTransformer
     from ever_tpu_torch.ops import attention as A, pool as P
-    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
     t_phase = time.perf_counter()
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3271,39 +3309,16 @@ def phase_models(gen, seed: int, smi: str):
 
         # b: the bare step on the trained model, and its FLOPs
         torch.backends.cudnn.deterministic = deterministic
-        schedule = make_learningrate({'type': 'poly', 'params': dict(
-            base_lr=0.01, power=0.9, max_iters=1000)})
-        factory, _ = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})
-        tx = factory.build(schedule)
-        state = create_train_state(model, tx)
-        step = build_train_step(model, tx, schedule)
         x = torch.randn(TRAIN_BATCH, TILE // 2, TILE // 2, 12, generator=gen, device='cuda')
         y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
-        with FlopCounterMode(display=False) as counter:
-            state, _ = step(state, (x, y))
-        step_flops = counter.get_total_flops()
-        for _ in range(WARMUP_STEPS - 1):
-            state, _ = step(state, (x, y))
-        torch.cuda.synchronize()
-        before = P.max_pool_32_bwd.launches
-        events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-        events[0].record()
-        for i in range(TIMED_STEPS):
-            state, m = step(state, (x, y))
-            events[i + 1].record()
-        torch.cuda.synchronize()
-        times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-        bare_ms = times[len(times) // 2]
-        bare_k8 = P.max_pool_32_bwd.launches - before
-        print(f'models: b: {smi}: the bare FarSeg++ step (build_train_step, folded batch of '
-              f'{TRAIN_BATCH}): median {bare_ms:.2f} ms/step (min {times[0]:.2f}, max '
-              f'{times[-1]:.2f}) = {TRAIN_BATCH / bare_ms * 1e3:.1f} tiles/s; MFU '
-              f'{step_flops / (bare_ms / 1e3) / PEAK_BF16_FLOPS:.4f} ({step_flops / 1e12:.3f} '
-              f'TFLOP/step by FlopCounterMode / step time / 989 TFLOP/s); K8 {bare_k8} in '
-              f'{TIMED_STEPS} steps; loss {m["cls_loss"].item():.5f}', flush=True)
-        check(bare_k8 == TIMED_STEPS and math.isfinite(m['cls_loss'].item()),
-              f'b: the bare step launched K8 {bare_k8} times in {TIMED_STEPS}')
-        del state, step, m
+        bare = bare_steps(model, cfg_path, (x, y))
+        m = bare['metrics']
+        print(f'models: b: {smi}: the bare FarSeg++ step (build_train_step, the config\'s SGD + '
+              f'poly, folded batch of {TRAIN_BATCH}): {bare_text(bare)}; loss '
+              f'{m["cls_loss"].item():.5f}', flush=True)
+        check(bare['k8'] == bare['steps'] and math.isfinite(m['cls_loss'].item()),
+              f'b: the bare step launched K8 {bare["k8"]} times in {bare["steps"]}')
+        del m, bare
         model.load_state_dict(trained, strict=True)       # the weights train.py left
         torch.backends.cudnn.deterministic = True
 
@@ -3467,6 +3482,478 @@ def phase_models(gen, seed: int, smi: str):
     return launches
 
 
+# FactSeg and the change detectors from the project template's configs (phase 13)
+CHANGE_SCENE, CHANGE_TRAIN, CHANGE_VAL = 1024, 8, 2
+CHANGE_ITERS, CHANGE_RESUME_AT, DETECTOR_ITERS = 6, 3, 3
+ISAID_CLASSES, DAMAGE_CLASSES = 16, 5
+# off-palette colours painted into the iSAID masks: each must decode to 255
+OFF_PALETTE = ((255, 0, 0), (1, 2, 3), (0, 63, 64))
+
+
+def blocky_labels(rng, n_classes: int, size: int, block: int = 64):
+    """A ``[size, size]`` label map of ``block``² regions of random classes."""
+    import numpy as np
+
+    blocks = size // block
+    return np.kron(rng.integers(0, n_classes, (blocks, blocks)),
+                   np.ones((block, block), np.int64))
+
+
+def blocky_image(rng, label, palette):
+    """Each class its own colour plus noise, as uint8 RGB."""
+    import numpy as np
+
+    noise = rng.integers(-20, 21, label.shape + (3,))
+    return np.clip(palette[label] + noise, 0, 255).astype(np.uint8)
+
+
+def write_change_trees(root: str, seed: int) -> dict:
+    """Seeded iSAID, LEVIR-CD and xView2 trees of 1024² scenes written by
+    the port's PNG codec: ``CHANGE_TRAIN`` train and ``CHANGE_VAL``
+    val/test/hold scenes each.  iSAID masks are devkit-palette RGB with a
+    32² square of an off-palette colour in every scene; LEVIR-CD labels
+    are grey 0/255; xView2 targets are 0..5, 5 in a block of each post
+    target.  Returns the written labels by (dataset, split): class ids with
+    255 where the readers must ignore."""
+    import numpy as np
+    from ever_tpu_torch.data._png import write_png
+    from ever_tpu_torch.data.benchmarks import ISAID_PALETTE
+
+    rng = np.random.default_rng(seed + 11)
+    colours = np.zeros((ISAID_CLASSES, 3), np.uint8)
+    for rgb, c in ISAID_PALETTE.items():
+        colours[c] = rgb
+    palette = rng.integers(30, 220, (ISAID_CLASSES, 3))
+    truth = {}
+    n = 0
+    for split, count in (('train', CHANGE_TRAIN), ('val', CHANGE_VAL)):
+        d = os.path.join(root, 'iSAID', split, 'images')
+        os.makedirs(d)
+        for i in range(count):
+            label = blocky_labels(rng, ISAID_CLASSES, CHANGE_SCENE)
+            mask = colours[label]
+            y0, x0 = rng.integers(0, CHANGE_SCENE - 32, 2)
+            mask[y0:y0 + 32, x0:x0 + 32] = OFF_PALETTE[i % len(OFF_PALETTE)]
+            want = label.astype(np.int32)
+            want[y0:y0 + 32, x0:x0 + 32] = 255
+            write_png(os.path.join(d, f'P{i:04d}.png'), blocky_image(rng, label, palette),
+                      filter_type=n % 5)
+            write_png(os.path.join(d, f'P{i:04d}_instance_color_RGB.png'), mask)
+            truth.setdefault(('isaid', split), []).append(want)
+            n += 1
+    for split, count in (('train', CHANGE_TRAIN), ('test', CHANGE_VAL)):
+        for sub in ('A', 'B', 'label'):
+            os.makedirs(os.path.join(root, 'LEVIR-CD', split, sub))
+        for i in range(count):
+            before = blocky_labels(rng, 4, CHANGE_SCENE)
+            change = blocky_labels(rng, 2, CHANGE_SCENE, 32)
+            after = np.where(change == 1, (before + 1) % 4, before)
+            for sub, lab in (('A', before), ('B', after)):
+                write_png(os.path.join(root, 'LEVIR-CD', split, sub, f'{i}.png'),
+                          blocky_image(rng, lab, palette), filter_type=n % 5)
+                n += 1
+            write_png(os.path.join(root, 'LEVIR-CD', split, 'label', f'{i}.png'),
+                      (change * 255).astype(np.uint8))
+            truth.setdefault(('levircd', split), []).append(change.astype(np.int32))
+    for split, count in (('train', CHANGE_TRAIN), ('hold', CHANGE_VAL)):
+        for sub in ('images', 'targets'):
+            os.makedirs(os.path.join(root, 'xView2', split, sub))
+        for i in range(count):
+            building = blocky_labels(rng, 2, CHANGE_SCENE)
+            damage = np.where(building == 1, blocky_labels(rng, 4, CHANGE_SCENE, 32) + 1, 0)
+            damage[:64, :64] = np.where(building[:64, :64] == 1, 5, 0)
+            pre = blocky_image(rng, building, palette)
+            post = blocky_image(rng, damage, palette)
+            stem = os.path.join(root, 'xView2', split, '{}', f'scene{i}_{{}}_disaster{{}}.png')
+            write_png(stem.format('images', 'pre', ''), pre, filter_type=n % 5)
+            write_png(stem.format('images', 'post', ''), post, filter_type=(n + 1) % 5)
+            n += 2
+            write_png(stem.format('targets', 'pre', '_target'), building.astype(np.uint8))
+            write_png(stem.format('targets', 'post', '_target'), damage.astype(np.uint8))
+            truth.setdefault(('xview2', split), []).append(
+                (building.astype(np.int32), np.where(damage == 5, 255, damage).astype(np.int32)))
+    return truth
+
+
+def template_config(proj: str, template: str, name: str, root: str, **params) -> str:
+    """The project's ``configs/{template}.py`` with its data under ``root``,
+    batch ``TRAIN_BATCH`` of ``TILE``² crops with 4 loader workers,
+    ``maxpool_impl='pallas'``, the model's ``params`` merged in, and its run
+    cut to ``CHANGE_ITERS`` steps with one evaluation after training;
+    written beside it as ``{name}.py``, its path returned."""
+    from ever_tpu_torch.core.config import import_config
+
+    cfg = import_config(os.path.join(proj, 'configs', f'{template}.py')).to_dict()
+    cfg['model']['params']['encoder']['maxpool_impl'] = 'pallas'
+    cfg['model']['params'].update(params)
+    cfg['data']['train']['params'].update(root=root, total_batch_size=TRAIN_BATCH,
+                                          num_workers=MODELS_WORKERS, crop_size=TILE)
+    cfg['data']['test']['params'].update(root=root)
+    cfg['train'].update(num_iters=CHANGE_ITERS, log_interval_step=1,
+                        save_ckpt_interval_epoch=1000, eval_after_train=True)
+    path = os.path.join(proj, 'configs', f'{name}.py')
+    with open(path, 'w') as f:
+        f.write(f'# {name}, from {template}.py with its run cut to size\n'
+                f'config = {cfg!r}\n')
+    return path
+
+
+def host_confusion(seen: list, n_classes: int):
+    """``np.bincount`` of the recorded evaluation's valid labels and
+    predictions, on the host."""
+    import numpy as np
+
+    truth = np.concatenate([y.reshape(-1) for _, _, y, _ in seen])
+    pred = np.concatenate([p.reshape(-1) for _, _, _, p in seen])
+    valid = truth != 255
+    return np.bincount(truth[valid].astype(np.int64) * n_classes + pred[valid],
+                       minlength=n_classes * n_classes).reshape(n_classes, n_classes)
+
+
+def card_confusion(model_dir: str):
+    """The last confusion matrix the evaluation dumped under the model dir."""
+    import numpy as np
+
+    dumps = sorted(os.listdir(os.path.join(model_dir, 'cm')))
+    return np.load(os.path.join(model_dir, 'cm', dumps[-1]))
+
+
+def bare_steps(model, cfg_path: str, batch) -> dict:
+    """The config's optimizer and schedule through ``build_train_step`` on
+    ``batch`` (on the card): one step under ``FlopCounterMode``,
+    ``WARMUP_STEPS`` more, then ``TIMED_STEPS`` timed by CUDA events.
+    Returns the median, least and most ms of a timed step, the FLOPs of a
+    step, the K8 launches of all ``steps`` steps and the last metrics."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.ops import pool as P
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    cfg = import_config(cfg_path)
+    schedule = make_learningrate(cfg.learning_rate)
+    factory, _ = make_optimizer(cfg.optimizer)
+    tx = factory.build(schedule)
+    state = create_train_state(model, tx)
+    step = build_train_step(model, tx, schedule)
+    before = P.max_pool_32_bwd.launches
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step(state, batch)
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, batch)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    torch.cuda.synchronize()
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        state, metrics = step(state, batch)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    return dict(ms=times[len(times) // 2], min_ms=times[0], max_ms=times[-1],
+                flops=counter.get_total_flops(), k8=P.max_pool_32_bwd.launches - before,
+                steps=1 + WARMUP_STEPS + TIMED_STEPS, metrics=metrics)
+
+
+def bare_text(bare: dict) -> str:
+    """The times, the rate and the MFU of a :func:`bare_steps` result."""
+    return (f'median {bare["ms"]:.2f} ms/step of {TIMED_STEPS} after {WARMUP_STEPS + 1} '
+            f'(min {bare["min_ms"]:.2f}, max {bare["max_ms"]:.2f}) = '
+            f'{TRAIN_BATCH / bare["ms"] * 1e3:.1f} tiles/s; MFU '
+            f'{bare["flops"] / (bare["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f} '
+            f'({bare["flops"] / 1e12:.3f} TFLOP/step by FlopCounterMode / step time / 989 '
+            f'TFLOP/s); K8 {bare["k8"]} in {bare["steps"]} steps')
+
+
+def timed_scene(predict, scene, channels: int):
+    """A warm-up and a timed ``tiled_inference`` of ``scene`` (``TILE``²
+    tiles, stride ``STRIDE``, ``tile_batch=TILE_BATCH``): (output, ms, K8
+    launches of the timed scene)."""
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.ops import pool as P
+
+    tiled_inference(predict, scene, TILE, STRIDE, channels, tile_batch=TILE_BATCH)
+    torch.cuda.synchronize()
+    before = P.max_pool_32_bwd.launches
+    t0 = time.perf_counter()
+    out = tiled_inference(predict, scene, TILE, STRIDE, channels, tile_batch=TILE_BATCH)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, P.max_pool_32_bwd.launches - before
+
+
+def levircd_batch(root: str):
+    """The first ``TRAIN_BATCH`` LEVIR-CD train items as one batch on the
+    card: x ``[B, TILE, TILE, 6]`` and the dict labels."""
+    import numpy as np
+    from ever_tpu_torch.data.benchmarks import LEVIRCD
+
+    ds = LEVIRCD(dict(root=root, split='train', crop_size=TILE))
+    items = [ds[i] for i in range(TRAIN_BATCH)]
+    x = torch.from_numpy(np.stack([a for a, _ in items])).cuda()
+    return x, {k: torch.from_numpy(np.stack([b[k] for _, b in items])).cuda()
+               for k in items[0][1]}
+
+
+def phase_change(gen, seed: int, smi: str) -> int:
+    """FactSeg and the change detectors from the project template's configs
+    (module docstring, phase 13): (a) the iSAID, LEVIR-CD and xView2
+    readers on seeded trees, (b) FactSeg-R50 through the project's
+    train.py with a resume, its evaluation, bare step and a 4096² scene,
+    (c) ChangeStar-R18 and ChangeMask-R18 on LEVIR-CD, (d) ChangeOS-R50 on
+    xView2 with a 4096² pre/post scene.  Cuts of the configs' runs:
+    ``total_batch_size`` 32 or 16 → 8, ``num_iters`` → 6 (FactSeg) or 3,
+    ``maxpool_impl='pallas'``; widths, dtype (bf16), optimizers and
+    schedules as written.  Returns the phase's K8 launches."""
+    import tempfile
+
+    import numpy as np
+    from ever_tpu_torch.data.benchmarks import ISAID, LEVIRCD, XView2
+    from ever_tpu_torch.interface.module import sum_losses
+    from ever_tpu_torch.ops import pool as P
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True          # a resumed run's bits
+    k8 = 0
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_change_') as tmp:
+        proj = os.path.join(tmp, 'proj')
+        r = subprocess.run([sys.executable, '-m', 'ever_tpu_torch', 'create', proj], cwd=repo,
+                           env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f'create failed: {r.stderr[-2000:]}')
+        t0 = time.perf_counter()
+        truth = write_change_trees(tmp, seed)
+        write_s = time.perf_counter() - t0
+
+        # a: the readers on the trees
+        iroot, lroot, xroot = (os.path.join(tmp, d) for d in ('iSAID', 'LEVIR-CD', 'xView2'))
+        readers = {('isaid', 'train'): ISAID(dict(root=iroot, split='train')),
+                   ('isaid', 'val'): ISAID(dict(root=iroot, split='val')),
+                   ('levircd', 'train'): LEVIRCD(dict(root=lroot, split='train')),
+                   ('levircd', 'test'): LEVIRCD(dict(root=lroot, split='test')),
+                   ('xview2', 'train'): XView2(dict(root=xroot, split='train')),
+                   ('xview2', 'hold'): XView2(dict(root=xroot, split='hold'))}
+        finite, in_sets, exact, n_items = True, True, True, 0
+        for (name, split), ds in readers.items():
+            for i in range(len(ds)):
+                x, y = ds[i]
+                n_items += 1
+                finite &= bool(np.isfinite(x).all()) and x.dtype == np.float32
+                if name == 'isaid':
+                    in_sets &= x.shape[-1] == 3 and bool(np.isin(y, list(range(16)) + [255]).all())
+                    if split == 'val':
+                        exact &= np.array_equal(y, truth[name, split][i])
+                elif name == 'levircd':
+                    in_sets &= (x.shape[-1] == 6 and bool(np.isin(y['change'], (0, 1)).all())
+                                and bool((y['masks'] == 255).all()))
+                    if split == 'test':
+                        exact &= np.array_equal(y['change'], truth[name, split][i])
+                else:
+                    in_sets &= (x.shape[-1] == 6 and bool(np.isin(y['loc'], (0, 1)).all())
+                                and bool(np.isin(y['damage'], (0, 1, 2, 3, 4, 255)).all()))
+                    if split == 'hold':
+                        loc, dam = truth[name, split][i]
+                        exact &= np.array_equal(y['loc'], loc) and np.array_equal(y['damage'], dam)
+        print(f'change: a: seeded trees of {CHANGE_SCENE}² PNG scenes written in '
+              f'{write_s:.1f} s; {n_items} items of ISAID, LEVIRCD and XView2 (train crops of '
+              f'{TILE}², whole val/test/hold scenes): finite float32 {finite}, labels in their '
+              f'sets {in_sets}, whole-scene labels equal to the written ones (off-palette '
+              f'colours and damage 5 read as 255) {exact}', flush=True)
+        check(finite and in_sets and exact, 'a: a reader yields wrong items')
+
+        # b: FactSeg-R50 through the project's train.py, resumed
+        train_py = os.path.join(proj, 'train.py')
+        fact_cfg = template_config(proj, 'factseg_r50_isaid', 'factseg_r50_isaid_smoke', iroot)
+
+        def argv(cfg_path, model_dir, iters, evaluate=True):
+            return ['--config_path', cfg_path, '--model_dir', model_dir,
+                    'train.num_iters', str(iters), 'train.eval_after_train', str(evaluate)]
+
+        la, ra = recorded_run(train_py, argv(fact_cfg, os.path.join(tmp, 'fa'),
+                                             CHANGE_RESUME_AT, False))
+        del la
+        la, ra2 = recorded_run(train_py, argv(fact_cfg, os.path.join(tmp, 'fa'),
+                                              CHANGE_ITERS, False))
+        resumed = {k: v.detach().clone() for k, v in la.model.state_dict().items()}
+        del la
+        seen = []
+        undo_cm = record_confusion(seen)
+        try:
+            lb, rb = recorded_run(train_py, argv(fact_cfg, os.path.join(tmp, 'fb'),
+                                                 CHANGE_ITERS))
+        finally:
+            undo_cm()
+        k8 += ra['launches'][2] + ra2['launches'][2] + rb['launches'][2]
+        model = lb.model
+        trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        resume_equal = all(torch.equal(resumed[k], v) for k, v in trained.items())
+        logged = rb['logged']
+        losses = {k: [d[k] for _, d, _, _ in logged] for k in ('cls_loss', 'fa_loss', 'dice_loss')}
+        finite_losses = all(len(v) == CHANGE_ITERS and all(math.isfinite(a) for a in v)
+                            for v in losses.values())
+        card_cm, host_cm = card_confusion(lb.model_dir), host_confusion(seen, ISAID_CLASSES)
+        launcher_ms = sum(t for _, _, _, t in logged[1:]) / len(logged[1:]) * 1e3
+        data_ms = sum(d for _, _, d, _ in logged[1:]) / len(logged[1:]) * 1e3
+        print(f'change: b: {smi}: FactSeg-R50 ({os.path.basename(fact_cfg)}: batch '
+              f'{TRAIN_BATCH} of {TILE}² iSAID crops, bf16, SGD + poly, K8) through train.py: '
+              + '; '.join(f'{k} {" ".join(f"{a:.5f}" for a in v)}' for k, v in losses.items())
+              + f'; K8 launches {rb["launches"][2]} (expected {CHANGE_ITERS}), resumed run '
+              f'{ra["launches"][2]} + {ra2["launches"][2]}; resumed from step '
+              f'{CHANGE_RESUME_AT} to {CHANGE_ITERS} bit-equal to the unbroken run: '
+              f'{resume_equal}; the evaluation of {len(seen)} batch(es) of the '
+              f'{CHANGE_VAL} val scenes: confusion matrix {card_cm.shape} ({int(card_cm.sum())} '
+              f'pixels) equal to np.bincount on the host '
+              f'{bool(np.array_equal(card_cm, host_cm))}; through the Launcher '
+              f'{launcher_ms:.2f} ms/step ({data_ms:.2f} of it loading; each step an epoch, '
+              f'its workers started anew), the mean of steps 2-{CHANGE_ITERS}, deterministic '
+              f'cuDNN', flush=True)
+        check(finite_losses, 'b: non-finite or missing FactSeg losses')
+        check(rb['launches'][2] == CHANGE_ITERS
+              and ra['launches'][2] + ra2['launches'][2] == CHANGE_ITERS,
+              f'b: K8 launches {rb["launches"][2]}, {ra["launches"][2]} + {ra2["launches"][2]}')
+        check(resume_equal, 'b: the resumed FactSeg run differs from the unbroken run')
+        check(all(d == 'cuda' for d, _, _, _ in seen) and np.array_equal(card_cm, host_cm)
+              and card_cm.shape == (ISAID_CLASSES, ISAID_CLASSES) and int(card_cm.sum()) > 0,
+              "b: the card's confusion matrix differs from the host's")
+        del lb, resumed
+        torch.backends.cudnn.deterministic = deterministic
+        x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+        y = torch.randint(0, ISAID_CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen,
+                          device='cuda')
+        bare = bare_steps(model, fact_cfg, (x, y))
+        m = bare['metrics']
+        k8 += bare['k8']
+        print(f'change: b: {smi}: the bare FactSeg-R50 step (build_train_step, batch '
+              f'{TRAIN_BATCH} of {TILE}², bf16, SGD + poly): {bare_text(bare)}; losses '
+              f'{m["cls_loss"].item():.5f} {m["fa_loss"].item():.5f} '
+              f'{m["dice_loss"].item():.5f}', flush=True)
+        check(bare['k8'] == bare['steps'] and math.isfinite(m['total_loss'].item()),
+              f'b: the bare FactSeg step launched K8 {bare["k8"]} times in {bare["steps"]}')
+        model.load_state_dict(trained, strict=True)
+        scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+        out, fact_scene_ms, serve_k8 = timed_scene(model, scene, ISAID_CLASSES)
+        sums = float((out.sum(-1) - 1).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        print(f'change: b: {smi}: FactSeg-R50 tiled_inference of a {SCENE}² scene ({TILE}² '
+              f'tiles, stride {STRIDE}, tile_batch {TILE_BATCH}, bf16): {fact_scene_ms:.1f} '
+              f'ms/scene = {(SCENE // STRIDE) ** 2 / fact_scene_ms * 1e3:.1f} tiles/s; joint '
+              f'probabilities finite {finite}, sums within {sums:.2e} of 1; K8 launches '
+              f'{serve_k8}', flush=True)
+        check(finite and sums <= PROB_SUM_TOL
+              and tuple(out.shape) == (SCENE, SCENE, ISAID_CLASSES),
+              'b: the served joint probabilities are not finite or do not sum to 1')
+        check(serve_k8 == 0, f'b: serving launched K8 {serve_k8} times')
+        del model, trained, out, scene, x, y
+        torch.cuda.empty_cache()
+
+        # c, d: the change detectors through train.py, 3 steps each
+        detectors = (
+            ('c', 'ChangeStar-R18', 'changestar_r18_levircd', lroot,
+             ('seg_loss', 'change_loss'), 'SGD + poly'),
+            ('c', 'ChangeMask-R18', 'changemask_r18_levircd', lroot,
+             ('sem_loss', 'change_loss', 'consistency_loss'), 'AdamW + cosine'),
+            ('d', 'ChangeOS-R50', 'changeos_r50_xview2', xroot,
+             ('loc_loss', 'damage_loss'), 'SGD + poly'))
+        for part, name, template, root, keys, opt in detectors:
+            torch.backends.cudnn.deterministic = True
+            cfg_path = template_config(proj, template, template + '_smoke', root)
+            seen = []
+            undo_cm = record_confusion(seen)
+            try:
+                launcher, rec = recorded_run(train_py, argv(
+                    cfg_path, os.path.join(tmp, template), DETECTOR_ITERS))
+            finally:
+                undo_cm()
+            torch.backends.cudnn.deterministic = deterministic
+            k8 += rec['launches'][2]
+            model = launcher.model
+            losses = {k: [d[k] for _, d, _, _ in rec['logged']] for k in keys}
+            finite_losses = all(len(v) == DETECTOR_ITERS and all(math.isfinite(a) for a in v)
+                                for v in losses.values())
+            n_cls = DAMAGE_CLASSES if name.startswith('ChangeOS') else 2
+            card_cm, host_cm = card_confusion(launcher.model_dir), host_confusion(seen, n_cls)
+            launcher_ms = sum(t for _, _, _, t in rec['logged'][1:]) / (DETECTOR_ITERS - 1) * 1e3
+            extra = ''
+            if name.startswith('ChangeStar'):
+                # LEVIR-CD's per-date masks are all ignored: seg_loss is 0 and
+                # the seg classifier gets a zero gradient, not a NaN
+                xb, yb = levircd_batch(root)
+                model.zero_grad(set_to_none=True)
+                before = P.max_pool_32_bwd.launches
+                out = model(xb, yb, train=True,
+                            generator=torch.Generator(device='cuda').manual_seed(seed))
+                sum_losses(out).backward()
+                seg_k8 = P.max_pool_32_bwd.launches - before
+                k8 += seg_k8
+                seg_grads = [model.seg_cls.weight.grad, model.seg_cls.bias.grad]
+                seg_zero = (out['seg_loss'].item() == 0.0 and all(
+                    g is not None and not bool(g.any()) for g in seg_grads))
+                model.zero_grad(set_to_none=True)
+                extra = (f'; seg_loss of a LEVIR-CD batch {out["seg_loss"].item()} with a '
+                         f'zero gradient to seg_cls {seg_zero} (K8 {seg_k8} in its backward)')
+                check(seg_zero and all(v == 0.0 for v in losses['seg_loss']),
+                      f'{part}: {name}: seg_loss is not exactly 0 with a zero gradient')
+                check(seg_k8 == 1, f'{part}: {name}: the seg_loss backward launched K8 '
+                      f'{seg_k8} times')
+                del out, xb, yb
+            x = torch.randn(TRAIN_BATCH, TILE, TILE, 6, generator=gen, device='cuda')
+            if name.startswith('ChangeOS'):
+                y = dict(loc=torch.randint(0, 2, (TRAIN_BATCH, TILE, TILE), generator=gen,
+                                           device='cuda'),
+                         damage=torch.randint(0, DAMAGE_CLASSES, (TRAIN_BATCH, TILE, TILE),
+                                              generator=gen, device='cuda'))
+            else:
+                y = dict(masks=torch.full((TRAIN_BATCH, TILE, TILE, 2), 255, device='cuda'),
+                         change=torch.randint(0, 2, (TRAIN_BATCH, TILE, TILE), generator=gen,
+                                              device='cuda'))
+            bare = bare_steps(model, cfg_path, (x, y))
+            m = bare['metrics']
+            k8 += bare['k8']
+            print(f'change: {part}: {smi}: {name} ({os.path.basename(cfg_path)}: batch '
+                  f'{TRAIN_BATCH} of {TILE}² pairs, bf16, {opt}, K8) through train.py: '
+                  + '; '.join(f'{k} {" ".join(f"{a:.5f}" for a in v)}' for k, v in losses.items())
+                  + f'; K8 launches {rec["launches"][2]} (expected {DETECTOR_ITERS}: one '
+                  f'encoder pass over both dates a step){extra}; the auto-routed evaluation of '
+                  f'{len(seen)} batch(es): confusion matrix {card_cm.shape} '
+                  f'({int(card_cm.sum())} pixels) equal to np.bincount on the host '
+                  f'{bool(np.array_equal(card_cm, host_cm))}; through the Launcher '
+                  f'{launcher_ms:.2f} ms/step (steps 2-{DETECTOR_ITERS}); the bare step '
+                  f'{bare_text(bare)}', flush=True)
+            check(finite_losses and math.isfinite(m['total_loss'].item()),
+                  f'{part}: {name}: non-finite or missing losses')
+            check(rec['launches'][2] == DETECTOR_ITERS and bare['k8'] == bare['steps'],
+                  f'{part}: {name}: K8 launches {rec["launches"][2]}, bare {bare["k8"]} in '
+                  f'{bare["steps"]}')
+            check(all(d == 'cuda' for d, _, _, _ in seen) and np.array_equal(card_cm, host_cm)
+                  and card_cm.shape == (n_cls, n_cls) and int(card_cm.sum()) > 0,
+                  f"{part}: {name}: the card's confusion matrix differs from the host's")
+            if name.startswith('ChangeOS'):
+                scene = torch.randn(SCENE, SCENE, 6, generator=gen, device='cuda')
+                out, os_scene_ms, serve_k8 = timed_scene(
+                    lambda t: torch.cat(model(t), dim=-1), scene, 1 + DAMAGE_CLASSES)
+                sums = float((out[..., 1:].sum(-1) - 1).abs().max())
+                finite = bool(torch.isfinite(out).all())
+                loc_ok = bool(((out[..., 0] >= 0) & (out[..., 0] <= 1)).all())
+                print(f'change: d: {smi}: ChangeOS-R50 tiled_inference of a {SCENE}² pre/post '
+                      f'scene (6 channels, {TILE}² tiles, stride {STRIDE}, tile_batch '
+                      f'{TILE_BATCH}, bf16, predict_fn (loc_prob, damage_prob) as one 6-channel '
+                      f'output): {os_scene_ms:.1f} ms/scene; finite {finite}, localisation in '
+                      f'[0, 1] {loc_ok}, damage probabilities sum within {sums:.2e} of 1; K8 '
+                      f'launches {serve_k8}', flush=True)
+                check(finite and loc_ok and sums <= PROB_SUM_TOL
+                      and tuple(out.shape) == (SCENE, SCENE, 1 + DAMAGE_CLASSES),
+                      'd: the served ChangeOS scene is not finite or not normalised')
+                check(serve_k8 == 0, f'd: serving launched K8 {serve_k8} times')
+                del out, scene
+            del launcher, model, x, y
+            torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    print(f'change: {smi}: K8 launches in the phase {k8}; phase wall time '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return k8
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -3540,7 +4027,7 @@ def main() -> int:
     k1, k2, k8 = phase_models(gen, args.seed, smi)
     fwd['launches'] += k1
     bwd['launches'] += k2
-    pool['launches'] += k8
+    pool['launches'] += k8 + phase_change(gen, args.seed, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

@@ -17,7 +17,7 @@ from ever_tpu_torch.core import builder, config, dist, registry, to  # noqa: F40
 from ever_tpu_torch.core.config import AttrDict, FrozenConfig, from_dict, import_config  # noqa: F401
 from ever_tpu_torch.core.device import get_device  # noqa: F401
 # data before the model zoo: the interface package needs data.distributed
-from ever_tpu_torch import data  # noqa: F401  (registers 'loveda', 'geotile')
+from ever_tpu_torch import data  # noqa: F401  (registers the readers)
 from ever_tpu_torch import module  # noqa: F401  (registers the model zoo)
 from ever_tpu_torch import magic, metric, opt, parallel, trainer, util  # noqa: F401
 from ever_tpu_torch.api import infer_tool  # noqa: F401

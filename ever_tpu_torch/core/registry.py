@@ -17,7 +17,7 @@ import os
 import sys
 from typing import Callable, Optional, TypeVar
 
-__all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS', 'DATASET', 'DATALOADER',
+__all__ = ['Registry', 'MODEL', 'LR', 'OPT', 'LOSS', 'OP', 'DATASET', 'DATALOADER',
            'CALLBACK', 'register_file', 'register_dir', 'register_modules',
            'register_dataloaders', 'register_callbacks', 'register_all']
 
@@ -71,6 +71,7 @@ LR = Registry('learning_rate')
 OPT = Registry('optimizer')
 MODEL = Registry('model')
 LOSS = Registry('loss')
+OP = Registry('op')
 DATASET = Registry('dataset')
 DATALOADER = Registry('dataloader')
 CALLBACK = Registry('callback')

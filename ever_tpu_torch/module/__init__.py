@@ -1,2 +1,17 @@
+"""The model zoo (counterpart of ``ever_tpu/module/__init__.py``, as far as
+it is ported): importing it registers the models in ``MODEL`` and
+``ChangeMixin`` in ``OP``."""
+
+from ever_tpu_torch.module import loss, ops  # noqa: F401
 from ever_tpu_torch.module import vit  # noqa: F401  (registers the ViT models)
 from ever_tpu_torch.module import fs_relation  # noqa: F401  (FarSeg and the ResNets)
+from ever_tpu_torch.module import change, factseg  # noqa: F401
+from ever_tpu_torch.module.change import ChangeMask, ChangeMixin, ChangeOS, ChangeStar  # noqa: F401
+from ever_tpu_torch.module.context_block import ContextBlock2d  # noqa: F401
+from ever_tpu_torch.module.factseg import FactSeg  # noqa: F401
+from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, LastLevelMaxPool, LastLevelP6P7  # noqa: F401
+from ever_tpu_torch.module.fs_relation import FarSeg, FarSegHead, FSRelation, FSRelationV2  # noqa: F401
+from ever_tpu_torch.module.ops import ConvBlock, LayerNorm2d  # noqa: F401
+from ever_tpu_torch.module.resnet import ResNet, ResNetEncoder  # noqa: F401
+from ever_tpu_torch.module.se_block import SCSEModule, SEBlock  # noqa: F401
+from ever_tpu_torch.module.vit import DinoSeg, DinoVisionTransformer, RMSNorm  # noqa: F401

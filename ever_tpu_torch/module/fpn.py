@@ -23,7 +23,7 @@ from ever_tpu_torch.module.ops import (Conv2d, ConvBlock, dropout, max_pool, res
                                        resize_align_corners, upsample_bilinear)
 
 __all__ = ['FPN', 'LastLevelMaxPool', 'LastLevelP6P7', 'AssymetricDecoder',
-           'resize_nchw', 'upsample_bilinear_nchw']
+           'resize_nchw', 'upsample_bilinear_nchw', 'logits_nhwc']
 
 
 def resize_nchw(x, scale=None, shape=None, method: str = 'nearest'):
@@ -50,6 +50,13 @@ def upsample_bilinear_nchw(x: torch.Tensor, scale, align_corners: bool = False
         return resize_align_corners(xh, shape).permute(0, 3, 1, 2)
     xh = xh if xh.dtype == torch.bfloat16 else xh.float()
     return upsample_bilinear(xh, shape).to(x.dtype).permute(0, 3, 1, 2)
+
+
+def logits_nhwc(cls: nn.Module, dense: torch.Tensor) -> torch.Tensor:
+    """A 1×1 classifier over NCHW features, upsampled ×4 bilinearly and
+    returned as float32 NHWC logits (what the JAX models compute with
+    ``resize(cls(x), scale=4.0, method='bilinear').astype(float32)``)."""
+    return upsample_bilinear_nchw(cls(dense), 4.0).permute(0, 2, 3, 1).float()
 
 
 def check_widths(what: str, feats, want: Sequence[int]) -> None:

@@ -4,14 +4,16 @@
 Counterpart of ``ever_tpu/module/loss.py``: the ignore handling is the same
 mask arithmetic, so a batch whose labels are all ``ignore_index`` gives a
 cross-entropy of 0 (``F.cross_entropy(ignore_index=...)`` gives NaN there).
-Logits are ``[N, H, W, C]``; labels are ``[N, H, W]`` integers.  The rest of
-the JAX package's loss family is not ported yet.
+Logits are ``[N, H, W, C]``; labels are ``[N, H, W]`` integers (the BCE
+takes logits and float targets of any one shape).  The rest of the JAX
+package's loss family is not ported yet (``ROADMAP.md`` A.7.3).
 
 Inside a data-parallel step over more than one rank (``with mesh:``; see
 ``parallel/mesh.py``) the batch sums are global, as they are in the JAX
 package under a sharded batch: the cross-entropy's mean is Σnll / Σvalid·w
-over every rank's pixels and the dice statistics are summed over the ranks,
-each through one :func:`all_reduce_sum`.  The loss is then the same on
+over every rank's pixels, the BCE's likewise Σloss / Σvalid, and the dice
+statistics are summed over the ranks, each through one
+:func:`all_reduce_sum`.  The loss is then the same on
 every rank, and its gradient reaches each rank's logits R times over (the
 sum's gradient is the sum of the R ranks' gradients); DDP's average of the
 parameter gradients over R ranks divides that out, so the step's gradient
@@ -28,7 +30,8 @@ import torch.nn.functional as F
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.parallel import mesh as _mesh
 
-__all__ = ['softmax_ce_loss_with_logits', 'dice_loss_with_logits', 'all_reduce_sum']
+__all__ = ['softmax_ce_loss_with_logits', 'dice_loss_with_logits',
+           'binary_cross_entropy_with_logits', 'all_reduce_sum']
 
 
 def all_reduce_sum(x: torch.Tensor, axis_name: Optional[str] = None) -> torch.Tensor:
@@ -65,14 +68,19 @@ def softmax_ce_loss_with_logits(y_pred, y_true, ignore_index: int = 255,
         valid_w = valid * w
     nll = nll * valid
     if reduction == 'mean':
-        group = _mesh.reduction_group()
-        if group is None:
-            return nll.sum() / torch.clamp(valid_w.sum(), min=1.0)
-        sums = _mesh.all_reduce_sum(torch.stack([nll.sum(), valid_w.sum()]), group)
-        return sums[0] / torch.clamp(sums[1], min=1.0)
+        return _global_mean(nll.sum(), valid_w.sum())
     if reduction == 'sum':
         return all_reduce_sum(nll.sum())
     return nll
+
+
+def _global_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total / max(count, 1)``, both summed over the data group's ranks
+    inside a data-parallel step with one all-reduce."""
+    group = _mesh.reduction_group()
+    if group is not None:
+        total, count = _mesh.all_reduce_sum(torch.stack([total, count]), group)
+    return total / torch.clamp(count, min=1.0)
 
 
 @registry.LOSS.register('dice')
@@ -108,3 +116,29 @@ def dice_loss_with_logits(y_pred, y_true, smooth_value: float = 1.0,
     else:
         coeff = coeff.mean()
     return 1.0 - coeff
+
+
+@registry.LOSS.register('bce')
+def binary_cross_entropy_with_logits(output, target, reduction: str = 'mean',
+                                     ignore_index: int = 255, pos_weight=None):
+    """Masked binary cross-entropy of logits (``ever_tpu/module/loss.py``
+    ``binary_cross_entropy_with_logits``): flattened float32, targets equal
+    to ``ignore_index`` masked out (and read as 0), the stable form
+    ``max(z, 0) − z·t + log1p(exp(−|z|))``, and ``pos_weight`` weighting
+    the positive term as torch does.  ``'mean'`` is ``Σloss / max(Σvalid,
+    1)``, both sums (and ``'sum'``) over every rank's pixels inside a
+    data-parallel step; ``'none'`` gives the masked per-element losses."""
+    z = output.reshape(-1).float()
+    t = target.reshape(-1).float()
+    valid = (t != ignore_index).float()
+    t = torch.where(valid > 0, t, torch.zeros_like(t))
+    softplus_neg = torch.log1p(torch.exp(-z.abs()))
+    losses = torch.clamp(z, min=0) - z * t + softplus_neg
+    if pos_weight is not None:
+        losses = losses + (pos_weight - 1.0) * t * (softplus_neg + torch.clamp(-z, min=0))
+    losses = losses * valid
+    if reduction == 'mean':
+        return _global_mean(losses.sum(), valid.sum())
+    if reduction == 'sum':
+        return all_reduce_sum(losses.sum())
+    return losses

@@ -39,6 +39,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as tdist
+from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.interface.module import split_metrics, sum_losses
 
@@ -60,14 +61,17 @@ def _device(model: torch.nn.Module) -> torch.device:
 
 
 def _model_args(batch, device) -> tuple:
+    """The model's positional inputs on ``device``: each item of the batch
+    tuple, with dict, list and tuple labels (``{'masks', 'change'}``,
+    ``(m1, m2, change)``) recursed into and their leaves made tensors, as
+    ``core/to.py`` recurses."""
     items = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
-    return tuple(torch.as_tensor(t, device=device) for t in items)
+    return tuple(tree_map(lambda t: torch.as_tensor(t, device=device), t) for t in items)
 
 
 def _index(batch, i: int):
-    if isinstance(batch, (tuple, list)):
-        return tuple(t[i] for t in batch)
-    return batch[i]
+    """Microbatch (or step) ``i`` of every leaf of the batch."""
+    return tree_map(lambda t: t[i], batch)
 
 
 def step_generator(rng_seed: int, step: int, micro: Optional[int] = None,
@@ -120,9 +124,10 @@ def build_train_step(model: torch.nn.Module, tx,
                      find_unused_parameters: bool = False) -> Callable:
     """``step(state, batch) -> (state, metrics)``.
 
-    ``batch`` is a tuple of the model's positional inputs (``(x, y)``),
-    each with a leading ``forward_times`` microbatch axis when
-    ``forward_times > 1``.  Metrics are 0-d float32 tensors on the device:
+    ``batch`` is a tuple of the model's positional inputs (``(x, y)``;
+    ``y`` may be a dict, list or tuple of arrays), every array with a
+    leading ``forward_times`` microbatch axis when ``forward_times > 1``.
+    Metrics are 0-d float32 tensors on the device:
     the model's loss entries, ``total_loss``, ``grad_norm`` (before the
     clip) and, with ``lr_schedule``, ``learning_rate`` at the step's count.
     With ``mesh`` over a process group, ``batch`` is this process's share

@@ -27,8 +27,9 @@ the FarSeg head after the reference ``FarSegHead``, the inverse of
 ``convert_torch_farseg_head`` without its bias fold (the port has the JAX
 package's bias-free content and re-encoder convs).  Modules the reference
 files do not cover (FarSeg++'s relation, the SE and GC branches, P6/P7,
-the decoder's GN and LN, ``DINOHead``) take names that map one to one onto
-the JAX package's, each listed in the rules below.  Layout changes: Dense
+the decoder's GN and LN, ``DINOHead``, FactSeg and the change detectors)
+take names that map one to one onto the JAX package's, each listed in the
+rules below.  Layout changes: Dense
 ``[in, out]`` → Linear ``[out, in]``; conv HWIO → OIHW; norm ``scale`` →
 ``weight``; BatchNorm's ``batch_stats`` ``mean``/``var`` → the buffers
 ``running_mean``/``running_var``; the fused SwiGLU ``w12`` splits into
@@ -48,7 +49,8 @@ from ever_tpu_torch.core.device import get_device
 
 __all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
            'convert_flax_dino_head',
-           'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_flat',
+           'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_factseg',
+           'convert_flax_change', 'convert_flax_flat',
            'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
            'convert_torch_resnet', 'patch_first_conv', 'read_weights',
            'load_weights', 'LoadReport']
@@ -193,20 +195,31 @@ _RESNET_RULES = [
     (r'layer(\d)/block(\d+)/ContextBlock2d_0/channel_(add|mul)_expand',
      r'layer\1.\2.gc.channel_\3_conv.3'),
 ]
-# JAX FarSegHead module path → the reference FarSegHead's module name
 _NORM = r'/Norm_0/(BatchNorm|GroupNorm|LayerNorm)_0'
-_FARSEG_HEAD_RULES = [
-    (r'fpn/(fpn_inner\d+|fpn_layer\d+)(/Conv_0)?', r'fpn.\1.0'),
-    (r'fpn/(fpn_inner\d+|fpn_layer\d+)/Norm_0' + _BN, r'fpn.\1.1'),
-    (r'fpn/top_blocks/(p6|p7)', r'fpn.top_blocks.\1'),
+
+
+def _fpn_decoder_rules(fpns, decoders):
+    """The rules of the FPNs and ``AssymetricDecoder``s named in each
+    package as given (JAX path = port module name)."""
+    rules = []
+    for n in fpns:
+        rules += [(rf'{n}/(fpn_inner\d+|fpn_layer\d+)(/Conv_0)?', rf'{n}.\1.0'),
+                  (rf'{n}/(fpn_inner\d+|fpn_layer\d+)/Norm_0' + _BN, rf'{n}.\1.1'),
+                  (rf'{n}/top_blocks/(p6|p7)', rf'{n}.top_blocks.\1')]
+    for n in decoders:
+        rules += [(rf'{n}/block(\d+)_conv(\d+)/Conv_0', rf'{n}.blocks.\1.\2.0'),
+                  (rf'{n}/block(\d+)_conv(\d+)' + _NORM, rf'{n}.blocks.\1.\2.1'),
+                  (f'{n}/classifier', f'{n}.classifier.0')]
+    return rules
+
+
+# JAX FarSegHead module path → the reference FarSegHead's module name
+_FARSEG_HEAD_RULES = _fpn_decoder_rules(('fpn',), ('fpn_decoder',)) + [
     (r'fs_relation/content_enc(\d+)/Conv_0', r'fs_relation.content_encoders.\1.0'),
     (r'fs_relation/content_enc(\d+)/Norm_0' + _BN, r'fs_relation.content_encoders.\1.1'),
     (r'fs_relation/feature_reenc(\d+)/Conv_0', r'fs_relation.feature_reencoders.\1.0'),
     (r'fs_relation/feature_reenc(\d+)/Norm_0' + _BN,
      r'fs_relation.feature_reencoders.\1.1'),
-    (r'fpn_decoder/block(\d+)_conv(\d+)/Conv_0', r'fpn_decoder.blocks.\1.\2.0'),
-    (r'fpn_decoder/block(\d+)_conv(\d+)' + _NORM, r'fpn_decoder.blocks.\1.\2.1'),
-    ('fpn_decoder/classifier', 'fpn_decoder.classifier.0'),
 ]
 # FarSeg's scene encoder: conv, ReLU, conv
 _FS_RELATION_RULES = [
@@ -225,8 +238,20 @@ _FS_RELATION_V2_RULES = [
     (r'fs_relation/project(\d+)_conv/Conv_0', r'fs_relation.project.\1.0'),
     (r'fs_relation/project(\d+)_conv/Norm_0' + _BN, r'fs_relation.project.\1.1'),
 ]
+# FactSeg's two branches, and the change detectors' decoders, classifiers
+# and ChangeMixin (its order-stacked conv0 kernel is the plain conv0's)
+_FACTSEG_RULES = _fpn_decoder_rules(('fa_fpn', 'sem_fpn'), ('fa_decoder', 'sem_decoder')) + [
+    (r'(fa_cls|sem_cls)', r'\1')]
+_CHANGE_RULES = _fpn_decoder_rules(
+    ('fpn',), ('decoder', 'sem_decoder', 'change_decoder', 'loc_decoder', 'dam_decoder')) + [
+    (r'(seg_cls|sem_cls|change_cls|loc_cls|dam_cls)', r'\1'),
+    (r'changemixin/(conv\d+)/Conv_0', r'changemixin.\1.0'),
+    (r'changemixin/(conv\d+)/Norm_0' + _BN, r'changemixin.\1.1'),
+    ('changemixin/cls', 'changemixin.cls'),
+]
 # the port's module prefix → (JAX path prefix, rules below it)
 _RESNET_TREES = [('', '', _RESNET_RULES), ('resnet.', 'resnet/', _RESNET_RULES)]
+_ENCODER_TREE = ('encoder.resnet.', 'encoder/resnet/', _RESNET_RULES)
 
 
 def _head_rules(flat: Dict[str, np.ndarray]):
@@ -291,22 +316,50 @@ def convert_flax_farseg(params: Any, batch_stats: Any = None
     branches, FPN ``top_blocks``, the decoder's BN, GN or LN.  Any variable
     left unmapped raises ``KeyError``."""
     flat = _variables(params, batch_stats)
-    trees = [('encoder.resnet.', 'encoder/resnet/', _RESNET_RULES),
-             ('head.', 'head/', _head_rules(flat))]
+    trees = [_ENCODER_TREE, ('head.', 'head/', _head_rules(flat))]
     return _convert_conv_net(flat, trees, 'FarSeg')
+
+
+def convert_flax_factseg(params: Any, batch_stats: Any = None
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``FactSeg`` params and batch statistics (``encoder/resnet/...``,
+    ``fa_fpn``, ``sem_fpn``, ``fa_decoder``, ``sem_decoder``, ``fa_cls``,
+    ``sem_cls``) → the port's ``FactSeg`` ``state_dict``, running buffers
+    included.  Any variable left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats),
+                             [_ENCODER_TREE, ('', '', _FACTSEG_RULES)], 'FactSeg')
+
+
+def convert_flax_change(params: Any, batch_stats: Any = None
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``ChangeStar``, ``ChangeMask`` or ``ChangeOS`` params and batch
+    statistics → the port's model's ``state_dict``: the encoder, ``fpn``,
+    the decoders (``decoder``, ``sem_decoder``, ``change_decoder``,
+    ``loc_decoder``, ``dam_decoder``), the 1×1 classifiers and
+    ``ChangeMixin``'s ``conv{i}`` and ``cls`` (an order-stacked
+    ``conv0/Conv_0/kernel`` ``[3, 3, 2C, F]`` is the plain conv0's).  Any
+    variable left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats),
+                             [_ENCODER_TREE, ('', '', _CHANGE_RULES)], 'change detector')
 
 
 def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A flat archive of the JAX package's variables (``params/...`` and
     ``batch_stats/...`` keys, as its ``.npz`` files hold them) → port names:
-    a DinoSeg or a bare DINOv3 trunk, a FarSeg, a bare FarSeg head, or a
-    ResNet (bare or under ``resnet/``), told apart by their keys."""
+    a DinoSeg or a bare DINOv3 trunk, a FactSeg, a ChangeStar, ChangeMask
+    or ChangeOS, a FarSeg, a bare FarSeg head, or a ResNet (bare or under
+    ``resnet/``), told apart by their keys."""
     flat = _variables(flat, None)
     keys = list(flat)
     if any(k.endswith('cls_token') for k in keys):
         if any(k.startswith('vit/') for k in keys):
             return convert_flax_dinoseg(flat)
         return convert_flax_dinov3_vit(flat)
+    if any(k.startswith(('fa_fpn/', 'sem_fpn/')) for k in keys):
+        return convert_flax_factseg(flat)
+    if any(k.startswith(('changemixin/', 'change_decoder/', 'loc_decoder/', 'seg_cls/'))
+           for k in keys):
+        return convert_flax_change(flat)
     if any(k.startswith(('encoder/', 'head/')) for k in keys):
         return convert_flax_farseg(flat)
     if any(k.startswith(('fs_relation/', 'fpn/', 'fpn_decoder/')) for k in keys):

@@ -170,7 +170,8 @@ def _worker(rank, world, init, out):
     logits, labels = _loss_inputs()
     for name, fn, kw in (('ce', tloss.softmax_ce_loss_with_logits, {}),
                          ('dice', tloss.dice_loss_with_logits, {}),
-                         ('dice axis', tloss.dice_loss_with_logits, dict(axis_name='data'))):
+                         ('dice axis', tloss.dice_loss_with_logits, dict(axis_name='data')),
+                         ('bce', _bce(tloss), {})):
         lr = torch.from_numpy(_rank_slice(logits, rank, world)).requires_grad_()
         with mesh:
             value = fn(lr, torch.from_numpy(_rank_slice(labels, rank, world)), **kw)
@@ -263,8 +264,17 @@ def test_batchnorm_with_one_rank_is_the_one_process_path():
 
 # -- losses ---------------------------------------------------------------------------
 
+def _bce(losses):
+    """The masked BCE of channel 0 of the logits against ``labels > 0``,
+    the ignored pixels kept ignored."""
+    def fn(logits, labels):
+        return losses.binary_cross_entropy_with_logits(
+            logits[..., 0], (labels > 0) * 1.0 + (labels == 255) * 254.0)
+    return fn
+
+
 def _jax_value_and_grad(name, logits, labels):
-    fn = {'ce': jloss.softmax_ce_loss_with_logits,
+    fn = {'ce': jloss.softmax_ce_loss_with_logits, 'bce': _bce(jloss),
           'dice': jloss.dice_loss_with_logits, 'dice axis': jloss.dice_loss_with_logits}[name]
     with jax.enable_x64(True):
         value, grad = jax.value_and_grad(lambda lg: fn(lg, jnp.asarray(labels)))(
@@ -272,7 +282,7 @@ def _jax_value_and_grad(name, logits, labels):
         return float(value), np.asarray(grad)
 
 
-@pytest.mark.parametrize('name', ['ce', 'dice', 'dice axis'])
+@pytest.mark.parametrize('name', ['ce', 'dice', 'dice axis', 'bce'])
 def test_losses_are_global_with_uneven_ignored_pixels(ranks, name):
     """Rank 0 ignores most of its pixels and rank 1 few.  Both ranks get
     the loss one process computes on the whole batch, and each rank's
@@ -281,17 +291,19 @@ def test_losses_are_global_with_uneven_ignored_pixels(ranks, name):
     out); the JAX function on the global batch gives the same value and
     gradient.  Both packages compute these losses in float32 (the logits are
     cast), so the values agree to rtol 1e-6 (float32 sums in another order).
-    The cross-entropy's gradient elements are the same float32 arithmetic in
-    the port's one-process and two-rank runs (1e-12); the dice gradient goes
+    The cross-entropy's and the BCE's gradient elements are the same float32
+    arithmetic in the port's one-process and two-rank runs (1e-12); the BCE
+    sums Σloss and Σvalid with one all-reduce; the dice gradient goes
     through the float32 class sums, added in another order (1e-6 of its
     largest element); JAX's softmax rounds differently (1e-6)."""
     logits, labels = _loss_inputs()
-    fn = tloss.softmax_ce_loss_with_logits if name == 'ce' else tloss.dice_loss_with_logits
+    fn = {'ce': tloss.softmax_ce_loss_with_logits, 'bce': _bce(tloss)}.get(
+        name, tloss.dice_loss_with_logits)
     lt = torch.from_numpy(logits).requires_grad_()
     value = fn(lt, torch.from_numpy(labels))
     value.backward()
     value = value.detach()
-    grad_atol = 0.0 if name == 'ce' else 1e-6 * float(lt.grad.abs().max())
+    grad_atol = 0.0 if name in ('ce', 'bce') else 1e-6 * float(lt.grad.abs().max())
     jvalue, jgrad = _jax_value_and_grad(name, logits, labels)
     np.testing.assert_allclose(float(value), jvalue, rtol=1e-6)
     np.testing.assert_allclose(lt.grad.numpy(), jgrad, rtol=1e-6, atol=1e-9)

@@ -23,6 +23,7 @@ from ever_tpu.module import vit as jvit
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.util.weight_io import (convert_flax_dino_head, convert_flax_dinov3_vit,
                                            flatten_params)
+from test_torch_factseg import one_torch_thread  # noqa: F401
 
 TINY = (2, 64, 2, 4.0, 'mlp')
 TRUNK = dict(vit_type='vit_tiny_mc', patch_size=16, n_storage_tokens=4,
@@ -240,3 +241,45 @@ def test_linear_k_masked_bias_and_list_forward_match_jax():
         parts = [torch.from_numpy(x[:2]), torch.from_numpy(x[2:, :4])]
         for a, b in zip(tm.forward_list(parts), parts):
             torch.testing.assert_close(a, tm(b))
+
+
+def test_multicrop_gradients_with_dino_head_match_jax_grad(one_torch_thread):
+    """The multi-crop forward and backward with ``DINOHead`` (the card's
+    ``models`` f path, at small size): an untied trunk (2 blocks, width 64)
+    over 2 global crops of 32² and 4 local crops of 16², the head (256
+    out) on each crop's cls token, the sum of its outputs as the loss.
+    Every gradient of the trunk and the head against ``jax.grad`` of the
+    JAX model, float32: ‖Δg‖/‖g‖ ≤ 1e-5 for each tensor (float32 sums in
+    other orders through two blocks and the head's normalisations)."""
+    rng = np.random.default_rng(6)
+    crops = [rng.normal(size=(2, 32, 32, 3)).astype(np.float32),
+             rng.normal(size=(4, 16, 16, 3)).astype(np.float32)]
+    flags = dict(untie_global_and_local_cls_norm=True)
+    jm = jvit.DinoVisionTransformer(**TRUNK, **flags)
+    jcrops = [jnp.asarray(x) for x in crops]
+    v = _seeded(jm, jcrops, train=True)
+    jh = jvit.DINOHead(out_dim=256, hidden_dim=96, bottleneck_dim=32)
+    hv = _seeded(jh, jnp.zeros((1, 64), jnp.float32), seed=1)
+
+    def loss(p, hp):
+        outs = jm.apply({'params': p}, jcrops, train=True)
+        return sum(jh.apply({'params': hp}, o['x_norm_clstoken']).sum() for o in outs)
+
+    gv, gh = jax.jit(jax.grad(loss, argnums=(0, 1)))(v['params'], hv['params'])
+    tm = tvit.DinoVisionTransformer(**TRUNK, **flags)
+    tm.load_state_dict(convert_flax_dinov3_vit(v['params']), strict=True)
+    th = tvit.DINOHead(64, 256, 96, 32)
+    th.load_state_dict(convert_flax_dino_head(hv['params']), strict=True)
+    outs = tm([torch.from_numpy(x) for x in crops], train=True)
+    sum(th(o['x_norm_clstoken']).sum() for o in outs).backward()
+    wants = [(tm, convert_flax_dinov3_vit(gv)), (th, convert_flax_dino_head(gh))]
+    checked = 0
+    for module, want in wants:
+        for name, p in module.named_parameters():
+            assert p.grad is not None, name
+            w = want[name].numpy()
+            rel = np.linalg.norm(p.grad.numpy() - w) / max(np.linalg.norm(w), 1e-30)
+            assert rel <= 1e-5, (name, rel)
+            checked += 1
+    assert checked == len(want) + len(wants[0][1])
+    assert float(tm.local_cls_norm.weight.grad.abs().sum()) > 0

@@ -51,7 +51,9 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.api.infer_tool, ever_tpu_torch.__main__,'
             ' ever_tpu_torch.core.dist, ever_tpu_torch.parallel.mesh,'
             ' ever_tpu_torch.trainer.th_ddp_trainer, ever_tpu_torch.module.se_block,'
-            ' ever_tpu_torch.module.context_block, ever_tpu_torch.module.vit;'
+            ' ever_tpu_torch.module.context_block, ever_tpu_torch.module.vit,'
+            ' ever_tpu_torch.module.factseg, ever_tpu_torch.module.change,'
+            ' ever_tpu_torch.data.benchmarks;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -72,7 +74,7 @@ def test_source_has_no_jax_or_ever_tpu_import():
         with open(path) as f:
             assert not bad.search(f.read()), path
     scanned = {os.path.relpath(p, REPO) for p in paths}
-    assert len(scanned) >= 48
+    assert len(scanned) >= 51
     assert {'chip_smoke.py', 'ever_tpu_torch/ops/attention.py',
             'ever_tpu_torch/opt/optimizer.py', 'ever_tpu_torch/opt/learning_rate.py',
             'ever_tpu_torch/interface/learning_rate.py',
@@ -94,7 +96,8 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/core/dist.py', 'ever_tpu_torch/core/device.py',
             'ever_tpu_torch/parallel/mesh.py', 'ever_tpu_torch/module/ops.py',
             'ever_tpu_torch/magic/tiled.py',
-            'ever_tpu_torch/trainer/th_ddp_trainer.py'} <= scanned
+            'ever_tpu_torch/trainer/th_ddp_trainer.py', 'ever_tpu_torch/module/factseg.py',
+            'ever_tpu_torch/module/change.py', 'ever_tpu_torch/data/benchmarks.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -241,3 +244,90 @@ def test_every_tpu_kernel_has_one_chip_smoke_record_and_no_record_names_another(
     kernels = _pallas_kernels()
     assert len(kernels) == 7
     assert sorted(records) == sorted(kernels)
+
+
+# the public names of the JAX subpackages' __init__s that the port does not
+# have yet, each with its ROADMAP.md A item
+_A_7_4 = ('dinov3', 'DenseNet', 'DenseNetEncoder', 'ASPPHead', 'AtrousSpatialPyramidPool',
+          'Deeplabv3pDecoder', 'Deeplabv3pHead', 'HRNetHead', 'PPMHead', 'PyramidPoolModule',
+          'SimpleFusion', 'HRNet', 'HRNetEncoder', 'ConvNeXt', 'ConvNeXtEncoder',
+          'EfficientNet', 'EFNetEncoder', 'ResNeSt', 'ResNeStEncoder', 'SplAtConv2d',
+          'ViTEncoder', 'FreeNet', 'SpectralAttention', 'BiFPN', 'FastNormalizedFusionConv3x3',
+          'Fusion', 'NormalizedFusionConv3x3', 'conv_with_kaiming_uniform', 'Bf16compatible',
+          'ChannelConcat', 'ChannelReduction', 'ConvUpsampling', 'DepthwiseConv2d',
+          'ListIndex', 'PoolBlock', 'ResidualBlock', 'SeparableConv2d', 'SeparableConvBlock',
+          'Squeeze', 'Sum')
+NOT_PORTED = {
+    'core': {}, 'interface': {}, 'opt': {},
+    'magic': {'pad_crop_apply': 'A.8'},
+    'module': {**{n: 'A.7.4' for n in _A_7_4},
+               **{n: 'A.7.5' for n in ('DCGAN', 'DCGANDiscriminator', 'DCGANGenerator')},
+               'PadCropWrapper': 'A.8'},
+    'ops': {n: 'A.10' for n in ('ptq', 'calibrate_int8', 'make_ptq_predict_fn', 'ptq_apply',
+                                'ptq_quantize', 'quantize_convs')},
+    'parallel': {n: 'A.9' for n in (
+        'sharded', 'spatial', 'tp', 'zero', 'batch_sharding', 'host_to_global', 'replicated',
+        'abstract_train_state', 'create_train_state_sharded', 'sharded_state_shardings',
+        'build_halo_train_step', 'build_spatial_train_step', 'halo_exchange',
+        'spatial_partition_apply', 'apply_tp', 'vit_tp_shardings', 'zero_init',
+        'zero_shardings')},
+}
+
+
+def _init_names(package: str):
+    """The public names the JAX ``ever_tpu/{package}/__init__.py`` binds:
+    what it imports and assigns."""
+    import ast
+    with open(os.path.join(REPO, 'ever_tpu', package, '__init__.py')) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split('.')[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return {n for n in names if not n.startswith('_') and n != 'annotations'}
+
+
+@pytest.mark.parametrize('package', sorted(NOT_PORTED))
+def test_subpackage_surfaces_match_jax_or_name_their_roadmap_item(package):
+    """Every public name of the JAX subpackage's ``__init__`` imports from
+    the port's subpackage, or is listed here with its ``ROADMAP.md`` A
+    item (and then the port has no such name yet); no listed name is
+    ported, and no name is stubbed.  ``ops.attention`` is the kernels'
+    module in the port, the function ``attention_fn``."""
+    import importlib
+    port = importlib.import_module(f'ever_tpu_torch.{package}')
+    missing = NOT_PORTED[package]
+    with open(os.path.join(REPO, 'ROADMAP.md')) as f:
+        roadmap = f.read()
+    names = _init_names(package)
+    assert names and set(missing) <= names
+    for name in sorted(names):
+        if name in missing:
+            assert not hasattr(port, name), f'{package}.{name} is ported: unlist it'
+            assert f'**{missing[name]}' in roadmap, (name, missing[name])
+        else:
+            assert hasattr(port, name), f'{package}.{name} is neither ported nor listed'
+
+
+def test_documented_imports_work_under_the_port_s_name():
+    """``docs/USAGE.md``'s module import and the other re-exports the JAX
+    package's users write, under ``ever_tpu_torch``, without JAX."""
+    code = ('import sys\n'
+            'from ever_tpu_torch.module import ResNetEncoder, FarSegHead, loss as L\n'
+            'from ever_tpu_torch.module import FactSeg, ChangeStar, ChangeMask, ChangeOS\n'
+            'from ever_tpu_torch.magic import tta, d4_tta\n'
+            'from ever_tpu_torch.parallel import build_train_step, make_mesh\n'
+            'from ever_tpu_torch.core import AttrDict, import_config, registry\n'
+            'from ever_tpu_torch.ops import QuantDense, attention_fn\n'
+            'from ever_tpu_torch.data import LEVIRCD, XView2, ISAID\n'
+            'assert callable(L.binary_cross_entropy_with_logits)\n'
+            'assert "ChangeMixin" in registry.OP and "FactSeg" in registry.MODEL\n'
+            'assert {"levircd", "xview2", "isaid"} <= set(registry.DATASET)\n'
+            'sys.exit(any(m == "jax" or m.startswith(("jax.", "ever_tpu."))\n'
+            '             for m in sys.modules))\n')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -25,12 +25,14 @@ from ever_tpu.opt import optimizer as jopt
 from ever_tpu.parallel import spmd as jspmd
 from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.module import loss as tloss
+from ever_tpu_torch.module import resnet as tres
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.opt import learning_rate as tlr
 from ever_tpu_torch.opt import optimizer as topt
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.parallel import spmd as tspmd
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg
+from test_torch_factseg import one_torch_thread  # noqa: F401
 
 # -- losses -------------------------------------------------------------------
 
@@ -525,3 +527,83 @@ def test_mesh_is_the_parallel_slice():
     assert all(torch.equal(sd0[k], sd1[k]) for k in sd0) and torch.equal(p0, p1)
     with pytest.raises(NotImplementedError, match='1-D data mesh'):
         make_mesh(('data', 'model'))
+
+
+# -- dict labels through the step ----------------------------------------------
+
+# ResNet-18's blocks and widths with one block a stage
+_TINY_TRUNK = (tres.BasicBlock, (1, 1, 1, 1), 1, 64, False)
+_DETECTOR = dict(encoder=dict(resnet_type='resnet_basic_tiny'),
+                 fpn=dict(in_channels_list=(64, 128, 256, 512), out_channels=8),
+                 decoder=dict(in_channels=8, out_channels=8))
+
+
+def _detector_batch(model_type, lead, seed=0):
+    """Bi-temporal inputs ``[*lead, 32, 32, 6]`` and the detector's dict
+    labels with the same leading axes."""
+    rng = np.random.default_rng(seed)
+    shape = (*lead, 32, 32)
+    x = rng.normal(size=shape + (6,)).astype(np.float32)
+    if model_type == 'ChangeStar':
+        y = dict(masks=rng.integers(0, 2, shape + (2,)), change=rng.integers(0, 2, shape))
+    else:
+        y = dict(loc=rng.integers(0, 2, shape), damage=rng.integers(0, 5, shape))
+    return x, y
+
+
+@pytest.mark.parametrize('mode', ['step', 'microbatches', 'loop'])
+@pytest.mark.parametrize('model_type', ['ChangeStar', 'ChangeOS'])
+def test_dict_labels_through_the_step_match_steps_by_hand(model_type, mode, monkeypatch,
+                                                         one_torch_thread):
+    """``build_train_step`` (``forward_times`` 1 and 2) and
+    ``build_train_loop`` (2 steps) on ``(x, {'masks', 'change'})`` and
+    ``(x, {'loc', 'damage'})`` from numpy: the dict is moved to the device
+    leaf by leaf and indexed per microbatch and step.  Held against the
+    same steps taken by hand on a copy of the model (forward and backward
+    of each microbatch, gradients averaged, the same update rule): the
+    metrics and every parameter and running statistic bit-equal (the same
+    operations in the same order)."""
+    monkeypatch.setitem(tres.RESNET_SPECS, 'resnet_basic_tiny', _TINY_TRUNK)
+    micro, steps = (2, 1) if mode == 'microbatches' else (1, 2 if mode == 'loop' else 1)
+    lead = ((steps,) if mode == 'loop' else ()) + ((micro,) if micro > 1 else ()) + (2,)
+    x, y = _detector_batch(model_type, lead)
+    models = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        models.append(tbuilder.make_model({'type': model_type, 'params': _DETECTOR},
+                                          device='cpu'))
+    sched = tbuilder.make_learningrate({'type': 'poly', 'params': dict(
+        base_lr=0.05, power=0.9, max_iters=10)})
+    rules = [tbuilder.make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})[0]
+             .build(sched, grad_clip=dict(max_norm=35.0)) for _ in range(2)]
+    state = tspmd.create_train_state(models[0], rules[0])
+    if mode == 'loop':
+        loop = tspmd.build_train_loop(models[0], rules[0], sched, steps_per_loop=steps)
+        state, metrics = loop(state, (x, y))
+    else:
+        step = tspmd.build_train_step(models[0], rules[0], sched, forward_times=micro)
+        state, metrics = step(state, (x, y))
+    by_hand = models[1]
+    opt = rules[1].init(by_hand.named_parameters())
+    losses = []
+    for k in range(steps):
+        by_hand.zero_grad(set_to_none=True)
+        parts = []
+        for i in range(micro):
+            def pick(a):
+                a = a[k] if mode == 'loop' else a
+                return torch.as_tensor(a[i] if micro > 1 else a)
+            out = by_hand(pick(x), {key: pick(v) for key, v in y.items()}, train=True)
+            total = sum(v for key, v in out.items() if key.endswith('loss'))
+            total.backward()
+            parts.append(total.detach())
+        if micro > 1:
+            for p in by_hand.parameters():
+                p.grad.div_(micro)
+        rules[1].apply(opt, k)
+        losses.append(sum(parts) / micro)
+    assert state.step == steps
+    np.testing.assert_array_equal(float(metrics['total_loss']),
+                                  float(torch.stack(losses).mean()))
+    for (name, a), b in zip(models[0].state_dict().items(), by_hand.state_dict().values()):
+        assert torch.equal(a, b), name
