@@ -243,7 +243,43 @@ Phases (any failure exits non-zero before the last line is printed):
              ``maxpool_impl='pallas'``; widths, bf16, optimizers and
              schedules as written.  The phase's K8 launches join the
              kernels line.
-14. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+14. user   — a user's own model trained with the reader's augmentations
+             (``phase_user``): (a) ``preprocess.device.batch_augment`` of 8
+             seeded uint8 scenes of 1024² and their masks (a 512² crop, a
+             symmetry of the square, the normalisation) under
+             ``torch.cuda.set_sync_debug_mode('error')``: each sample
+             exactly the plain evaluation of its draws (the window, its
+             ``rot90``/flip, then normalised), all 8 symmetries over 64
+             calls, ms a batch by CUDA events; (b) a project from
+             ``create``, a seeded LoveDA tree of 1024² PNGs (8 train and 2
+             val scenes), a ``module/user_farseg.py`` registering a
+             FarSeg-R50 (``maxpool_impl='pallas'``) through the port's
+             public imports whose train forward returns OHEM of the
+             per-pixel CE (keep 0.25), a focal Tversky loss (α 0.7, β 0.3,
+             γ 0.75) and a label-smoothed CE (ε 0.1), and a config beside
+             ``configs/farseg_r50_loveda.py`` (batch 8 of 512² crops, 4
+             workers, bf16, SGD + poly, the reader's ``transforms``:
+             ``RandomDiscreteScale``, ``RandomCrop``, ``RandomRotate90K``,
+             ``RandomTranspose``, ``RandomHorizontalFlip``,
+             ``MeanStdNormalize``); the project's train.py for 6 steps with
+             ``--use_tensorboard`` and ``train.profile_dir`` over steps
+             2-3: finite losses and 1 K8 a step; item 0 of the train
+             dataset equal to the bare item through a copy of the
+             transforms; on the first batch's logits the three losses and
+             ``focal_loss`` (plain and normalised), ``sigmoid_focal_loss``,
+             ``label_smoothing_binary_cross_entropy``,
+             ``soft_cross_entropy``, ``dice_coeff`` and their logit
+             gradients within 1e-5 of a float64 evaluation on the CPU
+             (OHEM's gradient off the pixels whose CE is within 1e-5 of
+             the k-th, where float32 may order them otherwise), ``select``
+             exact; the trace with 2 K8 kernels and 2 ``load_data`` spans,
+             its device-busy share, five kernels with the most time and
+             five longest idle gaps; the TensorBoard event file with
+             ``train/ohem_loss`` at every step (a line says so when
+             ``tensorboard`` does not import); then ms/step through the
+             ``Launcher`` of the same run untraced, with and without the
+             transforms.  The phase's K8 launches join the kernels line.
+15. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -3954,6 +3990,425 @@ def phase_change(gen, seed: int, smi: str) -> int:
     return k8
 
 
+# the user phase: a user's own FarSeg-R50 through the project's train.py
+# with the reader's augmentations, the losses ported last, a trace and
+# TensorBoard; and the batched augmentation on the card
+USER_SCENE, USER_TRAIN, USER_VAL, USER_ITERS = 1024, 4, 1, 6    # scenes a domain
+USER_AUG_BATCH, USER_AUG_CALLS, USER_AUG_TIMED = 8, 64, 20
+USER_PROFILE_STEPS = (2, 4)
+USER_LOSS_TOL = 1e-5            # relative, the card's float32 against float64 on the CPU
+USER_MODULE = '''\
+"""A user's own model: FarSeg-R50 trained on the hardest quarter of its
+pixels' cross-entropies, a focal Tversky loss and a label-smoothed
+cross-entropy."""
+import torch
+
+from ever_tpu_torch.core import registry
+from ever_tpu_torch.module import FarSeg
+from ever_tpu_torch.module import loss as L
+
+
+@registry.MODEL.register('UserFarSeg')
+class UserFarSeg(FarSeg):
+    def logits(self, x, train=False, generator=None):
+        feats = self.encoder(x.to(getattr(torch, self.config.dtype)), train)
+        return self.head(feats, train, generator).permute(0, 2, 3, 1).float()
+
+    def forward(self, x, y=None, train=False, generator=None):
+        logits = self.logits(x, train, generator)
+        if not (train and y is not None):
+            return torch.softmax(logits, dim=-1)
+        ce = L.softmax_ce_loss_with_logits(logits, y, reduction='none')
+        return dict(
+            ohem_loss=L.online_hard_example_mining(ce, keep_ratio=0.25),
+            tversky_loss=L.tversky_loss_with_logits(logits, y, alpha=0.7, beta=0.3,
+                                                    gamma=0.75),
+            ls_ce_loss=L.label_smoothing_cross_entropy(logits, y, eps=0.1,
+                                                       ignore_index=255))
+'''
+USER_CONFIG = '''\
+# a user's FarSeg-R50 (module/user_farseg.py) on LoveDA, from
+# farseg_r50_loveda.py: batch {batch} of {tile}² crops, the reader's
+# augmentations, bf16, SGD + poly, its run cut to {iters} steps
+from ever_tpu_torch.preprocess import segm
+
+config = dict(
+    model=dict(type='UserFarSeg', params=dict(
+        encoder=dict(resnet_type='resnet50', maxpool_impl='pallas'),
+        classes={classes}, dtype='bfloat16')),
+    data=dict(
+        train=dict(type='loveda', params=dict(
+            root={root!r}, split='train', total_batch_size={batch}, num_workers={workers},
+            sampler_type='StepDistributedSampler', crop_size={tile},
+            transforms=[
+                segm.RandomDiscreteScale([0.75, 1.25, 1.5], p=0.5, size_divisor=32, seed=1),
+                segm.RandomCrop({tile}, seed=2),
+                segm.RandomRotate90K(seed=3),
+                segm.RandomTranspose(seed=4),
+                segm.RandomHorizontalFlip(seed=5),
+                segm.MeanStdNormalize(),
+            ])),
+        test=dict(type='loveda', params=dict(
+            root={root!r}, split='val', batch_size=2, sampler_type='SequentialSampler')),
+    ),
+    learning_rate=dict(type='poly', params=dict(
+        base_lr=0.0075, power=0.9, max_iters=15000,
+        warmup=dict(type='linear', step=500, ratio=0.01))),
+    optimizer=dict(type='sgd', params=dict(momentum=0.9, weight_decay=1e-4),
+                   grad_clip=dict(max_norm=35.0)),
+    train=dict(num_iters={iters}, forward_times=1, eval_per_epoch=False,
+               eval_after_train=False, log_interval_step=1, save_ckpt_interval_epoch=1000,
+               distributed=True, profile_dir={profile_dir!r},
+               profile_steps={profile_steps!r}),
+)
+'''
+
+
+def check_batch_augment(gen, seed: int, smi: str) -> None:
+    """(a) ``preprocess.device.batch_augment`` of 8 seeded uint8 scenes of
+    1024² with their masks: a 512² crop, a symmetry of the square and the
+    normalisation, with no host wait; each sample equal to the plain
+    evaluation of its draws; all 8 symmetries over 64 calls; timed."""
+    from ever_tpu_torch.preprocess.device import batch_augment
+    from ever_tpu_torch.preprocess.function import IMAGENET_MEAN, IMAGENET_STD
+
+    n, size = USER_AUG_BATCH, USER_SCENE
+    images = torch.randint(0, 256, (n, size, size, 3), generator=gen, device='cuda',
+                           dtype=torch.uint8)
+    masks = torch.randint(0, CLASSES, (n, size, size), generator=gen, device='cuda',
+                          dtype=torch.uint8)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    crop = (TILE, TILE)
+    batch_augment(g, images, masks, crop_size=crop)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        out, out_masks, draws = batch_augment(g, images, masks, crop_size=crop,
+                                              return_draws=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    mean = torch.tensor(IMAGENET_MEAN, device='cuda')
+    std = torch.tensor(IMAGENET_STD, device='cuda')
+    exact = True
+    host = {k: v.tolist() for k, v in draws.items()}
+    for i in range(n):
+        y, x, k, flip = host['y'][i], host['x'][i], host['k'][i], host['flip'][i]
+        for src, got in ((images, out), (masks, out_masks)):
+            want = torch.rot90(src[i, y:y + TILE, x:x + TILE], k, (0, 1))
+            if flip:
+                want = torch.flip(want, (1,))
+            if src is images:
+                want = (want.float() - mean) / std
+            exact &= got.dtype == want.dtype and torch.equal(got[i], want)
+    pairs = []
+    for _ in range(USER_AUG_CALLS):
+        _, _, d = batch_augment(g, images, masks, crop_size=crop, return_draws=True)
+        pairs.append(d['k'] * 2 + d['flip'].long())
+    symmetries = sorted(set(torch.cat(pairs).tolist()))
+    ms = cuda_ms(lambda: batch_augment(g, images, masks, crop_size=crop), USER_AUG_TIMED)
+    moved = n * TILE * TILE * (3 + 3 * 4 + 1 + 1)
+    print(f'user: a: {smi}: batch_augment of {n} uint8 scenes of {size}² with masks '
+          f'(crop {TILE}², D4, normalize): {ms:.4f} ms a batch by CUDA events '
+          f'({moved / ms / 1e6:.1f} GB/s of crops read and written), no host wait under '
+          f"set_sync_debug_mode('error'); every sample equal to the plain evaluation of its "
+          f'draws {exact}; symmetries drawn in {USER_AUG_CALLS} calls: {len(symmetries)} of 8',
+          flush=True)
+    check(exact and tuple(out.shape) == (n, TILE, TILE, 3) and out.dtype == torch.float32
+          and out_masks.dtype == torch.uint8,
+          'a: a batch_augment sample differs from the plain evaluation of its draws')
+    check(symmetries == list(range(8)), f'a: batch_augment drew the symmetries {symmetries}')
+
+
+def reference_losses(logits, labels) -> dict:
+    """The losses of the user phase written plainly, in float64, on the
+    CPU: name -> (value, gradient with respect to ``logits``), plus each
+    element's reference CE (OHEM's ambiguous band is read from it)."""
+    z = logits.detach().double().cpu().requires_grad_()
+    y = labels.cpu().long()
+    c = z.shape[-1]
+    zf, yf = z.reshape(-1, c), y.reshape(-1)
+    valid = (yf != 255).double()
+    lab = torch.where(yf == 255, torch.zeros_like(yf), yf)
+    onehot = torch.nn.functional.one_hot(lab, c).double() * valid[:, None]
+    logp = torch.log_softmax(zf, -1)
+    prob = torch.softmax(zf, -1) * valid[:, None]
+    nll = -logp.gather(1, lab[:, None])[:, 0] * valid
+    t = ((yf == 1) * 1.0).double()
+    binary = zf[:, 1]
+    bce = binary.clamp(min=0) - binary * t + torch.log1p(torch.exp(-binary.abs()))
+    with torch.no_grad():
+        p = torch.sigmoid(binary)
+        mod = ((1 - p) * t + p * (1 - t)) ** 2
+    p_sig = torch.sigmoid(binary)
+    p_t = p_sig * t + (1 - p_sig) * (1 - t)
+    ls_t = torch.where(yf == 0, torch.full_like(t, 0.1), (yf > 0) * 1.0 - 0.1).double()
+    zb = zf[:, 0]
+    ls_bce = (zb.clamp(min=0) - zb * ls_t + torch.log1p(torch.exp(-zb.abs()))) * valid
+    soft = torch.nn.functional.one_hot(lab, c).double() * 0.9 + 0.1 / c
+    k = max(int(0.25 * nll.numel()), 1)
+    top = torch.sort(nll, descending=True, stable=True).values[:k]
+    tp = (prob * onehot).sum(0)
+    tversky = (1 - (tp + 1) / (tp + 0.7 * (onehot.sum(0) - tp) + 0.3 * (prob.sum(0) - tp)
+                               + 1)) ** 0.75
+    count = valid.sum().clamp(min=1)
+    values = {
+        'ohem': (top * (top != 0)).sum() / (top != 0).sum().clamp(min=1),
+        'tversky': tversky.mean(),
+        'ls_ce': (-logp.sum(-1) * valid).sum() / count * 0.1 / c + 0.9 * nll.sum() / count,
+        'focal': (bce * mod).mean(),
+        'focal_normalize': (bce * mod).sum() * (bce.sum() / (bce * mod).sum()),
+        'sigmoid_focal': (bce * (1 - p_t) ** 2).mean(),
+        'ls_bce': ls_bce.sum() / count,
+        'soft_ce': -(soft.reshape(z.shape) * torch.log_softmax(z, -1)).mean((0, 1, 2)).sum(),
+        'dice_coeff': ((2 * tp + 1) / (prob.sum(0) + onehot.sum(0) + 1)).mean(),
+    }
+    out = {}
+    for name, v in values.items():
+        (g,) = torch.autograd.grad(v, z, retain_graph=True)
+        out[name] = (float(v.detach()), g)
+    out['nll'], out['k'] = nll.detach(), k
+    return out
+
+
+def port_losses(logits, labels) -> dict:
+    """The port's functions on the card, float32: name -> (value,
+    gradient), with ``select``'s three outputs."""
+    from ever_tpu_torch.module import loss as L
+
+    c = logits.shape[-1]
+    t = (labels == 1) * 1.0
+    fns = {
+        'ohem': lambda z: L.online_hard_example_mining(
+            L.softmax_ce_loss_with_logits(z, labels, reduction='none'), keep_ratio=0.25),
+        'tversky': lambda z: L.tversky_loss_with_logits(z, labels, alpha=0.7, beta=0.3,
+                                                        gamma=0.75),
+        'ls_ce': lambda z: L.label_smoothing_cross_entropy(z, labels, eps=0.1,
+                                                           ignore_index=255),
+        'focal': lambda z: L.focal_loss(z[..., 1], t),
+        'focal_normalize': lambda z: L.focal_loss(z[..., 1], t, normalize=True),
+        'sigmoid_focal': lambda z: L.sigmoid_focal_loss(z[..., 1], t),
+        'ls_bce': lambda z: L.label_smoothing_binary_cross_entropy(
+            z[..., 0], (labels > 0) * 1.0 + (labels == 255) * 254.0),
+        'soft_ce': lambda z: L.soft_cross_entropy(
+            z, torch.nn.functional.one_hot(torch.where(labels == 255, 0, labels).long(), c)
+            * 0.9 + 0.1 / c),
+        'dice_coeff': lambda z: L.dice_coeff(
+            torch.softmax(z, -1).reshape(-1, c),
+            torch.nn.functional.one_hot(torch.where(labels == 255, 0, labels).long(),
+                                        c).reshape(-1, c).float(),
+            (labels != 255).reshape(-1).float()),
+    }
+    out = {}
+    for name, fn in fns.items():
+        z = logits.detach().clone().requires_grad_()
+        v = fn(z)
+        v.backward()
+        out[name] = (float(v.detach()), z.grad)
+    out['select'] = L.select(logits, labels)
+    return out
+
+
+def trace_summary(path: str) -> dict:
+    """Counts and shares of a Chrome trace of ``torch.profiler``: the K8
+    kernels, the host's ``load_data`` spans, the device-busy share of the
+    traced window (the union of the kernels', copies' and fills' intervals
+    over the span of every event), the five kernels with the most time and
+    the five longest gaps in the device's work."""
+    with open(path) as f:
+        events = [e for e in json.load(f)['traceEvents'] if e.get('ph') == 'X']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    device = sorted((e for e in events if e.get('cat') in ('kernel', 'gpu_memcpy', 'gpu_memset')),
+                    key=lambda e: e['ts'])
+    begin = min(e['ts'] for e in events)
+    end = max(e['ts'] + e.get('dur', 0) for e in events)
+    busy, gaps, cur_s, cur_e = 0.0, [], None, None
+    for e in device:
+        s, t = e['ts'], e['ts'] + e.get('dur', 0)
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+                gaps.append((s - cur_e, cur_e - begin))
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    by_name = {}
+    for e in kernels:
+        by_name[e['name']] = by_name.get(e['name'], 0.0) + e.get('dur', 0)
+    return dict(
+        k8=sum('maxpool32_bwd' in e['name'] for e in kernels),
+        load_data=sum(e['name'] == 'load_data' and e.get('cat') == 'user_annotation'
+                      for e in events),
+        window_ms=(end - begin) / 1e3, busy=busy / max(end - begin, 1e-9),
+        top=sorted(by_name.items(), key=lambda kv: -kv[1])[:5],
+        gaps=sorted(gaps, reverse=True)[:5], n_kernels=len(kernels))
+
+
+def phase_user(gen, seed: int, smi: str) -> int:
+    """A user's own model trained with the reader's augmentations (module
+    docstring, phase 14): (a) the batched augmentation on the card, (b) a
+    FarSeg-R50 the project registers in ``module/`` through the project's
+    train.py with the ``transforms`` list, the OHEM, Tversky and
+    label-smoothing losses, ``--use_tensorboard`` and ``train.profile_dir``;
+    the losses against float64; the trace's breakdown.  Returns the
+    phase's K8 launches."""
+    import tempfile
+
+    import numpy as np
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.core.config import import_config
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    check_batch_augment(gen, seed, smi)
+    k8 = 0
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_user_') as tmp:
+        proj = os.path.join(tmp, 'proj')
+        r = subprocess.run([sys.executable, '-m', 'ever_tpu_torch', 'create', proj], cwd=repo,
+                           env=dict(os.environ, PYTHONPATH=repo), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f'create failed: {r.stderr[-2000:]}')
+        with open(os.path.join(proj, 'module', 'user_farseg.py'), 'w') as f:
+            f.write(USER_MODULE)
+        root = os.path.join(tmp, 'LoveDA')
+        write_loveda(root, seed, layout=[(split, dom, n, USER_SCENE)
+                                         for split, n in (('Train', USER_TRAIN),
+                                                          ('Val', USER_VAL))
+                                         for dom in ('Urban', 'Rural')])
+        profile_dir = os.path.join(tmp, 'runs', 'user', 'trace')
+        cfg_path = os.path.join(proj, 'configs', 'user_farseg_loveda.py')
+        with open(cfg_path, 'w') as f:
+            f.write(USER_CONFIG.format(batch=TRAIN_BATCH, tile=TILE, iters=USER_ITERS,
+                                       classes=CLASSES, root=root, workers=MODELS_WORKERS,
+                                       profile_dir=profile_dir,
+                                       profile_steps=USER_PROFILE_STEPS))
+        train_py = os.path.join(proj, 'train.py')
+
+        # b: the traced run with TensorBoard
+        model_dir = os.path.join(tmp, 'runs', 'user')
+        launcher, rec = recorded_run(train_py, ['--config_path', cfg_path, '--model_dir',
+                                                model_dir, '--use_tensorboard'])
+        launcher.logger.close()
+        k8 += rec['launches'][2]
+        logged = rec['logged']
+        keys = ('ohem_loss', 'tversky_loss', 'ls_ce_loss')
+        losses = {k: [d[k] for _, d, _, _ in logged] for k in keys}
+        finite = all(len(v) == USER_ITERS and all(math.isfinite(a) for a in v)
+                     for v in losses.values())
+        check(type(launcher.model).__name__ == 'UserFarSeg', 'b: the model is not the user\'s')
+        check(finite, 'b: non-finite or missing user losses')
+        check(rec['launches'][2] == USER_ITERS,
+              f'b: K8 launches {rec["launches"][2]} in {USER_ITERS} steps')
+        traced_ms, traced_data_ms = logged_medians(logged)
+
+        # the config's transforms are the ones that ran: item 0 of the
+        # train dataset against the item without them, through a copy
+        params = import_config(cfg_path).data.train.params
+        dataset = registry.DATASET['loveda'](params)
+        bare = registry.DATASET['loveda'](dict(params.to_dict(), transforms=None))
+        image, mask = bare[0]
+        for t in import_config(cfg_path).data.train.params.transforms:
+            image, mask = t(image, mask)
+        item = dataset[0]
+        same_item = (np.array_equal(item[0], image) and np.array_equal(item[1], mask)
+                     and item[0].dtype == image.dtype == np.float32)
+        check(same_item, 'b: item 0 is not the bare item through the config\'s transforms')
+
+        # the losses on the first batch's logits against float64
+        items = [item] + [dataset[i] for i in range(1, TRAIN_BATCH)]
+        x = torch.from_numpy(np.stack([a for a, _ in items])).cuda()
+        y = torch.from_numpy(np.stack([b for _, b in items])).cuda()
+        with torch.no_grad():
+            logits = launcher.model.logits(x)
+        got, want = port_losses(logits, y), reference_losses(logits, y)
+        nll, kth = want['nll'], want['k']
+        threshold = float(torch.sort(nll, descending=True).values[kth - 1])
+        ambiguous = (nll - threshold).abs() <= 1e-5 * abs(threshold)
+        errors = {}
+        for name, (value, grad) in ((k, v) for k, v in got.items() if k != 'select'):
+            wv, wg = want[name]
+            g = grad.double().cpu()
+            if name == 'ohem':
+                keep = ~ambiguous.reshape(g.shape[:-1])
+                g, wg = g[keep], wg[keep]
+            errors[name] = (abs(value - wv) / max(abs(wv), 1e-30),
+                            float((g - wg).abs().max() / wg.abs().max().clamp(min=1e-30)))
+        sel = got['select']
+        select_ok = (torch.equal(sel[0], logits.reshape(-1, CLASSES))
+                     and torch.equal(sel[1], y.reshape(-1))
+                     and torch.equal(sel[2], (y.reshape(-1) != 255).float()))
+        worst = max(max(v) for v in errors.values())
+        print(f'user: b: {smi}: the first batch\'s logits, the card\'s float32 against float64 '
+              f'on the CPU (value, gradient; relative): '
+              + ', '.join(f'{k} {a:.2e} {b:.2e}' for k, (a, b) in errors.items())
+              + f'; OHEM gradient compared off {int(ambiguous.sum())} pixels whose CE is '
+              f'within 1e-5 of the k-th; select equal {select_ok}', flush=True)
+        check(worst <= USER_LOSS_TOL and select_ok,
+              f'b: a loss differs from its float64 evaluation by {worst:.2e}')
+
+        traces = os.listdir(profile_dir) if os.path.isdir(profile_dir) else []
+        check(len(traces) == 1, f'b: the profile dir holds {traces}')
+        summary = trace_summary(os.path.join(profile_dir, traces[0]))
+        print(f'user: b: {smi}: the trace {traces[0]} ({summary["window_ms"]:.1f} ms, '
+              f'{summary["n_kernels"]} kernels): K8 kernels {summary["k8"]}, load_data spans '
+              f'{summary["load_data"]}; the card busy {summary["busy"] * 100:.1f} % of the '
+              f'window; most time: '
+              + '; '.join(f'{kernel_name(n)[:60]} {t / 1e3:.3f} ms' for n, t in summary['top'])
+              + '; longest idle gaps: '
+              + ', '.join(f'{g / 1e3:.3f} ms at {at / 1e3:.1f} ms' for g, at in summary['gaps']),
+              flush=True)
+        check(summary['k8'] == USER_PROFILE_STEPS[1] - USER_PROFILE_STEPS[0]
+              and summary['load_data'] == USER_PROFILE_STEPS[1] - USER_PROFILE_STEPS[0],
+              f'b: the trace holds {summary["k8"]} K8 kernels and {summary["load_data"]} '
+              'load_data spans')
+
+        try:
+            from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+        except ImportError:
+            print('user: b: tensorboard does not import on this machine: the logger warned '
+                  'and skipped its TensorBoard sink (the CPU tests drive it)', flush=True)
+        else:
+            events = [n for n in os.listdir(model_dir) if n.startswith('events.out.tfevents')]
+            check(len(events) == 1, f'b: event files {events}')
+            acc = EventAccumulator(os.path.join(model_dir, events[0]))
+            acc.Reload()
+            steps = [e.step for e in acc.Scalars('train/ohem_loss')]
+            print(f'user: b: the TensorBoard event file holds train/ohem_loss at steps {steps}',
+                  flush=True)
+            check(steps == list(range(1, USER_ITERS + 1)), f'b: TensorBoard steps {steps}')
+        del launcher, logits, x, y
+        torch.cuda.empty_cache()
+
+        # the same run untraced, with and without the transforms
+        times = {}
+        for name, opts in (('with', []), ('without', ['data.train.params.transforms', 'null'])):
+            launcher, run = recorded_run(train_py, [
+                '--config_path', cfg_path, '--model_dir', os.path.join(tmp, 'runs', name),
+                'train.profile_dir', 'null', *opts])
+            k8 += run['launches'][2]
+            check(run['launches'][2] == USER_ITERS and all(
+                math.isfinite(d['ohem_loss']) for _, d, _, _ in run['logged']),
+                f'b: the untraced run {name} the transforms: K8 {run["launches"][2]}')
+            times[name] = logged_medians(run['logged'])
+            del launcher
+            torch.cuda.empty_cache()
+        print(f'user: b: {smi}: {type(dataset).__name__} batch {TRAIN_BATCH} of {TILE}² crops '
+              f'from {USER_SCENE}² PNGs, {MODELS_WORKERS} workers, bf16, SGD + poly, '
+              f'{USER_ITERS} steps through train.py: losses '
+              + '; '.join(f'{k} {" ".join(f"{a:.5f}" for a in v)}' for k, v in losses.items())
+              + f'; K8 launches {rec["launches"][2]} (1 a step); through the Launcher '
+              f'{times["with"][0]:.2f} ms/step with the transforms ({times["with"][1]:.2f} '
+              f'loading), {times["without"][0]:.2f} without them ({times["without"][1]:.2f}); '
+              f'the traced run {traced_ms:.2f} ({traced_data_ms:.2f}); medians of steps '
+              f'2-{USER_ITERS}; item 0 equal to the bare item through a copy of the config\'s '
+              f'transforms {same_item}', flush=True)
+    print(f'user: {smi}: K8 launches in the phase {k8}; phase wall time '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return k8
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -4028,6 +4483,7 @@ def main() -> int:
     fwd['launches'] += k1
     bwd['launches'] += k2
     pool['launches'] += k8 + phase_change(gen, args.seed, smi)
+    pool['launches'] += phase_user(gen, args.seed, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

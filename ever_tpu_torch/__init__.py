@@ -7,7 +7,7 @@ rewritten by hand for Hopper (``csrc/``).  It imports neither JAX nor
 
 The public surface follows ``ever_tpu/__init__.py`` as far as it is ported:
 ``registry, builder, config, to, param_util, data, metric, magic, opt,
-trainer, infer_tool``, the interface classes, ``sliding_window``,
+preprocess, trainer, infer_tool``, the interface classes, ``sliding_window``,
 ``tiled_inference``, ``seed_everything`` and the TTA helpers.
 """
 
@@ -19,7 +19,7 @@ from ever_tpu_torch.core.device import get_device  # noqa: F401
 # data before the model zoo: the interface package needs data.distributed
 from ever_tpu_torch import data  # noqa: F401  (registers the readers)
 from ever_tpu_torch import module  # noqa: F401  (registers the model zoo)
-from ever_tpu_torch import magic, metric, opt, parallel, trainer, util  # noqa: F401
+from ever_tpu_torch import magic, metric, opt, parallel, preprocess, trainer, util  # noqa: F401
 from ever_tpu_torch.api import infer_tool  # noqa: F401
 from ever_tpu_torch.core.logger import info  # noqa: F401
 from ever_tpu_torch.core.to import auto_device  # noqa: F401
@@ -55,7 +55,7 @@ from ever_tpu_torch.util.seedlib import seed_everything, seed_torch  # noqa: F40
 
 __all__ = [
     'builder', 'config', 'dist', 'registry', 'to', 'opt', 'data', 'magic',
-    'metric', 'module', 'parallel', 'trainer', 'util', 'infer_tool', 'param_util',
+    'metric', 'module', 'parallel', 'preprocess', 'trainer', 'util', 'infer_tool', 'param_util',
     'AttrDict', 'FrozenConfig', 'from_dict', 'import_config', 'get_device',
     'Callback', 'ConfigurableMixin', 'ERDataLoader', 'ERDataset', 'ERModule',
     'LearningRateBase', 'MultiTransform', 'Transform', 'LoveDA',

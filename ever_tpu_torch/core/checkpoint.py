@@ -22,7 +22,7 @@ from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.core.dist import is_main_process
 
 __all__ = ['CheckPoint', 'is_checkpoint', 'load_model_state_from_ckpt',
-           'remove_optimizer_in_ckpt']
+           'load_model_state_dict_from_ckpt', 'remove_module_prefix', 'remove_optimizer_in_ckpt']
 
 MODEL = 'model'
 OPTIMIZER = 'opt'
@@ -148,6 +148,19 @@ def load_model_state_from_ckpt(filepath: str,
     when it holds a bare ``state_dict``)."""
     ckpt = CheckPoint.load(filepath, device)
     return ckpt[MODEL] if is_checkpoint(ckpt) else ckpt
+
+
+def load_model_state_dict_from_ckpt(filepath: str,
+                                    device: Optional[Union[str, torch.device]] = None) -> dict:
+    """The reference's spelling of :func:`load_model_state_from_ckpt`."""
+    return load_model_state_from_ckpt(filepath, device)
+
+
+def remove_module_prefix(state_dict: dict, prefix: str = 'module.') -> dict:
+    """``state_dict`` with ``prefix`` (DDP's ``module.``) stripped from the
+    keys that start with it."""
+    return {(k[len(prefix):] if k.startswith(prefix) else k): v
+            for k, v in state_dict.items()}
 
 
 def remove_optimizer_in_ckpt(fp: str, new_fp: Optional[str] = None,

@@ -22,6 +22,22 @@ pinned and copied asynchronously; a step's metrics are copied to the host
 only when the step is logged (every ``log_interval_step``), asynchronously
 behind a CUDA event, and read after the next step has been queued, so one
 step stays in flight, as the JAX loop's ``pending`` step does.
+
+The loop's host phases are ``torch.profiler.record_function`` spans
+(``load_data``, ``train_step``, ``read_metrics``), where the JAX loop has
+``TraceAnnotation``s.  With ``train.profile_dir``, rank 0 traces the steps
+``profile_steps = (start, stop)`` (``(10, 20)`` by default) with
+``torch.profiler`` (the host and, on a card, CUDA) and writes a Chrome
+trace ``trace-steps-{a}-{b}.json`` there, ``a`` and ``b`` the steps done
+when it started and stopped: the trace starts at the top of the loop once
+``start`` steps are done and stops once ``stop`` are, so it holds the
+loading and the steps ``start`` … ``stop − 1`` (0-based), or up to the
+end of the run.
+With ``steps_per_loop > 1`` both ends fall on loop boundaries (the first
+boundary at or after each).  The card is synchronised at both ends, so
+that the trace holds exactly the window's kernels.  With
+``train.summary_weights`` the model's ``state_dict`` goes to the logger's
+histograms every ``tensorboard_interval_step`` steps.
 """
 
 from __future__ import annotations
@@ -91,6 +107,41 @@ class _PendingMetrics:
             self._event.synchronize()
             values.update(zip(self._on_card, self._values.tolist()))
         return {k: values[k] for k in self._keys}
+
+
+class _StepTrace:
+    """``torch.profiler`` over the steps ``[start, stop)`` of a run, its
+    Chrome trace written into ``profile_dir`` (module docstring)."""
+
+    def __init__(self, profile_dir: str, steps, device: torch.device):
+        self.dir, (self.start, self.stop) = profile_dir, (int(steps[0]), int(steps[1]))
+        self.cuda = device.type == 'cuda'
+        self.prof, self.first = None, None
+        self.done = False
+
+    def _sync(self) -> None:
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def at(self, step: int, info: Callable[[str], None], end: bool = False) -> None:
+        """Start or stop the trace at the top of the loop with ``step``
+        steps done (``end``: the run is over)."""
+        if self.prof is None and not self.done and not end and self.start <= step < self.stop:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._sync()
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+            self.first = step
+        elif self.prof is not None and (end or step >= self.stop):
+            self._sync()
+            self.prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(self.dir, f'trace-steps-{self.first}-{step}.json')
+            self.prof.export_chrome_trace(path)
+            self.prof, self.done = None, True
+            info(f'profile trace written to {path}')
 
 
 class Launcher:
@@ -326,9 +377,9 @@ class Launcher:
         num_iters = kwargs.get('num_iters', -1)
         if num_iters <= 0:
             raise ValueError('num_iters must be positive')
-        if kwargs.get('profile_dir', None):
-            raise NotImplementedError('profile_dir (a trace of the loop) is not '
-                                      'ported yet (ROADMAP.md A.5, the loop\'s trace)')
+        profile = (kwargs.get('profile_dir', None), tuple(kwargs.get('profile_steps', (10, 20))))
+        weights = (kwargs.get('summary_weights', False),
+                   int(kwargs.get('tensorboard_interval_step', 100)))
         forward_times = kwargs.get('forward_times', 1)
         steps_per_loop = int(kwargs.get('steps_per_loop', 1))
         eval_per_epoch = kwargs.get('eval_per_epoch', False)
@@ -370,7 +421,7 @@ class Launcher:
         self._logger.forward_times_log(forward_times)
         try:
             self._train_loop(iterator, num_iters, forward_times, distributed,
-                             log_interval_step, steps_per_loop)
+                             log_interval_step, steps_per_loop, profile, weights)
         except (KeyboardInterrupt, Exception):
             # make the interrupted step resumable; only this rank is here, so
             # the save enters no collective
@@ -385,43 +436,54 @@ class Launcher:
         self._logger.after_train()
 
     def _train_loop(self, iterator, num_iters, forward_times, distributed,
-                    log_interval_step, steps_per_loop):
+                    log_interval_step, steps_per_loop, profile=(None, (10, 20)),
+                    weights=(False, 100)):
         """One step per dispatch, or ``steps_per_loop`` of them (``spmd``'s
         train loop, the metrics their mean).  A step is logged when its
         count is a multiple of ``log_interval_step`` (every dispatch when
         ``steps_per_loop`` is larger) and at the end; its time is the wall
         time per step since the previous logged step, its data time the
-        share of it spent loading, in callbacks and copying batches."""
+        share of it spent loading, in callbacks and copying batches.
+        ``profile`` is ``(profile_dir, profile_steps)`` and ``weights``
+        ``(summary_weights, tensorboard_interval_step)`` (module
+        docstring)."""
         loops: Dict[int, Callable] = {}
         pending = None
+        trace = _StepTrace(*profile, self._device) if profile[0] and self._master else None
         since = (self._ckpt.global_step, time.perf_counter(), 0.0)
         while self._ckpt.global_step < num_iters:
+            if trace is not None:
+                trace.at(self._ckpt.global_step, self.info)
             k = min(steps_per_loop, num_iters - self._ckpt.global_step)
             t0 = time.perf_counter()
-            stage = []
-            for i in range(k):
-                if distributed:
-                    iterator.set_seed_for_dist_sampler(self._ckpt.global_step + i)
-                data_list = iterator.next(forward_times, call_backs=self._callbacks,
-                                          is_master=self._master)
-                stage.append(data_list[0] if forward_times == 1 else _stack(data_list))
-            batch = self._to_device(stage[0] if steps_per_loop == 1 else _stack(stage))
+            with torch.profiler.record_function('load_data'):
+                stage = []
+                for i in range(k):
+                    if distributed:
+                        iterator.set_seed_for_dist_sampler(self._ckpt.global_step + i)
+                    data_list = iterator.next(forward_times, call_backs=self._callbacks,
+                                              is_master=self._master)
+                    stage.append(data_list[0] if forward_times == 1 else _stack(data_list))
+                batch = self._to_device(stage[0] if steps_per_loop == 1 else _stack(stage))
             data_time = time.perf_counter() - t0
 
             self.init_state()
-            if steps_per_loop == 1:
-                self._ensure_train_step(forward_times)
-                self._state, metrics = self._train_step(self._state, batch)
-            else:
-                if k not in loops:
-                    loops[k] = build_train_loop(
-                        self._model, self._tx, self._lr_schedule, steps_per_loop=k,
-                        forward_times=forward_times, mesh=self._mesh, rng_seed=self._seed,
-                        find_unused_parameters=self._find_unused)
-                self._state, metrics = loops[k](self._state, batch)
+            with torch.profiler.record_function('train_step'):
+                if steps_per_loop == 1:
+                    self._ensure_train_step(forward_times)
+                    self._state, metrics = self._train_step(self._state, batch)
+                else:
+                    if k not in loops:
+                        loops[k] = build_train_loop(
+                            self._model, self._tx, self._lr_schedule, steps_per_loop=k,
+                            forward_times=forward_times, mesh=self._mesh,
+                            rng_seed=self._seed, find_unused_parameters=self._find_unused)
+                    self._state, metrics = loops[k](self._state, batch)
             for _ in range(k):
                 self._ckpt.step()
             step = self._ckpt.global_step
+            if weights[0] and step // weights[1] > (step - k) // weights[1]:
+                self._logger.log_histograms(self._model.state_dict(), step)
             since = since[:2] + (since[2] + data_time,)
             if pending is not None:
                 since = self._log_step(pending, num_iters, since)
@@ -429,11 +491,14 @@ class Launcher:
             if (step % log_interval_step == 0 or steps_per_loop > log_interval_step
                     or step == num_iters):
                 pending = _PendingMetrics(step, metrics)
+        if trace is not None:
+            trace.at(self._ckpt.global_step, self.info, end=True)
         if pending is not None:
             self._log_step(pending, num_iters, since)
 
     def _log_step(self, pending: _PendingMetrics, num_iters: int, since):
-        host = pending.read()
+        with torch.profiler.record_function('read_metrics'):
+            host = pending.read()
         now = time.perf_counter()
         last_step, last_time, data_time = since
         n = max(pending.step - last_step, 1)

@@ -9,6 +9,11 @@
 //      Average, Paeth) for bit depth 8.  Average and Paeth read the byte
 //      just decoded to their left, so rows are decoded in order; this is
 //      the hot loop of data/_png.py's decoder.
+//   3. ever_normalize_u8_f32 / ever_normalize_u8_bf16: (x - mean[c]) *
+//      (1 / std[c]) of uint8 HWC pixels in one pass, to float32 or to
+//      bfloat16 rounded from the float32 result (the JAX package's
+//      ever_tpu/native/tilekit.cpp arithmetic, bit for bit);
+//      preprocess.segm.MeanStdNormalize's uint8 path.
 //
 // Built with g++ at first use by ever_tpu_torch/ops/_build.py.
 
@@ -52,6 +57,41 @@ inline int paeth(int a, int b, int c) {
   int ab = pb < pa ? b : a;
   int pab = pb < pa ? pb : pa;
   return pc < pab ? c : ab;
+}
+
+// round-to-nearest-even float32 -> bfloat16 (the uint16 payload); a NaN
+// stays a quiet NaN (the rounding increment could carry a low-mantissa
+// NaN into the infinity encoding)
+inline uint16_t f32_to_bf16(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  if ((u & 0x7FFFFFFFu) > 0x7F800000u) return static_cast<uint16_t>((u >> 16) | 0x0040u);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return static_cast<uint16_t>(u >> 16);
+}
+
+// (x - mu[c]) * inv[c] over n_pixels pixels of C <= 64 channels, in chunks
+// of 2^16 pixels on parallel threads; store(dst, value) writes one output
+template <typename T, typename Store>
+int normalize_u8(const uint8_t* in, int64_t n_pixels, int64_t C, const float* mean,
+                 const float* stdv, T* out, Store store) {
+  if (!in || !mean || !stdv || !out || C <= 0 || C > 64 || n_pixels < 0) return -1;
+  float inv[64], mu[64];
+  for (int64_t c = 0; c < C; ++c) {
+    inv[c] = 1.0f / stdv[c];
+    mu[c] = mean[c];
+  }
+  const int64_t chunk = 1 << 16;
+  const int64_t n_chunks = (n_pixels + chunk - 1) / chunk;
+  parallel_for(n_chunks, [=](int64_t k) {
+    int64_t lo = k * chunk, hi = std::min(n_pixels, lo + chunk);
+    const uint8_t* src = in + lo * C;
+    T* dst = out + lo * C;
+    for (int64_t p = lo; p < hi; ++p) {
+      for (int64_t c = 0; c < C; ++c) store(dst++, (static_cast<float>(*src++) - mu[c]) * inv[c]);
+    }
+  });
+  return 0;
 }
 
 }  // namespace
@@ -153,6 +193,17 @@ int ever_png_unfilter(const uint8_t* in, int64_t H, int64_t stride,
   return 0;
 }
 
-int ever_tilekit_abi_version() { return 1; }
+int ever_normalize_u8_f32(const uint8_t* in, int64_t n_pixels, int64_t C, const float* mean,
+                          const float* stdv, float* out) {
+  return normalize_u8(in, n_pixels, C, mean, stdv, out, [](float* d, float v) { *d = v; });
+}
+
+int ever_normalize_u8_bf16(const uint8_t* in, int64_t n_pixels, int64_t C, const float* mean,
+                           const float* stdv, uint16_t* out) {
+  return normalize_u8(in, n_pixels, C, mean, stdv, out,
+                      [](uint16_t* d, float v) { *d = f32_to_bf16(v); });
+}
+
+int ever_tilekit_abi_version() { return 2; }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """The port's host library (``csrc/tilekit.cpp``) through ``ctypes``.
 
 ``extract_tiles`` is the tile gather of ``GeoTileDataset.read_batch``
-(``extract_tiles_s2d`` its space-to-depth form, for ``layout='s2d'``) and
-``png_unfilter`` the row unfilter of ``data/_png.py``.  The library is built
+(``extract_tiles_s2d`` its space-to-depth form, for ``layout='s2d'``),
+``png_unfilter`` the row unfilter of ``data/_png.py`` and ``normalize_u8``
+the uint8 path of ``preprocess.segm.MeanStdNormalize``.  The library is built
 with ``g++`` into ``ever_tpu_torch/_build/`` at first use (``ops/_build.py``);
 there is no numpy fallback: a failed build raises.  Call :func:`load` in the
 parent process before a ``DataLoader`` forks its workers, so that they share
@@ -15,10 +16,12 @@ import ctypes
 
 import numpy as np
 
-__all__ = ['load', 'extract_tiles', 'extract_tiles_s2d', 'png_unfilter']
+__all__ = ['load', 'extract_tiles', 'extract_tiles_s2d', 'png_unfilter', 'normalize_u8']
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_f32p = ctypes.POINTER(ctypes.c_float)
 _i64 = ctypes.c_int64
+ABI_VERSION = 2
 
 
 def load() -> ctypes.CDLL:
@@ -28,8 +31,13 @@ def load() -> ctypes.CDLL:
     lib = _build.load('tilekit')
     if lib.ever_extract_tiles_u8.argtypes is None:
         lib.ever_tilekit_abi_version.restype = ctypes.c_int
-        if lib.ever_tilekit_abi_version() != 1:
+        if lib.ever_tilekit_abi_version() != ABI_VERSION:
             raise RuntimeError('tilekit ABI mismatch')
+        lib.ever_normalize_u8_f32.restype = ctypes.c_int
+        lib.ever_normalize_u8_f32.argtypes = [_u8p, _i64, _i64, _f32p, _f32p, _f32p]
+        lib.ever_normalize_u8_bf16.restype = ctypes.c_int
+        lib.ever_normalize_u8_bf16.argtypes = [_u8p, _i64, _i64, _f32p, _f32p,
+                                               ctypes.POINTER(ctypes.c_uint16)]
         lib.ever_png_unfilter.restype = ctypes.c_int
         lib.ever_png_unfilter.argtypes = [_u8p, _i64, _i64, _i64, _u8p]
         for fn in (lib.ever_extract_tiles_u8, lib.ever_extract_tiles_s2d_u8):
@@ -96,3 +104,40 @@ def png_unfilter(filtered: bytes, height: int, stride: int, bpp: int) -> np.ndar
         row = -rc - 2
         raise ValueError(f'unknown PNG filter type {src[row * (stride + 1)]} on row {row}')
     return out
+
+
+def normalize_u8(img: np.ndarray, mean, std, dtype=np.float32):
+    """``(img − mean) · (1/std)`` of a uint8 ``[..., C]`` image (C ≤ 64) in
+    one pass on the host library's threads: a float32 numpy array, or with
+    ``dtype=torch.bfloat16`` a ``torch.bfloat16`` tensor rounded to nearest
+    even from the float32 result (numpy has no bfloat16).  Bit-equal to the
+    JAX package's ``ever_tpu.native.normalize_u8``."""
+    import torch
+
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim < 1:
+        raise ValueError(f'normalize_u8 takes a uint8 [..., C] image, got {img.dtype} '
+                         f'{img.shape}')
+    c = img.shape[-1]
+    if not 0 < c <= 64:
+        raise ValueError(f'normalize_u8 takes 1 to 64 channels, got {c}')
+    mean = np.ascontiguousarray(np.broadcast_to(np.asarray(mean, np.float32), (c,)))
+    std = np.ascontiguousarray(np.broadcast_to(np.asarray(std, np.float32), (c,)))
+    lib = load()
+    if dtype is torch.bfloat16:
+        out = np.empty(img.shape, np.uint16)
+        rc = lib.ever_normalize_u8_bf16(_ptr(img, ctypes.c_uint8), img.size // c, c,
+                                        _ptr(mean, ctypes.c_float), _ptr(std, ctypes.c_float),
+                                        _ptr(out, ctypes.c_uint16))
+        result = torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
+    elif np.dtype(dtype) == np.float32:
+        out = np.empty(img.shape, np.float32)
+        rc = lib.ever_normalize_u8_f32(_ptr(img, ctypes.c_uint8), img.size // c, c,
+                                       _ptr(mean, ctypes.c_float), _ptr(std, ctypes.c_float),
+                                       _ptr(out, ctypes.c_float))
+        result = out
+    else:
+        raise ValueError(f'normalize_u8 gives float32 or torch.bfloat16, not {dtype}')
+    if rc != 0:
+        raise ValueError(f'normalize_u8: bad arguments (rc={rc})')
+    return result

@@ -1,5 +1,7 @@
 """Score tracking across evaluations (counterpart of
-``ever_tpu/metric/utils.py``, without its wandb sink)."""
+``ever_tpu/metric/utils.py``): each appended row is also logged to wandb
+when a wandb run is active (an optional package, import-gated as in the
+JAX package)."""
 
 from __future__ import annotations
 
@@ -26,6 +28,12 @@ class ScoreTracker:
         for k, col in self._data.items():
             if len(col) <= n_before:
                 col.append(None)
+        try:
+            import wandb
+        except ImportError:
+            return
+        if wandb.run is not None:
+            wandb.log(scores, step=step)
 
     @property
     def scores(self) -> dict:

@@ -17,7 +17,7 @@ from ever_tpu_torch.interface.learning_rate import LearningRateBase
 
 __all__ = ['WarmupMixin', 'MultiStepLearningRate', 'PolyLearningRate',
            'CosineAnnealingLearningRate', 'ConstantLearningRate',
-           'SearchLearningRate']
+           'SearchLearningRate', 'set_lr']
 
 
 class WarmupMixin:
@@ -129,3 +129,12 @@ class SearchLearningRate(LearningRateBase):
 
     def value_at(self, global_step):
         return self.base_lr * self.mult ** global_step
+
+
+def set_lr(optimizer, lr: float) -> None:
+    """Set the learning rate of every parameter group of a
+    ``torch.optim`` optimizer (the reference's ``set_lr``; the JAX package's
+    returns a new optax state instead).  A train step driven by a schedule
+    sets the groups' rate again at its next step."""
+    for group in optimizer.param_groups:
+        group['lr'] = lr

@@ -146,9 +146,13 @@ class Trainer:
     def build_launcher(self) -> Launcher:
         model = self.make_model()
         schedule, tx = self.make_lr_optimizer(model)
+        use_wandb = getattr(self.args, 'use_wandb', False)
         logger = Logger('ever_tpu_torch', tensorboard_logdir=self._model_dir,
                         use_tensorboard=getattr(self.args, 'use_tensorboard', False),
-                        use_wandb=getattr(self.args, 'use_wandb', False))
+                        use_wandb=use_wandb,
+                        wandb_config=dict(project=getattr(self.args, 'project', None),
+                                          entity=getattr(self.args, 'entity', None),
+                                          config=self._config.to_dict()) if use_wandb else None)
         self._launcher = Launcher(
             model_dir=self._model_dir, model=model, optimizer=tx, lr_schedule=schedule,
             mixed_precision=getattr(self.args, 'mixed_precision', 'fp32'),

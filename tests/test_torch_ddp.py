@@ -211,7 +211,8 @@ def _start(proj, world, cfg, model_dir, opts=()):
            '--nproc_per_node', str(world)] if world > 1 else [sys.executable]
     cmd += [os.path.join(proj, 'train.py'), '--config_path', cfg, '--model_dir',
             str(model_dir), '--device', 'cpu', *map(str, opts)]
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='2')
+    # one intra-op thread a rank: torch sizes its pool from OMP_NUM_THREADS
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS='1')
     log = open(f'{model_dir}.log', 'w+')
     return cmd, log, subprocess.Popen(cmd, cwd=proj, env=env, stdout=log,
                                       stderr=subprocess.STDOUT)

@@ -11,8 +11,10 @@ against the JAX package:
   ``tools/multiprocess_validation.py`` asserts;
 - ``BatchNorm2d`` in train mode inside ``with mesh:`` (global statistics),
   2 samples a rank and 1 a rank, in float64;
-- the cross-entropy and dice losses with uneven ignored pixels across the
-  ranks (the global mean, which a plain average of the ranks' means is not);
+- the cross-entropy, dice, BCE, Tversky, OHEM, label-smoothing, normalised
+  focal losses and ``dice_coeff`` with uneven ignored pixels across the
+  ranks (the global value, which a plain average of the ranks' means is
+  not);
 - the drop-path draws;
 - ``tiled_inference(mesh=)``.
 
@@ -143,6 +145,7 @@ def _rank_slice(a, rank, world):
 
 def _worker(rank, world, init, out):
     """One rank's share of every check; writes ``rank{rank}.pt`` to ``out``."""
+    torch.set_num_threads(1)
     dist.init_dist_env(init, world, rank, backend='gloo')
     dist.init_dist_env(init, world, rank, backend='gloo')       # a no-op now
     res = dict(world=dist.get_world_size(), rank=dist.get_rank())
@@ -171,7 +174,8 @@ def _worker(rank, world, init, out):
     for name, fn, kw in (('ce', tloss.softmax_ce_loss_with_logits, {}),
                          ('dice', tloss.dice_loss_with_logits, {}),
                          ('dice axis', tloss.dice_loss_with_logits, dict(axis_name='data')),
-                         ('bce', _bce(tloss), {})):
+                         ('bce', _bce(tloss), {}),
+                         *((k, f, {}) for k, f in _more_losses(tloss, _torch_ops).items())):
         lr = torch.from_numpy(_rank_slice(logits, rank, world)).requires_grad_()
         with mesh:
             value = fn(lr, torch.from_numpy(_rank_slice(labels, rank, world)), **kw)
@@ -273,16 +277,52 @@ def _bce(losses):
     return fn
 
 
+def _more_losses(losses, ops):
+    """Tversky, OHEM, the label-smoothing losses, the normalised focal loss
+    and ``dice_coeff``, as ``fn(logits, labels)`` of either package's loss
+    module; ``ops`` gives the package's softmax and arange."""
+    softmax, arange = ops
+
+    def dice_coeff(logits, labels):
+        c = logits.shape[-1]
+        y = labels.reshape(-1)
+        onehot = (y[:, None] == arange(c)) * 1.0
+        return 1.0 - losses.dice_coeff(softmax(logits.reshape(-1, c)), onehot, (y != 255) * 1.0)
+
+    return {
+        'tversky': lambda lg, lb: losses.tversky_loss_with_logits(lg, lb, alpha=0.7, beta=0.3,
+                                                                  gamma=0.75),
+        'ohem': lambda lg, lb: losses.online_hard_example_mining(
+            losses.softmax_ce_loss_with_logits(lg, lb, reduction='none'), keep_ratio=0.25),
+        'ls ce': lambda lg, lb: losses.label_smoothing_cross_entropy(lg, lb, eps=0.1,
+                                                                     ignore_index=255),
+        'ls bce': lambda lg, lb: losses.label_smoothing_binary_cross_entropy(
+            lg[..., 0], (lb > 0) * 1.0 + (lb == 255) * 254.0),
+        'focal norm': lambda lg, lb: losses.focal_loss(lg[..., 1], (lb == 1) * 1.0,
+                                                       normalize=True),
+        'dice_coeff': dice_coeff,
+    }
+
+
+_torch_ops = (lambda a: torch.softmax(a, -1), torch.arange)
+_jax_ops = (lambda a: jax.nn.softmax(a, -1), jnp.arange)
+# the same float32 arithmetic a gradient element at a time in one process
+# and over the ranks: held to 1e-12
+EXACT_GRADIENTS = ('ce', 'bce', 'ohem', 'ls ce', 'ls bce')
+
+
 def _jax_value_and_grad(name, logits, labels):
     fn = {'ce': jloss.softmax_ce_loss_with_logits, 'bce': _bce(jloss),
-          'dice': jloss.dice_loss_with_logits, 'dice axis': jloss.dice_loss_with_logits}[name]
+          'dice': jloss.dice_loss_with_logits, 'dice axis': jloss.dice_loss_with_logits,
+          **_more_losses(jloss, _jax_ops)}[name]
     with jax.enable_x64(True):
         value, grad = jax.value_and_grad(lambda lg: fn(lg, jnp.asarray(labels)))(
             jnp.asarray(logits))
         return float(value), np.asarray(grad)
 
 
-@pytest.mark.parametrize('name', ['ce', 'dice', 'dice axis', 'bce'])
+@pytest.mark.parametrize('name', ['ce', 'dice', 'dice axis', 'bce', 'tversky', 'ohem',
+                                  'ls ce', 'ls bce', 'focal norm', 'dice_coeff'])
 def test_losses_are_global_with_uneven_ignored_pixels(ranks, name):
     """Rank 0 ignores most of its pixels and rank 1 few.  Both ranks get
     the loss one process computes on the whole batch, and each rank's
@@ -295,15 +335,21 @@ def test_losses_are_global_with_uneven_ignored_pixels(ranks, name):
     arithmetic in the port's one-process and two-rank runs (1e-12); the BCE
     sums Σloss and Σvalid with one all-reduce; the dice gradient goes
     through the float32 class sums, added in another order (1e-6 of its
-    largest element); JAX's softmax rounds differently (1e-6)."""
+    largest element); JAX's softmax rounds differently (1e-6).  Of the
+    rest, OHEM's top k over the gathered per-pixel losses and both
+    label-smoothing losses' sums (one all-reduce each) are exact a gradient
+    element at a time like the CE; the Tversky, ``dice_coeff`` and the
+    normalised focal loss (ΣBCE / Σmodulated) go through class or batch
+    sums added in another order, held as the dice."""
     logits, labels = _loss_inputs()
-    fn = {'ce': tloss.softmax_ce_loss_with_logits, 'bce': _bce(tloss)}.get(
-        name, tloss.dice_loss_with_logits)
+    fn = {'ce': tloss.softmax_ce_loss_with_logits, 'bce': _bce(tloss),
+          'dice': tloss.dice_loss_with_logits, 'dice axis': tloss.dice_loss_with_logits,
+          **_more_losses(tloss, _torch_ops)}[name]
     lt = torch.from_numpy(logits).requires_grad_()
     value = fn(lt, torch.from_numpy(labels))
     value.backward()
     value = value.detach()
-    grad_atol = 0.0 if name in ('ce', 'bce') else 1e-6 * float(lt.grad.abs().max())
+    grad_atol = 0.0 if name in EXACT_GRADIENTS else 1e-6 * float(lt.grad.abs().max())
     jvalue, jgrad = _jax_value_and_grad(name, logits, labels)
     np.testing.assert_allclose(float(value), jvalue, rtol=1e-6)
     np.testing.assert_allclose(lt.grad.numpy(), jgrad, rtol=1e-6, atol=1e-9)

@@ -12,8 +12,6 @@ which float64 avoids (``tests/test_torch_farseg.py``).  Each tolerance
 states its reason.
 """
 
-import contextlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,7 +27,7 @@ from ever_tpu_torch.parallel import spmd as tspmd
 from ever_tpu_torch.util.weight_io import convert_flax_factseg, convert_flax_flat, flatten_params
 from ever_tpu.module import resnet as jres
 from ever_tpu_torch.module import resnet as tres
-from test_torch_resnet import seeded_variables
+from test_torch_resnet import one_torch_thread, seeded_variables, torch_threads  # noqa: F401
 
 CLASSES = 5
 NARROW = dict(encoder=dict(resnet_type='resnet_basic_tiny'),
@@ -44,26 +42,6 @@ def batch(n=2, size=64, seed=3, channels=3):
     y = rng.integers(0, CLASSES, size=(n, size, size)).astype(np.int32)
     y[:, 0, :7] = 255
     return x, y
-
-
-@contextlib.contextmanager
-def torch_threads(n):
-    """Torch's intra-op thread count set to ``n`` inside the block."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(n)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(before)
-
-
-@pytest.fixture
-def one_torch_thread():
-    """One intra-op thread: in a parallel test run a process's default pool
-    (a thread a core) contends with the other workers', and these small
-    CPU steps slow tens of times (about 0.5 s to 15 s a step)."""
-    with torch_threads(1):
-        yield
 
 
 @pytest.fixture(scope='module', autouse=True)

@@ -30,7 +30,9 @@ from ever_tpu_torch.module import fs_relation as tfs
 from ever_tpu_torch.parallel import spmd as tspmd
 from ever_tpu_torch.util.weight_io import convert_flax_farseg, flatten_params
 from test_torch_farseg import CLASSES, NARROW, _batch, _close_state, _sgd
-from test_torch_resnet import close, nchw, nhwc, seeded_variables
+from test_torch_resnet import close, nchw, nhwc, one_torch_thread, seeded_variables  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 # the narrow FarSeg++: head width 64, so that the scene encoder's 32
 # GroupNorm groups hold 2 channels each (at width 32 each holds one value

@@ -23,7 +23,9 @@ from ever_tpu.module import vit as jvit
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.util.weight_io import (convert_flax_dino_head, convert_flax_dinov3_vit,
                                            flatten_params)
-from test_torch_factseg import one_torch_thread  # noqa: F401
+from test_torch_resnet import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 TINY = (2, 64, 2, 4.0, 'mlp')
 TRUNK = dict(vit_type='vit_tiny_mc', patch_size=16, n_storage_tokens=4,

@@ -13,6 +13,8 @@ variance divides (flax's one-pass E[x²] − E[x]² against PyTorch's
 two-pass variance).
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,30 @@ import torch
 from ever_tpu.module import resnet as jres
 from ever_tpu_torch.module import resnet as tres
 from ever_tpu_torch.util.weight_io import convert_flax_resnet
+
+
+@contextlib.contextmanager
+def torch_threads(n):
+    """Torch's intra-op thread count set to ``n`` inside the block."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: in a parallel test run a process's default pool
+    (a thread a core) contends with the other workers', and these small
+    CPU steps slow tens of times (about 0.5 s to 15 s a step).  The port's
+    test files that step models on the CPU take it for every test."""
+    with torch_threads(1):
+        yield
+
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 # small stand-ins registered in both packages' RESNET_SPECS: one block per
 # stage, grouped (32 groups of 4) and with the deep v1c stem

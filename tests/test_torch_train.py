@@ -32,7 +32,9 @@ from ever_tpu_torch.opt import optimizer as topt
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.parallel import spmd as tspmd
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg
-from test_torch_factseg import one_torch_thread  # noqa: F401
+from test_torch_resnet import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 # -- losses -------------------------------------------------------------------
 

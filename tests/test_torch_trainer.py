@@ -38,6 +38,9 @@ from ever_tpu_torch.interface.dataloader import default_collate
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.trainer import get_trainer as tget_trainer
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg
+from test_torch_resnet import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 CLASSES = 5
 # a ViT spec small enough for the CPU: 2 blocks, width 64, 2 heads

@@ -120,6 +120,7 @@ def _rank_worker(rank, world, init, tmp):
     batches.  Rank 0 also takes the one-process step from each step's
     state and writes both runs' metrics and their largest state
     difference."""
+    torch.set_num_threads(1)
     dist.init_dist_env(init, world, rank, backend='gloo')
     x, y = _batches()
     n = BATCH // world

@@ -26,8 +26,10 @@ from ever_tpu_torch.magic.tiled import tiled_inference as torch_tiled
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg, convert_flax_farseg
 from test_torch_farseg import NARROW as FARSEG_NARROW
-from test_torch_resnet import seeded_variables
+from test_torch_resnet import one_torch_thread, seeded_variables  # noqa: F401
 from test_torch_trainer import TINY, _seeded_params
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 X = np.random.default_rng(0).normal(size=(2, 16, 16, 3)).astype(np.float32)
 

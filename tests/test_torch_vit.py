@@ -24,6 +24,9 @@ from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.module.ops import resize as tresize
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg
+from test_torch_resnet import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 SAT_STYLE = dict(name='vit_small', layerscale_init=1e-5, n_storage_tokens=4,
                  norm_eps=1e-5)

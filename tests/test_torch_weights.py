@@ -38,6 +38,9 @@ from ever_tpu_torch.util import weight_io as twio
 from ever_tpu_torch.util.weight_io import (convert_flax_dinoseg, convert_flax_farseg,
                                            convert_flax_resnet, load_weights,
                                            patch_first_conv)
+from test_torch_resnet import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 TINY = ('vit_tiny_test', (2, 64, 2, 4.0, 'mlp'))
 # the sat preset's trunk options on the narrow spec
