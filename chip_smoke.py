@@ -279,7 +279,45 @@ Phases (any failure exits non-zero before the last line is printed):
              ``tensorboard`` does not import); then ms/step through the
              ``Launcher`` of the same run untraced, with and without the
              transforms.  The phase's K8 launches join the kernels line.
-15. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+15. int8   — W8A8 serving and the exported programs (``phase_int8``):
+             (a) ``torch.library.opcheck`` of every op (K1, K2, K4, K5, K6,
+             K7, K8 and the pool K8 differentiates) on CUDA tensors at small
+             shapes, each launch counter then equal to the C calls the
+             checks made; (b) phase 3's DinoSeg ViT-L/16 (bf16 parameters,
+             seeded) saved through a checkpoint, ``export_model`` at
+             ``(8, 512, 512, 3)`` and ``torch.export.load``: one tile batch
+             through the program bit-equal to the eager model with 24 K1
+             launches, a 4096² scene through ``tiled_inference`` with the
+             program bit-equal to the eager scene with 192; (c) the same
+             model quantized by ``ptq_quantize`` on 2 seeded batches of 8
+             tiles (``min_in_features=64``): the layers the config implies
+             (24 × qkv, proj, fc1, fc2, the patch embedding, the head), none
+             left in floating point, one K7 launch per int8 layer call and
+             24 K1 a tile batch, every K7 call of one tile batch on the
+             path its operands ask for (the wrapper's and the kernel's
+             choice alike) and equal to ``int8_matmul_reference`` on its
+             operands (limit 0: the int32 sum is exact), the W8A8
+             scene's centred cosine against the bf16 scene above 0.99, and
+             ``export_model(ptq_calib=...)`` loaded back bit-equal to the
+             eager W8A8 tile batch; (d) the same for FarSeg-R50 in phase 5's
+             serving configuration (bf16) with the JAX test's
+             initialisation, seeded (``seeded_flax_init_``): every conv
+             with kh·kw·Cin/g >= 64, the stem's K of 147 on K7's
+             ``mma.sync`` path and the rest on ``wgmma``, cosine above
+             0.98; (e) the LR range test: FarSeg-R50 through
+             the ``Launcher`` for 12 steps on in-memory crops under the
+             ``search`` schedule (1e-5 to 0.1) with
+             ``PlotLearningRateAndLoss``: 12 CSV rows, each LR the
+             schedule's, finite losses, one K8 a step; (f)
+             ``PadCropWrapper(FarSeg-R50)`` on [2, 500, 500, 3] bit-equal to
+             a manual pad, run and crop, its ``state_dict`` the model's;
+             (g) the times, with the card's name and power limit: W8A8
+             against bf16 per tile batch and per scene for both models,
+             export and load seconds, and a ``torch.profiler`` split of one
+             W8A8 FarSeg tile batch into K7, the im2col gather, the
+             activations' quantize and the rest.  The phase's K1, K7 and
+             K8 launches join the kernels line.
+16. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -4409,6 +4447,466 @@ def phase_user(gen, seed: int, smi: str) -> int:
     return k8
 
 
+# phase 15, int8: W8A8 serving on K7 and the exported programs.  Calibration:
+# 2 seeded batches of TILE_BATCH tiles; W8A8 against the bf16 scene by the
+# centred cosine of tests/test_ptq.py (DinoSeg 0.99, FarSeg 0.98)
+INT8_CALIB_BATCHES = 2
+INT8_COS_MIN = {'dinoseg': 0.99, 'farseg': 0.98}
+# the LR range test: the search schedule over LR_STEPS steps of FarSeg-R50
+# (init_lr · mult^step, mult = (final/init)^(1/steps)); the sweep stops at
+# 0.1 so that SGD keeps every loss finite over the 12 steps
+LR_STEPS, LR_INIT, LR_FINAL = 12, 1e-5, 0.1
+PADCROP_SHAPE = (2, 500, 500, 3)
+
+
+@contextlib.contextmanager
+def c_calls():
+    """Calls of each kernel library's C entry inside the block, counted
+    below the wrappers: ``{entry name: calls}``."""
+    from ever_tpu_torch.ops import _build
+
+    calls = {}
+    original = _build.function
+
+    def counted(lib, name, argtypes):
+        fn = original(lib, name, argtypes)
+
+        def call(*args):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args)
+        return call
+
+    _build.function = counted
+    try:
+        yield calls
+    finally:
+        _build.function = original
+
+
+def check_ops_on_card(gen) -> None:
+    """(a) ``torch.library.opcheck`` of every op on CUDA tensors at small
+    shapes; then each launch counter must have moved by the C calls made."""
+    from torch.library import opcheck
+    from ever_tpu_torch.ops import attention as A, norm as N, pool as P, quant as Q
+
+    def rand(*shape, dtype=torch.bfloat16, grad=False):
+        return torch.randn(shape, generator=gen, device='cuda').to(dtype).requires_grad_(grad)
+
+    q, k, v = (rand(2, 64, 2, 64) for _ in range(3))
+    sin, cos = rope_tables(64, 'cuda', grid=7)
+    o, lse = A.fused_attention(q, k, v, n_valid=60, rope=(sin, cos))
+    x_ln, w_ln, b_ln = rand(64, 256), rand(256, dtype=torch.float32), rand(256, dtype=torch.float32)
+    _, mean, rstd = N.layer_norm_fwd(x_ln, w_ln, b_ln, LN_EPS)
+    x_p = rand(2, 16, 16, 8)
+    out_p = P.max_pool_32(x_p)
+    cases = [
+        ('attention_fwd', A._attention_fwd_op, (q, k, v, sin, cos, 'bnhd', 60)),
+        ('attention_fwd grad', A._attention_fwd_op,
+         tuple(t.detach().requires_grad_() for t in (q, k, v)) + (None, None, 'bnhd', None)),
+        ('attention_bwd', A._attention_bwd_op, (q, k, v, o, lse, rand(2, 64, 2, 64), sin, cos,
+                                                'bnhd', 60)),
+        ('layer_norm_fwd grad', N._layer_norm_fwd_op,
+         (x_ln.detach().requires_grad_(), w_ln.detach().requires_grad_(),
+          b_ln.detach().requires_grad_(), LN_EPS)),
+        ('layer_norm_bwd', N._layer_norm_bwd_op, (x_ln, rand(64, 256), w_ln, mean, rstd)),
+        ('max_pool_32 grad', P._max_pool_32_op, (x_p.detach().requires_grad_(),)),
+        ('max_pool_32_bwd', P._max_pool_32_bwd_op, (x_p, out_p, rand(*out_p.shape))),
+        ('quantize_int8_values', Q._quantize_op,
+         (rand(64, 128, dtype=torch.float32), torch.full((1, 1), 0.02, device='cuda'), 3, True)),
+        ('int8_matmul_t', Q._int8_matmul_op,
+         (torch.randint(-127, 128, (64, 128), generator=gen, device='cuda', dtype=torch.int8),
+          torch.ones(1, 1, device='cuda'),
+          torch.randint(-127, 128, (32, 128), generator=gen, device='cuda', dtype=torch.int8),
+          torch.full((1, 1), 0.5, device='cuda'))),
+    ]
+    counters = {'ever_attn_fwd': A.fused_attention, 'ever_attn_bwd': A.fused_attention_bwd,
+                'ever_layernorm_fwd': N.layer_norm_fwd, 'ever_layernorm_bwd': N.layer_norm_bwd,
+                'ever_maxpool32_bwd': P.max_pool_32_bwd, 'ever_quant_int8': Q.quantize_int8_values,
+                'ever_int8_matmul': Q.int8_matmul_t}
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with c_calls() as calls:
+        for name, op, args in cases:
+            opcheck(op, args)
+        torch.cuda.synchronize()
+    moved = {entry: fn.launches for entry, fn in counters.items()}
+    print(f'int8: (a) opcheck of {len(cases)} op cases on CUDA tensors passed in '
+          f'{time.perf_counter() - t0:.1f} s; launches counted by the wrappers {moved}, C calls '
+          f'{calls}', flush=True)
+    check(all(moved[e] == calls.get(e, 0) for e in counters),
+          f'launch counters {moved} differ from the C calls {calls}')
+    check(all(calls.get(e, 0) > 0 for e in counters), f'opcheck left a kernel unlaunched: {calls}')
+
+
+def centred_cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / (a.norm() * b.norm() + 1e-12))
+
+
+def int8_counts():
+    from ever_tpu_torch.ops import attention as A, quant as Q
+
+    return A.fused_attention.launches, Q.int8_matmul_t.launches
+
+
+def export_and_load(cfg_path, ckpt, path, calib=None):
+    """``export_model`` (with ``ptq_calib=calib`` when given) and
+    ``torch.export.load(...).module()``: (program, export s, load s)."""
+    from ever_tpu_torch.api import infer_tool
+
+    t0 = time.perf_counter()
+    infer_tool.export_model(cfg_path, ckpt, (TILE_BATCH, TILE, TILE, 3), path, ptq_calib=calib)
+    t1 = time.perf_counter()
+    program = torch.export.load(path).module()
+    return program, t1 - t0, time.perf_counter() - t1
+
+
+def int8_model(name: str, model, cfg_path: str, ckpt: str, tmp: str, gen, smi: str,
+               n_layers: int):
+    """Steps (b)-(d) for one model: the floating-point program against the
+    eager model (DinoSeg only), the W8A8 model (``n_layers`` quantized) on
+    the scene, each K7 call on the path its operands give it, the W8A8
+    program against the eager W8A8 tile batch, and the times.  Returns (K1
+    launches, K7 launches, the W8A8 predict function, the tile batch)."""
+    import types
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.ops import ptq
+    from ever_tpu_torch.ops import quant as Q
+
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+    tiles = torch.stack([scene[i * TILE:(i + 1) * TILE, :TILE] for i in range(TILE_BATCH)])
+    calib = [torch.randn(TILE_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+             for _ in range(INT8_CALIB_BATCHES)]
+    n_batches = (SCENE // STRIDE) ** 2 // TILE_BATCH
+    k1 = k7 = 0
+    with torch.no_grad():
+        fp_tiles = model(tiles, train=False)
+        fp_scene, fp_scene_ms, _ = timed_scene(model, scene, CLASSES)
+        fp_batch_ms = cuda_ms(lambda: model(tiles, train=False), iters=5, warmup=1)
+        if name == 'dinoseg':
+            program, exp_s, load_s = export_and_load(cfg_path, ckpt, os.path.join(tmp, 'fp.pt2'))
+            reset_counts()
+            got = program(tiles)
+            torch.cuda.synchronize()
+            batch_k1 = int8_counts()[0]
+            reset_counts()
+            prog_scene = tiled_inference(program, scene, TILE, STRIDE, CLASSES,
+                                         tile_batch=TILE_BATCH)
+            torch.cuda.synchronize()
+            scene_k1 = int8_counts()[0]
+            k1 += batch_k1 + scene_k1
+            prog_ms = cuda_ms(lambda: program(tiles), iters=5, warmup=1)
+            print(f'int8: (b) {name}: the exported bf16 program (export {exp_s:.1f} s, load '
+                  f'{load_s:.1f} s): tile batch equal to the eager model {torch.equal(got, fp_tiles)}'
+                  f' with {batch_k1} K1 launches (expected 24); scene equal '
+                  f'{torch.equal(prog_scene, fp_scene)} with {scene_k1} K1 (expected '
+                  f'{24 * n_batches}); tile batch {prog_ms:.2f} ms against eager '
+                  f'{fp_batch_ms:.2f} ms ({smi})', flush=True)
+            check(torch.equal(got, fp_tiles), 'the exported program differs from the eager model')
+            check(torch.equal(prog_scene, fp_scene), 'the exported scene differs from eager')
+            check(batch_k1 == 24 and scene_k1 == 24 * n_batches,
+                  f'the exported program launched K1 {batch_k1}/{scene_k1} times')
+            del program
+
+        t0 = time.perf_counter()
+        qv = ptq.ptq_quantize(model, model.state_dict(), calib, apply_kwargs=dict(train=False),
+                              min_in_features=64)
+        quant_s = time.perf_counter() - t0
+        predict = ptq.make_ptq_predict_fn(model, qv, train=False)
+        serving = predict.serving
+        # one W8A8 tile batch: each K7 call's layer (by its int8 weights),
+        # its path from the wrapper and from the kernel, and the path its K
+        # asks for (TMA needs K a multiple of 16; the operands are fresh, so
+        # aligned); and each call's product against the plain version on the
+        # same operands, which it must equal (the int32 sum is exact)
+        layer_of = {e['kernel_q'].data_ptr(): n for n, e in qv['ptq'].items()}
+        calls, paths, unequal = {}, {}, []
+        original = Q.int8_matmul_t
+
+        def spy(x_q, xs, w_t, ws):
+            want = Q.MM_PATHS[1] if x_q.shape[1] % 16 else Q.MM_PATHS[0]
+            key = (Q.int8_matmul_path(x_q, w_t), kernel_mm_path(x_q, w_t), want)
+            paths[key] = paths.get(key, 0) + 1
+            layer = layer_of[w_t.data_ptr()]
+            calls[layer] = calls.get(layer, 0) + 1
+            out = original(x_q, xs, w_t, ws)
+            plain = Q.int8_matmul_reference(x_q, xs, w_t.t(), ws)
+            if not torch.equal(out, plain):
+                unequal.append((layer, key[0], tuple(x_q.shape), tuple(w_t.shape),
+                                float((out - plain).abs().max())))
+            return out
+
+        reset_counts()
+        calls0 = serving.int8_calls
+        ptq._quant = types.SimpleNamespace(int8_matmul_t=spy)    # what ptq calls K7 through
+        try:
+            q_tiles = predict(tiles)
+            torch.cuda.synchronize()
+        finally:
+            ptq._quant = Q
+        per_forward = serving.int8_calls - calls0
+        batch_k1, batch_k7 = int8_counts()
+        mma = sum(c for n, c in calls.items() if qv['ptq'][n]['kernel_q'].shape[1] % 16)
+        want_paths = {(p, p, p): c for p, c in ((Q.MM_PATHS[0], per_forward - mma),
+                                                 (Q.MM_PATHS[1], mma)) if c}
+        reset_counts()
+        calls0 = serving.int8_calls
+        q_scene, q_scene_ms, _ = timed_scene(predict, scene, CLASSES)
+        scene_calls = serving.int8_calls - calls0
+        scene_k1, scene_k7 = int8_counts()
+        k1 += batch_k1 + scene_k1
+        k7 += batch_k7 + scene_k7
+        q_batch_ms = cuda_ms(lambda: predict(tiles), iters=5, warmup=1)
+        cos = centred_cos(q_scene, fp_scene)
+        expected_k1 = 24 if name == 'dinoseg' else 0
+        print(f'int8: ({"c" if name == "dinoseg" else "d"}) {name}: {len(qv["ptq"])} layers '
+              f'quantized in {quant_s:.1f} s (the model implies {n_layers}; '
+              f'{len(serving.fp_layers)} left in floating point: {serving.fp_layers}); a W8A8 '
+              f'tile batch made {per_forward} int8 layer calls and {batch_k7} K7 launches '
+              f'({batch_k1} K1); K7 calls by (wrapper path, kernel path, path its K wants): '
+              f'{paths}, expected {want_paths}; each K7 call equal to int8_matmul_reference on '
+              f'its operands (limit 0): {sum(calls.values()) - len(unequal)} of '
+              f'{sum(calls.values())}, unequal {unequal[:5]}; a W8A8 scene (timed after a '
+              f'warm-up one) '
+              f'{scene_k7 // 2} K7 and {scene_k1 // 2} K1 launches (expected '
+              f'{per_forward * n_batches} and {expected_k1 * n_batches}); centred cosine '
+              f'against the bf16 scene {cos:.6f} (limit {INT8_COS_MIN[name]})', flush=True)
+        if len(qv['ptq']) != n_layers:
+            stats = ptq.calibrate_int8(model, None, calib, apply_kwargs=dict(train=False))
+            covered = {n for n, m in model.named_modules()
+                       if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))}
+            print(f'int8: {name}: layers not quantized, with their statistic: '
+                  f'{ {n: stats.get(n) for n in sorted(covered - set(qv["ptq"]))} }', flush=True)
+        check(len(qv['ptq']) == n_layers, f'{name}: {len(qv["ptq"])} layers quantized, '
+              f'expected {n_layers}')
+        check(batch_k7 == per_forward and scene_k7 == 2 * per_forward * n_batches
+              and scene_calls == 2 * per_forward * n_batches,
+              f'{name}: K7 launched {batch_k7}/{scene_k7} for {per_forward} layer calls')
+        check(batch_k1 == expected_k1 and scene_k1 == 2 * expected_k1 * n_batches,
+              f'{name}: K1 launched {batch_k1}/{scene_k1} on the W8A8 path')
+        check(paths == want_paths, f'{name}: K7 paths {paths}, expected {want_paths}')
+        check(sum(calls.values()) == per_forward, f'{name}: {sum(calls.values())} K7 calls '
+              f'seen for {per_forward} int8 layer calls')
+        check(not unequal, f'{name}: {len(unequal)} K7 calls differ from the plain version: '
+              f'{unequal[:5]}')
+        check(not serving.fp_layers, f'{name}: layers left in floating point')
+        check(bool(torch.isfinite(q_scene).all()), f'{name}: non-finite W8A8 scene')
+        check(cos > INT8_COS_MIN[name], f'{name}: W8A8 scene cosine {cos:.6f}')
+
+        program, exp_s, load_s = export_and_load(cfg_path, ckpt, os.path.join(tmp, 'int8.pt2'),
+                                                 calib)
+        reset_counts()
+        got = program(tiles)
+        torch.cuda.synchronize()
+        prog_k1, prog_k7 = int8_counts()
+        k1, k7 = k1 + prog_k1, k7 + prog_k7
+        prog_ms = cuda_ms(lambda: program(tiles), iters=5, warmup=1)
+        print(f'int8: {name}: the exported W8A8 program (export with calibration {exp_s:.1f} s, '
+              f'load {load_s:.1f} s): tile batch equal to the eager W8A8 one '
+              f'{torch.equal(got, q_tiles)} ({prog_k7} K7, {prog_k1} K1 launches); tile batch '
+              f'{prog_ms:.2f} ms', flush=True)
+        check(torch.equal(got, q_tiles), f'{name}: the exported W8A8 program differs from eager')
+        check(prog_k7 == per_forward and prog_k1 == expected_k1,
+              f'{name}: the W8A8 program launched K7 {prog_k7}, K1 {prog_k1} times')
+        del program
+    print(f'int8: (g) {name}: {smi}: tile batch of {TILE_BATCH} {q_batch_ms:.2f} ms W8A8 against '
+          f'{fp_batch_ms:.2f} ms bf16; 4096² scene {q_scene_ms:.1f} ms W8A8 against '
+          f'{fp_scene_ms:.1f} ms bf16', flush=True)
+    return k1, k7, predict, tiles
+
+
+def profile_int8_batch(predict, tiles, smi: str) -> None:
+    """(g) a ``torch.profiler`` split of one W8A8 tile batch's device time:
+    K7, the im2col gather, the activations' quantize and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from ever_tpu_torch.ops import ptq
+
+    labelled = {'ptq_im2col': ptq._im2col, 'ptq_quantize': ptq._quantize_act}
+
+    def wrap(label, fn):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    with torch.no_grad():
+        predict(tiles)
+        torch.cuda.synchronize()
+        ptq._im2col = wrap('ptq_im2col', labelled['ptq_im2col'])
+        ptq._quantize_act = wrap('ptq_quantize', labelled['ptq_quantize'])
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                predict(tiles)
+                torch.cuda.synchronize()
+        finally:
+            ptq._im2col, ptq._quantize_act = labelled['ptq_im2col'], labelled['ptq_quantize']
+    # each kernel goes to the outermost labelled op above the op that
+    # launched it (K7 is the op ``ever_tpu_torch::int8_matmul_t``), else to
+    # the rest
+    labels = {'ever_tpu_torch::int8_matmul_t': 'K7', 'ptq_im2col': 'im2col',
+              'ptq_quantize': 'quantize'}
+    parts = dict.fromkeys(('K7', 'im2col', 'quantize', 'the rest'), 0.0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        part, up = 'the rest', e
+        while up is not None:
+            part = labels.get(up.name, part)
+            up = up.cpu_parent
+        parts[part] += sum(k.duration for k in e.kernels) / 1e3
+    total = sum(parts.values())
+    print(f'int8: (g) farseg: {smi}: one W8A8 tile batch under the profiler: {total:.3f} ms of '
+          f'kernels: ' + ', '.join(f'{k} {v:.3f} ms' for k, v in parts.items()), flush=True)
+    check(total > 0 and parts['K7'] > 0, 'the profile shows no device time for K7')
+
+
+def seeded_flax_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
+    """Seeded weights of the model ``tests/test_ptq.py`` holds W8A8 to,
+    flax's default initialisation: kernels ~N(0, 1/fan_in) (lecun normal),
+    conv biases and BatchNorm shifts 0, BatchNorm scales 1 and running
+    statistics 0 and 1.  Random per-channel BatchNorm scales and statistics
+    (``seeded_variables`` of the CPU tests) spread the channels' ranges, and
+    a per-tensor int8 scale then leaves the small channels a few bins, so
+    the W8A8 cosine of FarSeg-R50 moves widely with the seed."""
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if not t.is_floating_point():
+                continue
+            if t.dim() >= 2:
+                t.copy_(t[0].numel() ** -0.5 * torch.randn(t.shape, generator=gen,
+                                                           device=t.device))
+            elif name.endswith(('weight', 'running_var')):
+                t.fill_(1.0)
+            else:
+                t.zero_()
+
+
+def check_lr_search(gen, tmp: str, smi: str) -> int:
+    """(e) the LR range test: FarSeg-R50 through the ``Launcher`` for
+    LR_STEPS steps on in-memory crops under the ``search`` schedule with
+    ``PlotLearningRateAndLoss``: one CSV row a step, each LR the schedule's,
+    finite losses, one K8 a step.  Returns the K8 launches."""
+    import numpy as np
+    from ever_tpu_torch.core import builder
+    from ever_tpu_torch.core.launcher import Launcher
+    from ever_tpu_torch.ops import pool as P
+    from ever_tpu_torch.util.lr_search import PlotLearningRateAndLoss
+
+    with torch.device('cuda'):
+        model = builder.make_model({'type': 'FarSeg', 'params': FARSEG})
+    seeded_conv_init_(model, gen)
+    sched = builder.make_learningrate({'type': 'search', 'params': dict(
+        init_lr=LR_INIT, final_lr=LR_FINAL, max_iters=LR_STEPS)})
+    factory, _ = builder.make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})
+    launcher = Launcher(os.path.join(tmp, 'lr'), model, factory.build(sched), sched)
+    hook = PlotLearningRateAndLoss(os.path.join(tmp, 'lr', 'lr_search'))
+    launcher.logger.register_train_log_hook(hook)
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,), generator=gen,
+                                                  device='cuda').item()))
+    data = [(rng.normal(size=(TILE_BATCH, TILE, TILE, 3)).astype(np.float32),
+             rng.integers(0, CLASSES, (TILE_BATCH, TILE, TILE)).astype(np.int64))
+            for _ in range(LR_STEPS)]
+    P.max_pool_32_bwd.launches = 0
+    t0 = time.perf_counter()
+    launcher.train_iters(data, num_iters=LR_STEPS, log_interval_step=1,
+                         save_ckpt_interval_epoch=10 ** 6)
+    secs = time.perf_counter() - t0
+    k8 = P.max_pool_32_bwd.launches
+    with open(os.path.join(tmp, 'lr', 'lr_search.csv')) as f:
+        rows = [line.strip().split(',') for line in f.readlines()[1:]]
+    lrs = [float(r[0]) for r in rows]
+    losses = [float(r[1]) for r in rows]
+    want = [sched.value_at(s) for s in range(LR_STEPS)]
+    rel = max(abs(a - b) / b for a, b in zip(lrs, want)) if len(lrs) == LR_STEPS else math.inf
+    print(f'int8: (e) LR range test: FarSeg-R50, {LR_STEPS} steps through the Launcher in '
+          f'{secs:.1f} s ({smi}); the CSV has {len(rows)} rows, LRs {lrs[0]:.3e} .. '
+          f'{lrs[-1]:.3e} within {rel:.1e} of init·mult^step, losses {losses[0]:.4f} .. '
+          f'{losses[-1]:.4f}; K8 launches {k8}', flush=True)
+    check(len(rows) == LR_STEPS and rel < 1e-6, f'LR CSV rows {len(rows)}, LR error {rel}')
+    check(all(math.isfinite(v) for v in losses), f'non-finite losses in the LR range test')
+    check(k8 == LR_STEPS, f'the LR range test launched K8 {k8} times')
+    return k8
+
+
+def phase_int8(seed: int, smi: str):
+    """int8 W8A8 serving and the exported programs (module docstring, phase
+    15), from a generator seeded with ``seed``.  Returns this phase's (K1,
+    K7, K8) launches on its main paths."""
+    import tempfile
+    from ever_tpu_torch.core import builder
+    from ever_tpu_torch.magic.tiled import pad_crop_apply
+    from ever_tpu_torch.module import PadCropWrapper
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # the phase's own generator: its weights and data do not depend on
+    # what the phases before it drew
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    check_ops_on_card(gen)
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_int8_') as tmp:
+        # (b), (c): DinoSeg vitl16_sat493m with phase 3's bf16 parameters,
+        # saved and rebuilt through a checkpoint as export_model builds it
+        dino = build_dinoseg(gen).to(torch.bfloat16)
+        dino_cfg = os.path.join(tmp, 'dinoseg.py')
+        with open(dino_cfg, 'w') as f:
+            f.write(f'config = dict(model=dict(type="DinoSeg", params=dict(backbone=dict('
+                    f'name="vitl16_sat493m"), classes={CLASSES}, dtype="bfloat16")))\n')
+        dino_ckpt = os.path.join(tmp, 'dinoseg-1.ckpt')
+        torch.save(dino.state_dict(), dino_ckpt)
+        del dino
+        from ever_tpu_torch.api import infer_tool
+        model = infer_tool.build_and_load_from_file(dino_cfg, dino_ckpt)[0]
+        # 24 blocks x (qkv, proj, fc1, fc2), the patch embedding, the head
+        n_layers = 24 * 4 + 1 + (model.head_hidden is not None) + 1
+        k1, k7, _, _ = int8_model('dinoseg', model, dino_cfg, dino_ckpt, tmp, gen, smi,
+                                  n_layers)
+        del model
+        torch.cuda.empty_cache()
+
+        # (d): FarSeg-R50 in phase 5's serving configuration (bf16), with
+        # the JAX test's initialisation (seeded_flax_init_)
+        with torch.device('cuda'):
+            farseg = builder.make_model({'type': 'FarSeg', 'params': FARSEG})
+        seeded_flax_init_(farseg, gen)
+        farseg.eval()
+        fs_cfg = os.path.join(tmp, 'farseg.py')
+        with open(fs_cfg, 'w') as f:
+            f.write(f'config = dict(model=dict(type="FarSeg", params={FARSEG!r}))\n')
+        fs_ckpt = os.path.join(tmp, 'farseg-1.ckpt')
+        torch.save(farseg.state_dict(), fs_ckpt)
+        # every conv whose kh·kw·Cin/g reaches min_in_features
+        convs = sum(1 for m in farseg.modules() if isinstance(m, torch.nn.Conv2d)
+                    and m.weight[0].numel() >= 64)
+        fk1, fk7, predict, tiles = int8_model('farseg', farseg, fs_cfg, fs_ckpt, tmp, gen, smi,
+                                              convs)
+        k1, k7 = k1 + fk1, k7 + fk7
+        profile_int8_batch(predict, tiles, smi)
+
+        # (f) PadCropWrapper on a 500² batch against a manual pad, run, crop
+        x = torch.randn(PADCROP_SHAPE, generator=gen, device='cuda')
+        wrapped = PadCropWrapper(farseg, size_divisor=32)
+        with torch.no_grad():
+            got = wrapped(x)
+            pad = 512 - PADCROP_SHAPE[1]
+            want = farseg(torch.nn.functional.pad(x, (0, 0, 0, pad, 0, pad)))[:, :500, :500]
+            fn = pad_crop_apply(farseg, x, 32)
+        same = torch.equal(got, want) and torch.equal(fn, want)
+        keys = list(wrapped.state_dict()) == list(farseg.state_dict())
+        print(f'int8: (f) PadCropWrapper(FarSeg-R50) on {list(PADCROP_SHAPE)}: output '
+              f'{list(got.shape)} equal to a manual pad, run and crop {same}; state_dict keys '
+              f'the model\'s {keys}', flush=True)
+        check(same and keys, 'PadCropWrapper differs from the manual pad and crop')
+        del farseg, wrapped, predict
+        torch.cuda.empty_cache()
+        k8 = check_lr_search(gen, tmp, smi)
+    print(f'int8: {smi}: launches in the phase (K1, K7, K8) {(k1, k7, k8)}; phase wall time '
+          f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    return k1, k7, k8
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -4484,6 +4982,10 @@ def main() -> int:
     bwd['launches'] += k2
     pool['launches'] += k8 + phase_change(gen, args.seed, smi)
     pool['launches'] += phase_user(gen, args.seed, smi)
+    k1, k7, k8 = phase_int8(args.seed, smi)
+    fwd['launches'] += k1
+    matmul['launches'] += k7
+    pool['launches'] += k8
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

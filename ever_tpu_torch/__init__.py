@@ -19,7 +19,7 @@ from ever_tpu_torch.core.device import get_device  # noqa: F401
 # data before the model zoo: the interface package needs data.distributed
 from ever_tpu_torch import data  # noqa: F401  (registers the readers)
 from ever_tpu_torch import module  # noqa: F401  (registers the model zoo)
-from ever_tpu_torch import magic, metric, opt, parallel, preprocess, trainer, util  # noqa: F401
+from ever_tpu_torch import magic, metric, ops, opt, parallel, preprocess, trainer, util  # noqa: F401
 from ever_tpu_torch.api import infer_tool  # noqa: F401
 from ever_tpu_torch.core.logger import info  # noqa: F401
 from ever_tpu_torch.core.to import auto_device  # noqa: F401
@@ -54,7 +54,7 @@ from ever_tpu_torch.util.param_util import count_model_parameters  # noqa: F401
 from ever_tpu_torch.util.seedlib import seed_everything, seed_torch  # noqa: F401
 
 __all__ = [
-    'builder', 'config', 'dist', 'registry', 'to', 'opt', 'data', 'magic',
+    'builder', 'config', 'dist', 'registry', 'to', 'ops', 'opt', 'data', 'magic',
     'metric', 'module', 'parallel', 'preprocess', 'trainer', 'util', 'infer_tool', 'param_util',
     'AttrDict', 'FrozenConfig', 'from_dict', 'import_config', 'get_device',
     'Callback', 'ConfigurableMixin', 'ERDataLoader', 'ERDataset', 'ERModule',

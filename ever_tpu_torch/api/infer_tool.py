@@ -2,12 +2,14 @@
 ``ever_tpu/api/infer_tool.py``): from a config file, from a config and a
 checkpoint, or from a training run's model dir.
 
-Each returns the JAX package's triple ``(model, variables, step)``:
+Each builder returns the JAX package's triple ``(model, variables, step)``:
 ``model`` holds the checkpoint's weights, is in eval mode and sits on
 ``device`` (the GPU unless ``device='cpu'``); ``variables`` is its
 ``state_dict``.  A model dir's checkpoint is ``model-best.ckpt`` when there
 is one (``step`` is then ``'best'``), else the one ``checkpoint_info.json``
 names as ``last``, else the highest ``checkpoint-N.ckpt``.
+:func:`export_model` writes the eval forward, in floating point or int8
+W8A8, as a ``torch.export`` program.
 """
 
 from __future__ import annotations
@@ -93,8 +95,65 @@ def build_from_model_dir(model_dir: str, checkpoint_name: Optional[str] = None,
     return build_and_load_from_file(cfg_path, os.path.join(model_dir, checkpoint_name), dev)
 
 
-def export_model(*args, **kwargs):
-    """Not ported: a serialised program needs the attention kernels (K1,
-    K2) registered as ``torch.library`` ops for ``torch.export``."""
-    raise NotImplementedError('export_model needs K1/K2 as torch.library ops for '
-                              'torch.export (ROADMAP.md A.5, export_model)')
+class _EvalForward(torch.nn.Module):
+    """The model's eval forward as a one-argument module for
+    ``torch.export``: ``model(x, train=False)``, with the layers named in
+    ``ptq`` (``{name: (kernel_q, 1 / x_scale, x_scale · w_scale)}``) in int8
+    on K7.  The int8 tensors are this module's buffers, so the exported
+    program holds them."""
+
+    def __init__(self, model: torch.nn.Module, ptq: Optional[dict] = None):
+        super().__init__()
+        self.model = model
+        self.names = sorted(ptq or {})
+        for i, name in enumerate(self.names):
+            for part, t in zip(('kernel_q', 'inv', 'scale'), ptq[name]):
+                self.register_buffer(f'ptq{i}_{part}', t)
+
+    def forward(self, x):
+        if not self.names:
+            return self.model(x, train=False)
+        from ever_tpu_torch.ops.ptq import _Serving
+        table = {name: tuple(getattr(self, f'ptq{i}_{part}')
+                             for part in ('kernel_q', 'inv', 'scale'))
+                 for i, name in enumerate(self.names)}
+        with _Serving(self.model, table):
+            return self.model(x, train=False)
+
+
+def export_model(config_path: str, checkpoint_path: str, input_shape,
+                 output_path: str, ptq_calib=None, ptq_act_percentile=None,
+                 ptq_except_re=None, device: Device = None):
+    """Trace the eval forward at a float32 ``input_shape`` with
+    ``torch.export`` and write the program to ``output_path``
+    (``torch.export.save``; the JAX package serialises a ``jax.export``).
+
+    ``ptq_calib``: optional iterable of calibration batches; when given,
+    the program serves int8 W8A8 (``ever_tpu_torch.ops.ptq``, with
+    ``min_in_features=64`` in eval mode, as the JAX package calibrates):
+    the quantized weights and the int8 layers, K7 among the program's ops,
+    are in the file.  ``ptq_act_percentile`` selects percentile calibration;
+    ``ptq_except_re`` keeps the layers whose dotted names it matches in
+    floating point.  The kernels are ``torch.library`` ops, so the program
+    calls K1 (and K7) on the card and their plain versions on the CPU.
+
+    Load it with ``torch.export.load(output_path).module()`` after ``import
+    ever_tpu_torch`` (which registers the ops); the program takes the
+    ``[N, H, W, C]`` float32 batch of ``input_shape`` on ``device`` (the GPU
+    unless ``device='cpu'``).  Returns the ``ExportedProgram``.
+    """
+    dev = get_device(device)
+    model, variables, _ = build_and_load_from_file(config_path, checkpoint_path, dev)
+    ptq = None
+    if ptq_calib is not None:
+        from ever_tpu_torch.ops.ptq import _prepare, ptq_quantize
+        qv = ptq_quantize(model, variables, ptq_calib, apply_kwargs=dict(train=False),
+                          min_in_features=64, act_percentile=ptq_act_percentile,
+                          except_re=ptq_except_re)
+        ptq = {name: _prepare(entry) for name, entry in qv['ptq'].items()}
+    x = torch.zeros(tuple(input_shape), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        exported = torch.export.export(_EvalForward(model, ptq).eval(), (x,), strict=False)
+    torch.export.save(exported, output_path)
+    info(f'[export model] to {output_path}')
+    return exported

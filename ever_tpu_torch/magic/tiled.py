@@ -1,4 +1,5 @@
-"""Whole-scene tiled inference (counterpart of ``ever_tpu/magic/tiled.py``).
+"""Whole-scene tiled inference (counterpart of ``ever_tpu/magic/tiled.py``),
+and ``pad_crop_apply``.
 
 Every sliding-window tile of the scene is predicted in batches of
 ``tile_batch``; the predictions are pasted into an f32 canvas on the device
@@ -25,12 +26,25 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 import torch.nn.functional as F
+from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.core.device import get_device
 from ever_tpu_torch.magic._transform_impl import d4_tta
 from ever_tpu_torch.magic.sliding_window import sliding_window
 
-__all__ = ['tiled_inference']
+__all__ = ['tiled_inference', 'pad_crop_apply']
+
+
+def pad_crop_apply(fn: Callable, x: torch.Tensor, size_divisor: int):
+    """Pad NHWC ``x`` with zeros at the bottom and right to a multiple of
+    ``size_divisor``, run ``fn`` on it and crop every ``[N, H', W', ...]``
+    output back to ``[:, :H, :W]`` (a class-index map ``[N, H, W]``
+    included), as ``ever_tpu/magic/tiled.py``'s ``pad_crop_apply`` does."""
+    n, h, w, c = x.shape
+    nh = math.ceil(h / size_divisor) * size_divisor
+    nw = math.ceil(w / size_divisor) * size_divisor
+    out = fn(F.pad(x, (0, 0, 0, nw - w, 0, nh - h)))
+    return tree_map(lambda t: t[:, :h, :w], out)
 
 
 def tiled_inference(predict_fn: Callable,

@@ -22,7 +22,7 @@ from ever_tpu_torch.metric.confusion_matrix import ConfusionMatrix
 
 EPS = 1e-7
 
-__all__ = ['PixelMetric', 'AccTable']
+__all__ = ['PixelMetric', 'AccTable', 'prettytable_to_dataframe', 'prettytable_to_csv']
 
 
 class AccTable:
@@ -207,3 +207,16 @@ class PixelMetric(ConfusionMatrix):
         if is_main_process():
             self._log_summary(tb, dense_cm)
         return tb
+
+
+def prettytable_to_dataframe(tb):
+    """A table (an :class:`AccTable`, or anything with ``field_names`` and
+    ``rows``) as a pandas ``DataFrame``; pandas is imported here."""
+    import pandas as pd
+    return pd.DataFrame(list(tb.rows), columns=list(tb.field_names))
+
+
+def prettytable_to_csv(tb, csv_file: str) -> None:
+    """A table written to ``csv_file`` through pandas (the index column
+    first, as ``DataFrame.to_csv`` writes it)."""
+    prettytable_to_dataframe(tb).to_csv(csv_file)

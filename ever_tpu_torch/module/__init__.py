@@ -11,6 +11,7 @@ from ever_tpu_torch.module.context_block import ContextBlock2d  # noqa: F401
 from ever_tpu_torch.module.factseg import FactSeg  # noqa: F401
 from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, LastLevelMaxPool, LastLevelP6P7  # noqa: F401
 from ever_tpu_torch.module.fs_relation import FarSeg, FarSegHead, FSRelation, FSRelationV2  # noqa: F401
+from ever_tpu_torch.module.misc import PadCropWrapper  # noqa: F401
 from ever_tpu_torch.module.ops import ConvBlock, LayerNorm2d  # noqa: F401
 from ever_tpu_torch.module.resnet import ResNet, ResNetEncoder  # noqa: F401
 from ever_tpu_torch.module.se_block import SCSEModule, SEBlock  # noqa: F401

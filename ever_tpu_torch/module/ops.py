@@ -80,14 +80,22 @@ def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tenso
     return y.to(x.dtype)
 
 
-@functools.lru_cache(maxsize=16)
 def _bilinear_weights(n_in: int, n_out: int, dtype: torch.dtype,
                       device: torch.device, align_corners: bool = False) -> torch.Tensor:
     """``[n_out, n_in]`` weights of a bilinear resize along one axis, made
     on ``device``: with half-pixel centres and the edges clamped
     (``F.interpolate``'s ``align_corners=False``), or output i sampling
     input i·(n_in−1)/(n_out−1) (``align_corners=True``, where an output of
-    size 1 takes input 0, torch's convention and the JAX package's)."""
+    size 1 takes input 0, torch's convention and the JAX package's).
+    Cached, except while ``torch.export`` (or ``torch.compile``) traces: a
+    traced program makes them itself, and the cache must not keep a
+    tracer's tensor."""
+    if torch.compiler.is_compiling():
+        return _make_bilinear_weights(n_in, n_out, dtype, device, align_corners)
+    return _cached_bilinear_weights(n_in, n_out, dtype, device, align_corners)
+
+
+def _make_bilinear_weights(n_in, n_out, dtype, device, align_corners):
     i = torch.arange(n_out, dtype=torch.float64, device=device)
     if align_corners:
         src = i * (n_in - 1) / max(n_out - 1, 1)
@@ -99,6 +107,9 @@ def _bilinear_weights(n_in: int, n_out: int, dtype: torch.dtype,
     cols = torch.arange(n_in, dtype=torch.float64, device=device)[None]
     w = (cols == i0[:, None]) * (1 - frac) + (cols == i1[:, None]) * frac
     return w.to(dtype)
+
+
+_cached_bilinear_weights = functools.lru_cache(maxsize=16)(_make_bilinear_weights)
 
 
 def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
@@ -136,7 +147,7 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
 
     Routed as the JAX package routes it: ``impl='pallas'`` (and ``'planes'``,
     the JAX package's XLA formulation of the same gradient) takes
-    :class:`~ever_tpu_torch.ops.pool.MaxPool32`, whose backward is the
+    :func:`~ever_tpu_torch.ops.pool.max_pool_32`, whose backward is the
     hand-written kernel K8, for a 3×3/2 window with padding ((1,1),(1,1)),
     even H and W and a float type; everything else is ``F.max_pool2d``
     forward and backward (``'reduce_window'`` and ``'separable'``).  The two
@@ -150,8 +161,8 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
             and padding == ((1, 1), (1, 1))
             and x.dim() == 4 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
             and x.is_floating_point()):
-        from ever_tpu_torch.ops.pool import MaxPool32
-        return MaxPool32.apply(x)
+        from ever_tpu_torch.ops.pool import max_pool_32
+        return max_pool_32(x)
     if padding == 'VALID':
         pads = ((0, 0), (0, 0))
     elif padding == 'SAME':

@@ -11,7 +11,11 @@ spills, and ptxas's notes such as a serialized ``wgmma``) beside each
 library; :func:`build_log` reads it.  The host library (``HOST_SOURCES``:
 the data path's tile gather and PNG unfilter) is built by ``g++`` the same
 way, keyed by its own source, when :func:`load` first asks for it; a failed
-build raises, as a failed ``nvcc`` does.  Nothing here runs at import time.
+build raises, as a failed ``nvcc`` does.  Nothing is built at import time.
+
+It also holds the port's ``torch.library`` namespace, ``ever_tpu_torch``
+(:data:`LIB`; :func:`define_op` defines each kernel's op there), and the
+device guard every op's wrapper calls (:func:`check_device`).
 """
 
 from __future__ import annotations
@@ -24,10 +28,12 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
 
 __all__ = ['SOURCES', 'HOST_SOURCES', 'build', 'build_host', 'build_log', 'load',
-           'function']
+           'function', 'LIB', 'define_op', 'check_device']
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
@@ -171,3 +177,29 @@ def function(lib: str, name: str, argtypes: Iterable):
         fn.argtypes = list(argtypes) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+# The port's ``torch.library`` namespace.  Each kernel is an op defined here
+# by :func:`define_op`; ops defined through a ``Library`` dispatch with less
+# host work per call than ``torch.library.custom_op``'s.
+LIB = torch.library.Library('ever_tpu_torch', 'DEF')
+
+
+def define_op(schema: str, cpu: Callable, cuda: Callable, fake: Callable):
+    """Define the op ``ever_tpu_torch::<schema>``: ``cpu`` runs on CPU
+    tensors (a kernel's plain version), ``cuda`` on CUDA tensors (the
+    kernel), ``fake`` gives the outputs' shapes and types for
+    ``torch.export``.  Returns the op's default overload."""
+    name = schema.split('(', 1)[0]
+    LIB.define(schema)
+    LIB.impl(name, cpu, 'CPU')
+    LIB.impl(name, cuda, 'CUDA')
+    torch.library.register_fake(f'ever_tpu_torch::{name}', fake, lib=LIB)
+    return getattr(torch.ops.ever_tpu_torch, name).default
+
+
+def check_device(t, kernel: str) -> None:
+    """Raise unless ``t`` lies on the CPU (the plain version runs) or on a
+    CUDA device (the kernel runs): no op of the port takes another device."""
+    if t.device.type not in ('cpu', 'cuda'):
+        raise RuntimeError(f'no {kernel} kernel for device {t.device}')

@@ -7,9 +7,10 @@ count (or forced through ``impl``):
   softmax in PyTorch (the counterpart of the JAX ``'xla'`` branch).
 - ``'fused'`` / ``'flash'`` — 512 tokens and up: the streaming CUDA
   kernels, :func:`fused_attention` (``csrc/attention_fwd.cu``) forward and
-  :func:`fused_attention_bwd` (``csrc/attention_bwd.cu``) backward, joined
-  by a ``torch.autograd.Function`` (the counterpart of the JAX package's
-  ``custom_vjp``).  On the TPU the two names are two kernels (VMEM-resident
+  :func:`fused_attention_bwd` (``csrc/attention_bwd.cu``) backward, the
+  ``torch.library`` ops ``ever_tpu_torch::attention_fwd`` and
+  ``::attention_bwd``, the second registered as the first's gradient (the
+  counterpart of the JAX package's ``custom_vjp``).  On the TPU the two names are two kernels (VMEM-resident
   and library flash); the Hopper kernels stream K/V through shared memory,
   so one pair covers both regimes.
 
@@ -24,7 +25,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
+
+from ever_tpu_torch.ops._build import LIB, check_device, define_op
 
 __all__ = ['attention', 'attention_reference', 'attention_bwd_reference',
            'fused_attention', 'fused_attention_bwd', 'pad_target',
@@ -307,6 +309,77 @@ def _load(name: str):
                     + [ctypes.c_longlong] * n_stride + [ctypes.c_float])
 
 
+# The kernels as ``torch.library`` ops (one namespace for the port): the CPU
+# implementation is the plain version, the CUDA implementation the kernel,
+# and the fake implementation gives the shapes, so ``torch.export`` traces a
+# model through them.  Outputs are fresh and contiguous on every device.
+
+def _attention_fwd_cpu(q, k, v, sin, cos, layout, n_valid):
+    rope = None if sin is None else (sin, cos)
+    o, lse = attention_reference(q, k, v, layout=layout, n_valid=n_valid,
+                                 rope=rope, return_lse=True)
+    return o.contiguous(), lse
+
+
+def _attention_fwd_cuda(q, k, v, sin, cos, layout, n_valid):
+    return _launch_fwd(q, k, v, layout, n_valid, None if sin is None else (sin, cos))
+
+
+def _attention_fwd_fake(q, k, v, sin, cos, layout, n_valid):
+    b, h, s = (q.shape[i] for i in ((0, 2, 1) if layout == 'bnhd' else (0, 1, 2)))
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((b, h, s), dtype=torch.float32))
+
+
+def _attention_bwd_cpu(q, k, v, o, lse, do, sin, cos, layout, n_valid):
+    rope = None if sin is None else (sin, cos)
+    grads = attention_bwd_reference(q, k, v, o, lse, do, layout=layout,
+                                    n_valid=n_valid, rope=rope)
+    return tuple(g.contiguous() for g in grads)
+
+
+def _attention_bwd_cuda(q, k, v, o, lse, do, sin, cos, layout, n_valid):
+    return _launch_bwd(q, k, v, o, lse, do, layout, n_valid,
+                       None if sin is None else (sin, cos))
+
+
+def _attention_bwd_fake(q, k, v, o, lse, do, sin, cos, layout, n_valid):
+    return tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
+                 for _ in range(3))
+
+
+_attention_fwd_op = define_op(
+    'attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? sin, Tensor? cos, str layout, '
+    'SymInt? n_valid) -> (Tensor, Tensor)',
+    _attention_fwd_cpu, _attention_fwd_cuda, _attention_fwd_fake)
+_attention_bwd_op = define_op(
+    'attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do, '
+    'Tensor? sin, Tensor? cos, str layout, SymInt? n_valid) -> (Tensor, Tensor, Tensor)',
+    _attention_bwd_cpu, _attention_bwd_cuda, _attention_bwd_fake)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, sin, cos, layout, n_valid = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, sin, cos, o, lse)
+    ctx.layout, ctx.n_valid = layout, n_valid
+    ctx.mark_non_differentiable(lse)
+
+
+def _attention_backward(ctx, do, _dlse):
+    """K2 from K1's o and lse through :func:`fused_attention_bwd` (the
+    counterpart of the JAX package's ``custom_vjp``); the RoPE tables get
+    no gradient, as in its ``_fused_core_rope``."""
+    q, k, v, sin, cos, o, lse = ctx.saved_tensors
+    rope = None if sin is None else (sin, cos)
+    dq, dk, dv = fused_attention_bwd(q, k, v, o, lse, do, ctx.layout, ctx.n_valid, rope)
+    return dq, dk, dv, None, None, None, None
+
+
+torch.library.register_autograd('ever_tpu_torch::attention_fwd', _attention_backward,
+                                setup_context=_attention_setup, lib=LIB)
+
+
 def fused_attention(q, k, v, layout: str = 'bnhd',
                     n_valid: Optional[int] = None,
                     rope=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -320,20 +393,18 @@ def fused_attention(q, k, v, layout: str = 'bnhd',
     ``n_valid``: only the first ``n_valid`` keys are real; query rows past
     it are garbage by contract.
 
-    On a CUDA tensor this launches the kernel (bf16 or f32, head dim 64 or
-    128) or raises; on a CPU tensor it runs :func:`attention_reference`, the
-    plain version of the same function.  With f32 inputs the staging launch
-    rounds K and V to bf16 and the main kernel rounds q, for the tensor
-    cores; scores, softmax and o stay f32.  ``fused_attention.launches``
-    counts calls that launched the kernel (its staging launch and main
-    kernel count as one).
+    The op ``ever_tpu_torch::attention_fwd``: on a CUDA tensor it launches
+    the kernel (bf16 or f32, head dim 64 or 128) or raises; on a CPU tensor
+    it runs :func:`attention_reference`, the plain version of the same
+    function.  With f32 inputs the staging launch rounds K and V to bf16 and
+    the main kernel rounds q, for the tensor cores; scores, softmax and o
+    stay f32.  Its gradient is :func:`fused_attention_bwd`'s op.
+    ``fused_attention.launches`` counts calls that launched the kernel (its
+    staging launch and main kernel count as one).
     """
-    if q.device.type == 'cuda':
-        return _launch_fwd(q, k, v, layout, n_valid, rope)
-    if q.device.type == 'cpu':
-        return attention_reference(q, k, v, layout=layout, n_valid=n_valid,
-                                   rope=rope, return_lse=True)
-    raise RuntimeError(f'no attention kernel for device {q.device}')
+    check_device(q, 'attention')
+    sin, cos = (None, None) if rope is None else rope
+    return _attention_fwd_op(q, k, v, sin, cos, layout, n_valid)
 
 
 fused_attention.launches = 0
@@ -349,45 +420,17 @@ def fused_attention_bwd(q, k, v, o, lse, do, layout: str = 'bnhd',
     Key rows at or past ``n_valid`` get zero dk/dv; query rows past it are
     garbage by contract.
 
-    On a CUDA tensor this launches the kernel (bf16 or f32, head dim 64 or
-    128) or raises; on a CPU tensor it runs :func:`attention_bwd_reference`,
-    the plain version of the same function.  ``fused_attention_bwd.launches``
-    counts kernel launches.
+    The op ``ever_tpu_torch::attention_bwd``: on a CUDA tensor it launches
+    the kernel (bf16 or f32, head dim 64 or 128) or raises; on a CPU tensor
+    it runs :func:`attention_bwd_reference`, the plain version of the same
+    function.  ``fused_attention_bwd.launches`` counts kernel launches.
     """
-    if q.device.type == 'cuda':
-        return _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope)
-    if q.device.type == 'cpu':
-        return attention_bwd_reference(q, k, v, o, lse, do, layout=layout,
-                                       n_valid=n_valid, rope=rope)
-    raise RuntimeError(f'no attention kernel for device {q.device}')
+    check_device(q, 'attention')
+    sin, cos = (None, None) if rope is None else rope
+    return _attention_bwd_op(q, k, v, o, lse, do, sin, cos, layout, n_valid)
 
 
 fused_attention_bwd.launches = 0
-
-
-class _FusedAttention(torch.autograd.Function):
-    """o = attention(q, k, v) with :func:`fused_attention` as the forward
-    and :func:`fused_attention_bwd` as the backward: the kernels on CUDA
-    tensors, their plain versions on CPU tensors.  The RoPE tables get no
-    gradient, as in the JAX package's ``_fused_core_rope``."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, sin, cos, layout, n_valid):
-        rope = None if sin is None else (sin, cos)
-        o, lse = fused_attention(q, k, v, layout=layout, n_valid=n_valid,
-                                 rope=rope)
-        ctx.save_for_backward(q, k, v, sin, cos, o, lse)
-        ctx.layout, ctx.n_valid = layout, n_valid
-        return o
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, do):
-        q, k, v, sin, cos, o, lse = ctx.saved_tensors
-        rope = None if sin is None else (sin, cos)
-        dq, dk, dv = fused_attention_bwd(q, k, v, o, lse, do, layout=ctx.layout,
-                                         n_valid=ctx.n_valid, rope=rope)
-        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -410,10 +453,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         impl = ('fused' if q.device.type == 'cuda'
                 and n >= FUSED_TOKEN_THRESHOLD else 'xla')
     if impl in ('fused', 'flash'):
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            sin, cos = (None, None) if rope is None else rope
-            return _FusedAttention.apply(q, k, v, sin, cos, layout, n_valid)
         return fused_attention(q, k, v, layout=layout, n_valid=n_valid,
                                rope=rope)[0]
     if impl != 'xla':

@@ -12,9 +12,11 @@ Counterpart of ``ever_tpu/ops/norm.py`` (K4 ``_fwd_kernel`` and K5
   ``dβ = Σ dy`` over all rows in float32.
 
 :func:`layer_norm_fwd` (``csrc/layernorm.cu``, K4) and
-:func:`layer_norm_bwd` (the same source, K5) launch the kernels on CUDA
-tensors and run :func:`layer_norm_reference` / :func:`layer_norm_bwd_reference`
-on CPU tensors.  :func:`layer_norm` joins them in an autograd Function, and
+:func:`layer_norm_bwd` (the same source, K5), the ``torch.library`` ops
+``ever_tpu_torch::layer_norm_fwd`` and ``::layer_norm_bwd``, launch the
+kernels on CUDA tensors and run :func:`layer_norm_reference` /
+:func:`layer_norm_bwd_reference` on CPU tensors; K5's op is K4's gradient.
+:func:`layer_norm` is the differentiable function, and
 :class:`FusedLayerNorm` is the module (the counterpart of the JAX
 ``FusedLayerNorm``).  Unlike the JAX module, which falls back to flax math
 when the width is not a multiple of 128, the CUDA kernels take any width.
@@ -26,7 +28,8 @@ import ctypes
 
 import torch
 import torch.nn as nn
-from torch.autograd.function import once_differentiable
+
+from ever_tpu_torch.ops._build import LIB, check_device, define_op
 
 __all__ = ['layer_norm', 'layer_norm_fwd', 'layer_norm_bwd', 'layer_norm_reference',
            'layer_norm_bwd_reference', 'layer_norm_bwd_path', 'FusedLayerNorm']
@@ -159,24 +162,75 @@ def _launch_bwd(x, dy, weight, mean, rstd):
     if err != 0:
         raise RuntimeError(f'LayerNorm backward kernel launch failed: CUDA error {err}')
     layer_norm_bwd.launches += 1
-    return dx, dwb[:c], dwb[c:]
+    return dx, dwb
+
+
+# K4 and K5 as ``torch.library`` ops: the CPU implementation is the plain
+# version, the CUDA implementation the kernel; the fake implementation gives
+# the shapes for ``torch.export``.  K5's op returns dweight and dbias packed
+# as one [2C] float32 row, as the kernel writes them.
+
+def _layer_norm_fwd_cpu(x, weight, bias, eps):
+    y, mean, rstd = layer_norm_reference(x, weight, bias, eps)
+    return y.contiguous(), mean, rstd
+
+
+def _layer_norm_fwd_fake(x, weight, bias, eps):
+    r = x.shape[0]
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((r,), dtype=torch.float32), x.new_empty((r,), dtype=torch.float32))
+
+
+def _layer_norm_bwd_cpu(x, dy, weight, mean, rstd):
+    dx, dweight, dbias = layer_norm_bwd_reference(x, dy, weight, mean, rstd)
+    return dx.contiguous(), torch.cat([dweight, dbias])
+
+
+def _layer_norm_bwd_fake(x, dy, weight, mean, rstd):
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((2 * x.shape[1],), dtype=torch.float32))
+
+
+_layer_norm_fwd_op = define_op(
+    'layer_norm_fwd(Tensor x, Tensor weight, Tensor bias, float eps) -> (Tensor, Tensor, Tensor)',
+    _layer_norm_fwd_cpu, _launch_fwd, _layer_norm_fwd_fake)
+_layer_norm_bwd_op = define_op(
+    'layer_norm_bwd(Tensor x, Tensor dy, Tensor weight, Tensor mean, Tensor rstd) '
+    '-> (Tensor, Tensor)',
+    _layer_norm_bwd_cpu, _launch_bwd, _layer_norm_bwd_fake)
+
+
+def _layer_norm_setup(ctx, inputs, output):
+    """Saves x, weight, mean and rstd, as the JAX ``_ln_core_fwd`` does."""
+    x, weight, _, _ = inputs
+    _, mean, rstd = output
+    ctx.save_for_backward(x, weight, mean, rstd)
+    ctx.mark_non_differentiable(mean, rstd)
+
+
+def _layer_norm_backward(ctx, dy, _dmean, _drstd):
+    x, weight, mean, rstd = ctx.saved_tensors
+    dx, dw, db = layer_norm_bwd(x, dy.contiguous(), weight, mean, rstd)
+    return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+torch.library.register_autograd('ever_tpu_torch::layer_norm_fwd', _layer_norm_backward,
+                                setup_context=_layer_norm_setup, lib=LIB)
 
 
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    eps: float):
     """``(y, mean, rstd)`` of the LayerNorm of ``x`` ``[R, C]``.
 
-    On a CUDA tensor this launches K4 (``csrc/layernorm.cu``; bf16 or f32,
-    contiguous; γ and β are taken as float32) or raises; on a CPU tensor it
-    runs :func:`layer_norm_reference`.  ``layer_norm_fwd.launches`` counts
-    kernel launches.
+    The op ``ever_tpu_torch::layer_norm_fwd``: on a CUDA tensor it launches
+    K4 (``csrc/layernorm.cu``; bf16 or f32, contiguous; γ and β are taken as
+    float32) or raises; on a CPU tensor it runs :func:`layer_norm_reference`.
+    Differentiable in x, γ and β through K5's op.
+    ``layer_norm_fwd.launches`` counts kernel launches.
     """
     _check(x, weight, bias)
-    if x.device.type == 'cuda':
-        return _launch_fwd(x, weight, bias, eps)
-    if x.device.type == 'cpu':
-        return layer_norm_reference(x, weight, bias, eps)
-    raise RuntimeError(f'no LayerNorm kernel for device {x.device}')
+    check_device(x, 'LayerNorm')
+    return _layer_norm_fwd_op(x, weight, bias, eps)
 
 
 layer_norm_fwd.launches = 0
@@ -187,42 +241,23 @@ def layer_norm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     """``(dx, dweight, dbias)`` from the forward's x, mean and rstd and the
     upstream gradient ``dy``.
 
-    On a CUDA tensor this launches K5 (``csrc/layernorm.cu``: one kernel for
-    dx and a row of partial sums of dweight and dbias per 32 rows, on the
-    path :func:`layer_norm_bwd_path` names (at ViT widths one pass, each row
-    of x and dy read once), and a second that adds the partial rows in a
-    fixed order, so the same inputs give the same bits; counted as one
-    launch) or raises; on a CPU tensor it runs
-    :func:`layer_norm_bwd_reference`.  ``layer_norm_bwd.launches`` counts
-    kernel launches.
+    The op ``ever_tpu_torch::layer_norm_bwd``: on a CUDA tensor it launches
+    K5 (``csrc/layernorm.cu``: one kernel for dx and a row of partial sums
+    of dweight and dbias per 32 rows, on the path :func:`layer_norm_bwd_path`
+    names (at ViT widths one pass, each row of x and dy read once), and a
+    second that adds the partial rows in a fixed order, so the same inputs
+    give the same bits; counted as one launch) or raises; on a CPU tensor it
+    runs :func:`layer_norm_bwd_reference`.  ``layer_norm_bwd.launches``
+    counts kernel launches.
     """
     _check(x, weight)
-    if x.device.type == 'cuda':
-        return _launch_bwd(x, dy, weight, mean, rstd)
-    if x.device.type == 'cpu':
-        return layer_norm_bwd_reference(x, dy, weight, mean, rstd)
-    raise RuntimeError(f'no LayerNorm kernel for device {x.device}')
+    check_device(x, 'LayerNorm')
+    dx, dwb = _layer_norm_bwd_op(x, dy, weight, mean, rstd)
+    c = x.shape[1]
+    return dx, dwb[:c], dwb[c:]
 
 
 layer_norm_bwd.launches = 0
-
-
-class _LayerNorm(torch.autograd.Function):
-    """K4 forward, K5 backward (their plain versions on CPU tensors); saves
-    x, mean and rstd, as the JAX ``_ln_core_fwd`` does."""
-
-    @staticmethod
-    def forward(ctx, x2, weight, bias, eps):
-        y, mean, rstd = layer_norm_fwd(x2, weight, bias, eps)
-        ctx.save_for_backward(x2, weight, mean, rstd)
-        return y
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, dy):
-        x2, weight, mean, rstd = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(x2, dy.contiguous(), weight, mean, rstd)
-        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -231,7 +266,7 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     β applied in float32; y in x's dtype.  Differentiable: K4 forward and K5
     backward on CUDA tensors, their plain versions on CPU tensors."""
     shape = x.shape
-    y = _LayerNorm.apply(x.reshape(-1, shape[-1]).contiguous(), weight, bias, eps)
+    y = layer_norm_fwd(x.reshape(-1, shape[-1]).contiguous(), weight, bias, eps)[0]
     return y.reshape(shape)
 
 

@@ -13,8 +13,9 @@ backward picks one winner per window); the ResNet stem pools BatchNorm
 output before its ReLU, where exact ties have measure zero in float32 but
 are not rare in bf16.
 
-:class:`MaxPool32` is the autograd Function: ``F.max_pool2d`` forward,
-:func:`max_pool_32_bwd` backward.
+:func:`max_pool_32` is the differentiable pool: ``F.max_pool2d`` forward,
+:func:`max_pool_32_bwd` backward, both ``torch.library`` ops
+(``ever_tpu_torch::max_pool_32``, ``::max_pool_32_bwd``).
 """
 
 from __future__ import annotations
@@ -23,9 +24,10 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
-__all__ = ['max_pool_32_bwd', 'max_pool_32_bwd_reference', 'MaxPool32']
+from ever_tpu_torch.ops._build import LIB, check_device, define_op
+
+__all__ = ['max_pool_32', 'max_pool_32_bwd', 'max_pool_32_bwd_reference']
 
 # element types the kernel takes, with its code for each
 _KERNEL_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
@@ -102,42 +104,61 @@ def _kernel():
                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5)
 
 
+# K8 and the pool it differentiates as ``torch.library`` ops: the backward's
+# CPU implementation is the plain version, its CUDA implementation the
+# kernel; the forward is ``F.max_pool2d`` on every device, with K8's op as
+# its gradient.  The fake implementations give the shapes for
+# ``torch.export``.
+
+def _max_pool_32_bwd_fake(x, out, g):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _pool(x: torch.Tensor) -> torch.Tensor:
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
+
+
+_max_pool_32_bwd_op = define_op('max_pool_32_bwd(Tensor x, Tensor out, Tensor g) -> Tensor',
+                                max_pool_32_bwd_reference, _launch, _max_pool_32_bwd_fake)
+_max_pool_32_op = define_op('max_pool_32(Tensor x) -> Tensor', _pool, _pool, _pool)
+
+
+def _max_pool_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], output)
+
+
+def _max_pool_backward(ctx, g):
+    x, out = ctx.saved_tensors
+    return max_pool_32_bwd(x.contiguous(), out.contiguous(), g.contiguous())
+
+
+torch.library.register_autograd('ever_tpu_torch::max_pool_32', _max_pool_backward,
+                                setup_context=_max_pool_setup, lib=LIB)
+
+
 def max_pool_32_bwd(x: torch.Tensor, out: torch.Tensor,
                     g: torch.Tensor) -> torch.Tensor:
     """dx of ``max_pool(x, 3, 2, ((1,1),(1,1)))`` from the forward's output
     and the upstream gradient, through the hand-written kernel.
 
-    x ``[N, H, W, C]`` (H, W even); out, g ``[N, H/2, W/2, C]``.  On a CUDA
-    tensor this launches ``csrc/maxpool_bwd.cu`` (bf16 or f32, contiguous
-    NHWC) or raises; on a CPU tensor it runs
-    :func:`max_pool_32_bwd_reference`.  ``max_pool_32_bwd.launches`` counts
-    kernel launches.
+    x ``[N, H, W, C]`` (H, W even); out, g ``[N, H/2, W/2, C]``.  The op
+    ``ever_tpu_torch::max_pool_32_bwd``: on a CUDA tensor it launches
+    ``csrc/maxpool_bwd.cu`` (bf16 or f32, contiguous NHWC) or raises; on a
+    CPU tensor it runs :func:`max_pool_32_bwd_reference`.
+    ``max_pool_32_bwd.launches`` counts kernel launches.
     """
     _check(x, out, g)
-    if x.device.type == 'cuda':
-        return _launch(x, out, g)
-    if x.device.type == 'cpu':
-        return max_pool_32_bwd_reference(x, out, g)
-    raise RuntimeError(f'no maxpool backward kernel for device {x.device}')
+    check_device(x, 'maxpool backward')
+    return _max_pool_32_bwd_op(x, out, g)
 
 
 max_pool_32_bwd.launches = 0
 
 
-class MaxPool32(torch.autograd.Function):
-    """``out = max_pool(x, 3, 2, ((1,1),(1,1)))`` on NHWC ``x``:
-    ``F.max_pool2d`` forward, :func:`max_pool_32_bwd` backward (the kernel on
-    CUDA tensors, its plain version on CPU tensors).  The counterpart of the
-    JAX package's ``_max_pool_32_p`` custom VJP."""
-
-    @staticmethod
-    def forward(ctx, x):
-        out = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2, 1).permute(0, 2, 3, 1)
-        ctx.save_for_backward(x, out)
-        return out
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
-        x, out = ctx.saved_tensors
-        return max_pool_32_bwd(x.contiguous(), out.contiguous(), g.contiguous())
+def max_pool_32(x: torch.Tensor) -> torch.Tensor:
+    """``out = max_pool(x, 3, 2, ((1,1),(1,1)))`` on NHWC ``x`` (H, W even):
+    the op ``ever_tpu_torch::max_pool_32``, ``F.max_pool2d`` forward and
+    :func:`max_pool_32_bwd` backward (the kernel on CUDA tensors, its plain
+    version on CPU tensors).  The counterpart of the JAX package's
+    ``_max_pool_32_p`` custom VJP."""
+    return _max_pool_32_op(x)

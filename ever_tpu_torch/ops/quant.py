@@ -22,6 +22,10 @@ Counterpart of ``ever_tpu/ops/quant.py``:
 - :func:`quantize_params` and :class:`QuantDense`, the serving layer built
   from a trained flax ``Dense``'s params.
 
+K6 and K7 are the ``torch.library`` ops ``ever_tpu_torch::quantize_int8_values``
+and ``::int8_matmul_t``: the plain version on CPU tensors, the kernel on
+CUDA tensors, and a fake implementation for ``torch.export``.
+
 Random bits.  The TPU kernel draws ``u`` from the TPU's hardware generator,
 whose stream cannot be reproduced elsewhere.  Here ``u = (bits >> 8) ·
 2⁻²⁴`` with ``bits`` a counter-based hash of the seed and the element's flat
@@ -41,6 +45,7 @@ import torch
 import torch.nn as nn
 
 from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.ops._build import check_device, define_op
 
 __all__ = ['quantize_int8', 'quantize_int8_values', 'quantize_int8_reference',
            'quantize_int8_values_reference', 'int8_matmul', 'int8_matmul_t',
@@ -126,19 +131,30 @@ def _launch_quant(x, scale, seed, stochastic):
     return q
 
 
+def _quantize_cpu(x, scale, seed, stochastic):
+    return quantize_int8_values_reference(x, scale, seed, stochastic).contiguous()
+
+
+def _quantize_fake(x, scale, seed, stochastic):
+    return torch.empty(x.shape, dtype=torch.int8, device=x.device)
+
+
+_quantize_op = define_op(
+    'quantize_int8_values(Tensor x, Tensor scale, SymInt seed, bool stochastic) -> Tensor',
+    _quantize_cpu, _launch_quant, _quantize_fake)
+
+
 def quantize_int8_values(x: torch.Tensor, scale: torch.Tensor, seed: int = 0,
                          stochastic: bool = True) -> torch.Tensor:
     """int8 values of float32 ``x`` at the per-tensor ``scale``.
 
-    On a CUDA tensor this launches K6 (``csrc/quant_int8.cu``) or raises; on
-    a CPU tensor it runs :func:`quantize_int8_values_reference`.
-    ``quantize_int8_values.launches`` counts kernel launches.
+    The op ``ever_tpu_torch::quantize_int8_values``: on a CUDA tensor it
+    launches K6 (``csrc/quant_int8.cu``) or raises; on a CPU tensor it runs
+    :func:`quantize_int8_values_reference`.  ``quantize_int8_values.launches``
+    counts kernel launches.
     """
-    if x.device.type == 'cuda':
-        return _launch_quant(x, scale, seed, stochastic)
-    if x.device.type == 'cpu':
-        return quantize_int8_values_reference(x, scale, seed, stochastic)
-    raise RuntimeError(f'no quantize kernel for device {x.device}')
+    check_device(x, 'quantize')
+    return _quantize_op(x, scale, int(seed), bool(stochastic))
 
 
 quantize_int8_values.launches = 0
@@ -222,21 +238,32 @@ def _launch_mm(x_q, x_scale, w_t, w_scale):
     return out
 
 
+def _int8_matmul_cpu(x_q, x_scale, w_t, w_scale):
+    return int8_matmul_reference(x_q, x_scale, w_t.t(), w_scale)
+
+
+def _int8_matmul_fake(x_q, x_scale, w_t, w_scale):
+    return x_q.new_empty((x_q.shape[0], w_t.shape[0]), dtype=torch.float32)
+
+
+_int8_matmul_op = define_op(
+    'int8_matmul_t(Tensor x_q, Tensor x_scale, Tensor w_t, Tensor w_scale) -> Tensor',
+    _int8_matmul_cpu, _launch_mm, _int8_matmul_fake)
+
+
 def int8_matmul_t(x_q: torch.Tensor, x_scale: torch.Tensor, w_t: torch.Tensor,
                   w_scale: torch.Tensor) -> torch.Tensor:
     """:func:`int8_matmul` with W given transposed, ``w_t`` ``[N, K]``: the
     layout K7 reads.
 
-    On a CUDA tensor this launches K7 (``csrc/int8_matmul.cu``) or raises; on
-    a CPU tensor it runs :func:`int8_matmul_reference`.
-    ``int8_matmul_t.launches`` counts kernel launches.
+    The op ``ever_tpu_torch::int8_matmul_t``: on a CUDA tensor it launches
+    K7 (``csrc/int8_matmul.cu``) or raises; on a CPU tensor it runs
+    :func:`int8_matmul_reference`.  ``int8_matmul_t.launches`` counts kernel
+    launches.
     """
     _check_mm(x_q, w_t, False)
-    if x_q.device.type == 'cuda':
-        return _launch_mm(x_q, x_scale, w_t, w_scale)
-    if x_q.device.type == 'cpu':
-        return int8_matmul_reference(x_q, x_scale, w_t.t(), w_scale)
-    raise RuntimeError(f'no int8 matmul kernel for device {x_q.device}')
+    check_device(x_q, 'int8 matmul')
+    return _int8_matmul_op(x_q, x_scale, w_t, w_scale)
 
 
 int8_matmul_t.launches = 0

@@ -24,7 +24,7 @@ logger = get_logger('ever_tpu_torch.param_util')
 
 __all__ = ['count_model_parameters', 'trainable_parameters', 'freeze_mask',
            'freeze_params', 'freeze_modules', 'freeze_bn', 'apply_freeze',
-           'count_model_flops', 'param_paths',
+           'count_model_flops', 'count_model_params_flops', 'param_paths',
            'copy_conv_parameters', 'copy_bn_parameters', 'copy_weight_bias']
 
 Params = Union[nn.Module, Dict[str, torch.Tensor], Iterable[Tuple[str, torch.Tensor]]]
@@ -159,4 +159,13 @@ def count_model_flops(fn: Callable, *sample_args,
     flops = int(counter.get_total_flops())
     _default_logger.info('# FLOPs: %d, %s G', flops, round(flops / 1e9, 2))
     return flops
+
+
+def count_model_params_flops(params: Params, fn: Callable, *sample_args,
+                             _default_logger: logging.Logger = logger) -> None:
+    """Log the parameter count and the FLOPs of ``fn(*sample_args)`` in one
+    call, as ``ever_tpu/util/param_util.py``'s ``count_model_params_flops``
+    does."""
+    count_model_parameters(params, _default_logger)
+    count_model_flops(fn, *sample_args, _default_logger=_default_logger)
 

@@ -141,22 +141,30 @@ class _CudaStub:
 def test_cuda_tensors_reach_the_kernel_wrapper_whatever_their_type(
         monkeypatch, dtype, impl):
     """On the card, auto dispatch past the threshold (and 'fused'/'flash')
-    goes to the kernel launcher for every dtype, which launches or raises;
-    the plain path is never taken there."""
-    calls = []
+    goes to the op ``ever_tpu_torch::attention_fwd`` for every dtype, and
+    the op's CUDA implementation to the kernel launcher, which launches or
+    raises; the plain path is never taken there."""
+    calls, ops = [], []
 
     def launch(q, k, v, layout, n_valid, rope):
         calls.append((q.dtype, layout, n_valid))
         return 'o', 'lse'
 
+    def op(q, k, v, sin, cos, layout, n_valid):
+        ops.append(q)
+        return TA._attention_fwd_cuda(q, k, v, sin, cos, layout, n_valid)
+
     def plain(*args, **kwargs):
         raise AssertionError('a CUDA tensor reached the plain path')
 
     monkeypatch.setattr(TA, '_launch_fwd', launch)
+    monkeypatch.setattr(TA, '_attention_fwd_op', op)
     monkeypatch.setattr(TA, 'attention_reference', plain)
     q = _CudaStub((2, TA.FUSED_TOKEN_THRESHOLD, 4, 64), dtype)
     assert TA.attention(q, q, q, impl=impl, n_valid=500) == 'o'
-    assert calls == [(dtype, 'bnhd', 500)]
+    assert calls == [(dtype, 'bnhd', 500)] and ops == [q]
+    assert torch._C._dispatch_has_kernel_for_dispatch_key('ever_tpu_torch::attention_fwd',
+                                                          'CUDA')
 
 
 @pytest.mark.parametrize('change,error', [
@@ -277,7 +285,7 @@ def test_kernel_path_gradient_is_the_plain_backward_on_cpu(layout, impl):
     qkv = [torch.from_numpy(t).requires_grad_() for t in (q, k, v)]
     before = (TA.fused_attention.launches, TA.fused_attention_bwd.launches)
     o = TA.attention(*qkv, impl=impl, layout=layout, n_valid=37, rope=(sin, cos))
-    assert o.grad_fn is not None and 'FusedAttention' in type(o.grad_fn).__name__
+    assert o.grad_fn is not None and 'ever_tpu_torch_attention_fwd' in type(o.grad_fn).__name__
     do = torch.from_numpy(np.random.default_rng(2).normal(size=o.shape).astype(np.float32))
     o.backward(do)
     o2, lse = TA.attention_reference(*(t.detach() for t in qkv), layout=layout,
@@ -295,9 +303,10 @@ def test_kernel_path_gradient_is_the_plain_backward_on_cpu(layout, impl):
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32, torch.float16])
 def test_cuda_gradients_reach_the_backward_kernel_launcher(monkeypatch, dtype):
-    """On the card the Function's backward goes to the K2 launcher (which
-    launches or raises) with the saved unrotated q/k/v, tables, o and lse;
-    the plain backward is never taken there."""
+    """On the card the forward op's gradient goes to the op
+    ``ever_tpu_torch::attention_bwd`` and its CUDA implementation to the K2
+    launcher (which launches or raises) with the saved unrotated q/k/v,
+    tables, o and lse; the plain backward is never taken there."""
     calls = []
 
     def launch(q, k, v, o, lse, do, layout, n_valid, rope):
@@ -308,13 +317,16 @@ def test_cuda_gradients_reach_the_backward_kernel_launcher(monkeypatch, dtype):
         raise AssertionError('a CUDA tensor reached the plain backward')
 
     monkeypatch.setattr(TA, '_launch_bwd', launch)
+    monkeypatch.setattr(TA, '_attention_bwd_op', TA._attention_bwd_cuda)
     monkeypatch.setattr(TA, 'attention_bwd_reference', plain)
     q = _CudaStub((2, TA.FUSED_TOKEN_THRESHOLD, 4, 64), dtype)
     ctx = type('Ctx', (), dict(saved_tensors=(q, q, q, 'sin', 'cos', 'o', 'lse'),
                                layout='bnhd', n_valid=500))()
-    grads = TA._FusedAttention.backward(ctx, 'do')
+    grads = TA._attention_backward(ctx, 'do', None)
     assert grads == ('dq', 'dk', 'dv', None, None, None, None)
     assert calls == [(dtype, 'bnhd', 500, True, 'o', 'lse', 'do')]
+    assert torch._C._dispatch_has_kernel_for_dispatch_key('ever_tpu_torch::attention_bwd',
+                                                          'CUDA')
 
 
 @pytest.mark.parametrize('change,error', [

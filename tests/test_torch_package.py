@@ -57,7 +57,9 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.preprocess.segm, ever_tpu_torch.preprocess.function,'
             ' ever_tpu_torch.preprocess.albu, ever_tpu_torch.preprocess.comm,'
             ' ever_tpu_torch.preprocess.thcomm, ever_tpu_torch.preprocess.thsegm,'
-            ' ever_tpu_torch.preprocess.device, ever_tpu_torch.core.logger;'
+            ' ever_tpu_torch.preprocess.device, ever_tpu_torch.core.logger,'
+            ' ever_tpu_torch.ops.ptq, ever_tpu_torch.module.misc, ever_tpu_torch.magic.bigimage,'
+            ' ever_tpu_torch.magic.bigimage.sliding_window, ever_tpu_torch.util.lr_search;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -78,7 +80,7 @@ def test_source_has_no_jax_or_ever_tpu_import():
         with open(path) as f:
             assert not bad.search(f.read()), path
     scanned = {os.path.relpath(p, REPO) for p in paths}
-    assert len(scanned) >= 59
+    assert len(scanned) >= 64
     assert {'chip_smoke.py', 'ever_tpu_torch/ops/attention.py',
             'ever_tpu_torch/opt/optimizer.py', 'ever_tpu_torch/opt/learning_rate.py',
             'ever_tpu_torch/interface/learning_rate.py',
@@ -106,7 +108,11 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/preprocess/__init__.py', 'ever_tpu_torch/preprocess/segm.py',
             'ever_tpu_torch/preprocess/function.py', 'ever_tpu_torch/preprocess/albu.py',
             'ever_tpu_torch/preprocess/comm.py', 'ever_tpu_torch/preprocess/thcomm.py',
-            'ever_tpu_torch/preprocess/thsegm.py', 'ever_tpu_torch/preprocess/device.py'} <= scanned
+            'ever_tpu_torch/preprocess/thsegm.py', 'ever_tpu_torch/preprocess/device.py',
+            'ever_tpu_torch/ops/ptq.py', 'ever_tpu_torch/module/misc.py',
+            'ever_tpu_torch/magic/bigimage/__init__.py',
+            'ever_tpu_torch/magic/bigimage/sliding_window.py',
+            'ever_tpu_torch/util/lr_search.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -268,12 +274,10 @@ _A_7_4 = ('dinov3', 'DenseNet', 'DenseNetEncoder', 'ASPPHead', 'AtrousSpatialPyr
           'Squeeze', 'Sum')
 NOT_PORTED = {
     'core': {}, 'interface': {}, 'opt': {}, 'preprocess': {},
-    'magic': {'pad_crop_apply': 'A.8'},
+    'magic': {},
     'module': {**{n: 'A.7.4' for n in _A_7_4},
-               **{n: 'A.7.5' for n in ('DCGAN', 'DCGANDiscriminator', 'DCGANGenerator')},
-               'PadCropWrapper': 'A.8'},
-    'ops': {n: 'A.10' for n in ('ptq', 'calibrate_int8', 'make_ptq_predict_fn', 'ptq_apply',
-                                'ptq_quantize', 'quantize_convs')},
+               **{n: 'A.7.5' for n in ('DCGAN', 'DCGANDiscriminator', 'DCGANGenerator')}},
+    'ops': {},
     'parallel': {n: 'A.9' for n in (
         'sharded', 'spatial', 'tp', 'zero', 'batch_sharding', 'host_to_global', 'replicated',
         'abstract_train_state', 'create_train_state_sharded', 'sharded_state_shardings',
@@ -330,6 +334,10 @@ def test_documented_imports_work_under_the_port_s_name():
             'from ever_tpu_torch.parallel import build_train_step, make_mesh\n'
             'from ever_tpu_torch.core import AttrDict, import_config, registry\n'
             'from ever_tpu_torch.ops import QuantDense, attention_fn\n'
+            'from ever_tpu_torch.ops import ptq_quantize, make_ptq_predict_fn\n'
+            'from ever_tpu_torch.module import PadCropWrapper\n'
+            'from ever_tpu_torch.magic import pad_crop_apply\n'
+            'from ever_tpu_torch.magic.bigimage import sliding_window\n'
             'from ever_tpu_torch.data import LEVIRCD, XView2, ISAID\n'
             'assert callable(L.binary_cross_entropy_with_logits)\n'
             'assert "ChangeMixin" in registry.OP and "FactSeg" in registry.MODEL\n'

@@ -80,7 +80,7 @@ def test_autograd_function_matches_jax_grad(shape):
     want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
     xt = torch.from_numpy(x).requires_grad_()
     out = max_pool(xt, 3, 2, PAD, impl='pallas')
-    assert out.grad_fn.name() == 'MaxPool32Backward'
+    assert 'ever_tpu_torch_max_pool_32_' in out.grad_fn.name()
     np.testing.assert_array_equal(
         out.detach().numpy(), np.asarray(jax_max_pool(jnp.asarray(x), 3, 2, PAD)))
     (out * torch.from_numpy(w)).sum().backward()
@@ -100,12 +100,12 @@ def test_autograd_function_matches_jax_grad(shape):
 ])
 def test_max_pool_routes_and_values_match_jax(shape, window, stride, padding, impl,
                                               routed):
-    """The autograd Function only for 3×3/2, padding ((1,1),(1,1)), even H
+    """The differentiable op only for 3×3/2, padding ((1,1),(1,1)), even H
     and W and a float type; every case's values equal the JAX pool's."""
     x = np.random.default_rng(2).normal(size=shape).astype(np.float32)
     xt = torch.from_numpy(x).requires_grad_()
     out = max_pool(xt, window, stride, padding, impl=impl)
-    assert (out.grad_fn.name() == 'MaxPool32Backward') == routed
+    assert ('ever_tpu_torch_max_pool_32_' in out.grad_fn.name()) == routed
     want = np.asarray(jax_max_pool(jnp.asarray(x), window, stride, padding, impl=impl))
     np.testing.assert_array_equal(out.detach().numpy(), want)
 
