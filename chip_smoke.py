@@ -317,7 +317,42 @@ Phases (any failure exits non-zero before the last line is printed):
              W8A8 FarSeg tile batch into K7, the im2col gather, the
              activations' quantize and the rest.  The phase's K1, K7 and
              K8 launches join the kernels line.
-16. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+16. zoo    — HRNetV2 and the segmentation heads (``phase_zoo``), each model
+             a user's ``ZooSeg`` (``register_zoo_model``: a registered
+             encoder, ``ListIndex`` of the features, a registered head, a
+             CE loss) at full width and depth, 7 classes, 512² tiles, bf16
+             compute, float32 parameters, SGD momentum 0.9 + poly:
+             HRNet-W32 + ``HRNetHead``; DeepLabv3+ (``Deeplabv3pHead`` on
+             [c2, c5]) on ResNet-50 at output stride 16; DeepLabv3
+             (``ASPPHead``) and PSPNet (``PPMHead``, bins 1, 2, 3, 6) on
+             ResNet-50 at output stride 8; the ResNets with
+             ``maxpool_impl='pallas'``.  (a) at B=8: 2 warm-up steps and
+             10 timed ones for HRNet-W32 and DeepLabv3+, 3 for DeepLabv3
+             and PSPNet (median, min-max, tiles/s, MFU from
+             ``FlopCounterMode``); every model: 3 steps twice from
+             one seeded state under deterministic cuDNN, losses,
+             parameters and BatchNorm statistics bit-equal; finite
+             losses; one K8 a ResNet step, none for HRNet.  (b) each model
+             over a 4096² bf16 scene (512² tiles, stride 512,
+             ``tile_batch=8``) after a warm-up scene: finite
+             probabilities summing to 1, no K8; ms/scene and tiles/s.
+             (c) HRNet-W32 from a config (``frozen_stages=1``) through
+             ``get_trainer('th_ddp')`` and the ``Launcher`` on in-memory
+             crops: 2 steps with a checkpoint, a resume to 4, against 4 at
+             once: the logged losses of steps 3-4 and the final states
+             bit-equal, the stem and layer1 unchanged and every other
+             parameter moved.  (d) a seeded HRNet-W32 state_dict in the
+             reference ``_hrnet.py`` layout with ``module.`` prefixes (and
+             the classification neck and counters) through
+             ``load_weights`` into ``HRNetEncoder`` on the card and on the
+             CPU: no missing, unexpected or mismatched key, every tensor
+             the file's, float32 eval features within ``ZOO_WEIGHT_TOL``
+             of the CPU's.  (e) the times with the card's name and power
+             limit; ``--profile`` splits one HRNet-W32 and one
+             DeepLabv3+ step by kind of kernel (convolutions, BatchNorm,
+             the resizes' and pools' matrix products, the adds).  The
+             phase's K8 launches join the kernels line.
+17. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -802,8 +837,9 @@ def kernel_name(key: str) -> str:
     return key.removeprefix('void ').split('(')[0]
 
 
-def profile_run(label: str, fn) -> None:
-    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``."""
+def profile_run(label: str, fn, kinds=PROFILE_KINDS) -> None:
+    """Device time of one call of ``fn`` by kernel, from ``torch.profiler``,
+    summed by ``kinds`` (the first kind that names a word of a kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -819,13 +855,13 @@ def profile_run(label: str, fn) -> None:
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     print(f'profile: {label} under the profiler: {wall_ms:.2f} ms wall, '
           f'{busy_ms:.2f} ms of kernels, {len(kernels)} kernel names', flush=True)
-    kinds = {}
+    by_kind = {}
     for e in kernels:
-        kind = next((k for k, words in PROFILE_KINDS if any(w in e.key for w in words)),
+        kind = next((k for k, words in kinds if any(w in e.key for w in words)),
                     'elementwise, copies and the rest')
-        kinds[kind] = kinds.get(kind, 0.0) + e.device_time_total / 1e3
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.device_time_total / 1e3
     print('profile: by kind: ' + '; '.join(
-        f'{k} {v:.3f} ms' for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+        f'{k} {v:.3f} ms' for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])),
         flush=True)
     port = [e for e in kernels if any(w in e.key for w in PROFILE_KINDS[0][1])]
     print('profile: the port\'s kernels: ' + ('; '.join(
@@ -1900,9 +1936,10 @@ def d4_transforms():
 
 
 def trainer_run(model_dir: str, num_iters: int, seed: int, init_state=None, opts=(),
-                sync_free: bool = False):
-    """``get_trainer('th_ddp')().run()`` of the template config into
-    ``model_dir`` (``opts``: more config overrides); returns the launcher
+                sync_free: bool = False, config_path: str = TEMPLATE_CONFIG):
+    """``get_trainer('th_ddp')().run()`` of the template config (or
+    ``config_path``) into ``model_dir`` (``opts``: more config overrides,
+    after this function's own); returns the launcher
     and what it logged, evaluated and saved.  ``sync_free``: the training
     loop runs under ``torch.cuda.set_sync_debug_mode('error')``, which
     raises on any synchronizing CUDA call (the logged steps' event waits are
@@ -1913,7 +1950,7 @@ def trainer_run(model_dir: str, num_iters: int, seed: int, init_state=None, opts
                  sampler_type='StepDistributedSampler')
     test = dict(num_samples=4, image_size=EVAL_SCENE, seed=seed + 1, batch_size=EVAL_BATCH,
                 sampler_type='SequentialSampler')
-    argv = ['--config_path', TEMPLATE_CONFIG, '--model_dir', model_dir,
+    argv = ['--config_path', config_path, '--model_dir', model_dir,
             'data.train.type', 'smoke_scenes', 'data.train.params', repr(train),
             'data.test.type', 'smoke_scenes', 'data.test.params', repr(test),
             'train.num_iters', str(num_iters), 'train.save_ckpt_interval_epoch', '1',
@@ -4907,6 +4944,386 @@ def phase_int8(seed: int, smi: str):
     return k1, k7, k8
 
 
+# -- phase 16: HRNetV2 and the segmentation heads -------------------------------
+
+# the four models of the zoo phase: a registered encoder, the features the
+# head takes (ListIndex) and a registered head with its defaults
+ZOO_RESNET = dict(resnet_type='resnet50', maxpool_impl='pallas')
+ZOO_MODELS = {
+    'HRNet-W32': dict(encoder=dict(type='HRNetEncoder', params=dict(hrnet_type='hrnetv2_w32')),
+                      head=dict(type='HRNetHead', params={}), index=None),
+    'DeepLabv3+-R50': dict(encoder=dict(type='ResNetEncoder', params=dict(
+        ZOO_RESNET, output_stride=16)), head=dict(type='Deeplabv3pHead', params={}),
+        index=(0, 3)),
+    'DeepLabv3-R50': dict(encoder=dict(type='ResNetEncoder', params=dict(
+        ZOO_RESNET, output_stride=8)), head=dict(type='ASPPHead', params={}), index=(3,)),
+    'PSPNet-R50': dict(encoder=dict(type='ResNetEncoder', params=dict(
+        ZOO_RESNET, output_stride=8)), head=dict(type='PPMHead', params={}), index=(3,)),
+}
+# timed steps after 2 warm-up: 10 for HRNet-W32 and DeepLabv3+, 3 for the others
+ZOO_TIMED = ('HRNet-W32', 'DeepLabv3+-R50')
+ZOO_SHORT_STEPS = 3
+ZOO_REPEAT_STEPS = 3
+ZOO_TRAINER_ITERS, ZOO_RESUME_AT, ZOO_FROZEN_STAGES = 4, 2, 1
+# the loaded HRNet-W32's float32 eval features, card against CPU: both
+# float32 (TF32 off) through about 300 convs and BatchNorms whose sums run
+# in other orders, about 1e-6 relative each; the limit is the largest
+# difference against the largest feature value, a hundred times that.  A
+# tensor landing in the wrong module moves the features by O(1).
+ZOO_WEIGHT_TOL, ZOO_WEIGHT_SIZE = 1e-4, 256
+ZOO_PROFILE_KINDS = (('the port\'s kernels', ('maxpool32',)),
+                     ('convolutions', ('fprop', 'dgrad', 'wgrad', 'conv', 'implicit')),
+                     ('resizes and pools (matrix products)', ('gemm', 'nvjet', 'cutlass')),
+                     ('BatchNorm', ('batch_norm', 'bn_')),
+                     ('optimizer', ('multi_tensor_apply',)),
+                     ('adds (the fuses and the residuals)', ('add',)))
+
+
+def register_zoo_model():
+    """Register ``ZooSeg`` in the port's MODEL registry: a user's model
+    composed from a registered encoder and head (the features the head
+    takes picked by ``ListIndex``), the logits in float32 and a CE loss;
+    the encoder's frozen parameters are the model's."""
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.interface.module import ERModule
+    from ever_tpu_torch.module import loss as L
+    from ever_tpu_torch.module.ops import ListIndex
+
+    @registry.MODEL.register('ZooSeg')
+    class ZooSeg(ERModule):
+        def set_default_config(self):
+            self.config.update(dict(encoder={}, head={}, index=None, classes=CLASSES,
+                                    dtype='float32'))
+
+        def __init__(self, config=None):
+            super().__init__(config)
+            c = self.config
+            self.encoder = registry.MODEL[c.encoder.type](
+                dict(c.encoder.params.to_dict(), dtype=c.dtype))
+            self.head = registry.MODEL[c.head.type](
+                dict(c.head.params.to_dict(), num_classes=c.classes, dtype=c.dtype))
+            self.select = ListIndex(tuple(c.index)) if c.index else None
+
+        def forward(self, x, y=None, train=False, generator=None):
+            feats = self.encoder(x, train)
+            if self.select is not None:
+                feats = self.select(feats)
+            logits = self.head(feats, train, generator).permute(0, 2, 3, 1).float()
+            if train and y is not None:
+                return dict(cls_loss=L.softmax_ce_loss_with_logits(logits, y, ignore_index=255))
+            return torch.softmax(logits, dim=-1)
+
+        def frozen_param_prefixes(self):
+            hook = getattr(self.encoder, 'frozen_param_prefixes', None)
+            return ['encoder.' + p for p in hook()] if hook else []
+
+
+def zoo_model(gen, name: str, dtype: str = 'bfloat16', **encoder):
+    """One of ``ZOO_MODELS`` on the card with seeded random weights."""
+    from ever_tpu_torch.core.builder import make_model
+
+    cfg = dict(ZOO_MODELS[name], classes=CLASSES, dtype=dtype)
+    cfg['encoder'] = dict(cfg['encoder'], params=dict(cfg['encoder']['params'], **encoder))
+    model = make_model({'type': 'ZooSeg', 'params': cfg})
+    seeded_conv_init_(model, gen)
+    return model
+
+
+def zoo_sgd(model):
+    """SGD with momentum 0.9 and the poly schedule (base_lr 0.01, power 0.9,
+    1000 iterations) through ``parallel.spmd``: (state, step)."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    schedule = make_learningrate({'type': 'poly', 'params': dict(
+        base_lr=0.01, power=0.9, max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})
+    tx = factory.build(schedule)
+    return create_train_state(model, tx), build_train_step(model, tx, schedule)
+
+
+def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int) -> dict:
+    """One step under ``FlopCounterMode``, one more warm-up, ``steps`` timed
+    by CUDA events: median, least and most ms, FLOPs, K8 launches, losses."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ever_tpu_torch.ops import pool as P
+
+    state, step = zoo_sgd(model)
+    P.max_pool_32_bwd.launches = 0
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step(state, batch)
+    for _ in range(WARMUP_STEPS - 1):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    losses = []
+    events[0].record()
+    for i in range(steps):
+        state, m = step(state, batch)
+        events[i + 1].record()
+        losses.append(m['cls_loss'])
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    out = dict(ms=times[len(times) // 2], min_ms=times[0], max_ms=times[-1],
+               flops=counter.get_total_flops(), k8=P.max_pool_32_bwd.launches,
+               losses=[v.item() for v in losses],
+               peak=torch.cuda.max_memory_allocated() / 2**30)
+    print(f'zoo: a: {smi}: {name}: train, bf16 compute, float32 params, SGD momentum 0.9 + '
+          f'poly; {TRAIN_BATCH} tiles of {TILE}²; median {out["ms"]:.2f} ms/step of '
+          f'{steps} after {WARMUP_STEPS} (min {out["min_ms"]:.2f}, max '
+          f'{out["max_ms"]:.2f}) = {TRAIN_BATCH / out["ms"] * 1e3:.1f} tiles/s; MFU '
+          f'{out["flops"] / (out["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f} '
+          f'({out["flops"] / 1e12:.3f} TFLOP/step by FlopCounterMode / step time / 989 '
+          f'TFLOP/s); peak memory {out["peak"]:.2f} GiB; K8 {out["k8"]} in '
+          f'{WARMUP_STEPS + steps} steps; loss per step '
+          f'{" ".join(f"{v:.5f}" for v in out["losses"])}', flush=True)
+    if profile:
+        profile_run(f'one {name} train step', lambda: step(state, batch), ZOO_PROFILE_KINDS)
+    del state, step
+    return out
+
+
+def zoo_repeat(model, batch, steps: int):
+    """``steps`` SGD steps from the model's current state, twice, under
+    deterministic cuDNN: (losses and the state after each run, the K8
+    launches of each run).  The model is left as it was."""
+    from ever_tpu_torch.ops import pool as P
+
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs, k8 = [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for _ in range(2):
+            model.load_state_dict(init)
+            state, step = zoo_sgd(model)
+            P.max_pool_32_bwd.launches = 0
+            losses = []
+            for _ in range(steps):
+                state, m = step(state, batch)
+                losses.append(m['cls_loss'])
+            torch.cuda.synchronize()
+            k8.append(P.max_pool_32_bwd.launches)
+            runs.append((torch.stack(losses),
+                         {k: v.detach().clone() for k, v in model.state_dict().items()}))
+            del state, step
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    model.load_state_dict(init)
+    return runs, k8
+
+
+def zoo_train_and_serve(gen, name: str, batch, scene, smi: str, profile: bool) -> int:
+    """(a) and (b) for one model: the timed steps (10 for ``ZOO_TIMED``,
+    else ``ZOO_SHORT_STEPS``), the bit-equal repeats, then the 4096² scene.  Returns the K8 launches of
+    its train steps."""
+    resnet = name != 'HRNet-W32'
+    t0 = time.perf_counter()
+    model = zoo_model(gen, name)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f'zoo: {name}: {n_params / 1e6:.2f} M parameters, built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    steps = TIMED_STEPS if name in ZOO_TIMED else ZOO_SHORT_STEPS
+    timed = zoo_timed(name, model, batch, smi, profile and name in ZOO_TIMED, steps)
+    k8 = timed['k8']
+    check(all(math.isfinite(v) for v in timed['losses']), f'a: {name}: non-finite loss')
+    check(timed['k8'] == (WARMUP_STEPS + steps) * resnet, f'a: {name}: K8 launches {k8}')
+    runs, k8s = zoo_repeat(model, batch, ZOO_REPEAT_STEPS)
+    k8 += sum(k8s)
+    (loss_a, state_a), (loss_b, state_b) = runs
+    equal = torch.equal(loss_a, loss_b) and all(torch.equal(state_a[k], state_b[k])
+                                                for k in state_a)
+    moved = sum(not torch.equal(v, model.state_dict()[k]) for k, v in state_a.items())
+    print(f'zoo: a: {name}: {ZOO_REPEAT_STEPS} steps twice from one seeded state, '
+          f'deterministic cuDNN: loss {" ".join(f"{v:.5f}" for v in loss_a.tolist())}; '
+          f'losses, parameters and BatchNorm statistics bit-equal {equal}; {moved} of '
+          f'{len(state_a)} tensors moved; K8 launches {k8s} (expected '
+          f'{ZOO_REPEAT_STEPS * resnet} each)', flush=True)
+    check(bool(torch.isfinite(loss_a).all()), f'a: {name}: non-finite loss')
+    check(equal, f'a: {name}: two runs of the same steps differ')
+    check(all(k == ZOO_REPEAT_STEPS * resnet for k in k8s), f'a: {name}: K8 launches {k8s}')
+    del runs, state_a, state_b
+
+    model.eval()
+    out, ms, k8_scene = timed_scene(model, scene, CLASSES)
+    n_tiles = (SCENE // STRIDE) ** 2
+    finite = bool(torch.isfinite(out).all())
+    sums = float((out.sum(-1) - 1).abs().max())
+    print(f'zoo: b: {smi}: {name}: one {SCENE}² scene, bf16, {TILE}² tiles at stride {STRIDE}, '
+          f'tile_batch {TILE_BATCH}: {ms:.1f} ms/scene = {n_tiles / ms * 1e3:.1f} tiles/s; '
+          f'probabilities finite {finite}, |sum - 1| <= {sums:.2e}; K8 {k8_scene}', flush=True)
+    check(tuple(out.shape) == (SCENE, SCENE, CLASSES) and finite and sums < PROB_SUM_TOL,
+          f'b: {name}: bad scene output')
+    check(k8_scene == 0, f'b: {name}: serving launched K8 {k8_scene} times')
+    del model, out
+    torch.cuda.empty_cache()
+    return k8
+
+
+ZOO_CONFIG = '''\
+# HRNet-W32 + HRNetHead on seeded in-memory crops (chip_smoke.py zoo phase)
+config = dict(
+    model=dict(type='ZooSeg', params=dict(
+        encoder=dict(type='HRNetEncoder', params=dict(hrnet_type='hrnetv2_w32',
+                                                      frozen_stages={frozen})),
+        head=dict(type='HRNetHead', params=dict()),
+        index=None, classes={classes}, dtype='bfloat16')),
+    data=dict(train=dict(type='smoke_scenes', params=dict())),
+    learning_rate=dict(type='poly', params=dict(base_lr=0.01, power=0.9, max_iters=1000)),
+    optimizer=dict(type='sgd', params=dict(momentum=0.9, weight_decay=1e-4)),
+    train=dict(num_iters={iters}, forward_times=1, eval_per_epoch=False,
+               eval_after_train=False, log_interval_step=1, save_ckpt_interval_epoch=1,
+               distributed=True),
+)
+'''
+
+
+def zoo_config_run(gen, seed: int, tmp: str, smi: str) -> None:
+    """(c): HRNet-W32 from a config through ``get_trainer('th_ddp')`` and
+    the ``Launcher``: 2 steps (a checkpoint at 2), a resume to 4, against 4
+    at once; ``frozen_stages=1`` leaves the stem and layer1 alone."""
+    from ever_tpu_torch.ops import pool as P
+
+    register_smoke_data()
+    cfg_path = os.path.join(tmp, 'zoo_hrnet_w32.py')
+    with open(cfg_path, 'w') as f:
+        f.write(ZOO_CONFIG.format(frozen=ZOO_FROZEN_STAGES, classes=CLASSES,
+                                  iters=ZOO_TRAINER_ITERS))
+    init = zoo_model(gen, 'HRNet-W32', frozen_stages=ZOO_FROZEN_STAGES)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    frozen = tuple(init.frozen_param_prefixes())
+    del init
+    opts = ('train.eval_after_train', 'False', 'train.log_interval_step', '1')
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True         # a resumed run's bits
+    try:
+        P.max_pool_32_bwd.launches = 0
+        trainer_run(os.path.join(tmp, 'a'), ZOO_RESUME_AT, seed, init_state, opts,
+                    config_path=cfg_path)
+        lb, rb = trainer_run(os.path.join(tmp, 'a'), ZOO_TRAINER_ITERS, seed, opts=opts,
+                             config_path=cfg_path)
+        t0 = time.perf_counter()
+        lc, rc = trainer_run(os.path.join(tmp, 'c'), ZOO_TRAINER_ITERS, seed, init_state, opts,
+                             config_path=cfg_path)
+        secs = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    k8 = P.max_pool_32_bwd.launches
+    resumed, unbroken = ([(s, d['cls_loss']) for s, d, _, _ in rec['logged']]
+                         for rec in (rb, rc))
+    equal = all(torch.equal(a, b) for a, b in zip(lb.model.state_dict().values(),
+                                                  lc.model.state_dict().values()))
+    final = lc.model.state_dict()
+    names = [n for n, _ in lc.model.named_parameters()]
+    still = [n for n in names if torch.equal(final[n], init_state[n])]
+    want_still = [n for n in names if n.startswith(frozen)]
+    print(f'zoo: c: HRNet-W32 from a config through get_trainer(\'th_ddp\'): {ZOO_RESUME_AT} '
+          f'steps + resume to {ZOO_TRAINER_ITERS}: logged {resumed}; {ZOO_TRAINER_ITERS} '
+          f'at once: {unbroken}; final states bit-equal {equal}; frozen_stages '
+          f'{ZOO_FROZEN_STAGES}: {len(want_still)} parameters under {list(frozen)}, '
+          f'{len(still)} of {len(names)} unchanged after {ZOO_TRAINER_ITERS} steps; K8 {k8}; '
+          f'{smi}: the unbroken run {secs:.1f} s with its build', flush=True)
+    check(lb.global_step == lc.global_step == ZOO_TRAINER_ITERS, 'c: step counts')
+    check([s for s, _ in resumed] == list(range(ZOO_RESUME_AT + 1, ZOO_TRAINER_ITERS + 1)),
+          f'c: the resumed run logged steps {[s for s, _ in resumed]}')
+    check(resumed == unbroken[ZOO_RESUME_AT:] and all(math.isfinite(v) for _, v in unbroken),
+          'c: the resumed losses differ from the unbroken run')
+    check(equal, 'c: the resumed run ends in another state than the unbroken run')
+    check(bool(want_still) and still == want_still,
+          'c: frozen_stages: the frozen parameters moved or others did not')
+    check(k8 == 0, f'c: HRNet launched K8 {k8} times')
+    del lb, lc, rb, rc, final, init_state
+    torch.cuda.empty_cache()
+
+
+def reference_hrnet_file(path: str, seed: int, width: str = 'hrnetv2_w32') -> dict:
+    """A seeded HRNetV2 state_dict in the reference ``_hrnet.py`` layout as
+    DDP saves it (``module.`` before every key), with the classification
+    neck and ``num_batches_tracked``: conv kernels ~N(0, 2/fan_in),
+    BatchNorm weights ~N(1, 0.1²), biases and means ~N(0, 0.1²), variances
+    ~U(0.5, 1.5).  Returns the trunk's tensors by key."""
+    from ever_tpu_torch.module.hrnet import HRNet
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in HRNet(width).state_dict().items():
+        if v.dim() == 4:
+            sd[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith('running_var'):
+            sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith('weight'):
+            sd[k] = 1.0 + 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+    neck = {'incre_modules.0.0.conv1.weight': torch.randn(32, 32, 1, 1, generator=g),
+            'final_layer.0.weight': torch.randn(2048, 1024, 1, 1, generator=g),
+            'classifier.weight': torch.randn(1000, 2048, generator=g)}
+    counters = {k[:-len('running_var')] + 'num_batches_tracked': torch.tensor(5)
+                for k in sd if k.endswith('running_var')}
+    torch.save({'module.' + k: v for k, v in {**sd, **neck, **counters}.items()}, path)
+    return sd
+
+
+def zoo_weights(seed: int, tmp: str) -> None:
+    """(d): the reference file into HRNet-W32 on the card and on the CPU
+    through ``load_weights``: no missing or unexpected key, every tensor
+    the file's, and the float32 eval features within ``ZOO_WEIGHT_TOL``."""
+    from ever_tpu_torch.core.builder import make_model
+    from ever_tpu_torch.util.weight_io import load_weights
+
+    path = os.path.join(tmp, 'hrnetv2_w32.pth')
+    sd = reference_hrnet_file(path, seed)
+    enc = {'type': 'HRNetEncoder', 'params': dict(hrnet_type='hrnetv2_w32')}
+    card, host = make_model(enc), make_model(enc, device='cpu')
+    reports = [load_weights(path, card), load_weights(path, host, device='cpu')]
+    same = all(torch.equal(card.state_dict()['hrnet.' + k].cpu(), v) for k, v in sd.items())
+    x = torch.randn(2, ZOO_WEIGHT_SIZE, ZOO_WEIGHT_SIZE, 3,
+                    generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        got = card(x.cuda())
+        want = host(x)
+    errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want)]
+    print(f'zoo: d: a seeded HRNet-W32 file in the reference layout with module. prefixes '
+          f'({len(sd)} trunk tensors, the neck and the counters): loaded {reports[0].loaded} '
+          f'on the card and {reports[1].loaded} on the CPU; missing {len(reports[0].missing)}, '
+          f'unexpected {len(reports[0].unexpected)}, mismatched {len(reports[0].mismatched)}; '
+          f'every tensor the file\'s {same}; float32 eval features at {ZOO_WEIGHT_SIZE}², '
+          f'card against CPU: max|d| / max|ref| {" ".join(f"{e:.2e}" for e in errs)} '
+          f'(limit {ZOO_WEIGHT_TOL})', flush=True)
+    for r in reports:
+        check(r.loaded == len(sd) and not r.missing and not r.unexpected and not r.mismatched,
+              f'd: load_weights: {r.loaded} loaded, {r.missing[:3]} missing, '
+              f'{r.unexpected[:3]} unexpected')
+    check(same, 'd: a loaded tensor differs from the file')
+    check(all(e <= ZOO_WEIGHT_TOL for e in errs), f'd: card and CPU features differ: {errs}')
+    del card, host, got, want
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(gen, seed: int, smi: str, profile: bool) -> int:
+    """HRNetV2 and the segmentation heads on the card (module docstring,
+    phase 16).  Returns the phase's K8 launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    register_zoo_model()
+    torch.cuda.empty_cache()
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+    k8 = 0
+    for name in ZOO_MODELS:
+        k8 += zoo_train_and_serve(gen, name, (x, y), scene, smi, profile)
+    del x, y, scene
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_zoo_') as tmp:
+        zoo_config_run(gen, seed, tmp, smi)
+        zoo_weights(seed, tmp)
+    print(f'zoo: {smi}: phase {time.perf_counter() - t_phase:.1f} s; K8 launches {k8}',
+          flush=True)
+    return k8
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -4986,6 +5403,7 @@ def main() -> int:
     fwd['launches'] += k1
     matmul['launches'] += k7
     pool['launches'] += k8
+    pool['launches'] += phase_zoo(gen, args.seed, smi, args.profile)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

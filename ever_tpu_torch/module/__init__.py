@@ -1,6 +1,7 @@
 """The model zoo (counterpart of ``ever_tpu/module/__init__.py``, as far as
-it is ported): importing it registers the models in ``MODEL`` and
-``ChangeMixin`` in ``OP``."""
+it is ported): importing it registers the models in ``MODEL`` (the heads
+and HRNet encoders among them) and ``ChangeMixin`` and the heads' blocks in
+``OP``."""
 
 from ever_tpu_torch.module import loss, ops  # noqa: F401
 from ever_tpu_torch.module import vit  # noqa: F401  (registers the ViT models)
@@ -11,8 +12,15 @@ from ever_tpu_torch.module.context_block import ContextBlock2d  # noqa: F401
 from ever_tpu_torch.module.factseg import FactSeg  # noqa: F401
 from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, LastLevelMaxPool, LastLevelP6P7  # noqa: F401
 from ever_tpu_torch.module.fs_relation import FarSeg, FarSegHead, FSRelation, FSRelationV2  # noqa: F401
+from ever_tpu_torch.module.heads import (  # noqa: F401
+    ASPPHead, AtrousSpatialPyramidPool, Deeplabv3pDecoder, Deeplabv3pHead, HRNetHead, PPMHead,
+    PyramidPoolModule, SimpleFusion)
+from ever_tpu_torch.module.hrnet import HRNet, HRNetEncoder  # noqa: F401
 from ever_tpu_torch.module.misc import PadCropWrapper  # noqa: F401
-from ever_tpu_torch.module.ops import ConvBlock, LayerNorm2d  # noqa: F401
+from ever_tpu_torch.module.ops import (  # noqa: F401
+    Bf16compatible, ChannelConcat, ChannelReduction, ConvBlock, ConvUpsampling, DepthwiseConv2d,
+    LayerNorm2d, ListIndex, PoolBlock, ResidualBlock, SeparableConv2d, SeparableConvBlock,
+    Squeeze, Sum)
 from ever_tpu_torch.module.resnet import ResNet, ResNetEncoder  # noqa: F401
 from ever_tpu_torch.module.se_block import SCSEModule, SEBlock  # noqa: F401
 from ever_tpu_torch.module.vit import DinoSeg, DinoVisionTransformer, RMSNorm  # noqa: F401

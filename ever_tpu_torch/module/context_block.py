@@ -26,7 +26,8 @@ import torch.nn as nn
 from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
 from ever_tpu_torch.module.se_block import with_ratio
 
-__all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet']
+__all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet', 'constant_init',
+           'kaiming_init']
 
 _FUSIONS = ('channel_add', 'channel_mul')
 
@@ -80,3 +81,23 @@ def plugin_to_basicblock(module: nn.Module, ratio: float) -> nn.Module:
 def plugin_to_resnet(module: nn.Module, ratio: float) -> nn.Module:
     """GC-augmented Bottlenecks: as :func:`plugin_to_basicblock`."""
     return with_ratio(module, 'gc_ratio', ratio)
+
+
+def constant_init(module: nn.Module, val: float, bias: float = 0) -> None:
+    """Set a module's ``weight`` to ``val`` and its ``bias`` to ``bias``, in
+    place (the reference's helper; the JAX package returns the matching
+    initializers)."""
+    nn.init.constant_(module.weight, val)
+    if getattr(module, 'bias', None) is not None:
+        nn.init.constant_(module.bias, bias)
+
+
+def kaiming_init(module: nn.Module, a: float = 0, mode: str = 'fan_out',
+                 nonlinearity: str = 'relu', bias: float = 0,
+                 distribution: str = 'normal') -> None:
+    """He initialisation of a module's ``weight`` (normal or uniform), its
+    ``bias`` set to ``bias``, in place (the reference's helper)."""
+    init = nn.init.kaiming_uniform_ if distribution == 'uniform' else nn.init.kaiming_normal_
+    init(module.weight, a=a, mode=mode, nonlinearity=nonlinearity)
+    if getattr(module, 'bias', None) is not None:
+        nn.init.constant_(module.bias, bias)

@@ -19,8 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ever_tpu_torch.module.ops import (Conv2d, ConvBlock, dropout, max_pool, resize,
-                                       resize_align_corners, upsample_bilinear)
+from ever_tpu_torch.module.ops import Conv2d, ConvBlock, bilinear_nchw, dropout, max_pool, resize
 
 __all__ = ['FPN', 'LastLevelMaxPool', 'LastLevelP6P7', 'AssymetricDecoder',
            'resize_nchw', 'upsample_bilinear_nchw', 'logits_nhwc']
@@ -37,19 +36,13 @@ def upsample_bilinear_nchw(x: torch.Tensor, scale, align_corners: bool = False
     """Bilinear upsampling of an NCHW tensor by ``scale``: ``resize_nchw(x,
     scale=scale, method='bilinear')``'s numbers (float32 unless x is
     bfloat16, returned in x's dtype), computed by
-    :func:`~ever_tpu_torch.module.ops.upsample_bilinear`'s two matrix
-    products; with ``align_corners`` by
-    :func:`~ever_tpu_torch.module.ops.resize_align_corners`' (float32).
-    ``F.interpolate``'s CUDA backward adds into the input gradient with
-    atomics; these do not, so a train step's gradients are the same bits
-    every run, as a resumed or data-parallel run needs."""
+    :func:`~ever_tpu_torch.module.ops.bilinear_nchw`'s two matrix products
+    (with ``align_corners`` in float32).  ``F.interpolate``'s CUDA backward
+    adds into the input gradient with atomics; these do not, so a train
+    step's gradients are the same bits every run, as a resumed or
+    data-parallel run needs."""
     h, w = x.shape[2:]
-    shape = (int(h * scale), int(w * scale))
-    xh = x.permute(0, 2, 3, 1)
-    if align_corners:
-        return resize_align_corners(xh, shape).permute(0, 3, 1, 2)
-    xh = xh if xh.dtype == torch.bfloat16 else xh.float()
-    return upsample_bilinear(xh, shape).to(x.dtype).permute(0, 3, 1, 2)
+    return bilinear_nchw(x, (int(h * scale), int(w * scale)), align_corners)
 
 
 def logits_nhwc(cls: nn.Module, dense: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,18 @@
 """Building-block ops (counterpart of ``ever_tpu/module/ops.py``).
 
-The functions (``resize``, ``global_avg_pool``, ``max_pool``) take NHWC
-tensors, as the JAX package's do.  The modules (``Conv2d``, ``BatchNorm2d``,
-``GroupNorm2d``, ``LayerNorm2d``, ``ConvBlock``) and the dropouts take NCHW
-tensors, which the conv-net models keep in ``torch.channels_last`` memory:
-a permute between the two is then a view.
+The functions (``resize``, ``upsample``, ``global_avg_pool``,
+``adaptive_avg_pool``, ``max_pool``, ``avg_pool``, ``channel_concat``, ...)
+take NHWC tensors, as the JAX package's do.  The modules (``Conv2d``,
+``BatchNorm2d``, ``ConvBlock``, ``SeparableConvBlock``, ``PoolBlock``,
+``ChannelConcat``, ...) and the dropouts take NCHW tensors, which the
+conv-net models keep in ``torch.channels_last`` memory: a permute between
+the two is then a view.
+
+The resizes and pools that a train step differentiates are matrix products
+(``resize_align_corners``, ``upsample_bilinear``, ``adaptive_avg_pool``) or
+a broadcast (``upsample_nearest_int``): ``F.interpolate``'s and
+``adaptive_avg_pool2d``'s CUDA backwards add with atomics, these do not,
+so a step's gradients are the same bits every run.
 
 Precision: a layer computes in its input's dtype and casts its float32
 parameters to it, as flax's ``dtype=`` does; BatchNorm computes its
@@ -23,16 +31,44 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.distributed as tdist
+from torch.utils import checkpoint as _ckpt
 
 from ever_tpu_torch.parallel.mesh import data_shard, reduction_group
 
-__all__ = ['resize', 'upsample_bilinear', 'global_avg_pool', 'max_pool', 'Conv2d',
-           'BatchNorm2d', 'GroupNorm2d', 'LayerNorm2d', 'Norm', 'ConvBlock', 'Sequential',
-           'running_stats_frozen', 'dropout', 'channel_dropout']
+__all__ = ['resize', 'upsample', 'upsample_bilinear', 'bilinear_nchw', 'upsample_nearest_int',
+           'global_avg_pool', 'adaptive_avg_pool', 'max_pool', 'avg_pool', 'channel_concat',
+           'channel_sum', 'list_index', 'Conv2d', 'BatchNorm2d', 'GroupNorm2d', 'LayerNorm2d',
+           'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen', 'checkpointed', 'dropout',
+           'channel_dropout', 'DepthwiseConv2d', 'SeparableConv2d', 'SeparableConvBlock',
+           'PoolBlock', 'ResidualBlock', 'ConvUpsampling', 'ChannelReduction',
+           'ChannelConcat', 'Sum', 'ListIndex', 'Squeeze', 'Bf16compatible']
 
 
 def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def channel_concat(features):
+    """Concatenate a list of NHWC features on the channels (one is returned
+    as it is)."""
+    if len(features) == 1:
+        return features[0]
+    return torch.cat(list(features), dim=-1)
+
+
+def channel_sum(features):
+    """The sum of a list of features, in order."""
+    out = features[0]
+    for f in features[1:]:
+        out = out + f
+    return out
+
+
+def list_index(features, *index):
+    """``features[i]`` for one index, the list of them for several."""
+    if len(index) == 1:
+        return features[index[0]]
+    return [features[i] for i in index]
 
 
 def resize(x: torch.Tensor, scale: Optional[float] = None,
@@ -127,10 +163,72 @@ def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
 
 
+def bilinear_nchw(x: torch.Tensor, shape: Tuple[int, int],
+                  align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to ``shape`` by matrix products,
+    in x's dtype: :func:`resize_align_corners` (float32) with
+    ``align_corners``, else :func:`upsample_bilinear` (float32 unless x is
+    bfloat16), which only grows; a shrinking half-pixel resize antialiases
+    and goes through :func:`resize`."""
+    h, w = x.shape[2:]
+    xh = x.permute(0, 2, 3, 1)
+    if align_corners:
+        return resize_align_corners(xh, shape).permute(0, 3, 1, 2)
+    if shape[0] < h or shape[1] < w:
+        return resize(xh, shape=shape, method='bilinear').permute(0, 3, 1, 2)
+    xh = xh if xh.dtype == torch.bfloat16 else xh.float()
+    return upsample_bilinear(xh, shape).to(x.dtype).permute(0, 3, 1, 2)
+
+
+def upsample_nearest_int(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Nearest upsampling of an NCHW tensor by an integer ``k`` as a
+    broadcast and a reshape (the JAX package's ``_upsample_nearest_int``):
+    ``resize(method='nearest')``'s values, and a backward that is a plain
+    sum over each k×k block.  The result lies in ``channels_last`` memory."""
+    n, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1)[:, :, None, :, None, :].expand(n, h, k, w, k, c)
+    return y.reshape(n, h * k, w * k, c).permute(0, 3, 1, 2)
+
+
+def upsample(x: torch.Tensor, scale: int = 2, method: str = 'nearest') -> torch.Tensor:
+    """:func:`resize` of an NHWC tensor by ``scale``."""
+    return resize(x, scale=scale, method=method)
+
+
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     """NHWC → N11C spatial mean, accumulated in float32, in x's dtype."""
     return torch.mean(x, dim=(1, 2), keepdim=keepdims,
                       dtype=torch.float32).to(x.dtype)
+
+
+def _bin_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """``[n_out, n_in]`` float32 averaging weights of adaptive pooling along
+    one axis: bin i spans ``[floor(i·n/m), ceil((i+1)·n/m))`` (torch's
+    bins), each of its inputs weighted 1/its length."""
+    i = torch.arange(n_out, device=device)
+    lo = (i * n_in) // n_out
+    hi = -((-(i + 1) * n_in) // n_out)
+    cols = torch.arange(n_in, device=device)[None]
+    inside = (cols >= lo[:, None]) & (cols < hi[:, None])
+    return inside.float() / (hi - lo)[:, None].float()
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
+    """Adaptive average pooling of an NHWC tensor with torch's bins (uneven
+    ones too, e.g. 64 → 3), in float32 and returned in x's dtype, as the
+    JAX package pools (there through an integral image).  Computed as one
+    bin-averaging matrix product per axis: unlike ``adaptive_avg_pool2d``,
+    whose CUDA backward adds with atomics where the bins do not divide the
+    map, its backward is two matrix products, the same bits every run."""
+    oh, ow = _pair(output_size)
+    n, h, w, c = x.shape
+    if (oh, ow) == (1, 1):
+        return global_avg_pool(x)
+    if (oh, ow) == (h, w):
+        return x
+    y = torch.einsum('oh,nhwc->nowc', _bin_weights(h, oh, x.device), x.float())
+    y = torch.einsum('pw,nowc->nopc', _bin_weights(w, ow, x.device), y)
+    return y.to(x.dtype)
 
 
 def _lax_same(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
@@ -138,6 +236,16 @@ def _lax_same(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
     positions and the extra pad goes to the high side."""
     total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
     return total // 2, total - total // 2
+
+
+def _pads(x: torch.Tensor, w, s, padding):
+    """((top, bottom), (left, right)) of ``padding`` (``'SAME'``,
+    ``'VALID'`` or explicit pairs) for an NHWC x."""
+    if padding == 'VALID':
+        return ((0, 0), (0, 0))
+    if padding == 'SAME':
+        return tuple(_lax_same(x.shape[1 + i], w[i], s[i]) for i in range(2))
+    return tuple(tuple(p) for p in padding)
 
 
 def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
@@ -163,12 +271,7 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
             and x.is_floating_point()):
         from ever_tpu_torch.ops.pool import max_pool_32
         return max_pool_32(x)
-    if padding == 'VALID':
-        pads = ((0, 0), (0, 0))
-    elif padding == 'SAME':
-        pads = tuple(_lax_same(x.shape[1 + i], w[i], s[i]) for i in range(2))
-    else:
-        pads = tuple(tuple(p) for p in padding)
+    pads = _pads(x, w, s, padding)
     xc = x.permute(0, 3, 1, 2)
     if pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]:
         y = F.max_pool2d(xc, w, s, (pads[0][0], pads[1][0]))
@@ -177,6 +280,16 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
                    value=float('-inf'))
         y = F.max_pool2d(xc, w, s)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window=3, stride=2, padding='SAME') -> torch.Tensor:
+    """Average pool of an NHWC tensor with flax's ``nn.avg_pool`` semantics:
+    the padding (as :func:`max_pool` takes it) is zeros, counted in each
+    window's mean."""
+    w, s = _pair(window), _pair(stride)
+    (t, b), (l, r) = _pads(x, w, s, padding)
+    xc = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b))
+    return F.avg_pool2d(xc, w, s).permute(0, 2, 3, 1)
 
 
 class Conv2d(nn.Conv2d):
@@ -347,6 +460,23 @@ def running_stats_frozen(module: nn.Module):
             m.update_running_stats = s
 
 
+def checkpointed(module: nn.Module, fn, x):
+    """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    backward pass recomputes it, and the recomputation leaves the running
+    statistics of ``module``'s BatchNorms alone (:func:`running_stats_frozen`),
+    so they move once per forward, as under JAX's ``nn.remat``."""
+    calls = []
+
+    def run(x):
+        calls.append(None)
+        if len(calls) == 1:
+            return fn(x)
+        with running_stats_frozen(module):
+            return fn(x)
+
+    return _ckpt.checkpoint(run, x, use_reentrant=False)
+
+
 class GroupNorm2d(nn.GroupNorm):
     """GroupNorm of an NCHW tensor with flax's semantics: statistics and
     normalisation in float32 (float64 for float64 input), the output in x's
@@ -467,3 +597,172 @@ class ConvBlock(Sequential):
         elif act:
             layers.append(nn.ReLU())
         super().__init__(*layers)
+
+
+class DepthwiseConv2d(Conv2d):
+    """Depthwise conv (one group a channel) with ``'SAME'`` padding, bias
+    on by default (``ever_tpu/module/ops.py`` ``DepthwiseConv2d``)."""
+
+    def __init__(self, channels: int, kernel_size=3, stride=1, dilation=1,
+                 use_bias: bool = True):
+        super().__init__(channels, channels, kernel_size, stride, 'same', dilation,
+                         channels, use_bias)
+
+
+class SeparableConv2d(Sequential):
+    """Depthwise conv without bias (child ``0``) → 1×1 pointwise conv
+    (child ``1``, bias on by default)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=3, stride=1,
+                 dilation=1, use_bias: bool = True):
+        super().__init__(DepthwiseConv2d(in_channels, kernel_size, stride, dilation, False),
+                         Conv2d(in_channels, features, 1, bias=use_bias))
+
+
+class SeparableConvBlock(Sequential):
+    """Separable conv without bias → [norm] → [ReLU] (children ``0``, ``1``,
+    then the activation)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=3, stride=1,
+                 dilation=1, norm: Optional[str] = 'bn', act: bool = True):
+        layers = [SeparableConv2d(in_channels, features, kernel_size, stride, dilation,
+                                  use_bias=False)]
+        bn = Norm(norm, features)
+        if bn is not None:
+            layers.append(bn)
+        if act:
+            layers.append(nn.ReLU())
+        super().__init__(*layers)
+
+
+class PoolBlock(nn.Module):
+    """A PSP pyramid bin: :func:`adaptive_avg_pool` to ``output_size`` →
+    1×1 conv-norm-ReLU (``conv``) → back to the input's size, by a
+    broadcast from 1×1 and otherwise by :func:`bilinear_nchw` (half-pixel
+    centres), as the JAX package's ``PoolBlock``."""
+
+    def __init__(self, in_channels: int, output_size=1, features: int = 256,
+                 norm: Optional[str] = 'bn'):
+        super().__init__()
+        self.output_size = output_size
+        self.conv = ConvBlock(in_channels, features, 1, norm=norm)
+
+    def forward(self, x, train: bool = False):
+        n, _, h, w = x.shape
+        y = adaptive_avg_pool(x.permute(0, 2, 3, 1), self.output_size).permute(0, 3, 1, 2)
+        y = self.conv(y, train)
+        if y.shape[2:] == (1, 1):
+            return y.expand(n, y.shape[1], h, w)
+        return bilinear_nchw(y, (h, w))
+
+
+class ResidualBlock(Sequential):
+    """Two 3×3 conv-norm blocks, ReLU after the first only (children ``0``
+    and ``1``), plus the input: no activation after the add, as in the
+    reference."""
+
+    def __init__(self, features: int, norm: Optional[str] = 'bn'):
+        super().__init__(ConvBlock(features, features, 3, norm=norm),
+                         ConvBlock(features, features, 3, norm=norm, act=False))
+
+    def forward(self, x, train: bool = False):
+        return super().forward(x, train) + x
+
+
+class ConvUpsampling(nn.Module):
+    """conv with bias (``conv``) → upsampling by ``scale``: bilinear by
+    :func:`bilinear_nchw` (with the reference's ``align_corners`` by
+    default), or :func:`resize`'s nearest."""
+
+    def __init__(self, in_channels: int, features: int, scale: int = 2,
+                 kernel_size=3, method: str = 'bilinear', align_corners: bool = True):
+        super().__init__()
+        self.scale, self.method, self.align_corners = scale, method, align_corners
+        self.conv = Conv2d(in_channels, features, kernel_size, bias=True)
+
+    def forward(self, x, train: bool = False):
+        x = self.conv(x)
+        shape = (int(x.shape[2] * self.scale), int(x.shape[3] * self.scale))
+        if self.method == 'bilinear':
+            return bilinear_nchw(x, shape, self.align_corners)
+        return resize(x.permute(0, 2, 3, 1), shape=shape,
+                      method=self.method).permute(0, 3, 1, 2)
+
+
+# -- the reference's module spellings of the list functions -----------------
+
+class ChannelReduction(nn.Module):
+    """A 1×1 conv-norm projection of each feature of a list to
+    ``out_channels`` (``reduce{i}``)."""
+
+    def __init__(self, in_channels_list, out_channels: int, norm: Optional[str] = 'bn'):
+        super().__init__()
+        self.n = len(in_channels_list)
+        for i, c in enumerate(in_channels_list):
+            self.add_module(f'reduce{i}', ConvBlock(c, out_channels, 1, norm=norm, act=False))
+
+    def forward(self, features, train: bool = False):
+        return [getattr(self, f'reduce{i}')(f, train) for i, f in enumerate(features)]
+
+
+class ChannelConcat(nn.Module):
+    """Concatenate a list of NCHW features on the channels."""
+
+    def forward(self, features):
+        assert isinstance(features, (list, tuple))
+        return features[0] if len(features) == 1 else torch.cat(list(features), dim=1)
+
+
+class Sum(nn.Module):
+    """:func:`channel_sum` of a list."""
+
+    def forward(self, features):
+        assert isinstance(features, (list, tuple))
+        return channel_sum(list(features))
+
+
+class ListIndex(nn.Module):
+    """:func:`list_index` of a list at ``index`` (a tuple)."""
+
+    def __init__(self, index: Tuple[int, ...] = (0,)):
+        super().__init__()
+        self.index = tuple(index)
+
+    def forward(self, features):
+        return list_index(features, *self.index)
+
+
+class Squeeze(nn.Module):
+    """Squeeze one axis."""
+
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x):
+        return torch.squeeze(x, self.dim)
+
+
+def _cast_floats(tree, dtype):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(t, dtype) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    return tree
+
+
+class Bf16compatible(nn.Module):
+    """Run ``inner`` in float32 on bfloat16 input and cast its output (a
+    tensor, or a list, tuple or dict of them) back to bfloat16; other
+    inputs pass as they are."""
+
+    def __init__(self, inner: nn.Module):
+        super().__init__()
+        self.inner = inner
+
+    def forward(self, x, *args, **kwargs):
+        if x.dtype != torch.bfloat16:
+            return self.inner(x, *args, **kwargs)
+        return _cast_floats(self.inner(x.float(), *args, **kwargs), torch.bfloat16)

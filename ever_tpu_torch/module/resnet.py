@@ -41,13 +41,11 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils import checkpoint as _ckpt
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module.context_block import ContextBlock2d
-from ever_tpu_torch.module.ops import (BatchNorm2d, Conv2d, Sequential, max_pool,
-                                       running_stats_frozen)
+from ever_tpu_torch.module.ops import BatchNorm2d, Conv2d, Sequential, checkpointed, max_pool
 from ever_tpu_torch.module.se_block import SEBlock
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetStage', 'ResNet', 'ResNetEncoder',
@@ -252,16 +250,7 @@ class ResNet(nn.Module):
         stage = getattr(self, f'layer{i + 1}')
         if not (self.with_cp[i] and torch.is_grad_enabled()):
             return stage(x, train)
-        calls = []
-
-        def run(x):
-            calls.append(None)
-            if len(calls) == 1:
-                return stage(x, train)
-            with running_stats_frozen(stage):   # the backward's recomputation
-                return stage(x, train)
-
-        return _ckpt.checkpoint(run, x, use_reentrant=False)
+        return checkpointed(stage, lambda x: stage(x, train), x)
 
     def forward(self, x, train: bool = False):
         if self.deep_stem:
@@ -294,6 +283,7 @@ def resnet_frozen_prefixes(freeze_at: int) -> List[str]:
     return prefixes + [f'layer{i - 1}' for i in range(2, 6) if freeze_at >= i]
 
 
+@registry.MODEL.register()
 class ResNetEncoder(ERModule):
     """The configurable encoder (``ever_tpu/module/resnet.py``
     ``ResNetEncoder``), with the same config keys.  ``forward(x, train)``

@@ -3,7 +3,8 @@ package's models (the ``convert_flax_*`` converters).
 
 :func:`load_weights` (counterpart of ``ever_tpu/util/weight_io.py``
 ``load_weights``) reads the reference's torch files of the ported families
-(a DINOv3 ViT, a torchvision ResNet, the reference ``FarSegHead``), ``.npz``
+(a DINOv3 ViT, a torchvision ResNet, the reference ``FarSegHead``, the
+reference's vendored HRNetV2), ``.npz``
 archives of the JAX package's flat ``params/...`` keys, and the port's own
 checkpoints, and loads them non-strictly into a model: the subtree a file
 lands in is the one where most of its keys land, a stem conv of another
@@ -12,7 +13,9 @@ unexpected and mismatched keys are logged.  The reference files convert as
 the JAX package's ``convert_torch_*`` do: the DINOv3 ``qkv.bias_mask`` is
 baked into the bias and ``mask_token``, ``rope_embed.*`` and
 ``local_cls_norm`` are dropped; a FarSeg head's content and re-encoder conv
-biases fold into their BatchNorms' running means.
+biases fold into their BatchNorms' running means; HRNet's
+``incre_modules``, ``downsamp_modules``, ``final_layer`` and ``classifier``
+(its classification neck) are dropped.
 
 The converters below carry the JAX package's parameters into the port.
 
@@ -25,9 +28,14 @@ ViT after torch DINOv3 (``blocks.{i}.attn.qkv.weight``,
 ``layer2.0.downsample.0.weight``), the inverse of ``convert_torch_resnet``;
 the FarSeg head after the reference ``FarSegHead``, the inverse of
 ``convert_torch_farseg_head`` without its bias fold (the port has the JAX
-package's bias-free content and re-encoder convs).  Modules the reference
+package's bias-free content and re-encoder convs); HRNet after the
+reference's vendored ``_hrnet.py`` (``transition1.1.0.0.weight``,
+``stage3.0.branches.2.1.bn1.running_mean``,
+``stage4.0.fuse_layers.3.0.2.1.weight``), the inverse of
+``convert_torch_hrnet``.  Modules the reference
 files do not cover (FarSeg++'s relation, the SE and GC branches, P6/P7,
-the decoder's GN and LN, ``DINOHead``, FactSeg and the change detectors)
+the decoder's GN and LN, ``DINOHead``, FactSeg, the change detectors and
+the ASPP, PPM, DeepLabv3+ and HRNet heads)
 take names that map one to one onto the JAX package's, each listed in the
 rules below.  Layout changes: Dense
 ``[in, out]`` → Linear ``[out, in]``; conv HWIO → OIHW; norm ``scale`` →
@@ -50,9 +58,10 @@ from ever_tpu_torch.core.device import get_device
 __all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
            'convert_flax_dino_head',
            'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_factseg',
-           'convert_flax_change', 'convert_flax_flat',
+           'convert_flax_change', 'convert_flax_hrnet', 'convert_flax_head',
+           'convert_flax_encoder_head', 'convert_flax_flat',
            'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
-           'convert_torch_resnet', 'patch_first_conv', 'read_weights',
+           'convert_torch_resnet', 'convert_torch_hrnet', 'patch_first_conv', 'read_weights',
            'load_weights', 'LoadReport']
 
 logger = logging.getLogger('ever_tpu_torch.weight_io')
@@ -249,8 +258,45 @@ _CHANGE_RULES = _fpn_decoder_rules(
     (r'changemixin/(conv\d+)/Norm_0' + _BN, r'changemixin.\1.1'),
     ('changemixin/cls', 'changemixin.cls'),
 ]
+# HRNet: the JAX package's flat names → the reference _hrnet.py's nesting
+# (a transition's new branch, i == t, has one more Sequential level)
+_HRNET_BLOCK = r'stage(\d)_module(\d+)/branch(\d+)_block(\d+)'
+_HRNET_RULES = [
+    (r'(conv[12])', r'\1'), (r'(bn[12])' + _BN, r'\1'),
+    (r'layer1_block(\d+)/(conv\d)', r'layer1.\1.\2'),
+    (r'layer1_block(\d+)/(bn\d)' + _BN, r'layer1.\1.\2'),
+    (r'layer1_block(\d+)/downsample_conv', r'layer1.\1.downsample.0'),
+    (r'layer1_block(\d+)/downsample_bn' + _BN, r'layer1.\1.downsample.1'),
+    (r'transition(\d)_\1_conv', r'transition\1.\1.0.0'),
+    (r'transition(\d)_\1_bn' + _BN, r'transition\1.\1.0.1'),
+    (r'transition(\d)_(\d)_conv', r'transition\1.\2.0'),
+    (r'transition(\d)_(\d)_bn' + _BN, r'transition\1.\2.1'),
+    (r'stage(\d)_module(\d+)/fuse(\d)_(\d)_conv', r'stage\1.\2.fuse_layers.\3.\4.0'),
+    (r'stage(\d)_module(\d+)/fuse(\d)_(\d)_bn' + _BN, r'stage\1.\2.fuse_layers.\3.\4.1'),
+    (r'stage(\d)_module(\d+)/fuse(\d)_(\d)_down(\d)_conv',
+     r'stage\1.\2.fuse_layers.\3.\4.\5.0'),
+    (r'stage(\d)_module(\d+)/fuse(\d)_(\d)_down(\d)_bn' + _BN,
+     r'stage\1.\2.fuse_layers.\3.\4.\5.1'),
+] + [  # a branch's BasicBlock: the ResNet block rules, two groups further on
+    (_HRNET_BLOCK + pattern[len(r'layer(\d)/block(\d+)'):],
+     r'stage\1.\2.branches.\3.\4' + re.sub(r'\\(\d)', lambda g: '\\' + str(int(g[1]) + 2),
+                                        template[len(r'layer\1.\2'):]))
+    for pattern, template in _RESNET_RULES if pattern.startswith(r'layer(\d)/block(\d+)/')]
+# the four heads' blocks wherever they stand: ConvBlock (Conv_0, Norm_0),
+# PoolBlock (its ConvBlock_0 as conv), SeparableConvBlock (SeparableConv2d_0
+# as child 0: the depthwise conv, then the pointwise one), the classifier
+_HEAD_RULES = [
+    (r'(.+)/ConvBlock_0/Conv_0', r'\1.conv.0'),
+    (r'(.+)/ConvBlock_0/Norm_0' + _BN, r'\1.conv.1'),
+    (r'(.+)/SeparableConv2d_0/DepthwiseConv2d_0/Conv_0', r'\1.0.0'),
+    (r'(.+)/SeparableConv2d_0/Conv_0', r'\1.0.1'),
+    (r'(.+)/Conv_0', r'\1.0'),
+    (r'(.+)/Norm_0' + _BN, r'\1.1'),
+    ('classifier', 'classifier'),
+]
 # the port's module prefix → (JAX path prefix, rules below it)
 _RESNET_TREES = [('', '', _RESNET_RULES), ('resnet.', 'resnet/', _RESNET_RULES)]
+_HRNET_TREES = [('', '', _HRNET_RULES), ('hrnet.', 'hrnet/', _HRNET_RULES)]
 _ENCODER_TREE = ('encoder.resnet.', 'encoder/resnet/', _RESNET_RULES)
 
 
@@ -286,7 +332,7 @@ def _convert_conv_net(flat: Dict[str, np.ndarray], trees, what: str
             for pattern, template in rules:
                 m = re.fullmatch(pattern, rest)
                 if m is not None:
-                    name = torch_prefix + m.expand(template)
+                    name = torch_prefix + m.expand(template).replace('/', '.')
                     break
             if name is not None:
                 break
@@ -343,11 +389,43 @@ def convert_flax_change(params: Any, batch_stats: Any = None
                              [_ENCODER_TREE, ('', '', _CHANGE_RULES)], 'change detector')
 
 
+def convert_flax_hrnet(params: Any, batch_stats: Any = None
+                       ) -> Dict[str, torch.Tensor]:
+    """JAX ``HRNet`` params and batch statistics → the port's ``HRNet``
+    ``state_dict`` (the reference ``_hrnet.py`` names, running buffers
+    included, the SE and GC branches too); an ``HRNetEncoder`` tree
+    (``hrnet/...``) gives ``hrnet.``-prefixed keys for the port's
+    ``HRNetEncoder``.  Any variable left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats), _HRNET_TREES, 'HRNet')
+
+
+def convert_flax_head(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """A JAX ``ASPPHead``, ``PPMHead``, ``Deeplabv3pHead`` or ``HRNetHead``
+    (or one of their blocks: ``AtrousSpatialPyramidPool``,
+    ``PyramidPoolModule``, ``Deeplabv3pDecoder``, ``SimpleFusion``) → the
+    port's ``state_dict``, running buffers included.  Any variable left
+    unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats), [('', '', _HEAD_RULES)], 'head')
+
+
+def convert_flax_encoder_head(params: Any, batch_stats: Any = None
+                              ) -> Dict[str, torch.Tensor]:
+    """A JAX model that composes a ``ResNetEncoder`` or ``HRNetEncoder`` as
+    ``encoder`` with one of the four heads as ``head`` (``encoder/resnet/``,
+    ``encoder/hrnet/``, ``head/``) → the port's ``state_dict`` of the same
+    composition (``encoder.resnet.``, ``encoder.hrnet.``, ``head.``).  Any
+    variable left unmapped raises ``KeyError``."""
+    trees = [_ENCODER_TREE, ('encoder.hrnet.', 'encoder/hrnet/', _HRNET_RULES),
+             ('head.', 'head/', _HEAD_RULES)]
+    return _convert_conv_net(_variables(params, batch_stats), trees, 'encoder-head model')
+
+
 def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """A flat archive of the JAX package's variables (``params/...`` and
     ``batch_stats/...`` keys, as its ``.npz`` files hold them) → port names:
     a DinoSeg or a bare DINOv3 trunk, a FactSeg, a ChangeStar, ChangeMask
-    or ChangeOS, a FarSeg, a bare FarSeg head, or a ResNet (bare or under
+    or ChangeOS, a FarSeg, another encoder-head model, a bare FarSeg head,
+    an HRNet (bare or under ``hrnet/``) or a ResNet (bare or under
     ``resnet/``), told apart by their keys."""
     flat = _variables(flat, None)
     keys = list(flat)
@@ -361,9 +439,14 @@ def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
            for k in keys):
         return convert_flax_change(flat)
     if any(k.startswith(('encoder/', 'head/')) for k in keys):
+        if any(k.startswith(('encoder/hrnet/', 'head/')) for k in keys) and not any(
+                k.startswith(('head/fs_relation/', 'head/fpn/')) for k in keys):
+            return convert_flax_encoder_head(flat)
         return convert_flax_farseg(flat)
     if any(k.startswith(('fs_relation/', 'fpn/', 'fpn_decoder/')) for k in keys):
         return _convert_conv_net(flat, [('', '', _head_rules(flat))], 'FarSeg head')
+    if any(re.match(r'(hrnet/)?stage2_module0/', k) for k in keys):
+        return convert_flax_hrnet(flat)
     return convert_flax_resnet(flat)
 
 
@@ -418,10 +501,20 @@ def convert_torch_resnet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]
             if not (k.startswith('fc.') or k.endswith('num_batches_tracked'))}
 
 
+def convert_torch_hrnet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference HRNetV2 ``state_dict`` (the vendored ``_hrnet.py``) → the
+    port's ``HRNet`` (the same names): ``num_batches_tracked`` and the
+    classification neck (``incre_modules``, ``downsamp_modules``,
+    ``final_layer``, ``classifier``) dropped, as the JAX package's
+    ``convert_torch_hrnet`` drops them."""
+    return {k: v for k, v in sd.items()
+            if not (k.endswith('num_batches_tracked') or k.startswith(
+                ('incre_modules', 'downsamp_modules', 'final_layer', 'classifier')))}
+
+
 # reference families whose models are not ported: a key that tells each apart
-_NOT_PORTED = (('denseblock', 'DenseNet'), ('fuse_layers', 'HRNet'),
-               ('downsample_layers.', 'ConvNeXt'), ('_conv_stem.', 'EfficientNet'),
-               ('.conv2.fc1.', 'ResNeSt'))
+_NOT_PORTED = (('denseblock', 'DenseNet'), ('downsample_layers.', 'ConvNeXt'),
+               ('_conv_stem.', 'EfficientNet'), ('.conv2.fc1.', 'ResNeSt'))
 
 
 def _convert_torch(sd: Dict[str, torch.Tensor], path: str) -> Dict[str, torch.Tensor]:
@@ -431,6 +524,8 @@ def _convert_torch(sd: Dict[str, torch.Tensor], path: str) -> Dict[str, torch.Te
                                       f'{family} yet (ROADMAP.md A.7)')
     if any(k.startswith('fs_relation.') for k in sd):
         return convert_torch_farseg_head(sd)
+    if any('fuse_layers' in k for k in sd):
+        return convert_torch_hrnet(sd)
     if 'cls_token' in sd and any(k.startswith('blocks.') for k in sd):
         return convert_torch_dinov3_vit(sd)
     return convert_torch_resnet(sd)

@@ -59,7 +59,11 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.preprocess.thcomm, ever_tpu_torch.preprocess.thsegm,'
             ' ever_tpu_torch.preprocess.device, ever_tpu_torch.core.logger,'
             ' ever_tpu_torch.ops.ptq, ever_tpu_torch.module.misc, ever_tpu_torch.magic.bigimage,'
-            ' ever_tpu_torch.magic.bigimage.sliding_window, ever_tpu_torch.util.lr_search;'
+            ' ever_tpu_torch.magic.bigimage.sliding_window, ever_tpu_torch.util.lr_search,'
+            ' ever_tpu_torch.module.heads, ever_tpu_torch.module.hrnet,'
+            ' ever_tpu_torch.module.aspp, ever_tpu_torch.module.ppm,'
+            ' ever_tpu_torch.module.deeplabv3p_head, ever_tpu_torch.module.hrnet_head,'
+            ' ever_tpu_torch.module._hrnet, ever_tpu_torch.module._resnets;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -263,15 +267,10 @@ def test_every_tpu_kernel_has_one_chip_smoke_record_and_no_record_names_another(
 
 # the public names of the JAX subpackages' __init__s that the port does not
 # have yet, each with its ROADMAP.md A item
-_A_7_4 = ('dinov3', 'DenseNet', 'DenseNetEncoder', 'ASPPHead', 'AtrousSpatialPyramidPool',
-          'Deeplabv3pDecoder', 'Deeplabv3pHead', 'HRNetHead', 'PPMHead', 'PyramidPoolModule',
-          'SimpleFusion', 'HRNet', 'HRNetEncoder', 'ConvNeXt', 'ConvNeXtEncoder',
+_A_7_4 = ('dinov3', 'DenseNet', 'DenseNetEncoder', 'ConvNeXt', 'ConvNeXtEncoder',
           'EfficientNet', 'EFNetEncoder', 'ResNeSt', 'ResNeStEncoder', 'SplAtConv2d',
           'ViTEncoder', 'FreeNet', 'SpectralAttention', 'BiFPN', 'FastNormalizedFusionConv3x3',
-          'Fusion', 'NormalizedFusionConv3x3', 'conv_with_kaiming_uniform', 'Bf16compatible',
-          'ChannelConcat', 'ChannelReduction', 'ConvUpsampling', 'DepthwiseConv2d',
-          'ListIndex', 'PoolBlock', 'ResidualBlock', 'SeparableConv2d', 'SeparableConvBlock',
-          'Squeeze', 'Sum')
+          'Fusion', 'NormalizedFusionConv3x3', 'conv_with_kaiming_uniform')
 NOT_PORTED = {
     'core': {}, 'interface': {}, 'opt': {}, 'preprocess': {},
     'magic': {},

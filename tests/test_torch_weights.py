@@ -23,6 +23,7 @@ import ever_tpu.module  # noqa: F401  (registers the JAX models)
 from ever_tpu.core import builder as jbuilder
 from ever_tpu.core import registry as jregistry
 from ever_tpu.interface import ERDataset as JERDataset
+from ever_tpu.module import hrnet as jhrnet
 from ever_tpu.module import resnet as jres
 from ever_tpu.module import vit as jvit
 from ever_tpu.trainer import get_trainer as jget_trainer
@@ -31,18 +32,20 @@ from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.core import registry as tregistry
 from ever_tpu_torch.core.logger import TrainLogHook
 from ever_tpu_torch.interface import ERDataset as TERDataset
+from ever_tpu_torch.module import hrnet as thrnet
 from ever_tpu_torch.module import resnet as tres
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.trainer import get_trainer as tget_trainer
 from ever_tpu_torch.util import weight_io as twio
 from ever_tpu_torch.util.weight_io import (convert_flax_dinoseg, convert_flax_farseg,
-                                           convert_flax_resnet, load_weights,
-                                           patch_first_conv)
+                                           convert_flax_hrnet, convert_flax_resnet,
+                                           load_weights, patch_first_conv)
 from test_torch_resnet import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
 TINY = ('vit_tiny_test', (2, 64, 2, 4.0, 'mlp'))
+HRNET = dict(hrnet_type='hrnetv2_w18')
 # the sat preset's trunk options on the narrow spec
 BACKBONE = dict(name=TINY[0], n_storage_tokens=4, layerscale_init=1e-5, qkv_bias=True,
                 norm_eps=1e-5)
@@ -103,6 +106,10 @@ def _both_load(kind, path, excepts=None, stem_channels=3, jax_path=None):
         tm = tbuilder.make_model({'type': 'FarSeg', 'params': FARSEG}, device='cpu')
         v = _jax_variables(jm, (1, 64, 64, 3), seed=2)
         convert = convert_flax_farseg
+    elif kind == 'hrnet':
+        jm, tm = jhrnet.HRNetEncoder(HRNET), thrnet.HRNetEncoder(HRNET)
+        v = _jax_variables(jm, (1, 32, 32, 3), seed=6)
+        convert = convert_flax_hrnet
     else:
         cfg = dict(resnet_type=kind, in_channels=stem_channels)
         jm, tm = jres.ResNetEncoder(cfg), tres.ResNetEncoder(cfg)
@@ -148,6 +155,55 @@ def _torchvision_resnet(tmp_path, kind, seed=0):
     path = str(tmp_path / f'{kind}.pth')
     torch.save(sd, path)
     return path, sd
+
+
+def _reference_hrnet(tmp_path, prefix, seed=0):
+    """A seeded HRNetV2-W18 state_dict in the reference's vendored
+    ``_hrnet.py`` layout: the trunk's keys with ``num_batches_tracked``, and
+    the classification neck (``incre_modules``, ``downsamp_modules``,
+    ``final_layer``, ``classifier``), which no encoder loads."""
+    sd = _randomized(thrnet.HRNet('hrnetv2_w18').state_dict(), seed)
+    for k in [k for k in sd if k.endswith('running_var')]:
+        sd[k] = sd[k].abs() + 0.5
+        sd[k[:-len('running_var')] + 'num_batches_tracked'] = torch.tensor(3)
+    sd.update({'incre_modules.0.0.conv1.weight': torch.randn(32, 18, 1, 1),
+               'downsamp_modules.0.0.weight': torch.randn(256, 128, 3, 3),
+               'final_layer.0.weight': torch.randn(2048, 1024, 1, 1),
+               'classifier.weight': torch.randn(10, 2048), 'classifier.bias': torch.randn(10)})
+    path = str(tmp_path / 'hrnet.pth')
+    torch.save({prefix + k: v for k, v in sd.items()}, path)
+    return path, sd
+
+
+@pytest.mark.parametrize('prefix', ['', 'module.'])
+def test_hrnet_file_loads_as_jax_loads_it(tmp_path, prefix):
+    """A reference HRNetV2-W18 file, bare or saved from DDP (``module.``):
+    every trunk tensor lands in the port's ``HRNetEncoder`` under
+    ``hrnet.``, equal to the JAX package's ``convert_torch_hrnet`` +
+    ``load_weights`` of the same file carried across, with no missing or
+    unexpected key: the neck and the counters are dropped."""
+    path, sd = _reference_hrnet(tmp_path, prefix)
+    got, want, report, _ = _both_load('hrnet', path)
+    _assert_state_equal(got, want)
+    for k in ('stage4.2.fuse_layers.3.0.2.1.running_var', 'transition1.1.0.0.weight',
+              'layer1.0.downsample.1.weight', 'stage3.3.branches.2.3.conv2.weight'):
+        np.testing.assert_array_equal(got['hrnet.' + k].numpy(), sd[k].numpy())
+    assert not report.missing and not report.unexpected and not report.mismatched
+    assert report.loaded == len(got) == 1525
+
+
+def test_hrnet_npz_loads_as_jax_loads_it(tmp_path):
+    """The JAX package's flat ``.npz`` of an ``HRNetEncoder`` (``params/hrnet/...``
+    and ``batch_stats/hrnet/...``): the port tells it apart as HRNet and
+    loads it equal to the JAX package's load, every variable landing."""
+    v = _jax_variables(jhrnet.HRNetEncoder(HRNET), (1, 32, 32, 3), seed=8)
+    flat = {f'params/{k}': a for k, a in jwio.flatten_tree(v['params']).items()}
+    flat.update({f'batch_stats/{k}': a for k, a in jwio.flatten_tree(v['batch_stats']).items()})
+    np.savez(tmp_path / 'hrnet.npz', **flat)
+    got, want, report, _ = _both_load('hrnet', str(tmp_path / 'hrnet.npz'))
+    _assert_state_equal(got, want)
+    _assert_state_equal(got, convert_flax_hrnet(v['params'], v['batch_stats']))
+    assert not report.missing and not report.unexpected
 
 
 def test_dinov3_file_loads_as_jax_loads_it(tmp_path):
@@ -249,7 +305,6 @@ def test_npz_and_both_checkpoints_load_as_jax_loads_them(tmp_path):
 
 
 @pytest.mark.parametrize('family,key', [('DenseNet', 'features.denseblock1.denselayer1.conv1.weight'),
-                                        ('HRNet', 'stage2.0.fuse_layers.0.1.0.weight'),
                                         ('ConvNeXt', 'downsample_layers.0.0.weight'),
                                         ('EfficientNet', '_conv_stem.weight'),
                                         ('ResNeSt', 'layer1.0.conv2.fc1.weight')])
