@@ -352,7 +352,54 @@ Phases (any failure exits non-zero before the last line is printed):
              DeepLabv3+ step by kind of kernel (convolutions, BatchNorm,
              the resizes' and pools' matrix products, the adds).  The
              phase's K8 launches join the kernels line.
-17. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+17. backbones — EfficientNet with BiFPN, DenseNet, ResNeSt and ConvNeXt
+             (``phase_backbones``), each a user's ``ZooSeg`` (a registered
+             encoder, ``ListIndex``, a ``neck`` of ops from the ``OP``
+             registry or ``ever_tpu_torch.module``, a registered head or
+             a 1×1 classifier, a CE loss) at full width and depth, 7
+             classes, 512² tiles, bf16 compute, float32 parameters, SGD
+             momentum 0.9 + poly: B0-BiFPN (EfficientDet-D0's widths: B0's
+             taps os4-os32 reduced to 64 by a 1×1 conv-BN each, three
+             ``BiFPN(64, (4, 8, 16, 32))``, a 1×1 classifier on the os4
+             output, ×4 bilinear; drop-connect on); DenseNet-121 and
+             ConvNeXt-T (drop-path 0.1) under ``FPN`` (256) and
+             ``AssymetricDecoder`` (128, to os4, its classifier ×4), as
+             FarSeg's decoder; ResNeSt-50 at output stride 8 under
+             ``ASPPHead`` (DeepLabv3).  (a) at B=8: 2 warm-up steps and
+             10 timed ones for B0-BiFPN and ConvNeXt-T, 3 for the others
+             (median, min-max, tiles/s, MFU from ``FlopCounterMode``: 3 ×
+             the forward's count, as the step's own count takes a grouped
+             conv's backward for an ungrouped one); every model: 3 steps
+             twice from one seeded state, first with cuDNN as it is
+             and, where those differ (the differing tensors printed),
+             under deterministic cuDNN: losses, parameters and
+             BatchNorm statistics bit-equal, the drop-connect and
+             drop-path draws from the step's generator; finite losses.
+             (b) each model over a 4096² bf16 scene (512² tiles, stride
+             512, ``tile_batch=8``) after a warm-up scene: finite
+             probabilities summing to 1; ms/scene and tiles/s.  (c)
+             B0-BiFPN from a config through ``get_trainer('th_ddp')`` and
+             the ``Launcher`` on in-memory crops: 2 steps with a
+             checkpoint, a resume to 4, against 4 at once, drop-connect
+             on: the logged losses of steps 3-4 and the final states
+             bit-equal.  (d) a seeded state_dict in each reference layout
+             (``efficientnet_pytorch`` B0 with ``_conv_head``/``_bn1``/
+             ``_fc``, torchvision DenseNet-121 with ``norm5`` and
+             ``classifier`` saved with ``module.`` prefixes, ``resnest50``
+             with ``fc``, DINOv3's ConvNeXt-T with ``norm``/``head``; the
+             counters) through ``load_weights`` into its encoder on the
+             card and on the CPU: no missing, unexpected or mismatched
+             key, every tensor the file's, float32 eval features within
+             ``BACKBONE_WEIGHT_TOL`` of the CPU's.  No kernel of the port
+             is launched in (a)-(c).  (e) the times with the card's name
+             and power limit; ``--profile`` splits one B0-BiFPN and one
+             ConvNeXt-T step by kind of kernel (convolutions, depthwise
+             ones apart, BatchNorm and LayerNorm, SiLU/sigmoid/GELU, the
+             resizes' matrix products, concatenations, adds) with the
+             card's busy share: the kernels' sum over the median step
+             timed without the profiler, which stretches the step it
+             traces.
+18. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -837,9 +884,10 @@ def kernel_name(key: str) -> str:
     return key.removeprefix('void ').split('(')[0]
 
 
-def profile_run(label: str, fn, kinds=PROFILE_KINDS) -> None:
+def profile_run(label: str, fn, kinds=PROFILE_KINDS) -> tuple:
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``,
-    summed by ``kinds`` (the first kind that names a word of a kernel)."""
+    summed by ``kinds`` (the first kind that names a word of a kernel):
+    (wall ms, ms of kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -870,6 +918,7 @@ def profile_run(label: str, fn, kinds=PROFILE_KINDS) -> None:
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:20]:
         print(f'profile: {e.device_time_total / 1e3:9.3f} ms {e.count:5d}x '
               f'{e.key[:100]}', flush=True)
+    return wall_ms, busy_ms
 
 
 def build_dinoseg(gen, **backbone):
@@ -1250,9 +1299,13 @@ def phase_maxpool(gen):
 
 def seeded_conv_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Seeded random weights for a conv net: kernels ~N(0, 2/fan_in) (He),
-    BatchNorm weights ~N(1, 0.1²), biases ~N(0, 0.02²)."""
+    BatchNorm weights ~N(1, 0.1²), biases ~N(0, 0.02²); a BiFPN fusion's
+    weights keep their own initialisation (a draw around 0 would let the
+    fast-normalize ReLU cut whole paths)."""
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if name.endswith('fusion.weights'):
+                continue
             if p.dim() >= 2:
                 fan_in = p[0].numel()
                 p.copy_((2.0 / fan_in) ** 0.5 * torch.randn(p.shape, generator=gen,
@@ -1546,13 +1599,17 @@ def fused_layer_norm():
             os.environ['EVER_FUSED_LN'] = old
 
 
-def reset_counts():
-    """Every kernel wrapper's launch count set to 0."""
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port, each with its ``launches`` count."""
     from ever_tpu_torch.ops import attention as A, norm as N, pool as P, quant as Q
 
-    for fn in (A.fused_attention, A.fused_attention_bwd, P.max_pool_32_bwd,
-               N.layer_norm_fwd, N.layer_norm_bwd, Q.quantize_int8_values,
-               Q.int8_matmul_t):
+    return (A.fused_attention, A.fused_attention_bwd, P.max_pool_32_bwd,
+            N.layer_norm_fwd, N.layer_norm_bwd, Q.quantize_int8_values, Q.int8_matmul_t)
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count set to 0."""
+    for fn in kernel_wrappers():
         fn.launches = 0
 
 
@@ -4981,34 +5038,61 @@ ZOO_PROFILE_KINDS = (('the port\'s kernels', ('maxpool32',)),
 
 def register_zoo_model():
     """Register ``ZooSeg`` in the port's MODEL registry: a user's model
-    composed from a registered encoder and head (the features the head
-    takes picked by ``ListIndex``), the logits in float32 and a CE loss;
-    the encoder's frozen parameters are the model's."""
+    composed from a registered encoder (given the step's generator when it
+    draws: drop-connect, drop-path), the features picked by ``ListIndex``,
+    an optional ``neck`` of ops applied in order (each from the ``OP``
+    registry, or a block of ``ever_tpu_torch.module`` such as
+    ``ChannelReduction``), then a registered head, or a 1×1 ``classifier``
+    on the first feature (×4 bilinear), or neither (the neck's output is
+    the logits); the logits in float32 and a CE loss; the encoder's frozen
+    parameters are the model's."""
+    from ever_tpu_torch import module as M
     from ever_tpu_torch.core import registry
     from ever_tpu_torch.interface.module import ERModule
     from ever_tpu_torch.module import loss as L
-    from ever_tpu_torch.module.ops import ListIndex
+    from ever_tpu_torch.module.fpn import logits_nhwc
+    from ever_tpu_torch.module.ops import Conv2d, ListIndex
+
+    def plain(d):
+        return d.to_dict() if hasattr(d, 'to_dict') else dict(d)
+
+    def draws(m):
+        return 'generator' in inspect.signature(m.forward).parameters
 
     @registry.MODEL.register('ZooSeg')
     class ZooSeg(ERModule):
         def set_default_config(self):
-            self.config.update(dict(encoder={}, head={}, index=None, classes=CLASSES,
-                                    dtype='float32'))
+            self.config.update(dict(encoder={}, neck=[], head={}, classifier=None, index=None,
+                                    classes=CLASSES, dtype='float32'))
 
         def __init__(self, config=None):
             super().__init__(config)
             c = self.config
             self.encoder = registry.MODEL[c.encoder.type](
                 dict(c.encoder.params.to_dict(), dtype=c.dtype))
+            self.neck = torch.nn.ModuleList(
+                (registry.OP.get(plain(n)['type']) or getattr(M, plain(n)['type']))(
+                    **plain(plain(n)['params'])) for n in (c.neck or []))
             self.head = registry.MODEL[c.head.type](
-                dict(c.head.params.to_dict(), num_classes=c.classes, dtype=c.dtype))
+                dict(c.head.params.to_dict(), num_classes=c.classes, dtype=c.dtype)
+            ) if c.head else None
+            self.cls = Conv2d(c.classifier, c.classes, 1, bias=True) if c.classifier else None
             self.select = ListIndex(tuple(c.index)) if c.index else None
+            self.draws = [draws(m) for m in [self.encoder, *self.neck]]
 
         def forward(self, x, y=None, train=False, generator=None):
-            feats = self.encoder(x, train)
+            feats = (self.encoder(x, train, generator) if self.draws[0]
+                     else self.encoder(x, train))
             if self.select is not None:
                 feats = self.select(feats)
-            logits = self.head(feats, train, generator).permute(0, 2, 3, 1).float()
+            for op, gen in zip(self.neck, self.draws[1:]):
+                feats = op(feats, train, generator) if gen else op(feats, train)
+            if self.head is not None:
+                logits = self.head(feats, train, generator).permute(0, 2, 3, 1).float()
+            elif self.cls is not None:
+                logits = logits_nhwc(self.cls, feats[0])
+            else:
+                logits = feats.permute(0, 2, 3, 1).float()
             if train and y is not None:
                 return dict(cls_loss=L.softmax_ce_loss_with_logits(logits, y, ignore_index=255))
             return torch.softmax(logits, dim=-1)
@@ -5018,11 +5102,12 @@ def register_zoo_model():
             return ['encoder.' + p for p in hook()] if hook else []
 
 
-def zoo_model(gen, name: str, dtype: str = 'bfloat16', **encoder):
-    """One of ``ZOO_MODELS`` on the card with seeded random weights."""
+def zoo_model(gen, name: str, dtype: str = 'bfloat16', models=None, **encoder):
+    """One of ``models`` (``ZOO_MODELS``) on the card with seeded random
+    weights."""
     from ever_tpu_torch.core.builder import make_model
 
-    cfg = dict(ZOO_MODELS[name], classes=CLASSES, dtype=dtype)
+    cfg = dict((models or ZOO_MODELS)[name], classes=CLASSES, dtype=dtype)
     cfg['encoder'] = dict(cfg['encoder'], params=dict(cfg['encoder']['params'], **encoder))
     model = make_model({'type': 'ZooSeg', 'params': cfg})
     seeded_conv_init_(model, gen)
@@ -5042,9 +5127,12 @@ def zoo_sgd(model):
     return create_train_state(model, tx), build_train_step(model, tx, schedule)
 
 
-def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int) -> dict:
+def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int,
+              phase: str = 'zoo', kinds=None) -> dict:
     """One step under ``FlopCounterMode``, one more warm-up, ``steps`` timed
-    by CUDA events: median, least and most ms, FLOPs, K8 launches, losses."""
+    by CUDA events: median, least and most ms, FLOPs, K8 launches, losses
+    (and with ``profile`` the profiled step's wall and kernel ms, split by
+    ``kinds``)."""
     from torch.utils.flop_counter import FlopCounterMode
     from ever_tpu_torch.ops import pool as P
 
@@ -5069,8 +5157,8 @@ def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int) -> d
                flops=counter.get_total_flops(), k8=P.max_pool_32_bwd.launches,
                losses=[v.item() for v in losses],
                peak=torch.cuda.max_memory_allocated() / 2**30)
-    print(f'zoo: a: {smi}: {name}: train, bf16 compute, float32 params, SGD momentum 0.9 + '
-          f'poly; {TRAIN_BATCH} tiles of {TILE}²; median {out["ms"]:.2f} ms/step of '
+    print(f'{phase}: a: {smi}: {name}: train, bf16 compute, float32 params, SGD momentum '
+          f'0.9 + poly; {TRAIN_BATCH} tiles of {TILE}²; median {out["ms"]:.2f} ms/step of '
           f'{steps} after {WARMUP_STEPS} (min {out["min_ms"]:.2f}, max '
           f'{out["max_ms"]:.2f}) = {TRAIN_BATCH / out["ms"] * 1e3:.1f} tiles/s; MFU '
           f'{out["flops"] / (out["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f} '
@@ -5079,21 +5167,23 @@ def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int) -> d
           f'{WARMUP_STEPS + steps} steps; loss per step '
           f'{" ".join(f"{v:.5f}" for v in out["losses"])}', flush=True)
     if profile:
-        profile_run(f'one {name} train step', lambda: step(state, batch), ZOO_PROFILE_KINDS)
+        out['profile'] = profile_run(f'one {name} train step', lambda: step(state, batch),
+                                     kinds or ZOO_PROFILE_KINDS)
     del state, step
     return out
 
 
-def zoo_repeat(model, batch, steps: int):
+def zoo_repeat(model, batch, steps: int, deterministic_cudnn: bool = True):
     """``steps`` SGD steps from the model's current state, twice, under
-    deterministic cuDNN: (losses and the state after each run, the K8
-    launches of each run).  The model is left as it was."""
+    deterministic cuDNN (unless asked otherwise): (losses and the state
+    after each run, the K8 launches of each run).  The model is left as it
+    was."""
     from ever_tpu_torch.ops import pool as P
 
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     runs, k8 = [], []
     deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.deterministic = deterministic_cudnn
     try:
         for _ in range(2):
             model.load_state_dict(init)
@@ -5324,6 +5414,325 @@ def phase_zoo(gen, seed: int, smi: str, profile: bool) -> int:
     return k8
 
 
+# -- phase 17: EfficientNet with BiFPN, DenseNet, ResNeSt and ConvNeXt ----------
+
+# the four models of the backbones phase, each a ZooSeg: a registered
+# encoder, the features the neck takes (ListIndex), the neck's ops and a
+# head or a 1x1 classifier
+FPN_DECODER = [dict(type='AssymetricDecoder', params=dict(
+    in_channels=256, out_channels=128, classifier_config=dict(num_classes=CLASSES,
+                                                              scale_factor=4)))]
+BACKBONE_MODELS = {
+    # EfficientDet-D0's widths (Tan, Pang and Le, CVPR 2020, Table 1): B0, a
+    # BiFPN of width 64 and 3 layers over os4-os32
+    'B0-BiFPN': dict(
+        encoder=dict(type='EFNetEncoder', params=dict(efficientnet_type='efficientnet-b0')),
+        index=(1, 2, 3, 4),
+        neck=[dict(type='ChannelReduction', params=dict(in_channels_list=(24, 40, 112, 320),
+                                                        out_channels=64))]
+        + [dict(type='BiFPN', params=dict(in_channels=64, feature_strides=(4, 8, 16, 32)))] * 3,
+        head=None, classifier=64),
+    'DenseNet-121': dict(
+        encoder=dict(type='DenseNetEncoder', params=dict(densenet_type='densenet121')),
+        neck=[dict(type='FPN', params=dict(in_channels_list=(256, 512, 1024, 1024),
+                                           out_channels=256))] + FPN_DECODER, head=None),
+    'ResNeSt-50-DeepLabv3': dict(
+        encoder=dict(type='ResNeStEncoder', params=dict(resnest_type='resnest50',
+                                                        output_stride=8)),
+        index=(3,), head=dict(type='ASPPHead', params={})),
+    'ConvNeXt-T': dict(
+        encoder=dict(type='ConvNeXtEncoder', params=dict(convnext_type='convnext_tiny',
+                                                         drop_path_rate=0.1)),
+        neck=[dict(type='FPN', params=dict(in_channels_list=(96, 192, 384, 768),
+                                           out_channels=256))] + FPN_DECODER, head=None),
+}
+# timed steps after 2 warm-up: 10 for B0-BiFPN and ConvNeXt-T, 3 for the others
+BACKBONE_TIMED = ('B0-BiFPN', 'ConvNeXt-T')
+BACKBONE_TRAINER_ITERS, BACKBONE_RESUME_AT = 4, 2
+# the loaded trunks' float32 eval features, card against CPU: as the zoo
+# phase's HRNet (ZOO_WEIGHT_TOL's reasoning), through 16 to 121 layers
+BACKBONE_WEIGHT_TOL, BACKBONE_WEIGHT_SIZE = 1e-4, 256
+BACKBONE_PROFILE_KINDS = (
+    ('the port\'s kernels', PROFILE_KINDS[0][1]),
+    # cuDNN's depthwise kernels: one input and one output channel a group
+    ('depthwise convolutions', ('c1_k1', 'depthwise', 'Depthwise')),
+    ('convolutions', ('fprop', 'dgrad', 'wgrad', 'conv', 'implicit', 'xmma')),
+    ('BatchNorm and LayerNorm', ('batch_norm', 'bn_', 'layer_norm', 'LayerNorm',
+                                 'GammaBeta')),
+    ('SiLU, sigmoid and GELU', ('silu', 'sigmoid', 'gelu', 'Gelu', 'GeLU')),
+    ('matrix products (Linears, resizes)', ('gemm', 'nvjet', 'cutlass')),
+    ('optimizer', ('multi_tensor_apply',)),
+    ('concatenations', ('Cat', 'cat_')),
+    ('adds', ('add',)))
+
+
+def all_launches() -> int:
+    """Every kernel wrapper's launches since the last ``reset_counts``."""
+    return sum(fn.launches for fn in kernel_wrappers())
+
+
+def backbone_train_and_serve(gen, name: str, batch, scene, smi: str, profile: bool) -> dict:
+    """(a) and (b) for one model: the timed steps, the repeats (first with
+    cuDNN as it is, then deterministic if those differ), then the 4096²
+    scene; no kernel of the port launched.  Returns the numbers."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ever_tpu_torch.ops import pool as P
+
+    reset_counts()
+    t0 = time.perf_counter()
+    model = zoo_model(gen, name, models=BACKBONE_MODELS)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f'backbones: {name}: {n_params / 1e6:.2f} M parameters, built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    steps = TIMED_STEPS if name in BACKBONE_TIMED else ZOO_SHORT_STEPS
+    timed = zoo_timed(name, model, batch, smi, profile and name in BACKBONE_TIMED, steps,
+                      'backbones', BACKBONE_PROFILE_KINDS)
+    check(all(math.isfinite(v) for v in timed['losses']), f'a: {name}: non-finite loss')
+    # FlopCounterMode counts a grouped conv's backward as if ungrouped (a
+    # depthwise 3×3's by its channel count over), so the step's count
+    # overstates the depthwise nets; three forwards' count does not
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(batch[0])
+    timed['flops_3fwd'] = 3 * counter.get_total_flops()
+    print(f'backbones: a: {smi}: {name}: 3 × the forward\'s '
+          f'{counter.get_total_flops() / 1e12:.3f} TFLOP = {timed["flops_3fwd"] / 1e12:.3f} '
+          f'TFLOP a step (the step\'s own count {timed["flops"] / 1e12:.3f}): MFU '
+          f'{timed["flops_3fwd"] / (timed["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f}', flush=True)
+    if 'profile' in timed:
+        # the profiler stretches the step it traces, so the kernels' sum is
+        # held against the median step timed without it
+        wall, busy = timed['profile']
+        print(f'backbones: e: {smi}: {name}: {busy:.2f} ms of kernels in the profiled step '
+              f'({wall:.2f} ms wall under the profiler) against the unprofiled median '
+              f'{timed["ms"]:.2f} ms: the card busy {busy / timed["ms"]:.1%}', flush=True)
+    equal, needed, k8 = False, [], timed['k8']     # the zoo helpers reset K8's count
+    for deterministic in (False, True):
+        runs, k8s = zoo_repeat(model, batch, ZOO_REPEAT_STEPS, deterministic)
+        k8 += sum(k8s)
+        (loss_a, state_a), (loss_b, state_b) = runs
+        differ = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+        equal = torch.equal(loss_a, loss_b) and not differ
+        moved = sum(not torch.equal(v, model.state_dict()[k]) for k, v in state_a.items())
+        print(f'backbones: a: {name}: {ZOO_REPEAT_STEPS} steps twice from one seeded state, '
+              f'cudnn.deterministic {deterministic}: loss '
+              f'{" ".join(f"{v:.5f}" for v in loss_a.tolist())}; losses, parameters and '
+              f'BatchNorm statistics bit-equal {equal}; {moved} of {len(state_a)} tensors '
+              f'moved; differing {len(differ)}: {differ[:6]}', flush=True)
+        check(bool(torch.isfinite(loss_a).all()), f'a: {name}: non-finite loss')
+        if equal:
+            break
+        needed = differ
+    check(equal, f'a: {name}: two runs of the same steps differ under deterministic cuDNN')
+    del runs, state_a, state_b
+    P.max_pool_32_bwd.launches = 0
+    out, ms, _ = timed_scene(model, scene, CLASSES)
+    n_tiles = (SCENE // STRIDE) ** 2
+    finite = bool(torch.isfinite(out).all())
+    sums = float((out.sum(-1) - 1).abs().max())
+    launches = k8 + all_launches()
+    print(f'backbones: b: {smi}: {name}: one {SCENE}² scene, bf16, {TILE}² tiles at stride '
+          f'{STRIDE}, tile_batch {TILE_BATCH}: {ms:.1f} ms/scene = {n_tiles / ms * 1e3:.1f} '
+          f'tiles/s; probabilities finite {finite}, |sum - 1| <= {sums:.2e}; the port\'s '
+          f'kernels launched {launches} times in (a) and (b)', flush=True)
+    check(tuple(out.shape) == (SCENE, SCENE, CLASSES) and finite and sums < PROB_SUM_TOL,
+          f'b: {name}: bad scene output')
+    check(launches == 0, f'a, b: {name}: the port\'s kernels launched {launches} times')
+    del model, out
+    torch.cuda.empty_cache()
+    return dict(timed, scene_ms=ms, deterministic_needed=needed)
+
+
+BACKBONE_CONFIG = """\
+# EfficientNet-B0 + BiFPN (EfficientDet-D0's widths) on seeded in-memory
+# crops (chip_smoke.py backbones phase)
+config = dict(
+    model=dict(type='ZooSeg', params={model}),
+    data=dict(train=dict(type='smoke_scenes', params=dict())),
+    learning_rate=dict(type='poly', params=dict(base_lr=0.01, power=0.9, max_iters=1000)),
+    optimizer=dict(type='sgd', params=dict(momentum=0.9, weight_decay=1e-4)),
+    train=dict(num_iters={iters}, forward_times=1, eval_per_epoch=False,
+               eval_after_train=False, log_interval_step=1, save_ckpt_interval_epoch=1,
+               distributed=True),
+)
+"""
+
+
+def backbone_config_run(gen, seed: int, tmp: str, smi: str) -> None:
+    """(c): B0-BiFPN from a config through ``get_trainer('th_ddp')`` and the
+    ``Launcher``: 2 steps (a checkpoint at 2), a resume to 4, against 4 at
+    once, drop-connect on; no kernel of the port launched."""
+    register_smoke_data()
+    cfg_path = os.path.join(tmp, 'b0_bifpn.py')
+    with open(cfg_path, 'w') as f:
+        f.write(BACKBONE_CONFIG.format(
+            model=repr(dict(BACKBONE_MODELS['B0-BiFPN'], classes=CLASSES, dtype='bfloat16')),
+            iters=BACKBONE_TRAINER_ITERS))
+    init = zoo_model(gen, 'B0-BiFPN', models=BACKBONE_MODELS)
+    init_state = {k: v.detach().clone() for k, v in init.state_dict().items()}
+    del init
+    opts = ('train.eval_after_train', 'False', 'train.log_interval_step', '1')
+    launches = []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True         # a resumed run's bits
+    try:
+        trainer_run(os.path.join(tmp, 'a'), BACKBONE_RESUME_AT, seed, init_state, opts,
+                    config_path=cfg_path)
+        launches.append(all_launches())
+        lb, rb = trainer_run(os.path.join(tmp, 'a'), BACKBONE_TRAINER_ITERS, seed, opts=opts,
+                             config_path=cfg_path)
+        launches.append(all_launches())
+        t0 = time.perf_counter()
+        lc, rc = trainer_run(os.path.join(tmp, 'c'), BACKBONE_TRAINER_ITERS, seed, init_state,
+                             opts, config_path=cfg_path)
+        secs = time.perf_counter() - t0
+        launches.append(all_launches())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    resumed, unbroken = ([(s, d['cls_loss']) for s, d, _, _ in rec['logged']]
+                         for rec in (rb, rc))
+    equal = all(torch.equal(a, b) for a, b in zip(lb.model.state_dict().values(),
+                                                  lc.model.state_dict().values()))
+    rates = [b.drop_connect_rate for b in lc.model.encoder.net._blocks]
+    print(f'backbones: c: B0-BiFPN from a config through get_trainer(\'th_ddp\'), drop-connect '
+          f'up to {max(rates):.4f}: {BACKBONE_RESUME_AT} steps + resume to '
+          f'{BACKBONE_TRAINER_ITERS}: logged {resumed}; {BACKBONE_TRAINER_ITERS} at once: '
+          f'{unbroken}; final states bit-equal {equal}; the port\'s kernels launched '
+          f'{launches}; {smi}: the unbroken run {secs:.1f} s with its build', flush=True)
+    check(lb.global_step == lc.global_step == BACKBONE_TRAINER_ITERS, 'c: step counts')
+    check([s for s, _ in resumed] == list(range(BACKBONE_RESUME_AT + 1,
+                                                BACKBONE_TRAINER_ITERS + 1)),
+          f'c: the resumed run logged steps {[s for s, _ in resumed]}')
+    check(resumed == unbroken[BACKBONE_RESUME_AT:] and all(math.isfinite(v)
+                                                          for _, v in unbroken),
+          'c: the resumed losses differ from the unbroken run')
+    check(equal, 'c: the resumed run ends in another state than the unbroken run')
+    check(max(rates) > 0, 'c: drop-connect is off')
+    check(launches == [0, 0, 0], f'c: the port\'s kernels launched {launches} times')
+    del lb, lc, rb, rc, init_state
+    torch.cuda.empty_cache()
+
+
+# family → (the trunk, the encoder's config, its attribute, what a reference
+# file adds: the classification head, by key and shape; the file's prefix)
+BACKBONE_FILES = {
+    'EfficientNet-B0': ('efficientnet-b0', dict(type='EFNetEncoder', params=dict(
+        efficientnet_type='efficientnet-b0')), 'net',
+        {'_conv_head.weight': (1280, 320, 1, 1), '_bn1.weight': (1280,), '_bn1.bias': (1280,),
+         '_bn1.running_mean': (1280,), '_bn1.running_var': (1280,), '_fc.weight': (1000, 1280),
+         '_fc.bias': (1000,)}, ''),
+    'DenseNet-121': ('densenet121', dict(type='DenseNetEncoder', params=dict(
+        densenet_type='densenet121')), 'densenet',
+        {'features.norm5.weight': (1024,), 'features.norm5.bias': (1024,),
+         'features.norm5.running_mean': (1024,), 'features.norm5.running_var': (1024,),
+         'classifier.weight': (1000, 1024), 'classifier.bias': (1000,)}, 'module.'),
+    'ResNeSt-50': ('resnest50', dict(type='ResNeStEncoder', params=dict(
+        resnest_type='resnest50')), 'net', {'fc.weight': (1000, 2048), 'fc.bias': (1000,)}, ''),
+    'ConvNeXt-T': ('convnext_tiny', dict(type='ConvNeXtEncoder', params=dict(
+        convnext_type='convnext_tiny')), 'net',
+        {'norm.weight': (768,), 'norm.bias': (768,), 'head.weight': (1000, 768),
+         'head.bias': (1000,)}, ''),
+}
+
+
+def reference_backbone_file(path: str, name: str, seed: int) -> dict:
+    """A seeded state_dict of ``BACKBONE_FILES[name]`` in its reference
+    package's layout (the trunk's keys, ``num_batches_tracked`` after each
+    BatchNorm, the classification head), saved with its prefix: weights
+    drawn as ``reference_hrnet_file`` draws them (layer scales and the rest
+    of the 1-D tensors ~N(0, 0.1²) but norm weights ~N(1, 0.1²)).  Returns
+    the trunk's tensors by key."""
+    from ever_tpu_torch.core import registry
+
+    trunk, _, _, head, prefix = BACKBONE_FILES[name]
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in registry.MODEL[trunk]().state_dict().items():
+        if v.dim() >= 2:
+            sd[k] = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith('running_var'):
+            sd[k] = torch.rand(v.shape, generator=g) + 0.5
+        elif k.endswith('weight'):
+            sd[k] = 1.0 + 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+    extra = {k: torch.randn(shape, generator=g) for k, shape in head.items()}
+    counters = {k[:-len('running_var')] + 'num_batches_tracked': torch.tensor(5)
+                for k in list(sd) + list(extra) if k.endswith('running_var')}
+    torch.save({prefix + k: v for k, v in {**sd, **extra, **counters}.items()}, path)
+    return sd
+
+
+def backbone_weights(seed: int, tmp: str) -> None:
+    """(d): a reference file of each family through ``load_weights`` into
+    its encoder on the card and on the CPU: no missing, unexpected or
+    mismatched key, every tensor the file's, and the float32 eval features
+    within ``BACKBONE_WEIGHT_TOL`` of the CPU's."""
+    from ever_tpu_torch.core.builder import make_model
+    from ever_tpu_torch.util.weight_io import load_weights
+
+    x = torch.randn(2, BACKBONE_WEIGHT_SIZE, BACKBONE_WEIGHT_SIZE, 3,
+                    generator=torch.Generator().manual_seed(seed))
+    for i, (name, (_, enc, attr, head, prefix)) in enumerate(BACKBONE_FILES.items()):
+        path = os.path.join(tmp, f'{name}.pth')
+        sd = reference_backbone_file(path, name, seed + i)
+        card, host = make_model(enc), make_model(enc, device='cpu')
+        reports = [load_weights(path, card), load_weights(path, host, device='cpu')]
+        same = all(torch.equal(card.state_dict()[f'{attr}.{k}'].cpu(), v) for k, v in sd.items())
+        with torch.no_grad():
+            got = card(x.cuda())
+            want = host(x)
+        errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want)]
+        print(f'backbones: d: a seeded {name} file in its reference layout'
+              f'{" with module. prefixes" if prefix else ""} ({len(sd)} trunk tensors, '
+              f'{len(head)} of the head and the counters): loaded {reports[0].loaded} on the '
+              f'card and {reports[1].loaded} on the CPU; missing {len(reports[0].missing)}, '
+              f'unexpected {len(reports[0].unexpected)}, mismatched '
+              f'{len(reports[0].mismatched)}; every tensor the file\'s {same}; float32 eval '
+              f'features at {BACKBONE_WEIGHT_SIZE}², card against CPU: max|d| / max|ref| '
+              f'{" ".join(f"{e:.2e}" for e in errs)} (limit {BACKBONE_WEIGHT_TOL})', flush=True)
+        for r in reports:
+            check(r.loaded == len(sd) and not r.missing and not r.unexpected
+                  and not r.mismatched, f'd: {name}: load_weights: {r.loaded} loaded, '
+                  f'{r.missing[:3]} missing, {r.unexpected[:3]} unexpected')
+        check(same, f'd: {name}: a loaded tensor differs from the file')
+        check(all(e <= BACKBONE_WEIGHT_TOL for e in errs),
+              f'd: {name}: card and CPU features differ: {errs}')
+        del card, host, got, want
+        torch.cuda.empty_cache()
+
+
+def phase_backbones(gen, seed: int, smi: str, profile: bool) -> None:
+    """EfficientNet with BiFPN, DenseNet, ResNeSt and ConvNeXt on the card
+    (module docstring, phase 17)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    register_zoo_model()
+    torch.cuda.empty_cache()
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+    results = {name: backbone_train_and_serve(gen, name, (x, y), scene, smi, profile)
+               for name in BACKBONE_MODELS}
+    del x, y, scene
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_backbones_') as tmp:
+        backbone_config_run(gen, seed, tmp, smi)
+        backbone_weights(seed, tmp)
+    for name, r in results.items():
+        print(f'backbones: e: {smi}: {name}: {r["ms"]:.2f} ms/step (median of '
+              f'{len(r["losses"])}, {r["min_ms"]:.2f}-{r["max_ms"]:.2f}), '
+              f'{TRAIN_BATCH / r["ms"] * 1e3:.1f} tiles/s, MFU '
+              f'{r["flops_3fwd"] / (r["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f} (3 forwards\' '
+              f'{r["flops_3fwd"] / 1e12:.3f} TFLOP; the step\'s count '
+              f'{r["flops"] / (r["ms"] / 1e3) / PEAK_BF16_FLOPS:.4f}), peak {r["peak"]:.2f} GiB; '
+              f'{r["scene_ms"]:.1f} ms a {SCENE}² scene = '
+              f'{(SCENE // STRIDE) ** 2 / r["scene_ms"] * 1e3:.1f} tiles/s; repeats needed '
+              f'deterministic cuDNN for {r["deterministic_needed"][:6] or "none"}', flush=True)
+    print(f'backbones: {smi}: phase {time.perf_counter() - t_phase:.1f} s; the port\'s kernels '
+          f'launched 0 times', flush=True)
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -5404,6 +5813,7 @@ def main() -> int:
     matmul['launches'] += k7
     pool['launches'] += k8
     pool['launches'] += phase_zoo(gen, args.seed, smi, args.profile)
+    phase_backbones(gen, args.seed, smi, args.profile)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

@@ -1,7 +1,8 @@
 """The model zoo (counterpart of ``ever_tpu/module/__init__.py``, as far as
 it is ported): importing it registers the models in ``MODEL`` (the heads
-and HRNet encoders among them) and ``ChangeMixin`` and the heads' blocks in
-``OP``."""
+and the HRNet, EfficientNet, DenseNet, ResNeSt and ConvNeXt encoders among
+them) and ``ChangeMixin``, the heads' blocks, the FPNs, ``Fusion`` and the
+SE, GC and FarSeg relation blocks in ``OP``."""
 
 from ever_tpu_torch.module import loss, ops  # noqa: F401
 from ever_tpu_torch.module import vit  # noqa: F401  (registers the ViT models)
@@ -9,8 +10,13 @@ from ever_tpu_torch.module import fs_relation  # noqa: F401  (FarSeg and the Res
 from ever_tpu_torch.module import change, factseg  # noqa: F401
 from ever_tpu_torch.module.change import ChangeMask, ChangeMixin, ChangeOS, ChangeStar  # noqa: F401
 from ever_tpu_torch.module.context_block import ContextBlock2d  # noqa: F401
+from ever_tpu_torch.module.convnext import ConvNeXt, ConvNeXtEncoder  # noqa: F401
+from ever_tpu_torch.module.densenet import DenseNet, DenseNetEncoder  # noqa: F401
+from ever_tpu_torch.module.efficientnet import EfficientNet, EFNetEncoder  # noqa: F401
 from ever_tpu_torch.module.factseg import FactSeg  # noqa: F401
-from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, LastLevelMaxPool, LastLevelP6P7  # noqa: F401
+from ever_tpu_torch.module.fpn import (  # noqa: F401
+    FPN, AssymetricDecoder, BiFPN, FastNormalizedFusionConv3x3, Fusion, LastLevelMaxPool,
+    LastLevelP6P7, NormalizedFusionConv3x3, conv_with_kaiming_uniform)
 from ever_tpu_torch.module.fs_relation import FarSeg, FarSegHead, FSRelation, FSRelationV2  # noqa: F401
 from ever_tpu_torch.module.heads import (  # noqa: F401
     ASPPHead, AtrousSpatialPyramidPool, Deeplabv3pDecoder, Deeplabv3pHead, HRNetHead, PPMHead,
@@ -21,6 +27,7 @@ from ever_tpu_torch.module.ops import (  # noqa: F401
     Bf16compatible, ChannelConcat, ChannelReduction, ConvBlock, ConvUpsampling, DepthwiseConv2d,
     LayerNorm2d, ListIndex, PoolBlock, ResidualBlock, SeparableConv2d, SeparableConvBlock,
     Squeeze, Sum)
+from ever_tpu_torch.module.resnest import ResNeSt, ResNeStEncoder, SplAtConv2d  # noqa: F401
 from ever_tpu_torch.module.resnet import ResNet, ResNetEncoder  # noqa: F401
 from ever_tpu_torch.module.se_block import SCSEModule, SEBlock  # noqa: F401
 from ever_tpu_torch.module.vit import DinoSeg, DinoVisionTransformer, RMSNorm  # noqa: F401

@@ -23,6 +23,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
 from ever_tpu_torch.module.se_block import with_ratio
 
@@ -32,6 +33,7 @@ __all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet', 'consta
 _FUSIONS = ('channel_add', 'channel_mul')
 
 
+@registry.OP.register()
 class ContextBlock2d(nn.Module):
     def __init__(self, channels: int, inner_ratio: float = 1.0 / 16, pool: str = 'att',
                  fusions: Sequence[str] = ('channel_add',)):

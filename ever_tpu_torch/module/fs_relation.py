@@ -36,6 +36,7 @@ def _relation(scene_feat, content_feat):
     return torch.sigmoid(r).to(content_feat.dtype)
 
 
+@registry.OP.register()
 class FSRelation(nn.Module):
     """Foreground-scene relation gating: the scene embedding ``[N, C, 1, 1]``
     is projected (per scale with ``scale_aware_proj``), dotted with each
@@ -78,6 +79,7 @@ class FSRelation(nn.Module):
         return [_relation(s, c) * p for s, c, p in zip(scene_feats, content, re_enc)]
 
 
+@registry.OP.register()
 class FSRelationV2(FSRelation):
     """FarSeg++'s relation: the scene encoder is 1×1 conv → GroupNorm →
     ReLU, twice (``min(32, C)`` groups, flax's default eps 1e-6); each

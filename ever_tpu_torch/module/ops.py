@@ -39,7 +39,8 @@ __all__ = ['resize', 'upsample', 'upsample_bilinear', 'bilinear_nchw', 'upsample
            'global_avg_pool', 'adaptive_avg_pool', 'max_pool', 'avg_pool', 'channel_concat',
            'channel_sum', 'list_index', 'Conv2d', 'BatchNorm2d', 'GroupNorm2d', 'LayerNorm2d',
            'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen', 'checkpointed', 'dropout',
-           'channel_dropout', 'DepthwiseConv2d', 'SeparableConv2d', 'SeparableConvBlock',
+           'channel_dropout', 'sample_dropout', 'DepthwiseConv2d', 'SeparableConv2d',
+           'SeparableConvBlock',
            'PoolBlock', 'ResidualBlock', 'ConvUpsampling', 'ChannelReduction',
            'ChannelConcat', 'Sum', 'ListIndex', 'Squeeze', 'Bf16compatible']
 
@@ -564,6 +565,14 @@ def channel_dropout(x: torch.Tensor, rate: float, train: bool,
     (1, 2))`` on NHWC, torch's ``Dropout2d``): one draw per sample and
     channel, broadcast over the pixels."""
     return _dropout(x, rate, train, generator, x.shape[:2] + (1, 1))
+
+
+def sample_dropout(x: torch.Tensor, rate: float, train: bool,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample dropout (stochastic depth: EfficientNet's drop-connect,
+    ConvNeXt's drop-path; flax ``nn.Dropout(broadcast_dims=(1, 2, 3))``):
+    one draw per sample, broadcast over the rest."""
+    return _dropout(x, rate, train, generator, x.shape[:1] + (1,) * (x.dim() - 1))
 
 
 class Sequential(nn.Sequential):

@@ -275,7 +275,6 @@ for _name in RESNET_SPECS:
     registry.MODEL.register(_name, (lambda n: lambda **kw: ResNet(resnet_type=n, **kw))(_name))
 
 
-@registry.MODEL.register()
 def resnet_frozen_prefixes(freeze_at: int) -> List[str]:
     """The ``ResNet`` parameter prefixes that ``freeze_at`` freezes: the
     stem at 1 and more, then ``layer1`` .. ``layer4`` at 2 .. 5."""

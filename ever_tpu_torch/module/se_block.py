@@ -15,6 +15,7 @@ import copy
 import torch
 import torch.nn as nn
 
+from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import Conv2d
 
 __all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck']
@@ -26,6 +27,7 @@ def _squeeze(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
 
 
+@registry.OP.register()
 class SEBlock(nn.Module):
     """Channel SE: global pool → 1×1 reduce to ``max(C // inv_ratio, 1)`` →
     ReLU → 1×1 expand → sigmoid gate on x."""
@@ -40,6 +42,7 @@ class SEBlock(nn.Module):
         return x * torch.sigmoid(self.fc2(torch.relu(self.fc1(_squeeze(x)))))
 
 
+@registry.OP.register()
 class SCSEModule(nn.Module):
     """Concurrent spatial and channel SE: the channel gate of
     :class:`SEBlock` and a spatial gate (a bias-free 1×1 conv to one map,

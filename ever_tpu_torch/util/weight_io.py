@@ -3,8 +3,10 @@ package's models (the ``convert_flax_*`` converters).
 
 :func:`load_weights` (counterpart of ``ever_tpu/util/weight_io.py``
 ``load_weights``) reads the reference's torch files of the ported families
-(a DINOv3 ViT, a torchvision ResNet, the reference ``FarSegHead``, the
-reference's vendored HRNetV2), ``.npz``
+(a DINOv3 ViT, a torchvision ResNet or DenseNet, the reference
+``FarSegHead``, the reference's vendored HRNetV2, an ``efficientnet_pytorch``
+EfficientNet, a ``resnest`` package ResNeSt, DINOv3's vendored ConvNeXt),
+``.npz``
 archives of the JAX package's flat ``params/...`` keys, and the port's own
 checkpoints, and loads them non-strictly into a model: the subtree a file
 lands in is the one where most of its keys land, a stem conv of another
@@ -15,7 +17,10 @@ baked into the bias and ``mask_token``, ``rope_embed.*`` and
 ``local_cls_norm`` are dropped; a FarSeg head's content and re-encoder conv
 biases fold into their BatchNorms' running means; HRNet's
 ``incre_modules``, ``downsamp_modules``, ``final_layer`` and ``classifier``
-(its classification neck) are dropped.
+(its classification neck) are dropped, and so are the other families'
+classification heads (EfficientNet's ``_conv_head``, top-level ``_bn1``
+and ``_fc``; DenseNet's ``classifier`` and final ``features.norm5``;
+ResNeSt's ``fc``; ConvNeXt's ``norm`` and ``head``).
 
 The converters below carry the JAX package's parameters into the port.
 
@@ -32,13 +37,17 @@ package's bias-free content and re-encoder convs); HRNet after the
 reference's vendored ``_hrnet.py`` (``transition1.1.0.0.weight``,
 ``stage3.0.branches.2.1.bn1.running_mean``,
 ``stage4.0.fuse_layers.3.0.2.1.weight``), the inverse of
-``convert_torch_hrnet``.  Modules the reference
+``convert_torch_hrnet``; EfficientNet, DenseNet, ResNeSt and ConvNeXt
+after ``efficientnet_pytorch`` (the JAX ``stage{s}_block{b}`` as the flat
+``_blocks.{i}``), torchvision, the ``resnest`` package and DINOv3's
+ConvNeXt, the inverses of their ``convert_torch_*``.  Modules the reference
 files do not cover (FarSeg++'s relation, the SE and GC branches, P6/P7,
 the decoder's GN and LN, ``DINOHead``, FactSeg, the change detectors and
-the ASPP, PPM, DeepLabv3+ and HRNet heads)
+the ASPP, PPM, DeepLabv3+ and HRNet heads, ``BiFPN``)
 take names that map one to one onto the JAX package's, each listed in the
 rules below.  Layout changes: Dense
-``[in, out]`` → Linear ``[out, in]``; conv HWIO → OIHW; norm ``scale`` →
+``[in, out]`` → Linear ``[out, in]`` (ConvNeXt's ``pwconv1``/``pwconv2``
+too); conv HWIO → OIHW; norm ``scale`` →
 ``weight``; BatchNorm's ``batch_stats`` ``mean``/``var`` → the buffers
 ``running_mean``/``running_var``; the fused SwiGLU ``w12`` splits into
 ``w1``/``w2``.
@@ -59,10 +68,12 @@ __all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
            'convert_flax_dino_head',
            'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_factseg',
            'convert_flax_change', 'convert_flax_hrnet', 'convert_flax_head',
-           'convert_flax_encoder_head', 'convert_flax_flat',
-           'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
-           'convert_torch_resnet', 'convert_torch_hrnet', 'patch_first_conv', 'read_weights',
-           'load_weights', 'LoadReport']
+           'convert_flax_encoder_head', 'convert_flax_efficientnet', 'convert_flax_densenet',
+           'convert_flax_resnest', 'convert_flax_convnext', 'convert_flax_bifpn',
+           'convert_flax_flat', 'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
+           'convert_torch_resnet', 'convert_torch_hrnet', 'convert_torch_efficientnet',
+           'convert_torch_densenet', 'convert_torch_resnest', 'convert_torch_convnext',
+           'patch_first_conv', 'read_weights', 'load_weights', 'LoadReport']
 
 logger = logging.getLogger('ever_tpu_torch.weight_io')
 
@@ -177,9 +188,12 @@ def convert_flax_dino_head(params: Any) -> Dict[str, torch.Tensor]:
 
 # -- conv nets: ResNet and FarSeg -------------------------------------------
 
-# flax leaf → torch leaf (conv kernels are also transposed HWIO → OIHW)
+# flax leaf → torch leaf (conv kernels are also transposed HWIO → OIHW, Dense
+# kernels [in, out] → [out, in]); ConvNeXt's layer scale and a Fusion's
+# weights keep their names
 _CONV_NET_LEAF = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
-                  'mean': 'running_mean', 'var': 'running_var'}
+                  'mean': 'running_mean', 'var': 'running_var', 'gamma': 'gamma',
+                  'weights': 'weights'}
 
 _BN = '/BatchNorm_0'
 # JAX module path (below the trunk) → torchvision module name
@@ -294,6 +308,61 @@ _HEAD_RULES = [
     (r'(.+)/Norm_0' + _BN, r'\1.1'),
     ('classifier', 'classifier'),
 ]
+# EfficientNet, after its stage{s}_block{b} are renamed block{i}
+# (_restaged_efficientnet): efficientnet_pytorch's names
+_EFFICIENTNET_RULES = [
+    ('stem_conv', '_conv_stem'), ('stem_bn' + _BN, '_bn0'),
+    (r'block(\d+)/expand_conv', r'_blocks.\1._expand_conv'),
+    (r'block(\d+)/expand_bn' + _BN, r'_blocks.\1._bn0'),
+    (r'block(\d+)/dw_conv', r'_blocks.\1._depthwise_conv'),
+    (r'block(\d+)/dw_bn' + _BN, r'_blocks.\1._bn1'),
+    (r'block(\d+)/(se_reduce|se_expand)', r'_blocks.\1._\2'),
+    (r'block(\d+)/project_conv', r'_blocks.\1._project_conv'),
+    (r'block(\d+)/project_bn' + _BN, r'_blocks.\1._bn2'),
+]
+# DenseNet: torchvision's names
+_DENSENET_RULES = [
+    ('conv0', 'features.conv0'), ('norm0' + _BN, 'features.norm0'),
+    (r'denseblock(\d+)_layer(\d+)/(conv\d)', r'features.denseblock\1.denselayer\2.\3'),
+    (r'denseblock(\d+)_layer(\d+)/(norm\d)' + _BN, r'features.denseblock\1.denselayer\2.\3'),
+    (r'transition(\d+)_conv', r'features.transition\1.conv'),
+    (r'transition(\d+)_norm' + _BN, r'features.transition\1.norm'),
+]
+# ResNeSt: the resnest package's names (the deep stem as conv1.{0,1,3,4,6}
+# and bn1, the split attention as conv2, the shortcut as downsample.{1,2})
+_RESNEST_RULES = [
+    ('stem_conv1', 'conv1.0'), ('stem_bn1' + _BN, 'conv1.1'),
+    ('stem_conv2', 'conv1.3'), ('stem_bn2' + _BN, 'conv1.4'),
+    ('stem_conv3', 'conv1.6'), ('stem_bn3' + _BN, 'bn1'),
+    (r'layer(\d)_block(\d+)/(conv1|conv3)', r'layer\1.\2.\3'),
+    (r'layer(\d)_block(\d+)/(bn1|bn3)' + _BN, r'layer\1.\2.\3'),
+    (r'layer(\d)_block(\d+)/splat/(conv|fc1|fc2)', r'layer\1.\2.conv2.\3'),
+    (r'layer(\d)_block(\d+)/splat/(bn0|bn1)' + _BN, r'layer\1.\2.conv2.\3'),
+    (r'layer(\d)_block(\d+)/downsample_conv', r'layer\1.\2.downsample.1'),
+    (r'layer(\d)_block(\d+)/downsample_bn' + _BN, r'layer\1.\2.downsample.2'),
+]
+# ConvNeXt: DINOv3's vendored names (its LayerNorms' scale and bias, the
+# Dense pwconvs as Linears, the layer scale gamma/gamma as the block's gamma)
+_CONVNEXT_RULES = [
+    ('stem_conv', 'downsample_layers.0.0'), ('stem_norm', 'downsample_layers.0.1'),
+    (r'down(\d)_norm', r'downsample_layers.\1.0'), (r'down(\d)_conv', r'downsample_layers.\1.1'),
+    (r'stage(\d)_block(\d+)/(dwconv|norm|pwconv1|pwconv2)', r'stages.\1.\2.\3'),
+    (r'stage(\d)_block(\d+)/gamma', r'stages.\1.\2'),
+]
+# BiFPN below its root: the fusions' auto-named Fusion_0 and
+# SeparableConvBlock_0 as fusion and conv, the ConvBlocks' Conv_0 and Norm_0
+_BIFPN_RULES = [
+    (r'(up|down)(\d+)_adapter/Conv_0', r'\1\2_adapter.0'),
+    (r'(up|down)(\d+)_adapter/Norm_0' + _BN, r'\1\2_adapter.1'),
+    (r'down(\d+)/Conv_0', r'down\1.0'), (r'down(\d+)/Norm_0' + _BN, r'down\1.1'),
+    (r'down(\d+)_bn' + _BN, r'down\1_bn'),
+    (r'(bin|tri)_fusion(\d+)/Fusion_0', r'\1_fusion\2.fusion'),
+    (r'(bin|tri)_fusion(\d+)/SeparableConvBlock_0/SeparableConv2d_0/DepthwiseConv2d_0/Conv_0',
+     r'\1_fusion\2.conv.0.0'),
+    (r'(bin|tri)_fusion(\d+)/SeparableConvBlock_0/SeparableConv2d_0/Conv_0',
+     r'\1_fusion\2.conv.0.1'),
+    (r'(bin|tri)_fusion(\d+)/SeparableConvBlock_0/Norm_0' + _BN, r'\1_fusion\2.conv.1'),
+]
 # the port's module prefix → (JAX path prefix, rules below it)
 _RESNET_TREES = [('', '', _RESNET_RULES), ('resnet.', 'resnet/', _RESNET_RULES)]
 _HRNET_TREES = [('', '', _HRNET_RULES), ('hrnet.', 'hrnet/', _HRNET_RULES)]
@@ -339,7 +408,7 @@ def _convert_conv_net(flat: Dict[str, np.ndarray], trees, what: str
         if name is None or leaf not in _CONV_NET_LEAF:
             raise KeyError(f'unmapped {what} variable {key!r}')
         if leaf == 'kernel':
-            v = np.transpose(v, (3, 2, 0, 1))
+            v = v.T if v.ndim == 2 else np.transpose(v, (3, 2, 0, 1))
         sd[f'{name}.{_CONV_NET_LEAF[leaf]}'] = _tensor(v)
     return sd
 
@@ -410,14 +479,118 @@ def convert_flax_head(params: Any, batch_stats: Any = None) -> Dict[str, torch.T
 
 def convert_flax_encoder_head(params: Any, batch_stats: Any = None
                               ) -> Dict[str, torch.Tensor]:
-    """A JAX model that composes a ``ResNetEncoder`` or ``HRNetEncoder`` as
-    ``encoder`` with one of the four heads as ``head`` (``encoder/resnet/``,
-    ``encoder/hrnet/``, ``head/``) → the port's ``state_dict`` of the same
-    composition (``encoder.resnet.``, ``encoder.hrnet.``, ``head.``).  Any
-    variable left unmapped raises ``KeyError``."""
+    """A JAX model that composes a ``ResNetEncoder``, ``HRNetEncoder``,
+    ``EFNetEncoder``, ``DenseNetEncoder``, ``ResNeStEncoder`` or
+    ``ConvNeXtEncoder`` as ``encoder`` with one of the four heads as
+    ``head`` (``encoder/resnet/``, ``encoder/hrnet/``, ``encoder/net/``,
+    ``encoder/densenet/``, ``head/``) → the port's ``state_dict`` of the
+    same composition (``encoder.resnet.``, ``encoder.hrnet.``,
+    ``encoder.net.``, ``encoder.densenet.``, ``head.``).  Any variable left
+    unmapped raises ``KeyError``."""
+    flat = _variables(params, batch_stats)
     trees = [_ENCODER_TREE, ('encoder.hrnet.', 'encoder/hrnet/', _HRNET_RULES),
              ('head.', 'head/', _HEAD_RULES)]
-    return _convert_conv_net(_variables(params, batch_stats), trees, 'encoder-head model')
+    family = _trunk_family(flat)
+    if family is not None:
+        attr, rules = _TRUNK_FAMILIES[family]
+        if family == 'efficientnet':
+            flat = _restaged_efficientnet(flat, None)
+        trees.append((f'encoder.{attr}.', f'encoder/{attr}/', rules))
+    return _convert_conv_net(flat, trees, 'encoder-head model')
+
+
+def _trunk_trees(rules, attr: str):
+    """A trunk's rules bare, under its encoder's ``attr`` and under a
+    model's ``encoder``."""
+    return [('', '', rules), (f'{attr}.', f'{attr}/', rules),
+            (f'encoder.{attr}.', f'encoder/{attr}/', rules)]
+
+
+_EFFICIENTNET_BLOCK = re.compile(r'(^|/)stage(\d+)_block(\d+)/')
+
+
+def _restaged_efficientnet(flat: Dict[str, np.ndarray], model_name: Optional[str]
+                           ) -> Dict[str, np.ndarray]:
+    """EfficientNet's ``stage{s}_block{b}`` keys renamed ``block{i}``, i
+    the flat index over the stages' block counts of ``model_name`` (else
+    the variant whose block count the tree has)."""
+    from ever_tpu_torch.module.efficientnet import EFFICIENTNET_SPECS, stage_repeats
+
+    seen = {m.groups()[1:] for k in flat for m in [_EFFICIENTNET_BLOCK.search(k)] if m}
+    if model_name is None:
+        model_name = next((n for n in EFFICIENTNET_SPECS
+                           if sum(stage_repeats(n)) == len(seen)), None)
+        if model_name is None:
+            raise ValueError(f'no EfficientNet variant has {len(seen)} blocks')
+    starts = np.cumsum([0] + list(stage_repeats(model_name)))
+    return {_EFFICIENTNET_BLOCK.sub(
+        lambda m: f'{m.group(1)}block{starts[int(m.group(2))] + int(m.group(3))}/', k): v
+        for k, v in flat.items()}
+
+
+def convert_flax_efficientnet(params: Any, batch_stats: Any = None,
+                              model_name: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """JAX ``EfficientNet`` params and batch statistics → the port's
+    ``state_dict`` (efficientnet_pytorch's names, running buffers
+    included): a bare trunk, an ``EFNetEncoder`` (``net/``, giving
+    ``net.``) or a model's encoder (``encoder/net/``).  ``model_name`` is
+    inferred from the block count when omitted.  Any variable left
+    unmapped raises ``KeyError``."""
+    flat = _restaged_efficientnet(_variables(params, batch_stats), model_name)
+    return _convert_conv_net(flat, _trunk_trees(_EFFICIENTNET_RULES, 'net'), 'EfficientNet')
+
+
+def convert_flax_densenet(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """JAX ``DenseNet`` params and batch statistics → the port's
+    ``state_dict`` (torchvision's names, running buffers included): bare,
+    under ``densenet/`` or ``encoder/densenet/``.  Any variable left
+    unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats),
+                             _trunk_trees(_DENSENET_RULES, 'densenet'), 'DenseNet')
+
+
+def convert_flax_resnest(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """JAX ``ResNeSt`` params and batch statistics → the port's
+    ``state_dict`` (the resnest package's names, running buffers
+    included): bare, under ``net/`` or ``encoder/net/``.  Any variable
+    left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats),
+                             _trunk_trees(_RESNEST_RULES, 'net'), 'ResNeSt')
+
+
+def convert_flax_convnext(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX ``ConvNeXt`` params → the port's ``state_dict`` (DINOv3's
+    vendored names): bare, under ``net/`` or ``encoder/net/``.  Any
+    variable left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, None), _trunk_trees(_CONVNEXT_RULES, 'net'),
+                             'ConvNeXt')
+
+
+def convert_flax_bifpn(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """A JAX ``BiFPN`` layer's params and batch statistics → the port's
+    ``BiFPN`` ``state_dict``, running buffers included.  Any variable left
+    unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, batch_stats), [('', '', _BIFPN_RULES)], 'BiFPN')
+
+
+# family → (its encoder's attribute, its rules)
+_TRUNK_FAMILIES = {'efficientnet': ('net', _EFFICIENTNET_RULES),
+                   'densenet': ('densenet', _DENSENET_RULES),
+                   'resnest': ('net', _RESNEST_RULES), 'convnext': ('net', _CONVNEXT_RULES)}
+
+
+def _trunk_family(keys) -> Optional[str]:
+    """The new trunks' family of a flat JAX tree, told apart by their
+    module names."""
+    if any(re.search(r'(^|/)stage\d+_block\d+/dw_conv/', k) for k in keys):
+        return 'efficientnet'
+    if any(re.search(r'(^|/)denseblock\d+_layer\d+/', k) for k in keys):
+        return 'densenet'
+    if any('/splat/' in k for k in keys):
+        return 'resnest'
+    if any(re.search(r'(^|/)stage\d_block\d+/dwconv/', k) for k in keys):
+        return 'convnext'
+    return None
 
 
 def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -425,10 +598,18 @@ def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     ``batch_stats/...`` keys, as its ``.npz`` files hold them) → port names:
     a DinoSeg or a bare DINOv3 trunk, a FactSeg, a ChangeStar, ChangeMask
     or ChangeOS, a FarSeg, another encoder-head model, a bare FarSeg head,
-    an HRNet (bare or under ``hrnet/``) or a ResNet (bare or under
-    ``resnet/``), told apart by their keys."""
+    an EfficientNet, DenseNet, ResNeSt or ConvNeXt trunk (bare, under its
+    encoder's attribute, or as a model's encoder under a head), an HRNet
+    (bare or under ``hrnet/``) or a ResNet (bare or under ``resnet/``),
+    told apart by their keys."""
     flat = _variables(flat, None)
     keys = list(flat)
+    family = _trunk_family(keys)
+    if family is not None:
+        if any(k.startswith('head/') for k in keys):
+            return convert_flax_encoder_head(flat)
+        return {'efficientnet': convert_flax_efficientnet, 'densenet': convert_flax_densenet,
+                'resnest': convert_flax_resnest, 'convnext': convert_flax_convnext}[family](flat)
     if any(k.endswith('cls_token') for k in keys):
         if any(k.startswith('vit/') for k in keys):
             return convert_flax_dinoseg(flat)
@@ -512,22 +693,61 @@ def convert_torch_hrnet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
                 ('incre_modules', 'downsamp_modules', 'final_layer', 'classifier')))}
 
 
-# reference families whose models are not ported: a key that tells each apart
-_NOT_PORTED = (('denseblock', 'DenseNet'), ('downsample_layers.', 'ConvNeXt'),
-               ('_conv_stem.', 'EfficientNet'), ('.conv2.fc1.', 'ResNeSt'))
+def convert_torch_efficientnet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An ``efficientnet_pytorch`` ``state_dict`` → the port's
+    ``EfficientNet`` (the same names): the classification head
+    (``_conv_head``, the top-level ``_bn1``, ``_fc``) and
+    ``num_batches_tracked`` dropped."""
+    return {k: v for k, v in sd.items() if not (
+        k.endswith('num_batches_tracked') or k.startswith(('_conv_head.', '_bn1.', '_fc.')))}
 
 
-def _convert_torch(sd: Dict[str, torch.Tensor], path: str) -> Dict[str, torch.Tensor]:
-    for marker, family in _NOT_PORTED:
-        if any(marker in k for k in sd):
-            raise NotImplementedError(f'{path}: a {family} checkpoint; the port has no '
-                                      f'{family} yet (ROADMAP.md A.7)')
+def convert_torch_densenet(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A torchvision DenseNet ``state_dict`` (or one without the
+    ``features.`` level) → the port's ``DenseNet``: ``classifier``, the
+    final ``norm5`` (after the last block, outside the trunk's features)
+    and ``num_batches_tracked`` dropped."""
+    out = {}
+    for k, v in sd.items():
+        if re.match(r'(conv0|norm0|norm5|denseblock\d|transition\d)', k):
+            k = 'features.' + k
+        if not (k.endswith('num_batches_tracked')
+                or k.startswith(('classifier', 'features.norm5.'))):
+            out[k] = v
+    return out
+
+
+def convert_torch_resnest(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ``resnest`` package ``state_dict`` → the port's ``ResNeSt`` (the
+    same names): the classifier ``fc`` and ``num_batches_tracked``
+    dropped."""
+    return convert_torch_resnet(sd)
+
+
+def convert_torch_convnext(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A DINOv3 vendored ConvNeXt ``state_dict`` → the port's
+    ``ConvNeXt`` (the same names): the final token ``norm`` and the
+    ``head`` dropped."""
+    return {k: v for k, v in sd.items() if not k.startswith(('norm.', 'head.'))}
+
+
+def _convert_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The reference file's family, told apart in the JAX package's
+    order, and its conversion."""
+    if any('denseblock' in k for k in sd):
+        return convert_torch_densenet(sd)
     if any(k.startswith('fs_relation.') for k in sd):
         return convert_torch_farseg_head(sd)
-    if any('fuse_layers' in k for k in sd):
-        return convert_torch_hrnet(sd)
     if 'cls_token' in sd and any(k.startswith('blocks.') for k in sd):
         return convert_torch_dinov3_vit(sd)
+    if any('fuse_layers' in k for k in sd):
+        return convert_torch_hrnet(sd)
+    if any(k.startswith('downsample_layers.') for k in sd):
+        return convert_torch_convnext(sd)
+    if any(k.startswith('_conv_stem.') for k in sd):
+        return convert_torch_efficientnet(sd)
+    if any('.conv2.fc1.' in k for k in sd):
+        return convert_torch_resnest(sd)
     return convert_torch_resnet(sd)
 
 
@@ -550,7 +770,7 @@ def read_weights(path: str) -> Dict[str, torch.Tensor]:
     if not isinstance(obj, dict):
         raise ValueError(f'{path}: holds a {type(obj).__name__}, not a state_dict')
     return _convert_torch(_strip_prefixes(
-        {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}), path)
+        {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}))
 
 
 def patch_first_conv(weight: torch.Tensor, new_in_channels: int,

@@ -63,7 +63,10 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.module.heads, ever_tpu_torch.module.hrnet,'
             ' ever_tpu_torch.module.aspp, ever_tpu_torch.module.ppm,'
             ' ever_tpu_torch.module.deeplabv3p_head, ever_tpu_torch.module.hrnet_head,'
-            ' ever_tpu_torch.module._hrnet, ever_tpu_torch.module._resnets;'
+            ' ever_tpu_torch.module._hrnet, ever_tpu_torch.module._resnets,'
+            ' ever_tpu_torch.module.efficientnet, ever_tpu_torch.module.densenet,'
+            ' ever_tpu_torch.module._densenet, ever_tpu_torch.module.resnest,'
+            ' ever_tpu_torch.module.convnext;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -116,7 +119,9 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/ops/ptq.py', 'ever_tpu_torch/module/misc.py',
             'ever_tpu_torch/magic/bigimage/__init__.py',
             'ever_tpu_torch/magic/bigimage/sliding_window.py',
-            'ever_tpu_torch/util/lr_search.py'} <= scanned
+            'ever_tpu_torch/util/lr_search.py', 'ever_tpu_torch/module/efficientnet.py',
+            'ever_tpu_torch/module/densenet.py', 'ever_tpu_torch/module/_densenet.py',
+            'ever_tpu_torch/module/resnest.py', 'ever_tpu_torch/module/convnext.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -267,10 +272,7 @@ def test_every_tpu_kernel_has_one_chip_smoke_record_and_no_record_names_another(
 
 # the public names of the JAX subpackages' __init__s that the port does not
 # have yet, each with its ROADMAP.md A item
-_A_7_4 = ('dinov3', 'DenseNet', 'DenseNetEncoder', 'ConvNeXt', 'ConvNeXtEncoder',
-          'EfficientNet', 'EFNetEncoder', 'ResNeSt', 'ResNeStEncoder', 'SplAtConv2d',
-          'ViTEncoder', 'FreeNet', 'SpectralAttention', 'BiFPN', 'FastNormalizedFusionConv3x3',
-          'Fusion', 'NormalizedFusionConv3x3', 'conv_with_kaiming_uniform')
+_A_7_4 = ('dinov3', 'ViTEncoder', 'FreeNet', 'SpectralAttention')
 NOT_PORTED = {
     'core': {}, 'interface': {}, 'opt': {}, 'preprocess': {},
     'magic': {},
@@ -284,6 +286,42 @@ NOT_PORTED = {
         'spatial_partition_apply', 'apply_tp', 'vit_tp_shardings', 'zero_init',
         'zero_shardings')},
 }
+
+
+# the registry names the port does not have yet, each with its ROADMAP.md A item
+REGISTRY_NOT_PORTED = {'ViTEncoder': 'A.7.4', 'FreeNet': 'A.7.4', 'SpectralAttention': 'A.7.4',
+                       'DCGAN': 'A.7.5'}
+
+
+def test_registries_match_jax_or_name_their_roadmap_item():
+    """The names in the port's ``registry.OP`` and ``registry.MODEL`` after
+    importing ``ever_tpu_torch.module`` are the JAX package's after
+    importing ``ever_tpu.module``, but those listed with their
+    ``ROADMAP.md`` A item; the port has no name of its own.  In a fresh
+    interpreter, so that no other test's registrations count."""
+    import json
+    code = ('import json, ever_tpu.module, ever_tpu_torch.module\n'
+            'from ever_tpu.core import registry as j\n'
+            'from ever_tpu_torch.core import registry as t\n'
+            'print(json.dumps({r: [sorted(getattr(j, r)), sorted(getattr(t, r))]'
+            ' for r in ("OP", "MODEL")}))\n')
+    env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS='cpu')
+    r = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    names = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(os.path.join(REPO, 'ROADMAP.md')) as f:
+        roadmap = f.read()
+    for reg, (jax_names, port_names) in names.items():
+        assert set(port_names) - set(jax_names) == set(), reg
+        missing = set(jax_names) - set(port_names)
+        assert missing <= set(REGISTRY_NOT_PORTED), (reg, missing - set(REGISTRY_NOT_PORTED))
+        for name in missing:
+            assert f'**{REGISTRY_NOT_PORTED[name]}' in roadmap, name
+    assert {'FPN', 'AssymetricDecoder', 'SEBlock', 'SCSEModule', 'ContextBlock2d',
+            'FSRelation', 'FSRelationV2', 'Fusion', 'BiFPN'} <= set(names['OP'][1])
+    assert 'resnet_frozen_prefixes' not in names['MODEL'][1]
+    assert set(REGISTRY_NOT_PORTED) <= set(names['OP'][0]) | set(names['MODEL'][0])
 
 
 def _init_names(package: str):

@@ -2,8 +2,12 @@
 disk: seeded state_dicts in the reference's torch layouts (a depth-2 DINOv3
 with ``qkv.bias_mask``, ``mask_token``, ``rope_embed.periods`` and
 ``local_cls_norm``; torchvision ResNet-18 and ResNet-50, with a 4-channel
-stem; a FarSeg head whose content and re-encoder convs have biases), the
-JAX package's ``.npz`` archives and the two packages' own checkpoints.  For
+stem; a FarSeg head whose content and re-encoder convs have biases; the
+reference HRNetV2; ``efficientnet_pytorch`` B0, torchvision DenseNet, the
+``resnest`` package's ResNeSt and DINOv3's ConvNeXt with their
+classification heads), the
+JAX package's ``.npz`` archives (those four trunks bare and under an
+``ASPPHead`` too) and the two packages' own checkpoints.  For
 each, the port's model after ``load_weights`` equals
 ``convert_flax_*(jax load_weights(...))`` exactly, both models starting from
 the same weights.  Then ``GLOBAL.weight.path`` through both packages'
@@ -23,7 +27,11 @@ import ever_tpu.module  # noqa: F401  (registers the JAX models)
 from ever_tpu.core import builder as jbuilder
 from ever_tpu.core import registry as jregistry
 from ever_tpu.interface import ERDataset as JERDataset
+from ever_tpu.module import convnext as jcnx
+from ever_tpu.module import densenet as jdense
+from ever_tpu.module import efficientnet as jeff
 from ever_tpu.module import hrnet as jhrnet
+from ever_tpu.module import resnest as jrest
 from ever_tpu.module import resnet as jres
 from ever_tpu.module import vit as jvit
 from ever_tpu.trainer import get_trainer as jget_trainer
@@ -32,15 +40,20 @@ from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.core import registry as tregistry
 from ever_tpu_torch.core.logger import TrainLogHook
 from ever_tpu_torch.interface import ERDataset as TERDataset
+from ever_tpu_torch.module import convnext as tcnx
+from ever_tpu_torch.module import densenet as tdense
+from ever_tpu_torch.module import efficientnet as teff
 from ever_tpu_torch.module import hrnet as thrnet
+from ever_tpu_torch.module import resnest as trest
 from ever_tpu_torch.module import resnet as tres
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.trainer import get_trainer as tget_trainer
 from ever_tpu_torch.util import weight_io as twio
-from ever_tpu_torch.util.weight_io import (convert_flax_dinoseg, convert_flax_farseg,
-                                           convert_flax_hrnet, convert_flax_resnet,
-                                           load_weights, patch_first_conv)
+from ever_tpu_torch.util.weight_io import (convert_flax_dinoseg, convert_flax_encoder_head,
+                                           convert_flax_farseg, convert_flax_hrnet,
+                                           convert_flax_resnet, load_weights, patch_first_conv)
 from test_torch_resnet import one_torch_thread  # noqa: F401
+from test_torch_zoo_train import JaxEncoderHead, TorchEncoderHead
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -304,15 +317,163 @@ def test_npz_and_both_checkpoints_load_as_jax_loads_them(tmp_path):
     assert not report.missing and not report.unexpected
 
 
-@pytest.mark.parametrize('family,key', [('DenseNet', 'features.denseblock1.denselayer1.conv1.weight'),
-                                        ('ConvNeXt', 'downsample_layers.0.0.weight'),
-                                        ('EfficientNet', '_conv_stem.weight'),
-                                        ('ResNeSt', 'layer1.0.conv2.fc1.weight')])
-def test_unported_families_raise_naming_the_roadmap(tmp_path, family, key):
-    torch.save({key: torch.zeros(2)}, tmp_path / 'w.pth')
-    model = torch.nn.Linear(2, 2)
-    with pytest.raises(NotImplementedError, match=f'{family}.*A.7'):
-        load_weights(str(tmp_path / 'w.pth'), model, device='cpu')
+# family → (the JAX encoder, the port's, its config at cut depth (B0 for
+# EfficientNet), the converter of the JAX tree, the trunk's attribute, the
+# classification head and counters a reference file adds, the published
+# config)
+FAMILIES = {
+    'EfficientNet': (jeff.EFNetEncoder, teff.EFNetEncoder, {}, twio.convert_flax_efficientnet,
+                     'net', {'_conv_head.weight': (1280, 320, 1, 1), '_bn1.weight': (1280,),
+                             '_bn1.running_var': (1280,), '_fc.weight': (1000, 1280),
+                             '_fc.bias': (1000,)}, dict(efficientnet_type='efficientnet-b0')),
+    'DenseNet': (jdense.DenseNetEncoder, tdense.DenseNetEncoder,
+                 dict(densenet_type='densenet_tiny'), twio.convert_flax_densenet, 'densenet',
+                 {'features.norm5.weight': (32,), 'features.norm5.running_mean': (32,),
+                  'classifier.weight': (1000, 32), 'classifier.bias': (1000,)},
+                 dict(densenet_type='densenet121')),
+    'ResNeSt': (jrest.ResNeStEncoder, trest.ResNeStEncoder, dict(resnest_type='resnest_tiny'),
+                twio.convert_flax_resnest, 'net',
+                {'fc.weight': (1000, 2048), 'fc.bias': (1000,)}, dict(resnest_type='resnest50')),
+    'ConvNeXt': (jcnx.ConvNeXtEncoder, tcnx.ConvNeXtEncoder, dict(convnext_type='convnext_test'),
+                 lambda p, bs=None: twio.convert_flax_convnext(p), 'net',
+                 {'norm.weight': (64,), 'norm.bias': (64,), 'head.weight': (1000, 64),
+                  'head.bias': (1000,)}, dict(convnext_type='convnext_tiny')),
+}
+
+
+@pytest.fixture
+def cut_specs(monkeypatch):
+    for mod in (jdense, tdense):
+        monkeypatch.setitem(mod.DENSENET_SPECS, 'densenet_tiny', (8, (2, 2, 2, 2), 16))
+    for mod in (jrest, trest):
+        monkeypatch.setitem(mod.RESNEST_SPECS, 'resnest_tiny', (1, 1, 1, 1))
+    for mod in (jcnx, tcnx):
+        monkeypatch.setitem(mod.CONVNEXT_SPECS, 'convnext_test', ((1, 1, 2, 1), (16, 32, 48, 64)))
+
+
+@pytest.mark.usefixtures('cut_specs')
+@pytest.mark.parametrize('family,prefix', [('DenseNet', ''), ('ConvNeXt', ''),
+                                           ('EfficientNet', ''), ('ResNeSt', 'module.')])
+def test_reference_families_load_as_jax_loads_them(tmp_path, family, prefix):
+    """A seeded file in each reference family's layout (the trunk's keys,
+    with ``num_batches_tracked`` and the classification head; the ResNeSt
+    one saved from DDP with ``module.``) through ``load_weights``: every
+    trunk tensor lands under the encoder's attribute, equal to the file's
+    and to the JAX package's ``convert_torch_*`` + ``load_weights`` of the
+    same file carried across, with no missing, unexpected or mismatched
+    key: the head and the counters are dropped."""
+    jcls, tcls, cfg, convert, attr, head, _ = FAMILIES[family]
+    jm, tm = jcls(dict(cfg)), tcls(dict(cfg))
+    v = _jax_variables(jm, (1, 64, 64, 3), seed=9)
+    tm.load_state_dict(convert(v['params'], v.get('batch_stats')), strict=True)
+    sd = _randomized({k[len(attr) + 1:]: t for k, t in tm.state_dict().items()}, seed=10)
+    for k in [k for k in sd if k.endswith('running_var')]:
+        sd[k] = sd[k].abs() + 0.5
+        sd[k[:-len('running_var')] + 'num_batches_tracked'] = torch.tensor(4)
+    sd.update({k: torch.randn(shape) for k, shape in head.items()})
+    path = str(tmp_path / f'{family}.pth')
+    torch.save({prefix + k: t for k, t in sd.items()}, path)
+    params, bs = jwio.load_weights(path, v['params'], v.get('batch_stats'))
+    report = load_weights(path, tm, device='cpu')
+    got = {k: t.detach().clone() for k, t in tm.state_dict().items()}
+    _assert_state_equal(got, convert(params, bs))
+    for k, t in got.items():
+        np.testing.assert_array_equal(t.numpy(), sd[k[len(attr) + 1:]].numpy(), err_msg=k)
+    assert not report.missing and not report.unexpected and not report.mismatched
+    assert report.loaded == len(got)
+
+
+@pytest.mark.usefixtures('cut_specs')
+@pytest.mark.parametrize('family', sorted(FAMILIES))
+def test_family_npz_loads_as_jax_loads_it(tmp_path, family):
+    """The JAX package's flat ``.npz`` of each family's encoder
+    (``params/net/...``, ``params/densenet/...``, the batch statistics):
+    the port tells the family apart by its keys and loads every variable,
+    equal to the JAX package's load and to ``convert_flax_*``."""
+    jcls, tcls, cfg, convert, _, _, _ = FAMILIES[family]
+    jm, tm = jcls(dict(cfg)), tcls(dict(cfg))
+    v = _jax_variables(jm, (1, 64, 64, 3), seed=12)
+    start = _jax_variables(jm, (1, 64, 64, 3), seed=13)
+    tm.load_state_dict(convert(start['params'], start.get('batch_stats')), strict=True)
+    flat = {f'{c}/{k}': a for c in v for k, a in jwio.flatten_tree(v[c]).items()}
+    np.savez(tmp_path / 'w.npz', **flat)
+    params, bs = jwio.load_weights(str(tmp_path / 'w.npz'), start['params'],
+                                   start.get('batch_stats'))
+    report = load_weights(str(tmp_path / 'w.npz'), tm, device='cpu')
+    got = {k: t.detach().clone() for k, t in tm.state_dict().items()}
+    _assert_state_equal(got, convert(params, bs))
+    _assert_state_equal(got, convert(v['params'], v.get('batch_stats')))
+    assert not report.missing and not report.unexpected and report.loaded == len(got)
+
+
+# each cut trunk's last feature width, ASPP's input
+LAST_WIDTH = {'EfficientNet': 320, 'DenseNet': 32, 'ResNeSt': 2048, 'ConvNeXt': 64}
+
+
+@pytest.mark.usefixtures('cut_specs')
+@pytest.mark.parametrize('family', sorted(FAMILIES))
+def test_family_encoder_head_npz_loads_as_jax_loads_it(tmp_path, family):
+    """The JAX package's flat ``.npz`` of a model that puts each family's
+    encoder under an ``ASPPHead`` (``params/encoder/net/...`` or
+    ``params/encoder/densenet/...`` beside ``params/head/aspp/...``, the
+    batch statistics): the port routes it to ``convert_flax_encoder_head``
+    and loads every variable, equal to the JAX package's load and to the
+    archive's own variables carried across."""
+    jcls = FAMILIES[family][0]
+    cfg = dict(encoder=dict(type=jcls.__name__, params=FAMILIES[family][2]), index=(-1,),
+               head=dict(type='ASPPHead', params=dict(aspp=dict(
+                   in_channels=LAST_WIDTH[family], out_channels=16, atrous_rates=[2, 3, 4]))))
+    jm, tm = JaxEncoderHead(cfg), TorchEncoderHead(cfg)
+    v = _jax_variables(jm, (1, 64, 64, 3), seed=14)
+    start = _jax_variables(jm, (1, 64, 64, 3), seed=15)
+    tm.load_state_dict(convert_flax_encoder_head(start['params'], start['batch_stats']),
+                       strict=True)
+    flat = {f'{c}/{k}': a for c in v for k, a in jwio.flatten_tree(v[c]).items()}
+    assert any('/splat/' in k for k in flat) == (family == 'ResNeSt')
+    np.savez(tmp_path / 'w.npz', **flat)
+    params, bs = jwio.load_weights(str(tmp_path / 'w.npz'), start['params'],
+                                   start['batch_stats'])
+    report = load_weights(str(tmp_path / 'w.npz'), tm, device='cpu')
+    got = {k: t.detach().clone() for k, t in tm.state_dict().items()}
+    _assert_state_equal(got, convert_flax_encoder_head(params, bs))
+    _assert_state_equal(got, convert_flax_encoder_head(v['params'], v['batch_stats']))
+    assert not report.missing and not report.unexpected and report.loaded == len(got)
+
+
+@pytest.mark.parametrize('family', sorted(FAMILIES))
+def test_published_widths_keys_and_shapes(family):
+    """At the published widths (efficientnet-b0, densenet121, resnest50,
+    convnext_tiny) the port's trunk has exactly the tensors, with the same
+    shapes, that ``convert_flax_*`` makes of the JAX package's variables
+    (``jax.eval_shape``: nothing is computed), and a few of the reference
+    layout's keys with their shapes."""
+    jcls, tcls, _, convert, attr, _, cfg = FAMILIES[family]
+    shapes = jax.eval_shape(lambda: jcls(dict(cfg)).init(
+        jax.random.key(0), jnp.zeros((1, 64, 64, 3))))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), dict(shapes))
+    want = convert(zeros['params'], zeros.get('batch_stats'))
+    got = tcls(dict(cfg)).state_dict()
+    assert {k: tuple(t.shape) for k, t in got.items()} == {
+        k: tuple(t.shape) for k, t in want.items()}
+    reference = {
+        'EfficientNet': {'_conv_stem.weight': (32, 3, 3, 3),
+                         '_blocks.15._project_conv.weight': (320, 1152, 1, 1),
+                         '_blocks.1._se_reduce.weight': (4, 96, 1, 1), '_bn0.running_var': (32,)},
+        'DenseNet': {'features.conv0.weight': (64, 3, 7, 7),
+                     'features.denseblock4.denselayer16.conv2.weight': (32, 128, 3, 3),
+                     'features.transition3.conv.weight': (512, 1024, 1, 1)},
+        'ResNeSt': {'conv1.0.weight': (32, 3, 3, 3), 'conv1.6.weight': (64, 32, 3, 3),
+                    'layer1.0.conv2.fc1.weight': (32, 64, 1, 1),
+                    'layer4.0.conv2.conv.weight': (1024, 256, 3, 3),
+                    'layer4.0.downsample.1.weight': (2048, 1024, 1, 1)},
+        'ConvNeXt': {'downsample_layers.0.0.weight': (96, 3, 4, 4),
+                     'downsample_layers.3.1.weight': (768, 384, 2, 2),
+                     'stages.2.8.pwconv1.weight': (1536, 384), 'stages.3.2.gamma': (768,)},
+    }[family]
+    for k, shape in reference.items():
+        assert tuple(got[f'{attr}.{k}'].shape) == shape, k
+    assert len(got) == {'EfficientNet': 304, 'DenseNet': 600, 'ResNeSt': 403,
+                        'ConvNeXt': 178}[family]
 
 
 @pytest.mark.parametrize('new_in', [1, 4, 5, 7])
