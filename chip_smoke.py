@@ -64,6 +64,10 @@ Phases (any failure exits non-zero before the last line is printed):
              16-byte vector: the element-by-element path), at [517, 768]
              (partial last CTAs) and at [300, 4096] (K5's two-sweep path),
              each on the K5 path the wrapper predicts and the kernel takes;
+             K4's y against a float64 LayerNorm within half an ulp plus
+             the float32 statistics' error, element by element, at every
+             case on these inputs and on those of ``LN_SEEDS`` more
+             generator states (``ln_float64_excess``);
              two K5 calls on the same inputs must give the same bits; then
              each timed beside its bound, its plain version and the
              library's LayerNorm forward and backward, K5 split by kernel
@@ -399,7 +403,53 @@ Phases (any failure exits non-zero before the last line is printed):
              card's busy share: the kernels' sum over the median step
              timed without the profiler, which stretches the step it
              traces.
-18. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+18. vitencoder — ``ViTEncoder`` (``vit_large``, patch 16, 4 storage
+             tokens; the taps of blocks 5, 11, 17 and 23 resized to output
+             strides 4-32 by matrix products) under ``FPN`` (256) and
+             ``AssymetricDecoder`` (``FPN_DECODER``), a user's ``ZooSeg``
+             from the registries, 7 classes, seeded weights, bf16 compute,
+             float32 parameters, AdamW + cosine (``phase_vitencoder``):
+             (a) 2 warm-up and 10 timed steps at 512², B=8: 24 K1 and 24
+             K2 launches a step and no other kernel, finite losses,
+             median ms/step, tiles/s, MFU by 3 × the forward's
+             ``FlopCounterMode`` count (with plain attention, which it can
+             count), peak memory; (b) 2 tiles' gradients through the
+             kernels against plain attention: with the decoder's
+             BatchNorms training (printed, beside plain attention in bf16
+             against float32: those BatchNorms amplify any bf16 rounding
+             alike), and gated with them frozen, at phase 4's limits; (c)
+             2 steps twice from one state, bit-equal with cuDNN as it is;
+             (d) one 4096² scene through ``tiled_inference`` (512² tiles,
+             ``tile_batch=8``): 192 K1 launches and no other, finite
+             probabilities summing to 1; (e) ``Fp8Linear`` at ViT-L's
+             fc1 ([8232, 1024] → 4096) and fc2 ([8232, 4096] → 1024) and
+             ``Fp8LinearKMaskedBias`` at its qkv (→ 3072): one K7 launch a
+             call, equal to the bit to the plain version (``scale`` and
+             ``int8_matmul_reference``, plus the bias), timed against the
+             bf16 ``nn.Linear``; (f) their straight-through backward:
+             finite gradients; (g) ``LinearW24`` at the same widths: the
+             two largest |w| of every four kept, equal to the masked dense
+             product, timed.  The phase's K1, K2 and K7 launches of (a),
+             (d) and (e) join the kernels line.
+19. freenet — ``FreeNet`` at its default widths ((96, 128, 192, 256),
+             float32, TF32 off, batch 1 whole scene) on two scene
+             geometries of the FreeNet/FPGA paper's benchmarks (Zheng et
+             al., IEEE TGRS 2020): Indian Pines (145×145, 200 bands, 16
+             classes) and Pavia University (610×340, 103 bands, 9
+             classes), seeded scenes with about 5 % of the pixels labelled
+             and the rest 255 (``phase_freenet``): 2 warm-up and 10 timed
+             SGD steps (momentum 0.9, poly): finite losses, every
+             parameter moved, median ms/step, scenes/s, MFU against the
+             float32 peak (3 × the forward's ``FlopCounterMode`` count);
+             2 steps twice from one state, bit-equal with cuDNN as it is
+             or, where those differ (printed), under deterministic cuDNN;
+             the whole-scene forward timed, probabilities summing to 1; no
+             kernel of the port launched.  Then a seeded archive in the
+             JAX package's ``.npz`` layout through ``load_weights``
+             (``convert_flax_freenet``) on the card and on the CPU: every
+             tensor the archive's, float32 probabilities within
+             ``FREENET_WEIGHT_TOL``.
+20. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -517,16 +567,26 @@ LN_CASES = ((LN_ROWS, EMBED, torch.bfloat16, 'one_pass'),
             (LN_ROWS, EMBED, torch.float32, 'one_pass'),
             (37, 203, torch.bfloat16, 'elementwise'), (517, 768, torch.bfloat16, 'one_pass'),
             (300, 4096, torch.bfloat16, 'two_sweep'))
-# K4/K5 vs their plain versions on the same inputs (K5 given K4's mean and
-# rstd).  y and dx: the same float32 arithmetic with the row sums in another
-# order, rounded once to the output type, so at most a bf16 ulp of the
-# largest value apart (2^-8 relative); a wrong row statistic or a misplaced
-# vector moves them by O(1).  mean and rstd: float32 row sums in another
-# order, 1e-5 relative.  dγ and dβ: float32 sums over all rows, per CTA and
-# then across CTAs, against torch's reduction: ||d|| / ||ref|| <= 1e-5; the
-# partial sums of one lost CTA (8 to 32 of 8232 rows) move them by 3e-2 to
-# 6e-2.
-LN_TOL, LN_STAT_TOL, LN_DW_TOL = 2.0 ** -8, 1e-5, 1e-5
+# K4's y against a float64 LayerNorm of the same inputs, element by element:
+# the output is a float32 value rounded once to its type, so it may stand
+# half an ulp of that type from the float32 value, which itself stands off
+# the float64 one by what the float32 statistics carry (the kernel's own
+# mean and rstd against float64's, times |x - mean| and |γ|) and by four
+# float32 roundings of the affine map.  An element past that bound is a K4
+# fault.  The plain version is held to the same bound and printed beside.
+# A bound on max |y - plain| of 2^-8 · max|y|, the gate before, sits below
+# one bf16 ulp in the upper half of a binade, where two versions rounding
+# float32 values a hair apart land one ulp apart.  Checked on the phase's
+# inputs and on inputs from LN_SEEDS more generator states.
+# K5 against its plain version on the same inputs (given K4's mean and
+# rstd): dx the same float32 arithmetic with the row sums in another order,
+# rounded once to the output type, so at most a bf16 ulp of the largest
+# value apart (2^-8 relative); a wrong row statistic or a misplaced vector
+# moves it by O(1).  mean and rstd: float32 row sums in another order, 1e-5
+# relative.  dγ and dβ: float32 sums over all rows, per CTA and then across
+# CTAs, against torch's reduction: ||d|| / ||ref|| <= 1e-5; the partial sums
+# of one lost CTA (8 to 32 of 8232 rows) move them by 3e-2 to 6e-2.
+LN_DX_TOL, LN_STAT_TOL, LN_DW_TOL, LN_SEEDS = 2.0 ** -8, 1e-5, 1e-5, 3
 # DinoSeg with EVER_FUSED_LN=1 against the default LayerNorm, same weights:
 # the fused norm takes its statistics in one pass (E[x²] - mu²) and applies
 # float32 γ and β, the default two-pass statistics with γ and β rounded to
@@ -1045,22 +1105,29 @@ def compare_grads(got, want):
     return float(num / den), min(cos), cos
 
 
+def adamw_step(model):
+    """AdamW (weight decay 0.05) with the cosine schedule (base_lr 1e-4, 1000
+    iterations) through ``parallel.spmd``, as the JAX package's ``vit512``
+    bench section trains: (state, step)."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    schedule = make_learningrate({'type': 'cosine', 'params': dict(base_lr=1e-4,
+                                                                   max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
+    tx = factory.build(schedule)
+    return create_train_state(model, tx), build_train_step(model, tx, schedule)
+
+
 def phase_train(gen, profile: bool):
     """The train path, then the gradient, remat and flash-route checks;
     returns the K1 and K2 launches of the timed steps and their median
     ms/step."""
-    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
     from ever_tpu_torch.module.vit import SelfAttention
     from ever_tpu_torch.ops import attention as A
-    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
     model = build_dinoseg(gen)
-    schedule = make_learningrate({'type': 'cosine', 'params': dict(
-        base_lr=1e-4, max_iters=1000)})
-    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
-    tx = factory.build(schedule)
-    state = create_train_state(model, tx)
-    step = build_train_step(model, tx, schedule)
+    state, step = adamw_step(model)
     x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
     y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen,
                       device='cuda')
@@ -1481,11 +1548,40 @@ def kernel_ln_bwd_path(x, dy, w) -> str:
                           partial.data_ptr(), N._KERNEL_DTYPES[x.dtype], x.shape[1])]
 
 
-def check_layernorm(gen):
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ulp of ``dtype`` at |v| (float64; the normal range)."""
+    tiny = torch.finfo(dtype).tiny
+    return torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(tiny))))
+
+
+def ln_float64_excess(y, x, w, b, mean, rstd) -> tuple:
+    """A LayerNorm output ``y`` (and the float32 ``mean``, ``rstd`` it was
+    made with) against the float64 LayerNorm of the same inputs: (the
+    largest |y - y64| in ulps of y's type at max|y64|, the largest
+    |y - y64| over its bound).  The bound of each element: half an ulp at max(|y|,
+    |y64|), plus the statistics' error |γ|·(|x - μ64|·|rstd - rstd64| +
+    |mean - μ64|·rstd64), plus 4 float32 roundings of |x - μ64|·rstd64·|γ|
+    + |β|."""
+    x64, w64, b64 = x.double(), w.double(), b.double()
+    mu64 = x64.mean(-1, keepdim=True)
+    rstd64 = torch.rsqrt(((x64 - mu64) ** 2).mean(-1, keepdim=True) + LN_EPS)
+    y64 = (x64 - mu64) * rstd64 * w64 + b64
+    err = (y.double() - y64).abs()
+    stat = w64.abs() * ((x64 - mu64).abs() * (rstd.double()[:, None] - rstd64).abs()
+                        + (mean.double()[:, None] - mu64).abs() * rstd64)
+    arith = 4 * 2.0 ** -24 * ((x64 - mu64).abs() * rstd64 * w64.abs() + b64.abs())
+    bound = 0.5 * ulp(torch.maximum(y.double().abs(), y64.abs()), y.dtype) + stat + arith
+    return float(err.max() / ulp(y64.abs().max(), y.dtype)), float((err / bound).max())
+
+
+def check_layernorm(gen, seed: int):
     """K4 and K5 against their plain versions at every case (K5 given K4's
     mean and rstd, on the path the case wants, which the wrapper must
     predict and the kernel take), and K5 twice on the same inputs (the same
-    bits); the largest error of each, on its output's scale."""
+    bits); K4's y and the plain version's against float64 within their
+    rounding, at every case on these inputs and on those of ``LN_SEEDS``
+    more generator states (seeded ``seed + 1`` ...); the largest error of
+    each kernel against its plain version."""
     from ever_tpu_torch.ops import norm as N
 
     fwd_errs, bwd_errs = [], []
@@ -1504,34 +1600,55 @@ def check_layernorm(gen):
         err_stat = max((mean - rmean).abs().max().item() / rmean.abs().max().item(),
                        (rstd - rrstd).abs().max().item() / rrstd.abs().max().item())
         err_dw, err_db = rel_norm(dw, rdw), rel_norm(db, rdb)
+        ulps, excess = ln_float64_excess(y, x, w, b, mean, rstd)
+        rulps, rexcess = ln_float64_excess(ry, x, w, b, rmean, rrstd)
         name = f'layernorm [{rows}, {width}] {str(dtype)[6:]}'
         print(f'kernels: {name}: max|y-plain| {err_y:.3e}·max|y|, mean/rstd {err_stat:.3e} '
-              f'relative; max|dx-plain| {err_dx:.3e}·max|dx|, ||d dgamma||/||dgamma|| '
-              f'{err_dw:.3e}, ||d dbeta||/||dbeta|| {err_db:.3e} (tolerances {LN_TOL}·max, '
-              f'{LN_STAT_TOL}, {LN_DW_TOL}); K5 path {paths[1]} (wrapper predicts '
-              f'{paths[0]}, case wants {path}); two K5 calls bit-equal: {same}', flush=True)
+              f'relative; y against float64: K4 {ulps:.3f} ulps of max|y| at most, '
+              f'{excess:.3f} of its bound, plain {rulps:.3f} ulps, {rexcess:.3f} of its bound; '
+              f'max|dx-plain| {err_dx:.3e}·max|dx|, ||d dgamma||/||dgamma|| {err_dw:.3e}, ||d dbeta||/||dbeta|| '
+              f'{err_db:.3e} (tolerances {LN_STAT_TOL}, {LN_DX_TOL}·max, {LN_DW_TOL}); K5 path '
+              f'{paths[1]} (wrapper predicts {paths[0]}, case wants {path}); two K5 calls '
+              f'bit-equal: {same}', flush=True)
         check(paths == (path, path), f'{name}: K5 took the path {paths}')
         check(same, f'{name}: two K5 calls on the same inputs differ')
         outs = (y, dx, mean, rstd, dw, db)
         check(y.dtype == dx.dtype == dtype and y.shape == dx.shape == x.shape
               and dw.dtype == db.dtype == torch.float32, f'{name}: wrong output types')
         check(all(bool(torch.isfinite(t).all()) for t in outs), f'{name}: non-finite output')
-        check(err_y <= LN_TOL and err_stat <= LN_STAT_TOL, f'{name}: K4 disagrees with '
-              'its plain version')
-        check(err_dx <= LN_TOL and err_dw <= LN_DW_TOL and err_db <= LN_DW_TOL,
+        check(excess <= 1.0 and err_stat <= LN_STAT_TOL, f'{name}: K4 is off the float64 '
+              'LayerNorm by more than its rounding, or its statistics disagree with the plain '
+              'version\'s')
+        check(err_dx <= LN_DX_TOL and err_dw <= LN_DW_TOL and err_db <= LN_DW_TOL,
               f'{name}: K5 disagrees with its plain version')
         fwd_errs.append((y.float() - ry.float()).abs().max().item())
         bwd_errs.append(max((dx.float() - rdx.float()).abs().max().item(),
                             (dw - rdw).abs().max().item(), (db - rdb).abs().max().item()))
+    for k in range(1, LN_SEEDS + 1):
+        other = torch.Generator(device='cuda').manual_seed(seed + k)
+        for rows, width, dtype, _ in LN_CASES:
+            x, w, b, _ = ln_inputs(other, rows, width, dtype)
+            y, mean, rstd = N.layer_norm_fwd(x, w, b, LN_EPS)
+            ry, rmean, rrstd = N.layer_norm_reference(x, w, b, LN_EPS)
+            err_y = (y.float() - ry.float()).abs().max().item() / ry.float().abs().max().item()
+            ulps, excess = ln_float64_excess(y, x, w, b, mean, rstd)
+            rulps, rexcess = ln_float64_excess(ry, x, w, b, rmean, rrstd)
+            name = f'layernorm [{rows}, {width}] {str(dtype)[6:]}, generator seed {seed + k}'
+            print(f'kernels: {name}: max|y-plain| {err_y:.3e}·max|y|; y against float64: K4 '
+                  f'{ulps:.3f} ulps of max|y| at most, {excess:.3f} of its bound, plain {rulps:.3f} ulps, '
+                  f'{rexcess:.3f} of its bound', flush=True)
+            check(excess <= 1.0, f'{name}: K4 is off the float64 LayerNorm by more than its '
+                  'rounding')
+            fwd_errs.append((y.float() - ry.float()).abs().max().item())
     return max(fwd_errs), max(bwd_errs)
 
 
-def phase_layernorm(gen):
+def phase_layernorm(gen, seed: int):
     """K4 and K5 checked at every case and timed at the main shape: their
     records for the report."""
     from ever_tpu_torch.ops import norm as N
 
-    fwd_err, bwd_err = check_layernorm(gen)
+    fwd_err, bwd_err = check_layernorm(gen, seed)
     x, w, b, dy = ln_inputs(gen, LN_ROWS, EMBED, torch.bfloat16)
     _, mean, rstd = N.layer_norm_fwd(x, w, b, LN_EPS)
     # device times from CUDA graphs: a launch's host cost is larger than
@@ -1626,9 +1743,7 @@ def phase_fused_ln(gen, profile: bool):
     a tile batch against the default-LN model, one scene; returns the K4
     and K5 launches of the timed steps."""
     from ever_tpu_torch import tiled_inference
-    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
     from ever_tpu_torch.ops.norm import FusedLayerNorm
-    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
     with fused_layer_norm():
         model = build_dinoseg(gen)
@@ -1636,12 +1751,7 @@ def phase_fused_ln(gen, profile: bool):
     check(n_fused == LN_PER_FORWARD, f'{n_fused} FusedLayerNorm modules, expected '
           f'{LN_PER_FORWARD}')
     plain = build_dinoseg(gen)                      # the default LayerNorm
-    schedule = make_learningrate({'type': 'cosine', 'params': dict(
-        base_lr=1e-4, max_iters=1000)})
-    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
-    tx = factory.build(schedule)
-    state = create_train_state(model, tx)
-    step = build_train_step(model, tx, schedule)
+    state, step = adamw_step(model)
     x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
     y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
     for _ in range(WARMUP_STEPS):
@@ -5173,11 +5283,12 @@ def zoo_timed(name: str, model, batch, smi: str, profile: bool, steps: int,
     return out
 
 
-def zoo_repeat(model, batch, steps: int, deterministic_cudnn: bool = True):
-    """``steps`` SGD steps from the model's current state, twice, under
-    deterministic cuDNN (unless asked otherwise): (losses and the state
-    after each run, the K8 launches of each run).  The model is left as it
-    was."""
+def zoo_repeat(model, batch, steps: int, deterministic_cudnn: bool = True, optimizer=None):
+    """``steps`` steps of ``optimizer`` (``zoo_sgd`` unless given; a
+    ``model -> (state, step)`` function) from the model's current state,
+    twice, under deterministic cuDNN (unless asked otherwise): (losses and
+    the state after each run, the K8 launches of each run).  The model is
+    left as it was."""
     from ever_tpu_torch.ops import pool as P
 
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -5187,7 +5298,7 @@ def zoo_repeat(model, batch, steps: int, deterministic_cudnn: bool = True):
     try:
         for _ in range(2):
             model.load_state_dict(init)
-            state, step = zoo_sgd(model)
+            state, step = (optimizer or zoo_sgd)(model)
             P.max_pool_32_bwd.launches = 0
             losses = []
             for _ in range(steps):
@@ -5733,6 +5844,449 @@ def phase_backbones(gen, seed: int, smi: str, profile: bool) -> None:
           f'launched 0 times', flush=True)
 
 
+# ViTEncoder (vit_large, patch 16, 4 storage tokens) under the FPN neck and
+# the AssymetricDecoder of FPN_DECODER, composed as a user's ZooSeg
+VITENC_MODEL = dict(
+    encoder=dict(type='ViTEncoder', params=dict(vit_type='vit_large', patch_size=16,
+                                                n_storage_tokens=4)),
+    neck=[dict(type='FPN', params=dict(in_channels_list=(EMBED,) * 4, out_channels=256))]
+    + FPN_DECODER, head=None)
+# (rows, in, out, K-masked bias): ViT-L/16's fc1 and qkv over 8 tiles of
+# 512² (8 · 1029 tokens) and its fc2
+FP8_CASES = ((TRAIN_BATCH * S, EMBED, 4 * EMBED, False),
+             (TRAIN_BATCH * S, EMBED, 3 * EMBED, True),
+             (TRAIN_BATCH * S, 4 * EMBED, EMBED, False))
+VITENC_REPEAT_STEPS = 2
+
+
+def vitenc_model(gen, dtype: str = 'bfloat16'):
+    """The ``VITENC_MODEL`` ZooSeg on the card, seeded: the trunk as
+    ``seeded_init_`` draws DinoSeg's, the neck and decoder as
+    ``seeded_conv_init_`` draws a conv net's."""
+    from ever_tpu_torch.core.builder import make_model
+
+    with torch.device('cuda'):
+        model = make_model({'type': 'ZooSeg', 'params': dict(VITENC_MODEL, classes=CLASSES,
+                                                             dtype=dtype)})
+    seeded_init_(model.encoder, gen)
+    seeded_conv_init_(model.neck, gen)
+    return model
+
+
+def set_attn_impl(model, impl) -> None:
+    from ever_tpu_torch.module.vit import SelfAttention
+
+    for m in model.modules():
+        if isinstance(m, SelfAttention):
+            m.attn_impl = impl
+
+
+def check_fp8_and_w24(gen, smi: str) -> int:
+    """(e)-(g) at ViT-L's widths: ``Fp8Linear`` and ``Fp8LinearKMaskedBias``
+    (one K7 launch a call, equal to the bit to the layer's plain version:
+    ``scale`` and ``int8_matmul_reference`` plus the bias), timed against
+    the bf16 ``nn.Linear``; their straight-through backward; ``LinearW24``
+    with exactly the two largest |w| of every four kept.  Returns the K7
+    launches of the layers' calls."""
+    from ever_tpu_torch.module.dinov3.layers import fp8_linear as FP8
+    from ever_tpu_torch.module.dinov3.layers import sparse_linear as SP
+    from ever_tpu_torch.ops import quant as Q
+
+    k7 = 0
+    for rows, k, n, masked in FP8_CASES:
+        name = f'{"Fp8LinearKMaskedBias" if masked else "Fp8Linear"} [{rows}, {k}] -> {n}'
+        with torch.device('cuda'):
+            layer = FP8.Fp8LinearKMaskedBias(k, n) if masked else FP8.Fp8Linear(k, n)
+            dense = torch.nn.Linear(k, n, dtype=torch.bfloat16)
+            w24 = SP.LinearW24(k, n)
+        with torch.no_grad():
+            for m in (layer, dense, w24):
+                m.weight.copy_(0.04 * torch.randn(n, k, generator=gen, device='cuda'))
+                m.bias.copy_(0.02 * torch.randn(n, generator=gen, device='cuda'))
+        x = torch.randn(rows, k, generator=gen, device='cuda')
+        reset_counts()
+        with torch.no_grad():
+            y = layer(x)
+        torch.cuda.synchronize()
+        launches = (Q.int8_matmul_t.launches, all_launches())
+        k7 += launches[0]
+        with torch.no_grad():
+            x_q, x_s = FP8.scale(x, x.abs().amax())
+            w_q, w_s = FP8.scale(layer.weight, layer.weight.abs().amax())
+            plain = Q.int8_matmul_reference(x_q, x_s.reshape(1, 1), w_q.t(), w_s.reshape(1, 1))
+            plain = plain + layer._bias()
+            err = float((y - plain).abs().max())
+            path = Q.int8_matmul_path(x_q, w_q)
+            xb = x.to(torch.bfloat16)
+            ms = cuda_ms(lambda: layer(x), iters=20)
+            bf16_ms = cuda_ms(lambda: dense(xb), iters=20)
+            w24_ms = cuda_ms(lambda: w24(xb), iters=20)
+            kept = SP.sparsify24(w24.weight)
+            groups = (kept.reshape(-1, 4) != 0).sum(1)
+            top2 = w24.weight.abs().reshape(-1, 4).topk(2, dim=1).indices
+            want_mask = torch.zeros(groups.shape[0], 4, dtype=torch.bool, device='cuda')
+            want_mask.scatter_(1, top2, True)
+            w24_err = float((w24(xb).float() - torch.nn.functional.linear(
+                xb, kept.to(torch.bfloat16), w24.bias.to(torch.bfloat16)).float()).abs().max())
+        xg = x.clone().requires_grad_()
+        out = layer(xg)
+        out.backward(torch.randn(out.shape, generator=gen, device='cuda'))
+        finite = all(bool(torch.isfinite(t).all()) for t in (xg.grad, layer.weight.grad,
+                                                            layer.bias.grad))
+        flops = 2.0 * rows * k * n
+        print(f'vitencoder: e: {smi}: {name}: K7 launches {launches[0]} (every kernel '
+              f'{launches[1]}), path {path}; max|y - plain| {err:.3e} (limit 0); '
+              f'{ms:.4f} ms a call ({flops / ms / 1e9:.1f} TFLOP/s of the product, quantize '
+              f'and rescale included) against the bf16 nn.Linear {bf16_ms:.4f} ms; '
+              f'straight-through gradients finite {finite}, shapes '
+              f'{tuple(xg.grad.shape)} {tuple(layer.weight.grad.shape)}', flush=True)
+        print(f'vitencoder: g: {smi}: LinearW24 [{rows}, {k}] -> {n}: kept a group '
+              f'{int(groups.min())}-{int(groups.max())} of 4, the two largest |w| '
+              f'{bool(torch.equal(kept.reshape(-1, 4) != 0, want_mask))}; max|y - masked '
+              f'dense| {w24_err:.3e}; {w24_ms:.4f} ms a call (bf16; the dense Linear '
+              f'{bf16_ms:.4f})', flush=True)
+        check(launches == (1, 1), f'e: {name}: launches {launches}, expected one K7')
+        check(err == 0.0, f'e: {name}: the layer differs from its plain version')
+        check(finite, f'f: {name}: non-finite straight-through gradients')
+        check(bool((groups == 2).all()) and torch.equal(kept.reshape(-1, 4) != 0, want_mask),
+              f'g: LinearW24 [{k}, {n}]: not the two largest of every four')
+        check(w24_err == 0.0, f'g: LinearW24 [{k}, {n}]: not the masked dense product')
+        del layer, dense, w24, x, xg, out, plain
+        torch.cuda.empty_cache()
+    return k7
+
+
+def vitenc_grads(model, x, y, dtype: str, plain_only: bool = False) -> tuple:
+    """The gradients of 2 tiles (one train forward and backward, the same
+    draws) through the kernels against plain attention, both at the
+    compute ``dtype`` (or, ``plain_only``, plain attention at bf16 against
+    plain attention at ``dtype``): (||dg|| / ||g||, the worst per-tensor
+    cosine, the three worst tensors, the kernel pass's K1 and K2
+    launches)."""
+    from ever_tpu_torch.ops import attention as A
+
+    def grads(impl, compute):
+        set_attn_impl(model, impl)
+        model.config.dtype = model.encoder.config.dtype = compute
+        reset_counts()
+        out = loss_and_grads(model, x[:2], y[:2], seed=5)[1]
+        set_attn_impl(model, None)
+        model.config.dtype = model.encoder.config.dtype = 'bfloat16'
+        return out, (A.fused_attention.launches, A.fused_attention_bwd.launches)
+
+    got, launches = grads('xla' if plain_only else None, 'bfloat16')
+    want, _ = grads('xla', dtype)
+    rel, worst, cos = compare_grads(got, want)
+    names = [n for n, _ in model.named_parameters()]
+    worst3 = ', '.join(f'{n} {c:.6f}' for c, n in sorted(zip(cos, names))[:3])
+    return rel, worst, worst3, launches
+
+
+def phase_vitencoder(gen, smi: str, profile: bool) -> tuple:
+    """ViTEncoder under an FPN head, and the DINOv3 layers on K7 (module
+    docstring, phase 18): returns the K1, K2 and K7 launches of its paths."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from ever_tpu_torch import tiled_inference
+    from ever_tpu_torch.module.ops import BatchNorm2d
+    from ever_tpu_torch.ops import attention as A
+
+    t_phase = time.perf_counter()
+    register_zoo_model()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = vitenc_model(gen)
+    print(f'vitencoder: ViTEncoder vit_large/16 + FPN + AssymetricDecoder, '
+          f'{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    # FLOPs: three times the forward's count, with plain attention (the
+    # kernels are ops FlopCounterMode does not count)
+    set_attn_impl(model, 'xla')
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(x)
+    set_attn_impl(model, None)
+    flops = 3 * counter.get_total_flops()
+
+    # (a) the train steps
+    state, step = adamw_step(model)
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+    losses = []
+    events[0].record()
+    for i in range(TIMED_STEPS):
+        state, m = step(state, (x, y))
+        events[i + 1].record()
+        losses.append(m['cls_loss'])
+    torch.cuda.synchronize()
+    k1, k2 = A.fused_attention.launches, A.fused_attention_bwd.launches
+    others = all_launches() - k1 - k2
+    times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+    med = times[len(times) // 2]
+    losses = [v.item() for v in losses]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f'vitencoder: a: {smi}: train, bf16 compute, float32 params, AdamW + cosine; '
+          f'{TRAIN_BATCH} tiles of {TILE}²; median {med:.2f} ms/step of {TIMED_STEPS} after '
+          f'{WARMUP_STEPS} (min {times[0]:.2f}, max {times[-1]:.2f}) = '
+          f'{TRAIN_BATCH / med * 1e3:.1f} tiles/s; MFU {flops / (med / 1e3) / PEAK_BF16_FLOPS:.4f} '
+          f'(3 × the forward\'s {flops / 3e12:.3f} TFLOP = {flops / 1e12:.3f} TFLOP a step / '
+          f'step time / 989 TFLOP/s); peak memory {peak:.2f} GiB; launches in {TIMED_STEPS} '
+          f'steps: K1 {k1}, K2 {k2} (expected {24 * TIMED_STEPS} each), other kernels '
+          f'{others}; loss per step {" ".join(f"{v:.5f}" for v in losses)}', flush=True)
+    check((k1, k2, others) == (24 * TIMED_STEPS, 24 * TIMED_STEPS, 0),
+          f'a: train steps launched K1 {k1}, K2 {k2}, others {others}')
+    check(all(math.isfinite(v) for v in losses), 'a: non-finite loss')
+    check(all(p.dtype == torch.float32 for p in model.parameters()), 'a: parameters left float32')
+    if profile:
+        profile_run('one ViTEncoder + FPN train step', lambda: step(state, (x, y)))
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (b) gradients of 2 tiles: kernels against plain attention, same draws.
+    # The decoder's train-mode BatchNorms amplify any bf16 rounding of what
+    # they normalise: plain attention in bf16 against plain attention in
+    # float32 stands as far apart as the kernels against plain attention
+    # (both printed).  The gate holds the kernels with those BatchNorms
+    # frozen to their statistics, where phase 4's limits measure them.
+    rel, worst, names, launches = vitenc_grads(model, x, y, 'bfloat16')
+    floor = vitenc_grads(model, x, y, 'float32', plain_only=True)[0]
+    print(f'vitencoder: b: gradients of 2 tiles with the BatchNorms training, kernels vs plain '
+          f'attention: ||dg||/||g|| {rel:.3e}, worst per-tensor cosine {worst:.6f} '
+          f'({names}); plain attention in bf16 vs in float32: {floor:.3e}; K1, K2 launches '
+          f'{launches}', flush=True)
+    for bn in model.modules():
+        if isinstance(bn, BatchNorm2d):
+            bn.frozen = True
+    rel, worst, names, launches = vitenc_grads(model, x, y, 'bfloat16')
+    for bn in model.modules():
+        if isinstance(bn, BatchNorm2d):
+            bn.frozen = False
+    print(f'vitencoder: b: the same with the BatchNorms frozen: ||dg||/||g|| {rel:.3e}, worst '
+          f'per-tensor cosine {worst:.6f} ({names}) (limits {GRAD_REL_TOL}, {GRAD_COS_MIN}); '
+          f'K1, K2 launches {launches}', flush=True)
+    check(launches == (24, 24), f'b: the kernel pass launched {launches}')
+    check(rel <= GRAD_REL_TOL and worst >= GRAD_COS_MIN,
+          'b: kernel gradients disagree with plain attention gradients')
+
+    # (c) two runs of the same steps from one state
+    runs, _ = zoo_repeat(model, (x, y), VITENC_REPEAT_STEPS, False, adamw_step)
+    (loss_a, state_a), (loss_b, state_b) = runs
+    differ = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+    equal = torch.equal(loss_a, loss_b) and not differ
+    print(f'vitencoder: c: {VITENC_REPEAT_STEPS} AdamW steps twice from one seeded state, '
+          f'cuDNN as it is: loss {" ".join(f"{v:.5f}" for v in loss_a.tolist())}; losses and '
+          f'parameters bit-equal {equal}; differing {len(differ)}: {differ[:6]}', flush=True)
+    check(equal, 'c: two runs of the same steps differ')
+    del runs, state_a, state_b
+    torch.cuda.empty_cache()
+
+    # (d) one scene
+    model.eval()
+    scene = torch.randn(SCENE, SCENE, 3, generator=gen, device='cuda')
+    with torch.no_grad():
+        tiled_inference(model, scene, TILE, STRIDE, CLASSES, tile_batch=TILE_BATCH)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = tiled_inference(model, scene, TILE, STRIDE, CLASSES, tile_batch=TILE_BATCH)
+        torch.cuda.synchronize()
+    scene_ms = (time.perf_counter() - t0) * 1e3
+    scene_k1, scene_all = A.fused_attention.launches, all_launches()
+    n_tiles = (SCENE // STRIDE) ** 2
+    sums = float((out.sum(-1) - 1).abs().max())
+    print(f'vitencoder: d: {smi}: one {SCENE}² scene, bf16, {TILE}² tiles at stride {STRIDE}, '
+          f'tile_batch {TILE_BATCH}: {scene_ms:.1f} ms/scene = {n_tiles / scene_ms * 1e3:.1f} '
+          f'tiles/s; K1 launches {scene_k1} (expected {24 * n_tiles // TILE_BATCH}), every '
+          f'kernel {scene_all}; |sum - 1| <= {sums:.2e}', flush=True)
+    check(scene_k1 == scene_all == 24 * n_tiles // TILE_BATCH, f'd: the scene launched K1 '
+          f'{scene_k1} times, every kernel {scene_all}')
+    check(tuple(out.shape) == (SCENE, SCENE, CLASSES) and bool(torch.isfinite(out).all())
+          and sums < PROB_SUM_TOL, 'd: bad scene output')
+    del model, out, scene
+    torch.cuda.empty_cache()
+
+    k7 = check_fp8_and_w24(gen, smi)
+    print(f'vitencoder: {smi}: phase {time.perf_counter() - t_phase:.1f} s', flush=True)
+    return k1 + scene_k1, k2, k7
+
+
+# FreeNet's scenes: (name, H, W, bands, classes), the FreeNet/FPGA paper's
+# benchmarks (Zheng et al., IEEE TGRS 2020)
+FREENET_SCENES = (('Indian Pines', 145, 145, 200, 16), ('Pavia University', 610, 340, 103, 9))
+FREENET_LABELLED = 0.05
+FREENET_REPEAT_STEPS = 2
+# the loaded FreeNet's float32 eval probabilities, card against CPU: float32
+# (TF32 off) through 14 convs, GroupNorms and gates whose sums run in other
+# orders; probabilities lie in [0, 1], the limit is absolute.  A tensor in
+# the wrong module moves them by O(0.1).
+FREENET_WEIGHT_TOL = 1e-4
+
+
+def freenet_scene(gen, h: int, w: int, bands: int, classes: int):
+    """A seeded scene [1, H, W, bands] and labels with FREENET_LABELLED of
+    the pixels in [0, classes), the rest 255, on the card."""
+    x = torch.randn(1, h, w, bands, generator=gen, device='cuda')
+    labels = torch.randint(0, classes, (1, h, w), generator=gen, device='cuda')
+    keep = torch.rand(1, h, w, generator=gen, device='cuda') < FREENET_LABELLED
+    return x, torch.where(keep, labels, torch.full_like(labels, 255))
+
+
+# the port's FreeNet names → the JAX package's (the inverse of
+# weight_io's rules), for the seeded archive
+FREENET_JAX_NAMES = (
+    (r'(enc\d+)\.(conv\d)\.0\.weight', r'\1/\2/Conv_0/kernel'),
+    (r'(enc\d+)\.(conv\d)\.1\.weight', r'\1/\2/Norm_0/GroupNorm_0/scale'),
+    (r'(enc\d+)\.(conv\d)\.1\.bias', r'\1/\2/Norm_0/GroupNorm_0/bias'),
+    (r'(enc\d+)\.spec_attn\.(reduce|expand)\.weight', r'\1/spec_attn/\2/kernel'),
+    (r'(enc\d+)\.spec_attn\.(reduce|expand)\.bias', r'\1/spec_attn/\2/bias'),
+    (r'(lat\d+|fuse\d+)\.0\.weight', r'\1/Conv_0/kernel'),
+    (r'(lat\d+|fuse\d+)\.1\.weight', r'\1/Norm_0/GroupNorm_0/scale'),
+    (r'(lat\d+|fuse\d+)\.1\.bias', r'\1/Norm_0/GroupNorm_0/bias'),
+    (r'classifier\.(weight|bias)', None),
+)
+
+
+def freenet_npz(path: str, model, seed: int) -> dict:
+    """A seeded archive of a FreeNet's variables in the JAX package's flat
+    layout (``params/enc0/conv1/Conv_0/kernel`` HWIO, GroupNorm
+    ``scale``/``bias``), as its ``.npz`` files hold them: kernels ~N(0,
+    2/fan_in), GroupNorm scales ~N(1, 0.1²), the rest ~N(0, 0.1²).  Returns
+    the drawn tensors by the port's names."""
+    import re
+
+    import numpy as np
+
+    g = torch.Generator().manual_seed(seed)
+    flat, drawn = {}, {}
+    for k, v in model.state_dict().items():
+        if v.dim() >= 2:
+            t = torch.randn(v.shape, generator=g) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith('weight'):
+            t = 1.0 + 0.1 * torch.randn(v.shape, generator=g)
+        else:
+            t = 0.1 * torch.randn(v.shape, generator=g)
+        drawn[k] = t
+        for pattern, template in FREENET_JAX_NAMES:
+            m = re.fullmatch(pattern, k)
+            if m:
+                leaf = ('classifier/kernel' if k.endswith('weight') else 'classifier/bias'
+                        ) if template is None else m.expand(template)
+                break
+        a = t.numpy()
+        flat['params/' + leaf] = np.transpose(a, (2, 3, 1, 0)) if a.ndim == 4 else a
+    np.savez(path, **flat)
+    return drawn
+
+
+def phase_freenet(gen, seed: int, smi: str) -> None:
+    """FreeNet on two hyperspectral scenes and its loaded weights (module
+    docstring, phase 19); it launches no kernel of the port."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+    from ever_tpu_torch.core.builder import make_model
+    from ever_tpu_torch.util.weight_io import load_weights
+
+    t_phase = time.perf_counter()
+    for name, h, w, bands, classes in FREENET_SCENES:
+        model = make_model({'type': 'FreeNet', 'params': dict(in_channels=bands,
+                                                              classes=classes)})
+        seeded_conv_init_(model, gen)
+        x, y = freenet_scene(gen, h, w, bands, classes)
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            model(x)
+        flops = 3 * counter.get_total_flops()
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        state, step = zoo_sgd(model)
+        for _ in range(WARMUP_STEPS):
+            state, _ = step(state, (x, y))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+        losses = []
+        events[0].record()
+        for i in range(TIMED_STEPS):
+            state, m = step(state, (x, y))
+            events[i + 1].record()
+            losses.append(m['cls_loss'])
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        med = times[len(times) // 2]
+        losses = [v.item() for v in losses]
+        moved = sum(not torch.equal(v, init[k]) for k, v in model.state_dict().items())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del state, step
+        runs = []
+        for deterministic in (False, True):
+            runs, _ = zoo_repeat(model, (x, y), FREENET_REPEAT_STEPS, deterministic)
+            (loss_a, state_a), (loss_b, state_b) = runs
+            differ = [k for k in state_a if not torch.equal(state_a[k], state_b[k])]
+            equal = torch.equal(loss_a, loss_b) and not differ
+            print(f'freenet: {name}: {FREENET_REPEAT_STEPS} steps twice from one state, '
+                  f'cudnn.deterministic {deterministic}: bit-equal {equal}; differing '
+                  f'{len(differ)}: {differ[:6]}', flush=True)
+            if equal:
+                break
+        del runs, state_a, state_b
+        model.eval()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: model(x), iters=5)
+            probs = model(x)
+        launches = all_launches()
+        sums = float((probs.sum(-1) - 1).abs().max())
+        print(f'freenet: {smi}: {name} ({h}×{w}, {bands} bands, {classes} classes, '
+              f'{int((y != 255).sum())} labelled pixels), float32, SGD momentum 0.9 + poly, '
+              f'batch 1 whole scene: median {med:.2f} ms/step of {TIMED_STEPS} after '
+              f'{WARMUP_STEPS} (min {times[0]:.2f}, max {times[-1]:.2f}) = '
+              f'{1e3 / med:.2f} scenes/s; MFU {flops / (med / 1e3) / PEAK_F32_FLOPS:.4f} of '
+              f'the float32 peak (3 × the forward\'s {flops / 3e9:.2f} GFLOP / step time / '
+              f'67 TFLOP/s; TF32 off); peak memory {peak:.2f} GiB; loss per step '
+              f'{" ".join(f"{v:.5f}" for v in losses)}; {moved} of {len(init)} tensors moved; '
+              f'the whole-scene forward {fwd_ms:.2f} ms = {1e3 / fwd_ms:.1f} scenes/s, '
+              f'|sum - 1| <= {sums:.2e}; the port\'s kernels launched {launches} times', flush=True)
+        check(all(math.isfinite(v) for v in losses), f'{name}: non-finite loss')
+        check(moved == len(init), f'{name}: {moved} of {len(init)} parameters moved')
+        check(equal, f'{name}: two runs of the same steps differ under deterministic cuDNN')
+        check(tuple(probs.shape) == (1, h, w, classes) and bool(torch.isfinite(probs).all())
+              and sums < PROB_SUM_TOL, f'{name}: bad probabilities')
+        check(launches == 0, f'{name}: the port\'s kernels launched {launches} times')
+        del model, x, y, probs
+        torch.cuda.empty_cache()
+
+    # a FreeNet from a seeded archive in the JAX package's layout, on the
+    # card and on the CPU
+    name, h, w, bands, classes = FREENET_SCENES[0]
+    spec = {'type': 'FreeNet', 'params': dict(in_channels=bands, classes=classes)}
+    card, host = make_model(spec), make_model(spec, device='cpu')
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_freenet_') as tmp:
+        path = os.path.join(tmp, 'freenet.npz')
+        drawn = freenet_npz(path, host, seed)
+        reports = [load_weights(path, card), load_weights(path, host, device='cpu')]
+    same = all(torch.equal(card.state_dict()[k].cpu(), v) for k, v in drawn.items())
+    x = torch.randn(1, h, w, bands, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        err = float((card(x.cuda()).cpu() - host(x)).abs().max())
+    print(f'freenet: a seeded {name} FreeNet in the JAX package\'s .npz layout '
+          f'({len(drawn)} tensors) through load_weights (convert_flax_freenet): loaded '
+          f'{reports[0].loaded} on the card and {reports[1].loaded} on the CPU; missing '
+          f'{len(reports[0].missing)}, unexpected {len(reports[0].unexpected)}; every tensor '
+          f'the archive\'s {same}; float32 eval probabilities, card against CPU: max|d| '
+          f'{err:.3e} (limit {FREENET_WEIGHT_TOL})', flush=True)
+    for r in reports:
+        check(r.loaded == len(drawn) and not r.missing and not r.unexpected
+              and not r.mismatched, f'freenet: load_weights: {r.loaded} loaded, '
+              f'{r.missing[:3]} missing, {r.unexpected[:3]} unexpected')
+    check(same, 'freenet: a loaded tensor differs from the archive')
+    check(err <= FREENET_WEIGHT_TOL, f'freenet: card and CPU probabilities differ by {err}')
+    print(f'freenet: {smi}: phase {time.perf_counter() - t_phase:.1f} s; the port\'s kernels '
+          f'launched 0 times', flush=True)
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -5797,7 +6351,7 @@ def main() -> int:
     phase_farseg_serve(gen, model, args.profile)
     del model
     torch.cuda.empty_cache()
-    ln_fwd, ln_bwd = phase_layernorm(gen)
+    ln_fwd, ln_bwd = phase_layernorm(gen, args.seed)
     ln_fwd['launches'], ln_bwd['launches'] = phase_fused_ln(gen, args.profile)
     quant, matmul = phase_quant(gen)
     phase_trainer(gen, args.seed, bare_ms, smi)
@@ -5814,6 +6368,11 @@ def main() -> int:
     pool['launches'] += k8
     pool['launches'] += phase_zoo(gen, args.seed, smi, args.profile)
     phase_backbones(gen, args.seed, smi, args.profile)
+    k1, k2, k7 = phase_vitencoder(gen, smi, args.profile)
+    fwd['launches'] += k1
+    bwd['launches'] += k2
+    matmul['launches'] += k7
+    phase_freenet(gen, args.seed, smi)
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

@@ -1,4 +1,6 @@
-"""The one place the port's entry points pick their device."""
+"""The one place the port's entry points pick their device, and the
+reference's device helpers (``auto_device``, ``cpu_device``,
+``gpu_device``; ``ever_tpu/core/device.py``)."""
 
 from __future__ import annotations
 
@@ -7,7 +9,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ['get_device']
+__all__ = ['get_device', 'auto_device', 'cpu_device', 'gpu_device']
 
 
 def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -35,3 +37,17 @@ def get_device(device: Optional[Union[str, torch.device]] = None) -> torch.devic
             dev = torch.device('cuda', local)
         torch.cuda.set_device(dev)
     return dev
+
+
+def auto_device() -> torch.device:
+    """The port's default device: the GPU (raises without one)."""
+    return get_device()
+
+
+def cpu_device() -> torch.device:
+    return torch.device('cpu')
+
+
+def gpu_device(id: Optional[int] = None) -> torch.device:
+    """GPU ``id`` (0 by default); raises without a CUDA device."""
+    return get_device(torch.device('cuda', id or 0))

@@ -68,7 +68,7 @@ from ever_tpu_torch.parallel.spmd import (
     create_train_state,
 )
 
-__all__ = ['Launcher']
+__all__ = ['Launcher', 'scale_dict', 'average_dict']
 
 
 def _stack(trees):
@@ -521,3 +521,18 @@ class Launcher:
 
     def save_model(self, filename: Optional[str] = None) -> None:
         self._ckpt.save(filename or 'model-saved.ckpt')
+
+
+def scale_dict(input_dict: dict, scale) -> dict:
+    """Every value times ``scale``, in place (the reference's helper)."""
+    for k, v in input_dict.items():
+        input_dict[k] = v * scale
+    return input_dict
+
+
+def average_dict(input_dict: dict) -> dict:
+    """Every value with dimensions replaced by its mean, in place (the
+    reference's helper)."""
+    for k, v in input_dict.items():
+        input_dict[k] = v.mean() if getattr(v, 'ndim', 0) != 0 else v
+    return input_dict

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_map
 
-from ever_tpu_torch.core.device import get_device
+from ever_tpu_torch.core.device import auto_device, cpu_device, get_device, gpu_device  # noqa: F401
 
 __all__ = ['to_tensor', 'to_device', 'auto_device', 'cpu_device', 'gpu_device']
 
@@ -41,17 +41,3 @@ def to_device(data: Any, device: Optional[Union[str, torch.device]] = None) -> A
             x = x.pin_memory()
         return x.to(dev, non_blocking=True)
     return tree_map(move, data)
-
-
-def auto_device() -> torch.device:
-    """The port's default device: the GPU (raises without one)."""
-    return get_device()
-
-
-def cpu_device() -> torch.device:
-    return torch.device('cpu')
-
-
-def gpu_device(id: Optional[int] = None) -> torch.device:
-    """GPU ``id`` (0 by default); raises without a CUDA device."""
-    return get_device(torch.device('cuda', id or 0))

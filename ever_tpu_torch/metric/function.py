@@ -19,7 +19,9 @@ EPS = 1e-7
 __all__ = [
     'confusion_matrix', 'overall_accuracy_score', 'average_accuracy_score',
     'cohen_kappa_score', 'iou_per_class', 'mean_iou', 'th_confusion_matrix',
-    'EPS',
+    'EPS', 'intersection_over_union_per_class', 'mean_intersection_over_union',
+    'th_overall_accuracy_score', 'th_average_accuracy_score', 'th_cohen_kappa_score',
+    'th_intersection_over_union_per_class', 'th_mean_intersection_over_union',
 ]
 
 
@@ -81,3 +83,13 @@ def th_confusion_matrix(y_true, y_pred, num_classes: Optional[int] = None,
     if num_classes is None:
         num_classes = int(torch.maximum(y_true.max(), y_pred.max())) + 1
     return confusion_matrix(y_true, y_pred, int(num_classes), ignore_index=-1)
+
+
+# the reference's other spellings of the same functions
+intersection_over_union_per_class = iou_per_class
+mean_intersection_over_union = mean_iou
+th_overall_accuracy_score = overall_accuracy_score
+th_average_accuracy_score = average_accuracy_score
+th_cohen_kappa_score = cohen_kappa_score
+th_intersection_over_union_per_class = iou_per_class
+th_mean_intersection_over_union = mean_iou

@@ -28,7 +28,7 @@ from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
 from ever_tpu_torch.module.se_block import with_ratio
 
 __all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet', 'constant_init',
-           'kaiming_init']
+           'kaiming_init', 'last_zero_init', 'conv3x3', 'conv1x1', 'BasicBlock', 'Bottleneck']
 
 _FUSIONS = ('channel_add', 'channel_mul')
 
@@ -103,3 +103,24 @@ def kaiming_init(module: nn.Module, a: float = 0, mode: str = 'fan_out',
     init(module.weight, a=a, mode=mode, nonlinearity=nonlinearity)
     if getattr(module, 'bias', None) is not None:
         nn.init.constant_(module.bias, bias)
+
+
+def last_zero_init(module: nn.Module) -> None:
+    """Zero the weight and bias of a fusion's last layer, in place: the last
+    child of an ``nn.Sequential``, else the module (the reference's
+    helper)."""
+    constant_init(module[-1] if isinstance(module, nn.Sequential) else module, 0)
+
+
+def __getattr__(name):
+    """The reference's ``conv3x3``/``conv1x1`` (``module._resnets``'s, which
+    take the input width) and ``BasicBlock``/``Bottleneck``
+    (``module.resnet``'s), resolved when asked for: ``resnet`` imports this
+    module."""
+    if name in ('conv3x3', 'conv1x1'):
+        from ever_tpu_torch.module import _resnets
+        return getattr(_resnets, name)
+    if name in ('BasicBlock', 'Bottleneck'):
+        from ever_tpu_torch.module import resnet
+        return getattr(resnet, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

@@ -9,7 +9,8 @@ conv-net models keep in ``torch.channels_last`` memory: a permute between
 the two is then a view.
 
 The resizes and pools that a train step differentiates are matrix products
-(``resize_align_corners``, ``upsample_bilinear``, ``adaptive_avg_pool``) or
+(``resize_align_corners``, ``upsample_bilinear``, ``downsample_bilinear``,
+``adaptive_avg_pool``) or
 a broadcast (``upsample_nearest_int``): ``F.interpolate``'s and
 ``adaptive_avg_pool2d``'s CUDA backwards add with atomics, these do not,
 so a step's gradients are the same bits every run.
@@ -35,7 +36,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ever_tpu_torch.parallel.mesh import data_shard, reduction_group
 
-__all__ = ['resize', 'upsample', 'upsample_bilinear', 'bilinear_nchw', 'upsample_nearest_int',
+__all__ = ['resize', 'upsample', 'upsample_bilinear', 'downsample_bilinear', 'bilinear_nchw', 'upsample_nearest_int',
            'global_avg_pool', 'adaptive_avg_pool', 'max_pool', 'avg_pool', 'channel_concat',
            'channel_sum', 'list_index', 'Conv2d', 'BatchNorm2d', 'GroupNorm2d', 'LayerNorm2d',
            'Norm', 'ConvBlock', 'Sequential', 'running_stats_frozen', 'checkpointed', 'dropout',
@@ -162,6 +163,46 @@ def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
                          'shrinks one (resize antialiases that)')
     y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
     return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
+
+
+def _antialias_weights(n_in: int, n_out: int, dtype: torch.dtype,
+                       device: torch.device) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of ``jax.image.resize``'s antialiased
+    bilinear shrink along one axis: the triangle kernel widened by
+    ``n_in / n_out``, sampled at the half-pixel centres, each row
+    renormalised over the inputs that exist (halving: [1, 3, 3, 1]/8
+    inside, [3, 3, 1]/7 at the edges).  Cached, except while a program is
+    traced, as :func:`_bilinear_weights`."""
+    if torch.compiler.is_compiling():
+        return _make_antialias_weights(n_in, n_out, dtype, device)
+    return _cached_antialias_weights(n_in, n_out, dtype, device)
+
+
+def _make_antialias_weights(n_in, n_out, dtype, device):
+    ratio = n_in / n_out
+    src = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) * ratio - 0.5
+    cols = torch.arange(n_in, dtype=torch.float64, device=device)
+    w = (1 - (src[:, None] - cols[None]).abs() / max(ratio, 1.0)).clamp(min=0)
+    return (w / w.sum(1, keepdim=True)).to(dtype)
+
+
+_cached_antialias_weights = functools.lru_cache(maxsize=16)(_make_antialias_weights)
+
+
+def downsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+    """Antialiased bilinear shrinking of an NHWC tensor to ``shape``:
+    ``jax.image.resize``'s numbers (and ``resize``'s), computed as one
+    matrix product per axis in float32 (bfloat16 stays bfloat16) and
+    returned in x's dtype.  Its backward is two matrix products: no
+    atomics, unlike ``F.interpolate``'s."""
+    n, h, w, c = x.shape
+    if shape[0] > h or shape[1] > w:
+        raise ValueError(f'downsample_bilinear shrinks each axis; {(h, w)} -> {tuple(shape)} '
+                         'grows one (upsample_bilinear does that)')
+    ct = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    y = torch.einsum('oh,nhwc->nowc', _antialias_weights(h, shape[0], ct, x.device), x.to(ct))
+    y = torch.einsum('pw,nowc->nopc', _antialias_weights(w, shape[1], ct, x.device), y)
+    return y.to(x.dtype)
 
 
 def bilinear_nchw(x: torch.Tensor, shape: Tuple[int, int],

@@ -49,7 +49,7 @@ from ever_tpu_torch.module.ops import BatchNorm2d, Conv2d, Sequential, checkpoin
 from ever_tpu_torch.module.se_block import SEBlock
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetStage', 'ResNet', 'ResNetEncoder',
-           'RESNET_SPECS', 'depth_to_space']
+           'RESNET_SPECS', 'depth_to_space', 'make_layer', 'patch_first_conv']
 
 
 def _conv(cin, cout, kernel, stride=1, dilation=1, groups=1):
@@ -330,3 +330,19 @@ class ResNetEncoder(ERModule):
         """Parameter prefixes the optimizer leaves out for ``freeze_at``
         (the JAX package's ``resnet/conv1`` .. ``resnet/layer4``)."""
         return ['resnet.' + p for p in resnet_frozen_prefixes(int(self.config.freeze_at))]
+
+
+def make_layer(block, in_channel: int, basic_out_channel: int, blocks: int, stride: int = 1,
+               dilation: int = 1, **kw) -> ResNetStage:
+    """The reference's spelling of one ResNet stage: a :class:`ResNetStage`
+    of ``blocks`` blocks of ``basic_out_channel`` filters on ``in_channel``
+    inputs, the shortcut where the stride or the width changes."""
+    return ResNetStage(block, in_channel, basic_out_channel, blocks, stride, dilation, **kw)
+
+
+def patch_first_conv(weight: torch.Tensor, new_in_channels: int,
+                     default_in_channels: int = 3) -> torch.Tensor:
+    """The reference's spelling of ``util.weight_io.patch_first_conv`` (a
+    stem conv's ``[O, I, kh, kw]`` weight for ``new_in_channels`` inputs)."""
+    from ever_tpu_torch.util.weight_io import patch_first_conv as patch
+    return patch(weight, new_in_channels, default_in_channels)

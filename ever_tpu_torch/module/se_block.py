@@ -18,7 +18,8 @@ import torch.nn as nn
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import Conv2d
 
-__all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck']
+__all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck', 'conv3x3',
+           'conv1x1', 'BasicBlock', 'Bottleneck']
 
 
 def _squeeze(x: torch.Tensor) -> torch.Tensor:
@@ -95,3 +96,17 @@ def plugin_to_basicblock(module: nn.Module, ratio: int) -> nn.Module:
 def plugin_to_bottleneck(module: nn.Module, ratio: int) -> nn.Module:
     """SE-augmented Bottlenecks: :func:`with_ratio` with ``se_ratio``."""
     return with_ratio(module, 'se_ratio', ratio)
+
+
+def __getattr__(name):
+    """The reference's ``conv3x3``/``conv1x1`` (``module._resnets``'s, which
+    take the input width) and ``BasicBlock``/``Bottleneck``
+    (``module.resnet``'s), resolved when asked for: ``resnet`` imports this
+    module."""
+    if name in ('conv3x3', 'conv1x1'):
+        from ever_tpu_torch.module import _resnets
+        return getattr(_resnets, name)
+    if name in ('BasicBlock', 'Bottleneck'):
+        from ever_tpu_torch.module import resnet
+        return getattr(resnet, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

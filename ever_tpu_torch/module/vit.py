@@ -4,7 +4,9 @@ Counterpart of ``ever_tpu/module/vit.py``: ``DinoVisionTransformer`` with
 axial RoPE (with its train-time coordinate augmentation), storage tokens,
 LayerScale, Mlp/SwiGLU FFN, stochastic depth, per-block ``remat`` and
 ``get_intermediate_layers``; the size ladder ``VIT_SPECS``, the satellite
-configs ``SAT_CONFIGS``; and ``DinoSeg`` with its eval and train branches.
+configs ``SAT_CONFIGS``; ``DinoSeg`` with its eval and train branches;
+and ``ViTEncoder``, the trunk's taps as a feature pyramid for FPN-style
+heads.
 Inputs are NHWC, as in the JAX package.  Parameter names follow the torch
 DINOv3 reference (``blocks.{i}.attn.qkv.weight`` …), so ``util.weight_io``
 moves weights across.
@@ -52,8 +54,8 @@ from torch.utils import checkpoint as _ckpt
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
-from ever_tpu_torch.module.ops import upsample_bilinear
-from ever_tpu_torch.ops.attention import attention, pad_target
+from ever_tpu_torch.module.ops import downsample_bilinear, upsample_bilinear
+from ever_tpu_torch.ops.attention import _rotate_half, attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.parallel.mesh import data_shard
 
@@ -62,7 +64,8 @@ __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'SelfAttention', 'SelfAttentionBlock', 'PatchEmbed',
            'DinoVisionTransformer', 'DinoSeg', 'VIT_SPECS', 'SAT_CONFIGS',
            'cat_keep_shapes', 'uncat_with_shapes', 'DINOHead', 'ListForwardMixin',
-           'LinearKMaskedBias', 'CausalSelfAttention', 'CausalSelfAttentionBlock']
+           'LinearKMaskedBias', 'CausalSelfAttention', 'CausalSelfAttentionBlock',
+           'ViTEncoder', 'rope_apply', 'rope_rotate_half', 'make_2tuple', 'init_weights_vit']
 
 
 class Linear(nn.Linear):
@@ -94,6 +97,16 @@ def _make_layer_norm(dim: int, eps: float) -> nn.LayerNorm:
     if os.environ.get('EVER_FUSED_LN', '0') == '1':
         return FusedLayerNorm(dim, eps)
     return LayerNorm(dim, eps)
+
+
+rope_rotate_half = _rotate_half
+
+
+def rope_apply(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Token features rotated by the axial position angles (``[N, D]`` sin
+    and cos tables): ``x·cos + rotate_half(x)·sin``, what the attention
+    kernels apply to q and k."""
+    return x * cos + rope_rotate_half(x) * sin
 
 
 class RopePositionEmbedding(nn.Module):
@@ -203,6 +216,7 @@ class RMSNorm(nn.Module):
 class LayerScale(nn.Module):
     def __init__(self, dim: int, init_value: float = 1e-5):
         super().__init__()
+        self.init_value = float(init_value)
         self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
 
     def forward(self, x):
@@ -589,6 +603,31 @@ class DinoVisionTransformer(nn.Module):
         return self.forward_features(x, train, generator)
 
 
+def make_2tuple(x):
+    """``(x, x)``, or a pair as it is."""
+    if isinstance(x, tuple):
+        assert len(x) == 2
+        return x
+    return (x, x)
+
+
+def init_weights_vit(module: nn.Module, name: str = '') -> None:
+    """The trunk's initialisation of one module, in place (the reference's
+    spelling, applied over a tree by ``dinov3.utils.named_apply``): a
+    Linear's weight truncated normal with std 0.02 and its bias 0; a
+    LayerNorm, RMSNorm or LayerScale back to its initial values."""
+    if isinstance(module, nn.Linear):
+        nn.init.trunc_normal_(module.weight, std=0.02)
+        if module.bias is not None:
+            nn.init.zeros_(module.bias)
+    elif isinstance(module, nn.LayerNorm):
+        module.reset_parameters()
+    elif isinstance(module, RMSNorm):
+        nn.init.ones_(module.weight)
+    elif isinstance(module, LayerScale):
+        module.gamma.data.fill_(module.init_value)
+
+
 def cat_keep_shapes(x_list):
     """``[B, N_i, D]`` token tensors flattened into one ``[ΣB·N_i, D]``,
     with what :func:`uncat_with_shapes` needs to split it back: one call of
@@ -784,3 +823,73 @@ class DinoSeg(ERModule):
                     logits, y, ignore_index=ignore, **dict(lcfg.dice))
             return out
         return torch.softmax(logits, dim=-1)
+
+
+@registry.MODEL.register()
+class ViTEncoder(ERModule):
+    """The ViT trunk as a multi-scale encoder for FPN-style heads
+    (``ever_tpu/module/vit.py`` ``ViTEncoder``, the same config keys).
+
+    ``forward(x, train=False, generator=None)`` takes NHWC ``[B, H, W, 3]``,
+    computes in ``config.dtype`` and returns the normalised patch tokens of
+    the blocks in ``out_indices`` (by default the last of each quarter of
+    the depth) as NCHW features on the patch grid, as the port's other
+    encoders return theirs.  With ``pyramid`` (the default) exactly four
+    taps are resized by 4, 2, 1 and 0.5 to output strides 4, 8, 16 and 32
+    of a patch-16 trunk: the two upsamplings by :func:`upsample_bilinear`
+    and the halving by :func:`downsample_bilinear` (``jax.image.resize``'s
+    antialiased weights), all as matrix products, so a train step's
+    gradients are the same bits every run.  They compute in float32 unless
+    the taps are bfloat16, as the JAX package's ``resize``.
+    """
+
+    def set_default_config(self):
+        self.config.update(dict(
+            vit_type='vit_large',
+            patch_size=16,
+            n_storage_tokens=4,
+            drop_path_rate=0.0,
+            out_indices=None,         # default: the last block of each quarter
+            pyramid=True,             # resize the taps to os4/8/16/32
+            attn_impl=None,           # None=auto | 'xla' | 'fused' | 'flash'
+            remat=None,               # None | 'full' | 'dots' (per block)
+            dtype='float32',
+        ))
+
+    def __init__(self, config: Optional[dict] = None):
+        super().__init__(config)
+        c = self.config
+        self.vit = DinoVisionTransformer(
+            vit_type=c.vit_type, patch_size=c.patch_size, n_storage_tokens=c.n_storage_tokens,
+            drop_path_rate=c.drop_path_rate, attn_impl=c.attn_impl, remat=c.get('remat'))
+
+    def out_indices(self):
+        depth = self.vit.depth
+        return list(self.config.out_indices or
+                    [depth // 4 - 1, depth // 2 - 1, 3 * depth // 4 - 1, depth - 1])
+
+    def out_channels(self) -> Tuple[int, ...]:
+        return (self.vit.embed_dim,) * len(self.out_indices())
+
+    def forward(self, x, train: bool = False, generator: Optional[torch.Generator] = None):
+        indices = self.out_indices()
+        taps = self.vit.get_intermediate_layers(
+            x.to(getattr(torch, self.config.dtype)), n=indices, reshape=True, train=train,
+            generator=generator)
+        if not self.config.pyramid:
+            return [t.permute(0, 3, 1, 2) for t in taps]
+        scales = (4.0, 2.0, 1.0, 0.5)
+        if len(taps) != len(scales):
+            raise ValueError(
+                f'pyramid=True expects exactly {len(scales)} out_indices (os4/os8/os16/os32 '
+                f'levels), got {len(taps)} ({indices}); set pyramid=False for a flat tap list')
+        out = []
+        for t, s in zip(taps, scales):
+            shape = (int(t.shape[1] * s), int(t.shape[2] * s))
+            if s > 1:
+                t = upsample_bilinear(t if t.dtype == torch.bfloat16 else t.float(),
+                                      shape).to(t.dtype)
+            elif s < 1:
+                t = downsample_bilinear(t, shape)
+            out.append(t.permute(0, 3, 1, 2))
+        return out

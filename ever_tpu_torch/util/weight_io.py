@@ -44,8 +44,9 @@ ConvNeXt, the inverses of their ``convert_torch_*``.  Modules the reference
 files do not cover (FarSeg++'s relation, the SE and GC branches, P6/P7,
 the decoder's GN and LN, ``DINOHead``, FactSeg, the change detectors and
 the ASPP, PPM, DeepLabv3+ and HRNet heads, ``BiFPN``)
-take names that map one to one onto the JAX package's, each listed in the
-rules below.  Layout changes: Dense
+and FreeNet take names that map one to one onto the JAX package's, each
+listed in the rules below; ``ViTEncoder`` holds the trunk as ``vit``, and
+``Fp8Linear``, ``Fp8LinearKMaskedBias`` and ``LinearW24`` are Linears.  Layout changes: Dense
 ``[in, out]`` → Linear ``[out, in]`` (ConvNeXt's ``pwconv1``/``pwconv2``
 too); conv HWIO → OIHW; norm ``scale`` →
 ``weight``; BatchNorm's ``batch_stats`` ``mean``/``var`` → the buffers
@@ -64,12 +65,13 @@ import torch
 
 from ever_tpu_torch.core.device import get_device
 
-__all__ = ['flatten_params', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
+__all__ = ['flatten_params', 'flatten_tree', 'unflatten_tree', 'convert_flax_dinov3_vit', 'convert_flax_dinoseg',
            'convert_flax_dino_head',
            'convert_flax_resnet', 'convert_flax_farseg', 'convert_flax_factseg',
            'convert_flax_change', 'convert_flax_hrnet', 'convert_flax_head',
            'convert_flax_encoder_head', 'convert_flax_efficientnet', 'convert_flax_densenet',
            'convert_flax_resnest', 'convert_flax_convnext', 'convert_flax_bifpn',
+           'convert_flax_vit_encoder', 'convert_flax_freenet', 'convert_flax_linear',
            'convert_flax_flat', 'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
            'convert_torch_resnet', 'convert_torch_hrnet', 'convert_torch_efficientnet',
            'convert_torch_densenet', 'convert_torch_resnest', 'convert_torch_convnext',
@@ -95,6 +97,30 @@ def flatten_params(tree: Any) -> Dict[str, np.ndarray]:
     walk(tree, '')
     return {(k[len('params/'):] if k.startswith('params/') else k): v
             for k, v in flat.items()}
+
+
+def flatten_tree(tree: Any, prefix: str = '') -> Dict[str, np.ndarray]:
+    """A nested dict as ``'a/b'``-joined flat keys of numpy arrays (the
+    JAX package's ``.npz`` form)."""
+    out: Dict[str, np.ndarray] = {}
+    if hasattr(tree, 'items'):
+        for k, v in tree.items():
+            out.update(flatten_tree(v, f'{prefix}{k}/'))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def unflatten_tree(flat: Dict[str, np.ndarray]) -> dict:
+    """The inverse of :func:`flatten_tree`."""
+    root: dict = {}
+    for key, value in flat.items():
+        parts = key.split('/')
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return root
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -168,6 +194,37 @@ def convert_flax_dinoseg(params: Any) -> Dict[str, torch.Tensor]:
         if name not in ('head_classifier', 'head_hidden'):
             raise KeyError(f'unmapped DinoSeg parameter {key!r}')
         _linear(sd, name, leaf, v)
+    return sd
+
+
+def convert_flax_vit_encoder(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX ``ViTEncoder`` params (``vit/...``) → the port's ``ViTEncoder``
+    ``state_dict`` (``vit.`` and the trunk's names)."""
+    flat = flatten_params(params)
+    stray = [k for k in flat if not k.startswith('vit/')]
+    if stray:
+        raise KeyError(f'unmapped ViTEncoder parameters {stray[:3]!r}')
+    return {f'vit.{k}': v for k, v in convert_flax_dinov3_vit(
+        {k[len('vit/'):]: v for k, v in flat.items()}).items()}
+
+
+def convert_flax_linear(params: Any) -> Dict[str, torch.Tensor]:
+    """The variables of JAX Dense-like layers (``Fp8Linear``,
+    ``Fp8LinearKMaskedBias``, ``LinearW24``; a bare layer or a tree of
+    them) → their ``state_dict``: each ``kernel`` ``[in, out]`` transposed
+    to ``weight``, ``bias``, and the ``constants`` collection's
+    ``bias_mask`` as the buffer of that name."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in flatten_params(params).items():
+        key = key[len('constants/'):] if key.startswith('constants/') else key
+        path, _, leaf = key.rpartition('/')
+        base = path.replace('/', '.') + '.' if path else ''
+        if leaf == 'kernel' and v.ndim == 2:
+            sd[f'{base}weight'] = _tensor(v.T)
+        elif leaf in ('bias', 'bias_mask'):
+            sd[f'{base}{leaf}'] = _tensor(v)
+        else:
+            raise KeyError(f'unmapped linear variable {key!r}')
     return sd
 
 
@@ -308,6 +365,13 @@ _HEAD_RULES = [
     (r'(.+)/Norm_0' + _BN, r'\1.1'),
     ('classifier', 'classifier'),
 ]
+# an FPN as a model's head: its lateral and output convs (bare or a
+# ConvBlock's Conv_0 and Norm_0) and its top blocks
+_FPN_RULES = [
+    (r'(fpn_inner\d+|fpn_layer\d+)(/Conv_0)?', r'\1.0'),
+    (r'(fpn_inner\d+|fpn_layer\d+)/Norm_0' + _BN, r'\1.1'),
+    (r'top_blocks/(p6|p7)', r'top_blocks.\1'),
+]
 # EfficientNet, after its stage{s}_block{b} are renamed block{i}
 # (_restaged_efficientnet): efficientnet_pytorch's names
 _EFFICIENTNET_RULES = [
@@ -362,6 +426,16 @@ _BIFPN_RULES = [
     (r'(bin|tri)_fusion(\d+)/SeparableConvBlock_0/SeparableConv2d_0/Conv_0',
      r'\1_fusion\2.conv.0.1'),
     (r'(bin|tri)_fusion(\d+)/SeparableConvBlock_0/Norm_0' + _BN, r'\1_fusion\2.conv.1'),
+]
+# FreeNet: the encoder's blocks, the spectral gates, the decoder's lateral
+# and fusion ConvBlocks, the classifier
+_FREENET_RULES = [
+    (r'(enc\d+)/(conv\d)/Conv_0', r'\1.\2.0'),
+    (r'(enc\d+)/(conv\d)' + _NORM, r'\1.\2.1'),
+    (r'(enc\d+)/spec_attn/(reduce|expand)', r'\1.spec_attn.\2'),
+    (r'(lat\d+|fuse\d+)/Conv_0', r'\1.0'),
+    (r'(lat\d+|fuse\d+)' + _NORM, r'\1.1'),
+    ('classifier', 'classifier'),
 ]
 # the port's module prefix → (JAX path prefix, rules below it)
 _RESNET_TREES = [('', '', _RESNET_RULES), ('resnet.', 'resnet/', _RESNET_RULES)]
@@ -480,23 +554,35 @@ def convert_flax_head(params: Any, batch_stats: Any = None) -> Dict[str, torch.T
 def convert_flax_encoder_head(params: Any, batch_stats: Any = None
                               ) -> Dict[str, torch.Tensor]:
     """A JAX model that composes a ``ResNetEncoder``, ``HRNetEncoder``,
-    ``EFNetEncoder``, ``DenseNetEncoder``, ``ResNeStEncoder`` or
-    ``ConvNeXtEncoder`` as ``encoder`` with one of the four heads as
-    ``head`` (``encoder/resnet/``, ``encoder/hrnet/``, ``encoder/net/``,
-    ``encoder/densenet/``, ``head/``) → the port's ``state_dict`` of the
-    same composition (``encoder.resnet.``, ``encoder.hrnet.``,
-    ``encoder.net.``, ``encoder.densenet.``, ``head.``).  Any variable left
+    ``EFNetEncoder``, ``DenseNetEncoder``, ``ResNeStEncoder``,
+    ``ConvNeXtEncoder`` or ``ViTEncoder`` as ``encoder`` with one of the
+    four heads, or an ``FPN``, as ``head`` (``encoder/resnet/``,
+    ``encoder/hrnet/``, ``encoder/net/``, ``encoder/densenet/``,
+    ``encoder/vit/``, ``head/``) → the port's ``state_dict`` of the same
+    composition (``encoder.resnet.``, ``encoder.hrnet.``, ``encoder.net.``,
+    ``encoder.densenet.``, ``encoder.vit.``, ``head.``).  Any variable left
     unmapped raises ``KeyError``."""
     flat = _variables(params, batch_stats)
+    vit = {k[len('encoder/'):]: flat.pop(k) for k in [k for k in flat
+                                                       if k.startswith('encoder/vit/')]}
     trees = [_ENCODER_TREE, ('encoder.hrnet.', 'encoder/hrnet/', _HRNET_RULES),
-             ('head.', 'head/', _HEAD_RULES)]
+             ('head.', 'head/', _FPN_RULES + _HEAD_RULES)]
     family = _trunk_family(flat)
     if family is not None:
         attr, rules = _TRUNK_FAMILIES[family]
         if family == 'efficientnet':
             flat = _restaged_efficientnet(flat, None)
         trees.append((f'encoder.{attr}.', f'encoder/{attr}/', rules))
-    return _convert_conv_net(flat, trees, 'encoder-head model')
+    sd = _convert_conv_net(flat, trees, 'encoder-head model')
+    if vit:
+        sd.update({f'encoder.{k}': v for k, v in convert_flax_vit_encoder(vit).items()})
+    return sd
+
+
+def convert_flax_freenet(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX ``FreeNet`` params → the port's ``FreeNet`` ``state_dict`` (the
+    same module names).  Any variable left unmapped raises ``KeyError``."""
+    return _convert_conv_net(_variables(params, None), [('', '', _FREENET_RULES)], 'FreeNet')
 
 
 def _trunk_trees(rules, attr: str):
@@ -599,9 +685,11 @@ def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     a DinoSeg or a bare DINOv3 trunk, a FactSeg, a ChangeStar, ChangeMask
     or ChangeOS, a FarSeg, another encoder-head model, a bare FarSeg head,
     an EfficientNet, DenseNet, ResNeSt or ConvNeXt trunk (bare, under its
-    encoder's attribute, or as a model's encoder under a head), an HRNet
-    (bare or under ``hrnet/``) or a ResNet (bare or under ``resnet/``),
-    told apart by their keys."""
+    encoder's attribute, or as a model's encoder under a head), a
+    ``ViTEncoder`` (bare or under a head), a FreeNet, Dense-like layers
+    (``Fp8Linear``, ``LinearW24``: kernels, biases and bias masks alone),
+    an HRNet (bare or under ``hrnet/``) or a ResNet (bare or under
+    ``resnet/``), told apart by their keys."""
     flat = _variables(flat, None)
     keys = list(flat)
     family = _trunk_family(keys)
@@ -611,9 +699,18 @@ def convert_flax_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {'efficientnet': convert_flax_efficientnet, 'densenet': convert_flax_densenet,
                 'resnest': convert_flax_resnest, 'convnext': convert_flax_convnext}[family](flat)
     if any(k.endswith('cls_token') for k in keys):
-        if any(k.startswith('vit/') for k in keys):
+        if any(k.startswith('encoder/vit/') for k in keys):
+            return convert_flax_encoder_head(flat)
+        if any(k.startswith('head_') for k in keys):
             return convert_flax_dinoseg(flat)
+        if any(k.startswith('vit/') for k in keys):
+            return convert_flax_vit_encoder(flat)
         return convert_flax_dinov3_vit(flat)
+    if any(k.startswith('enc0/spec_attn/') for k in keys):
+        return convert_flax_freenet(flat)
+    if all(k.rpartition('/')[2] in ('kernel', 'bias', 'bias_mask') for k in keys) and all(
+            flat[k].ndim == 2 for k in keys if k.endswith('kernel')):
+        return convert_flax_linear(flat)
     if any(k.startswith(('fa_fpn/', 'sem_fpn/')) for k in keys):
         return convert_flax_factseg(flat)
     if any(k.startswith(('changemixin/', 'change_decoder/', 'loc_decoder/', 'seg_cls/'))

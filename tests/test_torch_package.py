@@ -66,7 +66,12 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.module._hrnet, ever_tpu_torch.module._resnets,'
             ' ever_tpu_torch.module.efficientnet, ever_tpu_torch.module.densenet,'
             ' ever_tpu_torch.module._densenet, ever_tpu_torch.module.resnest,'
-            ' ever_tpu_torch.module.convnext;'
+            ' ever_tpu_torch.module.convnext, ever_tpu_torch.module.freenet,'
+            ' ever_tpu_torch.module.dinov3, ever_tpu_torch.module.dinov3.layers.fp8_linear,'
+            ' ever_tpu_torch.module.dinov3.models.convnext, ever_tpu_torch.module.dinov3.utils,'
+            ' ever_tpu_torch.module.dinov3.utils.cluster,'
+            ' ever_tpu_torch.module.dinov3.utils.custom_callable,'
+            ' ever_tpu_torch.module.dinov3.utils.dtype;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -121,7 +126,11 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/magic/bigimage/sliding_window.py',
             'ever_tpu_torch/util/lr_search.py', 'ever_tpu_torch/module/efficientnet.py',
             'ever_tpu_torch/module/densenet.py', 'ever_tpu_torch/module/_densenet.py',
-            'ever_tpu_torch/module/resnest.py', 'ever_tpu_torch/module/convnext.py'} <= scanned
+            'ever_tpu_torch/module/resnest.py', 'ever_tpu_torch/module/convnext.py',
+            'ever_tpu_torch/module/freenet.py', 'ever_tpu_torch/module/dinov3/__init__.py',
+            'ever_tpu_torch/module/dinov3/layers/fp8_linear.py',
+            'ever_tpu_torch/module/dinov3/layers/sparse_linear.py',
+            'ever_tpu_torch/module/dinov3/utils/utils.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -272,12 +281,10 @@ def test_every_tpu_kernel_has_one_chip_smoke_record_and_no_record_names_another(
 
 # the public names of the JAX subpackages' __init__s that the port does not
 # have yet, each with its ROADMAP.md A item
-_A_7_4 = ('dinov3', 'ViTEncoder', 'FreeNet', 'SpectralAttention')
 NOT_PORTED = {
     'core': {}, 'interface': {}, 'opt': {}, 'preprocess': {},
     'magic': {},
-    'module': {**{n: 'A.7.4' for n in _A_7_4},
-               **{n: 'A.7.5' for n in ('DCGAN', 'DCGANDiscriminator', 'DCGANGenerator')}},
+    'module': {n: 'A.7.5' for n in ('DCGAN', 'DCGANDiscriminator', 'DCGANGenerator')},
     'ops': {},
     'parallel': {n: 'A.9' for n in (
         'sharded', 'spatial', 'tp', 'zero', 'batch_sharding', 'host_to_global', 'replicated',
@@ -289,8 +296,7 @@ NOT_PORTED = {
 
 
 # the registry names the port does not have yet, each with its ROADMAP.md A item
-REGISTRY_NOT_PORTED = {'ViTEncoder': 'A.7.4', 'FreeNet': 'A.7.4', 'SpectralAttention': 'A.7.4',
-                       'DCGAN': 'A.7.5'}
+REGISTRY_NOT_PORTED = {'DCGAN': 'A.7.5'}
 
 
 def test_registries_match_jax_or_name_their_roadmap_item():
@@ -319,7 +325,9 @@ def test_registries_match_jax_or_name_their_roadmap_item():
         for name in missing:
             assert f'**{REGISTRY_NOT_PORTED[name]}' in roadmap, name
     assert {'FPN', 'AssymetricDecoder', 'SEBlock', 'SCSEModule', 'ContextBlock2d',
-            'FSRelation', 'FSRelationV2', 'Fusion', 'BiFPN'} <= set(names['OP'][1])
+            'FSRelation', 'FSRelationV2', 'Fusion', 'BiFPN',
+            'SpectralAttention'} <= set(names['OP'][1])
+    assert {'ViTEncoder', 'FreeNet'} <= set(names['MODEL'][1])
     assert 'resnet_frozen_prefixes' not in names['MODEL'][1]
     assert set(REGISTRY_NOT_PORTED) <= set(names['OP'][0]) | set(names['MODEL'][0])
 
@@ -359,6 +367,61 @@ def test_subpackage_surfaces_match_jax_or_name_their_roadmap_item(package):
             assert f'**{missing[name]}' in roadmap, (name, missing[name])
         else:
             assert hasattr(port, name), f'{package}.{name} is neither ported nor listed'
+
+
+# names in a shared module's JAX ``__all__`` that the port's module does not
+# have, each with its ROADMAP.md A item, or the reason it has none (each
+# named in ROADMAP.md §C's deviations)
+MODULE_NOT_PORTED = {
+    'core.device': {'tpu_device': 'TPU-only'},
+    'core.to': {'tpu_device': 'TPU-only'},
+    'ops.pool': {'max_pool_32_pallas': 'TPU-only'},
+    'opt.optimizer': {'find_recorded_grad_norm': "optax's state",
+                      'ClipByGlobalNormState': "optax's state"},
+    'parallel.mesh': {n: 'A.9' for n in ('make_hybrid_mesh', 'replicated', 'batch_sharding',
+                                        'host_to_global', 'NamedSharding', 'P')},
+    'trainer': {'THDDPGANTrainer': 'A.7.5'},
+    'trainer.th_ddp_trainer': {'THDDPGANTrainer': 'A.7.5', 'GANLauncher': 'A.7.5'},
+}
+
+
+def _shared_modules():
+    """The dotted names (below the package) of every module of the JAX
+    package that the port has at the same path."""
+    out = []
+    root = os.path.join(REPO, 'ever_tpu')
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            rel = os.path.relpath(os.path.join(dirpath, name), root)
+            if name.endswith('.py') and os.path.exists(os.path.join(PKG, rel)):
+                mod = rel[:-3].replace(os.sep, '.')
+                out.append(mod[:-len('.__init__')] if mod.endswith('.__init__')
+                           else '' if mod == '__init__' else mod)
+    return sorted(out)
+
+
+@pytest.mark.parametrize('module', _shared_modules(), ids=lambda m: m or 'ever_tpu')
+def test_module_all_matches_jax_or_names_its_reason(module):
+    """Every name in the JAX module's ``__all__`` is an attribute of the
+    port's module at the same path, or is listed in ``MODULE_NOT_PORTED``
+    with its ``ROADMAP.md`` A item or its deviation (then the port has no
+    such name, and ROADMAP.md names it)."""
+    import importlib
+    dotted = f'.{module}' if module else ''
+    jm = importlib.import_module('ever_tpu' + dotted)
+    port = importlib.import_module('ever_tpu_torch' + dotted)
+    names = getattr(jm, '__all__', [])
+    missing = MODULE_NOT_PORTED.get(module, {})
+    assert set(missing) <= set(names)
+    with open(os.path.join(REPO, 'ROADMAP.md')) as f:
+        roadmap = f.read()
+    for name in names:
+        if name in missing:
+            assert not hasattr(port, name), f'{module}.{name} is ported: unlist it'
+            reason = missing[name]
+            assert (f'**{reason}' if reason.startswith('A.') else f'`{name}`') in roadmap, name
+        else:
+            assert hasattr(port, name), f'{module}.{name} is neither ported nor listed'
 
 
 def test_documented_imports_work_under_the_port_s_name():
