@@ -449,7 +449,44 @@ Phases (any failure exits non-zero before the last line is printed):
              (``convert_flax_freenet``) on the card and on the CPU: every
              tensor the archive's, float32 probabilities within
              ``FREENET_WEIGHT_TOL``.
-20. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+20. gan    — the DCGAN at its registered widths (64², 3 channels, latent
+             128, base width 64; ``phase_gan``) with Adam lr 2e-4, beta1 0.5
+             for both roles (Radford, Metz and Chintala, ICLR 2016), batch
+             128 of seeded in-memory images in [-1, 1], float32, TF32 off,
+             through ``get_trainer('gan_th_ddp')``: (a) every logged
+             metric (``D_d_loss``, ``D_d_real_acc``, ``G_g_loss``, both
+             grad norms and learning rates) finite and every tensor of
+             both roles moved; (b) 6 steps and a resume to 10 (a checkpoint
+             every 2 steps, deterministic cuDNN) against 10 at once: the
+             final state and the logged metrics of steps 7-10 bit-equal;
+             (c) two gloo ranks on the card (64 each, ``--ddp-worker
+             gan``) against one process on the same global batches for 3
+             steps: the ranks bit-equal, step 1's D loss and gradient norm
+             within ``GAN_DDP_FIRST_TOL`` (the norm is that of the
+             averaged gradient), G's within ``GAN_DDP_G_TOL``, the
+             parameters after 3 steps within ``GAN_DDP_TOL``; (d) no
+             kernel of the
+             port launched (the JAX DCGAN reaches no Pallas kernel); then
+             the bare step's median ms over 10 after 2 and its MFU (3 × the
+             forward's ``FlopCounterMode`` count of ``d_loss`` and
+             ``g_loss``, against the float32 peak).
+21. zero   — ZeRO-1/3 (``phase_zero``): DinoSeg ``vitl16_sat493m`` at 512²,
+             bf16 compute, float32 parameters, AdamW + cosine, the same
+             seeded weights on two gloo ranks on the card (``--ddp-worker
+             zero``), 4 tiles a rank; 3 steps each of replicated DDP,
+             ZeRO-1 and ZeRO-3: (a) the ZeRO parameters against the
+             replicated run's after step 1 within ``ZERO_FIRST_TOL`` and
+             after step 3 within ``ZERO_TOL`` (bit-equality printed); (b)
+             each rank's optimizer-state bytes, and under ZeRO-3 its
+             parameter bytes, read from its own tensors, at most half the
+             replicated run's plus 1 MiB; (c) the ZeRO-3 state at step 2
+             saved with ``checkpoint_backend='orbax'`` and
+             ``'orbax_async'`` + ``wait()`` (the same contents), restored
+             sharded into a fresh ZeRO-3 state whose step 3 equals the
+             unbroken run's bit for bit; (d) exactly 24 K1 and 24 K2
+             launches a step on each rank, which join the kernels line;
+             ms/step of each layout with the card's name and power limit.
+22. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -2982,8 +3019,10 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     trains FarSeg-R50 6 steps (a checkpoint after each) and evaluates the val
     scenes distributed, trains DinoSeg ViT-L/16 2 steps, and serves the
     4096² scene over the mesh; ``job='resume'`` resumes the FarSeg run's
-    step-3 checkpoint to 6.  Writes ``{job}-rank{rank}.json`` and rank r's
-    canvas; any failure raises and exits non-zero."""
+    step-3 checkpoint to 6; ``job='gan'`` and ``'zero'`` are the gan and
+    zero phases' ranks (``gan_worker``, ``zero_worker``).  Writes
+    ``{job}-rank{rank}.json`` and rank r's canvas; any failure raises and
+    exits non-zero."""
     from ever_tpu_torch.core import dist
     from ever_tpu_torch.metric.evaluate_fn import distributed_evaluate_pixel_prediction_task
     from ever_tpu_torch.parallel.mesh import make_mesh
@@ -2992,6 +3031,11 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dist.init_dist_env(init, world, rank, backend='gloo')
+    if job in ('gan', 'zero'):
+        result = (gan_worker if job == 'gan' else zero_worker)(rank, out)
+        with open(os.path.join(out, f'{job}-rank{rank}.json'), 'w') as f:
+            json.dump(result, f)
+        return 0
     with open(os.path.join(out, 'spec.json')) as f:
         spec = json.load(f)
     result = {}
@@ -6287,6 +6331,481 @@ def phase_freenet(gen, seed: int, smi: str) -> None:
           f'launched 0 times', flush=True)
 
 
+# -- phase 20: the DCGAN and its two-optimizer trainer ----------------------------
+
+# DCGAN at its registered widths (64², 3 channels, latent 128, base width
+# 64) with Adam lr 2e-4, beta1 0.5 for both roles (Radford, Metz and
+# Chintala, ICLR 2016): two batches of 128 an epoch, so a checkpoint every
+# 2 steps
+GAN_BATCH, GAN_SAMPLES, GAN_RESUME_AT, GAN_ITERS = 128, 256, 6, 10
+GAN_DDP_STEPS = 3
+# two gloo ranks (64 each) against one process on the same global batches,
+# float32 with TF32 off.  Step 1 starts from one state: D's loss and the
+# norm of its averaged gradient differ only by the order of float32 sums
+# (the global BatchNorm's combine, the losses' means); a rank left on its
+# own gradients would report a norm tens of percent off.  G's loss and
+# norm come after one Adam update of D, which moves an element whose
+# gradient sits at rounding's scale by up to lr (2e-4, on weights of
+# ~0.02): the first call read G's norm 1.03e-4 apart, so G's limit is ten
+# times D's.  That each role's gradients are the same on both ranks is the
+# ranks' bit-equal states.  D's accuracy counts logits above 0, so one
+# logit at 0 may flip it by 1/128.
+GAN_DDP_FIRST_TOL = 1e-4       # relative, D's loss and gradient norm of step 1
+GAN_DDP_G_TOL = 1e-3           # relative, G's loss and gradient norm of step 1
+GAN_DDP_ACC_TOL = 2 / GAN_BATCH
+GAN_CONFIG = '''\
+config = dict(
+    model=dict(type='DCGAN', params=dict()),
+    data=dict(train=dict(type='smoke_gan_images', params=dict(
+        num_samples={samples}, seed={seed}, total_batch_size={batch},
+        sampler_type='StepDistributedSampler'))),
+    learning_rate=dict(type='constant', params=dict(base_lr=2e-4)),
+    optimizer=dict(type='adam', params=dict(betas=(0.5, 0.999))),
+    train=dict(num_iters={iters}, log_interval_step=1, save_ckpt_interval_epoch=1),
+)
+'''
+
+
+def adam_reach(lr: float, betas, steps: int) -> float:
+    """The furthest two Adam runs from one state can stand apart after
+    ``steps`` steps at ``lr``, whatever their gradients: Adam moves an
+    element by ``lr·|m̂/√v̂|``, and by Cauchy-Schwarz over the moments'
+    weights ``|m̂_t/√v̂_t| ≤ √(Σ_i w_i²/u_i) · √(1−β2^t) / (1−β1^t)``
+    (``w_i = (1−β1)β1^(t−i)``, ``u_i = (1−β2)β2^(t−i)``); two runs whose
+    gradients part (by rounding, which GAN and bf16 steps amplify) may move
+    an element in opposite directions by that much each."""
+    b1, b2 = betas
+    reach = 0.0
+    for t in range(1, steps + 1):
+        s = sum(((1 - b1) * b1 ** (t - i)) ** 2 / ((1 - b2) * b2 ** (t - i))
+                for i in range(1, t + 1))
+        reach += math.sqrt(s) * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+    return 2 * lr * reach
+
+
+# the parameters' max |d| after the steps (1e-6 of it for float32's rounding
+# of the updates themselves)
+GAN_DDP_TOL = adam_reach(2e-4, (0.5, 0.999), GAN_DDP_STEPS) * (1 + 1e-6)
+
+
+def register_gan_data():
+    """Register ``smoke_gan_images`` in the port's DATASET registry: seeded
+    float32 images ``[n, 64, 64, 3]`` in [-1, 1], made in bulk."""
+    import numpy as np
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.interface import ERDataset
+
+    if 'smoke_gan_images' in registry.DATASET:
+        return
+
+    @registry.DATASET.register('smoke_gan_images')
+    class SmokeGanImages(ERDataset):
+        def set_default_config(self):
+            self.config.update(dict(num_samples=GAN_SAMPLES, image_size=64, seed=0))
+
+        def __init__(self, config=None):
+            super().__init__(config)
+            c = self.config
+            rng = np.random.default_rng(c.seed)
+            self.x = rng.uniform(-1, 1, (c.num_samples, c.image_size, c.image_size, 3)
+                                 ).astype(np.float32)
+
+        def __len__(self):
+            return self.config.num_samples
+
+        def __getitem__(self, idx):
+            return self.x[idx]
+
+
+def gan_config(tmp: str, seed: int) -> str:
+    path = os.path.join(tmp, 'dcgan.py')
+    with open(path, 'w') as f:
+        f.write(GAN_CONFIG.format(samples=GAN_SAMPLES, seed=seed, batch=GAN_BATCH,
+                                  iters=GAN_ITERS))
+    return path
+
+
+def gan_run(cfg: str, model_dir: str, num_iters: int, train_dl=None):
+    """``get_trainer('gan_th_ddp')`` of ``cfg`` into ``model_dir`` on
+    ``cuda:0`` for ``num_iters`` steps (from its last checkpoint, if any):
+    the launcher, every logged step's metrics and the model's state before
+    training."""
+    from ever_tpu_torch.trainer import get_trainer
+
+    record = dict(logged=[], init=None)
+
+    def wire(tl):
+        record['init'] = {k: v.detach().clone() for k, v in tl.model.state_dict().items()}
+        train_log = tl.logger.train_log
+
+        def logged(step, n, loss_dict, data_time, time_cost, lr):
+            record['logged'].append([step, dict(loss_dict)])
+            return train_log(step, n, loss_dict, data_time, time_cost, lr)
+
+        tl.logger.train_log = logged
+
+    t = get_trainer('gan_th_ddp', argv=['--config_path', cfg, '--model_dir', model_dir,
+                                        '--device', 'cuda:0', 'train.num_iters',
+                                        str(num_iters)])()
+    out = t.run([wire]) if train_dl is None else t.train_with_dataloader(train_dl, None, [wire])
+    torch.cuda.synchronize()
+    return out['launcher'], record
+
+
+def gan_global_loader(cfg: str, steps: int):
+    """One process's loader of the global batches two ranks of
+    ``GAN_BATCH / 2`` draw in ``steps`` steps."""
+    from ever_tpu_torch.core import registry
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.data.distributed import SubsetSampler, global_batches
+
+    c = import_config(cfg)
+    ds = registry.DATASET[c.data.train.type](c.data.train.params)
+    order = sum(global_batches(ds, 2, GAN_BATCH // 2, steps), [])
+    return torch.utils.data.DataLoader(ds, batch_size=GAN_BATCH, sampler=SubsetSampler(order),
+                                       collate_fn=ds.collate_fn, num_workers=0)
+
+
+def gan_worker(rank: int, out: str) -> dict:
+    """One of two gloo ranks: ``GAN_DDP_STEPS`` steps of the config with a
+    global batch of ``GAN_BATCH``."""
+    with open(os.path.join(out, 'gan-spec.json')) as f:
+        spec = json.load(f)
+    register_gan_data()
+    tl, rec = gan_run(spec['config'], os.path.join(out, f'gan-rank{rank}'), GAN_DDP_STEPS)
+    torch.save({k: v.cpu() for k, v in tl.model.state_dict().items()},
+               os.path.join(out, f'gan-state-rank{rank}.pt'))
+    return dict(logged=rec['logged'], digest=state_digest(tl.model.state_dict()),
+                mesh=[tl.mesh.size(), tl.mesh.rank()], launches=all_launches())
+
+
+def gan_bare_step(cfg: str, seed: int):
+    """The trainer's model, update rules and step on one card-resident
+    batch of ``GAN_BATCH``: (model, step, state, batch)."""
+    import numpy as np
+    from ever_tpu_torch.core import builder
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.trainer.gan import build_gan_train_step, create_gan_state
+
+    c = import_config(cfg)
+    model = builder.make_model(c.model)
+    txs = {}
+    for role in ('G', 'D'):
+        factory, _ = builder.make_optimizer(c.optimizer)
+        txs[role] = factory.build(builder.make_learningrate(c.learning_rate))
+    batch = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1, 1, (GAN_BATCH, 64, 64, 3)).astype(np.float32)).cuda()
+    return model, build_gan_train_step(model, txs, rng_seed=seed), create_gan_state(model, txs), \
+        batch
+
+
+def phase_gan(seed: int, smi: str) -> None:
+    """The DCGAN through ``get_trainer('gan_th_ddp')`` (module docstring,
+    phase 20); it launches no kernel of the port."""
+    import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    t_phase = time.perf_counter()
+    register_gan_data()
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_gan_') as tmp:
+            cfg = gan_config(tmp, seed)
+            reset_counts()
+            _, part = gan_run(cfg, os.path.join(tmp, 'part'), GAN_RESUME_AT)
+            resumed, rest = gan_run(cfg, os.path.join(tmp, 'part'), GAN_ITERS)
+            whole, full = gan_run(cfg, os.path.join(tmp, 'whole'), GAN_ITERS)
+            launches = all_launches()
+            logged = part['logged'] + rest['logged'] + full['logged']
+            finite = all(math.isfinite(v) for _, m in logged for v in m.values())
+            keys = set(full['logged'][-1][1])
+            end = whole.model.state_dict()
+            moved = {role: all(not torch.equal(end[k], v) for k, v in full['init'].items()
+                               if k.startswith(f'{role}.') and not k.endswith('num_batches'))
+                     for role in ('G', 'D')}
+            same = state_digest(resumed.model.state_dict()) == state_digest(end)
+            same_logs = rest['logged'] == full['logged'][GAN_RESUME_AT:]
+            print(f'gan: DCGAN 64² (latent 128, base width 64; G '
+                  f'{sum(p.numel() for p in whole.model.G.parameters()) / 1e6:.2f} M, D '
+                  f'{sum(p.numel() for p in whole.model.D.parameters()) / 1e6:.2f} M '
+                  f'parameters), Adam lr 2e-4 beta1 0.5 both roles, batch {GAN_BATCH}, '
+                  f'float32, TF32 off, deterministic cuDNN, through get_trainer(\'gan_th_ddp\'): '
+                  f'logged {sorted(keys)}; last step ' + ', '.join(
+                      f'{k} {v:.5f}' for k, v in sorted(full['logged'][-1][1].items())),
+                  flush=True)
+            print(f'gan: (a) every logged metric finite {finite}; every tensor moved: G '
+                  f'{moved["G"]}, D {moved["D"]}; (b) {GAN_RESUME_AT} steps and a resume to '
+                  f'{GAN_ITERS} against {GAN_ITERS} at once: final state bit-equal {same}, '
+                  f'logged metrics of steps {GAN_RESUME_AT + 1}-{GAN_ITERS} equal {same_logs}; '
+                  f'(d) the port\'s kernels launched {launches} times', flush=True)
+            check(finite, 'gan: a non-finite logged metric')
+            check(keys >= {'D_d_loss', 'D_d_real_acc', 'G_g_loss', 'd_grad_norm',
+                           'g_grad_norm', 'd_lr', 'g_lr'}, f'gan: logged {sorted(keys)}')
+            check(all(moved.values()), f'gan: parameters left unmoved: {moved}')
+            check(same and same_logs, 'gan: the resumed run differs from the unbroken one')
+            check(launches == 0, f'gan: the port\'s kernels launched {launches} times')
+            del resumed, whole
+
+            # (c) two gloo ranks on the card against one process
+            with open(os.path.join(tmp, 'gan-spec.json'), 'w') as f:
+                json.dump(dict(config=cfg), f)
+            (r0, r1), secs = run_ddp_workers('gan', tmp)
+            reset_counts()
+            one, orec = gan_run(cfg, os.path.join(tmp, 'one'), GAN_DDP_STEPS,
+                                train_dl=gan_global_loader(cfg, GAN_DDP_STEPS))
+            two = torch.load(os.path.join(tmp, 'gan-state-rank0.pt'))
+            params = {n for n, _ in one.model.named_parameters()}
+            end = one.model.state_dict()
+            diff = max(float((two[k] - end[k].cpu()).abs().max()) for k in params)
+            bufs = max_state_diff({k: v for k, v in two.items() if k not in params},
+                                  {k: v for k, v in end.items() if k not in params})
+            worst = []
+            for (s2, m2), (s1, m1) in zip(r0['logged'], orec['logged']):
+                check(s1 == s2, f'gan: logged steps {s1} and {s2}')
+                worst.append({k: abs(m2[k] - v) / (1 if k.endswith('acc') else max(abs(v), 1e-12))
+                              for k, v in m1.items() if not k.endswith('_lr')})
+            first_d = max(v for k, v in worst[0].items() if k in ('D_d_loss', 'd_grad_norm'))
+            first_g = max(v for k, v in worst[0].items() if k in ('G_g_loss', 'g_grad_norm'))
+            print(f'gan: (c) two gloo ranks on the card ({r0["mesh"][0]}-rank mesh, '
+                  f'{GAN_BATCH // 2} a rank, {secs:.1f} s with the ranks\' start) against one '
+                  f'process on the same global batches, {GAN_DDP_STEPS} steps: the ranks\' '
+                  f'states bit-equal {r0["digest"] == r1["digest"]}; step 1: '
+                  + ', '.join(f'{k} {v:.2e}' for k, v in sorted(worst[0].items()))
+                  + f' (relative; accuracy absolute; limits D {GAN_DDP_FIRST_TOL}, G '
+                  f'{GAN_DDP_G_TOL}, accuracy {GAN_DDP_ACC_TOL:.4f}); the largest relative '
+                  f'difference of steps 2-'
+                  f'{GAN_DDP_STEPS}: ' + ' '.join(f'{max(w.values()):.2e}' for w in worst[1:])
+                  + f'; after {GAN_DDP_STEPS} steps the parameters max|d| {diff:.3e} (limit '
+                  f'{GAN_DDP_TOL:.4e}), the running statistics max_state_diff {bufs:.3e}; '
+                  f'the ranks launched the port\'s kernels {r0["launches"] + r1["launches"]} '
+                  f'times', flush=True)
+            check(r0['digest'] == r1['digest'], 'gan: the two ranks\' states differ')
+            check(first_d <= GAN_DDP_FIRST_TOL and first_g <= GAN_DDP_G_TOL
+                  and worst[0]['D_d_real_acc'] <= GAN_DDP_ACC_TOL,
+                  f'gan: two ranks\' step 1 against one process: {worst[0]}')
+            check(diff <= GAN_DDP_TOL, f'gan: two ranks\' parameters against one process: {diff}')
+            check(r0['launches'] + r1['launches'] == 0, 'gan: the ranks launched port kernels')
+            del one
+
+            # the bare step's time and FLOPs
+            model, step, state, batch = gan_bare_step(cfg, seed)
+            with torch.no_grad(), FlopCounterMode(display=False) as counter:
+                model.d_loss(batch, train=True)
+                model.g_loss(batch, train=True)
+            flops = 3 * counter.get_total_flops()
+            for _ in range(WARMUP_STEPS):
+                state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+            events[0].record()
+            for i in range(TIMED_STEPS):
+                state, _ = step(state, batch)
+                events[i + 1].record()
+            torch.cuda.synchronize()
+            times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+            med = times[len(times) // 2]
+            print(f'gan: {smi}: the bare two-optimizer step (D update, then G update) at '
+                  f'batch {GAN_BATCH}: median {med:.3f} ms/step of {TIMED_STEPS} after '
+                  f'{WARMUP_STEPS} (min {times[0]:.3f}, max {times[-1]:.3f}) = '
+                  f'{GAN_BATCH / med * 1e3:.0f} images/s; MFU {flops / (med / 1e3) / PEAK_F32_FLOPS:.4f} '
+                  f'of the float32 peak (3 × the forward\'s {flops / 3e9:.2f} GFLOP: d_loss '
+                  f'and g_loss / step time / 67 TFLOP/s; TF32 off); phase '
+                  f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+# -- phase 21: ZeRO-1/3 and directory checkpoints -----------------------------------
+
+ZERO_BATCH, ZERO_STEPS = 8, 3          # 4 tiles of 512² a rank
+# one AdamW step from one state on the same averaged gradients: ZeRO
+# computes what the replicated step computes element by element, so after
+# step 1 only the optimizer's elementwise kernels (multi-tensor on whole
+# tensors, per tensor on a strided shard) may round apart by an ulp
+ZERO_FIRST_TOL = 1e-6
+# after 3 steps: two AdamW runs whose parameters part by an ulp (through bf16
+# activations) stand at most adam_reach apart (the cosine schedule's lr is
+# 1e-4 over these steps; the decay term moves both alike)
+ZERO_TOL = adam_reach(1e-4, (0.9, 0.999), ZERO_STEPS) * (1 + 1e-6)
+ZERO_LAYOUTS = (('replicated (DDP)', 0), ('ZeRO-1', 1), ('ZeRO-3', 3))
+
+
+class CkptHost:
+    """What a ``CheckPoint`` reads of a launcher: the model dir, the state,
+    the device, and the step it restores."""
+    logger = None
+
+    def __init__(self, model_dir: str, state, device):
+        self.model_dir, self.state, self.device = model_dir, state, device
+        os.makedirs(model_dir, exist_ok=True)
+
+    def restore_state(self, model_state, opt_state, global_step):
+        self.state.step = int(global_step)
+
+
+def zero_state(seed: int, level: int, mesh):
+    """DinoSeg ViT-L/16 (bf16 compute, float32 parameters, the same seeded
+    weights on every rank), AdamW + cosine, placed for ``level`` (0:
+    replicated under DDP): (state, step, shardings)."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+    from ever_tpu_torch.parallel.zero import zero_init
+
+    model = build_dinoseg(torch.Generator(device='cuda').manual_seed(seed + 17))
+    schedule = make_learningrate({'type': 'cosine', 'params': dict(base_lr=1e-4,
+                                                                   max_iters=1000)})
+    factory, _ = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})
+    tx = factory.build(schedule)
+    state, sh = create_train_state(model, tx), None
+    if level:
+        state, sh = zero_init(state, mesh, level, device='cuda:0')
+    return state, build_train_step(model, tx, schedule, mesh=mesh, state_shardings=sh), sh
+
+
+def zero_worker(rank: int, out: str) -> dict:
+    """One of two gloo ranks: each layout's steps, bytes and launches; the
+    directory checkpoints of the ZeRO-3 run at step 2 and its resume."""
+    from ever_tpu_torch.core.checkpoint import CheckPoint
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    from ever_tpu_torch.parallel.zero import full_state_dict, local_bytes
+    from ever_tpu_torch.ops import attention as A
+
+    with open(os.path.join(out, 'zero-spec.json')) as f:
+        seed = json.load(f)['seed']
+    mesh = make_mesh()
+    gen = torch.Generator(device='cuda').manual_seed(seed + 18)
+    x = torch.randn(ZERO_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (ZERO_BATCH, TILE, TILE), generator=gen, device='cuda')
+    rows = slice(rank * ZERO_BATCH // 2, (rank + 1) * ZERO_BATCH // 2)
+    batch = (x[rows], y[rows])
+    res, ref = dict(layouts=[]), {}
+    for name, level in ZERO_LAYOUTS:
+        state, step, sh = zero_state(seed, level, mesh)
+        reset_counts()
+        ms, metrics, diffs = [], [], []
+        for i in range(ZERO_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i in (0, ZERO_STEPS - 1):
+                full = {k: v.cpu() for k, v in full_state_dict(state).items()}
+                if level == 0:
+                    ref[i] = full
+                else:
+                    diffs.append(max_state_diff(full, ref[i]))
+                    diffs.append(all(torch.equal(full[k], v) for k, v in ref[i].items()))
+            if level == 3 and i == 1:
+                for backend in ('orbax', 'orbax_async'):
+                    ckpt = CheckPoint(CkptHost(os.path.join(out, f'zero-{backend}'), state,
+                                               torch.device('cuda:0')), backend)
+                    ckpt.set_global_step(2)
+                    t0 = time.perf_counter()
+                    ckpt.save()
+                    res[f'save {backend}'] = time.perf_counter() - t0
+                    ckpt.wait()
+                    res[f'written {backend}'] = time.perf_counter() - t0
+        res['layouts'].append(dict(name=name, level=level, ms=ms, metrics=metrics, diffs=diffs,
+                                   bytes=local_bytes(state),
+                                   launches=[A.fused_attention.launches,
+                                             A.fused_attention_bwd.launches]))
+        unbroken = full                   # the ZeRO-3 run's step 3, last
+        del state, step
+        torch.cuda.empty_cache()
+    # the ZeRO-3 run resumed from its step-2 directory, one step on
+    fresh, step, _ = zero_state(seed, 3, mesh)
+    ckpt = CheckPoint(CkptHost(os.path.join(out, 'zero-orbax'), fresh, torch.device('cuda:0')),
+                      'orbax')
+    t0 = time.perf_counter()
+    resumed = ckpt.try_resume()
+    res['restore'] = time.perf_counter() - t0
+    res['resumed_at'] = fresh.step
+    fresh, _ = step(fresh, batch)
+    got = {k: v.cpu() for k, v in full_state_dict(fresh).items()}
+    res['resume_equal'] = resumed and all(torch.equal(got[k], v) for k, v in unbroken.items())
+    del fresh, step
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    if rank == 0:
+        a = CheckPoint.load(os.path.join(out, 'zero-orbax', 'checkpoint-2'), device='cpu')
+        b = CheckPoint.load(os.path.join(out, 'zero-orbax_async', 'checkpoint-2'), device='cpu')
+        flat = lambda c: {**{f'model/{k}': v for k, v in c['model'].items()},  # noqa: E731
+                          **{f'opt/{n}/{k}': v for n, st in c['opt']['state'].items()
+                             for k, v in st.items()}}
+        fa, fb = flat(a), flat(b)
+        res['files_equal'] = set(fa) == set(fb) and all(
+            torch.equal(torch.as_tensor(fb[k]), torch.as_tensor(v)) for k, v in fa.items())
+        res['file_tensors'] = len(fa)
+        res['file_bytes'] = sum(torch.as_tensor(v).nbytes for v in fa.values())
+    return res
+
+
+def phase_zero(seed: int, smi: str) -> tuple:
+    """ZeRO-1/3 of DinoSeg ViT-L/16 over two gloo ranks on the card (module
+    docstring, phase 21); returns the ranks' K1 and K2 launches."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_zero_') as tmp:
+        with open(os.path.join(tmp, 'zero-spec.json'), 'w') as f:
+            json.dump(dict(seed=seed), f)
+        ranks, secs = run_ddp_workers('zero', tmp)
+    r0 = ranks[0]
+    rep = r0['layouts'][0]
+    k1 = k2 = 0
+    for res in ranks:
+        for lay in res['layouts']:
+            k1, k2 = k1 + lay['launches'][0], k2 + lay['launches'][1]
+    for lay in r0['layouts']:
+        b, rb = lay['bytes'], rep['bytes']
+        steady = sorted(lay['ms'][1:])
+        print(f'zero: {smi}: {lay["name"]}: DinoSeg vitl16_sat493m, bf16 compute, float32 '
+              f'parameters, AdamW + cosine, {ZERO_BATCH // 2} tiles of {TILE}² a rank, 2 gloo '
+              f'ranks on the card: ms/step {" ".join(f"{t:.1f}" for t in lay["ms"])} (steps '
+              f'2-{ZERO_STEPS}: median {steady[len(steady) // 2]:.1f}); losses '
+              f'{" ".join(f"{m["cls_loss"]:.5f}" for m in lay["metrics"])}; grad_norm '
+              f'{" ".join(f"{m["grad_norm"]:.4f}" for m in lay["metrics"])}; rank 0 holds '
+              f'parameters {b["params"] / 2**30:.3f} GiB ({b["params"] / rb["params"]:.3f} of '
+              f'replicated), optimizer state {b["opt_state"] / 2**30:.3f} GiB '
+              f'({b["opt_state"] / rb["opt_state"]:.3f}); K1/K2 launches {lay["launches"]}',
+              flush=True)
+        if lay['level']:
+            d1, eq1, d3, eq3 = lay['diffs']
+            print(f'zero: {lay["name"]} against replicated: after step 1 max_state_diff '
+                  f'{d1:.3e} (bit-equal {eq1}; limit {ZERO_FIRST_TOL}), after step '
+                  f'{ZERO_STEPS} {d3:.3e} (bit-equal {eq3}; limit {ZERO_TOL:.4e})', flush=True)
+            check(d1 <= ZERO_FIRST_TOL and d3 <= ZERO_TOL,
+                  f'zero: {lay["name"]} parted from the replicated run: {d1}, {d3}')
+            check(b['opt_state'] <= 0.5 * rb['opt_state'] + 2**20,
+                  f'zero: {lay["name"]} holds {b["opt_state"]} optimizer bytes a rank')
+            if lay['level'] == 3:
+                check(b['params'] <= 0.5 * rb['params'] + 2**20,
+                      f'zero: ZeRO-3 holds {b["params"]} parameter bytes a rank')
+        for res in ranks:
+            got = next(x for x in res['layouts'] if x['name'] == lay['name'])['launches']
+            check(got == [24 * ZERO_STEPS, 24 * ZERO_STEPS],
+                  f'zero: {lay["name"]} launched K1/K2 {got} times in {ZERO_STEPS} steps')
+        check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
+                  for m in lay['metrics']), f'zero: {lay["name"]}: non-finite metrics')
+    print(f'zero: (c) the ZeRO-3 state at step 2 as directories: \'orbax\' save '
+          f'{r0["save orbax"]:.2f} s; \'orbax_async\' save returned in '
+          f'{r0["save orbax_async"]:.2f} s, written after wait() at '
+          f'{r0["written orbax_async"]:.2f} s; {r0["file_tensors"]} tensors, '
+          f'{r0["file_bytes"] / 2**30:.2f} GiB, the same contents {r0["files_equal"]}; a '
+          f'sharded restore into a fresh ZeRO-3 state ({r0["restore"]:.2f} s) resumed at step '
+          f'{r0["resumed_at"]} and its step 3 equals the unbroken run bit for bit: rank 0 '
+          f'{r0["resume_equal"]}, rank 1 {ranks[1]["resume_equal"]}; phase '
+          f'{time.perf_counter() - t_phase:.1f} s ({secs:.1f} s in the ranks)', flush=True)
+    check(r0['files_equal'], 'zero: the orbax and orbax_async directories differ')
+    check(r0['resumed_at'] == 2 and all(r['resume_equal'] for r in ranks),
+          'zero: the resumed ZeRO-3 run differs from the unbroken one')
+    return k1, k2
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -6316,7 +6835,8 @@ def main() -> int:
                         help="seed of the random weights, inputs and the trainer "
                              "phase's data")
     parser.add_argument('--ddp-worker', nargs=5, metavar=('JOB', 'RANK', 'WORLD', 'INIT', 'OUT'),
-                        help='run one rank of the ddp phase (the phase starts them)')
+                        help='run one rank of the ddp, gan or zero phase (the phase starts '
+                             'them)')
     args = parser.parse_args()
     if args.ddp_worker:
         job, rank, world, init, out = args.ddp_worker
@@ -6373,6 +6893,10 @@ def main() -> int:
     bwd['launches'] += k2
     matmul['launches'] += k7
     phase_freenet(gen, args.seed, smi)
+    phase_gan(args.seed, smi)
+    k1, k2 = phase_zero(args.seed, smi)
+    fwd['launches'] += k1
+    bwd['launches'] += k2
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

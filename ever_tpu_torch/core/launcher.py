@@ -144,6 +144,15 @@ class _StepTrace:
             info(f'profile trace written to {path}')
 
 
+def _load_optimizer(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    # step counters stay host scalars, as torch.optim keeps them (a counter
+    # on the card makes every update read it back)
+    for st in state_dict['state'].values():
+        if torch.is_tensor(st.get('step')):
+            st['step'] = st['step'].cpu()
+    optimizer.load_state_dict(state_dict)
+
+
 class Launcher:
     def __init__(self,
                  model_dir: str,
@@ -259,16 +268,34 @@ class Launcher:
             self.info(f"loaded init weights from {weight['path']}")
 
     def restore_state(self, model_state, opt_state, global_step: int) -> None:
+        """Load a checkpoint's model and optimizer state (None: loaded in
+        place already, as a directory checkpoint is) and set the step."""
         if self._state is None:
             raise RuntimeError('init_state must run before restore_state')
-        self._model.load_state_dict(model_state)
-        # step counters stay host scalars, as torch.optim keeps them (a
-        # counter on the card makes every update read it back)
-        for st in opt_state['state'].values():
-            if torch.is_tensor(st.get('step')):
-                st['step'] = st['step'].cpu()
-        self._state.optimizer.load_state_dict(opt_state)
+        if model_state is not None:
+            self._model.load_state_dict(model_state)
+        opt = self._state.optimizer
+        if opt_state is None:
+            pass
+        elif isinstance(opt, dict):         # one optimizer a role (a GAN)
+            for role, o in opt.items():
+                _load_optimizer(o, opt_state[role])
+        else:
+            _load_optimizer(opt, opt_state)
         self._state.step = int(global_step)
+
+    def local_state(self):
+        """The train state for an evaluation on this process alone.  A
+        state sharded over the ranks (ZeRO) has no whole copy here and
+        raises: evaluate it on the global mesh."""
+        sh = getattr(self._state, 'shardings', None)
+        if self._mesh is None or dist.get_world_size() == 1 or sh is None:
+            return self._state
+        if any(not s.is_fully_replicated for s in sh.leaves().values()):
+            raise ValueError('local_state() needs a replicated train state; this '
+                             'state is sharded (ZeRO?) — evaluate with the global '
+                             'mesh instead')
+        return self._state
 
     def _model_config(self) -> dict:
         return getattr(self._model, 'config', None) or {}
@@ -424,8 +451,10 @@ class Launcher:
                              log_interval_step, steps_per_loop, profile, weights)
         except (KeyboardInterrupt, Exception):
             # make the interrupted step resumable; only this rank is here, so
-            # the save enters no collective
-            if self._state is not None and self._ckpt.global_step > 0:
+            # a save that is a collective of every rank (a directory
+            # backend's, over several processes) is skipped
+            collective = self._ckpt.backend != 'msgpack' and dist.get_world_size() > 1
+            if self._state is not None and self._ckpt.global_step > 0 and not collective:
                 try:
                     self._ckpt.save()
                     self.info(f'crash-saved checkpoint at step {self._ckpt.global_step}')

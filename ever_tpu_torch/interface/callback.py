@@ -92,6 +92,14 @@ class SaveCheckpointCallback(Callback):
         super().__init__(epoch_interval=epoch_interval, only_master=True, prior=0,
                          before_train=False, after_train=True)
 
+    @property
+    def only_master(self) -> bool:
+        """False for a directory backend over several processes: its save
+        is a collective every rank enters."""
+        from ever_tpu_torch.core.dist import get_world_size
+        tl = self._launcher
+        return tl is None or tl.checkpoint.backend == 'msgpack' or get_world_size() == 1
+
     def func(self):
         self.launcher.checkpoint.save()
 

@@ -1,7 +1,7 @@
 """The model zoo (counterpart of ``ever_tpu/module/__init__.py``, as far as
 it is ported): importing it registers the models in ``MODEL`` (the heads,
-the HRNet, EfficientNet, DenseNet, ResNeSt, ConvNeXt and ViT encoders and
-FreeNet among them) and ``ChangeMixin``, the heads' blocks, the FPNs,
+the HRNet, EfficientNet, DenseNet, ResNeSt, ConvNeXt and ViT encoders,
+FreeNet and the DCGAN among them) and ``ChangeMixin``, the heads' blocks, the FPNs,
 ``Fusion``, the SE, GC and FarSeg relation blocks and ``SpectralAttention``
 in ``OP``; ``dinov3`` is the reference's DINOv3 namespace."""
 
@@ -16,6 +16,7 @@ from ever_tpu_torch.module.densenet import DenseNet, DenseNetEncoder  # noqa: F4
 from ever_tpu_torch.module.efficientnet import EfficientNet, EFNetEncoder  # noqa: F401
 from ever_tpu_torch.module.factseg import FactSeg  # noqa: F401
 from ever_tpu_torch.module.freenet import FreeNet, SpectralAttention  # noqa: F401
+from ever_tpu_torch.module.gan import DCGAN, DCGANDiscriminator, DCGANGenerator  # noqa: F401
 from ever_tpu_torch.module.fpn import (  # noqa: F401
     FPN, AssymetricDecoder, BiFPN, FastNormalizedFusionConv3x3, Fusion, LastLevelMaxPool,
     LastLevelP6P7, NormalizedFusionConv3x3, conv_with_kaiming_uniform)

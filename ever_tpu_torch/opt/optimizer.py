@@ -127,11 +127,16 @@ class UpdateRule:
         returns the recorded pre-clip gradient norm."""
         params = [p for g in optimizer.param_groups for p in g['params']]
         norm = clip_by_global_norm_recording(params, self.max_norm)
+        self.step(optimizer, step)
+        return norm
+
+    def step(self, optimizer: torch.optim.Optimizer, step: int) -> None:
+        """Set each group's learning rate for count ``step`` and step the
+        optimizer on the gradients as they are (clipped already)."""
         lr = self.lr_at(step)
         for group in optimizer.param_groups:
             group['lr'] = lr * group.get('lr_mult', 1.0)
         optimizer.step()
-        return norm
 
 
 class OptimizerFactory:

@@ -11,22 +11,38 @@ sums its batch statistics with :func:`all_reduce_sum`, whose gradient is the
 same sum of the gradients.  Outside a mesh, or with one rank, nothing is
 reduced and the code is that of one process.
 
-Only the 1-D data mesh is ported; the 2-D and hybrid meshes wait for the
-model-parallel layouts.
+Placements (A.9.4): a :class:`NamedSharding` is the JAX package's pair of a
+mesh and a :class:`PartitionSpec` (``P(None, 'data')``: dimension 1 split
+over the data axis), read as ``torch.distributed`` placements
+(``Shard(d)``/``Replicate()``, one a mesh axis).  :func:`replicated` and
+:func:`batch_sharding` build the two a step uses, and
+:func:`host_to_global` turns the host's global batch into each rank's rows
+of it, held as a ``DTensor`` over the mesh (a batch that is one already
+is left alone).  :func:`abstract_mesh` lays out ``n`` ranks without
+processes, for planning placements (``parallel/zero.py``,
+``parallel/sharded.py``) as JAX plans them over fake devices.
+
+Only the 1-D data mesh is ported; the 2-D and hybrid meshes
+(``make_hybrid_mesh``) wait for the model-parallel layouts (``ROADMAP.md``
+A.9.3).
 """
 
 from __future__ import annotations
 
 import contextvars
 import warnings
-from typing import Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as tdist
+from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.core import dist
 
-__all__ = ['Mesh', 'make_mesh', 'reduction_group', 'data_shard', 'all_reduce_sum']
+__all__ = ['Mesh', 'make_mesh', 'abstract_mesh', 'reduction_group', 'data_shard',
+           'all_reduce_sum', 'PartitionSpec', 'P', 'NamedSharding', 'replicated',
+           'batch_sharding', 'host_to_global']
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_mesh',
                                                          default=None)
@@ -40,14 +56,33 @@ class Mesh:
     the current mesh, whose data axis the batch statistics are reduced over.
     """
 
-    def __init__(self, axis_names: Sequence[str] = ('data',), group=None):
+    def __init__(self, axis_names: Sequence[str] = ('data',), group=None,
+                 size: Optional[int] = None):
         self.axis_names = tuple(axis_names)
         self.group = group
+        self._size = size
         self._wrapped = {}
+        self._device_meshes = {}
         self._token = []
 
     def size(self) -> int:
-        return 1 if self.group is None else tdist.get_world_size(self.group)
+        if self.group is None:
+            return 1 if self._size is None else self._size
+        return tdist.get_world_size(self.group)
+
+    @property
+    def abstract(self) -> bool:
+        """True for a mesh of :func:`abstract_mesh`: ranks without processes."""
+        return self.group is None and self._size is not None
+
+    def device_mesh(self, device_type: str):
+        """The ``torch.distributed`` ``DeviceMesh`` of the data axis over
+        this mesh's group, for ``device_type`` tensors (made once)."""
+        if device_type not in self._device_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+            self._device_meshes[device_type] = DeviceMesh.from_group(
+                self.group, device_type, mesh_dim_names=self.axis_names[:1])
+        return self._device_meshes[device_type]
 
     @property
     def shape(self) -> dict:
@@ -101,9 +136,123 @@ def make_mesh(axes: Sequence[str] = ('data',), shape=None, devices=None) -> Mesh
     if len(tuple(axes)) != 1 or devices is not None or (
             shape is not None and list(shape) != [dist.get_world_size()]):
         raise NotImplementedError('only the 1-D data mesh over every process is ported '
-                                  '(ROADMAP.md A.9)')
+                                  '(ROADMAP.md A.9.3)')
     initialized = tdist.is_available() and tdist.is_initialized()
     return Mesh(axes, tdist.group.WORLD if initialized else None)
+
+
+def abstract_mesh(size: int, axes: Sequence[str] = ('data',)) -> Mesh:
+    """A data mesh of ``size`` ranks with no process behind them, on which
+    placements are planned (JAX's fake-device mesh); it runs no step."""
+    return Mesh(axes, None, int(size))
+
+
+def __getattr__(name: str):
+    if name == 'make_hybrid_mesh':
+        raise AttributeError('make_hybrid_mesh: the 2-D and hybrid meshes are not ported '
+                             '(ROADMAP.md A.9.3)')
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+class PartitionSpec(tuple):
+    """JAX's ``PartitionSpec``: for each dimension of a tensor, the mesh
+    axis it is split over, or None."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f'P{tuple(self)!r}'
+
+
+P = PartitionSpec
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout over ``mesh``: ``spec`` names, for each dimension,
+    the mesh axis it is split over.  ``placements`` are the same as
+    ``torch.distributed`` placements, one a mesh axis."""
+    mesh: Mesh
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> tuple:
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for axis in self.mesh.axis_names:
+            dims = [d for d, a in enumerate(self.spec)
+                    if a == axis or (isinstance(a, tuple) and axis in a)]
+            out.append(Shard(dims[0]) if dims else Replicate())
+        return tuple(out)
+
+    @property
+    def shard_dim(self) -> Optional[int]:
+        """The dimension split over the mesh's first (data) axis, or None."""
+        from torch.distributed.tensor import Shard
+        first = self.placements[0]
+        return first.dim if isinstance(first, Shard) else None
+
+    @property
+    def is_fully_replicated(self) -> bool:
+        return self.shard_dim is None or self.mesh.size() == 1
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    """Every rank holds the whole tensor."""
+    return NamedSharding(mesh, P())
+
+
+def batch_sharding(mesh: Mesh, *, accum_leading=False, axis: str = 'data') -> NamedSharding:
+    """A batch's layout: its batch dimension split over ``axis``.
+    ``accum_leading`` counts the replicated leading dimensions before it
+    (``True`` is 1: the microbatch or steps-per-loop index; 2 when both)."""
+    return NamedSharding(mesh, P(*([None] * int(accum_leading)), axis))
+
+
+def _is_global(x, sharding: NamedSharding) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor) and tuple(x.placements) == sharding.placements
+
+
+def host_to_global(batch: Any, sharding: NamedSharding) -> Any:
+    """The host's global batch as this rank's rows of it on the sharded
+    dimension, each leaf a ``DTensor`` over the mesh whose local tensor is
+    those rows (``.to_local()``; the train step takes either).  A leaf that
+    is already such a ``DTensor`` is left alone, as JAX leaves a global
+    array.  Without a process group (one process) the leaves are returned
+    as tensors, whole.  A global batch the data axis does not divide
+    raises ``ValueError``."""
+    mesh, dim = sharding.mesh, sharding.shard_dim
+    n = mesh.size()
+    if dim is not None and n > 1:
+        for x in [t for t in _leaves(batch) if not _is_global(t, sharding)]:
+            rows = x.shape[dim] if len(x.shape) > dim else None
+            if rows is not None and rows % n:
+                raise ValueError(
+                    f'global batch {rows} is not divisible by the {n}-way batch sharding '
+                    f'({sharding.spec}); raise total_batch_size to a multiple of the '
+                    f'device count (reference semantics: ever/interface/dataloader.py:61-67)')
+    if mesh.group is None or dim is None:
+        return tree_map(lambda x: x if _is_global(x, sharding) else torch.as_tensor(x), batch)
+    from torch.distributed.tensor import DTensor
+    rank = mesh.rank()
+
+    def local(x):
+        if _is_global(x, sharding):
+            return x
+        x = torch.as_tensor(x)
+        rows = x.shape[dim] // n
+        return DTensor.from_local(x.narrow(dim, rank * rows, rows),
+                                  mesh.device_mesh(x.device.type), sharding.placements,
+                                  run_check=False, shape=x.shape, stride=x.stride())
+
+    return tree_map(local, batch)
+
+
+def _leaves(tree) -> list:
+    from torch.utils._pytree import tree_leaves
+    return [t for t in tree_leaves(tree) if hasattr(t, 'shape')]
 
 
 def reduction_group(axis_name: Optional[str] = None):

@@ -29,6 +29,16 @@ BatchNorm statistics, the losses' sums and the drop-path draws are those of
 the global batch.  The metrics are averaged over the ranks with one
 ``all_reduce``, so they are the global values the JAX step reports.  The
 eval step stays rank-local: each process predicts its own batches.
+
+``state_shardings=`` (from ``parallel/zero.py`` ``zero_init`` or
+``parallel/sharded.py``) makes the step a ZeRO step over the mesh: the
+state's :class:`~ever_tpu_torch.parallel.zero.ZeroOptimizer` gathers the
+parameters it holds sharded, the forward and backward run on the rank's
+batch without ``DistributedDataParallel``, and it averages the gradients
+and updates its shards.  The :class:`TrainState` carries the placements
+(``shardings``); as in JAX, ``state_shardings`` without ``mesh`` raises.
+A batch may come as ``DTensor`` leaves (``mesh.host_to_global``); the step
+takes their local rows.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as tdist
+from torch.distributed.tensor import DTensor
 from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.interface.module import split_metrics, sum_losses
@@ -54,6 +65,7 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
+    shardings: Optional[object] = None      # parallel.zero.StateShardings under ZeRO
 
 
 def _device(model: torch.nn.Module) -> torch.device:
@@ -66,7 +78,14 @@ def _model_args(batch, device) -> tuple:
     ``(m1, m2, change)``) recursed into and their leaves made tensors, as
     ``core/to.py`` recurses."""
     items = tuple(batch) if isinstance(batch, (tuple, list)) else (batch,)
-    return tuple(tree_map(lambda t: torch.as_tensor(t, device=device), t) for t in items)
+    return tuple(tree_map(lambda t: torch.as_tensor(_local(t), device=device), t)
+                 for t in items)
+
+
+def _local(t):
+    """A ``DTensor`` leaf's local rows (``mesh.host_to_global``); any other
+    leaf as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 def _index(batch, i: int):
@@ -121,7 +140,8 @@ def _mean_over(mesh, metrics: Metrics) -> Metrics:
 def build_train_step(model: torch.nn.Module, tx,
                      lr_schedule: Optional[Callable[[int], float]] = None,
                      forward_times: int = 1, mesh=None, rng_seed: int = 0,
-                     find_unused_parameters: bool = False) -> Callable:
+                     find_unused_parameters: bool = False,
+                     state_shardings=None) -> Callable:
     """``step(state, batch) -> (state, metrics)``.
 
     ``batch`` is a tuple of the model's positional inputs (``(x, y)``;
@@ -133,7 +153,15 @@ def build_train_step(model: torch.nn.Module, tx,
     With ``mesh`` over a process group, ``batch`` is this process's share
     and the step is data parallel (module docstring);
     ``find_unused_parameters`` is passed to ``DistributedDataParallel``.
+    ``state_shardings`` makes it a ZeRO step (module docstring).
     """
+    if state_shardings is not None:
+        if mesh is None:
+            # dropping the placements would replicate the state: the memory
+            # ZeRO was configured to save
+            raise ValueError('state_shardings requires mesh= (they are NamedShardings '
+                             'over a mesh)')
+        return _zero_step(model, tx, lr_schedule, forward_times, mesh, rng_seed)
     grouped = mesh is not None and mesh.group is not None
     net = mesh.data_parallel(model, find_unused_parameters) if grouped else model
     scope = mesh if mesh is not None else contextlib.nullcontext()
@@ -171,16 +199,52 @@ def build_train_step(model: torch.nn.Module, tx,
     return step
 
 
+def _zero_step(model, tx, lr_schedule, forward_times: int, mesh, rng_seed: int) -> Callable:
+    """The ZeRO step over ``mesh`` (module docstring)."""
+    from ever_tpu_torch.parallel.zero import ZeroOptimizer
+
+    def step(state: TrainState, batch):
+        zo = state.optimizer
+        if not isinstance(zo, ZeroOptimizer):
+            raise TypeError('a step with state_shardings takes a ZeRO state '
+                            '(parallel.zero.zero_init or parallel.sharded)')
+        zo.gather_params()
+        model.zero_grad(set_to_none=True)
+        dev = _device(model)
+        with mesh:
+            parts = [_forward_backward(
+                model, model, batch if forward_times == 1 else _index(batch, i),
+                step_generator(rng_seed, state.step, None if forward_times == 1 else i, dev))
+                for i in range(forward_times)]
+        metrics = {k: sum(m[k] for m in parts) / forward_times for k in parts[0]}
+        if forward_times > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(forward_times)
+        zo.reduce_grads()
+        metrics['grad_norm'] = zo.step(tx, state.step)
+        zo.release_params()
+        if mesh.size() > 1:
+            metrics = _mean_over(mesh, metrics)
+        if lr_schedule is not None:
+            metrics['learning_rate'] = torch.tensor(float(lr_schedule(state.step)))
+        state.step += 1
+        return state, metrics
+
+    return step
+
+
 def build_train_loop(model: torch.nn.Module, tx,
                      lr_schedule: Optional[Callable[[int], float]] = None,
                      steps_per_loop: int = 1, forward_times: int = 1, mesh=None,
-                     rng_seed: int = 0, find_unused_parameters: bool = False) -> Callable:
+                     rng_seed: int = 0, find_unused_parameters: bool = False,
+                     state_shardings=None) -> Callable:
     """K optimizer steps per call: ``loop(state, batches) -> (state,
     metrics)``, where every input of ``batches`` carries a leading
     ``steps_per_loop`` axis.  Metrics are the mean over the K steps, except
     ``learning_rate`` and ``grad_norm``, which report the last step."""
     step = build_train_step(model, tx, lr_schedule, forward_times, mesh, rng_seed,
-                            find_unused_parameters)
+                            find_unused_parameters, state_shardings)
 
     def loop(state: TrainState, batches):
         per_step = []

@@ -5,7 +5,9 @@
 factory of the trainer.  ``base`` trains in one process; ``th_ddp`` and
 ``spmd`` are :class:`SPMDTrainer`, data parallel over the processes
 ``torchrun`` starts (one card each), and the same as ``base`` in one plain
-process.  The GAN trainers are not ported.  ``--device`` picks the card
+process.  ``gan_th_ddp`` and ``gan_spmd`` are :class:`~ever_tpu_torch.
+trainer.gan.GANSPMDTrainer`, the same over a GAN's two optimizers
+(``trainer/gan.py``).  ``--device`` picks the card
 (``cuda``, the default: the process's own under torchrun) or ``cpu``
 (gloo).
 """
@@ -20,11 +22,18 @@ from ever_tpu_torch.trainer.trainer import SPMDTrainer, Trainer, half_bn, merge_
 THDDPTrainer = SPMDTrainer
 
 __all__ = ['get_trainer', 'parse_args', 'get_default_parser', 'TRAINER',
-           'Trainer', 'SPMDTrainer', 'THDDPTrainer', 'merge_dict', 'half_bn']
+           'Trainer', 'SPMDTrainer', 'THDDPTrainer', 'THDDPGANTrainer', 'merge_dict',
+           'half_bn']
 
 
 def _gan_trainer(args):
-    raise NotImplementedError('the GAN trainer is not ported yet (ROADMAP.md A.7)')
+    from ever_tpu_torch.trainer.gan import GANSPMDTrainer
+    return GANSPMDTrainer(args)
+
+
+def THDDPGANTrainer(args):
+    """The reference's spelling of the GAN trainer."""
+    return _gan_trainer(args)
 
 
 TRAINER = {

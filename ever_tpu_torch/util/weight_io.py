@@ -72,6 +72,7 @@ __all__ = ['flatten_params', 'flatten_tree', 'unflatten_tree', 'convert_flax_din
            'convert_flax_encoder_head', 'convert_flax_efficientnet', 'convert_flax_densenet',
            'convert_flax_resnest', 'convert_flax_convnext', 'convert_flax_bifpn',
            'convert_flax_vit_encoder', 'convert_flax_freenet', 'convert_flax_linear',
+           'convert_flax_dcgan',
            'convert_flax_flat', 'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
            'convert_torch_resnet', 'convert_torch_hrnet', 'convert_torch_efficientnet',
            'convert_torch_densenet', 'convert_torch_resnest', 'convert_torch_convnext',
@@ -583,6 +584,46 @@ def convert_flax_freenet(params: Any) -> Dict[str, torch.Tensor]:
     """JAX ``FreeNet`` params → the port's ``FreeNet`` ``state_dict`` (the
     same module names).  Any variable left unmapped raises ``KeyError``."""
     return _convert_conv_net(_variables(params, None), [('', '', _FREENET_RULES)], 'FreeNet')
+
+
+_DCGAN_NAMES = [
+    (r'G/fc', 'G.fc'), (r'G/bn_fc', 'G.bn_fc'), (r'G/up(\d+)', r'G.ups.\1'),
+    (r'G/bn(\d+)', r'G.bns.\1'), (r'D/down(\d+)', r'D.downs.\1'), (r'D/logit', 'D.logit'),
+]
+
+
+def convert_flax_dcgan(params: Any, batch_stats: Any = None) -> Dict[str, torch.Tensor]:
+    """JAX ``DCGAN`` params and batch statistics (or its whole variables
+    dict) → the port's ``DCGAN`` ``state_dict``.  Dense kernels are
+    transposed; convolution kernels ``[kh, kw, in, out]`` become ``[out, in,
+    kh, kw]``; the generator's transposed-convolution kernels become ``[in,
+    out, kh, kw]`` flipped in both spatial axes (flax's ``ConvTranspose``
+    correlates with the kernel as stored, ``conv_transpose2d`` with it
+    flipped); the discriminator's ``bn{i}`` (from ``i = 1``) is
+    ``D.bns.{i-1}``.  Any variable left unmapped raises ``KeyError``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in _variables(params, batch_stats).items():
+        path, leaf = key.rsplit('/', 1)
+        name = None
+        for pattern, template in _DCGAN_NAMES:
+            m = re.fullmatch(pattern, path)
+            if m is not None:
+                name = m.expand(template)
+                break
+        dm = re.fullmatch(r'D/bn(\d+)', path)
+        if dm is not None:
+            name = f'D.bns.{int(dm.group(1)) - 1}'
+        if name is None or leaf not in _CONV_NET_LEAF:
+            raise KeyError(f'unmapped DCGAN variable {key!r}')
+        if leaf == 'kernel':
+            if v.ndim == 2:
+                v = v.T
+            elif '.ups.' in name:
+                v = np.transpose(v[::-1, ::-1], (2, 3, 0, 1))
+            else:
+                v = np.transpose(v, (3, 2, 0, 1))
+        sd[f'{name}.{_CONV_NET_LEAF[leaf]}'] = _tensor(np.ascontiguousarray(v))
+    return sd
 
 
 def _trunk_trees(rules, attr: str):

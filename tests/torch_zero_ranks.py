@@ -1,0 +1,178 @@
+"""The rank side of ``tests/test_torch_zero.py``: the small net it trains
+(registered in the port's registry), its batch and update rules, the
+DCGAN's, and the worker each gloo rank runs.  No JAX here: the ranks start
+without it."""
+
+import os
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ever_tpu_torch.core import builder as tbuilder
+from ever_tpu_torch.core import dist
+from ever_tpu_torch.core import registry as tregistry
+from ever_tpu_torch.core.checkpoint import CheckPoint
+from ever_tpu_torch.core.launcher import Launcher
+from ever_tpu_torch.interface import ERModule as TERModule
+from ever_tpu_torch.module import loss as tloss
+from ever_tpu_torch.module.ops import BatchNorm2d
+from ever_tpu_torch.parallel import mesh as tmesh
+from ever_tpu_torch.parallel.sharded import assert_sharded_below, create_train_state_sharded
+from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+from ever_tpu_torch.parallel.zero import full_state_dict, local_bytes, zero_init
+from ever_tpu_torch.trainer.gan import build_gan_train_step, create_gan_state
+
+CLASSES, N, SIZE = 5, 8, 8
+
+
+class _Tiny:
+    def set_default_config(self):
+        self.config.update(dict(width=16))
+
+
+@tregistry.MODEL.register('torch_zero_tiny')
+class TorchTiny(_Tiny, TERModule):
+    """3×3 conv, BatchNorm (momentum 0.9), ReLU, 1×1 classifier, CE."""
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        w = self.config.width
+        self.conv, self.bn, self.cls = nn.Conv2d(3, w, 3, padding=1), BatchNorm2d(w), \
+            nn.Conv2d(w, CLASSES, 1)
+
+    def forward(self, x, y=None, train=False, generator=None):
+        h = F.relu(self.bn(self.conv(torch.as_tensor(x).permute(0, 3, 1, 2)), train))
+        logit = self.cls(h).permute(0, 2, 3, 1)
+        return dict(cls_loss=tloss.softmax_ce_loss_with_logits(logit, y)) if train else logit
+
+
+def _batch():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(N, SIZE, SIZE, 3))
+    y = rng.integers(0, CLASSES, size=(N, SIZE, SIZE)).astype(np.int32)
+    y[:, 0, :3] = 255
+    return x, y
+
+
+OPTS = {'sgd': dict(type='sgd', params=dict(momentum=0.9, weight_decay=1e-4)),
+        'adamw': dict(type='adamw', params=dict(weight_decay=0.05))}
+
+
+def _rule(b, opt):
+    sched = b.make_learningrate(dict(type='poly', params=dict(base_lr=0.05, power=0.9,
+                                                              max_iters=20)))
+    factory, _ = b.make_optimizer(OPTS[opt])
+    return factory.build(sched, grad_clip=dict(max_norm=1.0)), sched
+
+
+def _tiny_state(init, opt, level, mesh):
+    model = tbuilder.make_model({'type': 'torch_zero_tiny', 'params': {}}, device='cpu').double()
+    model.load_state_dict(init)
+    tx, sched = _rule(tbuilder, opt)
+    state, sh = create_train_state(model, tx), None
+    if level:
+        state, sh = zero_init(state, mesh, level, device='cpu')
+    return state, build_train_step(model, tx, sched, mesh=mesh, state_shardings=sh)
+
+
+class _Host:
+    """The launcher side a ``CheckPoint`` reads: its model dir, state and
+    the step it restores."""
+    logger = None
+    device = torch.device('cpu')
+
+    def __init__(self, model_dir, state):
+        self.model_dir, self.state = model_dir, state
+
+    def restore_state(self, model_state, opt_state, global_step):
+        self.state.step = int(global_step)
+
+
+GAN_CFG = dict(image_size=16, channels=3, latent_dim=16, base_width=8, dtype='float64')
+
+
+def _gan(seed=3):
+    torch.manual_seed(seed)
+    model = tbuilder.make_model({'type': 'DCGAN', 'params': GAN_CFG}, device='cpu').double()
+    txs = {}
+    for role in ('G', 'D'):
+        factory, _ = tbuilder.make_optimizer(dict(type='adam', params=dict(betas=(0.5, 0.999))))
+        txs[role] = factory.build(2e-4)
+    return model, txs
+
+
+GAN_IMAGES = np.random.default_rng(9).uniform(-1, 1, size=(N, 16, 16, 3))
+
+
+def worker(rank, world, init, out):
+    torch.set_num_threads(1)
+    dist.init_dist_env(init, world, rank, backend='gloo')
+    mesh = tmesh.make_mesh()
+    start = torch.load(os.path.join(out, 'init.pt'))
+    x, y = _batch()
+    rows = slice(rank * N // world, (rank + 1) * N // world)
+    res = {}
+    for opt in ('sgd', 'adamw'):
+        for level in (0, 1, 3):
+            state, step = _tiny_state(start, opt, level, mesh)
+            steps = []
+            for _ in range(2):
+                state, m = step(state, (x[rows], y[rows]))
+                steps.append(({k: float(v) for k, v in m.items()}, full_state_dict(state)))
+            res[opt, level] = dict(steps=steps, bytes=local_bytes(state))
+    # checkpoints of a ZeRO-3 AdamW state at step 2, then step 3
+    state, step = _tiny_state(start, 'adamw', 3, mesh)
+    for _ in range(2):
+        state, _ = step(state, (x[rows], y[rows]))
+    pending = None
+    for backend in ('orbax', 'orbax_async'):
+        ckpt = CheckPoint(_Host(os.path.join(out, backend), state), backend)
+        os.makedirs(ckpt._launcher.model_dir, exist_ok=True)
+        ckpt.set_global_step(2)
+        ckpt.save()
+        if backend == 'orbax_async':
+            pending = CheckPoint.load_checkpoint_info(ckpt._launcher.model_dir)
+            ckpt.wait()
+    res['async_info_before_wait'] = pending
+    state, _ = step(state, (x[rows], y[rows]))
+    res['unbroken'] = full_state_dict(state)
+    fresh, step = _tiny_state(start, 'adamw', 3, mesh)
+    ckpt = CheckPoint(_Host(os.path.join(out, 'orbax'), fresh), 'orbax')
+    res['resumed_from'] = (ckpt.try_resume(), ckpt.global_step, fresh.step)
+    fresh, _ = step(fresh, (x[rows], y[rows]))
+    res['resumed'] = full_state_dict(fresh)
+    # the state placed from a host model, leaf by leaf
+    model = tbuilder.make_model({'type': 'torch_zero_tiny', 'params': {}}, device='cpu').double()
+    model.load_state_dict(start)
+    tx, sched = _rule(tbuilder, 'adamw')
+    state, sh = create_train_state_sharded(model, tx, mesh=mesh, level=3, min_shard_bytes=0,
+                                           device='cpu')
+    res['sharded_init'] = full_state_dict(state)
+    step = build_train_step(model, tx, sched, mesh=mesh, state_shardings=sh)
+    for _ in range(2):
+        state, _ = step(state, (x[rows], y[rows]))
+    res['sharded_steps'] = full_state_dict(state)
+    assert_sharded_below(state, 200)
+    launcher = Launcher(os.path.join(out, f'launcher{rank}'), model, tx, device='cpu', mesh=mesh)
+    launcher._state = state
+    try:
+        launcher.local_state()
+        res['local_state'] = 'returned'
+    except ValueError as e:
+        res['local_state'] = str(e)
+    replicated, _ = _tiny_state(start, 'adamw', 0, mesh)
+    try:
+        assert_sharded_below(replicated, 200)
+        res['replicated_below'] = 'passed'
+    except AssertionError as e:
+        res['replicated_below'] = str(e)
+    # the DCGAN over two ranks
+    model, txs = _gan()
+    gstep = build_gan_train_step(model, txs, mesh=mesh)
+    gstate = create_gan_state(model, txs)
+    for _ in range(2):
+        gstate, gm = gstep(gstate, GAN_IMAGES[rows])
+    res['gan'] = ({k: float(v) for k, v in gm.items()}, model.state_dict())
+    torch.save(res, os.path.join(out, f'rank{rank}.pt'))
