@@ -486,7 +486,38 @@ Phases (any failure exits non-zero before the last line is printed):
              unbroken run's bit for bit; (d) exactly 24 K1 and 24 K2
              launches a step on each rank, which join the kernels line;
              ms/step of each layout with the card's name and power limit.
-22. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+22. layouts — the model-parallel layouts (``phase_layouts``) over two gloo
+             ranks sharing the card (``--ddp-worker layouts``, started once),
+             the same seeded weights in every process: (a) DinoSeg
+             ``vitl16_sat493m`` built through ``builder`` under tensor
+             parallel on ``make_hybrid_mesh(('data', 'model'), (1, 2))`` (a
+             dcn axis of 1), ``create_train_state_sharded(level=3,
+             tp_axis='model')``, AdamW with the template config's cosine
+             schedule and ``grad_clip``, bf16 compute, float32 parameters,
+             B=8 at 512²: the first step's gradients (gathered) against one
+             process on the same weights and batch within phase 4's
+             ``GRAD_REL_TOL`` and ``GRAD_COS_MIN``; 2 warm-up and 5 timed
+             steps with finite losses and gradient norms and exactly 24 K1
+             and 24 K2 launches a rank a step (8 heads a rank); each rank
+             holding at most half the split leaves' bytes plus 1 MiB; one
+             rank's attention at B=8, H=8, N=1029, D=64 against its plain
+             version at phase 2's limits.  (b) the ViT-L/16 trunk through
+             ``pipelined_vit_apply`` on ``('pipe',)`` = 2 stages of 12 blocks,
+             B=8 at 512², 4 microbatches (the bubble's ticks skipped: 48 K1
+             and 48 K2 launches a stage a forward and backward): the patch
+             tokens and the input and parameter gradients of
+             ``sum(x_norm_clstoken²)`` against the plain trunk at phase 4's
+             limits, each stage holding its 12 blocks alone, its hops'
+             bytes and ms.  (c) ``MoEMlp(num_experts=8, hidden=4096, k=2)``
+             at width 1024 on 8 × 1029 tokens, float32, TF32 off, on
+             ``('expert',)`` = 2: output, auxiliary loss and every gradient
+             against one process within ``EP_REL_TOL``, 4 experts a rank, no
+             port kernel launched.  ms/step or ms/call of each layout beside
+             one process's, the backend, the bytes moved, the card's name
+             and power limit; one card shows correctness and bytes held, not
+             a multi-card speed.  The phase's K1 and K2 launches of (a) and
+             (b) join the kernels line.
+23. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
@@ -501,6 +532,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import hashlib
 import inspect
 import json
@@ -770,12 +802,12 @@ def f32_rope(rope):
     return None if rope is None else (rope[0].float(), rope[1].float())
 
 
-def check_fwd(gen) -> float:
+def check_fwd(gen, cases=KERNEL_CASES) -> float:
     """K1 against its plain version at every case; the largest error."""
     from ever_tpu_torch.ops import attention as A
 
     errs = []
-    for b, h, s, n_valid, d, with_rope, dtype in KERNEL_CASES:
+    for b, h, s, n_valid, d, with_rope, dtype in cases:
         q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         torch.cuda.synchronize()
@@ -802,13 +834,13 @@ def check_fwd(gen) -> float:
     return max(errs)
 
 
-def check_bwd(gen) -> float:
+def check_bwd(gen, cases=KERNEL_CASES) -> float:
     """K2 against its plain version at every case, from K1's o and lse and
     a random upstream gradient; the largest error."""
     from ever_tpu_torch.ops import attention as A
 
     errs = []
-    for b, h, s, n_valid, d, with_rope, dtype in KERNEL_CASES:
+    for b, h, s, n_valid, d, with_rope, dtype in cases:
         q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         do = torch.randn(o.shape, generator=gen, device=o.device).to(dtype)
@@ -3019,8 +3051,9 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     trains FarSeg-R50 6 steps (a checkpoint after each) and evaluates the val
     scenes distributed, trains DinoSeg ViT-L/16 2 steps, and serves the
     4096² scene over the mesh; ``job='resume'`` resumes the FarSeg run's
-    step-3 checkpoint to 6; ``job='gan'`` and ``'zero'`` are the gan and
-    zero phases' ranks (``gan_worker``, ``zero_worker``).  Writes
+    step-3 checkpoint to 6; ``job='gan'``, ``'zero'`` and ``'layouts'`` are
+    the gan, zero and layouts phases' ranks (``gan_worker``,
+    ``zero_worker``, ``layouts_worker``).  Writes
     ``{job}-rank{rank}.json`` and rank r's canvas; any failure raises and
     exits non-zero."""
     from ever_tpu_torch.core import dist
@@ -3031,8 +3064,8 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dist.init_dist_env(init, world, rank, backend='gloo')
-    if job in ('gan', 'zero'):
-        result = (gan_worker if job == 'gan' else zero_worker)(rank, out)
+    if job in ('gan', 'zero', 'layouts'):
+        result = dict(gan=gan_worker, zero=zero_worker, layouts=layouts_worker)[job](rank, out)
         with open(os.path.join(out, f'{job}-rank{rank}.json'), 'w') as f:
             json.dump(result, f)
         return 0
@@ -6806,6 +6839,343 @@ def phase_zero(seed: int, smi: str) -> tuple:
     return k1, k2
 
 
+# -- phase 22: the model-parallel layouts -----------------------------------------------
+
+LAYOUT_TP_STEPS = 5                     # timed, after WARMUP_STEPS
+LAYOUT_PP_MICRO, LAYOUT_PP_RUNS = 4, 3  # microbatches; timed runs after the counted one
+LAYOUT_EP = dict(num_experts=8, hidden=4096, k=2)
+# expert parallel against one process, float32 with TF32 off: each rank's
+# experts compute the same products on the same slots, and the partial
+# outputs add exactly (a token's other choice is 0 on the other rank); the
+# input's, the router's and the experts' gradients add two ranks' partial
+# sums (or the chain through them) in another order: the relative norm of
+# each difference
+EP_REL_TOL = 1e-5
+
+
+def rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| in float32."""
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30))
+
+
+def step_grads(model, x, y) -> tuple:
+    """The loss and every parameter's gradient (float32, by name) of the
+    first step's forward and backward (the step's generator at count 0)."""
+    from ever_tpu_torch.parallel.spmd import step_generator
+
+    model.zero_grad(set_to_none=True)
+    out = model(x, y, train=True, generator=step_generator(0, 0, device='cuda'))
+    out['cls_loss'].backward()
+    grads = {n: p.grad.float() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out['cls_loss'].item(), grads
+
+
+def layouts_tp(rank: int, seed: int) -> dict:
+    """(a) DinoSeg ViT-L/16 under tensor parallel with ZeRO-3 over the
+    ``('replica', 'data', 'model')`` mesh of (1, 1, 2): one process's
+    gradients (rank 0) against the TP state's, the bytes each rank holds of
+    the split leaves, the timed steps' launches, losses and ms."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+    from ever_tpu_torch.core.config import import_config
+    from ever_tpu_torch.ops import attention as A
+    from ever_tpu_torch.parallel.mesh import make_hybrid_mesh
+    from ever_tpu_torch.parallel.sharded import create_train_state_sharded
+    from ever_tpu_torch.parallel.spmd import build_train_step
+    from ever_tpu_torch.parallel.tp import gather_tp, tp_plan
+
+    mesh = make_hybrid_mesh(('data', 'model'), (1, 2))
+    res = dict(mesh=mesh.shape, batch_axes=mesh.batch_axes)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 19)
+    model = build_dinoseg(gen)
+    x = torch.randn(TRAIN_BATCH, TILE, TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (TRAIN_BATCH, TILE, TILE), generator=gen, device='cuda')
+    names = [n for n, _ in model.named_parameters()]
+    whole = {n: p.numel() * p.element_size() for n, p in model.named_parameters()}
+    if rank == 0:                       # one process on the same weights and batch
+        res['ref_loss'], ref = step_grads(copy.deepcopy(model), x, y)
+    cfg = import_config(TEMPLATE_CONFIG)
+    schedule = make_learningrate(cfg.learning_rate)
+    factory, opt_cfg = make_optimizer(cfg.optimizer)
+    tx = factory.build(schedule, grad_clip=opt_cfg.get('grad_clip'))
+    res['max_norm'] = tx.max_norm
+    state, sh = create_train_state_sharded(model, tx, mesh=mesh, level=3, tp_axis='model',
+                                           device='cuda:0')
+    plan = tp_plan(model)
+    res['split'] = len(plan.sharded)
+    res['split_whole'] = sum(whole[n] for n in plan.sharded)
+    res['split_held'] = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                            if n in plan.sharded)
+    res['heads'] = model.vit.blocks[0].attn.num_heads
+    res['tp_loss'], grads = step_grads(model, x, y)
+    grads = gather_tp(model, grads)
+    if rank == 0:
+        res['grad_rel'], res['grad_cos'], cos = compare_grads([grads[n] for n in names],
+                                                              [ref[n] for n in names])
+        res['qkv_cos'] = cos[names.index('vit.blocks.0.attn.qkv.weight')]
+        del ref
+    del grads
+    torch.cuda.empty_cache()
+    step = build_train_step(model, tx, schedule, mesh=mesh, state_shardings=sh)
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, (x, y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ms, metrics = [], []
+    for _ in range(LAYOUT_TP_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, (x, y))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    res.update(ms=ms, metrics=metrics, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=[A.fused_attention.launches, A.fused_attention_bwd.launches])
+    # a step all-reduces over 'model': per block, the attention's and the
+    # MLP's outputs forward and their inputs' gradients backward (bf16
+    # [B, N, D] each), the qkv and fc1 biases' gradients (float32), and the
+    # shards' squared norm
+    act = TRAIN_BATCH * S * EMBED * 2
+    res['allreduce_bytes'] = 24 * (4 * act + (3 * EMBED + 4 * EMBED) * 4) + 4
+    if rank == 0:                       # one rank's attention at its 8 heads
+        res['attn_fwd'] = check_fwd(gen, ((B, H // 2, S, None, D, True, torch.bfloat16),))
+        res['attn_bwd'] = check_bwd(gen, ((B, H // 2, S, None, D, True, torch.bfloat16),))
+    del state, step, model
+    torch.cuda.empty_cache()
+    return res
+
+
+def layouts_pp(rank: int, seed: int) -> dict:
+    """(b) The ViT-L/16 trunk through ``pipelined_vit_apply`` on a
+    ``('pipe',)`` mesh of 2 stages, 4 microbatches of 2 tiles: outputs and
+    gradients of ``sum(x_norm_clstoken²)`` against the plain trunk in this
+    process, the blocks a stage holds, launches, hops and ms."""
+    from ever_tpu_torch.core.builder import make_model
+    from ever_tpu_torch.ops import attention as A
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    from ever_tpu_torch.parallel.pp import pipelined_vit_apply
+
+    mesh = make_mesh(('pipe',), (2,))
+    gen = torch.Generator(device='cuda').manual_seed(seed + 20)
+    with torch.device('cuda'):
+        trunk = make_model({'type': 'vitl16_sat493m', 'params': {}})
+    seeded_init_(trunk, gen)
+    x = torch.randn(B, TILE, TILE, 3, generator=gen, device='cuda')
+
+    def run(fn):
+        xin = x.clone().requires_grad_()
+        out = fn(xin.to(torch.bfloat16))
+        (out['x_norm_clstoken'].float() ** 2).sum().backward()
+        return out['x_norm_patchtokens'].detach(), xin.grad
+
+    def timed(fn, params):
+        times = []
+        for _ in range(LAYOUT_PP_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(fn)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for p in params:
+                p.grad = None
+        return sorted(times)[len(times) // 2]
+
+    ref_patch, ref_gx = run(trunk)
+    ref = {n: p.grad.float() for n, p in trunk.named_parameters()}
+    trunk.zero_grad(set_to_none=True)
+    res = dict(plain_ms=timed(trunk, list(trunk.parameters())))
+    fn = pipelined_vit_apply(trunk, None, mesh, num_microbatches=LAYOUT_PP_MICRO,
+                             device='cuda:0')
+    del trunk
+    torch.cuda.empty_cache()
+    reset_counts()
+    patch, gx = run(fn)
+    res['launches'] = [A.fused_attention.launches, A.fused_attention_bwd.launches]
+    names = [n for n, _ in fn.named_parameters()]
+    res['blocks'] = fn.block_ids
+    res['block_params'] = sorted({int(n.split('.')[1]) for n in names if n.startswith('blocks.')})
+    res['params'] = len(names)
+    res['param_bytes'] = sum(p.numel() * p.element_size() for p in fn.parameters())
+    res['patch_rel'], res['gx_rel'] = rel(patch, ref_patch), rel(gx, ref_gx)
+    res['grad_rel'], res['grad_cos'], _ = compare_grads([p.grad.float() for p in fn.parameters()],
+                                                        [ref[n] for n in names])
+    del ref
+    for p in fn.parameters():
+        p.grad = None
+    first = dict(fn.stats)
+    res['ms'] = timed(fn, list(fn.parameters()))
+    res['stats'] = {k: (v - first[k]) / LAYOUT_PP_RUNS for k, v in fn.stats.items()}
+    del fn
+    torch.cuda.empty_cache()
+    return res
+
+
+def layouts_ep(rank: int, seed: int) -> dict:
+    """(c) ``MoEMlp`` (8 experts, hidden 4096, k=2) at width 1024 on
+    ViT-L's tokens (8 × 1029), float32, over an ``('expert',)`` mesh of 2:
+    output, auxiliary loss and gradients of ``mean(y²) + aux`` against one
+    process, the experts a rank holds, no port kernel launched, ms."""
+    from ever_tpu_torch.parallel.ep import MoEMlp
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    from ever_tpu_torch.parallel.spmd import sown_losses
+
+    mesh = make_mesh(('expert',), (2,))
+    gen = torch.Generator(device='cuda').manual_seed(seed + 21)
+    moe = MoEMlp(**LAYOUT_EP, dim=EMBED, device='cuda:0')
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            scale = {'router': 0.02, 'experts_fc1': EMBED ** -0.5,
+                     'experts_fc2': LAYOUT_EP['hidden'] ** -0.5}.get(name, 0.02)
+            p.copy_(scale * torch.randn(p.shape, generator=gen, device=p.device))
+    x = torch.randn(B, S, EMBED, generator=gen, device='cuda')
+
+    def run(m):
+        xin = x.clone().requires_grad_()
+        with sown_losses() as sown:
+            y = m(xin)
+        aux = sown['moe_aux_loss'][0]
+        ((y ** 2).mean() + aux).backward()
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return y.detach(), aux.item(), xin.grad, grads
+
+    def timed(m):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(m)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[1]
+
+    whole = copy.deepcopy(moe)
+    y1, aux1, gx1, g1 = run(whole)
+    res = dict(plain_ms=timed(whole))
+    del whole
+    moe.shard_experts(mesh)
+    reset_counts()
+    y2, aux2, gx2, g2 = run(moe)
+    res['launches'] = sum(fn.launches for fn in kernel_wrappers())
+    lo, n = moe.first_expert, moe.experts_fc1.shape[0]
+    res.update(experts=n, first=lo, y_rel=rel(y2, y1), aux=[aux2, aux1], gx_rel=rel(gx2, gx1),
+               grad_rel={k: rel(g, g1[k][lo:lo + n] if k.startswith('experts_') else g1[k])
+                         for k, g in g2.items()},
+               ms=timed(moe), tokens=B * S,
+               capacity=int(-(-(LAYOUT_EP['k'] * B * S * moe.capacity_factor)
+                              // LAYOUT_EP['num_experts'])),
+               allreduce_bytes=2 * B * S * EMBED * 4 + EMBED * LAYOUT_EP['num_experts'] * 4)
+    return res
+
+
+def layouts_worker(rank: int, out: str) -> dict:
+    """One of two gloo ranks of the layouts phase: (a) tensor parallel, (b)
+    the pipeline, (c) expert parallel, each on a mesh of its own."""
+    with open(os.path.join(out, 'layouts-spec.json')) as f:
+        seed = json.load(f)['seed']
+    res = {}
+    for name, fn in (('tp', layouts_tp), ('pp', layouts_pp), ('ep', layouts_ep)):
+        t0 = time.perf_counter()
+        res[name] = fn(rank, seed)
+        res[name]['seconds'] = time.perf_counter() - t0
+    return res
+
+
+def phase_layouts(seed: int, smi: str, bare_ms: float) -> tuple:
+    """The model-parallel layouts over two gloo ranks on the card (module
+    docstring, phase 22); returns the main paths' K1 and K2 launches (the
+    TP steps and the pipeline's counted run, both ranks)."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_layouts_') as tmp:
+        with open(os.path.join(tmp, 'layouts-spec.json'), 'w') as f:
+            json.dump(dict(seed=seed), f)
+        ranks, secs = run_ddp_workers('layouts', tmp)
+    backend = 'gloo, 2 ranks sharing one card: correctness and bytes held, not a multi-card speed'
+    tp0 = ranks[0]['tp']
+    for r, res in enumerate(ranks):
+        tp = res['tp']
+        steady = sorted(tp['ms'])
+        print(f'layouts: (a) {smi}: rank {r}: DinoSeg vitl16_sat493m under tensor parallel + '
+              f'ZeRO-3 on {tp["mesh"]} (batch axes {tp["batch_axes"]}), bf16 compute, float32 '
+              f'parameters, AdamW + the template config\'s cosine and grad_clip '
+              f'{tp["max_norm"]}, {TRAIN_BATCH} tiles of {TILE}²: ms/step '
+              f'{" ".join(f"{t:.1f}" for t in tp["ms"])} (median '
+              f'{steady[len(steady) // 2]:.1f}; one process {bare_ms:.1f}, phase 4); losses '
+              f'{" ".join(f"{m["cls_loss"]:.5f}" for m in tp["metrics"])}; grad_norm '
+              f'{" ".join(f"{m["grad_norm"]:.4f}" for m in tp["metrics"])}; {tp["heads"]} '
+              f'heads a rank; holds {tp["split_held"] / 2**20:.1f} MiB of the {tp["split"]} '
+              f'split leaves\' {tp["split_whole"] / 2**20:.1f} MiB; peak '
+              f'{tp["peak_gib"]:.2f} GiB; K1/K2 launches {tp["launches"]} in '
+              f'{LAYOUT_TP_STEPS} steps; all-reduced over \'model\' '
+              f'{tp["allreduce_bytes"] / 2**30:.3f} GiB a step ({backend}); '
+              f'{tp["seconds"]:.1f} s', flush=True)
+        check(tp['mesh'] == {'replica': 1, 'data': 1, 'model': 2},
+              f'layouts: the hybrid mesh is {tp["mesh"]}')
+        check(tp['heads'] == H // 2, f'layouts: {tp["heads"]} heads a rank')
+        check(tp['launches'] == [24 * LAYOUT_TP_STEPS] * 2,
+              f'layouts: TP launched K1/K2 {tp["launches"]} in {LAYOUT_TP_STEPS} steps')
+        check(tp['split_held'] <= tp['split_whole'] / 2 + 2**20,
+              f'layouts: rank {r} holds {tp["split_held"]} of {tp["split_whole"]} split bytes')
+        check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
+                  for m in tp['metrics']), 'layouts: TP metrics not finite')
+    print(f'layouts: (a) the first step\'s gradients, TP (gathered) against one process on '
+          f'the same weights and batch: loss {tp0["tp_loss"]:.6f} vs {tp0["ref_loss"]:.6f}; '
+          f'||dg||/||g|| {tp0["grad_rel"]:.3e}, worst per-tensor cosine '
+          f'{tp0["grad_cos"]:.6f}, block 0 qkv weight cosine {tp0["qkv_cos"]:.6f} (limits '
+          f'{GRAD_REL_TOL}, {GRAD_COS_MIN}); one rank\'s attention at B={B}, H={H // 2}, '
+          f'N={S}, D={D} against its plain version: K1 {tp0["attn_fwd"]:.3e}, K2 '
+          f'{tp0["attn_bwd"]:.3e} (phase 2\'s limits)', flush=True)
+    check(tp0['grad_rel'] <= GRAD_REL_TOL and tp0['grad_cos'] >= GRAD_COS_MIN,
+          'layouts: TP gradients disagree with one process')
+    for r, res in enumerate(ranks):
+        pp = res['pp']
+        st = pp['stats']
+        print(f'layouts: (b) {smi}: stage {r}: ViT-L/16 trunk over 2 stages, '
+              f'{LAYOUT_PP_MICRO} microbatches of {B // LAYOUT_PP_MICRO} tiles of {TILE}², bf16 '
+              f'compute: blocks {pp["blocks"][0]}-{pp["blocks"][-1]} ({pp["params"]} parameters, '
+              f'{pp["param_bytes"] / 2**20:.1f} MiB); forward + backward of '
+              f'sum(x_norm_clstoken²) {pp["ms"]:.1f} ms (one process {pp["plain_ms"]:.1f}); '
+              f'hops a run: {st["hops"]:.0f} sent, {st["hop_bytes"] / 2**20:.2f} MiB, '
+              f'{st["hop_ms"]:.1f} ms in hops; broadcasts {st["broadcasts"]:.0f} sent, '
+              f'{st["broadcast_bytes"] / 2**20:.2f} MiB, {st["broadcast_ms"]:.1f} ms ({backend}); '
+              f'against the plain trunk: patch tokens {pp["patch_rel"]:.3e}, input gradient '
+              f'{pp["gx_rel"]:.3e}, parameter gradients ||dg||/||g|| {pp["grad_rel"]:.3e}, '
+              f'worst cosine {pp["grad_cos"]:.6f}; K1/K2 launches {pp["launches"]} (12 blocks × '
+              f'{LAYOUT_PP_MICRO} microbatches: 48 each); {pp["seconds"]:.1f} s', flush=True)
+        per = 24 // 2
+        check(pp['blocks'] == list(range(r * per, (r + 1) * per)) == pp['block_params'],
+              f'layouts: stage {r} holds blocks {pp["block_params"]}')
+        check(pp['launches'] == [per * LAYOUT_PP_MICRO] * 2,
+              f'layouts: stage {r} launched K1/K2 {pp["launches"]}')
+        check(max(pp['patch_rel'], pp['gx_rel'], pp['grad_rel']) <= GRAD_REL_TOL
+              and pp['grad_cos'] >= GRAD_COS_MIN,
+              f'layouts: the pipeline disagrees with the plain trunk on stage {r}')
+    for r, res in enumerate(ranks):
+        ep = res['ep']
+        worst = max(ep['grad_rel'].values())
+        print(f'layouts: (c) {smi}: rank {r}: MoEMlp {LAYOUT_EP} at width {EMBED} on '
+              f'{ep["tokens"]} tokens, float32, TF32 off, capacity {ep["capacity"]}: experts '
+              f'{ep["first"]}-{ep["first"] + ep["experts"] - 1}; forward + backward '
+              f'{ep["ms"]:.1f} ms (one process {ep["plain_ms"]:.1f}); all-reduced over '
+              f'\'expert\' {ep["allreduce_bytes"] / 2**20:.1f} MiB a call ({backend}); against '
+              f'one process: y {ep["y_rel"]:.3e}, aux {ep["aux"][0]:.6e} vs {ep["aux"][1]:.6e}, '
+              f'input gradient {ep["gx_rel"]:.3e}, parameter gradients at most {worst:.3e} '
+              f'(limit {EP_REL_TOL}); port kernel launches {ep["launches"]}; '
+              f'{ep["seconds"]:.1f} s', flush=True)
+        check(ep['experts'] == 4 and ep['first'] == 4 * r, f'layouts: rank {r} experts')
+        check(ep['launches'] == 0, f'layouts: expert parallel launched {ep["launches"]} kernels')
+        check(max(ep['y_rel'], ep['gx_rel'], worst) <= EP_REL_TOL
+              and abs(ep['aux'][0] - ep['aux'][1]) <= EP_REL_TOL * abs(ep['aux'][1]),
+              f'layouts: expert parallel disagrees with one process on rank {r}')
+    print(f'layouts: phase {time.perf_counter() - t_phase:.1f} s ({secs:.1f} s in the ranks)',
+          flush=True)
+    k1 = sum(res['tp']['launches'][0] + res['pp']['launches'][0] for res in ranks)
+    k2 = sum(res['tp']['launches'][1] + res['pp']['launches'][1] for res in ranks)
+    return k1, k2
+
+
 def check_build_notes() -> None:
     """ptxas's report on every kernel library: each library's most registers
     a thread and its spilled bytes, and no note that a ``wgmma`` was
@@ -6835,8 +7205,8 @@ def main() -> int:
                         help="seed of the random weights, inputs and the trainer "
                              "phase's data")
     parser.add_argument('--ddp-worker', nargs=5, metavar=('JOB', 'RANK', 'WORLD', 'INIT', 'OUT'),
-                        help='run one rank of the ddp, gan or zero phase (the phase starts '
-                             'them)')
+                        help='run one rank of the ddp, gan, zero or layouts phase (the phase '
+                             'starts them)')
     args = parser.parse_args()
     if args.ddp_worker:
         job, rank, world, init, out = args.ddp_worker
@@ -6895,6 +7265,9 @@ def main() -> int:
     phase_freenet(gen, args.seed, smi)
     phase_gan(args.seed, smi)
     k1, k2 = phase_zero(args.seed, smi)
+    fwd['launches'] += k1
+    bwd['launches'] += k2
+    k1, k2 = phase_layouts(args.seed, smi, bare_ms)
     fwd['launches'] += k1
     bwd['launches'] += k2
 

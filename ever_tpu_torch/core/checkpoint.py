@@ -112,6 +112,11 @@ def _mesh(state):
 def _dcp_dict(state, global_step: int) -> Dict[str, Any]:
     """The flat dict of a train state (module docstring) over its own
     tensors: a sharded leaf is a ``DTensor`` of this rank's shard."""
+    from ever_tpu_torch.parallel.tp import tp_plan
+    if tp_plan(state.model) is not None:
+        raise ValueError('a directory of a tensor-parallel state (its shards over the model '
+                         'axis) is not written: gather it with parallel.zero.full_state_dict '
+                         'and save that')
     mesh = _mesh(state)
     out: Dict[str, Any] = {GLOBALSTEP: int(global_step)}
     sd = state.model.state_dict(keep_vars=False)

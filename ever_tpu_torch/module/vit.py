@@ -303,9 +303,14 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 n_valid: Optional[int] = None):
-        b, n, c = x.shape
+        return self.proj(self._attend(self.qkv(x), rope, n_valid))
+
+    def _attend(self, qkv, rope, n_valid):
+        """The ``num_heads`` heads' attention over a packed ``[B, N, 3·H·D]``
+        projection (q, then k, then v, each head by head): ``[B, N, H·D]``."""
+        b, n, width = qkv.shape
         h = self.num_heads
-        q, k, v = self.qkv(x).view(b, n, 3, h, c // h).unbind(2)   # [B, N, H, D]
+        q, k, v = qkv.view(b, n, 3, h, width // (3 * h)).unbind(2)   # [B, N, H, D]
         rope2d = None
         if rope is not None:
             real = n if n_valid is None else n_valid
@@ -313,7 +318,7 @@ class SelfAttention(nn.Module):
             rope2d = (sin.to(q.dtype), cos.to(q.dtype))
         out = attention(q, k, v, impl=self.attn_impl, layout='bnhd',
                         n_valid=n_valid, rope=rope2d)
-        return self.proj(out.reshape(b, n, c))
+        return out.reshape(b, n, width // 3)
 
 
 class SelfAttentionBlock(nn.Module):

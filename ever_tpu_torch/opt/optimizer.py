@@ -39,12 +39,28 @@ def clip_by_global_norm_recording(params: Iterable[torch.Tensor],
     ``min(1, max_norm / max(norm, 1e-12))``, the JAX package's clip;
     ``torch.nn.utils.clip_grad_norm_`` divides by ``norm + 1e-6`` instead.
     ``max_norm=None`` records the norm and scales nothing.  Parameters
-    without a gradient are skipped.  Nothing here waits for the device.
+    without a gradient are skipped.  A tensor-parallel shard (a parameter
+    marked by ``parallel.tp.apply_tp``) counts with the other ranks' shards
+    of its tensor: one all-reduce of their squares over its axis.  Nothing
+    here waits for the device but that all-reduce.
     """
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads:
+    params = [p for p in params if p.grad is not None]
+    if not params:
         return torch.zeros(())
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2))).float()
+    grads = [p.grad for p in params]
+    tp_groups = [getattr(p, '_tp_group', None) for p in params]
+    if all(g is None for g in tp_groups):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2))).float()
+    else:
+        # tensor parallel (parallel/tp.py): a shard's squares summed over its
+        # axis, each replicated gradient (whole on every rank) counted once
+        split = [g for g, tp in zip(grads, tp_groups) if tp is not None]
+        whole = [g for g, tp in zip(grads, tp_groups) if tp is None]
+        sq = torch.stack(torch._foreach_norm(split, 2)).float().square().sum()
+        torch.distributed.all_reduce(sq, group=next(g for g in tp_groups if g is not None))
+        if whole:
+            sq = sq + torch.stack(torch._foreach_norm(whole, 2)).float().square().sum()
+        norm = sq.sqrt()
     if max_norm is not None:
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         torch._foreach_mul_(grads, scale)

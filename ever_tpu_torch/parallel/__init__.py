@@ -1,13 +1,14 @@
-"""Train and eval steps (``spmd``), the data mesh and its placements
-(``mesh``), ZeRO-1/3 (``zero``) and abstract and sharded train states
-(``sharded``); tensor parallel, the pipeline, expert parallel, the spatial
-layouts and the 2-D and hybrid meshes are not ported yet (``ROADMAP.md``
-A.9.2, A.9.3)."""
+"""Train and eval steps (``spmd``), meshes of named axes and their
+placements (``mesh``), ZeRO-1/3 (``zero``), abstract and sharded train
+states (``sharded``), tensor parallel (``tp``), the GPipe pipeline
+(``pp``) and expert parallel (``ep``); the spatial layouts are not ported
+yet (``ROADMAP.md`` A.9.5)."""
 
-from ever_tpu_torch.parallel import mesh, sharded, spmd, zero  # noqa: F401
+from ever_tpu_torch.parallel import ep, mesh, pp, sharded, spmd, tp, zero  # noqa: F401
 from ever_tpu_torch.parallel.mesh import (  # noqa: F401
     batch_sharding,
     host_to_global,
+    make_hybrid_mesh,
     make_mesh,
     replicated,
 )
@@ -22,4 +23,5 @@ from ever_tpu_torch.parallel.spmd import (  # noqa: F401
     build_train_step,
     create_train_state,
 )
+from ever_tpu_torch.parallel.tp import apply_tp, vit_tp_shardings  # noqa: F401
 from ever_tpu_torch.parallel.zero import zero_init, zero_shardings  # noqa: F401

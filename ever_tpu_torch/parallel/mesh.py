@@ -1,15 +1,33 @@
-"""The data axis over the process group (counterpart of
+"""Meshes of named axes over the process group (counterpart of
 ``ever_tpu/parallel/mesh.py``).
 
 A JAX mesh lays devices out on named axes, and a jitted step over a batch
 sharded on ``'data'`` reduces every batch sum over all of them.  Here one
-process drives one card, so the data axis is the process group, and the
-reductions the JAX compiler inserts are explicit: the model's code asks
-:func:`reduction_group` whether it runs inside a data-parallel step (``with
-mesh:``, as the train step enters it) over more than one rank, and if so
-sums its batch statistics with :func:`all_reduce_sum`, whose gradient is the
-same sum of the gradients.  Outside a mesh, or with one rank, nothing is
-reduced and the code is that of one process.
+process drives one card, so a mesh lays the world's ranks out row-major on
+its axes, as JAX's ``np.asarray(devices).reshape(shape)``, and each axis is
+a process group: one group for each line of the axis (the ranks that differ
+only in their coordinate on it).  The reductions the JAX compiler inserts
+are explicit: the model's code asks :func:`reduction_group` whether it runs
+inside a step (``with mesh:``, as the train step enters it) whose batch
+axes span more than one rank, and if so sums its batch statistics with
+:func:`all_reduce_sum`, whose gradient is the same sum of the gradients.
+Outside a mesh, or with one rank, nothing is reduced and the code is that
+of one process.
+
+The **batch axes** of a mesh are those a batch is split over: ``'data'``
+when the mesh has that axis, else none (a ``('pipe',)`` or ``('expert',)``
+mesh replicates the batch); ``make_hybrid_mesh`` adds its dcn axis in
+front.  ``mesh.group``, ``mesh.size()`` and
+``mesh.rank()`` are theirs, so the data-parallel code (DDP, ZeRO, the
+global BatchNorm and losses, the metrics' mean) runs over the batch axes
+of a 2-D mesh and leaves its other axes (``'model'``, ``'pipe'``,
+``'expert'``) to the layouts of ``tp.py``, ``pp.py`` and ``ep.py``.
+
+Every process of the run must build the same meshes in the same order:
+``torch.distributed.new_group`` is collective, and each mesh makes the
+groups of every line of every axis, the lines a process is not on too.
+An axis of one rank has no group (None), an axis over the whole world the
+default group.
 
 Placements (A.9.4): a :class:`NamedSharding` is the JAX package's pair of a
 mesh and a :class:`PartitionSpec` (``P(None, 'data')``: dimension 1 split
@@ -17,22 +35,21 @@ over the data axis), read as ``torch.distributed`` placements
 (``Shard(d)``/``Replicate()``, one a mesh axis).  :func:`replicated` and
 :func:`batch_sharding` build the two a step uses, and
 :func:`host_to_global` turns the host's global batch into each rank's rows
-of it, held as a ``DTensor`` over the mesh (a batch that is one already
-is left alone).  :func:`abstract_mesh` lays out ``n`` ranks without
-processes, for planning placements (``parallel/zero.py``,
+of it, held as a ``DTensor`` over the batch axes (a batch that is one
+already is left alone).  :func:`abstract_mesh` lays out a shape of ranks
+without processes, for planning placements (``parallel/zero.py``,
 ``parallel/sharded.py``) as JAX plans them over fake devices.
-
-Only the 1-D data mesh is ported; the 2-D and hybrid meshes
-(``make_hybrid_mesh``) wait for the model-parallel layouts (``ROADMAP.md``
-A.9.3).
 """
 
 from __future__ import annotations
 
 import contextvars
+import itertools
+import math
+import os
 import warnings
 from dataclasses import dataclass
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as tdist
@@ -40,68 +57,172 @@ from torch.utils._pytree import tree_map
 
 from ever_tpu_torch.core import dist
 
-__all__ = ['Mesh', 'make_mesh', 'abstract_mesh', 'reduction_group', 'data_shard',
-           'all_reduce_sum', 'PartitionSpec', 'P', 'NamedSharding', 'replicated',
-           'batch_sharding', 'host_to_global']
+__all__ = ['Mesh', 'make_mesh', 'make_hybrid_mesh', 'abstract_mesh', 'reduction_group',
+           'data_shard', 'all_reduce_sum', 'PartitionSpec', 'P', 'NamedSharding',
+           'replicated', 'batch_sharding', 'host_to_global']
 
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_mesh',
                                                          default=None)
 
+Axes = Union[str, Sequence[str], None]
+
 
 class Mesh:
-    """The ``'data'`` axis over the processes of ``group`` (None: one process
-    and no process group).
+    """Named axes of the given sizes over the world's ranks, row-major
+    (module docstring).  ``shape`` maps every axis to its size; without a
+    process group (``grouped=False``) the mesh is one process (every axis
+    of size 1) or, with sizes, an abstract layout on which placements are
+    planned (:func:`abstract_mesh`) and no step runs.
 
-    ``size()`` and ``shape`` read as the JAX mesh's; ``with mesh:`` makes it
-    the current mesh, whose data axis the batch statistics are reduced over.
+    ``axis_group(name)``, ``rank(name)`` and ``axis_size(name)`` are an
+    axis's process group, this process's coordinate on it and its size;
+    with no name (or the batch axes' tuple) they are the batch axes'
+    (``group``, ``rank()``, ``size()``).  ``with mesh:`` makes it the
+    current mesh, whose batch axes the batch statistics are reduced over.
     """
 
-    def __init__(self, axis_names: Sequence[str] = ('data',), group=None,
-                 size: Optional[int] = None):
+    def __init__(self, axis_names: Sequence[str] = ('data',),
+                 shape: Optional[Sequence[int]] = None, *, grouped: bool = False,
+                 batch_axes: Optional[Sequence[str]] = None):
         self.axis_names = tuple(axis_names)
-        self.group = group
-        self._size = size
+        if len(set(self.axis_names)) != len(self.axis_names):
+            raise ValueError(f'repeated mesh axis names: {self.axis_names}')
+        sizes = [1] * len(self.axis_names) if shape is None else [int(s) for s in shape]
+        if len(sizes) != len(self.axis_names):
+            raise ValueError(f'mesh shape {tuple(sizes)} does not match axes {self.axis_names}')
+        self._sizes = dict(zip(self.axis_names, sizes))
+        if batch_axes is None:
+            batch_axes = ('data',) if 'data' in self.axis_names else ()
+        self.batch_axes = tuple(batch_axes)
+        if not set(self.batch_axes) <= set(self.axis_names):
+            raise ValueError(f'batch axes {self.batch_axes} not in {self.axis_names}')
+        self.grouped = grouped
+        self.abstract = False
+        self._coords = dict.fromkeys(self.axis_names, 0)
+        self._groups: Dict[Tuple[str, ...], Any] = {}
+        self._mine: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+        self._pairs: Dict[str, Tuple[Any, Any]] = {}
+        if grouped:
+            world, me = tdist.get_world_size(), tdist.get_rank()
+            if math.prod(sizes) != world:
+                raise ValueError(f'mesh shape {tuple(sizes)} does not cover {world} processes')
+            self._coords = dict(zip(self.axis_names, _unravel(me, sizes)))
+            for axes in [(a,) for a in self.axis_names] + [self.batch_axes]:
+                if axes and axes not in self._groups:
+                    self._groups[axes], self._mine[axes] = self._make_groups(axes)
+        self.group = self._groups.get(self.batch_axes)
         self._wrapped = {}
         self._device_meshes = {}
         self._token = []
 
-    def size(self) -> int:
-        if self.group is None:
-            return 1 if self._size is None else self._size
-        return tdist.get_world_size(self.group)
+    def _lines(self, axes: Tuple[str, ...]) -> list:
+        """Every line over ``axes`` (the global ranks that differ only in
+        their coordinates on them, in axis order), the other axes'
+        coordinates row-major."""
+        sizes = [self._sizes[a] for a in self.axis_names]
+        others = [a for a in self.axis_names if a not in axes]
+        lines = []
+        for fixed in itertools.product(*[range(self._sizes[a]) for a in others]):
+            coords = dict(zip(others, fixed))
+            line = []
+            for along in itertools.product(*[range(self._sizes[a]) for a in axes]):
+                coords.update(zip(axes, along))
+                line.append(_ravel([coords[a] for a in self.axis_names], sizes))
+            lines.append(tuple(line))
+        return lines
 
-    @property
-    def abstract(self) -> bool:
-        """True for a mesh of :func:`abstract_mesh`: ranks without processes."""
-        return self.group is None and self._size is not None
+    def _make_groups(self, axes: Tuple[str, ...]):
+        """The process group of this rank's line over ``axes`` (one group for
+        each line, made by every rank in the same order) and that line."""
+        lines = self._lines(axes)
+        mine = next(line for line in lines if tdist.get_rank() in line)
+        if len(mine) == 1:
+            return None, mine
+        if len(mine) == math.prod(self._sizes.values()):
+            return tdist.group.WORLD, mine
+        groups = [tdist.new_group(list(line)) for line in lines]
+        return groups[lines.index(mine)], mine
 
-    def device_mesh(self, device_type: str):
-        """The ``torch.distributed`` ``DeviceMesh`` of the data axis over
-        this mesh's group, for ``device_type`` tensors (made once)."""
-        if device_type not in self._device_meshes:
-            from torch.distributed.device_mesh import DeviceMesh
-            self._device_meshes[device_type] = DeviceMesh.from_group(
-                self.group, device_type, mesh_dim_names=self.axis_names[:1])
-        return self._device_meshes[device_type]
+    def _axes(self, axis_name: Axes) -> Tuple[str, ...]:
+        if axis_name is None:
+            return self.batch_axes
+        axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        unknown = [a for a in axes if a not in self.axis_names]
+        if unknown:
+            raise ValueError(f'unknown mesh axis {unknown[0]!r}; axes: {self.axis_names}')
+        if len(axes) > 1 and axes != self.batch_axes:
+            raise ValueError(f'no group over the axes {axes}: a mesh has one for each axis '
+                             f'and for its batch axes {self.batch_axes}')
+        return axes
 
     @property
     def shape(self) -> dict:
-        return {self.axis_names[0]: self.size()}
+        """Every axis and its size, in axis order."""
+        return dict(self._sizes)
 
-    def rank(self) -> int:
-        """This process's index on the data axis."""
-        return 0 if self.group is None else tdist.get_rank(self.group)
+    def axis_size(self, axis_name: Axes = None) -> int:
+        return math.prod(self._sizes[a] for a in self._axes(axis_name))
 
-    def axis_group(self, axis_name: Optional[str] = None):
-        """The process group of ``axis_name`` (the data axis by default)."""
-        if axis_name is not None and axis_name not in self.axis_names:
-            raise ValueError(f'unknown mesh axis {axis_name!r}; axes: {self.axis_names}')
-        return self.group
+    def size(self) -> int:
+        """The number of ranks on the batch axes."""
+        return self.axis_size(None)
+
+    def rank(self, axis_name: Axes = None) -> int:
+        """This process's coordinate on ``axis_name`` (on the batch axes,
+        row-major, by default)."""
+        axes = self._axes(axis_name)
+        return _ravel([self._coords[a] for a in axes], [self._sizes[a] for a in axes])
+
+    def axis_group(self, axis_name: Axes = None):
+        """The process group of this rank's line on ``axis_name`` (the batch
+        axes by default); None when it spans one rank or the mesh has no
+        processes."""
+        return self._groups.get(self._axes(axis_name))
+
+    def axis_ranks(self, axis_name: Axes = None) -> Tuple[int, ...]:
+        """The global ranks of this rank's line on ``axis_name``, in order."""
+        axes = self._axes(axis_name)
+        if not self.grouped:
+            return (0,) if self.axis_size(axes) == 1 else ()
+        return self._mine[axes] if axes else (tdist.get_rank(),)
+
+    def neighbour_groups(self, axis_name: str) -> Tuple[Any, Any]:
+        """The two-rank groups this rank shares with its predecessor and its
+        successor on ``axis_name`` (None at either end): every pair of
+        neighbours of every line gets one, made on first call by every rank
+        in the same order (a collective call).  On an axis of two ranks
+        both are the axis group."""
+        if axis_name not in self._pairs:
+            axes = self._axes(axis_name)
+            n, s = self.axis_size(axes), self.rank(axes)
+            if n <= 2:
+                group = self.axis_group(axes)
+                self._pairs[axis_name] = (group if s > 0 else None,
+                                          group if s < n - 1 else None)
+            else:
+                prev = nxt = None
+                for line in self._lines(axes):
+                    for i in range(n - 1):
+                        group = tdist.new_group(list(line[i:i + 2]))
+                        if line == self._mine[axes]:
+                            prev = group if i == s - 1 else prev
+                            nxt = group if i == s else nxt
+                self._pairs[axis_name] = (prev, nxt)
+        return self._pairs[axis_name]
+
+    def device_mesh(self, device_type: str):
+        """The ``torch.distributed`` ``DeviceMesh`` of the batch axes over
+        this mesh's batch group, for ``device_type`` tensors (made once)."""
+        if device_type not in self._device_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+            self._device_meshes[device_type] = DeviceMesh.from_group(
+                self.group, device_type, mesh_dim_names=('_'.join(self.batch_axes),))
+        return self._device_meshes[device_type]
 
     def data_parallel(self, model: torch.nn.Module, find_unused_parameters: bool = False):
-        """``model`` wrapped once in ``DistributedDataParallel`` over the data
-        axis.  Buffers are not broadcast (``broadcast_buffers=False``): the
-        running statistics move by the global batch statistics, so every
+        """``model`` wrapped once in ``DistributedDataParallel`` over the
+        batch axes.  Buffers are not broadcast (``broadcast_buffers=False``):
+        the running statistics move by the global batch statistics, so every
         rank holds the same ones."""
         key = (id(model), find_unused_parameters)
         if key not in self._wrapped:
@@ -128,30 +249,81 @@ class Mesh:
         return f'Mesh({self.shape})'
 
 
-def make_mesh(axes: Sequence[str] = ('data',), shape=None, devices=None) -> Mesh:
-    """The data mesh over every process of the run: its group is the
-    default process group once :func:`~ever_tpu_torch.core.dist.init_dist_env`
-    started one, else None (one process).  ``shape`` and ``devices`` of the
-    JAX signature lay out more than one axis, which is not ported."""
-    if len(tuple(axes)) != 1 or devices is not None or (
-            shape is not None and list(shape) != [dist.get_world_size()]):
-        raise NotImplementedError('only the 1-D data mesh over every process is ported '
-                                  '(ROADMAP.md A.9.3)')
+def _ravel(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    out = 0
+    for c, n in zip(coords, sizes):
+        out = out * n + c
+    return out
+
+
+def _unravel(index: int, sizes: Sequence[int]) -> list:
+    out = []
+    for n in reversed(sizes):
+        out.append(index % n)
+        index //= n
+    return out[::-1]
+
+
+def make_mesh(axes: Sequence[str] = ('data',), shape: Optional[Sequence[int]] = None,
+              devices=None) -> Mesh:
+    """A mesh over every process of the run, laid out row-major on ``axes``
+    (a collective call once :func:`~ever_tpu_torch.core.dist.init_dist_env`
+    started a process group; one process otherwise).  ``shape`` defaults to
+    every process on the first axis (``axes=('data', 'model'), shape=(4,
+    2)`` for a 2-D mesh).  ``devices``, the JAX signature's device list,
+    must be None: one process drives one card, and a mesh spans every
+    process."""
+    if devices is not None:
+        raise ValueError('devices=: one process drives one card, so a mesh spans every '
+                         'process of the run; start as many processes as it has ranks')
+    return _world_mesh(tuple(axes), shape)
+
+
+def _world_mesh(axes: Tuple[str, ...], shape, batch_axes=None) -> Mesh:
+    n = dist.get_world_size()
+    if shape is None:
+        shape = [n] + [1] * (len(axes) - 1)
+    if math.prod(shape) != n:
+        raise ValueError(f'mesh shape {tuple(shape)} does not cover {n} devices')
     initialized = tdist.is_available() and tdist.is_initialized()
-    return Mesh(axes, tdist.group.WORLD if initialized else None)
+    return Mesh(axes, shape, grouped=initialized, batch_axes=batch_axes)
 
 
-def abstract_mesh(size: int, axes: Sequence[str] = ('data',)) -> Mesh:
-    """A data mesh of ``size`` ranks with no process behind them, on which
-    placements are planned (JAX's fake-device mesh); it runs no step."""
-    return Mesh(axes, None, int(size))
+def make_hybrid_mesh(ici_axes: Sequence[str] = ('data',),
+                     ici_shape: Optional[Sequence[int]] = None,
+                     dcn_axis: str = 'replica') -> Mesh:
+    """A mesh whose first axis, ``dcn_axis``, spans the nodes (JAX's slices)
+    and whose ``ici_axes`` lay out the ranks within a node: ``(nodes,
+    *ici_shape)``.  Nodes are ``WORLD_SIZE // LOCAL_WORLD_SIZE`` under
+    ``torchrun``, which numbers ranks node by node, and 1 otherwise, so on
+    one node the result is ``(1, *ici_shape)``, as JAX degrades to
+    :func:`make_mesh` on a single slice.  ``ici_shape`` defaults to every
+    rank of a node on the first ICI axis.  The batch axes are ``dcn_axis``
+    and ``'data'`` (when an ICI axis has that name): the gradient reduction
+    crosses nodes, the model-parallel axes stay within one."""
+    ici_axes = tuple(ici_axes)
+    world = dist.get_world_size()
+    local = int(os.environ.get('LOCAL_WORLD_SIZE', world))
+    if local <= 0 or world % local:
+        raise ValueError(f'{world} processes do not split into nodes of {local}')
+    nodes = world // local
+    if ici_shape is None:
+        ici_shape = [local] + [1] * (len(ici_axes) - 1)
+    if math.prod(ici_shape) != local:
+        raise ValueError(f'ICI shape {tuple(ici_shape)} does not cover the {local} '
+                         f'processes of a node')
+    batch = (dcn_axis,) + (('data',) if 'data' in ici_axes else ())
+    return _world_mesh((dcn_axis, *ici_axes), (nodes, *ici_shape), batch)
 
 
-def __getattr__(name: str):
-    if name == 'make_hybrid_mesh':
-        raise AttributeError('make_hybrid_mesh: the 2-D and hybrid meshes are not ported '
-                             '(ROADMAP.md A.9.3)')
-    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+def abstract_mesh(shape: Union[int, Sequence[int]], axes: Sequence[str] = ('data',)) -> Mesh:
+    """A mesh of ``shape`` ranks (a size, or one size an axis of ``axes``)
+    with no process behind them, on which placements are planned (JAX's
+    fake-device mesh); it runs no step."""
+    shape = (int(shape),) if isinstance(shape, int) else tuple(shape)
+    mesh = Mesh(axes, shape)
+    mesh.abstract = True
+    return mesh
 
 
 class PartitionSpec(tuple):
@@ -188,14 +360,30 @@ class NamedSharding:
 
     @property
     def shard_dim(self) -> Optional[int]:
-        """The dimension split over the mesh's first (data) axis, or None."""
-        from torch.distributed.tensor import Shard
-        first = self.placements[0]
-        return first.dim if isinstance(first, Shard) else None
+        """The dimension split over the mesh's batch axes, or None."""
+        batch = set(self.mesh.batch_axes)
+        for d, a in enumerate(self.spec):
+            names = a if isinstance(a, tuple) else (a,)
+            if batch & set(names):
+                return d
+        return None
+
+    @property
+    def batch_placements(self) -> tuple:
+        """The placement over the batch axes alone (``mesh.device_mesh``'s
+        one dimension)."""
+        from torch.distributed.tensor import Replicate, Shard
+        dim = self.shard_dim
+        return (Replicate(),) if dim is None else (Shard(dim),)
 
     @property
     def is_fully_replicated(self) -> bool:
-        return self.shard_dim is None or self.mesh.size() == 1
+        """No dimension is split over an axis of more than one rank."""
+        for a in self.spec:
+            for name in (a if isinstance(a, tuple) else (a,)):
+                if name is not None and self.mesh.shape[name] > 1:
+                    return False
+        return True
 
 
 def replicated(mesh: Mesh) -> NamedSharding:
@@ -212,7 +400,7 @@ def batch_sharding(mesh: Mesh, *, accum_leading=False, axis: str = 'data') -> Na
 
 def _is_global(x, sharding: NamedSharding) -> bool:
     from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor) and tuple(x.placements) == sharding.placements
+    return isinstance(x, DTensor) and tuple(x.placements) == sharding.batch_placements
 
 
 def host_to_global(batch: Any, sharding: NamedSharding) -> Any:
@@ -244,7 +432,7 @@ def host_to_global(batch: Any, sharding: NamedSharding) -> Any:
         x = torch.as_tensor(x)
         rows = x.shape[dim] // n
         return DTensor.from_local(x.narrow(dim, rank * rows, rows),
-                                  mesh.device_mesh(x.device.type), sharding.placements,
+                                  mesh.device_mesh(x.device.type), sharding.batch_placements,
                                   run_check=False, shape=x.shape, stride=x.stride())
 
     return tree_map(local, batch)
@@ -257,7 +445,7 @@ def _leaves(tree) -> list:
 
 def reduction_group(axis_name: Optional[str] = None):
     """The group a batch statistic is summed over: the current mesh's
-    ``axis_name`` axis (its data axis by default) when it spans more than
+    ``axis_name`` axis (its batch axes by default) when it spans more than
     one rank, else None.  An ``axis_name`` outside a mesh raises, as an
     unbound axis name does in JAX."""
     mesh = _CURRENT.get()
@@ -266,12 +454,12 @@ def reduction_group(axis_name: Optional[str] = None):
             raise ValueError(f'axis_name={axis_name!r} outside a mesh: enter `with mesh:`')
         return None
     group = mesh.axis_group(axis_name)
-    return group if mesh.size() > 1 else None
+    return group if mesh.axis_size(axis_name) > 1 else None
 
 
 def data_shard() -> Tuple[int, int]:
-    """(this rank's index, the number of ranks) on the current mesh's data
-    axis; (0, 1) outside a mesh."""
+    """(this rank's index, the number of ranks) on the current mesh's batch
+    axes; (0, 1) outside a mesh."""
     mesh = _CURRENT.get()
     return (0, 1) if mesh is None else (mesh.rank(), mesh.size())
 

@@ -14,9 +14,13 @@ JAX package's:
    ``min_shard_bytes`` (1 MiB), scalars, BatchNorm's running statistics and
    the step stay replicated; the optimizer state is split at level 1 and 3,
    the parameters at level 3, each on its largest dimension the axis size
-   divides.  A ``tp_axis`` raises: tensor parallel is not ported
-   (``ROADMAP.md`` A.9.2).
-3. :func:`create_train_state_sharded`: the state placed so, leaf by leaf.
+   divides.  With ``tp_axis`` the tensor-parallel leaves (``parallel/tp.py``)
+   and their moments are split over that axis first, and the ZeRO fill
+   takes the largest other dimension.
+3. :func:`create_train_state_sharded`: the state placed so, leaf by leaf
+   (with ``tp_axis``, the model put in the Megatron layout by
+   ``tp.apply_tp`` first; ZeRO then shards each rank's tensor-parallel
+   shard over the data axis and gathers it back over that axis alone).
    A PyTorch module draws its weights when it is built, so the model is
    built on the host (its weights are those ``create_train_state`` gets for
    the same seed) and each sharded leaf reaches the device as the rank's
@@ -37,6 +41,7 @@ import torch.nn as nn
 
 from ever_tpu_torch.parallel.mesh import Mesh, NamedSharding, P
 from ever_tpu_torch.parallel.spmd import TrainState
+from ever_tpu_torch.parallel.tp import apply_tp, tp_plan, tp_split_dim
 from ever_tpu_torch.parallel.zero import StateShardings, ZeroOptimizer, _check_level
 
 __all__ = ['abstract_train_state', 'sharded_state_shardings', 'create_train_state_sharded',
@@ -108,21 +113,39 @@ def abstract_train_state(model, tx, sample_batch=None, rng=None) -> AbstractTrai
                    for n, p in params.items() if p.requires_grad and not frozen(n)})
 
 
+def _param_name(path: str) -> Optional[str]:
+    """The parameter a ``params/<name>`` or ``opt_state/<name>/<key>`` leaf
+    belongs to."""
+    if path.startswith('params/'):
+        return path[len('params/'):]
+    if path.startswith('opt_state/'):
+        return path[len('opt_state/'):].rsplit('/', 1)[0]
+    return None
+
+
 def _leaf_spec(path: str, shape, mesh: Mesh, level: int, data_axis: str,
-               min_shard_bytes: int, nbytes: int) -> P:
+               tp_axis: Optional[str], min_shard_bytes: int, nbytes: int) -> P:
     """One leaf's spec: replicated under ``min_shard_bytes``, for scalars,
-    buffers and the step; else the data axis on its largest divisible
-    dimension where ZeRO applies (the optimizer state from level 1, the
-    parameters at level 3)."""
+    buffers and the step; else the tensor-parallel split of its parameter
+    over ``tp_axis`` (``parallel/tp.py``'s suffix rule, which a moment
+    follows as its parameter does), then the data axis on its largest free
+    divisible dimension where ZeRO applies (the optimizer state from level
+    1, the parameters at level 3)."""
     if path.startswith('batch_stats/') or path == 'step':
         return P()
     if nbytes < min_shard_bytes or not shape:
         return P()
     spec = [None] * len(shape)
+    name = _param_name(path)
+    if tp_axis is not None and tp_axis in mesh.shape and name is not None:
+        dim = tp_split_dim(name, shape, mesh.shape[tp_axis])
+        if dim is not None:
+            spec[dim] = tp_axis
     applies = path.startswith('opt_state/') or (path.startswith('params/') and level >= 3)
     n = mesh.shape[data_axis]
     if applies and n > 1:
-        free = [d for d in range(len(shape)) if shape[d] % n == 0 and shape[d] >= n]
+        free = [d for d in range(len(shape))
+                if spec[d] is None and shape[d] % n == 0 and shape[d] >= n]
         if free:
             spec[max(free, key=lambda d: shape[d])] = data_axis
     return P(*spec)
@@ -137,13 +160,10 @@ def sharded_state_shardings(abstract_state: AbstractTrainState, mesh: Mesh, *,
     takes: a parameter's ``opt_state`` placement is that of its
     parameter-shaped leaves.  ``leaf_shardings`` gives every leaf's."""
     _check_level(level)
-    if tp_axis is not None:
-        raise NotImplementedError(f'tp_axis={tp_axis!r}: tensor parallel is not ported '
-                                  '(ROADMAP.md A.9.2)')
     if data_axis not in mesh.shape:
         raise ValueError(f'mesh has no axis {data_axis!r}: {dict(mesh.shape)}')
     specs = leaf_shardings(abstract_state, mesh, level=level, data_axis=data_axis,
-                           min_shard_bytes=min_shard_bytes)
+                           tp_axis=tp_axis, min_shard_bytes=min_shard_bytes)
     opt = {}
     for n, st in abstract_state.opt_state.items():
         shaped = [k for k, t in st.items() if t.shape == abstract_state.params[n].shape]
@@ -156,12 +176,12 @@ def sharded_state_shardings(abstract_state: AbstractTrainState, mesh: Mesh, *,
 
 
 def leaf_shardings(abstract_state: AbstractTrainState, mesh: Mesh, *, level: int = 3,
-                   data_axis: str = 'data',
+                   data_axis: str = 'data', tp_axis: Optional[str] = None,
                    min_shard_bytes: int = _MIN_SHARD_BYTES) -> Dict[str, NamedSharding]:
     """The placement of every leaf of :meth:`AbstractTrainState.leaves`,
     under the same paths."""
     return {path: NamedSharding(mesh, _leaf_spec(path, tuple(t.shape), mesh, level,
-                                                 data_axis, min_shard_bytes,
+                                                 data_axis, tp_axis, min_shard_bytes,
                                                  t.numel() * t.element_size()))
             for path, t in abstract_state.leaves().items()}
 
@@ -184,6 +204,9 @@ def create_train_state_sharded(model: nn.Module, tx, sample_batch=None, mesh: Me
     shardings = sharded_state_shardings(
         abstract_train_state(model, tx), mesh, level=level, data_axis=data_axis,
         tp_axis=tp_axis, min_shard_bytes=min_shard_bytes)
+    if tp_axis is not None and tp_axis in mesh.shape:
+        apply_tp(model, mesh, tp_axis, shardings=shardings.params,
+                 device=next(model.parameters()).device)
     optimizer = tx.init((n, p) for n, p in model.named_parameters() if p.requires_grad)
     zo = ZeroOptimizer(model, optimizer, shardings, device=get_device(device))
     return TrainState(step=0, model=model, optimizer=zo, shardings=shardings), shardings
@@ -204,15 +227,20 @@ def _leaf_report(state):
     """(path, whole shape, whole bytes, sharded) of every tensor leaf."""
     opt = state.optimizer if isinstance(state, TrainState) else None
     zo = opt if isinstance(opt, ZeroOptimizer) else None
+    tp = tp_plan(state.model)
     out = []
     for n, p in state.model.named_parameters():
         slot = zo.slots[n] if zo else None
         shape = slot.shape if slot else p.shape
+        split = tp is not None and n in tp.sharded
+        if split:                        # the whole tensor of a tensor-parallel shard
+            dim = tp.sharded[n][0]
+            shape = torch.Size(s * tp.size if d == dim else s for d, s in enumerate(shape))
         nbytes = shape.numel() * p.element_size()
-        out.append((f'params/{n}', shape, nbytes, bool(slot and slot.pdim is not None)))
+        out.append((f'params/{n}', shape, nbytes, split or bool(slot and slot.pdim is not None)))
         inner = zo.optimizer.state.get(slot.shard, {}) if slot and slot.shard is not None \
             else (opt.state.get(p, {}) if opt is not None and not zo else {})
-        sharded = bool(slot and slot.odim is not None)
+        sharded = split or bool(slot and slot.odim is not None)
         for k, v in inner.items():
             if torch.is_tensor(v) and v.dim():
                 out.append((f'opt_state/{n}/{k}', shape, shape.numel() * v.element_size(),

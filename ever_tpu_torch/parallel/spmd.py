@@ -39,11 +39,21 @@ and updates its shards.  The :class:`TrainState` carries the placements
 (``shardings``); as in JAX, ``state_shardings`` without ``mesh`` raises.
 A batch may come as ``DTensor`` leaves (``mesh.host_to_global``); the step
 takes their local rows.
+
+A layer that returns a bare tensor (``parallel/ep.py``'s ``MoEMlp``)
+cannot put its auxiliary loss into the model's loss dict, so it records
+it with :func:`sow_loss` into the collection the step opens around each
+forward (:func:`sown_losses`); the step adds their sum as the metric
+``sown_aux_loss``, which joins ``total_loss``, as the JAX step adds flax's
+``'losses'`` collection.  Under tensor parallel (``parallel/tp.py``) the
+mesh's batch axes are its data axes: the model's own layers reduce over
+the model axis.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -55,9 +65,12 @@ from torch.utils._pytree import tree_map
 from ever_tpu_torch.interface.module import split_metrics, sum_losses
 
 __all__ = ['TrainState', 'create_train_state', 'build_train_step',
-           'build_train_loop', 'build_eval_step', 'step_generator']
+           'build_train_loop', 'build_eval_step', 'step_generator', 'sow_loss',
+           'sown_losses']
 
 Metrics = Dict[str, torch.Tensor]
+
+_SOWN: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_sown', default=None)
 
 
 @dataclass
@@ -115,11 +128,39 @@ def create_train_state(model: torch.nn.Module, tx, sample_batch=None, rng=None,
     return TrainState(step=0, model=model, optimizer=optimizer)
 
 
+@contextlib.contextmanager
+def sown_losses():
+    """Open a ``'losses'`` collection for the forward inside the block: every
+    :func:`sow_loss` there records into the dict it yields (``{name:
+    [values]}``), as flax's ``apply(..., mutable=['losses'])`` collects a
+    layer's ``sow('losses', ...)``."""
+    sown: Dict[str, list] = {}
+    token = _SOWN.set(sown)
+    try:
+        yield sown
+    finally:
+        _SOWN.reset(token)
+
+
+def sow_loss(name: str, value: torch.Tensor) -> None:
+    """Record a layer's auxiliary loss ``value`` under ``name`` in the open
+    :func:`sown_losses` collection (the train step opens one around each
+    forward); with none open it is dropped, as flax drops a ``sow`` into a
+    collection that is not mutable."""
+    sown = _SOWN.get()
+    if sown is not None:
+        sown.setdefault(name, []).append(value)
+
+
 def _forward_backward(model, net, batch, generator) -> Metrics:
-    out = net(*_model_args(batch, _device(model)), train=True, generator=generator)
+    with sown_losses() as sown:
+        out = net(*_model_args(batch, _device(model)), train=True, generator=generator)
     if not isinstance(out, dict):
         raise TypeError('training forward must return a dict of losses/metrics '
                         '(keys ending in "loss" are summed)')
+    if sown:
+        out = dict(out)
+        out['sown_aux_loss'] = sum(v.float().sum() for vs in sown.values() for v in vs)
     total = sum_losses(out)
     total.backward()
     metrics = split_metrics(out)

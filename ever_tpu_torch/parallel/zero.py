@@ -50,6 +50,7 @@ import torch.distributed as tdist
 import torch.nn as nn
 
 from ever_tpu_torch.parallel.mesh import Mesh, NamedSharding, P
+from ever_tpu_torch.parallel.tp import gather_tp
 
 __all__ = ['shard_leaf_sharding', 'zero_shardings', 'zero_init', 'StateShardings',
            'ZeroOptimizer', 'full_state_dict', 'local_bytes']
@@ -244,6 +245,8 @@ class ZeroOptimizer:
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.size == 1:
+            return
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for p in params:
             by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
@@ -279,14 +282,15 @@ class ZeroOptimizer:
 
 def full_state_dict(state) -> Dict[str, torch.Tensor]:
     """The model's whole ``state_dict`` on every rank (a collective under
-    ZeRO-3, which gathers the sharded parameters; the state stays as it
-    is)."""
+    ZeRO-3, which gathers the sharded parameters over the data axis, and
+    under tensor parallel, which gathers the shards over its axis; the
+    state stays as it is)."""
     opt = state.optimizer
-    if not isinstance(opt, ZeroOptimizer) or opt.level != 3:
-        return {k: v.clone() for k, v in state.model.state_dict().items()}
-    slots = [s for s in opt.slots.values() if s.pdim is not None]
-    whole = dict(zip([s.name for s in slots], opt._gather(slots, lambda s: s.pdim)))
-    return {k: whole.get(k, v).clone() for k, v in state.model.state_dict().items()}
+    sd = state.model.state_dict()
+    if isinstance(opt, ZeroOptimizer) and opt.level == 3:
+        slots = [s for s in opt.slots.values() if s.pdim is not None]
+        sd.update(zip([s.name for s in slots], opt._gather(slots, lambda s: s.pdim)))
+    return {k: v.clone() for k, v in gather_tp(state.model, sd).items()}
 
 
 def local_bytes(state) -> Dict[str, int]:

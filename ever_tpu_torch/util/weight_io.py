@@ -72,7 +72,7 @@ __all__ = ['flatten_params', 'flatten_tree', 'unflatten_tree', 'convert_flax_din
            'convert_flax_encoder_head', 'convert_flax_efficientnet', 'convert_flax_densenet',
            'convert_flax_resnest', 'convert_flax_convnext', 'convert_flax_bifpn',
            'convert_flax_vit_encoder', 'convert_flax_freenet', 'convert_flax_linear',
-           'convert_flax_dcgan',
+           'convert_flax_dcgan', 'convert_flax_moe',
            'convert_flax_flat', 'convert_torch_dinov3_vit', 'convert_torch_farseg_head',
            'convert_torch_resnet', 'convert_torch_hrnet', 'convert_torch_efficientnet',
            'convert_torch_densenet', 'convert_torch_resnest', 'convert_torch_convnext',
@@ -207,6 +207,23 @@ def convert_flax_vit_encoder(params: Any) -> Dict[str, torch.Tensor]:
         raise KeyError(f'unmapped ViTEncoder parameters {stray[:3]!r}')
     return {f'vit.{k}': v for k, v in convert_flax_dinov3_vit(
         {k[len('vit/'):]: v for k, v in flat.items()}).items()}
+
+
+_MOE_LEAVES = ('router', 'experts_fc1', 'experts_bias1', 'experts_fc2', 'experts_bias2')
+
+
+def convert_flax_moe(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX ``MoEMlp`` params (a bare module's, or a tree with them under a
+    path) → the port's ``MoEMlp`` ``state_dict``: the same names and shapes
+    (both packages keep the experts' ``[E, in, out]`` layout), the path's
+    ``/`` as ``.``; a leaf the module does not have raises ``KeyError``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for key, v in flatten_params(params).items():
+        path, _, leaf = key.rpartition('/')
+        if leaf not in _MOE_LEAVES:
+            raise KeyError(f'unmapped MoEMlp parameter {key!r}')
+        sd[(path.replace('/', '.') + '.' if path else '') + leaf] = _tensor(v)
+    return sd
 
 
 def convert_flax_linear(params: Any) -> Dict[str, torch.Tensor]:

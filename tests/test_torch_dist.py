@@ -55,6 +55,16 @@ class _Ranks:
     def __init__(self, procs, logs):
         self.procs, self.logs = procs, logs
 
+    def kill(self) -> None:
+        """Kill the ranks still running and close their logs (a job whose
+        results no test read)."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in self.logs:
+            f.close()
+
     def finish(self, timeout: float = 180) -> None:
         """Wait up to ``timeout`` seconds in all, kill the ranks still
         running, and fail with every rank's log unless all exited 0."""

@@ -75,7 +75,8 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.module.dinov3.utils.custom_callable,'
             ' ever_tpu_torch.module.dinov3.utils.dtype, ever_tpu_torch.module.gan,'
             ' ever_tpu_torch.trainer.gan, ever_tpu_torch.parallel.zero,'
-            ' ever_tpu_torch.parallel.sharded;'
+            ' ever_tpu_torch.parallel.sharded, ever_tpu_torch.parallel.tp,'
+            ' ever_tpu_torch.parallel.pp, ever_tpu_torch.parallel.ep;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -136,7 +137,8 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/module/dinov3/layers/sparse_linear.py',
             'ever_tpu_torch/module/dinov3/utils/utils.py', 'ever_tpu_torch/module/gan.py',
             'ever_tpu_torch/trainer/gan.py', 'ever_tpu_torch/parallel/zero.py',
-            'ever_tpu_torch/parallel/sharded.py'} <= scanned
+            'ever_tpu_torch/parallel/sharded.py', 'ever_tpu_torch/parallel/tp.py',
+            'ever_tpu_torch/parallel/pp.py', 'ever_tpu_torch/parallel/ep.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -223,6 +225,23 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch, tmp_p
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tiled_inference(lambda t: t, np.zeros((8, 8, 1), np.float32), 8, 8, 1,
                         mesh=make_mesh())
+    # the model-parallel layouts: the shards, stages and experts go to the card
+    from ever_tpu_torch.module.vit import DinoVisionTransformer
+    from ever_tpu_torch.parallel.ep import MoEMlp
+    from ever_tpu_torch.parallel.pp import pipelined_vit_apply
+    from ever_tpu_torch.parallel.tp import apply_tp
+    vit = DinoVisionTransformer('vit_small', n_storage_tokens=0)
+    one = make_mesh(('data', 'model'), (1, 1))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        apply_tp(vit, one)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        pipelined_vit_apply(vit, None, make_mesh(('pipe',)))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        MoEMlp(4, 8, dim=8)
+    assert apply_tp(vit, one, device='cpu') is vit
+    assert pipelined_vit_apply(vit, None, make_mesh(('pipe',)), device='cpu').block_ids == \
+        list(range(12))
+    assert MoEMlp(4, 8, dim=8, device='cpu').router.device.type == 'cpu'
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     monkeypatch.setattr(torch.cuda, 'set_device', lambda d: None)
@@ -308,9 +327,9 @@ NOT_PORTED = {
     'magic': {},
     'module': {},
     'ops': {},
-    'parallel': {n: 'A.9.2' for n in (
-        'spatial', 'tp', 'build_halo_train_step', 'build_spatial_train_step', 'halo_exchange',
-        'spatial_partition_apply', 'apply_tp', 'vit_tp_shardings')},
+    'parallel': {n: 'A.9.5' for n in (
+        'spatial', 'build_halo_train_step', 'build_spatial_train_step', 'halo_exchange',
+        'spatial_partition_apply')},
 }
 
 
@@ -397,7 +416,6 @@ MODULE_NOT_PORTED = {
     'ops.pool': {'max_pool_32_pallas': 'TPU-only'},
     'opt.optimizer': {'find_recorded_grad_norm': "optax's state",
                       'ClipByGlobalNormState': "optax's state"},
-    'parallel.mesh': {'make_hybrid_mesh': 'A.9.3'},
 }
 
 

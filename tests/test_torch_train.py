@@ -527,8 +527,10 @@ def test_mesh_is_the_parallel_slice():
     (m0, sd0, p0), (m1, sd1, p1) = runs
     assert all(torch.equal(m0[k], m1[k]) for k in m0 if k != 'learning_rate')
     assert all(torch.equal(sd0[k], sd1[k]) for k in sd0) and torch.equal(p0, p1)
-    with pytest.raises(NotImplementedError, match='1-D data mesh'):
-        make_mesh(('data', 'model'))
+    # a 2-D mesh of one process: every axis of one rank, no group, no batch split
+    mesh2 = make_mesh(('data', 'model'))
+    assert mesh2.shape == {'data': 1, 'model': 1} and mesh2.group is None
+    assert mesh2.axis_group('model') is None and mesh2.size() == 1
 
 
 # -- dict labels through the step ----------------------------------------------

@@ -195,8 +195,11 @@ def test_sharded_state_shardings_equal_jax_leaf_by_leaf(tiny_vit, level):
                                            min_shard_bytes=1 << 14)
     assert {n: s.spec for n, s in got.params.items()} == \
         {n: tleaf[f'params/{n}'].spec for n in tabs.params}
-    with pytest.raises(NotImplementedError, match='A.9.2'):
-        tsharded.sharded_state_shardings(tabs, tmesh.abstract_mesh(8), tp_axis='model')
+    # a tp_axis the mesh does not have changes nothing, as in the JAX package
+    no_tp = tsharded.sharded_state_shardings(tabs, tmesh.abstract_mesh(8), level=level,
+                                             tp_axis='model', min_shard_bytes=1 << 14)
+    assert {n: s.spec for n, s in no_tp.params.items()} == \
+        {n: s.spec for n, s in got.params.items()}
 
 
 def test_vit7b_abstract_state_fits_eight_ranks_at_level_3():
@@ -220,9 +223,15 @@ def test_vit7b_abstract_state_fits_eight_ranks_at_level_3():
 
 
 def test_the_layouts_still_to_port_raise_naming_their_item():
-    with pytest.raises(AttributeError, match='A.9.3'):
-        tmesh.make_hybrid_mesh
-    assert not hasattr(tmesh, 'make_hybrid_mesh')
+    import ever_tpu_torch.parallel as tparallel
+    for name in ('spatial', 'halo_exchange', 'spatial_partition_apply',
+                 'build_spatial_train_step', 'build_halo_train_step'):
+        assert not hasattr(tparallel, name), name
+    with pytest.raises(ModuleNotFoundError):
+        import ever_tpu_torch.parallel.spatial  # noqa: F401
+    assert 'A.9.5' in tparallel.__doc__
+    hybrid = tmesh.make_hybrid_mesh()           # ported (A.9.3): one process, one node
+    assert hybrid.shape == {'replica': 1, 'data': 1}
     m = torch.nn.Linear(2, 2)
     factory, _ = tbuilder.make_optimizer({'type': 'sgd', 'params': {}})
     tx = factory.build(0.1)
