@@ -46,7 +46,10 @@ Phases (any failure exits non-zero before the last line is printed):
              stem's max pool backward (K8) against its plain version at the
              main shape ([8, 256, 256, 64] bf16), in float32, at the siamese
              detectors' [16, 256, 256, 64] bf16, at [2, 30, 22, 5] (the
-             unaligned path) and on inputs with ties, then timed.  Then
+             unaligned path), on inputs with ties, and at the spatial
+             phase's stem shapes (a rank's [1, 514, 1024, 64] strip and the
+             one process's [1, 1024, 1024, 64], bf16 and float32), then
+             timed.  Then
              the train step: 512² tiles, batch 8, bf16 compute with float32
              parameters, SGD with momentum 0.9 and a poly schedule (base_lr
              0.01, power 0.9, 1000 iterations), built through ``builder`` and
@@ -157,11 +160,10 @@ Phases (any failure exits non-zero before the last line is printed):
              checkpoints' keys a one-process run's; one process (the base
              trainer on the same global batches,
              ``data.distributed.global_batches``) stepping from the 2-rank
-             state before each of steps 1-4: loss and new state within
-             1e-4 (the coupled steps are chaotic; their distance after 3
-             steps, and the 1-process resume's after 3 more, are printed);
-             the step-3 checkpoint resumed to 6 in 2 processes bit-equal to
-             the unbroken run;
+             state before each of steps 1-2: loss and new state within
+             1e-4 (the coupled steps are chaotic, so each step starts from
+             the 2-rank state); the step-3 checkpoint resumed to 6 in 2
+             processes bit-equal to the unbroken run;
              (c) the DinoSeg config, 4 a rank, 2 steps: 24 K1 + 24 K2 a rank
              a step, the ranks bit-equal, losses within 1e-3 of one
              process's; (d) the distributed evaluation of the val scenes (2
@@ -459,8 +461,8 @@ Phases (any failure exits non-zero before the last line is printed):
              both roles moved; (b) 6 steps and a resume to 10 (a checkpoint
              every 2 steps, deterministic cuDNN) against 10 at once: the
              final state and the logged metrics of steps 7-10 bit-equal;
-             (c) two gloo ranks on the card (64 each, ``--ddp-worker
-             gan``) against one process on the same global batches for 3
+             (c) two gloo ranks on the card (64 each, the parallel
+             phases' ranks) against one process on the same global batches for 3
              steps: the ranks bit-equal, step 1's D loss and gradient norm
              within ``GAN_DDP_FIRST_TOL`` (the norm is that of the
              averaged gradient), G's within ``GAN_DDP_G_TOL``, the
@@ -472,8 +474,8 @@ Phases (any failure exits non-zero before the last line is printed):
              ``g_loss``, against the float32 peak).
 21. zero   — ZeRO-1/3 (``phase_zero``): DinoSeg ``vitl16_sat493m`` at 512²,
              bf16 compute, float32 parameters, AdamW + cosine, the same
-             seeded weights on two gloo ranks on the card (``--ddp-worker
-             zero``), 4 tiles a rank; 3 steps each of replicated DDP,
+             seeded weights on two gloo ranks on the card (the parallel
+             phases' ranks), 4 tiles a rank; 3 steps each of replicated DDP,
              ZeRO-1 and ZeRO-3: (a) the ZeRO parameters against the
              replicated run's after step 1 within ``ZERO_FIRST_TOL`` and
              after step 3 within ``ZERO_TOL`` (bit-equality printed); (b)
@@ -487,7 +489,7 @@ Phases (any failure exits non-zero before the last line is printed):
              launches a step on each rank, which join the kernels line;
              ms/step of each layout with the card's name and power limit.
 22. layouts — the model-parallel layouts (``phase_layouts``) over two gloo
-             ranks sharing the card (``--ddp-worker layouts``, started once),
+             ranks sharing the card (the parallel phases' ranks),
              the same seeded weights in every process: (a) DinoSeg
              ``vitl16_sat493m`` built through ``builder`` under tensor
              parallel on ``make_hybrid_mesh(('data', 'model'), (1, 2))`` (a
@@ -496,7 +498,7 @@ Phases (any failure exits non-zero before the last line is printed):
              schedule and ``grad_clip``, bf16 compute, float32 parameters,
              B=8 at 512²: the first step's gradients (gathered) against one
              process on the same weights and batch within phase 4's
-             ``GRAD_REL_TOL`` and ``GRAD_COS_MIN``; 2 warm-up and 5 timed
+             ``GRAD_REL_TOL`` and ``GRAD_COS_MIN``; 2 warm-up and 3 timed
              steps with finite losses and gradient norms and exactly 24 K1
              and 24 K2 launches a rank a step (8 heads a rank); each rank
              holding at most half the split leaves' bytes plus 1 MiB; one
@@ -517,8 +519,50 @@ Phases (any failure exits non-zero before the last line is printed):
              and power limit; one card shows correctness and bytes held, not
              a multi-card speed.  The phase's K1 and K2 launches of (a) and
              (b) join the kernels line.
-23. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
+23. spatial — the spatial layouts (``phase_spatial``): one process first
+             runs the references on the whole tiles, then two gloo ranks
+             share the card (the parallel phases' ranks) on
+             ``make_mesh(('data',))`` with the same seeded weights: (a)
+             phase 5's FarSeg-R50 (K8, 7 classes, SGD momentum 0.9 + poly)
+             on one 2048² tile with labels in [0, 7), split into two strips
+             of 1024 rows by ``build_spatial_train_step``: the first step
+             at float32 compute, TF32 off, against one process's
+             ``build_train_step`` on the whole tile (``total_loss`` within
+             1e-5 relative; every parameter and running statistic within
+             rtol 1e-3, atol 2e-5, ``tests/test_spatial_train.py``'s limits;
+             the worst distances printed; the ranks' states bit-equal); then
+             bf16 compute, float32 parameters, 2 warm-up and 5 timed steps a
+             rank: finite losses and gradient norms, exactly one K8 a rank a
+             step and no other port kernel (they join the kernels line); the
+             halo broadcasts and bytes a step, ms/step against the one-process
+             step at 2048², peak memory a rank against its.  (b) a
+             resolution-preserving net (four 3×3 convs of 64 with ReLU, a
+             1×1 head) on a 4096² float32 tile, halo 8:
+             ``spatial_partition_apply`` ``'exact'`` within 1e-5 of the
+             whole forward, ``'zeros'`` within it off the true border, one
+             ``build_halo_train_step`` step's parameters within 1e-5 of the
+             unsharded step's.  (c) ``util.eda`` without PIL: ``thumbnail``
+             of a 2048² RGB PNG (and of a constant grey one: its value
+             kept) and ``render_multi_binary_mask`` of three 512² masks the
+             phase writes with ``write_png``, their shapes.
+24. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
+
+The parallel phases (20-23) share one pair of gloo ranks
+(``phases_parallel``: ``--ddp-worker parallel`` runs the gan, zero,
+layouts and spatial workers in turn after the spatial phase's one-process
+references), which the parent then reads phase by phase.
+
+Cuts that keep the script within 1100 s with the ``spatial`` phase (the
+phase took 61.7 s alone on an H100 80GB HBM3 at 700 W, and a whole run
+with the last two cuts alone 1161.7 s on a slow host): the parallel
+phases' ranks start once instead of four times (each pair of processes
+took about 17 s of start-up and initialisation; the four phases 125-138 s
+together against about 263 s apart); ``ddp`` (b) holds one process to the
+2-rank steps 1-2 (was 1-4) and no longer prints the 3 coupled steps in one
+process or the 1-process resume (two trainer runs that gated nothing;
+about 30 s); ``layouts`` (a) times 3 steps after the warm-up (was 5; about
+7 s).
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
 step of each model, and of one fused-LN DinoSeg train step: device busy time
@@ -533,6 +577,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import hashlib
 import inspect
 import json
@@ -600,6 +645,13 @@ FLASH_N = 128 * 128 + 5
 PEAK_F32_FLOPS = 67e12
 # K8 (the stem max pool's backward) at FarSeg-R50's 512², batch-8 stem
 POOL_SHAPE = (8, 256, 256, 64)
+# one FarSeg-R50 tile of the spatial phase (phase 23): two strips of 1024 rows
+SPATIAL_TILE = 2048
+# K8 in that phase: a rank's stem strip with the 2 rows it takes from the
+# previous strip (514 rows: a ragged block after the output row it drops),
+# and the one-process reference's whole stem
+SPATIAL_POOL_STRIP = (1, SPATIAL_TILE // 4 + 2, SPATIAL_TILE // 2, 64)
+SPATIAL_POOL_WHOLE = (1, SPATIAL_TILE // 2, SPATIAL_TILE // 2, 64)
 # (shape, type, ties): the main shape, in float32, the siamese detectors'
 # stem (both dates of the batch stacked), an H and W that are even but
 # leave a ragged block with C off the 8-wide vector (the kernel's
@@ -607,6 +659,14 @@ POOL_SHAPE = (8, 256, 256, 64)
 POOL_CASES = ((POOL_SHAPE, torch.bfloat16, False), (POOL_SHAPE, torch.float32, False),
               ((2 * TRAIN_BATCH, 256, 256, 64), torch.bfloat16, False),
               ((2, 30, 22, 5), torch.bfloat16, False), ((8, 64, 64, 64), torch.bfloat16, True))
+# the spatial phase's strip and whole stem in bf16 (its timed steps) and
+# float32 (its first step); drawn from a generator of their own, so that
+# every later phase draws what it drew before these cases joined (phase
+# 12's multi-crop gate sits within bf16 noise of its limit: ROADMAP §C)
+SPATIAL_POOL_CASES = ((SPATIAL_POOL_STRIP, torch.bfloat16, False),
+                      (SPATIAL_POOL_STRIP, torch.float32, False),
+                      (SPATIAL_POOL_WHOLE, torch.bfloat16, False),
+                      (SPATIAL_POOL_WHOLE, torch.float32, False))
 # K8 vs its plain version: both compare the same values exactly and sum the
 # same <= 4 float32 terms before one rounding, so they should agree to the
 # bit; the limit is one bf16 ulp of the largest |dx| (2^-8 relative), which
@@ -1354,8 +1414,10 @@ def check_maxpool(gen) -> float:
     from ever_tpu_torch.ops import pool as P
 
     errs = []
-    for shape, dtype, ties in POOL_CASES:
-        x, out, g = pool_inputs(gen, shape, dtype, ties)
+    own = torch.Generator(device='cuda').manual_seed(gen.initial_seed() + 1)
+    for shape, dtype, ties, draw in ([c + (gen,) for c in POOL_CASES]
+                                     + [c + (own,) for c in SPATIAL_POOL_CASES]):
+        x, out, g = pool_inputs(draw, shape, dtype, ties)
         dx = P.max_pool_32_bwd(x, out, g)
         torch.cuda.synchronize()
         ref = P.max_pool_32_bwd_reference(x, out, g)
@@ -2868,7 +2930,8 @@ DDP_NCCL_ITERS = 4
 DDP_FARSEG_BATCH, DDP_FARSEG_ITERS, DDP_RESUME_AT = 16, 6, 3
 # FarSeg's steps are chaotic: a float32 rounding apart grows to 1e-3 in 3
 # steps, so one process is held to each 2-rank step from the same state
-DDP_FORCED_STEPS = 4
+# (steps 1-2; 1-4 cost two trainer runs more, about 15 s)
+DDP_FORCED_STEPS = 2
 DDP_DINO_BATCH, DDP_DINO_ITERS = 8, 2
 DDP_TILED_STRIDE = 384          # 11 x 11 = 121 overlapping tiles of a 4096² scene
 # limits stated before the first chip run (PERF.md): FarSeg in float32 with
@@ -3051,9 +3114,9 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     trains FarSeg-R50 6 steps (a checkpoint after each) and evaluates the val
     scenes distributed, trains DinoSeg ViT-L/16 2 steps, and serves the
     4096² scene over the mesh; ``job='resume'`` resumes the FarSeg run's
-    step-3 checkpoint to 6; ``job='gan'``, ``'zero'`` and ``'layouts'`` are
-    the gan, zero and layouts phases' ranks (``gan_worker``,
-    ``zero_worker``, ``layouts_worker``).  Writes
+    step-3 checkpoint to 6; ``job='parallel'`` runs the gan, zero, layouts
+    and spatial phases' workers in turn (``gan_worker``, ``zero_worker``,
+    ``layouts_worker``, ``spatial_worker``: :func:`phases_parallel`).  Writes
     ``{job}-rank{rank}.json`` and rank r's canvas; any failure raises and
     exits non-zero."""
     from ever_tpu_torch.core import dist
@@ -3064,8 +3127,15 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     dist.init_dist_env(init, world, rank, backend='gloo')
-    if job in ('gan', 'zero', 'layouts'):
-        result = dict(gan=gan_worker, zero=zero_worker, layouts=layouts_worker)[job](rank, out)
+    if job == 'parallel':
+        result = dict(seconds={})
+        for name, fn in (('gan', gan_worker), ('zero', zero_worker),
+                         ('layouts', layouts_worker), ('spatial', spatial_worker)):
+            t0 = time.perf_counter()
+            result[name] = fn(rank, out)
+            result['seconds'][name] = time.perf_counter() - t0
+            gc.collect()                        # DDP wrappers hold cycles
+            torch.cuda.empty_cache()
         with open(os.path.join(out, f'{job}-rank{rank}.json'), 'w') as f:
             json.dump(result, f)
         return 0
@@ -3305,7 +3375,7 @@ def phase_ddp(seed: int, smi: str) -> None:
         resumed, resume_s = run_ddp_workers('resume', tmp)
 
         # b: one process on the same global batches, each step from the
-        # 2-rank run's state before it; then 3 coupled steps, and the resume
+        # 2-rank run's state before it
         def one_process(name, start, steps):
             """The base trainer from the 2-rank run's checkpoint ``start`` (its
             initial weights for 0) to ``steps`` on the global batches."""
@@ -3324,12 +3394,6 @@ def phase_ddp(seed: int, smi: str) -> None:
             if t == 0:
                 bytes_b = ddp_bytes(launcher.model, 2)
             del launcher
-        launcher, coupled = one_process('farseg_one', 0, DDP_RESUME_AT)
-        coupled_diff = (rel_losses(f0['logged'][:DDP_RESUME_AT], coupled['logged']),
-                        max_state_diff(launcher.model.state_dict(), two_ranks(DDP_RESUME_AT)))
-        launcher, _ = one_process('farseg_one_resumed', DDP_RESUME_AT, DDP_FARSEG_ITERS)
-        resume1_diff = max_state_diff(launcher.model.state_dict(), two_ranks(DDP_FARSEG_ITERS))
-        del launcher
         resume2_equal = (resumed[0]['farseg']['digest'] == f0['digest']
                          and [s[:2] for s in resumed[0]['farseg']['logged']]
                          == [s[:2] for s in f0['logged'][DDP_RESUME_AT:]])
@@ -3343,12 +3407,9 @@ def phase_ddp(seed: int, smi: str) -> None:
               f'state before each of steps 1-{DDP_FORCED_STEPS}: losses '
               f'{" ".join(f"{a:.2e}" for a, _ in forced)} relative, the state after '
               f'{" ".join(f"{b:.2e}" for _, b in forced)} of max(1, |value|) (limit '
-              f'{DDP_FARSEG_TOL}); {DDP_RESUME_AT} coupled steps in one process from the same '
-              f'weights: losses {coupled_diff[0]:.3e}, state {coupled_diff[1]:.3e}; checkpoint '
-              f'keys those of one process: {keys_same}; step-{DDP_RESUME_AT} checkpoint resumed '
-              f'to {DDP_FARSEG_ITERS} in 2 processes bit-equal to the unbroken run: '
-              f'{resume2_equal}, in 1 process {resume1_diff:.3e} after '
-              f'{DDP_FARSEG_ITERS - DDP_RESUME_AT} coupled steps', flush=True)
+              f'{DDP_FARSEG_TOL}); checkpoint keys those of one process: {keys_same}; '
+              f'step-{DDP_RESUME_AT} checkpoint resumed to {DDP_FARSEG_ITERS} in 2 processes '
+              f'bit-equal to the unbroken run: {resume2_equal}', flush=True)
         check(all(math.isfinite(d['total_loss']) for _, d, _ in f0['logged']), 'b: losses')
         check(max(worst) <= DDP_FARSEG_TOL, 'b: a 2-rank step differs from one process\'s')
         check(resume2_equal, 'b: the 2-process resume differs from the unbroken run')
@@ -6532,11 +6593,11 @@ def gan_bare_step(cfg: str, seed: int):
         batch
 
 
-def phase_gan(seed: int, smi: str) -> None:
+def phase_gan(seed: int, smi: str, tmp: str, cfg: str, ranks: list) -> None:
     """The DCGAN through ``get_trainer('gan_th_ddp')`` (module docstring,
-    phase 20); it launches no kernel of the port."""
-    import tempfile
-
+    phase 20) in ``tmp``, from the config file ``cfg``; ``ranks`` are the
+    parallel phases' ranks' results (:func:`phases_parallel`).  It launches
+    no kernel of the port."""
     from torch.utils.flop_counter import FlopCounterMode
 
     t_phase = time.perf_counter()
@@ -6544,108 +6605,105 @@ def phase_gan(seed: int, smi: str) -> None:
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        with tempfile.TemporaryDirectory(prefix='chip_smoke_gan_') as tmp:
-            cfg = gan_config(tmp, seed)
-            reset_counts()
-            _, part = gan_run(cfg, os.path.join(tmp, 'part'), GAN_RESUME_AT)
-            resumed, rest = gan_run(cfg, os.path.join(tmp, 'part'), GAN_ITERS)
-            whole, full = gan_run(cfg, os.path.join(tmp, 'whole'), GAN_ITERS)
-            launches = all_launches()
-            logged = part['logged'] + rest['logged'] + full['logged']
-            finite = all(math.isfinite(v) for _, m in logged for v in m.values())
-            keys = set(full['logged'][-1][1])
-            end = whole.model.state_dict()
-            moved = {role: all(not torch.equal(end[k], v) for k, v in full['init'].items()
-                               if k.startswith(f'{role}.') and not k.endswith('num_batches'))
-                     for role in ('G', 'D')}
-            same = state_digest(resumed.model.state_dict()) == state_digest(end)
-            same_logs = rest['logged'] == full['logged'][GAN_RESUME_AT:]
-            print(f'gan: DCGAN 64² (latent 128, base width 64; G '
-                  f'{sum(p.numel() for p in whole.model.G.parameters()) / 1e6:.2f} M, D '
-                  f'{sum(p.numel() for p in whole.model.D.parameters()) / 1e6:.2f} M '
-                  f'parameters), Adam lr 2e-4 beta1 0.5 both roles, batch {GAN_BATCH}, '
-                  f'float32, TF32 off, deterministic cuDNN, through get_trainer(\'gan_th_ddp\'): '
-                  f'logged {sorted(keys)}; last step ' + ', '.join(
-                      f'{k} {v:.5f}' for k, v in sorted(full['logged'][-1][1].items())),
-                  flush=True)
-            print(f'gan: (a) every logged metric finite {finite}; every tensor moved: G '
-                  f'{moved["G"]}, D {moved["D"]}; (b) {GAN_RESUME_AT} steps and a resume to '
-                  f'{GAN_ITERS} against {GAN_ITERS} at once: final state bit-equal {same}, '
-                  f'logged metrics of steps {GAN_RESUME_AT + 1}-{GAN_ITERS} equal {same_logs}; '
-                  f'(d) the port\'s kernels launched {launches} times', flush=True)
-            check(finite, 'gan: a non-finite logged metric')
-            check(keys >= {'D_d_loss', 'D_d_real_acc', 'G_g_loss', 'd_grad_norm',
-                           'g_grad_norm', 'd_lr', 'g_lr'}, f'gan: logged {sorted(keys)}')
-            check(all(moved.values()), f'gan: parameters left unmoved: {moved}')
-            check(same and same_logs, 'gan: the resumed run differs from the unbroken one')
-            check(launches == 0, f'gan: the port\'s kernels launched {launches} times')
-            del resumed, whole
+        reset_counts()
+        _, part = gan_run(cfg, os.path.join(tmp, 'part'), GAN_RESUME_AT)
+        resumed, rest = gan_run(cfg, os.path.join(tmp, 'part'), GAN_ITERS)
+        whole, full = gan_run(cfg, os.path.join(tmp, 'whole'), GAN_ITERS)
+        launches = all_launches()
+        logged = part['logged'] + rest['logged'] + full['logged']
+        finite = all(math.isfinite(v) for _, m in logged for v in m.values())
+        keys = set(full['logged'][-1][1])
+        end = whole.model.state_dict()
+        moved = {role: all(not torch.equal(end[k], v) for k, v in full['init'].items()
+                           if k.startswith(f'{role}.') and not k.endswith('num_batches'))
+                 for role in ('G', 'D')}
+        same = state_digest(resumed.model.state_dict()) == state_digest(end)
+        same_logs = rest['logged'] == full['logged'][GAN_RESUME_AT:]
+        print(f'gan: DCGAN 64² (latent 128, base width 64; G '
+              f'{sum(p.numel() for p in whole.model.G.parameters()) / 1e6:.2f} M, D '
+              f'{sum(p.numel() for p in whole.model.D.parameters()) / 1e6:.2f} M '
+              f'parameters), Adam lr 2e-4 beta1 0.5 both roles, batch {GAN_BATCH}, '
+              f'float32, TF32 off, deterministic cuDNN, through get_trainer(\'gan_th_ddp\'): '
+              f'logged {sorted(keys)}; last step ' + ', '.join(
+                  f'{k} {v:.5f}' for k, v in sorted(full['logged'][-1][1].items())),
+              flush=True)
+        print(f'gan: (a) every logged metric finite {finite}; every tensor moved: G '
+              f'{moved["G"]}, D {moved["D"]}; (b) {GAN_RESUME_AT} steps and a resume to '
+              f'{GAN_ITERS} against {GAN_ITERS} at once: final state bit-equal {same}, '
+              f'logged metrics of steps {GAN_RESUME_AT + 1}-{GAN_ITERS} equal {same_logs}; '
+              f'(d) the port\'s kernels launched {launches} times', flush=True)
+        check(finite, 'gan: a non-finite logged metric')
+        check(keys >= {'D_d_loss', 'D_d_real_acc', 'G_g_loss', 'd_grad_norm',
+                       'g_grad_norm', 'd_lr', 'g_lr'}, f'gan: logged {sorted(keys)}')
+        check(all(moved.values()), f'gan: parameters left unmoved: {moved}')
+        check(same and same_logs, 'gan: the resumed run differs from the unbroken one')
+        check(launches == 0, f'gan: the port\'s kernels launched {launches} times')
+        del resumed, whole
 
-            # (c) two gloo ranks on the card against one process
-            with open(os.path.join(tmp, 'gan-spec.json'), 'w') as f:
-                json.dump(dict(config=cfg), f)
-            (r0, r1), secs = run_ddp_workers('gan', tmp)
-            reset_counts()
-            one, orec = gan_run(cfg, os.path.join(tmp, 'one'), GAN_DDP_STEPS,
-                                train_dl=gan_global_loader(cfg, GAN_DDP_STEPS))
-            two = torch.load(os.path.join(tmp, 'gan-state-rank0.pt'))
-            params = {n for n, _ in one.model.named_parameters()}
-            end = one.model.state_dict()
-            diff = max(float((two[k] - end[k].cpu()).abs().max()) for k in params)
-            bufs = max_state_diff({k: v for k, v in two.items() if k not in params},
-                                  {k: v for k, v in end.items() if k not in params})
-            worst = []
-            for (s2, m2), (s1, m1) in zip(r0['logged'], orec['logged']):
-                check(s1 == s2, f'gan: logged steps {s1} and {s2}')
-                worst.append({k: abs(m2[k] - v) / (1 if k.endswith('acc') else max(abs(v), 1e-12))
-                              for k, v in m1.items() if not k.endswith('_lr')})
-            first_d = max(v for k, v in worst[0].items() if k in ('D_d_loss', 'd_grad_norm'))
-            first_g = max(v for k, v in worst[0].items() if k in ('G_g_loss', 'g_grad_norm'))
-            print(f'gan: (c) two gloo ranks on the card ({r0["mesh"][0]}-rank mesh, '
-                  f'{GAN_BATCH // 2} a rank, {secs:.1f} s with the ranks\' start) against one '
-                  f'process on the same global batches, {GAN_DDP_STEPS} steps: the ranks\' '
-                  f'states bit-equal {r0["digest"] == r1["digest"]}; step 1: '
-                  + ', '.join(f'{k} {v:.2e}' for k, v in sorted(worst[0].items()))
-                  + f' (relative; accuracy absolute; limits D {GAN_DDP_FIRST_TOL}, G '
-                  f'{GAN_DDP_G_TOL}, accuracy {GAN_DDP_ACC_TOL:.4f}); the largest relative '
-                  f'difference of steps 2-'
-                  f'{GAN_DDP_STEPS}: ' + ' '.join(f'{max(w.values()):.2e}' for w in worst[1:])
-                  + f'; after {GAN_DDP_STEPS} steps the parameters max|d| {diff:.3e} (limit '
-                  f'{GAN_DDP_TOL:.4e}), the running statistics max_state_diff {bufs:.3e}; '
-                  f'the ranks launched the port\'s kernels {r0["launches"] + r1["launches"]} '
-                  f'times', flush=True)
-            check(r0['digest'] == r1['digest'], 'gan: the two ranks\' states differ')
-            check(first_d <= GAN_DDP_FIRST_TOL and first_g <= GAN_DDP_G_TOL
-                  and worst[0]['D_d_real_acc'] <= GAN_DDP_ACC_TOL,
-                  f'gan: two ranks\' step 1 against one process: {worst[0]}')
-            check(diff <= GAN_DDP_TOL, f'gan: two ranks\' parameters against one process: {diff}')
-            check(r0['launches'] + r1['launches'] == 0, 'gan: the ranks launched port kernels')
-            del one
+        # (c) two gloo ranks on the card against one process
+        r0, r1 = (r['gan'] for r in ranks)
+        secs = ranks[0]['seconds']['gan']
+        reset_counts()
+        one, orec = gan_run(cfg, os.path.join(tmp, 'one'), GAN_DDP_STEPS,
+                            train_dl=gan_global_loader(cfg, GAN_DDP_STEPS))
+        two = torch.load(os.path.join(tmp, 'gan-state-rank0.pt'))
+        params = {n for n, _ in one.model.named_parameters()}
+        end = one.model.state_dict()
+        diff = max(float((two[k] - end[k].cpu()).abs().max()) for k in params)
+        bufs = max_state_diff({k: v for k, v in two.items() if k not in params},
+                              {k: v for k, v in end.items() if k not in params})
+        worst = []
+        for (s2, m2), (s1, m1) in zip(r0['logged'], orec['logged']):
+            check(s1 == s2, f'gan: logged steps {s1} and {s2}')
+            worst.append({k: abs(m2[k] - v) / (1 if k.endswith('acc') else max(abs(v), 1e-12))
+                          for k, v in m1.items() if not k.endswith('_lr')})
+        first_d = max(v for k, v in worst[0].items() if k in ('D_d_loss', 'd_grad_norm'))
+        first_g = max(v for k, v in worst[0].items() if k in ('G_g_loss', 'g_grad_norm'))
+        print(f'gan: (c) two gloo ranks on the card ({r0["mesh"][0]}-rank mesh, '
+              f'{GAN_BATCH // 2} a rank, {secs:.1f} s in the ranks) against one '
+              f'process on the same global batches, {GAN_DDP_STEPS} steps: the ranks\' '
+              f'states bit-equal {r0["digest"] == r1["digest"]}; step 1: '
+              + ', '.join(f'{k} {v:.2e}' for k, v in sorted(worst[0].items()))
+              + f' (relative; accuracy absolute; limits D {GAN_DDP_FIRST_TOL}, G '
+              f'{GAN_DDP_G_TOL}, accuracy {GAN_DDP_ACC_TOL:.4f}); the largest relative '
+              f'difference of steps 2-'
+              f'{GAN_DDP_STEPS}: ' + ' '.join(f'{max(w.values()):.2e}' for w in worst[1:])
+              + f'; after {GAN_DDP_STEPS} steps the parameters max|d| {diff:.3e} (limit '
+              f'{GAN_DDP_TOL:.4e}), the running statistics max_state_diff {bufs:.3e}; '
+              f'the ranks launched the port\'s kernels {r0["launches"] + r1["launches"]} '
+              f'times', flush=True)
+        check(r0['digest'] == r1['digest'], 'gan: the two ranks\' states differ')
+        check(first_d <= GAN_DDP_FIRST_TOL and first_g <= GAN_DDP_G_TOL
+              and worst[0]['D_d_real_acc'] <= GAN_DDP_ACC_TOL,
+              f'gan: two ranks\' step 1 against one process: {worst[0]}')
+        check(diff <= GAN_DDP_TOL, f'gan: two ranks\' parameters against one process: {diff}')
+        check(r0['launches'] + r1['launches'] == 0, 'gan: the ranks launched port kernels')
+        del one
 
-            # the bare step's time and FLOPs
-            model, step, state, batch = gan_bare_step(cfg, seed)
-            with torch.no_grad(), FlopCounterMode(display=False) as counter:
-                model.d_loss(batch, train=True)
-                model.g_loss(batch, train=True)
-            flops = 3 * counter.get_total_flops()
-            for _ in range(WARMUP_STEPS):
-                state, _ = step(state, batch)
-            torch.cuda.synchronize()
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
-            events[0].record()
-            for i in range(TIMED_STEPS):
-                state, _ = step(state, batch)
-                events[i + 1].record()
-            torch.cuda.synchronize()
-            times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
-            med = times[len(times) // 2]
-            print(f'gan: {smi}: the bare two-optimizer step (D update, then G update) at '
-                  f'batch {GAN_BATCH}: median {med:.3f} ms/step of {TIMED_STEPS} after '
-                  f'{WARMUP_STEPS} (min {times[0]:.3f}, max {times[-1]:.3f}) = '
-                  f'{GAN_BATCH / med * 1e3:.0f} images/s; MFU {flops / (med / 1e3) / PEAK_F32_FLOPS:.4f} '
-                  f'of the float32 peak (3 × the forward\'s {flops / 3e9:.2f} GFLOP: d_loss '
-                  f'and g_loss / step time / 67 TFLOP/s; TF32 off); phase '
-                  f'{time.perf_counter() - t_phase:.1f} s', flush=True)
+        # the bare step's time and FLOPs
+        model, step, state, batch = gan_bare_step(cfg, seed)
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            model.d_loss(batch, train=True)
+            model.g_loss(batch, train=True)
+        flops = 3 * counter.get_total_flops()
+        for _ in range(WARMUP_STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(TIMED_STEPS + 1)]
+        events[0].record()
+        for i in range(TIMED_STEPS):
+            state, _ = step(state, batch)
+            events[i + 1].record()
+        torch.cuda.synchronize()
+        times = sorted(a.elapsed_time(b) for a, b in zip(events, events[1:]))
+        med = times[len(times) // 2]
+        print(f'gan: {smi}: the bare two-optimizer step (D update, then G update) at '
+              f'batch {GAN_BATCH}: median {med:.3f} ms/step of {TIMED_STEPS} after '
+              f'{WARMUP_STEPS} (min {times[0]:.3f}, max {times[-1]:.3f}) = '
+              f'{GAN_BATCH / med * 1e3:.0f} images/s; MFU {flops / (med / 1e3) / PEAK_F32_FLOPS:.4f} '
+              f'of the float32 peak (3 × the forward\'s {flops / 3e9:.2f} GFLOP: d_loss '
+              f'and g_loss / step time / 67 TFLOP/s; TF32 off); phase '
+              f'{time.perf_counter() - t_phase:.1f} s', flush=True)
     finally:
         torch.backends.cudnn.deterministic = det
 
@@ -6777,16 +6835,11 @@ def zero_worker(rank: int, out: str) -> dict:
     return res
 
 
-def phase_zero(seed: int, smi: str) -> tuple:
+def phase_zero(smi: str, parallel: list) -> tuple:
     """ZeRO-1/3 of DinoSeg ViT-L/16 over two gloo ranks on the card (module
-    docstring, phase 21); returns the ranks' K1 and K2 launches."""
-    import tempfile
-
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_zero_') as tmp:
-        with open(os.path.join(tmp, 'zero-spec.json'), 'w') as f:
-            json.dump(dict(seed=seed), f)
-        ranks, secs = run_ddp_workers('zero', tmp)
+    docstring, phase 21) from the parallel phases' ranks' results
+    (:func:`phases_parallel`); returns the ranks' K1 and K2 launches."""
+    ranks, secs = [r['zero'] for r in parallel], parallel[0]['seconds']['zero']
     r0 = ranks[0]
     rep = r0['layouts'][0]
     k1 = k2 = 0
@@ -6831,8 +6884,8 @@ def phase_zero(seed: int, smi: str) -> tuple:
           f'{r0["file_bytes"] / 2**30:.2f} GiB, the same contents {r0["files_equal"]}; a '
           f'sharded restore into a fresh ZeRO-3 state ({r0["restore"]:.2f} s) resumed at step '
           f'{r0["resumed_at"]} and its step 3 equals the unbroken run bit for bit: rank 0 '
-          f'{r0["resume_equal"]}, rank 1 {ranks[1]["resume_equal"]}; phase '
-          f'{time.perf_counter() - t_phase:.1f} s ({secs:.1f} s in the ranks)', flush=True)
+          f'{r0["resume_equal"]}, rank 1 {ranks[1]["resume_equal"]}; {secs:.1f} s in the '
+          f'ranks', flush=True)
     check(r0['files_equal'], 'zero: the orbax and orbax_async directories differ')
     check(r0['resumed_at'] == 2 and all(r['resume_equal'] for r in ranks),
           'zero: the resumed ZeRO-3 run differs from the unbroken one')
@@ -6841,7 +6894,7 @@ def phase_zero(seed: int, smi: str) -> tuple:
 
 # -- phase 22: the model-parallel layouts -----------------------------------------------
 
-LAYOUT_TP_STEPS = 5                     # timed, after WARMUP_STEPS
+LAYOUT_TP_STEPS = 3                     # timed, after WARMUP_STEPS
 LAYOUT_PP_MICRO, LAYOUT_PP_RUNS = 4, 3  # microbatches; timed runs after the counted one
 LAYOUT_EP = dict(num_experts=8, hidden=4096, k=2)
 # expert parallel against one process, float32 with TF32 off: each rank's
@@ -7081,17 +7134,12 @@ def layouts_worker(rank: int, out: str) -> dict:
     return res
 
 
-def phase_layouts(seed: int, smi: str, bare_ms: float) -> tuple:
+def phase_layouts(smi: str, bare_ms: float, parallel: list) -> tuple:
     """The model-parallel layouts over two gloo ranks on the card (module
-    docstring, phase 22); returns the main paths' K1 and K2 launches (the
-    TP steps and the pipeline's counted run, both ranks)."""
-    import tempfile
-
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_layouts_') as tmp:
-        with open(os.path.join(tmp, 'layouts-spec.json'), 'w') as f:
-            json.dump(dict(seed=seed), f)
-        ranks, secs = run_ddp_workers('layouts', tmp)
+    docstring, phase 22) from the parallel phases' ranks' results
+    (:func:`phases_parallel`); returns the main paths' K1 and K2 launches
+    (the TP steps and the pipeline's counted run, both ranks)."""
+    ranks, secs = [r['layouts'] for r in parallel], parallel[0]['seconds']['layouts']
     backend = 'gloo, 2 ranks sharing one card: correctness and bytes held, not a multi-card speed'
     tp0 = ranks[0]['tp']
     for r, res in enumerate(ranks):
@@ -7169,11 +7217,367 @@ def phase_layouts(seed: int, smi: str, bare_ms: float) -> tuple:
         check(max(ep['y_rel'], ep['gx_rel'], worst) <= EP_REL_TOL
               and abs(ep['aux'][0] - ep['aux'][1]) <= EP_REL_TOL * abs(ep['aux'][1]),
               f'layouts: expert parallel disagrees with one process on rank {r}')
-    print(f'layouts: phase {time.perf_counter() - t_phase:.1f} s ({secs:.1f} s in the ranks)',
-          flush=True)
+    print(f'layouts: {secs:.1f} s in the ranks', flush=True)
     k1 = sum(res['tp']['launches'][0] + res['pp']['launches'][0] for res in ranks)
     k2 = sum(res['tp']['launches'][1] + res['pp']['launches'][1] for res in ranks)
     return k1, k2
+
+
+# -- phase 23: the spatial layouts ------------------------------------------------------
+
+SPATIAL_STEPS = 5                       # timed bf16 steps a rank, after WARMUP_STEPS
+# the first float32 step (TF32 off) against one process on the whole tile:
+# total_loss relative, and tests/test_spatial_train.py's limits on every
+# parameter and running statistic (allclose: |Δ| <= atol + rtol·|value|)
+SPATIAL_LOSS_TOL, SPATIAL_RTOL, SPATIAL_ATOL = 1e-5, 1e-3, 2e-5
+# (b): the resolution-preserving conv net at 4096², float32; four 3×3 convs
+# (receptive field 9 rows) under a halo of 8
+HALO_TILE, HALO_WIDTH, HALO_DEPTH, HALO_ROWS = 4096, 64, 4, 8
+HALO_RF_HALF = HALO_DEPTH             # rows at the true border that 'zeros' changes
+HALO_TOL = 1e-5                       # |Δ| / max(1, max |value|), float32 sums in other orders
+
+
+class SpatialConvNet(torch.nn.Module):
+    """``tests/test_spatial.py``'s conv stack widened: ``HALO_DEPTH`` 3×3
+    convs of ``HALO_WIDTH`` with bias and ReLU, a 1×1 head of 4; NHWC in
+    and out."""
+
+    def __init__(self):
+        super().__init__()
+        from ever_tpu_torch.module.ops import Conv2d
+        self.convs = torch.nn.ModuleList(
+            Conv2d(3 if i == 0 else HALO_WIDTH, HALO_WIDTH, 3, bias=True)
+            for i in range(HALO_DEPTH))
+        self.out = Conv2d(HALO_WIDTH, 4, 1, bias=True)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        for conv in self.convs:
+            x = torch.relu(conv(x))
+        return self.out(x).permute(0, 2, 3, 1)
+
+
+def spatial_farseg(seed: int, dtype: str):
+    """Phase 5's FarSeg-R50 (K8 at the stem, 7 classes, SGD momentum 0.9 +
+    poly) at ``dtype`` compute, with the weights and the 2048² tile every
+    process draws from ``seed``: (model, tx, schedule, x, y)."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
+
+    gen = torch.Generator(device='cuda').manual_seed(seed + 23)
+    model = make_model({'type': 'FarSeg', 'params': dict(FARSEG, dtype=dtype)})
+    seeded_conv_init_(model, gen)
+    schedule = make_learningrate({'type': 'poly', 'params': dict(
+        base_lr=0.01, power=0.9, max_iters=1000)})
+    tx = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})[0].build(schedule)
+    x = torch.randn(1, SPATIAL_TILE, SPATIAL_TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (1, SPATIAL_TILE, SPATIAL_TILE), generator=gen, device='cuda')
+    return model, tx, schedule, x, y
+
+
+def spatial_convnet(seed: int):
+    """(b)'s net with seeded weights, its 4096² tile and target, and SGD
+    momentum 0.9 at 0.05."""
+    from ever_tpu_torch.core.builder import make_optimizer
+
+    gen = torch.Generator(device='cuda').manual_seed(seed + 24)
+    net = SpatialConvNet().cuda()
+    seeded_conv_init_(net, gen)
+    x = torch.randn(1, HALO_TILE, HALO_TILE, 3, generator=gen, device='cuda')
+    t = torch.randn(1, HALO_TILE, HALO_TILE, generator=gen, device='cuda')
+    tx = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})[0].build(0.05)
+    return net, x, t, tx
+
+
+def mse(out, target):
+    return ((out - target[..., None]) ** 2).mean()
+
+
+def timed_steps(step, state, batch, n: int) -> tuple:
+    """``n`` steps, each timed to its end on the card: (state, ms, metrics)."""
+    ms, metrics = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return state, ms, metrics
+
+
+def spatial_reference(seed: int, out: str) -> dict:
+    """One process on the whole tiles: the float32 first step of FarSeg-R50
+    (its state saved for the ranks), the bf16 steps' ms and peak memory,
+    and (b)'s whole forward and one unsharded SGD step (saved)."""
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    t_start = time.perf_counter()
+    res = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True          # as the ranks run
+    model, tx, schedule, x, y = spatial_farseg(seed, 'float32')
+    state, ms, metrics = timed_steps(build_train_step(model, tx, schedule),
+                                     create_train_state(model, tx), (x, y), 1)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.save(dict(loss=metrics[0]['total_loss'],
+                    state={k: v.cpu() for k, v in model.state_dict().items()
+                           if v.is_floating_point()}),
+               os.path.join(out, 'spatial-ref.pt'))
+    res['f32'] = dict(ms=ms[0], loss=metrics[0]['total_loss'])
+    del model, state, x, y
+    torch.cuda.empty_cache()
+
+    held = torch.cuda.memory_allocated()
+    model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16')
+    step = build_train_step(model, tx, schedule)
+    state, _, _ = timed_steps(step, create_train_state(model, tx), (x, y), WARMUP_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_STEPS)
+    res['bf16'] = dict(ms=ms, peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                       losses=[m['cls_loss'] for m in metrics])
+    del model, state, step, x, y
+    torch.cuda.empty_cache()
+
+    net, x, t, tx = spatial_convnet(seed)
+    with torch.no_grad():
+        whole = net(x)
+    torch.save(whole.cpu(), os.path.join(out, 'spatial-whole.pt'))
+    del whole
+    opt = tx.init(net.named_parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mse(net(x), t).backward()
+    tx.apply(opt, 0)
+    torch.cuda.synchronize()
+    res['halo_ms'] = (time.perf_counter() - t0) * 1e3
+    torch.save({k: v.detach().cpu() for k, v in net.named_parameters()},
+               os.path.join(out, 'spatial-halo-ref.pt'))
+    del net, opt, x, t
+    torch.cuda.empty_cache()
+    res['seconds'] = time.perf_counter() - t_start
+    return res
+
+
+def spatial_worker(rank: int, out: str) -> dict:
+    """One of two gloo ranks of the spatial phase on ``make_mesh(('data',))``:
+    (a) FarSeg-R50's float32 first step and bf16 steps over the tile's two
+    row strips, (b) ``spatial_partition_apply`` and ``build_halo_train_step``
+    of the conv net at 4096²."""
+    from ever_tpu_torch.ops import pool as P
+    from ever_tpu_torch.parallel.mesh import make_mesh
+    from ever_tpu_torch.parallel.spatial import (build_halo_train_step,
+                                                 build_spatial_train_step,
+                                                 spatial_partition_apply)
+    from ever_tpu_torch.parallel.spmd import create_train_state
+
+    with open(os.path.join(out, 'spatial-spec.json')) as f:
+        seed = json.load(f)['seed']
+    mesh = make_mesh(('data',))
+    res = {}
+    model, tx, schedule, x, y = spatial_farseg(seed, 'float32')
+    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+    state, ms, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
+    got = {k: v.cpu() for k, v in model.state_dict().items() if v.is_floating_point()}
+    res['f32'] = dict(ms=ms[0], loss=metrics[0]['total_loss'], digest=state_digest(got))
+    if rank == 0:
+        ref = torch.load(os.path.join(out, 'spatial-ref.pt'))
+        worst, name, big = 0.0, '', 0.0
+        for k, w in ref['state'].items():
+            diff = (got[k] - w).abs()
+            ratio = float((diff / (SPATIAL_ATOL + SPATIAL_RTOL * w.abs())).max())
+            if ratio > worst:
+                worst, name = ratio, k
+            big = max(big, float(diff.max()))
+        res['f32'].update(ref_loss=ref['loss'], worst=worst, worst_name=name, max_abs=big,
+                          tensors=len(ref['state']))
+    del model, state, step, x, y, got
+    torch.cuda.empty_cache()
+
+    held = torch.cuda.memory_allocated()
+    model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16')
+    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+    reset_counts()
+    state, warm, _ = timed_steps(step, create_train_state(model, tx), (x, y), WARMUP_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    sent = dict(step.stats)
+    state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_STEPS)
+    res['bf16'] = dict(ms=warm + ms, metrics=metrics, launches=P.max_pool_32_bwd.launches,
+                       all_launches=sum(fn.launches for fn in kernel_wrappers()),
+                       peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                       hops=(step.stats['hops'] - sent['hops']) / SPATIAL_STEPS,
+                       bytes=(step.stats['bytes'] - sent['bytes']) / SPATIAL_STEPS,
+                       float32=all(p.dtype == torch.float32 for p in model.parameters()))
+    del model, state, step, x, y
+    torch.cuda.empty_cache()
+
+    net, x, t, tx = spatial_convnet(seed)
+    h = HALO_TILE // 2
+    rows = slice(rank * h, (rank + 1) * h)
+    whole = torch.load(os.path.join(out, 'spatial-whole.pt'))[:, rows].cuda()
+    top = max(HALO_RF_HALF - rank * h, 0)
+    bottom = h - max(rank * h + h - (HALO_TILE - HALO_RF_HALF), 0)
+    with torch.no_grad():
+        for boundary in ('exact', 'zeros'):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = spatial_partition_apply(net, x, mesh, 'data', HALO_ROWS, boundary,
+                                          device='cuda:0').to_local()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            scale = max(1.0, float(whole.abs().max()))
+            inner = float((got - whole)[:, top:bottom].abs().max()) / scale
+            res[f'partition_{boundary}'] = dict(
+                ms=ms, shape=list(got.shape), inner=inner,
+                all=float((got - whole).abs().max()) / scale)
+            del got
+    del whole
+    params = dict(net.named_parameters())
+    step = build_halo_train_step(lambda p, a: torch.func.functional_call(net, p, (a,)), mse,
+                                 tx, mesh, halo=HALO_ROWS, device='cuda:0')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (it, params, _), m = step((0, params, tx.init(params.items())), (x, t))
+    torch.cuda.synchronize()
+    ref = torch.load(os.path.join(out, 'spatial-halo-ref.pt'))
+    res['halo_step'] = dict(ms=(time.perf_counter() - t0) * 1e3, step=it,
+                            loss=float(m['total_loss']), stats=dict(step.stats),
+                            diff=max(float((params[k].detach().cpu() - w).abs().max())
+                                     / max(1.0, float(w.abs().max())) for k, w in ref.items()))
+    return res
+
+
+def spatial_eda(seed: int, out: str) -> dict:
+    """(c) ``util.eda`` on PNGs the phase writes: a 2048² RGB scene's
+    thumbnail, a constant grey one's, and three overlapping 512² masks."""
+    import numpy as np
+
+    from ever_tpu_torch.data._png import write_png
+    from ever_tpu_torch.util import eda
+
+    rng = np.random.default_rng(seed)
+    ramp = np.add.outer(np.linspace(0, 120, 2048), np.linspace(0, 100, 2048))[..., None]
+    scene = np.clip(ramp * np.array([0.5, 0.8, 1.0]) + rng.normal(scale=20, size=(2048, 2048, 3)),
+                    0, 255).astype(np.uint8)
+    write_png(os.path.join(out, 'scene.png'), scene)
+    write_png(os.path.join(out, 'grey.png'), np.full((1000, 700), 77, np.uint8))
+    paths = []
+    for i in range(3):
+        path = os.path.join(out, f'mask{i}.png')
+        write_png(path, np.where(rng.random((512, 512)) < 0.3, 255, 0).astype(np.uint8))
+        paths.append(path)
+    t0 = time.perf_counter()
+    thumb = eda.thumbnail(os.path.join(out, 'scene.png'), 0.1)
+    ms = (time.perf_counter() - t0) * 1e3
+    grey = eda.thumbnail(os.path.join(out, 'grey.png'), 0.37)
+    indices, palette = eda.render_multi_binary_mask(paths, [1, 2, 3],
+                                                    [0, 0, 0, 255, 0, 0, 0, 255, 0, 0, 0, 255])
+    first = np.asarray(eda._imread(paths[0])) == 255
+    return dict(thumb=list(thumb.shape), thumb_ms=ms, grey=list(grey.shape),
+                grey_values=sorted(set(np.unique(grey).tolist())),
+                indices=list(indices.shape), classes=sorted(np.unique(indices).tolist()),
+                palette=list(palette.shape), first_wins=bool((indices[first] == 1).all()))
+
+
+def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> int:
+    """The spatial layouts (module docstring, phase 23): one process's
+    references ``ref`` (:func:`spatial_reference`), the parallel phases'
+    ranks' results (:func:`phases_parallel`), then ``util.eda``.  Returns
+    the ranks' K8 launches."""
+    import tempfile
+
+    ranks, secs = [r['spatial'] for r in parallel], parallel[0]['seconds']['spatial']
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_eda_') as tmp:
+        eda = spatial_eda(seed, tmp)
+    backend = 'gloo, 2 ranks sharing one card: correctness and bytes moved, not a multi-card speed'
+    r0 = ranks[0]
+    f32 = r0['f32']
+    print(f'spatial: (a) {smi}: FarSeg-R50 (K8, 7 classes, SGD momentum 0.9 + poly) on one '
+          f'{SPATIAL_TILE}² tile as two strips of {SPATIAL_TILE // 2} rows, float32, TF32 off: '
+          f'the first step against one process on the whole tile: total_loss {f32["loss"]:.7f} '
+          f'vs {f32["ref_loss"]:.7f} (limit {SPATIAL_LOSS_TOL} relative); {f32["tensors"]} '
+          f'parameters and running statistics, worst |Δ| / ({SPATIAL_ATOL} + {SPATIAL_RTOL}·'
+          f'|value|) {f32["worst"]:.3e} ({f32["worst_name"]}), largest |Δ| '
+          f'{f32["max_abs"]:.3e}; the ranks\' states equal: '
+          f'{f32["digest"] == ranks[1]["f32"]["digest"]}; step {f32["ms"]:.1f} ms (one process '
+          f'{ref["f32"]["ms"]:.1f})', flush=True)
+    check(abs(f32['loss'] - f32['ref_loss']) <= SPATIAL_LOSS_TOL * abs(f32['ref_loss']),
+          'spatial: the first step\'s loss differs from one process')
+    check(f32['worst'] <= 1.0, 'spatial: the first step\'s state differs from one process')
+    check(f32['digest'] == ranks[1]['f32']['digest'], 'spatial: the ranks\' states differ')
+    one = sorted(ref['bf16']['ms'])
+    k8 = 0
+    for r, res in enumerate(ranks):
+        bf = res['bf16']
+        steady = sorted(bf['ms'][WARMUP_STEPS:])
+        steps = WARMUP_STEPS + SPATIAL_STEPS
+        print(f'spatial: (a) {smi}: rank {r}: bf16 compute, float32 parameters: ms/step '
+              f'{" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
+              f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
+              f'{one[len(one) // 2]:.1f}); losses '
+              f'{" ".join(f"{m["cls_loss"]:.5f}" for m in bf["metrics"])}; grad_norm '
+              f'{" ".join(f"{m["grad_norm"]:.4f}" for m in bf["metrics"])}; halo hops sent a '
+              f'step {bf["hops"]:.0f}, {bf["bytes"] / 2**20:.2f} MiB; peak memory above what '
+              f'the process held before {bf["peak_gib"]:.2f} GiB (one process '
+              f'{ref["bf16"]["peak_gib"]:.2f}); K8 '
+              f'launches {bf["launches"]} in {steps} steps, all port kernels '
+              f'{bf["all_launches"]} ({backend})', flush=True)
+        check(bf['launches'] == steps == bf['all_launches'],
+              f'spatial: rank {r} launched K8 {bf["launches"]} times in {steps} steps')
+        check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
+                  for m in bf['metrics']), f'spatial: rank {r}: non-finite metrics')
+        check(bf['float32'], 'spatial: parameters left float32')
+        k8 += bf['launches']
+    for r, res in enumerate(ranks):
+        ex, zs, hs = res['partition_exact'], res['partition_zeros'], res['halo_step']
+        print(f'spatial: (b) {smi}: rank {r}: {HALO_DEPTH} 3×3 convs of {HALO_WIDTH} + 1×1 on '
+              f'a {HALO_TILE}² float32 tile, halo {HALO_ROWS}: spatial_partition_apply '
+              f'\'exact\' {ex["shape"]} in {ex["ms"]:.1f} ms, against the whole forward '
+              f'{ex["all"]:.3e}; \'zeros\' {zs["ms"]:.1f} ms, {zs["inner"]:.3e} off the true '
+              f'border ({zs["all"]:.3e} with it); build_halo_train_step: loss {hs["loss"]:.6f}, '
+              f'parameters against one process\'s step {hs["diff"]:.3e} (limit {HALO_TOL}); '
+              f'{hs["ms"]:.1f} ms (one process {ref["halo_ms"]:.1f}); hops '
+              f'{hs["stats"]["hops"]}, {hs["stats"]["bytes"] / 2**20:.2f} MiB', flush=True)
+        check(ex['all'] <= HALO_TOL and zs['inner'] <= HALO_TOL and hs['diff'] <= HALO_TOL
+              and hs['step'] == 1, f'spatial: (b) disagrees with the whole tile on rank {r}')
+    print(f'spatial: (c) util.eda without PIL: thumbnail of a 2048² RGB PNG at 0.1 '
+          f'{eda["thumb"]} in {eda["thumb_ms"]:.1f} ms; of a constant 1000×700 grey PNG at 0.37 '
+          f'{eda["grey"]} of values {eda["grey_values"]}; render_multi_binary_mask of three '
+          f'512² masks: indices {eda["indices"]} of classes {eda["classes"]}, palette '
+          f'{eda["palette"]}, the first mask wins its pixels {eda["first_wins"]}', flush=True)
+    check(eda['thumb'] == [204, 204, 3] and eda['grey'] == [370, 259]
+          and eda['grey_values'] == [77] and eda['indices'] == [512, 512]
+          and eda['classes'] == [0, 1, 2, 3] and eda['palette'] == [4, 3] and eda['first_wins'],
+          'spatial: util.eda gave other shapes or values')
+    print(f'spatial: {smi}: references {ref["seconds"]:.1f} s, {secs:.1f} s in the ranks',
+          flush=True)
+    return k8
+
+
+def phases_parallel(seed: int, smi: str, bare_ms: float) -> tuple:
+    """Phases 20-23 (gan, zero, layouts, spatial), whose gloo ranks are one
+    pair of processes started once (``--ddp-worker parallel``: each phase's
+    worker in turn) after the spatial phase's one-process references.
+    Returns the K1, K2 and K8 launches of their main paths."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_parallel_') as tmp:
+        cfg = gan_config(tmp, seed)
+        for job, spec in (('gan', dict(config=cfg)), ('zero', dict(seed=seed)),
+                          ('layouts', dict(seed=seed)), ('spatial', dict(seed=seed))):
+            with open(os.path.join(tmp, f'{job}-spec.json'), 'w') as f:
+                json.dump(spec, f)
+        ref = spatial_reference(seed, tmp)
+        ranks, secs = run_ddp_workers('parallel', tmp)
+        print(f'parallel phases: {smi}: the ranks of gan, zero, layouts and spatial in '
+              f'{secs:.1f} s, started once; '
+              + ', '.join(f'{k} {v:.1f} s' for k, v in ranks[0]['seconds'].items()), flush=True)
+        phase_gan(seed, smi, tmp, cfg, ranks)
+    k1, k2 = phase_zero(smi, ranks)
+    l1, l2 = phase_layouts(smi, bare_ms, ranks)
+    k8 = phase_spatial(seed, smi, ref, ranks)
+    print(f'parallel phases: {smi}: wall time {time.perf_counter() - t0:.1f} s', flush=True)
+    return k1 + l1, k2 + l2, k8
 
 
 def check_build_notes() -> None:
@@ -7205,8 +7609,8 @@ def main() -> int:
                         help="seed of the random weights, inputs and the trainer "
                              "phase's data")
     parser.add_argument('--ddp-worker', nargs=5, metavar=('JOB', 'RANK', 'WORLD', 'INIT', 'OUT'),
-                        help='run one rank of the ddp, gan, zero or layouts phase (the phase '
-                             'starts them)')
+                        help='run one rank of the ddp phase or of the parallel phases (gan, '
+                             'zero, layouts, spatial; the phases start them)')
     args = parser.parse_args()
     if args.ddp_worker:
         job, rank, world, init, out = args.ddp_worker
@@ -7263,13 +7667,10 @@ def main() -> int:
     bwd['launches'] += k2
     matmul['launches'] += k7
     phase_freenet(gen, args.seed, smi)
-    phase_gan(args.seed, smi)
-    k1, k2 = phase_zero(args.seed, smi)
+    k1, k2, k8 = phases_parallel(args.seed, smi, bare_ms)
     fwd['launches'] += k1
     bwd['launches'] += k2
-    k1, k2 = phase_layouts(args.seed, smi, bare_ms)
-    fwd['launches'] += k1
-    bwd['launches'] += k2
+    pool['launches'] += k8
 
     records = [fwd, bwd, pool, ln_fwd, ln_bwd, quant, matmul]
     for kernel in records:

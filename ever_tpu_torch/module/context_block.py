@@ -26,6 +26,7 @@ import torch.nn as nn
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
 from ever_tpu_torch.module.se_block import with_ratio
+from ever_tpu_torch.parallel.spatial import refuse
 
 __all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet', 'constant_init',
            'kaiming_init', 'last_zero_init', 'conv3x3', 'conv1x1', 'BasicBlock', 'Bottleneck']
@@ -56,6 +57,7 @@ class ContextBlock2d(nn.Module):
                     nn.ReLU(), expand))
 
     def forward(self, x):
+        refuse('ContextBlock2d')
         n, c, h, w = x.shape
         if self.pool == 'att':
             mask = torch.softmax(self.conv_mask(x).reshape(n, h * w, 1), dim=1)

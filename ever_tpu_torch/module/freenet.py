@@ -33,6 +33,7 @@ from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.ops import Conv2d, ConvBlock, bilinear_nchw
+from ever_tpu_torch.parallel.spatial import refuse
 
 __all__ = ['SpectralAttention', 'FreeNet']
 
@@ -50,6 +51,7 @@ class SpectralAttention(nn.Module):
         self.expand = Conv2d(hidden, in_channels, 1, bias=True)
 
     def forward(self, x):
+        refuse('SpectralAttention')
         s = torch.mean(x, dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
         s = torch.sigmoid(self.expand(F.relu(self.reduce(s))))
         return x * s

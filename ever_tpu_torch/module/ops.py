@@ -34,6 +34,7 @@ import torch.nn.functional as F
 import torch.distributed as tdist
 from torch.utils import checkpoint as _ckpt
 
+from ever_tpu_torch.parallel import spatial as _spatial
 from ever_tpu_torch.parallel.mesh import data_shard, reduction_group
 
 __all__ = ['resize', 'upsample', 'upsample_bilinear', 'downsample_bilinear', 'bilinear_nchw', 'upsample_nearest_int',
@@ -90,6 +91,9 @@ def resize(x: torch.Tensor, scale: Optional[float] = None,
         shape = (int(h * scale), int(w * scale))
     if method == 'bilinear' and align_corners:
         return resize_align_corners(x, shape)
+    if _spatial.current() is not None and not (method == 'nearest' and shape[0] % h == 0):
+        # nearest by an integer factor is row-local on aligned strips
+        _spatial.refuse(f'resize ({method}, {h} to {shape[0]} rows)')
     xc = x.permute(0, 3, 1, 2)
     if method == 'nearest':
         y = F.interpolate(xc, size=shape, mode='nearest-exact')
@@ -111,8 +115,12 @@ def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tenso
     train step's gradients are the same bits every run (``F.interpolate``'s
     CUDA backward adds with atomics)."""
     f32 = torch.float32
-    y = torch.einsum('oh,nhwc->nowc',
-                     _bilinear_weights(x.shape[1], shape[0], f32, x.device, True), x.float())
+    strips = _spatial.current()
+    if strips is not None:
+        y = strips.resize_rows(x.float(), shape[0], True, f32)
+    else:
+        y = torch.einsum('oh,nhwc->nowc',
+                         _bilinear_weights(x.shape[1], shape[0], f32, x.device, True), x.float())
     y = torch.einsum('pw,nowc->nopc',
                      _bilinear_weights(x.shape[2], shape[1], f32, x.device, True), y)
     return y.to(x.dtype)
@@ -161,7 +169,11 @@ def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
     if shape[0] < h or shape[1] < w:
         raise ValueError(f'upsample_bilinear grows each axis; {(h, w)} -> {tuple(shape)} '
                          'shrinks one (resize antialiases that)')
-    y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
+    strips = _spatial.current()
+    if strips is not None:
+        y = strips.resize_rows(x, shape[0], False, x.dtype)
+    else:
+        y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
     return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
 
 
@@ -195,6 +207,7 @@ def downsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor
     matrix product per axis in float32 (bfloat16 stays bfloat16) and
     returned in x's dtype.  Its backward is two matrix products: no
     atomics, unlike ``F.interpolate``'s."""
+    _spatial.refuse('downsample_bilinear')
     n, h, w, c = x.shape
     if shape[0] > h or shape[1] > w:
         raise ValueError(f'downsample_bilinear shrinks each axis; {(h, w)} -> {tuple(shape)} '
@@ -238,9 +251,14 @@ def upsample(x: torch.Tensor, scale: int = 2, method: str = 'nearest') -> torch.
 
 
 def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
-    """NHWC → N11C spatial mean, accumulated in float32, in x's dtype."""
-    return torch.mean(x, dim=(1, 2), keepdim=keepdims,
-                      dtype=torch.float32).to(x.dtype)
+    """NHWC → N11C spatial mean, accumulated in float32, in x's dtype.
+    Under a spatial step the strips' sums are added over the axis (one
+    differentiable all-reduce) and divided by the whole tile's count."""
+    strips = _spatial.current()
+    if strips is None:
+        return torch.mean(x, dim=(1, 2), keepdim=keepdims, dtype=torch.float32).to(x.dtype)
+    total = strips.row_sum(x.sum(dim=(1, 2), keepdim=keepdims, dtype=torch.float32))
+    return (total / (x.shape[1] * strips.k * x.shape[2])).to(x.dtype)
 
 
 def _bin_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
@@ -261,11 +279,14 @@ def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
     JAX package pools (there through an integral image).  Computed as one
     bin-averaging matrix product per axis: unlike ``adaptive_avg_pool2d``,
     whose CUDA backward adds with atomics where the bins do not divide the
-    map, its backward is two matrix products, the same bits every run."""
+    map, its backward is two matrix products, the same bits every run.
+    Under a spatial step only (1, 1) bins (:func:`global_avg_pool`): others
+    raise."""
     oh, ow = _pair(output_size)
     n, h, w, c = x.shape
     if (oh, ow) == (1, 1):
         return global_avg_pool(x)
+    _spatial.refuse(f'adaptive_avg_pool (bins {(oh, ow)})')
     if (oh, ow) == (h, w):
         return x
     y = torch.einsum('oh,nhwc->nowc', _bin_weights(h, oh, x.device), x.float())
@@ -280,13 +301,15 @@ def _lax_same(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _pads(x: torch.Tensor, w, s, padding):
+def _pads(x: torch.Tensor, w, s, padding, strips=None):
     """((top, bottom), (left, right)) of ``padding`` (``'SAME'``,
-    ``'VALID'`` or explicit pairs) for an NHWC x."""
+    ``'VALID'`` or explicit pairs) for an NHWC x; under a spatial step
+    ``'SAME'``'s rows are the whole tile's."""
     if padding == 'VALID':
         return ((0, 0), (0, 0))
     if padding == 'SAME':
-        return tuple(_lax_same(x.shape[1 + i], w[i], s[i]) for i in range(2))
+        rows = x.shape[1] * (1 if strips is None else strips.k)
+        return tuple(_lax_same((rows, x.shape[2])[i], w[i], s[i]) for i in range(2))
     return tuple(tuple(p) for p in padding)
 
 
@@ -302,18 +325,30 @@ def max_pool(x: torch.Tensor, window=3, stride=2, padding='SAME',
     even H and W and a float type; everything else is ``F.max_pool2d``
     forward and backward (``'reduce_window'`` and ``'separable'``).  The two
     differ only at exact ties, where K8 gives every tied maximum the
-    gradient and ``F.max_pool2d`` one of them.
+    gradient and ``F.max_pool2d`` one of them.  Under a spatial step
+    (``parallel/spatial.py``) each route takes its halo rows from the
+    neighbouring strips.
     """
     w, s = _pair(window), _pair(stride)
     if impl not in ('reduce_window', 'separable', 'planes', 'pallas'):
         raise ValueError(f'unknown max_pool impl {impl!r}')
+    strips = _spatial.current()
     if (impl in ('planes', 'pallas') and w == (3, 3) and s == (2, 2)
             and padding == ((1, 1), (1, 1))
             and x.dim() == 4 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
             and x.is_floating_point()):
         from ever_tpu_torch.ops.pool import max_pool_32
-        return max_pool_32(x)
-    pads = _pads(x, w, s, padding)
+        if strips is None:
+            return max_pool_32(x)
+        # K8 pads one -inf row itself and takes an even height: give it the
+        # previous strip's last 2 rows (-inf above the true top) and drop the
+        # first output row, so that its own -inf row stands only there
+        return max_pool_32(strips.rows(x, 2, 0, 1, float('-inf'), 'max_pool (K8)'))[:, 1:]
+    pads = _pads(x, w, s, padding, strips)
+    if strips is not None:
+        x = strips.window(x, 'max_pool', w[0], s[0], 1, pads[0][0], 1, float('-inf'))
+        xc = F.pad(x.permute(0, 3, 1, 2), (pads[1][0], pads[1][1]), value=float('-inf'))
+        return F.max_pool2d(xc, w, s).permute(0, 2, 3, 1)
     xc = x.permute(0, 3, 1, 2)
     if pads[0][0] == pads[0][1] and pads[1][0] == pads[1][1]:
         y = F.max_pool2d(xc, w, s, (pads[0][0], pads[1][0]))
@@ -329,7 +364,11 @@ def avg_pool(x: torch.Tensor, window=3, stride=2, padding='SAME') -> torch.Tenso
     the padding (as :func:`max_pool` takes it) is zeros, counted in each
     window's mean."""
     w, s = _pair(window), _pair(stride)
-    (t, b), (l, r) = _pads(x, w, s, padding)
+    strips = _spatial.current()
+    (t, b), (l, r) = _pads(x, w, s, padding, strips)
+    if strips is not None:
+        x = strips.window(x, 'avg_pool', w[0], s[0], 1, t, 1)
+        t = b = 0
     xc = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b))
     return F.avg_pool2d(xc, w, s).permute(0, 2, 3, 1)
 
@@ -342,7 +381,9 @@ class Conv2d(nn.Conv2d):
     padding, worked out from each input's size (``_lax_same``: the output
     has ⌈n/s⌉ positions and the odd pixel of padding goes after) and
     applied by ``F.pad`` before a conv without padding.  Integer padding is
-    symmetric, as the ResNet's ``_conv`` pads.
+    symmetric, as the ResNet's ``_conv`` pads.  Under a spatial step
+    (``parallel/spatial.py``) the rows above and below come from the
+    neighbouring strips.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
@@ -360,13 +401,34 @@ class Conv2d(nn.Conv2d):
         self.lax_same = lax_same
 
     def forward(self, x):
-        if self.lax_same:
+        strips = _spatial.current()
+        padding = self.padding
+        if strips is not None:
+            x, padding = self._strip(x, strips)
+        elif self.lax_same:
             (t, b), (l, r) = (_lax_same(x.shape[2 + i], self.kernel_size[i], self.stride[i],
                                         self.dilation[i]) for i in range(2))
             x = F.pad(x, (l, r, t, b))
         return F.conv2d(x, self.weight.to(x.dtype),
                         None if self.bias is None else self.bias.to(x.dtype),
-                        self.stride, self.padding, self.dilation, self.groups)
+                        self.stride, padding, self.dilation, self.groups)
+
+    def _strip(self, x, strips):
+        """Under a spatial step: the strip with the rows the window reads of
+        the neighbours' strips (the true border padded as the whole tile is,
+        lax's ``'SAME'`` worked out from the whole tile's height), and the
+        conv's remaining padding (the columns')."""
+        if self.lax_same:
+            rows = x.shape[2] * strips.k
+            (t, _), (l, r) = (_lax_same((rows, x.shape[3])[i], self.kernel_size[i],
+                                        self.stride[i], self.dilation[i]) for i in range(2))
+            x, padding = F.pad(x, (l, r)), (0, 0)
+        elif isinstance(self.padding, str):             # 'valid'
+            t, padding = 0, (0, 0)
+        else:
+            t, padding = self.padding[0], (0, self.padding[1])
+        return strips.window(x, f'Conv2d {tuple(self.kernel_size)}', self.kernel_size[0],
+                             self.stride[0], self.dilation[0], t, 2), padding
 
 
 class BatchNorm2d(nn.Module):
@@ -506,7 +568,10 @@ def checkpointed(module: nn.Module, fn, x):
     """``fn(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
     backward pass recomputes it, and the recomputation leaves the running
     statistics of ``module``'s BatchNorms alone (:func:`running_stats_frozen`),
-    so they move once per forward, as under JAX's ``nn.remat``."""
+    so they move once per forward, as under JAX's ``nn.remat``.  Under a
+    spatial step it raises: the recomputation would issue the block's halo
+    exchanges a second time, on one rank."""
+    _spatial.refuse('checkpointed')
     calls = []
 
     def run(x):
@@ -527,6 +592,7 @@ class GroupNorm2d(nn.GroupNorm):
     1e-6 in FarSeg++'s scene encoders."""
 
     def forward(self, x):
+        _spatial.refuse('GroupNorm2d')
         ct = torch.float64 if x.dtype == torch.float64 else torch.float32
         return F.group_norm(x.to(ct), self.num_groups, self.weight.to(ct),
                             self.bias.to(ct), self.eps).to(x.dtype)
@@ -583,12 +649,17 @@ def _keep_mask(shape, rate: float, generator: torch.Generator) -> torch.Tensor:
     return (u < 1.0 - rate)[rank * b:(rank + 1) * b]
 
 
-def _dropout(x, rate, train, generator, mask_shape):
+def _dropout(x, rate, train, generator, mask_shape, rows_dim=None):
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError('dropout in training draws from a generator: pass generator=')
-    keep = _keep_mask(mask_shape, rate, generator).to(x.device)
+    # under a spatial step the draw is the whole tile's (rows_dim: the
+    # mask's row dimension, None where it is broadcast over the rows) and
+    # each strip keeps its rows
+    strips = _spatial.current()
+    keep = (_keep_mask(mask_shape, rate, generator) if strips is None
+            else strips.keep_mask(mask_shape, rate, generator, rows_dim)).to(x.device)
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -596,8 +667,8 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """Element dropout (flax ``nn.Dropout``): in training each element is
     kept with probability ``1 - rate`` and scaled by ``1/(1 - rate)``; the
-    identity otherwise."""
-    return _dropout(x, rate, train, generator, x.shape)
+    identity otherwise.  Under a spatial step x is an NCHW strip."""
+    return _dropout(x, rate, train, generator, x.shape, 2)
 
 
 def channel_dropout(x: torch.Tensor, rate: float, train: bool,

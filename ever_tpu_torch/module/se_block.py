@@ -17,6 +17,7 @@ import torch.nn as nn
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import Conv2d
+from ever_tpu_torch.parallel.spatial import refuse
 
 __all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck', 'conv3x3',
            'conv1x1', 'BasicBlock', 'Bottleneck']
@@ -25,6 +26,7 @@ __all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottlenec
 def _squeeze(x: torch.Tensor) -> torch.Tensor:
     """The spatial mean of an NCHW tensor, accumulated in float32, as
     ``[N, C, 1, 1]`` in x's dtype."""
+    refuse('the SE squeeze')
     return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
 
 

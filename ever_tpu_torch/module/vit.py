@@ -58,6 +58,7 @@ from ever_tpu_torch.module.ops import downsample_bilinear, upsample_bilinear
 from ever_tpu_torch.ops.attention import _rotate_half, attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.parallel.mesh import data_shard
+from ever_tpu_torch.parallel.spatial import refuse
 
 __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
@@ -308,6 +309,7 @@ class SelfAttention(nn.Module):
     def _attend(self, qkv, rope, n_valid):
         """The ``num_heads`` heads' attention over a packed ``[B, N, 3·H·D]``
         projection (q, then k, then v, each head by head): ``[B, N, H·D]``."""
+        refuse('attention')
         b, n, width = qkv.shape
         h = self.num_heads
         q, k, v = qkv.view(b, n, 3, h, width // (3 * h)).unbind(2)   # [B, N, H, D]
@@ -719,6 +721,7 @@ class CausalSelfAttention(nn.Module):
         self.proj = Linear(dim, dim, bias=proj_bias)
 
     def forward(self, x, is_causal: bool = True):
+        refuse('CausalSelfAttention')
         b, n, c = x.shape
         h = self.num_heads
         q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)

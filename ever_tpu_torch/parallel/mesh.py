@@ -44,6 +44,7 @@ without processes, for planning placements (``parallel/zero.py``,
 from __future__ import annotations
 
 import contextvars
+import copy
 import itertools
 import math
 import os
@@ -209,6 +210,19 @@ class Mesh:
                             nxt = group if i == s else nxt
                 self._pairs[axis_name] = (prev, nxt)
         return self._pairs[axis_name]
+
+    def with_batch_axes(self, batch_axes: Sequence[str]) -> 'Mesh':
+        """This mesh with one axis of it as its batch axis, sharing its
+        process groups (no collective call): the spatial step
+        (``parallel/spatial.py``) reduces over its strip axis so."""
+        axes = tuple(batch_axes)
+        if len(axes) != 1 or axes[0] not in self.axis_names:
+            raise ValueError(f'one axis of {self.axis_names} as the batch axis, got {axes}')
+        view = copy.copy(self)
+        view.batch_axes = axes
+        view.group = self._groups.get(axes)
+        view._wrapped, view._device_meshes, view._token = {}, {}, []
+        return view
 
     def device_mesh(self, device_type: str):
         """The ``torch.distributed`` ``DeviceMesh`` of the batch axes over

@@ -1,0 +1,509 @@
+"""Spatial sharding with halo exchange: one tile too large for a card, split
+along its rows over a mesh axis (counterpart of
+``ever_tpu/parallel/spatial.py``).
+
+Batches are NHWC, as the port's models take them, so a strip is a range of
+dimension 1: rank ``s`` of the ``k`` ranks of the axis holds rows
+``[s·h, (s+1)·h)`` of a tile of ``k·h`` rows.  Each rank runs on its strip
+plus a halo of its neighbours' rows.
+
+Two mechanisms, as in the JAX package:
+
+- **One halo around a whole network** (:func:`spatial_partition_apply`,
+  :func:`build_halo_train_step`): :func:`halo_exchange` pads a strip with
+  ``halo`` rows from each neighbour (zeros at the true border);
+  :func:`halo_exchange_exact` lets the border strips extend inward with
+  ``2·halo`` real rows, so the network's own padding applies at the true
+  border and the result equals the unsharded forward everywhere.
+- **The per-op engine** behind :func:`build_spatial_train_step`.  The JAX
+  step is the unsharded step program under a row-sharded input, and GSPMD
+  inserts a halo at every conv, pool and resize and keeps the batch
+  statistics, the loss and the gradient sum global.  PyTorch has no GSPMD,
+  so the step runs the port's unsharded step (``parallel/spmd.py``) inside
+  a strip context (:class:`Strips`), and every op of ``module/ops.py`` that
+  reads across rows asks :func:`current` for it: a conv or a pool fetches
+  the rows its window reads from the neighbours, from the **global**
+  geometry (a tile of ``k·h`` rows, this strip at ``s·h``), uses them and
+  drops them; a bilinear resize takes the strip's rows of the global weight
+  matrix against the strip and one halo row each side; a global pool sums
+  over the axis.  No halo row is carried through a pointwise layer or a
+  BatchNorm, so each rank's activations hold exactly its own rows and every
+  pixel counts once.  BatchNorm, the losses and the gradient average run
+  over the axis (the step's mesh takes it as its batch axis).  An op that
+  reads across rows and has no strip form raises, naming itself
+  (:func:`refuse`).
+
+A hop is a broadcast in the two-rank group of a pair of neighbours
+(``Mesh.neighbour_groups``; gloo carries only all-reduce and broadcast on
+CUDA tensors), written as an autograd function (:class:`_Swap`) whose
+backward sends each halo's gradient back to the strip it came from, where it
+is added into the edge rows: the transpose JAX gets from ``ppermute``.
+Every rank takes both halos of every exchange into its computation (the
+border strips take the fill that stands for the true border's padding), so
+every rank's backward runs the same hops in the same order.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import functools
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as tdist
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.utils._pytree import tree_leaves, tree_map
+
+from ever_tpu_torch.parallel.mesh import _CURRENT, Mesh, NamedSharding, P, all_reduce_sum
+
+__all__ = ['halo_exchange', 'halo_exchange_exact', 'spatial_partition_apply',
+           'spatial_batch_sharding', 'build_spatial_train_step',
+           'build_halo_train_step', 'Strips', 'current', 'refuse']
+
+_STRIPS: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_strips',
+                                                         default=None)
+
+
+def current() -> Optional['Strips']:
+    """The strip context of the running spatial step, or None."""
+    return _STRIPS.get()
+
+
+def refuse(what: str) -> None:
+    """Raise when a strip context is active: ``what`` reads across rows and
+    has no strip form, so it would give a strip-local answer."""
+    if _STRIPS.get() is not None:
+        raise ValueError(f'{what} reads across rows and has no strip form: it cannot run '
+                         f'under a spatial train step (parallel/spatial.py)')
+
+
+class Strips:
+    """This rank's strip of a tile split along its rows over ``mesh``'s
+    ``axis``: its index ``s`` of ``k``, the neighbours' groups, and what its
+    hops sent (``stats``: broadcasts and bytes this rank sent).  ``with
+    strips:`` makes it the context the ops read (module docstring)."""
+
+    def __init__(self, mesh: Mesh, axis: str):
+        if mesh.abstract:
+            raise ValueError('an abstract mesh runs no spatial step: it needs the mesh of a '
+                             'process group (parallel.mesh.make_mesh)')
+        self.axis, self.k, self.s = axis, mesh.axis_size(axis), mesh.rank(axis)
+        self.group = mesh.axis_group(axis) if self.k > 1 else None
+        self.prev = self.next = None
+        if self.k > 1:
+            self.prev, self.next = mesh.neighbour_groups(axis)
+            self.ranks = mesh.axis_ranks(axis)
+        self.stats = dict(hops=0, bytes=0)
+        self._token = []
+
+    def __enter__(self):
+        self._token.append(_STRIPS.set(self))
+        return self
+
+    def __exit__(self, *exc):
+        _STRIPS.reset(self._token.pop())
+        return False
+
+    # -- hops ---------------------------------------------------------------------
+
+    def _cast(self, t: torch.Tensor, src: int, group) -> None:
+        if t.numel() == 0:
+            return
+        tdist.broadcast(t, src=self.ranks[src], group=group)
+        if src == self.s:
+            self.stats['hops'] += 1
+            self.stats['bytes'] += t.numel() * t.element_size()
+
+    def exchange(self, to_prev, from_prev, to_next, from_next) -> None:
+        """Rows to and from both neighbours, received in place: for each pair
+        (i, i+1), i's ``to_next`` into i+1's ``from_prev``, then i+1's
+        ``to_prev`` into i's ``from_next``.  Even strips talk to their
+        successor first and odd ones to their predecessor, so the pairs
+        (0, 1), (2, 3), ... move at once, then (1, 2), ...  A border strip's
+        missing side is left as it is."""
+        s = self.s
+
+        def with_prev():
+            if self.prev is not None:
+                self._cast(from_prev, s - 1, self.prev)
+                self._cast(to_prev, s, self.prev)
+
+        def with_next():
+            if self.next is not None:
+                self._cast(to_next, s, self.next)
+                self._cast(from_next, s + 1, self.next)
+
+        for side in ((with_prev, with_next) if s % 2 else (with_next, with_prev)):
+            side()
+
+    def rows(self, x: torch.Tensor, top: int, bottom: int, dim: int, fill: float = 0.0,
+             what: str = 'halo') -> torch.Tensor:
+        """``x`` with ``top`` rows of the previous strip above it and
+        ``bottom`` rows of the next below it on dimension ``dim``; ``fill``
+        rows where the strip meets the true border."""
+        h = x.shape[dim]
+        if max(top, bottom) > h:
+            raise ValueError(f'{what}: a halo of {max(top, bottom)} rows exceeds the strip\'s '
+                             f'{h} rows; use fewer ranks on {self.axis!r} or a taller tile')
+        if top == bottom == 0:
+            return x
+        from_prev, from_next = _Swap.apply(x.narrow(dim, 0, bottom),
+                                           x.narrow(dim, h - top, top), self, fill)
+        out = torch.cat([from_prev, x, from_next], dim)
+        if x.dim() == 4 and dim == 2 and x.is_contiguous(memory_format=torch.channels_last):
+            out = out.contiguous(memory_format=torch.channels_last)
+        return out
+
+    # -- the ops' strip forms -----------------------------------------------------
+
+    def window(self, x: torch.Tensor, what: str, k: int, s: int, d: int, top: int, dim: int,
+               fill: float = 0.0) -> torch.Tensor:
+        """The strip with the rows that a window op (kernel ``k``, stride
+        ``s``, dilation ``d``, ``top`` rows of padding above the global
+        tile) reads of its neighbours: ``top`` above and ``(k−1)·d − top −
+        (s−1)`` below, so that the op without row padding gives the
+        strip's ``h/s`` output rows.  A stride that does not divide the
+        strip raises, naming the op (GSPMD would compute it)."""
+        h = x.shape[dim]
+        if h % s:
+            raise ValueError(f'{what} (kernel {k}, stride {s}) needs strips whose height the '
+                             f'stride divides; got {h} rows a rank on {self.axis!r}: use a '
+                             f'tile height that {s}·{self.k}·(the strides before it) divides')
+        if top > (k - 1) * d:
+            raise ValueError(f'{what}: {top} rows of padding above a window of {k} rows')
+        return self.rows(x, top, max((k - 1) * d - top - (s - 1), 0), dim, fill, what)
+
+    def resize_rows(self, x: torch.Tensor, n_out: int, align_corners: bool,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """A bilinear resize along the rows (dimension 1 of NHWC ``x``) to
+        ``n_out`` rows a strip, as a matrix product: the strip's rows of the
+        global weight matrix against the strip and one halo row each side
+        (zeros at the true border, where the edge rows are clamped)."""
+        w = _strip_weights(x.shape[1], n_out, self.k, self.s, align_corners, dtype, x.device)
+        return torch.einsum('oh,nhwc->nowc', w, self.rows(x, 1, 1, 1, 0.0, 'bilinear resize'))
+
+    def row_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Differentiable sum of ``t`` over the strips."""
+        return all_reduce_sum(t, self.group)
+
+    def keep_mask(self, shape, rate: float, generator: torch.Generator,
+                  rows_dim: Optional[int]) -> torch.Tensor:
+        """A dropout keep mask drawn for the whole tile (``rows_dim`` of
+        ``shape`` times ``k``) and this strip's rows of it, or drawn whole
+        where the mask is broadcast over the rows (``rows_dim`` None)."""
+        if rows_dim is not None and len(shape) != 4:
+            raise ValueError(f'dropout of a rank-{len(shape)} tensor under a spatial step: '
+                             'its rows are dimension 2 of an NCHW strip')
+        if rows_dim is None:
+            return torch.rand(tuple(shape), generator=generator,
+                              device=generator.device) < 1.0 - rate
+        full = list(shape)
+        h = full[rows_dim]
+        full[rows_dim] = h * self.k
+        u = torch.rand(tuple(full), generator=generator, device=generator.device)
+        return (u < 1.0 - rate).narrow(rows_dim, self.s * h, h)
+
+    def take(self, t):
+        """This strip's rows of a batch leaf: a ``DTensor`` split on dimension 1
+        gives its local rows, a whole tile (tensor or array) is narrowed."""
+        if isinstance(t, DTensor):
+            from torch.distributed.tensor import Shard
+            if tuple(t.placements) != (Shard(1),):
+                raise ValueError(f'a spatial batch leaf is a DTensor placed {t.placements}; '
+                                 'lay it out with host_to_global(batch, '
+                                 'spatial_batch_sharding(mesh, axis))')
+            return t.to_local()
+        t = torch.as_tensor(t)
+        h = t.shape[1] // self.k
+        return t.narrow(1, self.s * h, h)
+
+
+@functools.lru_cache(maxsize=32)
+def _strip_weights(h: int, m: int, k: int, s: int, align_corners: bool, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """Rows ``[s·m, (s+1)·m)`` of the global ``[k·m, k·h]`` bilinear weights
+    over input columns ``[s·h − 1, (s+1)·h + 1)`` (the strip and one halo
+    row each side; zero columns past the true border), made in float64 and
+    kept on ``device`` in ``dtype``.  Raises if a row reads further than one
+    row past the strip."""
+    from ever_tpu_torch.module.ops import _make_bilinear_weights
+    full = _make_bilinear_weights(k * h, k * m, torch.float64, torch.device('cpu'),
+                                  align_corners)
+    rows = F.pad(full, (1, 1))[s * m:(s + 1) * m]
+    w = rows[:, s * h:(s + 1) * h + 2]
+    if not torch.equal(w.abs().sum(1), rows.abs().sum(1)):
+        raise ValueError(f'a bilinear resize of {k * h} to {k * m} rows reads more than one '
+                         f'row past a strip of {h}')
+    return w.to(dtype=dtype, device=device)
+
+
+class _Swap(torch.autograd.Function):
+    """The halos of one exchange: ``up`` (the strip's first rows, for the
+    previous strip's bottom halo) and ``down`` (its last rows, for the next
+    strip's top halo) go out; back come ``from_prev`` (the previous strip's
+    ``down``) and ``from_next`` (the next strip's ``up``), ``fill`` at the
+    true border.  Backward, each halo's gradient goes back to the strip it
+    came from and lands on the rows it was made of."""
+
+    @staticmethod
+    def forward(ctx, up, down, strips, fill):
+        ctx.strips = strips
+        ctx.shapes = (up.shape, down.shape, up.dtype)
+        from_prev = torch.full(down.shape, fill, dtype=down.dtype, device=down.device)
+        from_next = torch.full(up.shape, fill, dtype=up.dtype, device=up.device)
+        # copies: a broadcast may write its source (gloo's CUDA path does),
+        # and the rows sent are views of a tensor autograd may have saved
+        strips.exchange(up.clone(memory_format=torch.contiguous_format), from_prev,
+                        down.clone(memory_format=torch.contiguous_format), from_next)
+        return from_prev, from_next
+
+    @staticmethod
+    def backward(ctx, g_prev, g_next):
+        up_shape, down_shape, dtype = ctx.shapes
+        g_up = torch.zeros(up_shape, dtype=dtype, device=g_prev.device)
+        g_down = torch.zeros(down_shape, dtype=dtype, device=g_prev.device)
+        ctx.strips.exchange(g_prev.clone(memory_format=torch.contiguous_format), g_up,
+                            g_next.clone(memory_format=torch.contiguous_format), g_down)
+        return g_up, g_down, None, None
+
+
+def _strips_of(axis_name: str) -> Strips:
+    mesh = _CURRENT.get()
+    if mesh is None:
+        raise ValueError(f'axis_name={axis_name!r} outside a mesh: enter `with mesh:`')
+    return Strips(mesh, axis_name)
+
+
+def halo_exchange(x: torch.Tensor, halo: int, axis_name: str) -> torch.Tensor:
+    """Pad an NHWC strip ``[N, h, W, C]`` with ``halo`` rows from each
+    neighbour on the current mesh's ``axis_name`` (``with mesh:``), zeros
+    at the true border (conv SAME padding's value there): ``[N, h + 2·halo,
+    W, C]``."""
+    if halo == 0:
+        return x
+    return _strips_of(axis_name).rows(x, halo, halo, 1)
+
+
+def _exact(x: torch.Tensor, halo: int, strips: Strips):
+    if strips.k == 1 or halo == 0:
+        return x, 0
+    from_prev, from_next = _Swap.apply(x[:, :2 * halo], x[:, -2 * halo:], strips, 0.0)
+    if strips.s == 0:
+        return torch.cat([x, from_next], 1), 0
+    if strips.s == strips.k - 1:
+        return torch.cat([from_prev, x], 1), 2 * halo
+    return torch.cat([from_prev[:, -halo:], x, from_next[:, :halo]], 1), halo
+
+
+def halo_exchange_exact(x: torch.Tensor, halo: int, axis_name: str):
+    """Overlap-strip halo: the border strips extend inward with ``2·halo``
+    real rows, so the true border stays the network's own input edge.
+    Returns ``(padded, crop_start)``: every strip is ``h + 2·halo`` rows and
+    its exact ``h``-row output window starts at ``crop_start`` (0 for the
+    first strip, ``2·halo`` for the last, ``halo`` otherwise).  A one-rank
+    axis or ``halo == 0`` gives ``(x, 0)``.  Needs ``2·halo <= h``."""
+    return _exact(x, halo, _strips_of(axis_name))
+
+
+def spatial_batch_sharding(mesh: Mesh, axis: str = 'data') -> NamedSharding:
+    """The placement of an (image, label, ...) batch with the height
+    (dimension 1) on ``axis``: ``P(None, axis)``, a prefix that leaves the
+    trailing dimensions of every leaf whole."""
+    return NamedSharding(mesh, P(None, axis))
+
+
+def _halo_apply(fn: Callable, x: torch.Tensor, strips: Strips, halo: int,
+                boundary: str) -> torch.Tensor:
+    """``fn`` on this strip with its halo, cropped to the strip's rows."""
+    h = x.shape[1]
+    if halo == 0 or strips.k == 1:
+        return fn(x)
+    if boundary == 'exact':
+        padded, start = _exact(x, halo, strips)
+        return fn(padded).narrow(1, start, h)
+    return fn(strips.rows(x, halo, halo, 1)).narrow(1, halo, h)
+
+
+def _strip_layout(x, mesh: Mesh, axis: str, device) -> tuple:
+    """(this rank's rows of ``x``, the axis's mesh, its strips): a whole tile
+    is laid out with ``host_to_global`` first, as JAX ``device_put``s it."""
+    from ever_tpu_torch.parallel.mesh import host_to_global
+    view = mesh.with_batch_axes((axis,))
+    strips = Strips(mesh, axis)
+    if not isinstance(x, DTensor):
+        x = torch.as_tensor(x).to(device)
+    x = host_to_global(x, spatial_batch_sharding(view, axis))   # whole on a one-rank axis
+    return (x.to_local() if isinstance(x, DTensor) else x), view, strips
+
+
+def _as_global(y: torch.Tensor, view: Mesh, k: int):
+    """A strip of the output as ``host_to_global`` gives one: a ``DTensor``
+    split on dimension 1 over the axis (the tensor itself on one rank)."""
+    if view.group is None:
+        return y
+    from torch.distributed.tensor import Shard
+    shape = (y.shape[0], y.shape[1] * k) + tuple(y.shape[2:])
+    return DTensor.from_local(y, view.device_mesh(y.device.type), (Shard(1),), run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device='meta').stride())
+
+
+def spatial_partition_apply(fn: Callable, x, mesh: Mesh, axis: str = 'data', halo: int = 64,
+                            boundary: str = 'exact', *, device=None):
+    """Run ``fn`` (a resolution-preserving NHWC forward, ``[N, h, W, C] →
+    [N, h, W, C']``) on one tile split along H over ``axis``, each strip with
+    a halo of ``halo`` rows (half the receptive field or more).
+    ``boundary='exact'`` equals the unsharded forward everywhere and needs
+    ``2·halo <= H/k``; ``'zeros'`` pads the true border with zeros (half the
+    traffic; the rows within half the receptive field of the border
+    differ).  ``x`` is the whole tile (an array or tensor, placed on
+    ``device``: the GPU unless the caller asks for the CPU) or its
+    ``host_to_global(x, spatial_batch_sharding(mesh, axis))``.  Returns this
+    rank's strip of the output as ``host_to_global`` gives one: a
+    ``DTensor`` split on dimension 1 (``.to_local()`` is the strip)."""
+    from ever_tpu_torch.core.device import get_device
+    k = mesh.axis_size(axis)
+    _check_partition(tuple(x.shape)[1], k, axis, halo, boundary)
+    x_local, view, strips = _strip_layout(x, mesh, axis, get_device(device))
+    return _as_global(_halo_apply(fn, x_local, strips, halo, boundary), view, k)
+
+
+def _check_partition(h: int, k: int, axis: str, halo: int, boundary: str) -> None:
+    if h % k != 0:
+        raise ValueError(f'the {axis!r} axis size {k} must divide H={h}; '
+                         f'pad the tile height to a multiple of {k}')
+    if boundary not in ('exact', 'zeros'):
+        raise ValueError(f"boundary must be 'exact' or 'zeros', got {boundary!r}")
+    if halo < 0:
+        raise ValueError(f'halo must be >= 0, got {halo}')
+    if boundary == 'exact' and 2 * halo > h // k:
+        raise ValueError(f"boundary='exact' needs 2*halo <= H/k "
+                         f'({2 * halo} > {h // k}); lower halo or use '
+                         f"boundary='zeros'")
+    if boundary == 'zeros' and halo > h // k:
+        raise ValueError(f"halo={halo} exceeds the per-device strip height "
+                         f'H/k = {h // k}; lower halo or use fewer devices')
+
+
+def _check_batch(batch, k: int, axis: str) -> None:
+    """JAX's errors for a spatial batch: every leaf ``[N, H, ...]`` with H
+    divisible by the axis size."""
+    for leaf in tree_leaves(batch):
+        if not hasattr(leaf, 'shape'):
+            continue
+        shape = tuple(leaf.shape)
+        if len(shape) < 2:
+            raise ValueError(
+                f'spatial train batch leaves must be rank>=2 '
+                f'([N, H, ...]); got a rank-{len(shape)} leaf — reshape '
+                f'or replicate it outside the batch pytree')
+        if shape[1] % k:
+            raise ValueError(
+                f'tile height {shape[1]} is not divisible by the '
+                f'{axis!r} axis size {k}; pad the tile')
+
+
+def build_spatial_train_step(model, tx, lr_schedule=None, mesh: Mesh = None,
+                             axis: str = 'data', rng_seed: int = 0, donate: bool = True, *,
+                             device=None) -> Callable:
+    """``step(state, batch) -> (state, metrics)`` on tiles split along H
+    over ``axis`` (a batch may be one giant tile): the port's
+    ``build_train_step`` over the mesh whose batch axis is ``axis``, run
+    under the strip context, so that every conv, pool and resize takes its
+    halo from the neighbours and the BatchNorm statistics, the losses, the
+    dropout draws and the gradient average are the whole tile's (module
+    docstring).  The parameters' gradients are the unsharded step's: DDP's
+    average over the axis together with the global loss, as under data
+    parallelism.  Other mesh axes hold replicas of the tile, as JAX's
+    ``P(None, axis)`` replicates it there.
+
+    ``batch`` is ``(x [N, H, W, C], y [N, H, ...])`` whole on every rank, or
+    its ``host_to_global(batch, spatial_batch_sharding(mesh, axis))``; H
+    must be divisible by the axis size, and by it times every stride before
+    each strided op.  ``donate`` is accepted and has no effect (PyTorch
+    updates the state in place).  ``device``: where the strips go (the GPU
+    unless the caller asks for the CPU); the model must be there.
+    ``step.stats`` counts the halo broadcasts and bytes this rank sent."""
+    from ever_tpu_torch.core.device import get_device
+    from ever_tpu_torch.parallel.spmd import build_train_step
+
+    if mesh is None:
+        raise ValueError('build_spatial_train_step requires mesh=')
+    del donate
+    dev = get_device(device)
+    strips = Strips(mesh, axis)
+    inner = build_train_step(model, tx, lr_schedule, mesh=mesh.with_batch_axes((axis,)),
+                             rng_seed=rng_seed)
+
+    def step(state, batch):
+        _check_batch(batch, strips.k, axis)
+        local = tree_map(lambda t: strips.take(t).to(dev) if hasattr(t, 'shape') else t, batch)
+        with strips:
+            return inner(state, local)
+
+    step.stats = strips.stats
+    return step
+
+
+def build_halo_train_step(forward: Callable, loss_fn: Callable, tx, mesh: Mesh,
+                          axis: str = 'data', halo: int = 64, boundary: str = 'exact',
+                          lr_schedule=None, *, device=None) -> Callable:
+    """Explicit halo-exchange train step for frozen-BN dense forwards.
+
+    ``forward(params, x) -> logits`` is a resolution-preserving eval-mode
+    NHWC forward (frozen BN, no dropout: the giant-tile fine-tune);
+    ``loss_fn(logits, y) -> scalar`` a mean over the strip's pixels.  Each
+    step exchanges the input strips' halos, runs ``forward`` on the padded
+    strip, crops to the owned rows and takes the mean of the strips' losses
+    (equal strips: the global pixel mean); the gradients ride the same hops
+    back, and the parameters' gradients are summed over the axis, so they
+    equal the unsharded step's.
+
+    Returns ``step(opt_pack, batch) -> (opt_pack, metrics)`` where
+    ``opt_pack = (step, params, optimizer)``: the step count, the
+    parameters ``forward`` takes (a dict or list of leaf tensors) and the
+    ``torch.optim`` optimizer ``tx.init`` made over them (the port's
+    optimizer state); the step updates them in place.  ``batch`` is ``(x,
+    y)`` whole on every rank or laid out by ``spatial_batch_sharding``;
+    ``device``: where the strips go (the GPU unless the caller asks for the
+    CPU)."""
+    from ever_tpu_torch.core.device import get_device
+
+    if boundary not in ('exact', 'zeros'):
+        raise ValueError(f"boundary must be 'exact' or 'zeros', got {boundary!r}")
+    dev = get_device(device)
+    strips = Strips(mesh, axis)
+    k = strips.k
+
+    def step(opt_pack, batch):
+        it, params, optimizer = opt_pack
+        x, y = (strips.take(t).to(dev) for t in batch)
+        h = x.shape[1]
+        if boundary == 'exact' and halo > 0 and 2 * halo > h:
+            raise ValueError(
+                f"boundary='exact' needs 2*halo <= H/k ({2 * halo} > "
+                f"{h}); lower halo or use boundary='zeros'")
+        leaves = [p for p in tree_leaves(params) if isinstance(p, torch.Tensor)]
+        for p in leaves:
+            p.grad = None
+        loss = loss_fn(_halo_apply(lambda t: forward(params, t), x, strips, halo, boundary), y)
+        (loss / k).backward()
+        total = loss.detach().reshape(1).double()
+        if strips.group is not None:
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+            flat = torch.cat([total.to(grads[0].dtype)] + [g.reshape(-1) for g in grads])
+            tdist.all_reduce(flat, group=strips.group)
+            total = flat[:1].double()
+            offset = 1
+            for p, g in zip(leaves, grads):
+                p.grad = flat[offset:offset + g.numel()].view_as(g).clone()
+                offset += g.numel()
+        tx.apply(optimizer, it)
+        metrics = {'total_loss': (total[0] / k).float()}
+        if lr_schedule is not None:
+            metrics['learning_rate'] = torch.tensor(float(lr_schedule(it)))
+        return (it + 1, params, optimizer), metrics
+
+    step.stats = strips.stats
+    return step

@@ -76,7 +76,8 @@ def test_import_pulls_in_neither_jax_nor_ever_tpu():
             ' ever_tpu_torch.module.dinov3.utils.dtype, ever_tpu_torch.module.gan,'
             ' ever_tpu_torch.trainer.gan, ever_tpu_torch.parallel.zero,'
             ' ever_tpu_torch.parallel.sharded, ever_tpu_torch.parallel.tp,'
-            ' ever_tpu_torch.parallel.pp, ever_tpu_torch.parallel.ep;'
+            ' ever_tpu_torch.parallel.pp, ever_tpu_torch.parallel.ep,'
+            ' ever_tpu_torch.parallel.spatial, ever_tpu_torch.util.eda;'
             'bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")'
             ' or m == "ever_tpu" or m.startswith("ever_tpu.")'
             ' or m == "PIL" or m.startswith("PIL.")];'
@@ -138,7 +139,8 @@ def test_source_has_no_jax_or_ever_tpu_import():
             'ever_tpu_torch/module/dinov3/utils/utils.py', 'ever_tpu_torch/module/gan.py',
             'ever_tpu_torch/trainer/gan.py', 'ever_tpu_torch/parallel/zero.py',
             'ever_tpu_torch/parallel/sharded.py', 'ever_tpu_torch/parallel/tp.py',
-            'ever_tpu_torch/parallel/pp.py', 'ever_tpu_torch/parallel/ep.py'} <= scanned
+            'ever_tpu_torch/parallel/pp.py', 'ever_tpu_torch/parallel/ep.py',
+            'ever_tpu_torch/parallel/spatial.py', 'ever_tpu_torch/util/eda.py'} <= scanned
 
 
 @pytest.mark.parametrize('size,k,s', [((200, 150), 64, 48), ((40, 50), 64, 32),
@@ -242,6 +244,21 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch, tmp_p
     assert pipelined_vit_apply(vit, None, make_mesh(('pipe',)), device='cpu').block_ids == \
         list(range(12))
     assert MoEMlp(4, 8, dim=8, device='cpu').router.device.type == 'cpu'
+    # the spatial layouts: the strips go to the card
+    from ever_tpu_torch.parallel.spatial import (build_halo_train_step,
+                                                 build_spatial_train_step,
+                                                 spatial_partition_apply)
+    tile = np.ones((1, 8, 8, 3), np.float32)
+    rule = tbuilder.make_optimizer({'type': 'sgd', 'params': {}})[0].build(0.1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        spatial_partition_apply(lambda t: t, tile, make_mesh(), halo=1)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_spatial_train_step(lin, rule, mesh=make_mesh())
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_halo_train_step(lambda p, t: t, lambda o, t: o.mean(), rule, make_mesh())
+    got = spatial_partition_apply(lambda t: 2 * t, tile, make_mesh(), halo=1, device='cpu')
+    assert got.device.type == 'cpu' and float(got.min()) == 2.0
+    assert callable(build_spatial_train_step(lin, rule, mesh=make_mesh(), device='cpu'))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     monkeypatch.setattr(torch.cuda, 'set_device', lambda d: None)
@@ -327,9 +344,7 @@ NOT_PORTED = {
     'magic': {},
     'module': {},
     'ops': {},
-    'parallel': {n: 'A.9.5' for n in (
-        'spatial', 'build_halo_train_step', 'build_spatial_train_step', 'halo_exchange',
-        'spatial_partition_apply')},
+    'parallel': {},
 }
 
 

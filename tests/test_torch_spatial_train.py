@@ -1,0 +1,188 @@
+"""The port's spatial train step (``build_spatial_train_step``) on FarSeg,
+against the port's unsharded step and the JAX package's spatial step, on
+the CPU.
+
+One job of four gloo ranks (``torch_spatial_ranks.farseg_worker``, which
+imports no JAX) trains the narrow FarSeg-R18 of ``tests/test_torch_farseg.py``
+(float64; the stem's max pool on K8's route, its plain version here) one
+SGD + momentum step on one 512×64 tile split into four strips of 128 rows
+(4 rows at C5), and the unsharded step on the whole tile runs in the ranks
+too, while this process runs the step through the JAX package's
+``build_spatial_train_step`` on a 4-device mesh (float64, under
+``jax.enable_x64``), all from the same weights.
+
+Against the port's unsharded step the model runs twice.  With its float32
+parts computed in float64 (``torch_spatial_ranks.float32_parts_in_float64``)
+the spatial step equals the unsharded one within ``FLOAT64_TOL`` (1e-10;
+its worst tensor read 1.6e-15 on a CPU).  As the model is, those parts
+compute in float32: the bilinear resizes (as the JAX package's do), the
+relation's channel sum, the logits and the loss, the global pool's sum and
+K8's plain version.  A strip's bilinear resize is a product with the
+strip's rows of the weights, and a halo row's gradient a sum of terms made
+on two ranks, so those float32 results round otherwise than in one
+process; the gap then reads up to 2.2e-9 relative on a CPU, in the running
+variance of the decoder's BatchNorms behind the float32 resizes.
+``STATE_TOL`` holds it.  ``pytest -s`` prints both readings.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+from ever_tpu.core import builder as jbuilder
+from ever_tpu.parallel import spatial as jspatial
+from ever_tpu.parallel import spmd as jspmd
+from ever_tpu_torch.util.weight_io import convert_flax_farseg
+from test_torch_dist import start_ranks
+from test_torch_farseg import CLASSES, NARROW, _sgd
+from test_torch_resnet import close, one_torch_thread, seeded_variables  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures('one_torch_thread')
+
+WORLD, ROWS, COLS = 4, 512, 64
+CFG = dict(NARROW, dtype='float64')
+# the port's spatial step against its unsharded step: every state tensor
+# within TOL · max(1, max|value|), the metrics within the float32 loss's
+# rounding (module docstring: float32 parts as they are, and in float64)
+STATE_TOL, FLOAT64_TOL, METRIC_TOL = 5e-9, 1e-10, 1e-6
+# against the JAX spatial step: tests/test_torch_farseg.py's float64 limits
+# (the first step's loss and running statistics, the state after SGD steps)
+JAX_LOSS_TOL, JAX_STATS_TOL, JAX_PARAM_TOL = 1e-6, 1e-8, 1e-6
+# 4 · 48 rows: strips of 48 reach layer4's stride-2 conv with 3 rows
+MISALIGNED = 4 * 48
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs():
+    """The tile (float64 x, labels with some ignored) and the JAX model's
+    seeded float64 variables."""
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(1, ROWS, COLS, 3))
+    y = rng.integers(0, CLASSES, size=(1, ROWS, COLS)).astype(np.int32)
+    y[:, 0, :5] = 255
+    with jax.enable_x64(True):
+        jm = jbuilder.make_model({'type': 'FarSeg', 'params': CFG})
+        v = jax.tree.map(lambda a: a.astype(np.float64), seeded_variables(jm, x[:, :COLS]))
+    return jm, v, x, y
+
+
+@pytest.fixture(scope='module', autouse=True)
+def job(tmp_path_factory):
+    """The four ranks, started before the module's first test; killed at
+    the end if still running."""
+    _, v, x, y = _inputs()
+    tmp = tmp_path_factory.mktemp('spatial_train')
+    torch.save(dict(cfg=CFG, state_dict=convert_flax_farseg(v), x=x, y=y,
+                    misaligned=MISALIGNED), tmp / 'farseg-inputs.pt')
+    started = start_ranks('torch_spatial_ranks', 'farseg_worker', WORLD, tmp, tmp)
+    yield tmp, started
+    started.kill()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_spatial():
+    """The JAX package's spatial step on a 4-device mesh: metrics and the
+    new params and batch statistics."""
+    jm, v, x, y = _inputs()
+    with jax.enable_x64(True):
+        sched, tx = _sgd('jax')
+        state = jspmd.TrainState(step=jnp.zeros((), jnp.int32), params=v['params'],
+                                 batch_stats=v['batch_stats'], opt_state=tx.init(v['params']))
+        step = jspatial.build_spatial_train_step(
+            jm, tx, sched, mesh=Mesh(np.array(jax.devices()[:WORLD]), ('data',)), donate=False)
+        state, metrics = step(state, (jnp.asarray(x), jnp.asarray(y)))
+        with pytest.raises(ValueError, match='divisible') as indivisible:
+            step(state, (jnp.asarray(x[:, :-2]), jnp.asarray(y[:, :-2])))
+        with pytest.raises(ValueError, match='rank>=2') as rank1:
+            step(state, (jnp.asarray(x), jnp.asarray(y), jnp.asarray(x[0, 0, 0])))
+        return ({k: float(m) for k, m in metrics.items()}, jax.device_get(state.params),
+                jax.device_get(state.batch_stats), str(indivisible.value), str(rank1.value))
+
+
+@pytest.fixture(scope='module')
+def ranks(job):
+    _jax_spatial()                                  # while the ranks run
+    tmp, started = job
+    started.finish(timeout=180)
+    return [torch.load(tmp / f'farseg-rank{r}.pt', weights_only=False) for r in range(WORLD)]
+
+
+def _against_unsharded(ranks, variant: str, tol: float) -> None:
+    """Every rank's metrics and state (parameters and running statistics)
+    after one spatial step of ``variant`` against the unsharded step on the
+    whole tile from the same weights (run by the rank that holds it), each
+    tensor within ``tol · max(1, max|value|)``; the ranks' states equal
+    each other."""
+    (metrics, want), = (r['unsharded'][1:] for r in ranks
+                       if r.get('unsharded', ('',))[0] == variant)
+    worst = (0.0, None)
+    for res in (r[variant] for r in ranks):
+        assert res['step'] == 1 and set(res['metrics']) == set(metrics)
+        for k, m in metrics.items():
+            np.testing.assert_allclose(res['metrics'][k], m, rtol=METRIC_TOL, err_msg=k)
+        assert set(res['state']) == set(want)
+        for k, w in want.items():
+            if w.is_floating_point():
+                err = float((res['state'][k] - w).abs().max()) / max(1.0, float(w.abs().max()))
+                worst = max(worst, (err, k))
+        for k, t in res['state'].items():
+            assert torch.equal(t, ranks[0][variant]['state'][k]), k
+    print(f'spatial step ({variant}) against the unsharded step: worst {worst[0]:.3e} '
+          f'({worst[1]}), limit {tol}')
+    assert worst[0] <= tol, worst
+
+
+def test_spatial_step_equals_the_port_s_unsharded_step(ranks):
+    """The model as it is: within ``STATE_TOL`` (the float32 parts'
+    rounding, module docstring)."""
+    _against_unsharded(ranks, 'as_is', STATE_TOL)
+
+
+def test_spatial_step_with_float32_parts_in_float64_equals_the_unsharded_step(ranks):
+    """The model with its float32 parts computed in float64: within
+    ``FLOAT64_TOL`` (1e-10), so that the gap the other test allows is
+    those parts' alone."""
+    _against_unsharded(ranks, 'float64', FLOAT64_TOL)
+
+
+def test_spatial_step_matches_the_jax_spatial_step(ranks):
+    """Rank 0 against the JAX package's spatial step on 4 devices:
+    ``cls_loss``, ``total_loss``, ``grad_norm`` and ``learning_rate``,
+    every parameter and every running statistic, at
+    ``tests/test_torch_farseg.py``'s float64 limits."""
+    metrics, params, stats, _, _ = _jax_spatial()
+    res = ranks[0]['as_is']
+    assert set(res['metrics']) == set(metrics)
+    for k, m in metrics.items():
+        np.testing.assert_allclose(res['metrics'][k], m, rtol=JAX_LOSS_TOL if 'loss' in k
+                                   else 1e-5, err_msg=k)
+    stat_keys = set(convert_flax_farseg({}, stats))
+    for k, w in convert_flax_farseg(params, stats).items():
+        got = res['state'][k].numpy()
+        if k in stat_keys:
+            close(got, w.numpy(), JAX_STATS_TOL)
+        else:
+            np.testing.assert_allclose(got, w.numpy(), rtol=0, atol=JAX_PARAM_TOL, err_msg=k)
+
+
+def test_spatial_step_sends_its_halos_and_raises_jax_s_errors(ranks):
+    """Each rank sent halos to its neighbours and gradients back (the
+    border strips to one, the middle ones to two); a height the axis does
+    not divide and a rank-1 leaf raise JAX's errors with its words; a strip
+    that a stride does not divide raises, naming the conv."""
+    _, _, _, indivisible, rank1 = _jax_spatial()
+    for res in ranks:
+        stats = res['as_is']['stats']
+        assert stats['hops'] > 0 and stats['bytes'] > 0, stats
+        assert res['float64']['stats']['hops'] == stats['hops']
+        assert res['indivisible'] == indivisible
+        assert res['rank1'] == rank1
+        assert 'Conv2d (3, 3) (kernel 3, stride 2)' in res['misaligned']
+        assert 'got 3 rows a rank' in res['misaligned']
+    assert ranks[0]['as_is']['stats']['hops'] < ranks[1]['as_is']['stats']['hops']
+    assert ranks[1]['as_is']['stats'] == ranks[2]['as_is']['stats']
