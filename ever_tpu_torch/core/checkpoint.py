@@ -13,8 +13,9 @@ Backends, by the JAX package's names:
   ``checkpoint-{step}.ckpt``, written by rank 0;
 - ``'orbax'``: a directory, ``checkpoint-{step}``, in the format of
   ``torch.distributed.checkpoint`` (DCP), not orbax's (``ROADMAP.md`` §C).
-  Every rank writes its own shards of a ZeRO state (``parallel/zero.py``)
-  and a replicated tensor is written once; a resume reads each rank's shards
+  Every rank writes its own shards of a ZeRO state (``parallel/zero.py``),
+  under tensor parallel (``parallel/tp.py``) its shards over both axes, and
+  a replicated tensor is written once; a resume reads each rank's shards
   straight into its placement, and nothing is gathered either way.  Every
   rank must call ``save``;
 - ``'orbax_async'``: the same directory, written by ``dcp.async_save``: the
@@ -25,9 +26,14 @@ Backends, by the JAX package's names:
 
 The directory holds one flat dict: ``model/<name>``, ``opt/<name>/<key>``
 (``opt/<role>/<name>/<key>`` for a GAN) with each optimizer's group
-hyperparameters under ``opt_groups``, and ``global_step``.
-:meth:`CheckPoint.load` of a directory returns it nested as a file's
-(whole tensors, optimizer state by parameter name).
+hyperparameters under ``opt_groups``, and ``global_step``.  A
+tensor-parallel leaf is written as a reshape of its whole tensor in which
+each rank's shard is one block (the packed qkv weight's ``[3D, in]`` as
+``[3, k, D/k, in]``: a rank holds its heads' rows of q, k and v), a
+``DTensor`` over the data and model axes, and its model shape is listed
+under ``tp_shapes``.  :meth:`CheckPoint.load` of a directory returns it
+nested as a file's (whole tensors in the model's shapes, optimizer state
+by parameter name).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ GLOBALSTEP = 'global_step'
 LASTCHECKPOINT = 'last'
 CHECKPOINT_NAME = 'checkpoint_info.json'
 _GROUPS = 'opt_groups'
+_SHAPES = 'tp_shapes'
 _BACKENDS = ('msgpack', 'orbax', 'orbax_async')
 
 
@@ -97,10 +104,14 @@ def _placed(t: torch.Tensor, dim: Optional[int], shape, mesh):
     ``t``, this rank's shard of a ``shape`` tensor split on ``dim``."""
     if dim is None:
         return t
-    from torch.distributed.tensor import DTensor
     from torch.distributed.tensor import Shard
-    return DTensor.from_local(t, mesh.device_mesh(t.device.type), [Shard(dim)],
-                              run_check=False, shape=shape,
+    return _dtensor(t, mesh.device_mesh(t.device.type), [Shard(dim)], shape)
+
+
+def _dtensor(local: torch.Tensor, device_mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, device_mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
                               stride=torch.empty(shape, device='meta').stride())
 
 
@@ -109,15 +120,48 @@ def _mesh(state):
     return None if sh is None else sh.mesh
 
 
+class _Writer:
+    """Each leaf of a train state as the directory holds it: a replicated
+    tensor as it is, a ZeRO shard as a ``DTensor`` over the data axis, and
+    a tensor-parallel leaf as a ``DTensor`` over the data and model axes of
+    a reshape of the whole tensor in which the rank's shard is one block
+    (``parallel.tp.tp_view``), its model shape noted under ``tp_shapes``."""
+
+    def __init__(self, state):
+        from ever_tpu_torch.parallel.tp import tp_plan
+        self.mesh, self.plan = _mesh(state), tp_plan(state.model)
+        if self.plan is not None and self.mesh is None:
+            raise ValueError('a tensor-parallel state is written through its placements: '
+                             'build it with parallel.sharded.create_train_state_sharded')
+        self.shapes: Dict[str, list] = {}
+
+    def leaf(self, key: str, name: str, t: torch.Tensor, shape, zdim: Optional[int]):
+        """``t``, the rank's part of parameter ``name``'s tensor (a ZeRO
+        shard of the ``shape`` tensor split on ``zdim``, or ``shape``
+        itself), as the directory writes it under ``key``."""
+        if self.plan is None or name not in self.plan.sharded or not t.dim():
+            return _placed(t, zdim, shape, self.mesh)
+        from torch.distributed.tensor import Replicate, Shard
+        from ever_tpu_torch.parallel.tp import tp_view
+        dim, k = self.plan.sharded[name][0], self.plan.size
+        n = self.mesh.size()
+        view, mdim, ddim = tp_view(name, shape, dim, k, zdim, n)
+        local = list(view)
+        local[mdim] = 1
+        if ddim is not None:
+            local[ddim] //= n
+        whole = list(shape)
+        whole[dim] *= k
+        self.shapes[key] = whole
+        placements = [Shard(ddim) if ddim is not None else Replicate(), Shard(mdim)]
+        return _dtensor(t.view(local), self.mesh.device_mesh_with(t.device.type, self.plan.axis),
+                        placements, view)
+
+
 def _dcp_dict(state, global_step: int) -> Dict[str, Any]:
     """The flat dict of a train state (module docstring) over its own
     tensors: a sharded leaf is a ``DTensor`` of this rank's shard."""
-    from ever_tpu_torch.parallel.tp import tp_plan
-    if tp_plan(state.model) is not None:
-        raise ValueError('a directory of a tensor-parallel state (its shards over the model '
-                         'axis) is not written: gather it with parallel.zero.full_state_dict '
-                         'and save that')
-    mesh = _mesh(state)
+    writer = _Writer(state)
     out: Dict[str, Any] = {GLOBALSTEP: int(global_step)}
     sd = state.model.state_dict(keep_vars=False)
     groups = {}
@@ -125,7 +169,7 @@ def _dcp_dict(state, global_step: int) -> Dict[str, Any]:
         slots = _slots(state, opt)
         for n, (shard, _, shape, pdim) in slots.items():
             if pdim is not None:
-                sd[n] = _placed(shard.detach(), pdim, shape, mesh)
+                sd[n] = shard.detach()
         names = {id(p): n for n, (p, *_) in slots.items() if p is not None}
         inner = _inner(opt)
         for p, st in inner.state.items():
@@ -133,13 +177,19 @@ def _dcp_dict(state, global_step: int) -> Dict[str, Any]:
             _, odim, shape, _ = slots[n]
             for k, v in st.items():
                 if torch.is_tensor(v):
-                    split = odim if v.dim() else None
-                    out[f'{OPTIMIZER}/{prefix}{n}/{k}'] = _placed(v, split, shape, mesh)
+                    key = f'{OPTIMIZER}/{prefix}{n}/{k}'
+                    out[key] = writer.leaf(key, n, v, shape, odim if v.dim() else None)
         groups[prefix] = [dict({k: v for k, v in g.items() if k != 'params'},
                                params=[names[id(p)] for p in g['params']])
                           for g in inner.param_groups]
-    out.update({f'{MODEL}/{n}': v for n, v in sd.items()})
+    pdims = {n: (shape, pdim) for opt in _roles(state).values()
+             for n, (_, _, shape, pdim) in _slots(state, opt).items()}
+    for n, v in sd.items():
+        shape, pdim = pdims.get(n, (v.shape, None))
+        out[f'{MODEL}/{n}'] = writer.leaf(f'{MODEL}/{n}', n, v, shape, pdim)
     out[_GROUPS] = _group_leaf(groups)
+    if writer.shapes:
+        out[_SHAPES] = sorted([k, s] for k, s in writer.shapes.items())
     return out
 
 
@@ -151,10 +201,9 @@ def _group_leaf(groups: Dict[str, list]) -> list:
 def _target(state, metadata) -> Dict[str, Any]:
     """The dict to load a directory into: the state's own tensors, and for
     optimizer state the run has not made yet (a fresh optimizer), new ones
-    in the checkpoint's shapes, each a shard where its parameter's state is
-    split."""
-    mesh = _mesh(state)
+    in the checkpoint's shapes, each placed as its parameter's state is."""
     out = _dcp_dict(state, 0)
+    writer = _Writer(state)
     for key, md in metadata.state_dict_metadata.items():
         if key in out or not key.startswith(f'{OPTIMIZER}/'):
             continue
@@ -166,13 +215,15 @@ def _target(state, metadata) -> Dict[str, Any]:
         name, k = rest.rsplit('/', 1)
         shard, odim, shape, _ = _slots(state, _roles(state)[prefix])[name]
         size = tuple(md.size)
-        if odim is not None and size == tuple(shape):
+        leaf = None
+        if size:
             local = torch.zeros_like(shard.detach(), dtype=md.properties.dtype,
                                      memory_format=torch.contiguous_format)
-            out[key] = _placed(local, odim, shape, mesh)
-        else:
+            leaf = writer.leaf(key, name, local, shape, odim)
+        if leaf is None or tuple(leaf.shape) != size:
             dev = 'cpu' if not size else shard.device
-            out[key] = torch.zeros(size, dtype=md.properties.dtype, device=dev)
+            leaf = torch.zeros(size, dtype=md.properties.dtype, device=dev)
+        out[key] = leaf
     return out
 
 
@@ -191,7 +242,8 @@ def _apply_loaded(state, loaded: Dict[str, Any]) -> None:
             if name not in slots:
                 continue
             p = slots[name][0]
-            inner.state[p][k] = v.to_local() if isinstance(v, DTensor) else v
+            v = v.to_local() if isinstance(v, DTensor) else v
+            inner.state[p][k] = v.view(p.shape) if v.dim() and v.shape != p.shape else v
         for group, saved in zip(inner.param_groups, dict(loaded[_GROUPS])[prefix]):
             group.update({k: v for k, v in saved.items() if k != 'params'})
 
@@ -206,7 +258,10 @@ def _nested(flat: Dict[str, Any]) -> dict:
     for prefix, g in groups.items():
         dst = out[OPTIMIZER].setdefault(prefix[:-1], {}) if gan else out[OPTIMIZER]
         dst.update(state={}, param_groups=g)
+    shapes = {k: tuple(s) for k, s in flat.get(_SHAPES, [])}
     for key, v in flat.items():
+        if key in shapes:
+            v = v.reshape(shapes[key])
         if key.startswith(f'{MODEL}/'):
             out[MODEL][key[len(MODEL) + 1:]] = v
         elif key.startswith(f'{OPTIMIZER}/'):

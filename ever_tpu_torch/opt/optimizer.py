@@ -48,23 +48,33 @@ def clip_by_global_norm_recording(params: Iterable[torch.Tensor],
     if not params:
         return torch.zeros(())
     grads = [p.grad for p in params]
-    tp_groups = [getattr(p, '_tp_group', None) for p in params]
-    if all(g is None for g in tp_groups):
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2))).float()
-    else:
-        # tensor parallel (parallel/tp.py): a shard's squares summed over its
-        # axis, each replicated gradient (whole on every rank) counted once
-        split = [g for g, tp in zip(grads, tp_groups) if tp is not None]
-        whole = [g for g, tp in zip(grads, tp_groups) if tp is None]
-        sq = torch.stack(torch._foreach_norm(split, 2)).float().square().sum()
-        torch.distributed.all_reduce(sq, group=next(g for g in tp_groups if g is not None))
-        if whole:
-            sq = sq + torch.stack(torch._foreach_norm(whole, 2)).float().square().sum()
-        norm = sq.sqrt()
+    norm = global_norm(torch._foreach_norm(grads, 2),
+                       [getattr(p, '_tp_group', None) for p in params])
     if max_norm is not None:
-        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-        torch._foreach_mul_(grads, scale)
+        torch._foreach_mul_(grads, clip_scale(norm, max_norm))
     return norm
+
+
+def global_norm(norms, tp_groups) -> torch.Tensor:
+    """The global L2 norm of tensors from their own norms (in order), as
+    :func:`clip_by_global_norm_recording` takes it: a tensor-parallel
+    shard's (its ``tp_groups`` entry a group, else None) squares summed over
+    its axis by one all-reduce, each replicated tensor counted once."""
+    if all(g is None for g in tp_groups):
+        return torch.linalg.vector_norm(torch.stack(list(norms))).float()
+    split = [n for n, tp in zip(norms, tp_groups) if tp is not None]
+    whole = [n for n, tp in zip(norms, tp_groups) if tp is None]
+    sq = torch.stack(split).float().square().sum()
+    torch.distributed.all_reduce(sq, group=next(g for g in tp_groups if g is not None))
+    if whole:
+        sq = sq + torch.stack(whole).float().square().sum()
+    return sq.sqrt()
+
+
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor the clip scales the gradients by:
+    ``min(1, max_norm / max(norm, 1e-12))``."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
 
 
 class UpdateRule:

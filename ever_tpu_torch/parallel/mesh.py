@@ -233,6 +233,31 @@ class Mesh:
                 self.group, device_type, mesh_dim_names=('_'.join(self.batch_axes),))
         return self._device_meshes[device_type]
 
+    def device_mesh_with(self, device_type: str, axis: str):
+        """The 2-D ``DeviceMesh`` of the batch axes (flattened, first) and
+        ``axis`` over every rank, for ``device_type`` tensors (made once,
+        a collective call the first time): the mesh a tensor-parallel
+        leaf's shards are placed on.  The mesh may have no other axis
+        longer than 1."""
+        key = (device_type, axis)
+        if key not in self._device_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+            others = [a for a in self.axis_names
+                      if a not in self.batch_axes and a != axis and self._sizes[a] > 1]
+            if others:
+                raise ValueError(f'no 2-D device mesh of {self.batch_axes} and {axis!r}: the '
+                                 f'mesh also splits {others}')
+            sizes = [self._sizes[a] for a in self.axis_names]
+            grid = torch.zeros(self.size(), self._sizes[axis], dtype=torch.int64)
+            for r in range(math.prod(sizes)):
+                coords = dict(zip(self.axis_names, _unravel(r, sizes)))
+                b = _ravel([coords[a] for a in self.batch_axes],
+                           [self._sizes[a] for a in self.batch_axes])
+                grid[b, coords[axis]] = r
+            self._device_meshes[key] = DeviceMesh(
+                device_type, grid, mesh_dim_names=('_'.join(self.batch_axes) or 'batch', axis))
+        return self._device_meshes[key]
+
     def data_parallel(self, model: torch.nn.Module, find_unused_parameters: bool = False):
         """``model`` wrapped once in ``DistributedDataParallel`` over the
         batch axes.  Buffers are not broadcast (``broadcast_buffers=False``):

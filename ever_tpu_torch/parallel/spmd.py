@@ -32,10 +32,12 @@ eval step stays rank-local: each process predicts its own batches.
 
 ``state_shardings=`` (from ``parallel/zero.py`` ``zero_init`` or
 ``parallel/sharded.py``) makes the step a ZeRO step over the mesh: the
-state's :class:`~ever_tpu_torch.parallel.zero.ZeroOptimizer` gathers the
-parameters it holds sharded, the forward and backward run on the rank's
-batch without ``DistributedDataParallel``, and it averages the gradients
-and updates its shards.  The :class:`TrainState` carries the placements
+forward and backward run on the rank's batch without
+``DistributedDataParallel``, and the state's
+:class:`~ever_tpu_torch.parallel.zero.ZeroOptimizer` averages the
+gradients and updates its shards; at level 3 it gathers the parameters it
+holds sharded one unit at a time, as the forward and the backward reach
+each unit.  The :class:`TrainState` carries the placements
 (``shardings``); as in JAX, ``state_shardings`` without ``mesh`` raises.
 A batch may come as ``DTensor`` leaves (``mesh.host_to_global``); the step
 takes their local rows.
@@ -249,22 +251,21 @@ def _zero_step(model, tx, lr_schedule, forward_times: int, mesh, rng_seed: int) 
         if not isinstance(zo, ZeroOptimizer):
             raise TypeError('a step with state_shardings takes a ZeRO state '
                             '(parallel.zero.zero_init or parallel.sharded)')
-        zo.gather_params()
-        model.zero_grad(set_to_none=True)
         dev = _device(model)
-        with mesh:
-            parts = [_forward_backward(
-                model, model, batch if forward_times == 1 else _index(batch, i),
-                step_generator(rng_seed, state.step, None if forward_times == 1 else i, dev))
-                for i in range(forward_times)]
-        metrics = {k: sum(m[k] for m in parts) / forward_times for k in parts[0]}
-        if forward_times > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(forward_times)
-        zo.reduce_grads()
-        metrics['grad_norm'] = zo.step(tx, state.step)
-        zo.release_params()
+        zo.begin_step(forward_times)
+        try:
+            parts = []
+            with mesh:
+                for i in range(forward_times):
+                    parts.append(_forward_backward(
+                        model, model, batch if forward_times == 1 else _index(batch, i),
+                        step_generator(rng_seed, state.step,
+                                       None if forward_times == 1 else i, dev)))
+                    zo.end_backward()
+            metrics = {k: sum(m[k] for m in parts) / forward_times for k in parts[0]}
+            metrics['grad_norm'] = zo.step(tx, state.step)
+        finally:
+            zo.end_step()
         if mesh.size() > 1:
             metrics = _mean_over(mesh, metrics)
         if lr_schedule is not None:

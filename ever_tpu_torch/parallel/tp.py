@@ -95,6 +95,28 @@ def vit_tp_shardings(params: Mapping[str, torch.Tensor], mesh: Mesh,
     return out
 
 
+def tp_view(name: str, shape, dim: int, k: int, zdim: Optional[int] = None,
+            n: int = 1) -> Tuple[Tuple[int, ...], int, Optional[int]]:
+    """How a directory checkpoint writes the tensor-parallel leaf ``name``:
+    ``(whole view shape, model-axis dimension, data-axis dimension)``, a
+    reshape of the whole tensor in which this rank's shard is one block.
+    ``shape`` is the rank's shard (split on ``dim`` over ``k`` ranks),
+    further split by ZeRO on its ``zdim`` over ``n`` data ranks.  The split
+    dimension becomes ``(3, k, rows)`` for the packed qkv weight (each rank
+    holds its heads' rows of q, k and v) and ``(1, k, rows)`` otherwise;
+    when ZeRO splits that dimension too, ``(k, n, rows)``."""
+    shape = tuple(shape)
+    g = 3 if name.endswith('attn.qkv.weight') else 1
+    before, after, rows = shape[:dim], shape[dim + 1:], shape[dim] // g
+    if zdim is not None and n > 1 and zdim == dim:
+        if g != 1:
+            raise ValueError(f'{name}: ZeRO splits the packed qkv rows that tensor parallel '
+                             f'splits by head; no directory layout holds both')
+        return before + (k, n, rows // n) + after, dim, dim + 1
+    data = None if zdim is None or n == 1 else zdim if zdim < dim else zdim + 2
+    return before + (g, k, rows) + after, dim + 1, data
+
+
 @dataclass
 class TPPlan:
     """What :func:`apply_tp` made of a model: the axis's group, its global
@@ -104,6 +126,7 @@ class TPPlan:
     ranks: Tuple[int, ...]
     rank: int
     sharded: Dict[str, Tuple[int, List[torch.Tensor]]] = field(default_factory=dict)
+    axis: str = 'model'
 
     @property
     def size(self) -> int:
@@ -327,7 +350,7 @@ def apply_tp(model: nn.Module, mesh: Mesh, axis: str = 'model',
     k = mesh.axis_size(axis)
     if k == 1:
         return model.to(dev)
-    plan = TPPlan(mesh.axis_group(axis), mesh.axis_ranks(axis), mesh.rank(axis))
+    plan = TPPlan(mesh.axis_group(axis), mesh.axis_ranks(axis), mesh.rank(axis), axis=axis)
     layers = ((SelfAttention, ('qkv', 'proj'), _tp_attention_cls),
               (SwiGLUFFN, ('w1', 'w2', 'w3'), _tp_swiglu_cls),
               (Mlp, ('fc1', 'fc2'), _tp_mlp_cls))

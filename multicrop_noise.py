@@ -8,7 +8,12 @@ bf16 paths against plain attention in float32 (TF32 off), so that the
 distance between the two bf16 paths can be read against bf16's own
 rounding of the model.  For each draw it prints ``||dg||/||g||`` and the
 worst per-tensor cosine of K1/K2 against plain bf16, of K1/K2 against
-float32 and of plain bf16 against float32.
+float32 and of plain bf16 against float32, and phase 12 (f)'s gate on
+them: K1/K2's distance from float32 and its worst per-tensor 1 - cosine,
+each over the plain bf16 path's (at most ``chip_smoke.MULTICROP_REL_RATIO``),
+and K1/K2's worst cosine against float32 (at least
+``chip_smoke.MULTICROP_COS_FLOOR``).  It exits 1 when a draw fails the
+gate.
 
 Run from the repository root on one GPU (it builds K1 and K2 first):
 
@@ -40,6 +45,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True).stdout.strip(), flush=True)
+    failed = 0
     for draw in range(args.draws):
         gen = torch.Generator(device='cuda').manual_seed(args.seed + draw)
         with torch.device('cuda'):
@@ -74,14 +80,23 @@ def main(argv=None) -> int:
 
         def distance(got, want):
             rel, worst, cos = cs.compare_grads([got[n] for n in names], [want[n] for n in names])
-            return f'{rel:.3e} (worst cosine {worst:.7f}, {names[cos.index(worst)]})'
+            return rel, worst, f'{rel:.3e} (worst cosine {worst:.7f}, {names[cos.index(worst)]})'
 
+        k_rel, k_cos, k_text = distance(kernel, f32)
+        p_rel, p_cos, p_text = distance(plain, f32)
+        ratio, cos_ratio = k_rel / p_rel, (1 - k_cos) / max(1 - p_cos, 1e-12)
+        held = (ratio <= cs.MULTICROP_REL_RATIO and cos_ratio <= cs.MULTICROP_REL_RATIO
+                and k_cos >= cs.MULTICROP_COS_FLOOR)
+        failed += not held
         print(f'multicrop_noise: draw {draw} (seed {args.seed + draw}): K1/K2 vs plain bf16 '
-              f'{distance(kernel, plain)}; K1/K2 vs float32 {distance(kernel, f32)}; plain '
-              f'bf16 vs float32 {distance(plain, f32)}', flush=True)
+              f'{distance(kernel, plain)[2]}; K1/K2 vs float32 {k_text}; plain bf16 vs '
+              f'float32 {p_text}; gate: ratio {ratio:.4f}, 1 - cosine ratio {cos_ratio:.4f} '
+              f'(limits {cs.MULTICROP_REL_RATIO}), K1/K2 worst cosine {k_cos:.7f} (floor '
+              f'{cs.MULTICROP_COS_FLOOR}): '
+              f'{"held" if held else "FAILED"}', flush=True)
         del vit, head, net, kernel, plain, f32
         torch.cuda.empty_cache()
-    return 0
+    return 1 if failed else 0
 
 
 if __name__ == '__main__':

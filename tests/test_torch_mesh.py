@@ -13,7 +13,13 @@ DinoSeg on ``vit_small``'s width cut to 2 blocks, from
 (``tests/test_sharded_init.py``'s state, the 1 MiB
 limit cut to 16 KiB), each data rank on its half of the batch, against the
 JAX package's step on the whole batch (one device: GSPMD computes the
-unsharded step).
+unsharded step).  The state after that step is written as directories
+(``CheckPoint.save_sharded`` and the ``orbax``/``orbax_async`` backends:
+each rank its shards, the tensor-parallel leaves over both axes), read
+whole here against ``full_state_dict`` and against the JAX state
+``save_sharded``/``restore_sharded`` round-trips (the step test's limits),
+and restored into fresh states whose next step equals the unbroken run's
+bit for bit (``tests/test_sharded_init.py:36-87``).
 """
 
 import functools
@@ -88,7 +94,7 @@ def _jax_state():
     rng = np.random.default_rng(3)
     x = rng.normal(size=(8, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 7, size=(8, 32, 32)).astype(np.int32)
-    factory, _ = jbuilder.make_optimizer(dict(type='sgd', params=dict(momentum=0.0)))
+    factory, _ = jbuilder.make_optimizer(dict(type='sgd', params=dict(momentum=0.9)))
     tx = factory.build(LR, grad_clip=dict(max_norm=MAX_NORM))
     state = jax.jit(lambda: jspmd.create_train_state(model, tx, (x, y), rng=jax.random.key(0)))()
     return model, tx, state, x, y
@@ -99,7 +105,7 @@ def _jax_step():
     model, tx, state, x, y = _jax_state()
     step = jspmd.build_train_step(model, tx, None, donate=False)
     new, metrics = step(state, (x, y))
-    return {k: float(v) for k, v in metrics.items()}, jax.device_get(new.params)
+    return {k: float(v) for k, v in metrics.items()}, jax.device_get(new.params), new
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -127,12 +133,28 @@ def job(tmp_path_factory, narrow_vit):
     ranks.kill()
 
 
+def _jax_round_trip(tmp):
+    """The JAX state after its step, written by the JAX package's
+    ``CheckPoint.save_sharded`` and read back by ``restore_sharded``: its
+    parameters as the port's ``state_dict``."""
+    from ever_tpu.core.checkpoint import CheckPoint as JCheckPoint
+    _, _, new = _jax_step()
+    d = str(tmp / 'jax_sharded')
+    JCheckPoint.save_sharded(d, new)
+    restored = JCheckPoint.restore_sharded(
+        d, jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), new),
+        jax.tree.map(lambda a: a.sharding, new))
+    return convert_flax_dinoseg(jax.device_get(restored.params))
+
+
 @pytest.fixture(scope='module')
 def ranks(job):
     tmp, started = job
-    _jax_step()                                 # while the ranks run
+    round_trip = _jax_round_trip(tmp)           # while the ranks run
     started.finish(timeout=150)
-    return [torch.load(tmp / f'mesh-rank{r}.pt', weights_only=False) for r in range(4)]
+    out = [torch.load(tmp / f'mesh-rank{r}.pt', weights_only=False) for r in range(4)]
+    out[0].update(tmp=tmp, jax_round_trip=round_trip)
+    return out
 
 
 def test_2d_mesh_lays_out_ranks_row_major_with_a_group_a_line(ranks):
@@ -167,12 +189,13 @@ def test_hybrid_mesh_puts_nodes_on_the_dcn_axis(ranks):
 
 
 def test_tp_zero3_step_matches_the_jax_step(ranks):
-    """One SGD step (lr 0.5, clip at 0.25, which binds) of the TP + ZeRO-3
+    """One SGD step (lr 0.5, momentum 0.9, whose first step is plain SGD;
+    clip at 0.25, which binds) of the TP + ZeRO-3
     state over (2, 2): the loss, the pre-clip gradient norm (each shard and
     each replicated leaf counted once) and every parameter's update against
     the JAX step on the whole batch; every rank ends with the same whole
     state."""
-    metrics, params = _jax_step()
+    metrics, params, _ = _jax_step()
     _, _, state, _, _ = _jax_state()
     before = convert_flax_dinoseg(jax.device_get(state.params))
     after = convert_flax_dinoseg(params)
@@ -190,6 +213,58 @@ def test_tp_zero3_step_matches_the_jax_step(ranks):
     for k, v in ranks[0]['state'].items():
         for res in ranks[1:]:
             assert torch.equal(res['state'][k], v), k
+
+
+@pytest.mark.parametrize('how', ['sharded', 'orbax'])
+def test_tp_zero3_directory_resumes_bit_equal(ranks, how):
+    """A fresh TP + ZeRO-3 state restored from the directory of the state
+    after step 1 (``restore_sharded``, or ``try_resume`` of the ``orbax``
+    backend) resumes at step 1; its step 2 (the momentum buffers, split
+    over both axes, restored too) equals the unbroken run's bit for bit on
+    every rank."""
+    for res in ranks:
+        at, metrics, state = res[f'resumed/{how}']
+        want_metrics, want = res['unbroken']
+        assert at == 1 and metrics == want_metrics
+        for k, v in want.items():
+            assert torch.equal(state[k], v), k
+
+
+def test_tp_zero3_directory_reads_whole(ranks):
+    """``CheckPoint.load`` of the directories in one process: the model's
+    tensors in its own shapes (qkv ``[3D, in]``) equal to
+    ``full_state_dict``, the same tensors in the ``orbax`` and
+    ``orbax_async`` directories, each momentum buffer in its parameter's
+    shape; the tensors within the step test's limits of the JAX state
+    after its step, written and read back by the JAX package's
+    ``save_sharded``/``restore_sharded``."""
+    from ever_tpu_torch.core.checkpoint import CheckPoint
+    job_tmp = ranks[0]['tmp']
+    whole = CheckPoint.load(str(job_tmp / 'mesh-sharded'), device='cpu')
+    assert whole['global_step'] == 1
+    want = ranks[0]['state']
+    assert set(whole['model']) == set(want)
+    for k, v in want.items():
+        assert torch.equal(whole['model'][k], v), k
+    assert whole['model']['vit.blocks.0.attn.qkv.weight'].shape == (3 * 384, 384)
+    for backend in ('orbax', 'orbax_async'):
+        other = CheckPoint.load(str(job_tmp / f'mesh-{backend}' / 'checkpoint-1'), device='cpu')
+        for k, v in whole['model'].items():
+            assert torch.equal(other['model'][k], v), (backend, k)
+        for n, st in whole['opt']['state'].items():
+            assert torch.equal(other['opt']['state'][n]['momentum_buffer'],
+                               st['momentum_buffer']), (backend, n)
+    for n, st in whole['opt']['state'].items():
+        assert st['momentum_buffer'].shape == want[n].shape, n
+
+    _, _, state, _, _ = _jax_state()
+    before = convert_flax_dinoseg(jax.device_get(state.params))
+    for k, w in ranks[0]['jax_round_trip'].items():
+        want_update = (w - before[k]).numpy()
+        got = (whole['model'][k] - before[k]).numpy()
+        ulp = 2.0 ** -23 * float(w.abs().max())
+        np.testing.assert_allclose(got, want_update, rtol=0,
+                                   atol=UPDATE_TOL * np.abs(want_update).max() + ulp, err_msg=k)
 
 
 def test_tp_zero3_state_splits_over_both_axes(ranks):

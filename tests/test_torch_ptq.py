@@ -447,8 +447,8 @@ def test_farseg_ptq_matches_jax(farseg):
     jm, jv, jqv, tm, qv = farseg
     _check_quantized(qv, jqv, convert_flax_farseg, lambda w: w.reshape(w.shape[0], -1))
     x = np.random.default_rng(6).normal(size=(2, 64, 64, 3)).astype(np.float32)
-    fp = np.asarray(jm.apply(jv, jnp.asarray(x), train=False))
-    want = np.asarray(jptq.ptq_apply(jm, jqv, jnp.asarray(x), train=False))
+    fp = np.asarray(jax.jit(lambda t: jm.apply(jv, t, train=False))(jnp.asarray(x)))
+    want = np.asarray(jax.jit(jptq.make_ptq_predict_fn(jm, jqv, train=False))(jnp.asarray(x)))
     predict = tptq.make_ptq_predict_fn(tm, qv, train=False)
     with torch.no_grad():
         got = predict(torch.from_numpy(x)).numpy()

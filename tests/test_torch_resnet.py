@@ -14,6 +14,7 @@ two-pass variance).
 """
 
 import contextlib
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -254,7 +255,7 @@ def test_unported_options_raise(kw):
     v = seeded_variables(jm, x)
     tm = tres.ResNet(resnet_type='resnet18', **kw)
     tm.load_state_dict(convert_flax_resnet(v), strict=True)
-    want = jm.apply(v, jnp.asarray(x))
+    want = jax.jit(jm.apply)(v, jnp.asarray(x))
     with torch.no_grad():
         got = tm(nchw(x))
     for g, w in zip(got, want):
@@ -262,8 +263,8 @@ def test_unported_options_raise(kw):
     with jax.enable_x64(True):
         jm = jres.ResNet(resnet_type='resnet18', dtype=jnp.float64, **kw)
         v64 = jax.tree.map(lambda a: np.asarray(a, np.float64), v)
-        want, mut = jm.apply(v64, jnp.asarray(x, jnp.float64), train=True,
-                             mutable=['batch_stats'])
+        want, mut = jax.jit(functools.partial(jm.apply, train=True, mutable=['batch_stats']))(
+            v64, jnp.asarray(x, jnp.float64))
         want = [np.asarray(w) for w in want]
         moved = convert_flax_resnet({}, mut['batch_stats'])
     tm.double()

@@ -203,6 +203,81 @@ def test_vit7b_abstract_state_with_tp_fits_eight_ranks():
     assert per_rank < 12e9, per_rank
 
 
+@pytest.mark.parametrize('name, dim', [('blocks.0.attn.qkv.weight', 0),
+                                       ('blocks.0.attn.proj.weight', 1),
+                                       ('blocks.0.mlp.fc1.weight', 0)])
+def test_tp_view_makes_each_shard_one_block_of_the_whole(name, dim):
+    """A directory writes a tensor-parallel leaf as ``tp.tp_view``'s reshape
+    of the whole tensor: over k=2 ranks of 'model' and ZeRO's n=2 ranks of
+    'data' on a dimension of the rank's shard (the other one, and for a
+    contiguous split the same one), each rank's ZeRO shard of its TP shard
+    is the block at its two coordinates; a packed qkv split by ZeRO on its
+    rows raises."""
+    d, k, n = 8, 2, 2
+    shape = (3 * d, d) if 'qkv' in name else (d, 4 * d) if dim == 1 else (4 * d, d)
+    whole = torch.arange(np.prod(shape), dtype=torch.float32).view(shape)
+
+    def tp_rows(r):                     # rank r's rows (or columns) of the whole
+        if 'qkv' in name:               # its heads' rows of q, k and v
+            return torch.cat([j * d + torch.arange(r * d // k, (r + 1) * d // k)
+                              for j in range(3)])
+        return torch.arange(r * shape[dim] // k, (r + 1) * shape[dim] // k)
+
+    for zdim in (1 - dim, dim):
+        local_shape = list(shape)
+        local_shape[dim] //= k
+        if zdim == dim and 'qkv' in name:
+            with pytest.raises(ValueError, match='packed qkv'):
+                ttp.tp_view(name, local_shape, dim, k, zdim, n)
+            continue
+        view, mdim, ddim = ttp.tp_view(name, local_shape, dim, k, zdim, n)
+        blocks = whole.reshape(view)
+        for r in range(k):
+            tp_shard = whole.index_select(dim, tp_rows(r))
+            for z in range(n):
+                size = tp_shard.shape[zdim] // n
+                zero_shard = tp_shard.narrow(zdim, z * size, size)
+                block = blocks.narrow(mdim, r, 1)
+                if ddim is not None:
+                    block = block.narrow(ddim, z * (view[ddim] // n), view[ddim] // n)
+                assert torch.equal(block.reshape(zero_shard.shape), zero_shard), (r, z, zdim)
+
+
+def test_vit7b_with_two_units_in_flight_fits_eight_ranks():
+    """The same plan during a ZeRO-3 step that gathers a unit at a time
+    (``parallel.zero.zero_units`` on the model built on ``meta``: 40
+    blocks and the root): the state at rest plus the two largest units'
+    whole float32 parameters and gradients (each split over 'model' where
+    tensor parallel splits it, whole over 'data') stays under 12e9 bytes a
+    rank, where gathering the whole model would add 3 × 13.4 GB."""
+    from ever_tpu_torch.parallel.zero import zero_units
+    cfg = {'type': 'DinoSeg', 'params': dict(backbone=dict(name='vit7b16_sat493m'), classes=7,
+                                             dtype='bfloat16')}
+    factory, _ = tbuilder.make_optimizer({'type': 'adamw', 'params': {}})
+    tabs = tsharded.abstract_train_state(cfg, factory.build(1e-4))
+    mesh = tmesh.abstract_mesh((4, 2), ('data', 'model'))
+    leaves = tsharded.leaf_shardings(tabs, mesh, level=3, tp_axis='model')
+    at_rest = sum(t.numel() * t.element_size()
+                  / np.prod([mesh.shape[a] for a in _split_sizes(leaves[path].spec, t.shape)]
+                            or [1]) for path, t in tabs.leaves().items())
+    with torch.device('meta'):
+        model = tbuilder.make_model(cfg, device='meta')
+    units = zero_units(model)
+    assert [n for n, _ in units] == [f'vit.blocks.{i}' for i in range(40)]
+    in_unit = {f'{u}.{n}' for u, m in units for n, _ in m.named_parameters()}
+
+    def flight(names):                          # float32 parameters and gradients
+        return sum(2 * 4 * tabs.params[n].numel()
+                   / (2 if 'model' in _split_sizes(leaves[f'params/{n}'].spec,
+                                                   tabs.params[n].shape) else 1)
+                   for n in names)
+
+    sizes = sorted([flight([n for n in tabs.params if n.startswith(u + '.')]) for u, _ in units]
+                   + [flight([n for n in tabs.params if n not in in_unit])], reverse=True)
+    assert 0.5e9 < sizes[0] < 1e9
+    assert at_rest + sizes[0] + sizes[1] < 12e9, (at_rest, sizes[:2])
+
+
 @pytest.fixture(scope='module', autouse=True)
 def job(tmp_path_factory):
     """The TP job's two ranks, started before the module's first test so

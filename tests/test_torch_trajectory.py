@@ -2,7 +2,13 @@
 step, on the CPU (the trajectory check of ``docs/parity/TRAJECTORY.md``,
 with the JAX package standing in for the reference).
 
-FarSeg-R50 (default widths, 7 classes) at 32², global batch 4, float64
+FarSeg on ResNet-50's bottlenecks and widths cut in depth to one block a
+stage (``resnet50_d1``, registered in both packages' ``RESNET_SPECS``
+while the module runs) with its FPN, relation and decoder at 64 channels
+(``HEAD``): at the default depth and 256/128-channel head the JAX
+package's float64 step on the CPU made this the longest file of the
+suite (its head alone 1.16 s of a forward, 0.27 s at 64).  7 classes, at
+32², global batch 4, float64
 (parameters and compute; the JAX side under ``jax.enable_x64``), SGD with
 momentum 0.9 and weight decay, a poly schedule, a global norm clip of 35 and
 ``ignore_index=255``, from the same seeded weights (carried over by
@@ -46,17 +52,35 @@ from ever_tpu_torch.parallel import spmd as tspmd
 from ever_tpu_torch.parallel.mesh import make_mesh
 from ever_tpu_torch.util.weight_io import convert_flax_farseg
 from test_torch_dist import start_ranks
-from test_torch_resnet import seeded_variables
+from test_torch_resnet import seeded_variables, torch_threads
 
 STEPS, RANK_STEPS, BEFORE_SEPARATION = 50, 10, 2
 BATCH, SIZE, CLASSES = 4, 32, 7
-CFG = dict(encoder=dict(resnet_type='resnet50'), classes=CLASSES,
+TRUNK = 'resnet50_d1'
+HEAD = dict(fpn=dict(out_channels=64),
+            fs_relation=dict(in_channels_list=(64,) * 4, out_channels=64),
+            fpn_decoder=dict(in_channels=64, out_channels=64))
+CFG = dict(encoder=dict(resnet_type=TRUNK), head=HEAD, classes=CLASSES,
            loss=dict(ignore_index=255, ce=dict(), dice=None), dtype='float64')
 REL_TOL = 1e-6
 # the gradient norm: the gradients reach the trunk through float32 sums
 # (the relation map's over 256 channels, the loss's over the pixels) that
 # each package adds in its own order
 NORM_REL_TOL = 1e-5
+
+
+def _register_trunk():
+    """``TRUNK`` (ResNet-50's bottlenecks and widths, one block a stage) in
+    both packages; returns the modules it was added to."""
+    from ever_tpu.module import resnet as jresnet
+    from ever_tpu_torch.module import resnet as tresnet
+    added = []
+    for mod in (jresnet, tresnet):
+        if TRUNK not in mod.RESNET_SPECS:
+            mod.RESNET_SPECS[TRUNK] = (mod.Bottleneck, (1, 1, 1, 1)) + tuple(
+                mod.RESNET_SPECS['resnet50'][2:])
+            added.append(mod)
+    return added
 
 
 def _batches():
@@ -121,6 +145,7 @@ def _rank_worker(rank, world, init, tmp):
     state and writes both runs' metrics and their largest state
     difference."""
     torch.set_num_threads(1)
+    _register_trunk()
     dist.init_dist_env(init, world, rank, backend='gloo')
     x, y = _batches()
     n = BATCH // world
@@ -147,13 +172,23 @@ def _rank_worker(rank, world, init, tmp):
 
 
 @pytest.fixture(scope='module')
-def trajectory(tmp_path_factory):
+def trunk():
+    added = _register_trunk()
+    yield
+    for mod in added:
+        del mod.RESNET_SPECS[TRUNK]
+
+
+@pytest.fixture(scope='module')
+def trajectory(tmp_path_factory, trunk):
     """The JAX run's 50 coupled steps, and beside each the port's step from
     the same state: rows of (JAX loss, port loss, JAX grad norm, port grad
     norm, largest state difference); the 2-rank job runs meanwhile."""
     tmp = tmp_path_factory.mktemp('trajectory')
     x, y = _batches()
-    with jax.enable_x64(True):
+    # one intra-op thread, as the port's other files take it (a default
+    # pool contends with the other test workers)
+    with jax.enable_x64(True), torch_threads(1):
         jm = jbuilder.make_model({'type': 'FarSeg', 'params': CFG})
         v = jax.tree.map(lambda a: np.asarray(a, np.float64), seeded_variables(jm, x[0]))
         torch.save(convert_flax_farseg(v), tmp / 'init.pt')
@@ -164,19 +199,20 @@ def trajectory(tmp_path_factory):
         jstep = jspmd.build_train_step(jm, tx, sched, donate=False)
         model, state, step = _port(convert_flax_farseg(v))
         rows = []
+        # the JAX state before each step, converted once (it is also the
+        # state after the step before)
+        jax_sd, momentum = convert_flax_farseg(v['params'], v['batch_stats']), None
         for t in range(STEPS):
-            host = jax.device_get(jstate)
-            momentum = None if t == 0 else convert_flax_farseg(_trace(host.opt_state))
-            _set_state(model, state, t, convert_flax_farseg(host.params, host.batch_stats),
-                       momentum)
+            _set_state(model, state, t, jax_sd, momentum)
             batch = (x[t], y[t])
             state, met = step(state, tuple(map(torch.from_numpy, batch)))
             jstate, jmet = jstep(jstate, tuple(map(jnp.asarray, batch)))
             host = jax.device_get(jstate)
+            jax_sd = convert_flax_farseg(host.params, host.batch_stats)
+            momentum = convert_flax_farseg(_trace(host.opt_state))
             rows.append([float(jmet['cls_loss']), float(met['cls_loss']),
                          float(jmet['grad_norm']), float(met['grad_norm']),
-                         _max_rel(model.state_dict(),
-                                  convert_flax_farseg(host.params, host.batch_stats))])
+                         _max_rel(model.state_dict(), jax_sd)])
     ranks.finish(timeout=600)
     return np.asarray(rows), np.load(tmp / 'ranks.npy')
 
@@ -188,7 +224,7 @@ def _rel(got, want):
 def test_each_of_fifty_steps_matches_the_jax_step(trajectory):
     rows, _ = trajectory
     loss, norm, state = _rel(rows[:, 1], rows[:, 0]), _rel(rows[:, 3], rows[:, 2]), rows[:, 4]
-    print(f'FarSeg-R50 {SIZE}², {STEPS} steps of the JAX run, the port stepping from each '
+    print(f'FarSeg-{TRUNK} {SIZE}², {STEPS} steps of the JAX run, the port stepping from each '
           f'state: largest relative difference of the loss {loss.max():.3e} (step '
           f'{loss.argmax() + 1}), of the gradient norm {norm.max():.3e}, of the new state '
           f'{state.max():.3e}; JAX loss {rows[0, 0]:.6f} -> {rows[-1, 0]:.6f}')
@@ -200,7 +236,7 @@ def test_two_ranks_step_as_one_process_and_follow_the_jax_run(trajectory):
     jax_rows, rows = trajectory
     loss, norm = _rel(rows[:, 0], rows[:, 1]), _rel(rows[:, 2], rows[:, 3])
     coupled = _rel(rows[:, 0], jax_rows[:RANK_STEPS, 0])
-    print(f'FarSeg-R50 {SIZE}², {RANK_STEPS} steps over 2 ranks against the one-process step '
+    print(f'FarSeg-{TRUNK} {SIZE}², {RANK_STEPS} steps over 2 ranks against the one-process step '
           f'from the same state: loss {loss.max():.3e}, gradient norm {norm.max():.3e}, new '
           f'state {rows[:, 4].max():.3e}; against the coupled JAX losses: steps 1-'
           f'{BEFORE_SEPARATION} {coupled[:BEFORE_SEPARATION].max():.3e}, all '

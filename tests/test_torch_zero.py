@@ -22,7 +22,13 @@ bit-equal to the replicated run; the ``orbax`` and ``orbax_async``
 directories of a ZeRO-3 state (the same contents; the async step recorded
 only after ``wait()``), a sharded restore continuing bit-equal to the
 unbroken step, ``remove_optimizer_in_ckpt`` of a directory; and the DCGAN
-trained by two ranks against one process.
+trained by two ranks against one process.  The same job trains a ViT cut
+to 2 blocks replicated and at ZeRO-3, whose step gathers the parameters
+block by block: bit-equal with one microbatch (bf16 compute), within 1e-6 (metrics) and
+1e-7 (parameters) with two, at most two units' whole tensors held at once,
+every rank gathering and reducing the units in one order; and a net whose
+third block's output and one root parameter go unused, at ZeRO-3 against
+ZeRO-1.
 """
 
 import functools
@@ -394,6 +400,86 @@ def test_directory_checkpoints_save_shards_and_resume_bit_equal(ranks):
     assert set(stripped) == {'model', 'global_step'}
     for k, v in sync['model'].items():
         assert torch.equal(stripped['model'][k], v), k
+
+
+def test_blockwise_zero3_step_equals_the_replicated_step_bit_for_bit(ranks):
+    """Two AdamW steps of a ViT (2 blocks, width 64, bf16 compute) at
+    ZeRO-3, gathered a unit at a time, the bf16 weight copies autograd
+    saves kept as the parameters and cast again in the backward, against
+    replicated DDP: every metric and every tensor equal; both ranks end
+    equal."""
+    r0, r1 = (r['blockwise'] for r in ranks['ranks'])
+    rep, z3 = r0['vit', 1, 0], r0['vit', 1, 3]
+    # each block's four matrix weights (saved transposed), two LayerNorm
+    # weights and two LayerScales
+    assert z3['recast'] == 2 * 8
+    assert z3['metrics'] == rep['metrics']
+    for k, v in rep['state'].items():
+        assert torch.equal(z3['state'][k], v), k
+        assert torch.equal(r1['vit', 1, 3]['state'][k], v), k
+
+
+def test_blockwise_zero3_under_remat_equals_the_replicated_step(ranks):
+    """The same with ``remat='full'``: each block's forward runs again in
+    the backward inside ``torch.utils.checkpoint``, with the unit gathered
+    (the recomputation frees nothing) and checkpoint's own saved-tensor
+    hooks left in place (no cast kept as its parameter); bit-equal to
+    replicated DDP under remat."""
+    r0 = ranks['ranks'][0]['blockwise']
+    rep, z3 = r0['vit', 'full', 0], r0['vit', 'full', 3]
+    assert z3['recast'] == 0
+    assert z3['metrics'] == rep['metrics'] == r0['vit', 1, 0]['metrics']
+    for k, v in rep['state'].items():
+        assert torch.equal(z3['state'][k], v), k
+
+
+def test_blockwise_zero3_with_microbatches_matches_within_rounding(ranks):
+    """Two microbatches a step (SGD): each unit reduced after each
+    microbatch and its slices summed, each tensor's norm from its shards'
+    squares summed over the ranks: the metrics within 1e-6 and the
+    parameters within 1e-7 of the replicated step's, in float32."""
+    r0 = ranks['ranks'][0]['blockwise']
+    rep, z3 = r0['vit', 2, 0], r0['vit', 2, 3]
+    for want, got in zip(rep['metrics'], z3['metrics']):
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, rtol=1e-6, err_msg=k)
+    for k, v in rep['state'].items():
+        np.testing.assert_allclose(z3['state'][k].numpy(), v.numpy(), rtol=0, atol=1e-7,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize('micro', [1, 2])
+def test_blockwise_zero3_holds_two_units_in_one_order(ranks, micro):
+    """The units are the two blocks and the root; the root is gathered for
+    the step, each block before its forward and again before its backward,
+    and reduced once a microbatch as its backward ends (the last block
+    first); the whole bytes held at once stay within two units' parameters
+    and gradients, under half of the whole model's; both ranks log the same
+    order."""
+    r0, r1 = (r['blockwise']['vit', micro, 3] for r in ranks['ranks'])
+    assert r0['units'] == ['vit.blocks.0', 'vit.blocks.1', '']
+    one = [('gather', 'vit.blocks.0'), ('gather', 'vit.blocks.1'), ('gather', 'vit.blocks.1'),
+           ('reduce', 'vit.blocks.1'), ('gather', 'vit.blocks.0'), ('reduce', 'vit.blocks.0'),
+           ('reduce', '')]
+    assert r0['log'] == [('gather', '')] + one * micro
+    assert r1['log'] == r0['log']
+    assert 0 < r0['peak'] <= r0['budget'] < 0.7 * r0['whole']
+
+
+def test_units_with_unused_outputs_reduce_in_one_order(ranks):
+    """A ModuleList's children are the units; the third block's output and
+    the root's ``extra`` go unused, so their gradients count as zeros (as at
+    ZeRO-1) and their reductions run after the backward, in unit order,
+    the root last, on both ranks: two AdamW steps equal ZeRO-1's bit for
+    bit."""
+    r0, r1 = (r['blockwise'] for r in ranks['ranks'])
+    assert r0['unit_names'] == ['blocks.0', 'blocks.1', 'blocks.2']
+    assert r0['units', 3]['log'][-2:] == [('reduce', 'blocks.2'), ('reduce', '')]
+    assert r0['units', 3]['log'] == r1['units', 3]['log']
+    assert r0['units', 3]['metrics'] == r0['units', 1]['metrics']
+    for k, v in r0['units', 1]['state'].items():
+        assert torch.equal(r0['units', 3]['state'][k], v), k
+    assert not torch.equal(r0['units', 3]['state']['extra'], torch.ones(4, 2, dtype=torch.float64))
 
 
 def test_dcgan_on_two_ranks_matches_one_process(ranks):

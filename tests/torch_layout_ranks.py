@@ -10,6 +10,7 @@ import torch
 
 from ever_tpu_torch.core import builder as tbuilder
 from ever_tpu_torch.core import dist
+from ever_tpu_torch.core.checkpoint import CheckPoint
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.parallel import mesh as tmesh
 from ever_tpu_torch.parallel import pp, tp
@@ -83,9 +84,10 @@ def _groups_seen(mesh, axes):
 
 
 def mesh_worker(rank, world, init, out):
-    """A (2, 2) mesh's axis groups, the hybrid meshes, and one step of
-    DinoSeg under tensor parallel with ZeRO-3 (SGD with a clip), each data
-    rank on its half of the batch."""
+    """A (2, 2) mesh's axis groups, the hybrid meshes, and two steps of
+    DinoSeg under tensor parallel with ZeRO-3 (SGD with momentum and a
+    clip), each data rank on its half of the batch, the state after the
+    first written as directories and resumed from them."""
     inp = _start(rank, world, init, out, 'mesh')
     res = {}
     mesh = tmesh.make_mesh(('data', 'model'), (2, 2))
@@ -103,15 +105,18 @@ def mesh_worker(rank, world, init, out):
     res['bad_shape'] = _raises(lambda: tmesh.make_mesh(('data', 'model'), (3, 2)))
 
     tvit.VIT_SPECS[inp['spec'][0]] = inp['spec'][1]
-    model = tbuilder.make_model(inp['cfg'], device='cpu')
-    model.load_state_dict(inp['state_dict'])
-    sched = None
-    factory, _ = tbuilder.make_optimizer(dict(type='sgd', params=dict(momentum=0.0)))
+    factory, _ = tbuilder.make_optimizer(dict(type='sgd', params=dict(momentum=0.9)))
     tx = factory.build(inp['lr'], grad_clip=dict(max_norm=inp['max_norm']))
-    state, sh = create_train_state_sharded(model, tx, mesh=mesh, level=3, tp_axis='model',
-                                           min_shard_bytes=inp['min_shard_bytes'],
-                                           device='cpu')
-    step = build_train_step(model, tx, sched, mesh=mesh, state_shardings=sh)
+
+    def sharded_state():
+        model = tbuilder.make_model(inp['cfg'], device='cpu')
+        model.load_state_dict(inp['state_dict'])
+        state, sh = create_train_state_sharded(model, tx, mesh=mesh, level=3, tp_axis='model',
+                                               min_shard_bytes=inp['min_shard_bytes'],
+                                               device='cpu')
+        return state, sh, build_train_step(model, tx, None, mesh=mesh, state_shardings=sh)
+
+    state, sh, step = sharded_state()
     x, y = inp['x'], inp['y']
     rows = slice(mesh.rank() * len(x) // 2, (mesh.rank() + 1) * len(x) // 2)
     state, metrics = step(state, (x[rows], y[rows]))
@@ -119,7 +124,40 @@ def mesh_worker(rank, world, init, out):
     res['state'] = full_state_dict(state)
     res['specs'] = {n: tuple(s.spec) for n, s in sh.params.items()}
     res['bytes'] = local_bytes(state)
+    # the state after one step as directories, then the unbroken second step
+    CheckPoint.save_sharded(os.path.join(out, 'mesh-sharded'), state)
+    for backend in ('orbax', 'orbax_async'):
+        ckpt = CheckPoint(_Host(os.path.join(out, f'mesh-{backend}'), state), backend)
+        ckpt.set_global_step(1)
+        ckpt.save()
+        ckpt.wait()
+    state, metrics = step(state, (x[rows], y[rows]))
+    res['unbroken'] = ({k: float(v) for k, v in metrics.items()}, full_state_dict(state))
+    for how in ('sharded', 'orbax'):
+        fresh, _, fresh_step = sharded_state()
+        if how == 'sharded':
+            CheckPoint.restore_sharded(os.path.join(out, 'mesh-sharded'), fresh)
+        else:
+            CheckPoint(_Host(os.path.join(out, 'mesh-orbax'), fresh), 'orbax').try_resume()
+        at = fresh.step
+        fresh, metrics = fresh_step(fresh, (x[rows], y[rows]))
+        res[f'resumed/{how}'] = (at, {k: float(v) for k, v in metrics.items()},
+                                 full_state_dict(fresh))
     _save(out, 'mesh', rank, res)
+
+
+class _Host:
+    """The launcher side a ``CheckPoint`` reads: its model dir, state and
+    the step it restores."""
+    logger = None
+    device = torch.device('cpu')
+
+    def __init__(self, model_dir, state):
+        os.makedirs(model_dir, exist_ok=True)
+        self.model_dir, self.state = model_dir, state
+
+    def restore_state(self, model_state, opt_state, global_step):
+        self.state.step = int(global_step)
 
 
 class _Tanh(torch.nn.Module):

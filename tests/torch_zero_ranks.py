@@ -17,11 +17,12 @@ from ever_tpu_torch.core.checkpoint import CheckPoint
 from ever_tpu_torch.core.launcher import Launcher
 from ever_tpu_torch.interface import ERModule as TERModule
 from ever_tpu_torch.module import loss as tloss
+from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.module.ops import BatchNorm2d
 from ever_tpu_torch.parallel import mesh as tmesh
 from ever_tpu_torch.parallel.sharded import assert_sharded_below, create_train_state_sharded
 from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
-from ever_tpu_torch.parallel.zero import full_state_dict, local_bytes, zero_init
+from ever_tpu_torch.parallel.zero import full_state_dict, local_bytes, zero_init, zero_units
 from ever_tpu_torch.trainer.gan import build_gan_train_step, create_gan_state
 
 CLASSES, N, SIZE = 5, 8, 8
@@ -90,6 +91,92 @@ class _Host:
         self.state.step = int(global_step)
 
 
+# a ViT cut to 2 blocks of width 64 (tests/test_torch_trainer.py's TINY)
+VIT_SPEC = ('vit_tiny_test', (2, 64, 2, 4.0, 'mlp'))
+def _vit_cfg(dtype, remat=None):
+    return {'type': 'DinoSeg', 'params': dict(backbone=dict(name=VIT_SPEC[0], remat=remat),
+                                              classes=CLASSES, dtype=dtype)}
+
+
+def _vit_batch():
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(N, 32, 32, 3)).astype(np.float32)
+    return x, rng.integers(0, CLASSES, size=(N, 32, 32)).astype(np.int32)
+
+
+class UnitsNet(nn.Module):
+    """Three blocks in an ``nn.ModuleList``, the third one's output unused,
+    and a root parameter no forward reads: units whose backward never
+    runs."""
+
+    def __init__(self):
+        super().__init__()
+        self.blocks = nn.ModuleList(nn.Sequential(nn.Linear(8, 8), nn.LayerNorm(8))
+                                    for _ in range(3))
+        self.head = nn.Linear(8, 4)
+        self.extra = nn.Parameter(torch.ones(4, 2))
+
+    def forward(self, x, y=None, train=False, generator=None):
+        h = torch.as_tensor(x)
+        for blk in self.blocks[:2]:
+            h = torch.tanh(blk(h))
+        self.blocks[2](h)
+        return dict(mse_loss=((self.head(h) - torch.as_tensor(y)) ** 2).mean())
+
+
+def _blockwise(mesh, rank, world):
+    """Tiny DinoSeg: two steps replicated and at ZeRO-3, AdamW with one
+    microbatch in bf16 compute (float32 parameters), again with
+    ``remat='full'``, SGD with two microbatches in float32; UnitsNet at
+    ZeRO-1 and ZeRO-3."""
+    tvit.VIT_SPECS[VIT_SPEC[0]] = VIT_SPEC[1]
+    x, y = _vit_batch()
+    rows = slice(rank * N // world, (rank + 1) * N // world)
+    out = {}
+    for micro, remat in ((1, None), (1, 'full'), (2, None)):
+        for level in (0, 3):
+            torch.manual_seed(0)
+            model = tbuilder.make_model(_vit_cfg('bfloat16' if micro == 1 else 'float32', remat),
+                                        device='cpu')
+            tx, sched = _rule(tbuilder, 'adamw' if micro == 1 else 'sgd')
+            state, sh = create_train_state(model, tx), None
+            if level:
+                state, sh = zero_init(state, mesh, level, device='cpu')
+            step = build_train_step(model, tx, sched, forward_times=micro, mesh=mesh,
+                                    state_shardings=sh)
+            batch = (x[rows], y[rows])
+            if micro > 1:
+                batch = tuple(b.reshape(micro, -1, *b.shape[1:]) for b in batch)
+            metrics = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            got = dict(metrics=metrics, state=full_state_dict(state))
+            if level:
+                zo = state.optimizer
+                got.update(peak=zo.stats['peak_bytes'], recast=zo.stats['casts_recast'],
+                           budget=zo.unit_budget(),
+                           log=list(zo.unit_log), units=[u.name for u in zo.units],
+                           whole=2 * sum(s.shape.numel() * 4 for s in zo.slots.values()))
+            out['vit', remat or micro, level] = got
+    rng = np.random.default_rng(11)
+    ux, uy = rng.normal(size=(N, 8)), rng.normal(size=(N, 4))
+    for level in (1, 3):
+        torch.manual_seed(1)
+        model = UnitsNet().double()
+        tx, sched = _rule(tbuilder, 'adamw')
+        state, sh = zero_init(create_train_state(model, tx), mesh, level, device='cpu')
+        step = build_train_step(model, tx, sched, mesh=mesh, state_shardings=sh)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, (ux[rows], uy[rows]))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out['units', level] = dict(metrics=metrics, state=full_state_dict(state),
+                                   log=list(state.optimizer.unit_log))
+    out['unit_names'] = [n for n, _ in zero_units(UnitsNet())]
+    return out
+
+
 GAN_CFG = dict(image_size=16, channels=3, latent_dim=16, base_width=8, dtype='float64')
 
 
@@ -122,6 +209,7 @@ def worker(rank, world, init, out):
                 state, m = step(state, (x[rows], y[rows]))
                 steps.append(({k: float(v) for k, v in m.items()}, full_state_dict(state)))
             res[opt, level] = dict(steps=steps, bytes=local_bytes(state))
+    res['blockwise'] = _blockwise(mesh, rank, world)
     # checkpoints of a ZeRO-3 AdamW state at step 2, then step 3
     state, step = _tiny_state(start, 'adamw', 3, mesh)
     for _ in range(2):
