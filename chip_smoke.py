@@ -48,7 +48,8 @@ Phases (any failure exits non-zero before the last line is printed):
              detectors' [16, 256, 256, 64] bf16, at [2, 30, 22, 5] (the
              unaligned path), on inputs with ties, and at the spatial
              phase's stem shapes (a rank's [1, 514, 1024, 64] strip and the
-             one process's [1, 1024, 1024, 64], bf16 and float32), then
+             one process's [1, 1024, 1024, 64] for (a), [1, 258, 512, 64]
+             and [1, 512, 512, 64] for (d) and (e), bf16 and float32), then
              timed.  Then
              the train step: 512² tiles, batch 8, bf16 compute with float32
              parameters, SGD with momentum 0.9 and a poly schedule (base_lr
@@ -507,7 +508,7 @@ Phases (any failure exits non-zero before the last line is printed):
              schedule and ``grad_clip``, bf16 compute, float32 parameters,
              B=8 at 512²: the first step's gradients (gathered) against one
              process on the same weights and batch within phase 4's
-             ``GRAD_REL_TOL`` and ``GRAD_COS_MIN``; 2 warm-up and 3 timed
+             ``GRAD_REL_TOL`` and ``GRAD_COS_MIN``; 2 warm-up and 2 timed
              steps with finite losses and gradient norms and exactly 24 K1
              and 24 K2 launches a rank a step (8 heads a rank); each rank
              holding at most half the split leaves' bytes plus 1 MiB; one
@@ -546,7 +547,7 @@ Phases (any failure exits non-zero before the last line is printed):
              1e-5 relative; every parameter and running statistic within
              rtol 1e-3, atol 2e-5, ``tests/test_spatial_train.py``'s limits;
              the worst distances printed; the ranks' states bit-equal); then
-             bf16 compute, float32 parameters, 2 warm-up and 5 timed steps a
+             bf16 compute, float32 parameters, 2 warm-up and 2 timed steps a
              rank: finite losses and gradient norms, exactly one K8 a rank a
              step and no other port kernel (they join the kernels line); the
              halo broadcasts and bytes a step, ms/step against the one-process
@@ -559,7 +560,20 @@ Phases (any failure exits non-zero before the last line is printed):
              unsharded step's.  (c) ``util.eda`` without PIL: ``thumbnail``
              of a 2048² RGB PNG (and of a constant grey one: its value
              kept) and ``render_multi_binary_mask`` of three 512² masks the
-             phase writes with ``write_png``, their shapes.
+             phase writes with ``write_png``, their shapes.  (d) FarSeg++-R50
+             (``relation_type='v2'``, channel dropout 0.1, the decoder's
+             ``norm='gn'``: GroupNorm on the strips, and on the pooled scene,
+             whole on every rank) and (e) FarSeg-R50 on a ResNet-50 with
+             ``se_ratio=16`` and ``gc_ratio=1/16`` in every bottleneck (the
+             squeezes and the GC block's softmax pool summed over the
+             strips), each on one 1024² tile as two strips of 512 rows,
+             with (a)'s gates: the float32 first step against one process,
+             where a tensor's limit is widened to twice one float32
+             process's distance from its float64 step when that distance
+             passes half the limit (``SPATIAL_NOISE_FACTOR``: (e)'s GC
+             transforms), then 1 warm-up and 2 timed bf16 steps a rank,
+             one K8 a rank a step ([1, 258, 512, 64]) and no other port
+             kernel.
 24. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
@@ -581,7 +595,11 @@ about 30 s); ``layouts`` (a) times 3 steps after the warm-up (was 5; about
 saves and restores added about 45 s to the parallel phases (181 s against
 125-138); for them ``ddp`` (b) trains 4 steps and resumes from step 2 (was
 6 and 3) and ``change`` (b) trains FactSeg 4 steps and resumes from step 2
-(was 6 and 3).
+(was 6 and 3).  (d) and (e) added 20-45 s (the references 13-21 s, the
+ranks 7-25 s more; the whole script took 1166 s on a slow host, its
+`ddp` phase 249 s against 198-213 before them); for them ``spatial`` (a)
+times 2 steps after its warm-up (was 5; 2.4-4.5 s) and ``layouts`` (a)
+2 (was 3; about 3.4 s).
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
 step of each model, and of one fused-LN DinoSeg train step: device busy time
@@ -680,6 +698,12 @@ SPATIAL_TILE = 2048
 # and the one-process reference's whole stem
 SPATIAL_POOL_STRIP = (1, SPATIAL_TILE // 4 + 2, SPATIAL_TILE // 2, 64)
 SPATIAL_POOL_WHOLE = (1, SPATIAL_TILE // 2, SPATIAL_TILE // 2, 64)
+# the spatial phase's (d) FarSeg++-R50 and (e) SE + GC FarSeg-R50: one tile
+# of 1024² as two strips of 512 rows; K8 at a rank's strip of their stem
+# ([1, 258, 512, 64]) and at the one process's whole stem
+SPATIAL_MORE_TILE = 1024
+SPATIAL_MORE_POOL_STRIP = (1, SPATIAL_MORE_TILE // 4 + 2, SPATIAL_MORE_TILE // 2, 64)
+SPATIAL_MORE_POOL_WHOLE = (1, SPATIAL_MORE_TILE // 2, SPATIAL_MORE_TILE // 2, 64)
 # (shape, type, ties): the main shape, in float32, the siamese detectors'
 # stem (both dates of the batch stacked), an H and W that are even but
 # leave a ragged block with C off the 8-wide vector (the kernel's
@@ -690,10 +714,10 @@ POOL_CASES = ((POOL_SHAPE, torch.bfloat16, False), (POOL_SHAPE, torch.float32, F
 # the spatial phase's strip and whole stem in bf16 (its timed steps) and
 # float32 (its first step); drawn from a generator of their own, so that
 # every later phase draws what it drew before these cases joined
-SPATIAL_POOL_CASES = ((SPATIAL_POOL_STRIP, torch.bfloat16, False),
-                      (SPATIAL_POOL_STRIP, torch.float32, False),
-                      (SPATIAL_POOL_WHOLE, torch.bfloat16, False),
-                      (SPATIAL_POOL_WHOLE, torch.float32, False))
+SPATIAL_POOL_CASES = tuple((shape, dtype, False)
+                           for shape in (SPATIAL_POOL_STRIP, SPATIAL_POOL_WHOLE,
+                                         SPATIAL_MORE_POOL_STRIP, SPATIAL_MORE_POOL_WHOLE)
+                           for dtype in (torch.bfloat16, torch.float32))
 # K8 vs its plain version: both compare the same values exactly and sum the
 # same <= 4 float32 terms before one rounding, so they should agree to the
 # bit; the limit is one bf16 ulp of the largest |dx| (2^-8 relative), which
@@ -6963,7 +6987,7 @@ def phase_zero(smi: str, parallel: list) -> tuple:
 
 # -- phase 22: the model-parallel layouts -----------------------------------------------
 
-LAYOUT_TP_STEPS = 3                     # timed, after WARMUP_STEPS
+LAYOUT_TP_STEPS = 2                     # timed, after WARMUP_STEPS
 LAYOUT_PP_MICRO, LAYOUT_PP_RUNS = 4, 3  # microbatches; timed runs after the counted one
 LAYOUT_EP = dict(num_experts=8, hidden=4096, k=2)
 # expert parallel against one process, float32 with TF32 off: each rank's
@@ -7361,7 +7385,7 @@ def phase_layouts(smi: str, bare_ms: float, parallel: list) -> tuple:
 
 # -- phase 23: the spatial layouts ------------------------------------------------------
 
-SPATIAL_STEPS = 5                       # timed bf16 steps a rank, after WARMUP_STEPS
+SPATIAL_STEPS = 2                       # timed bf16 steps a rank, after WARMUP_STEPS
 # the first float32 step (TF32 off) against one process on the whole tile:
 # total_loss relative, and tests/test_spatial_train.py's limits on every
 # parameter and running statistic (allclose: |Δ| <= atol + rtol·|value|)
@@ -7371,6 +7395,21 @@ SPATIAL_LOSS_TOL, SPATIAL_RTOL, SPATIAL_ATOL = 1e-5, 1e-3, 2e-5
 HALO_TILE, HALO_WIDTH, HALO_DEPTH, HALO_ROWS = 4096, 64, 4, 8
 HALO_RF_HALF = HALO_DEPTH             # rows at the true border that 'zeros' changes
 HALO_TOL = 1e-5                       # |Δ| / max(1, max |value|), float32 sums in other orders
+# (d) and (e): the models through the strip forms of GroupNorm, the SE
+# squeeze and the GC block's softmax pool, on one SPATIAL_MORE_TILE² tile,
+# with (a)'s gates; 1 warm-up and 2 timed bf16 steps a rank.  Their float32
+# first step is also held against one process's float64 step (max pool by
+# reduce_window: K8 takes no float64): a tensor whose float32 one-process
+# value stands more than half (a)'s limit from float64 (the SE + GC trunk's
+# GC transforms: their LayerNorm over 16 inner channels of a pooled
+# context) is held to twice that distance, which two float32 roundings no
+# worse than one process's stay within; every other tensor to (a)'s limit
+SPATIAL_NOISE_FACTOR = 2.0
+SPATIAL_MORE = (
+    ('FarSeg++-R50', dict(head=dict(relation_type='v2', fs_relation=dict(dropout_rate=0.1),
+                                    fpn_decoder=dict(norm='gn')))),
+    ('SE+GC FarSeg-R50', dict(encoder=dict(FARSEG['encoder'], se_ratio=16, gc_ratio=1 / 16))))
+SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS = 1, 2
 
 
 class SpatialConvNet(torch.nn.Module):
@@ -7393,20 +7432,31 @@ class SpatialConvNet(torch.nn.Module):
         return self.out(x).permute(0, 2, 3, 1)
 
 
-def spatial_farseg(seed: int, dtype: str):
+def spatial_farseg(seed: int, dtype: str, variant: int = -1):
     """Phase 5's FarSeg-R50 (K8 at the stem, 7 classes, SGD momentum 0.9 +
-    poly) at ``dtype`` compute, with the weights and the 2048² tile every
-    process draws from ``seed``: (model, tx, schedule, x, y)."""
+    poly) at ``dtype`` compute on a 2048² tile, or ``SPATIAL_MORE``'s
+    ``variant`` on a ``SPATIAL_MORE_TILE``² one, with the weights and the
+    tile every process draws from ``seed`` (``'float64'``: float64
+    parameters, the max pool by reduce_window): (model, tx, schedule, x,
+    y)."""
     from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
 
-    gen = torch.Generator(device='cuda').manual_seed(seed + 23)
-    model = make_model({'type': 'FarSeg', 'params': dict(FARSEG, dtype=dtype)})
+    gen = torch.Generator(device='cuda').manual_seed(seed + 23 + 10 * (variant + 1))
+    cfg, tile = dict(FARSEG, dtype=dtype), SPATIAL_TILE
+    if variant >= 0:
+        cfg.update(SPATIAL_MORE[variant][1])
+        tile = SPATIAL_MORE_TILE
+    if dtype == 'float64':
+        cfg['encoder'] = dict(cfg['encoder'], maxpool_impl='reduce_window')
+    model = make_model({'type': 'FarSeg', 'params': cfg})
     seeded_conv_init_(model, gen)
+    if dtype == 'float64':
+        model.double()
     schedule = make_learningrate({'type': 'poly', 'params': dict(
         base_lr=0.01, power=0.9, max_iters=1000)})
     tx = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})[0].build(schedule)
-    x = torch.randn(1, SPATIAL_TILE, SPATIAL_TILE, 3, generator=gen, device='cuda')
-    y = torch.randint(0, CLASSES, (1, SPATIAL_TILE, SPATIAL_TILE), generator=gen, device='cuda')
+    x = torch.randn(1, tile, tile, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (1, tile, tile), generator=gen, device='cuda')
     return model, tx, schedule, x, y
 
 
@@ -7443,36 +7493,49 @@ def timed_steps(step, state, batch, n: int) -> tuple:
 
 def spatial_reference(seed: int, out: str) -> dict:
     """One process on the whole tiles: the float32 first step of FarSeg-R50
-    (its state saved for the ranks), the bf16 steps' ms and peak memory,
-    and (b)'s whole forward and one unsharded SGD step (saved)."""
+    and of (d) and (e) (their states saved for the ranks), the bf16 steps'
+    ms and peak memory, and (b)'s whole forward and one unsharded SGD step
+    (saved)."""
     from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
     t_start = time.perf_counter()
     res = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True          # as the ranks run
-    model, tx, schedule, x, y = spatial_farseg(seed, 'float32')
-    state, ms, metrics = timed_steps(build_train_step(model, tx, schedule),
-                                     create_train_state(model, tx), (x, y), 1)
-    torch.backends.cudnn.deterministic = deterministic
-    torch.save(dict(loss=metrics[0]['total_loss'],
-                    state={k: v.cpu() for k, v in model.state_dict().items()
-                           if v.is_floating_point()}),
-               os.path.join(out, 'spatial-ref.pt'))
-    res['f32'] = dict(ms=ms[0], loss=metrics[0]['total_loss'])
-    del model, state, x, y
-    torch.cuda.empty_cache()
+    for variant in range(-1, len(SPATIAL_MORE)):
+        key = '' if variant < 0 else f'-{variant}'
+        warmup, steps = ((WARMUP_STEPS, SPATIAL_STEPS) if variant < 0
+                         else (SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True          # as the ranks run
+        model, tx, schedule, x, y = spatial_farseg(seed, 'float32', variant)
+        state, ms, metrics = timed_steps(build_train_step(model, tx, schedule),
+                                         create_train_state(model, tx), (x, y), 1)
+        torch.backends.cudnn.deterministic = deterministic
+        torch.save(dict(loss=metrics[0]['total_loss'],
+                        state={k: v.cpu() for k, v in model.state_dict().items()
+                               if v.is_floating_point()}),
+                   os.path.join(out, f'spatial-ref{key}.pt'))
+        res[f'f32{key}'] = dict(ms=ms[0], loss=metrics[0]['total_loss'])
+        del model, state, x, y
+        torch.cuda.empty_cache()
+        if variant >= 0:                    # the float64 step (SPATIAL_NOISE_FACTOR)
+            model, tx, schedule, x, y = spatial_farseg(seed, 'float64', variant)
+            build_train_step(model, tx, schedule)(create_train_state(model, tx), (x, y))
+            torch.save({k: v.cpu() for k, v in model.state_dict().items()
+                        if v.is_floating_point()}, os.path.join(out, f'spatial-ref64{key}.pt'))
+            del model, x, y
+            torch.cuda.empty_cache()
 
-    held = torch.cuda.memory_allocated()
-    model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16')
-    step = build_train_step(model, tx, schedule)
-    state, _, _ = timed_steps(step, create_train_state(model, tx), (x, y), WARMUP_STEPS)
-    torch.cuda.reset_peak_memory_stats()
-    state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_STEPS)
-    res['bf16'] = dict(ms=ms, peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
-                       losses=[m['cls_loss'] for m in metrics])
-    del model, state, step, x, y
-    torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16', variant)
+        step = build_train_step(model, tx, schedule)
+        state, _, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
+        torch.cuda.reset_peak_memory_stats()
+        state, ms, metrics = timed_steps(step, state, (x, y), steps)
+        res[f'bf16{key}'] = dict(ms=ms,
+                                 peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                                 losses=[m['cls_loss'] for m in metrics])
+        del model, state, step, x, y
+        torch.cuda.empty_cache()
 
     net, x, t, tx = spatial_convnet(seed)
     with torch.no_grad():
@@ -7494,11 +7557,48 @@ def spatial_reference(seed: int, out: str) -> dict:
     return res
 
 
+def spatial_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got − want| / (``SPATIAL_ATOL`` + ``SPATIAL_RTOL``·|want|)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (SPATIAL_ATOL + SPATIAL_RTOL * want.abs())).max())
+
+
+def spatial_distances(got: dict, one: dict, variant: int, out: str) -> dict:
+    """The spatial step's float32 state ``got`` against one process's
+    ``one``, tensor by tensor: the worst ratio (limit 1) and the largest
+    |Δ|; for (d) and (e) also each tensor's limit from the float64 step
+    (``SPATIAL_NOISE_FACTOR``): one process's and the spatial step's worst
+    ratio against float64, and the worst share of its limit (``worst``,
+    the gate: at most 1)."""
+    res = dict(worst=0.0, worst_name='', max_abs=0.0, plain=0.0, plain_name='')
+    exact = (torch.load(os.path.join(out, f'spatial-ref64-{variant}.pt')) if variant >= 0
+             else None)
+    if exact is not None:
+        res.update(one64=0.0, one64_name='', strips64=0.0, widened=0)
+    for k, w in one.items():
+        plain = spatial_ratio(got[k], w)
+        res['max_abs'] = max(res['max_abs'], float((got[k] - w).abs().max()))
+        if plain > res['plain']:
+            res.update(plain=plain, plain_name=k)
+        limit = 1.0
+        if exact is not None:
+            one64 = spatial_ratio(w, exact[k])
+            res['strips64'] = max(res['strips64'], spatial_ratio(got[k], exact[k]))
+            if one64 > res['one64']:
+                res.update(one64=one64, one64_name=k)
+            limit = max(1.0, SPATIAL_NOISE_FACTOR * one64)
+            res['widened'] += limit > 1.0
+        if plain / limit > res['worst']:
+            res.update(worst=plain / limit, worst_name=k)
+    return res
+
+
 def spatial_worker(rank: int, out: str) -> dict:
     """One of two gloo ranks of the spatial phase on ``make_mesh(('data',))``:
-    (a) FarSeg-R50's float32 first step and bf16 steps over the tile's two
-    row strips, (b) ``spatial_partition_apply`` and ``build_halo_train_step``
-    of the conv net at 4096²."""
+    (a) FarSeg-R50's, (d) FarSeg++-R50's and (e) the SE + GC FarSeg-R50's
+    float32 first step and bf16 steps over the tile's two row strips, (b)
+    ``spatial_partition_apply`` and ``build_halo_train_step`` of the conv
+    net at 4096²."""
     from ever_tpu_torch.ops import pool as P
     from ever_tpu_torch.parallel.mesh import make_mesh
     from ever_tpu_torch.parallel.spatial import (build_halo_train_step,
@@ -7510,41 +7610,40 @@ def spatial_worker(rank: int, out: str) -> dict:
         seed = json.load(f)['seed']
     mesh = make_mesh(('data',))
     res = {}
-    model, tx, schedule, x, y = spatial_farseg(seed, 'float32')
-    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
-    state, ms, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
-    got = {k: v.cpu() for k, v in model.state_dict().items() if v.is_floating_point()}
-    res['f32'] = dict(ms=ms[0], loss=metrics[0]['total_loss'], digest=state_digest(got))
-    if rank == 0:
-        ref = torch.load(os.path.join(out, 'spatial-ref.pt'))
-        worst, name, big = 0.0, '', 0.0
-        for k, w in ref['state'].items():
-            diff = (got[k] - w).abs()
-            ratio = float((diff / (SPATIAL_ATOL + SPATIAL_RTOL * w.abs())).max())
-            if ratio > worst:
-                worst, name = ratio, k
-            big = max(big, float(diff.max()))
-        res['f32'].update(ref_loss=ref['loss'], worst=worst, worst_name=name, max_abs=big,
-                          tensors=len(ref['state']))
-    del model, state, step, x, y, got
-    torch.cuda.empty_cache()
+    for variant in range(-1, len(SPATIAL_MORE)):
+        key = '' if variant < 0 else f'-{variant}'
+        warmup, steps = ((WARMUP_STEPS, SPATIAL_STEPS) if variant < 0
+                         else (SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS))
+        model, tx, schedule, x, y = spatial_farseg(seed, 'float32', variant)
+        step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+        state, ms, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
+        got = {k: v.cpu() for k, v in model.state_dict().items() if v.is_floating_point()}
+        res[f'f32{key}'] = f32 = dict(ms=ms[0], loss=metrics[0]['total_loss'],
+                                      digest=state_digest(got))
+        if rank == 0:
+            ref = torch.load(os.path.join(out, f'spatial-ref{key}.pt'))
+            f32.update(ref_loss=ref['loss'], tensors=len(ref['state']),
+                       **spatial_distances(got, ref['state'], variant, out))
+        del model, state, step, x, y, got
+        torch.cuda.empty_cache()
 
-    held = torch.cuda.memory_allocated()
-    model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16')
-    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
-    reset_counts()
-    state, warm, _ = timed_steps(step, create_train_state(model, tx), (x, y), WARMUP_STEPS)
-    torch.cuda.reset_peak_memory_stats()
-    sent = dict(step.stats)
-    state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_STEPS)
-    res['bf16'] = dict(ms=warm + ms, metrics=metrics, launches=P.max_pool_32_bwd.launches,
-                       all_launches=sum(fn.launches for fn in kernel_wrappers()),
-                       peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
-                       hops=(step.stats['hops'] - sent['hops']) / SPATIAL_STEPS,
-                       bytes=(step.stats['bytes'] - sent['bytes']) / SPATIAL_STEPS,
-                       float32=all(p.dtype == torch.float32 for p in model.parameters()))
-    del model, state, step, x, y
-    torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16', variant)
+        step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+        reset_counts()
+        state, warm, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
+        torch.cuda.reset_peak_memory_stats()
+        sent = dict(step.stats)
+        state, ms, metrics = timed_steps(step, state, (x, y), steps)
+        res[f'bf16{key}'] = dict(
+            ms=warm + ms, metrics=metrics, launches=P.max_pool_32_bwd.launches,
+            all_launches=sum(fn.launches for fn in kernel_wrappers()), steps=warmup + steps,
+            peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+            hops=(step.stats['hops'] - sent['hops']) / steps,
+            bytes=(step.stats['bytes'] - sent['bytes']) / steps,
+            float32=all(p.dtype == torch.float32 for p in model.parameters()))
+        del model, state, step, x, y
+        torch.cuda.empty_cache()
 
     net, x, t, tx = spatial_convnet(seed)
     h = HALO_TILE // 2
@@ -7625,44 +7724,57 @@ def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> int:
     with tempfile.TemporaryDirectory(prefix='chip_smoke_eda_') as tmp:
         eda = spatial_eda(seed, tmp)
     backend = 'gloo, 2 ranks sharing one card: correctness and bytes moved, not a multi-card speed'
-    r0 = ranks[0]
-    f32 = r0['f32']
-    print(f'spatial: (a) {smi}: FarSeg-R50 (K8, 7 classes, SGD momentum 0.9 + poly) on one '
-          f'{SPATIAL_TILE}² tile as two strips of {SPATIAL_TILE // 2} rows, float32, TF32 off: '
-          f'the first step against one process on the whole tile: total_loss {f32["loss"]:.7f} '
-          f'vs {f32["ref_loss"]:.7f} (limit {SPATIAL_LOSS_TOL} relative); {f32["tensors"]} '
-          f'parameters and running statistics, worst |Δ| / ({SPATIAL_ATOL} + {SPATIAL_RTOL}·'
-          f'|value|) {f32["worst"]:.3e} ({f32["worst_name"]}), largest |Δ| '
-          f'{f32["max_abs"]:.3e}; the ranks\' states equal: '
-          f'{f32["digest"] == ranks[1]["f32"]["digest"]}; step {f32["ms"]:.1f} ms (one process '
-          f'{ref["f32"]["ms"]:.1f})', flush=True)
-    check(abs(f32['loss'] - f32['ref_loss']) <= SPATIAL_LOSS_TOL * abs(f32['ref_loss']),
-          'spatial: the first step\'s loss differs from one process')
-    check(f32['worst'] <= 1.0, 'spatial: the first step\'s state differs from one process')
-    check(f32['digest'] == ranks[1]['f32']['digest'], 'spatial: the ranks\' states differ')
-    one = sorted(ref['bf16']['ms'])
     k8 = 0
-    for r, res in enumerate(ranks):
-        bf = res['bf16']
-        steady = sorted(bf['ms'][WARMUP_STEPS:])
-        steps = WARMUP_STEPS + SPATIAL_STEPS
-        print(f'spatial: (a) {smi}: rank {r}: bf16 compute, float32 parameters: ms/step '
-              f'{" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
-              f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
-              f'{one[len(one) // 2]:.1f}); losses '
-              f'{" ".join(f"{m["cls_loss"]:.5f}" for m in bf["metrics"])}; grad_norm '
-              f'{" ".join(f"{m["grad_norm"]:.4f}" for m in bf["metrics"])}; halo hops sent a '
-              f'step {bf["hops"]:.0f}, {bf["bytes"] / 2**20:.2f} MiB; peak memory above what '
-              f'the process held before {bf["peak_gib"]:.2f} GiB (one process '
-              f'{ref["bf16"]["peak_gib"]:.2f}); K8 '
-              f'launches {bf["launches"]} in {steps} steps, all port kernels '
-              f'{bf["all_launches"]} ({backend})', flush=True)
-        check(bf['launches'] == steps == bf['all_launches'],
-              f'spatial: rank {r} launched K8 {bf["launches"]} times in {steps} steps')
-        check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
-                  for m in bf['metrics']), f'spatial: rank {r}: non-finite metrics')
-        check(bf['float32'], 'spatial: parameters left float32')
-        k8 += bf['launches']
+    for variant, part in zip(range(-1, len(SPATIAL_MORE)), 'ade'):
+        key = '' if variant < 0 else f'-{variant}'
+        name, tile = (('FarSeg-R50', SPATIAL_TILE) if variant < 0
+                      else (SPATIAL_MORE[variant][0], SPATIAL_MORE_TILE))
+        f32 = ranks[0][f'f32{key}']
+        noise = ('' if variant < 0 else
+                 f'; against one process\'s float64 step: one float32 process\'s worst ratio '
+                 f'{f32["one64"]:.3e} ({f32["one64_name"]}), the spatial step\'s '
+                 f'{f32["strips64"]:.3e}; {f32["widened"]} tensors held to '
+                 f'{SPATIAL_NOISE_FACTOR} × one process\'s distance from float64 (over '
+                 f'half the limit), the worst share of its limit {f32["worst"]:.3e} '
+                 f'({f32["worst_name"]}), limit 1')
+        print(f'spatial: ({part}) {smi}: {name} (K8, 7 classes, SGD momentum 0.9 + poly) on '
+              f'one {tile}² tile as two strips of {tile // 2} rows, float32, TF32 off: '
+              f'the first step against one process on the whole tile: total_loss '
+              f'{f32["loss"]:.7f} vs {f32["ref_loss"]:.7f} (limit {SPATIAL_LOSS_TOL} relative); '
+              f'{f32["tensors"]} parameters and running statistics, worst |Δ| / '
+              f'({SPATIAL_ATOL} + {SPATIAL_RTOL}·|value|) {f32["plain"]:.3e} '
+              f'({f32["plain_name"]}), largest |Δ| {f32["max_abs"]:.3e}{noise}; the ranks\' '
+              f'states equal: {f32["digest"] == ranks[1][f"f32{key}"]["digest"]}; step '
+              f'{f32["ms"]:.1f} ms (one process {ref[f"f32{key}"]["ms"]:.1f})', flush=True)
+        check(abs(f32['loss'] - f32['ref_loss']) <= SPATIAL_LOSS_TOL * abs(f32['ref_loss']),
+              f'spatial: ({part}) the first step\'s loss differs from one process')
+        check(f32['worst'] <= 1.0,
+              f'spatial: ({part}) the first step\'s state differs from one process')
+        check(f32['digest'] == ranks[1][f'f32{key}']['digest'],
+              f'spatial: ({part}) the ranks\' states differ')
+        one = sorted(ref[f'bf16{key}']['ms'])
+        for r, res in enumerate(ranks):
+            bf = res[f'bf16{key}']
+            warmup = bf['steps'] - len(one)
+            steady = sorted(bf['ms'][warmup:])
+            print(f'spatial: ({part}) {smi}: {name}: rank {r}: bf16 compute, float32 '
+                  f'parameters: ms/step {" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
+                  f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
+                  f'{one[len(one) // 2]:.1f}); losses '
+                  f'{" ".join(f"{m["cls_loss"]:.5f}" for m in bf["metrics"])}; grad_norm '
+                  f'{" ".join(f"{m["grad_norm"]:.4f}" for m in bf["metrics"])}; halo hops sent '
+                  f'a step {bf["hops"]:.0f}, {bf["bytes"] / 2**20:.2f} MiB; peak memory above '
+                  f'what the process held before {bf["peak_gib"]:.2f} GiB (one process '
+                  f'{ref[f"bf16{key}"]["peak_gib"]:.2f}); K8 launches {bf["launches"]} in '
+                  f'{bf["steps"]} steps, all port kernels {bf["all_launches"]} ({backend})',
+                  flush=True)
+            check(bf['launches'] == bf['steps'] == bf['all_launches'],
+                  f'spatial: ({part}) rank {r} launched K8 {bf["launches"]} times in '
+                  f'{bf["steps"]} steps')
+            check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
+                      for m in bf['metrics']), f'spatial: ({part}) rank {r}: non-finite metrics')
+            check(bf['float32'], f'spatial: ({part}) parameters left float32')
+            k8 += bf['launches']
     for r, res in enumerate(ranks):
         ex, zs, hs = res['partition_exact'], res['partition_zeros'], res['halo_step']
         print(f'spatial: (b) {smi}: rank {r}: {HALO_DEPTH} 3×3 convs of {HALO_WIDTH} + 1×1 on '

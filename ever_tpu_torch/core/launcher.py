@@ -153,6 +153,26 @@ def _load_optimizer(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
     optimizer.load_state_dict(state_dict)
 
 
+def _parameters_split(state) -> bool:
+    """Whether any parameter, buffer or the step of ``state`` is split over
+    the ranks: by its ZeRO placements (``shardings``), or by the layers of
+    a tensor-parallel (``parallel.tp.apply_tp``) or expert-parallel
+    (``MoEMlp.shard_experts``) model, which keep a rank's shard alone."""
+    from ever_tpu_torch.parallel.ep import MoEMlp
+    from ever_tpu_torch.parallel.tp import tp_plan
+
+    sh = getattr(state, 'shardings', None)
+    if sh is not None and not all(s.is_fully_replicated for s in
+                                  [sh.step, *sh.params.values(), *sh.batch_stats.values()]):
+        return True
+    model = getattr(state, 'model', None)
+    if not isinstance(model, torch.nn.Module):
+        return False
+    plan = tp_plan(model)
+    return bool(plan is not None and plan.sharded) or any(
+        isinstance(m, MoEMlp) and m.ep_size > 1 for m in model.modules())
+
+
 class Launcher:
     def __init__(self,
                  model_dir: str,
@@ -285,13 +305,15 @@ class Launcher:
         self._state.step = int(global_step)
 
     def local_state(self):
-        """The train state for an evaluation on this process alone.  A
-        state sharded over the ranks (ZeRO) has no whole copy here and
-        raises: evaluate it on the global mesh."""
-        sh = getattr(self._state, 'shardings', None)
-        if self._mesh is None or dist.get_world_size() == 1 or sh is None:
+        """The train state for an evaluation on this process alone, as the
+        JAX launcher's rule has it: the fields an evaluation reads (the
+        parameters, the buffers and the step) must be whole here.  A state
+        whose parameters are split over the ranks (ZeRO-3, tensor or expert
+        parallel) has no whole copy and raises the JAX package's error; a
+        ZeRO-1 state, whose optimizer state alone is split, evaluates."""
+        if self._mesh is None or dist.get_world_size() == 1:
             return self._state
-        if any(not s.is_fully_replicated for s in sh.leaves().values()):
+        if _parameters_split(self._state):
             raise ValueError('local_state() needs a replicated train state; this '
                              'state is sharded (ZeRO?) — evaluate with the global '
                              'mesh instead')

@@ -7,7 +7,11 @@ returns ``summary_all``'s table.  The distributed variant gives each
 process a disjoint, non-overlapping share of the samples
 (``DistributedNonOverlapSeqSampler``: the ranks may see different numbers
 of batches), predicts it with the launcher's rank-local eval step and sums
-the matrices over the ranks on the host.  A process drives one card, so no
+the matrices over the ranks on the host.  In a run of more than one
+process it evaluates ``Launcher.local_state()``, as the JAX loop does: a
+state whose parameters are split over the ranks (ZeRO-3, tensor parallel)
+raises the JAX package's error on every rank, where a rank-local forward
+would compute on its shards alone.  A process drives one card, so no
 batch is padded.  The single-process variant summarises its own matrix and
 enters no collective, so it may run on rank 0 alone (an
 ``EvaluationCallback`` with ``only_master``).
@@ -19,6 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ever_tpu_torch.core import dist
 from ever_tpu_torch.data.distributed import DistributedNonOverlapSeqSampler, with_sampler
 from ever_tpu_torch.metric.pixel import PixelMetric
 
@@ -49,11 +54,12 @@ def _make_eval_loop(num_classes, data_parse_fn, tune_model_fn, prediction_fn,
             loader = with_sampler(loader, DistributedNonOverlapSeqSampler(loader.dataset))
         pm = PixelMetric(num_classes, self.model_dir, logger=self.logger)
         eval_step = tune_model_fn(self.get_eval_step())
+        state = self.local_state() if distributed and dist.get_world_size() > 1 else self.state
         if desc:
             self.info(f'evaluating: {desc}')
         for data in loader:
             x, y_true, other_info = data_parse_fn(data)
-            y_pred = eval_step(self.state, (torch.as_tensor(x),))
+            y_pred = eval_step(state, (torch.as_tensor(x),))
             y_true, y_pred = prediction_fn(y_true, y_pred, other_info,
                                            self.model_dir, self.checkpoint)
             pm.forward(y_true, y_pred)

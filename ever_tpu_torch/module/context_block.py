@@ -14,6 +14,12 @@ The transform's LayerNorm is flax's default, over the inner channels with
 eps 1e-6 (torch's default would be 1e-5); the attention pool accumulates in
 float32 and casts to x's dtype, as the JAX package's ``einsum`` with
 ``preferred_element_type=float32`` does.
+
+Under a spatial step (``parallel/spatial.py``) x is a strip: the attention
+pool's softmax runs over every position of the tile
+(``Strips.softmax_pool``), the mean pool sums over the strips, and the
+transforms run on the pooled context, whole on every rank
+(``parallel.spatial.whole``).
 """
 
 from __future__ import annotations
@@ -24,9 +30,9 @@ import torch
 import torch.nn as nn
 
 from ever_tpu_torch.core import registry
-from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d
+from ever_tpu_torch.module.ops import Conv2d, LayerNorm2d, _nchw_mean
 from ever_tpu_torch.module.se_block import with_ratio
-from ever_tpu_torch.parallel.spatial import refuse
+from ever_tpu_torch.parallel.spatial import current, whole
 
 __all__ = ['ContextBlock2d', 'plugin_to_basicblock', 'plugin_to_resnet', 'constant_init',
            'kaiming_init', 'last_zero_init', 'conv3x3', 'conv1x1', 'BasicBlock', 'Bottleneck']
@@ -57,21 +63,29 @@ class ContextBlock2d(nn.Module):
                     nn.ReLU(), expand))
 
     def forward(self, x):
-        refuse('ContextBlock2d')
         n, c, h, w = x.shape
         if self.pool == 'att':
-            mask = torch.softmax(self.conv_mask(x).reshape(n, h * w, 1), dim=1)
+            logits = self.conv_mask(x).reshape(n, h * w, 1)
             feats = x.permute(0, 2, 3, 1).reshape(n, h * w, c)
             ct = torch.float64 if x.dtype == torch.float64 else torch.float32
-            context = torch.einsum('npc,npo->nco', feats.to(ct), mask.to(ct))
+            strips = current()
+            if strips is None:
+                context = torch.einsum('npc,npo->nco', feats.to(ct),
+                                       torch.softmax(logits, dim=1).to(ct))
+            else:
+                context = strips.softmax_pool(logits, feats, ct)
             context = context.reshape(n, c, 1, 1).to(x.dtype)
         else:
-            context = x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+            context = _nchw_mean(x)
+        with whole():               # the context is whole on every rank under a spatial step
+            mul = (torch.sigmoid(self.channel_mul_conv(context))
+                   if 'channel_mul' in self.fusions else None)
+            add = self.channel_add_conv(context) if 'channel_add' in self.fusions else None
         out = x
-        if 'channel_mul' in self.fusions:
-            out = out * torch.sigmoid(self.channel_mul_conv(context))
-        if 'channel_add' in self.fusions:
-            out = out + self.channel_add_conv(context)
+        if mul is not None:
+            out = out * mul
+        if add is not None:
+            out = out + add
         return out
 
 

@@ -32,8 +32,8 @@ import torch.nn.functional as F
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
-from ever_tpu_torch.module.ops import BatchNorm2d, Conv2d, sample_dropout
-from ever_tpu_torch.parallel.spatial import refuse
+from ever_tpu_torch.module.ops import BatchNorm2d, Conv2d, _nchw_mean, sample_dropout
+from ever_tpu_torch.parallel.spatial import whole
 
 __all__ = ['EfficientNet', 'EFNetEncoder', 'EFFICIENTNET_SPECS', 'MBConv', 'BN_EPS',
            'stage_repeats', 'nostride_dilate']
@@ -130,9 +130,10 @@ class MBConv(nn.Module):
             h = F.silu(self._bn0(self._expand_conv(h), train))
         h = F.silu(self._bn1(self._depthwise_conv(h), train))
         if self._se_reduce is not None:
-            refuse('the MBConv SE squeeze')
-            s = h.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(h.dtype)
-            h = h * torch.sigmoid(self._se_expand(F.silu(self._se_reduce(s))))
+            s = _nchw_mean(h)
+            with whole():           # s is whole on every rank under a spatial step
+                gate = torch.sigmoid(self._se_expand(F.silu(self._se_reduce(s))))
+            h = h * gate
         h = self._bn2(self._project_conv(h), train)
         if self.residual:
             h = sample_dropout(h, self.drop_connect_rate, train, generator) + x

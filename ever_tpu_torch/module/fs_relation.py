@@ -25,6 +25,7 @@ from ever_tpu_torch.module.fpn import FPN, AssymetricDecoder, check_widths
 from ever_tpu_torch.module.ops import (Conv2d, ConvBlock, GroupNorm2d, Sequential,
                                        channel_dropout, global_avg_pool)
 from ever_tpu_torch.module.resnet import ResNetEncoder
+from ever_tpu_torch.parallel.spatial import whole
 
 __all__ = ['FSRelation', 'FSRelationV2', 'FarSegHead', 'FarSeg']
 
@@ -70,10 +71,11 @@ class FSRelation(nn.Module):
         check_widths('FSRelation', features, self.in_channels_list)
         check_widths('FSRelation scene encoder', [scene_feature],
                      [self.scene_embedding_channels])
-        if self.scale_aware_proj:
-            scene_feats = [enc(scene_feature) for enc in self.scene_encoder]
-        else:
-            scene_feats = [self.scene_encoder(scene_feature)] * len(features)
+        with whole():               # the pooled scene is whole on every rank under a spatial step
+            if self.scale_aware_proj:
+                scene_feats = [enc(scene_feature) for enc in self.scene_encoder]
+            else:
+                scene_feats = [self.scene_encoder(scene_feature)] * len(features)
         content = [enc(f, train) for enc, f in zip(self.content_encoders, features)]
         re_enc = [enc(f, train) for enc, f in zip(self.feature_reencoders, features)]
         return [_relation(s, c) * p for s, c, p in zip(scene_feats, content, re_enc)]

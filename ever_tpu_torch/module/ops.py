@@ -107,17 +107,21 @@ def resize(x: torch.Tensor, scale: Optional[float] = None,
     return y.permute(0, 2, 3, 1).to(x.dtype)
 
 
-def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int],
+                         whole: bool = False) -> torch.Tensor:
     """Bilinear resize of an NHWC tensor with torch's ``align_corners=True``
     (the reference's ``UpsamplingBilinear2d``), computed in float32 as one
     matrix product per axis and returned in x's dtype, as the JAX package
     computes it.  Its backward is two matrix products too: no atomics, so a
     train step's gradients are the same bits every run (``F.interpolate``'s
-    CUDA backward adds with atomics)."""
+    CUDA backward adds with atomics).  Under a spatial step ``x`` is a
+    strip, or with ``whole=True`` a map whole on every rank; ``shape[0]``
+    is the strip's output rows either way (``parallel/spatial.py``)."""
     f32 = torch.float32
     strips = _spatial.current()
     if strips is not None:
-        y = strips.resize_rows(x.float(), shape[0], True, f32)
+        y = (strips.resize_whole_rows if whole else strips.resize_rows)(
+            x.float(), shape[0], True, f32)
     else:
         y = torch.einsum('oh,nhwc->nowc',
                          _bilinear_weights(x.shape[1], shape[0], f32, x.device, True), x.float())
@@ -158,20 +162,25 @@ def _make_bilinear_weights(n_in, n_out, dtype, device, align_corners):
 _cached_bilinear_weights = functools.lru_cache(maxsize=16)(_make_bilinear_weights)
 
 
-def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor:
+def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int],
+                      whole: bool = False) -> torch.Tensor:
     """Bilinear upsampling of an NHWC tensor to ``shape`` (half-pixel
     centres): ``resize``'s numbers, computed as one matrix product per axis,
     as ``jax.image.resize`` computes them.  Unlike ``F.interpolate``, whose
     CUDA backward adds into the input gradient with atomics, the backward is
     two matrix products, so a train step's gradients are the same bits every
-    run."""
+    run.  Under a spatial step ``x`` is a strip, or with ``whole=True`` a
+    map whole on every rank; ``shape[0]`` is the strip's output rows either
+    way (``parallel/spatial.py``)."""
     n, h, w, c = x.shape
-    if shape[0] < h or shape[1] < w:
-        raise ValueError(f'upsample_bilinear grows each axis; {(h, w)} -> {tuple(shape)} '
-                         'shrinks one (resize antialiases that)')
     strips = _spatial.current()
+    rows = shape[0] * (strips.k if strips is not None and whole else 1)
+    if rows < h or shape[1] < w:
+        raise ValueError(f'upsample_bilinear grows each axis; {(h, w)} -> {(rows, shape[1])} '
+                         'shrinks one (resize antialiases that)')
     if strips is not None:
-        y = strips.resize_rows(x, shape[0], False, x.dtype)
+        y = (strips.resize_whole_rows if whole else strips.resize_rows)(
+            x, shape[0], False, x.dtype)
     else:
         y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
     return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
@@ -219,20 +228,23 @@ def downsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor
 
 
 def bilinear_nchw(x: torch.Tensor, shape: Tuple[int, int],
-                  align_corners: bool = False) -> torch.Tensor:
+                  align_corners: bool = False, whole: bool = False) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to ``shape`` by matrix products,
     in x's dtype: :func:`resize_align_corners` (float32) with
     ``align_corners``, else :func:`upsample_bilinear` (float32 unless x is
     bfloat16), which only grows; a shrinking half-pixel resize antialiases
-    and goes through :func:`resize`."""
+    and goes through :func:`resize`.  ``whole``: under a spatial step, x is
+    whole on every rank and ``shape`` the strip's (``upsample_bilinear``)."""
     h, w = x.shape[2:]
     xh = x.permute(0, 2, 3, 1)
     if align_corners:
-        return resize_align_corners(xh, shape).permute(0, 3, 1, 2)
-    if shape[0] < h or shape[1] < w:
+        return resize_align_corners(xh, shape, whole).permute(0, 3, 1, 2)
+    strips = _spatial.current()
+    rows = shape[0] * (strips.k if strips is not None and whole else 1)
+    if rows < h or shape[1] < w:
         return resize(xh, shape=shape, method='bilinear').permute(0, 3, 1, 2)
     xh = xh if xh.dtype == torch.bfloat16 else xh.float()
-    return upsample_bilinear(xh, shape).to(x.dtype).permute(0, 3, 1, 2)
+    return upsample_bilinear(xh, shape, whole).to(x.dtype).permute(0, 3, 1, 2)
 
 
 def upsample_nearest_int(x: torch.Tensor, k: int) -> torch.Tensor:
@@ -261,6 +273,15 @@ def global_avg_pool(x: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
     return (total / (x.shape[1] * strips.k * x.shape[2])).to(x.dtype)
 
 
+def _nchw_mean(x: torch.Tensor) -> torch.Tensor:
+    """The spatial mean of an NCHW tensor as ``[N, C, 1, 1]``, accumulated
+    in float32, in x's dtype (the squeezes' pool); under a spatial step
+    :func:`global_avg_pool`'s sum over the strips, whole on every rank."""
+    if _spatial.current() is None:
+        return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+    return global_avg_pool(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 def _bin_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     """``[n_out, n_in]`` float32 averaging weights of adaptive pooling along
     one axis: bin i spans ``[floor(i·n/m), ceil((i+1)·n/m))`` (torch's
@@ -270,7 +291,7 @@ def _bin_weights(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
     hi = -((-(i + 1) * n_in) // n_out)
     cols = torch.arange(n_in, device=device)[None]
     inside = (cols >= lo[:, None]) & (cols < hi[:, None])
-    return inside.float() / (hi - lo)[:, None].float()
+    return inside.to(torch.float32) / (hi - lo)[:, None].to(torch.float32)
 
 
 def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
@@ -280,13 +301,16 @@ def adaptive_avg_pool(x: torch.Tensor, output_size) -> torch.Tensor:
     bin-averaging matrix product per axis: unlike ``adaptive_avg_pool2d``,
     whose CUDA backward adds with atomics where the bins do not divide the
     map, its backward is two matrix products, the same bits every run.
-    Under a spatial step only (1, 1) bins (:func:`global_avg_pool`): others
-    raise."""
+    Under a spatial step x is a strip and the bins are the whole tile's,
+    whole on every rank: (1, 1) by :func:`global_avg_pool`, others by
+    ``Strips.bin_pool``."""
     oh, ow = _pair(output_size)
     n, h, w, c = x.shape
     if (oh, ow) == (1, 1):
         return global_avg_pool(x)
-    _spatial.refuse(f'adaptive_avg_pool (bins {(oh, ow)})')
+    strips = _spatial.current()
+    if strips is not None:
+        return strips.bin_pool(x, (oh, ow)).to(x.dtype)
     if (oh, ow) == (h, w):
         return x
     y = torch.einsum('oh,nhwc->nowc', _bin_weights(h, oh, x.device), x.float())
@@ -589,11 +613,16 @@ class GroupNorm2d(nn.GroupNorm):
     normalisation in float32 (float64 for float64 input), the output in x's
     dtype; float32 ``weight`` and ``bias`` (flax's ``scale`` and ``bias``).
     The eps is each call site's: 1e-5 in ``Norm('gn')``, flax's default
-    1e-6 in FarSeg++'s scene encoders."""
+    1e-6 in FarSeg++'s scene encoders.  Under a spatial step x is a strip,
+    normalised by the whole tile's statistics (``Strips.group_norm``); a
+    map whole on every rank runs under ``parallel.spatial.whole``."""
 
     def forward(self, x):
-        _spatial.refuse('GroupNorm2d')
         ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+        strips = _spatial.current()
+        if strips is not None:
+            return strips.group_norm(x.to(ct), self.num_groups, self.weight.to(ct),
+                                     self.bias.to(ct), self.eps).to(x.dtype)
         return F.group_norm(x.to(ct), self.num_groups, self.weight.to(ct),
                             self.bias.to(ct), self.eps).to(x.dtype)
 
@@ -760,7 +789,10 @@ class PoolBlock(nn.Module):
     """A PSP pyramid bin: :func:`adaptive_avg_pool` to ``output_size`` →
     1×1 conv-norm-ReLU (``conv``) → back to the input's size, by a
     broadcast from 1×1 and otherwise by :func:`bilinear_nchw` (half-pixel
-    centres), as the JAX package's ``PoolBlock``."""
+    centres), as the JAX package's ``PoolBlock``.  Under a spatial step the
+    pooled map is whole on every rank: the conv runs under
+    ``parallel.spatial.whole`` and the resize takes the strip's rows of the
+    whole tile's."""
 
     def __init__(self, in_channels: int, output_size=1, features: int = 256,
                  norm: Optional[str] = 'bn'):
@@ -771,10 +803,11 @@ class PoolBlock(nn.Module):
     def forward(self, x, train: bool = False):
         n, _, h, w = x.shape
         y = adaptive_avg_pool(x.permute(0, 2, 3, 1), self.output_size).permute(0, 3, 1, 2)
-        y = self.conv(y, train)
+        with _spatial.whole():
+            y = self.conv(y, train)
         if y.shape[2:] == (1, 1):
             return y.expand(n, y.shape[1], h, w)
-        return bilinear_nchw(y, (h, w))
+        return bilinear_nchw(y, (h, w), whole=True)
 
 
 class ResidualBlock(Sequential):

@@ -16,8 +16,8 @@ import torch
 import torch.nn as nn
 
 from ever_tpu_torch.core import registry
-from ever_tpu_torch.module.ops import Conv2d
-from ever_tpu_torch.parallel.spatial import refuse
+from ever_tpu_torch.module.ops import Conv2d, _nchw_mean
+from ever_tpu_torch.parallel.spatial import whole
 
 __all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottleneck', 'conv3x3',
            'conv1x1', 'BasicBlock', 'Bottleneck']
@@ -25,9 +25,18 @@ __all__ = ['SEBlock', 'SCSEModule', 'plugin_to_basicblock', 'plugin_to_bottlenec
 
 def _squeeze(x: torch.Tensor) -> torch.Tensor:
     """The spatial mean of an NCHW tensor, accumulated in float32, as
-    ``[N, C, 1, 1]`` in x's dtype."""
-    refuse('the SE squeeze')
-    return x.mean(dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
+    ``[N, C, 1, 1]`` in x's dtype; under a spatial step the whole tile's,
+    whole on every rank (``module/ops.py`` ``_nchw_mean``)."""
+    return _nchw_mean(x)
+
+
+def _excite(fc1: nn.Module, fc2: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The channel gate ``sigmoid(fc2(relu(fc1(squeeze(x)))))``, its convs
+    on the squeezed map, which is whole on every rank under a spatial step
+    (``parallel.spatial.whole``)."""
+    s = _squeeze(x)
+    with whole():
+        return torch.sigmoid(fc2(torch.relu(fc1(s))))
 
 
 @registry.OP.register()
@@ -42,7 +51,7 @@ class SEBlock(nn.Module):
         self.fc2 = Conv2d(mid, channels, 1, bias=True)
 
     def forward(self, x):
-        return x * torch.sigmoid(self.fc2(torch.relu(self.fc1(_squeeze(x)))))
+        return x * _excite(self.fc1, self.fc2, x)
 
 
 @registry.OP.register()
@@ -63,7 +72,7 @@ class SCSEModule(nn.Module):
         self.spatial = Conv2d(channels, 1, 1, bias=False)
 
     def forward(self, x):
-        cse = x * torch.sigmoid(self.fc2(torch.relu(self.fc1(_squeeze(x)))))
+        cse = x * _excite(self.fc1, self.fc2, x)
         sse = x * torch.sigmoid(self.spatial(x))
         if self.mode == 'concat':
             return torch.cat([cse, sse], dim=1)

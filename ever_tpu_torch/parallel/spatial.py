@@ -29,9 +29,32 @@ Two mechanisms, as in the JAX package:
   over the axis.  No halo row is carried through a pointwise layer or a
   BatchNorm, so each rank's activations hold exactly its own rows and every
   pixel counts once.  BatchNorm, the losses and the gradient average run
-  over the axis (the step's mesh takes it as its batch axis).  An op that
-  reads across rows and has no strip form raises, naming itself
+  over the axis (the step's mesh takes it as its batch axis).  The other
+  reductions over the whole tile do as the global pool does, with
+  differentiable all-reduces of their sums over the axis: GroupNorm's two
+  passes (:meth:`Strips.group_norm`), the squeeze-excite squeezes, the
+  context block's softmax pool (:meth:`Strips.softmax_pool`) and the
+  adaptive pools to any bins (:meth:`Strips.bin_pool`).  An op that reads
+  across rows and has no strip form raises, naming itself
   (:func:`refuse`).
+
+**Strips and whole maps.**  Under a strip step most tensors are this rank's
+strip of the tile, but a reduction over the tile (a global or adaptive
+pool, a squeeze) returns a map that is whole on every rank, and the layers
+after it (FarSeg++'s scene encoder, a squeeze's 1×1 convs, a pyramid bin's
+conv-norm) compute on that whole map.  Nothing in a tensor tells the two
+apart (a strip at C5 of a small tile can be one row high, as a pooled map
+is), so the code says which it holds: the layers that take a whole map run
+under :func:`whole`, which suspends the strip context, so that each runs
+as in one process (a GroupNorm of the whole map normalises by its own
+statistics; a BatchNorm there still reduces over the axis, whose ranks all
+hold the same rows, which gives the same mean and variance).  The way back
+from a whole map to the strips is a resize told that it takes a whole map
+(:meth:`Strips.resize_whole_rows`: this strip's rows of the whole tile's
+bilinear weights, no halo), or a broadcast of a 1×1 map.  Gradients follow
+the rule the global pool set: a rank's gradient of a whole map is its
+strip's share of it, and the all-reduce that made the map sums the shares
+on the way back.
 
 A hop is a broadcast in the two-rank group of a pair of neighbours
 (``Mesh.neighbour_groups``; gloo carries only all-reduce and broadcast on
@@ -45,9 +68,10 @@ every rank's backward runs the same hops in the same order.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.distributed as tdist
@@ -59,7 +83,7 @@ from ever_tpu_torch.parallel.mesh import _CURRENT, Mesh, NamedSharding, P, all_r
 
 __all__ = ['halo_exchange', 'halo_exchange_exact', 'spatial_partition_apply',
            'spatial_batch_sharding', 'build_spatial_train_step',
-           'build_halo_train_step', 'Strips', 'current', 'refuse']
+           'build_halo_train_step', 'Strips', 'current', 'refuse', 'whole']
 
 _STRIPS: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_strips',
                                                          default=None)
@@ -68,6 +92,18 @@ _STRIPS: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_strips'
 def current() -> Optional['Strips']:
     """The strip context of the running spatial step, or None."""
     return _STRIPS.get()
+
+
+@contextlib.contextmanager
+def whole():
+    """While entered, the ops run as in one process: the code inside takes
+    maps that are whole on every rank (module docstring, "Strips and whole
+    maps").  Outside a spatial step it changes nothing."""
+    token = _STRIPS.set(None)
+    try:
+        yield
+    finally:
+        _STRIPS.reset(token)
 
 
 def refuse(what: str) -> None:
@@ -183,9 +219,73 @@ class Strips:
         w = _strip_weights(x.shape[1], n_out, self.k, self.s, align_corners, dtype, x.device)
         return torch.einsum('oh,nhwc->nowc', w, self.rows(x, 1, 1, 1, 0.0, 'bilinear resize'))
 
+    def resize_whole_rows(self, x: torch.Tensor, n_out: int, align_corners: bool,
+                          dtype: torch.dtype) -> torch.Tensor:
+        """A bilinear resize along the rows of NHWC ``x``, a map whole on
+        every rank, to the whole tile's ``k·n_out`` rows, of which this
+        strip's ``n_out``: its rows of the whole resize's weights against
+        the whole map (no halo)."""
+        w = _whole_weights(x.shape[1], n_out, self.k, self.s, align_corners, dtype, x.device)
+        return torch.einsum('oh,nhwc->nowc', w, x)
+
     def row_sum(self, t: torch.Tensor) -> torch.Tensor:
         """Differentiable sum of ``t`` over the strips."""
         return all_reduce_sum(t, self.group)
+
+    def row_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The largest of the strips' ``t``, element by element, without a
+        gradient: each rank writes its own slot of a ``[k, ...]`` zero
+        tensor and one all-reduce sums them (a gather by sums, which gloo
+        carries on CUDA tensors too)."""
+        slots = t.new_zeros((self.k,) + tuple(t.shape))
+        slots[self.s] = t.detach()
+        if self.group is not None:
+            tdist.all_reduce(slots, group=self.group)
+        return slots.amax(0)
+
+    def group_norm(self, x: torch.Tensor, groups: int, weight: torch.Tensor,
+                   bias: torch.Tensor, eps: float) -> torch.Tensor:
+        """GroupNorm of an NCHW strip by the whole tile's statistics, in
+        x's dtype (the caller's float32 or float64), in two passes as the
+        one-process GroupNorm: the groups' sums are summed over the strips
+        for the mean, then their sums of squared deviations from it for
+        the (biased) variance."""
+        n, c, h, w = x.shape
+        g = x.reshape(n, groups, -1)
+        count = g.shape[-1] * self.k
+        mean = self.row_sum(g.sum(-1, keepdim=True)) / count
+        d = g - mean
+        var = self.row_sum((d * d).sum(-1, keepdim=True)) / count
+        y = (d * torch.rsqrt(var + eps)).reshape(n, c, h, w)
+        return y * weight[None, :, None, None] + bias[None, :, None, None]
+
+    def softmax_pool(self, logits: torch.Tensor, feats: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+        """``Σ_p softmax(logits)_p · feats_p`` over every position of the
+        tile: ``logits`` ``[N, P, 1]`` and ``feats`` ``[N, P, C]`` hold
+        this strip's positions.  The softmax shifts by the strips' largest
+        logit (without a gradient: the softmax does not depend on the
+        shift) and divides by the exp-sum over the strips; its weights are
+        rounded to the logits' dtype, as a softmax in that dtype rounds
+        them, before the product in ``dtype``, whose sums over the strips
+        are added.  Returns ``[N, C, 1]`` in ``dtype``, whole on every
+        rank."""
+        m = self.row_max(logits.amax(dim=1, keepdim=True))
+        e = torch.exp((logits - m).to(dtype))
+        mask = (e / self.row_sum(e.sum(dim=1, keepdim=True))).to(logits.dtype).to(dtype)
+        return self.row_sum(torch.einsum('npc,npo->nco', feats.to(dtype), mask))
+
+    def bin_pool(self, x: torch.Tensor, bins: Tuple[int, int]) -> torch.Tensor:
+        """Adaptive average pooling of NHWC ``x`` (this strip) to ``bins``
+        in float32 (``module/ops.py`` ``adaptive_avg_pool``'s weights): the
+        strip is multiplied by its own columns of the whole tile's row
+        weights, the products are summed over the strips, then the columns
+        are pooled.  Whole on every rank."""
+        from ever_tpu_torch.module.ops import _bin_weights
+        h = x.shape[1]
+        rows = _bin_weights(h * self.k, bins[0], x.device).narrow(1, self.s * h, h)
+        y = self.row_sum(torch.einsum('oh,nhwc->nowc', rows, x.float()))
+        return torch.einsum('pw,nowc->nopc', _bin_weights(x.shape[2], bins[1], x.device), y)
 
     def keep_mask(self, shape, rate: float, generator: torch.Generator,
                   rows_dim: Optional[int]) -> torch.Tensor:
@@ -236,6 +336,18 @@ def _strip_weights(h: int, m: int, k: int, s: int, align_corners: bool, dtype: t
         raise ValueError(f'a bilinear resize of {k * h} to {k * m} rows reads more than one '
                          f'row past a strip of {h}')
     return w.to(dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _whole_weights(n_in: int, m: int, k: int, s: int, align_corners: bool,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Rows ``[s·m, (s+1)·m)`` of the ``[k·m, n_in]`` bilinear weights that
+    resize a whole map of ``n_in`` rows to the tile's ``k·m``, made in
+    float64 and kept on ``device`` in ``dtype``."""
+    from ever_tpu_torch.module.ops import _make_bilinear_weights
+    full = _make_bilinear_weights(n_in, k * m, torch.float64, torch.device('cpu'),
+                                  align_corners)
+    return full[s * m:(s + 1) * m].to(dtype=dtype, device=device)
 
 
 class _Swap(torch.autograd.Function):

@@ -218,6 +218,16 @@ def test_expert_parallel_matches_one_process_and_jax(ranks):
                 _close(got.numpy(), want, want)
 
 
+def test_local_state_of_an_expert_parallel_state_raises_jax_s_error(ranks):
+    """A state whose experts are split over the ranks has no whole copy on
+    either: ``Launcher.local_state()`` (what a multi-process evaluation
+    reads, C.5) raises the JAX launcher's error for a state split over the
+    processes, with its message."""
+    from test_torch_zero import jax_local_state_error
+    for res in ranks:
+        assert res['local_state'] == jax_local_state_error()
+
+
 class _TorchTiny(nn.Module):
     """The JAX test's ``Tiny``: a ``MoEMlp`` and an MSE loss."""
 

@@ -20,6 +20,12 @@ this process computes the JAX side on meshes of 4 and 2 CPU devices:
   strip forms FarSeg does not reach (``torch_spatial_ranks.OpsNet``)
   against the port's unsharded step, within 1e-10; the global pool of the
   strips against the whole tile's;
+- the strip forms of the other reductions over the tile
+  (``torch_spatial_ranks.STRIP_FORMS``: GroupNorm, the SE and MBConv
+  squeezes, the context block's two pools, the adaptive pools to 2, 3 and
+  6 bins with the pyramid's upsample of the whole pooled map, a pyramid
+  bin) against the same modules on the whole tile: values and input
+  gradients;
 - the ops that read across rows and have no strip form: each raises under
   the strip context, naming itself.
 """
@@ -43,7 +49,7 @@ from ever_tpu_torch.parallel import spatial as tspatial
 from test_spatial import _ConvStack
 from test_torch_dist import start_ranks
 from test_torch_resnet import one_torch_thread  # noqa: F401
-from torch_spatial_ranks import POOLS, OpsNet, ops_step, pools
+from torch_spatial_ranks import POOLS, STRIP_FORMS, OpsNet, ops_step, pools, strip_forms
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -66,6 +72,12 @@ OPS_TILE, OPS_TOL, OPS_LOSS_TOL = (1, 64, 24, 3), 1e-10, 1e-6
 # sums added over the axis against one sum, within float32 rounding; their
 # gradients (the probe over the bin's count, in float32) exactly
 POOL_TILE, POOL_TOL = (2, 24, 10, 3), dict(rtol=1e-6, atol=1e-7)
+# the strip forms' NCHW tile (strips of 12 and 6 rows), float64; GroupNorm
+# and the context block's softmax pool compute in float64 (OPS_TOL of
+# max(1, |value|)), the others pool in float32 as the JAX package's pools
+# do (POOL_TOL: the strips' sums added over the axis against one sum)
+FORM_TILE = (2, 8, 24, 10)
+FORM_FLOAT64 = ('GroupNorm2d', 'ContextBlock2d att')
 
 
 def _jax_mesh(k):
@@ -88,7 +100,19 @@ def _inputs():
     pool_x = rng.normal(size=POOL_TILE)
     pool_probes = {name: rng.normal(size=(POOL_TILE[0],) + (size or (1, 1)) + POOL_TILE[3:])
                    for name, size in POOLS}
-    return model, tile, params, train, (ops_x, ops_y), ops_state, (pool_x, pool_probes)
+    form_x = rng.normal(size=FORM_TILE)
+    form_probes = {name: rng.normal(size=_form_shape(name)) for name, _ in STRIP_FORMS}
+    return (model, tile, params, train, (ops_x, ops_y), ops_state, (pool_x, pool_probes),
+            (form_x, form_probes))
+
+
+def _form_shape(name: str) -> tuple:
+    """The whole tile's output shape of a strip form's case."""
+    n, c, h, w = FORM_TILE
+    if name.startswith('adaptive_avg_pool'):
+        b = int(name.split()[-1].rstrip(')'))
+        return (n, c, b, b)
+    return (n, 4 if name.startswith('PoolBlock') else c, h, w)
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,12 +130,14 @@ def job(tmp_path_factory):
     """The job's four ranks, started before the module's first test (every
     case runs on an axis of 4 and on one of 2: module docstring); killed at
     the end if still running."""
-    _, tile, params, train, (ops_x, ops_y), ops_state, (pool_x, pool_probes) = _inputs()
+    (_, tile, params, train, (ops_x, ops_y), ops_state, (pool_x, pool_probes),
+     (form_x, form_probes)) = _inputs()
     tmp = tmp_path_factory.mktemp('spatial')
     torch.save(dict(cases={k: _primitive_inputs(k) for k in WORLDS}, halo=HALO, tile=tile,
                     params=params, width=8, depth=3, partition=PARTITION, train_x=train[0],
                     train_y=train[1], train_halo=TRAIN_HALO, ops_x=ops_x, ops_y=ops_y,
-                    ops_state=ops_state, pool_x=pool_x, pool_probes=pool_probes),
+                    ops_state=ops_state, pool_x=pool_x, pool_probes=pool_probes,
+                    form_x=form_x, form_probes=form_probes),
                tmp / 'prim-inputs.pt')
     started = start_ranks('torch_spatial_ranks', 'primitives_worker', 4, tmp, tmp)
     yield tmp, started
@@ -129,6 +155,7 @@ def ranks(job):
             _jax_halo_step(k, boundary)
     _jax_partition(1, (('exact', 4),))
     _ops_unsharded()
+    _forms_whole()
     tmp, started = job
     started.finish(timeout=120)
     res = [torch.load(tmp / f'prim-rank{r}.pt', weights_only=False) for r in range(4)]
@@ -316,8 +343,7 @@ def test_global_and_adaptive_pools_sum_over_the_strips(ranks, world):
     every rank (``POOL_TOL``), and each strip's rows of the input gradient
     of ``Σ pooled·probe``, which every rank's loss reaches ``world`` times
     over (the sum's gradient is the ranks' sum; DDP's average divides it
-    out in a step), exactly.  Other bins have no strip form (the next
-    test)."""
+    out in a step), exactly.  Other bins: the strip forms' test."""
     x, probes = _inputs()[6]
     want = pools(torch.from_numpy(x), probes)
     h = POOL_TILE[1] // world
@@ -330,14 +356,49 @@ def test_global_and_adaptive_pools_sum_over_the_strips(ranks, world):
                                           wgrad[:, r * h:(r + 1) * h].numpy(), err_msg=name)
 
 
+@functools.lru_cache(maxsize=None)
+def _forms_whole():
+    """The strip forms' cases on the whole tile, in one process."""
+    x, probes = _inputs()[7]
+    return strip_forms(torch.from_numpy(x), probes)
+
+
+@pytest.mark.parametrize('world', WORLDS)
+@pytest.mark.parametrize('name,is_whole', STRIP_FORMS, ids=[n for n, _ in STRIP_FORMS])
+def test_strip_forms_equal_the_op_on_the_whole_tile(ranks, world, name, is_whole):
+    """Each reduction over the tile under the strip context against the
+    same module on the whole tile: a strip's output is its rows of the
+    whole output and its gradient of ``Σ output·probe`` (the probe's rows)
+    its rows of the whole gradient; a whole output (the pooled map) is the
+    whole tile's on every rank, and the gradient of ``Σ pooled·probe``,
+    which every rank's loss reaches ``world`` times over, is ``world``
+    times the strip's rows of it.  float64 cases within ``OPS_TOL`` of
+    max(1, |value|), the float32 pools within ``POOL_TOL``."""
+    want_y, want_g = _forms_whole()[name]
+    h = FORM_TILE[2] // world
+    for r, res in enumerate(ranks[world]):
+        y, g = res['strip_forms'][name]
+        rows = slice(r * h, (r + 1) * h)
+        pairs = ((y, want_y if is_whole else want_y[:, :, rows]),
+                 (g / world if is_whole else g, want_g[:, :, rows]))
+        for got, want in pairs:
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            if name in FORM_FLOAT64:
+                scale = max(1.0, float(want.abs().max()))
+                assert float((got - want).abs().max()) <= OPS_TOL * scale, name
+            else:
+                np.testing.assert_allclose(got.numpy(), want.numpy(), **POOL_TOL, err_msg=name)
+
+
 @pytest.mark.parametrize('world', WORLDS)
 def test_ops_without_a_strip_form_raise_naming_themselves(ranks, world):
     """Under the strip context every op of ``torch_spatial_ranks.refusals``
-    (attention, GroupNorm, a checkpointed block, adaptive pools to other
-    bins than (1, 1), a shrinking or non-integer resize, the s2d stem, the
-    squeeze-excite and context blocks) raises, naming itself, on every
-    rank: none returns a strip-local answer."""
+    (attention, a checkpointed block, a shrinking or non-integer resize,
+    the s2d stem, FreeNet's spectral attention) raises, naming itself, on
+    every rank: none returns a strip-local answer.  (GroupNorm, the
+    squeezes, the context block and the adaptive pools have strip forms:
+    the test above.)"""
     for res in ranks[world]:
-        assert len(res['refusals']) == 12
+        assert len(res['refusals']) == 7
         for name, err in res['refusals'].items():
             assert err.startswith(name) and 'has no strip form' in err, (name, err)

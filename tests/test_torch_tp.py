@@ -14,7 +14,10 @@ test's weights under tensor parallel on a ``('data', 'model')`` mesh of
 (1, 2), against the JAX model's forward and the gradients of a probe
 loss (``torch_layout_ranks.probe_loss``: the JAX test's ``mean(cls²)``
 after a unit-scale LayerNorm is constant), on one device: GSPMD computes
-the unsharded function (``tests/test_tp.py``).
+the unsharded function (``tests/test_tp.py``).  The same ranks evaluate a
+DinoSeg (2 blocks of width 64) under tensor parallel through the
+distributed evaluation closure, which raises the JAX launcher's
+``local_state()`` error (C.5).
 """
 
 import functools
@@ -41,7 +44,8 @@ from ever_tpu_torch.util.weight_io import convert_flax_dinoseg, convert_flax_din
 from test_torch_dist import start_ranks
 from test_torch_resnet import one_torch_thread  # noqa: F401
 from test_torch_trainer import TINY
-from test_torch_zero import _names
+from test_torch_zero import _names, jax_local_state_error
+from torch_zero_ranks import VIT_SPEC
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
 
@@ -285,8 +289,11 @@ def job(tmp_path_factory):
     running."""
     tmp = tmp_path_factory.mktemp('tp')
     _, x, params, probes = _jax_init()
-    torch.save(dict(cfg=VIT, state_dict=convert_flax_dinov3_vit(params), x=x, probes=probes),
-               tmp / 'tp-inputs.pt')
+    rng = np.random.default_rng(4)
+    evaluation = (*VIT_SPEC, 5, rng.normal(size=(4, 32, 32, 3)).astype(np.float32),
+                  rng.integers(0, 5, size=(4, 32, 32)))
+    torch.save(dict(cfg=VIT, state_dict=convert_flax_dinov3_vit(params), x=x, probes=probes,
+                    eval=evaluation), tmp / 'tp-inputs.pt')
     ranks = start_ranks('torch_layout_ranks', 'tp_worker', 2, tmp, tmp)
     yield tmp, ranks
     ranks.kill()
@@ -343,3 +350,14 @@ def test_tp_ranks_hold_their_halves_and_qkv_rows_by_head(ranks):
     assert r0['qkv_rows'] == [j * 384 + i for j in range(3) for i in range(192)]
     assert r1['qkv_rows'] == [j * 384 + 192 + i for j in range(3) for i in range(192)]
     assert 'tensor parallel already' in r0['again']
+
+
+def test_distributed_evaluation_of_a_tp_state_raises_jax_s_error(ranks):
+    """C.5: a DinoSeg under tensor parallel on the (1, 2) mesh, evaluated
+    through ``distributed_evaluate_pixel_prediction_task``, raises on both
+    ranks the JAX launcher's ``local_state()`` error for a state split over
+    the processes, with its message: each rank would otherwise sum its
+    shard's partial outputs with another rank's images."""
+    want = jax_local_state_error()
+    for res in ranks:
+        assert res['evaluate'] == ('raised', want)

@@ -28,7 +28,12 @@ block by block: bit-equal with one microbatch (bf16 compute), within 1e-6 (metri
 1e-7 (parameters) with two, at most two units' whole tensors held at once,
 every rank gathering and reducing the units in one order; and a net whose
 third block's output and one root parameter go unused, at ZeRO-3 against
-ZeRO-1.
+ZeRO-1.  The same job evaluates the small net's state after two steps,
+replicated, at ZeRO-1 and at ZeRO-3, through a ``Launcher`` on the mesh
+and ``distributed_evaluate_pixel_prediction_task``: the sharded state
+raises the JAX launcher's ``local_state()`` error on both ranks (its
+message taken from the JAX package here), the others give one process's
+predictions.
 """
 
 import functools
@@ -60,7 +65,8 @@ from ever_tpu_torch.parallel.zero import shard_leaf_sharding, zero_init, zero_sh
 from ever_tpu_torch.trainer.gan import build_gan_train_step, create_gan_state
 from ever_tpu_torch.util.weight_io import convert_flax_dinoseg, convert_flax_farseg
 from test_torch_dist import run_ranks
-from torch_zero_ranks import CLASSES, GAN_IMAGES, _batch, _gan, _rule, _Tiny
+from torch_zero_ranks import CLASSES, EVAL_BATCH, GAN_IMAGES, N, TorchTiny, _batch, _gan, _rule, \
+    _Tiny
 from test_torch_resnet import one_torch_thread  # noqa: F401
 from test_torch_trainer import TINY
 
@@ -366,6 +372,63 @@ def test_create_train_state_sharded_places_the_host_model_leaf_by_leaf(ranks):
         assert torch.equal(r0['sharded_steps'][k], v), k
     assert 'fully replicated' in r0['replicated_below']
     assert 'sharded (ZeRO?)' in r0['local_state']
+
+
+@functools.lru_cache(maxsize=None)
+def jax_local_state_error() -> str:
+    """The message of the JAX launcher's ``local_state()`` for a state whose
+    parameters are split over the devices, raised by the JAX method itself
+    on a launcher stand-in over the 8-device CPU mesh, as a multi-process
+    run has it (``jax.process_count`` 2)."""
+    from types import SimpleNamespace
+
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from ever_tpu.core.launcher import Launcher as JLauncher
+    mesh8 = jmesh.make_mesh(('data',))
+    split = jax.device_put(jnp.zeros(8), NamedSharding(mesh8, PartitionSpec('data')))
+    host = SimpleNamespace(_mesh=mesh8, _local_mesh=mesh8, get_eval_step=lambda local: None,
+                           state=SimpleNamespace(step=jnp.zeros(()), params={'w': split},
+                                                 batch_stats={}))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, 'process_count', lambda: 2)
+        with pytest.raises(ValueError) as err:
+            JLauncher.local_state(host)
+    return str(err.value)
+
+
+def test_distributed_evaluation_of_a_zero3_state_raises_jax_s_error(ranks):
+    """C.5: the distributed evaluation closure on a ZeRO-3 state (its
+    parameters split over the two ranks) raises, on both ranks, the
+    ``ValueError`` the JAX launcher's ``local_state()`` raises for a state
+    split over the processes, with its message."""
+    want = jax_local_state_error()
+    assert 'needs a replicated train state' in want
+    for res in ranks['ranks']:
+        assert res['evaluate'][3][1] == ('raised', want)
+
+
+@pytest.mark.parametrize('level', [0, 1])
+def test_distributed_evaluation_of_replicated_and_zero1_states_equals_one_process(ranks,
+                                                                                   level):
+    """C.5: a replicated (DDP) state and a ZeRO-1 state (its optimizer
+    state alone split) evaluate through the distributed closure: the
+    ranks' predictions, in rank order, equal one process's forward of the
+    same weights on every sample (within float64 rounding), and both ranks
+    print the same table of the summed confusion matrix."""
+    x, _ = _batch()
+    model = TorchTiny().double()
+    results = [res['evaluate'][level] for res in ranks['ranks']]
+    model.load_state_dict(results[0][0])
+    with torch.no_grad():
+        want = model(torch.from_numpy(x), train=False)
+    got = [b for _, (kind, batches, _) in results for b in batches]
+    assert all(kind == 'ok' for _, (kind, *_) in results)
+    assert len(got) == N // EVAL_BATCH
+    np.testing.assert_allclose(torch.cat(got).numpy(), want.numpy(), rtol=0, atol=1e-12)
+    assert results[0][1][2] == results[1][1][2]
+    for k, v in results[0][0].items():
+        assert torch.equal(results[1][0][k], v), k
 
 
 def test_directory_checkpoints_save_shards_and_resume_bit_equal(ranks):

@@ -16,7 +16,7 @@ from ever_tpu_torch.parallel import mesh as tmesh
 from ever_tpu_torch.parallel import pp, tp
 from ever_tpu_torch.parallel.ep import MoEMlp
 from ever_tpu_torch.parallel.sharded import create_train_state_sharded
-from ever_tpu_torch.parallel.spmd import build_train_step, sown_losses
+from ever_tpu_torch.parallel.spmd import TrainState, build_train_step, sown_losses
 from ever_tpu_torch.parallel.zero import full_state_dict, local_bytes
 
 
@@ -68,7 +68,28 @@ def tp_worker(rank, world, init, out):
         x_grad=x.grad, grads=grads, sharded=sorted(plan.sharded),
         local={n: p.numel() * p.element_size() for n, p in vit.named_parameters()},
         whole=whole, again=_raises(lambda: tp.apply_tp(vit, mesh, device='cpu')),
-        qkv_rows=vit.blocks[0].attn.qkv_rows.tolist()))
+        qkv_rows=vit.blocks[0].attn.qkv_rows.tolist(),
+        evaluate=tp_evaluation(out, rank, mesh, inp['eval'])))
+
+
+def tp_evaluation(out, rank, mesh, spec) -> tuple:
+    """C.5: a DinoSeg (the ``spec`` trunk) under tensor parallel on the
+    mesh, evaluated through a ``Launcher`` by
+    ``distributed_evaluate_pixel_prediction_task``: ('raised', the error's
+    message), or ('ok', ...) where it computes."""
+    from torch_zero_ranks import distributed_evaluation
+    from ever_tpu_torch.core.launcher import Launcher
+
+    name, shape, classes, x, y = spec
+    tvit.VIT_SPECS[name] = shape
+    torch.manual_seed(0)
+    model = tbuilder.make_model({'type': 'DinoSeg', 'params': dict(
+        backbone=dict(name=name), classes=classes)}, device='cpu')
+    tp.apply_tp(model, mesh, device='cpu')
+    launcher = Launcher(os.path.join(out, f'tp-eval{rank}'), model, None, device='cpu',
+                        mesh=mesh)
+    launcher._state = TrainState(step=0, model=model, optimizer=None)
+    return distributed_evaluation(launcher, x, y)
 
 
 def _groups_seen(mesh, axes):
@@ -222,7 +243,12 @@ def ep_worker(rank, world, init, out):
         y = moe(x)
     aux = sown['moe_aux_loss'][0]
     ((y ** 2).sum() + aux).backward()
+    from ever_tpu_torch.core.launcher import Launcher
+    launcher = Launcher(os.path.join(out, f'ep-launcher{rank}'), moe, None, device='cpu',
+                        mesh=mesh)
+    launcher._state = TrainState(step=0, model=moe, optimizer=None)
     _save(out, 'ep', rank, dict(
         y=y.detach(), aux=aux.item(), x_grad=x.grad, first=moe.first_expert,
         grads={n: p.grad for n, p in moe.named_parameters()},
-        shapes={n: tuple(p.shape) for n, p in moe.named_parameters()}))
+        shapes={n: tuple(p.shape) for n, p in moe.named_parameters()},
+        local_state=_raises(launcher.local_state)))

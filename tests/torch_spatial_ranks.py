@@ -126,25 +126,101 @@ def pools(x: torch.Tensor, probes: dict, strips=None) -> dict:
     return out
 
 
+PYRAMID_BINS = (2, 3, 6)
+# (name, output whole on every rank): the strip forms of the reductions over
+# the tile, each called by strip_forms; the pyramid cases are the pooled
+# map (whole) and its upsample back to the strips, half-pixel and with
+# align_corners
+STRIP_FORMS = (('GroupNorm2d', False), ('the SE squeeze', False),
+               ('the MBConv SE squeeze', False), ('ContextBlock2d att', False),
+               ('ContextBlock2d avg', False), ('PoolBlock (bins 3)', False)) + tuple(
+    case for b in PYRAMID_BINS for case in ((f'adaptive_avg_pool (bins {b})', True),
+                                             (f'pyramid upsample (bins {b})', False),
+                                             (f'pyramid upsample (bins {b}, corners)', False)))
+
+
+def strip_form_modules() -> dict:
+    """The modules of :func:`strip_forms`, float64, with every parameter
+    drawn from one seed (the context block's zero-initialised expand convs
+    too, so that its pool reaches the output): the same in every process."""
+    from ever_tpu_torch.module import context_block, efficientnet, se_block
+    torch.manual_seed(5)
+    mods = {'GroupNorm2d': ops.GroupNorm2d(4, 8),
+            'the SE squeeze': se_block.SEBlock(8, 4),
+            'the MBConv SE squeeze': efficientnet.MBConv(8, 8, 1),
+            'ContextBlock2d att': context_block.ContextBlock2d(
+                8, 1 / 4, 'att', ('channel_add', 'channel_mul')),
+            'ContextBlock2d avg': context_block.ContextBlock2d(
+                8, 1 / 4, 'avg', ('channel_add', 'channel_mul')),
+            'PoolBlock (bins 3)': ops.PoolBlock(8, 3, 4)}
+    with torch.no_grad():
+        for m in mods.values():
+            for t in m.parameters():
+                t.normal_(0.0, 0.5)
+    return {k: m.double() for k, m in mods.items()}
+
+
+def strip_forms(x: torch.Tensor, probes: dict, mesh=None) -> dict:
+    """{name: (output, x's gradient of Σ output·probe)} of each of
+    ``STRIP_FORMS`` on NCHW ``x``: the whole tile without ``mesh``, else
+    this rank's strip under the strip context of ``mesh``'s ``'data'``
+    axis (and its mesh view, whose batch axis the train-mode BatchNorms
+    reduce over), with its rows of the probe where the output is a strip
+    and the whole probe where it is whole."""
+    mods = strip_form_modules()
+    if mesh is None:
+        ctx, rows = contextlib.nullcontext, slice(None)
+    else:
+        h, s = x.shape[2], mesh.rank('data')
+        rows = slice(s * h, (s + 1) * h)
+
+        @contextlib.contextmanager
+        def ctx():
+            with mesh.with_batch_axes(('data',)), spatial.Strips(mesh, 'data'):
+                yield
+
+    def nhwc(t):
+        return t.permute(0, 2, 3, 1)
+
+    def pyramid(b, corners=None):
+        def fn(t):
+            pooled = ops.adaptive_avg_pool(nhwc(t), b).permute(0, 3, 1, 2)
+            if corners is None:
+                return pooled
+            return ops.bilinear_nchw(pooled, t.shape[2:], corners, whole=True)
+        return fn
+
+    calls = {'the MBConv SE squeeze': lambda t: mods['the MBConv SE squeeze'](t, True),
+             'PoolBlock (bins 3)': lambda t: mods['PoolBlock (bins 3)'](t, True)}
+    for b in PYRAMID_BINS:
+        calls[f'adaptive_avg_pool (bins {b})'] = pyramid(b)
+        calls[f'pyramid upsample (bins {b})'] = pyramid(b, False)
+        calls[f'pyramid upsample (bins {b}, corners)'] = pyramid(b, True)
+    out = {}
+    for name, is_whole in STRIP_FORMS:
+        fn = calls.get(name) or mods[name]
+        xs = x.clone().requires_grad_()
+        with ctx():
+            y = fn(xs)
+        probe = torch.as_tensor(probes[name])
+        (y * (probe if is_whole else probe[:, :, rows])).sum().backward()
+        out[name] = (y.detach(), xs.grad)
+    return out
+
+
 def refusals(strips) -> dict:
     """{the name an op gives itself: its error} under ``strips`` for each
     op that reads across rows and has no strip form, called on a small
     input (NCHW maps, NHWC for ``module/ops.py``'s functions, tokens for
     the attentions); 'returned' where one does not raise."""
-    from ever_tpu_torch.module import context_block, efficientnet, freenet, resnet, se_block
-    from ever_tpu_torch.module import vit
+    from ever_tpu_torch.module import freenet, resnet, vit
     x, tokens = torch.randn(1, 8, 4, 6), torch.randn(1, 5, 8)
     nhwc = x.permute(0, 2, 3, 1)
     cases = {
-        'adaptive_avg_pool (bins (2, 3))': lambda: ops.adaptive_avg_pool(nhwc, (2, 3)),
         'downsample_bilinear': lambda: ops.downsample_bilinear(nhwc, (2, 3)),
         'resize (bilinear': lambda: ops.resize(nhwc, scale=2, method='bilinear'),
         'checkpointed': lambda: ops.checkpointed(nn.Identity(), lambda t: t, x),
-        'GroupNorm2d': lambda: ops.GroupNorm2d(2, 8)(x),
         'the s2d stem': lambda: resnet.depth_to_space(x),
-        'the SE squeeze': lambda: se_block.SEBlock(8, 4)(x),
-        'the MBConv SE squeeze': lambda: efficientnet.MBConv(8, 8, 1)(x, True),
-        'ContextBlock2d': lambda: context_block.ContextBlock2d(8)(x),
         'SpectralAttention': lambda: freenet.SpectralAttention(8)(x),
         'attention': lambda: vit.SelfAttention(8, 2)(tokens),
         'CausalSelfAttention': lambda: vit.CausalSelfAttention(8, 2)(tokens),
@@ -232,6 +308,9 @@ def _primitives(inp, case, mesh, r, k, one):
     ph = px.shape[1] // k
     res['pools'] = pools(px[:, r * ph:(r + 1) * ph], inp['pool_probes'],
                          spatial.Strips(mesh, 'data'))
+    fx = torch.from_numpy(inp['form_x'])
+    fh = fx.shape[2] // k
+    res['strip_forms'] = strip_forms(fx[:, :, r * fh:(r + 1) * fh], inp['form_probes'], mesh)
     res['refusals'] = refusals(spatial.Strips(mesh, 'data'))
     return res
 
@@ -258,6 +337,68 @@ def float32_parts_in_float64():
 
 
 VARIANTS = (('as_is', contextlib.nullcontext), ('float64', float32_parts_in_float64))
+# ResNet-18's stem, blocks and widths with one block a stage, as
+# tests/test_torch_factseg.py registers it in both packages
+TINY_TRUNK = 'resnet_basic_tiny'
+# the models through the strip forms, each trained as FarSeg-R18 is (one
+# step over the strips, one on the whole tile): FarSeg++ (its weights from
+# the JAX model, saved by the test), FarSeg on an SE + GC trunk and
+# PSPNet (seeded here, seeded_init); the rank that runs each one's
+# unsharded step
+MORE_MODELS = (('farseg_pp', 2), ('se_gc', 3), ('pspnet', 1))
+
+
+def register_tiny_trunk() -> None:
+    from ever_tpu_torch.module import resnet as tres
+    tres.RESNET_SPECS[TINY_TRUNK] = (tres.BasicBlock, (1, 1, 1, 1), 1, 64, False)
+
+
+class PSPNet(nn.Module):
+    """A narrow PSPNet as a user composes it: ``ResNetEncoder`` at output
+    stride 8 (K8's route at the stem), ``PPMHead`` (bins 1, 2, 3, 6) on C5,
+    float32 logits and the cross-entropy."""
+
+    def __init__(self, classes: int, dtype: str = 'float64'):
+        super().__init__()
+        from ever_tpu_torch.core import registry
+        self.encoder = registry.MODEL['ResNetEncoder'](dict(
+            resnet_type=TINY_TRUNK, output_stride=8, maxpool_impl='pallas', dtype=dtype))
+        self.head = registry.MODEL['PPMHead'](dict(
+            ppm=dict(in_channels=512, pool_channels=8, out_channels=16, bins=(1, 2, 3, 6)),
+            num_classes=classes, dtype=dtype))
+
+    def forward(self, x, y=None, train=False, generator=None):
+        logits = self.head(self.encoder(x, train)[-1], train, generator)
+        logits = logits.permute(0, 2, 3, 1).float()
+        return dict(cls_loss=L.softmax_ce_loss_with_logits(logits, y, ignore_index=255))
+
+
+def seeded_init(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded weights, the same in every process: kernels ~N(0, 2/fan_in),
+    norm weights ~N(1, 0.1²), biases ~N(0, 0.02²) (a GC block's
+    zero-initialised expand convs too, so that its pool's gradient flows
+    in the first step)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            draw = torch.randn(p.shape, generator=gen, dtype=torch.float64)
+            if p.dim() >= 2:
+                p.copy_((2.0 / p[0].numel()) ** 0.5 * draw)
+            else:
+                p.copy_(1.0 + 0.1 * draw if name.endswith('weight') else 0.02 * draw)
+    return model
+
+
+def more_model(name: str, inp: dict) -> nn.Module:
+    """One of ``MORE_MODELS``, float64, with its weights."""
+    if name == 'pspnet':
+        return seeded_init(PSPNet(inp['classes']).double(), 7)
+    model = tbuilder.make_model({'type': 'FarSeg', 'params': inp[f'{name}_cfg']},
+                                device='cpu').double()
+    if name == 'farseg_pp':
+        model.load_state_dict(inp['farseg_pp_state_dict'])
+        return model
+    return seeded_init(model, 8)
 
 
 def farseg_worker(rank, world, init, out):
@@ -291,11 +432,33 @@ def farseg_worker(rank, world, init, out):
     rows = inp['misaligned']
     res['misaligned'] = _raises(lambda: bad(create_train_state(fresh, tx),
                                             (x[:, :rows], y[:, :rows])))
-    if rank < len(VARIANTS):            # the port's unsharded step on the whole tile
-        from ever_tpu_torch.parallel.spmd import build_train_step
+    register_tiny_trunk()
+    for name, _ in MORE_MODELS:
+        for variant, ctx in VARIANTS:
+            net = more_model(name, inp)
+            with ctx():
+                step = spatial.build_spatial_train_step(net, tx, sched, mesh=mesh, device='cpu')
+                state, metrics = step(create_train_state(net, tx), (x, y))
+            res[name if variant == 'as_is' else f'{name}/{variant}'] = dict(
+                metrics={k: float(v) for k, v in metrics.items()}, step=state.step,
+                state={k: v.clone() for k, v in net.state_dict().items()},
+                stats=dict(step.stats))
+    # the port's unsharded steps on the whole tile, spread over the ranks
+    from ever_tpu_torch.parallel.spmd import build_train_step
+    whole = (torch.from_numpy(x), torch.from_numpy(y))
+    res['unsharded'] = []
+    if rank < len(VARIANTS):
         variant, ctx = VARIANTS[rank]
         with ctx():
-            _, m = build_train_step(model, tx, sched)(create_train_state(model, tx),
-                                                      (torch.from_numpy(x), torch.from_numpy(y)))
-        res['unsharded'] = (variant, {k: float(v) for k, v in m.items()}, model.state_dict())
+            _, m = build_train_step(model, tx, sched)(create_train_state(model, tx), whole)
+        res['unsharded'].append((variant, {k: float(v) for k, v in m.items()},
+                                 model.state_dict()))
+    for name, on in MORE_MODELS:
+        if on == rank:
+            for variant, ctx in VARIANTS:
+                net = more_model(name, inp)
+                with ctx():
+                    _, m = build_train_step(net, tx, sched)(create_train_state(net, tx), whole)
+                res['unsharded'].append((name if variant == 'as_is' else f'{name}/{variant}',
+                                         {k: float(v) for k, v in m.items()}, net.state_dict()))
     _save(out, 'farseg', rank, res)

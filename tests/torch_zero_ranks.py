@@ -16,6 +16,7 @@ from ever_tpu_torch.core import registry as tregistry
 from ever_tpu_torch.core.checkpoint import CheckPoint
 from ever_tpu_torch.core.launcher import Launcher
 from ever_tpu_torch.interface import ERModule as TERModule
+from ever_tpu_torch.metric.evaluate_fn import distributed_evaluate_pixel_prediction_task
 from ever_tpu_torch.module import loss as tloss
 from ever_tpu_torch.module import vit as tvit
 from ever_tpu_torch.module.ops import BatchNorm2d
@@ -177,6 +178,51 @@ def _blockwise(mesh, rank, world):
     return out
 
 
+EVAL_BATCH = 2
+
+
+def distributed_evaluation(launcher, x, y, classes: int = CLASSES) -> tuple:
+    """``distributed_evaluate_pixel_prediction_task`` of the launcher over
+    the samples ``(x, y)`` of ``classes`` (``EVAL_BATCH`` a batch; each rank predicts its
+    disjoint share): ('ok', [each batch's predictions in order], the
+    table of the confusion matrix summed over the ranks) or ('raised', the
+    error's message).  A collective call: every rank of the run evaluates."""
+    seen = []
+
+    def record(y_true, y_pred, info, model_dir, checkpoint):
+        seen.append(torch.as_tensor(y_pred).detach().clone())
+        return y_true, y_pred
+
+    ds = torch.utils.data.TensorDataset(torch.as_tensor(x), torch.as_tensor(y))
+    loader = torch.utils.data.DataLoader(ds, batch_size=EVAL_BATCH)
+    launcher.override_evaluate(distributed_evaluate_pixel_prediction_task(
+        classes, prediction_fn=record, cuda_empty_cache=False))
+    try:
+        table = launcher.evaluate(loader)
+    except ValueError as e:
+        return 'raised', str(e)
+    return 'ok', seen, str(table)
+
+
+def evaluations(out, rank, start, mesh) -> dict:
+    """The distributed evaluation of the tiny net after two AdamW steps,
+    replicated (DDP), at ZeRO-1 and at ZeRO-3, each through a
+    ``Launcher`` on the mesh: the state each evaluated (gathered) and what
+    the closure gave."""
+    x, y = _batch()
+    rows = slice(rank * N // 2, (rank + 1) * N // 2)
+    res = {}
+    for level in (0, 1, 3):
+        state, step = _tiny_state(start, 'adamw', level, mesh)
+        for _ in range(2):
+            state, _ = step(state, (x[rows], y[rows]))
+        launcher = Launcher(os.path.join(out, f'eval{level}-{rank}'), state.model, None,
+                            device='cpu', mesh=mesh)
+        launcher._state = state
+        res[level] = (full_state_dict(state), distributed_evaluation(launcher, x, y))
+    return res
+
+
 GAN_CFG = dict(image_size=16, channels=3, latent_dim=16, base_width=8, dtype='float64')
 
 
@@ -256,6 +302,7 @@ def worker(rank, world, init, out):
         res['replicated_below'] = 'passed'
     except AssertionError as e:
         res['replicated_below'] = str(e)
+    res['evaluate'] = evaluations(out, rank, start, mesh)
     # the DCGAN over two ranks
     model, txs = _gan()
     gstep = build_gan_train_step(model, txs, mesh=mesh)
