@@ -13,12 +13,15 @@ Phases (any failure exits non-zero before the last line is printed):
              the attention forward (K1) and backward (K2) at the main
              paths' shape (B=8, H=16, N=1029, D=64, bf16, RoPE), with stack
              padding (N=1032, ``n_valid=1029``), at head dim 128 without RoPE,
-             and from float32 inputs; then each timed beside its bound and
-             one PyTorch library call computing the same function (K1 also
-             at head dim 128 and from float32 inputs), and both split by
-             kernel from ``torch.profiler`` (K1: its K staging launch and
-             main kernel; K2: its prologue, dK/dV pass and dQ pass) with each
-             main kernel's TFLOP/s.
+             and from float32 inputs, and at the spatial phase's (f) strip
+             shape (B=1, H=16, 2053 queries against 4101 keys, each with its
+             own RoPE rows; bf16 and from float32 inputs); then each timed
+             beside its bound and one PyTorch library call computing the
+             same function (K1 also at head dim 128 and from float32 inputs;
+             both at the strip shape too), and both split by kernel from
+             ``torch.profiler`` (K1: its K staging launch and main kernel;
+             K2: its prologue, dK/dV pass and dQ pass) with each main
+             kernel's TFLOP/s.
 3. serve   — DinoSeg ViT-L/16 (``vitl16_sat493m``, 24 blocks, width 1024,
              16 heads) with bf16 parameters and seeded random weights,
              served through ``tiled_inference`` over one 4096² scene (512²
@@ -114,7 +117,7 @@ Phases (any failure exits non-zero before the last line is printed):
              16 tiles and 24 K1 launches a call) against per-tile ``tta()``
              calls; and the times: ms/step through the ``Launcher`` (a
              12-step run without periodic checkpoints, its loop under
-             ``torch.cuda.set_sync_debug_mode('error')``, and the 10-step run
+             ``torch.cuda.set_sync_debug_mode('error')``, and the 8-step run
              with one every 2 steps) beside the bare train step, the
              checkpoint saves, s per evaluated scene, tiles/s with and
              without TTA, each with the card's name and power limit.
@@ -153,8 +156,9 @@ Phases (any failure exits non-zero before the last line is printed):
              ``configs/dinoseg_vitl_loveda.py`` (4 steps, NCCL): an
              ``SPMDTrainer`` over an NCCL group, 24 K1 + 24 K2 a step, its
              losses and final state bit-equal to ``--trainer base``'s, the
-             ms/step of both.  Then two gloo ranks sharing the card, started
-             by this script (``--ddp-worker``): (b) ``configs/
+             ms/step of both (the two runs side by side on the card).
+             Then two gloo ranks sharing the card, started by this script
+             (``--ddp-worker``): (b) ``configs/
              farseg_r50_loveda.py`` at a global batch of 16, K8, float32,
              TF32 off, deterministic cuDNN, 4 steps with a checkpoint after
              each: one K8 a rank a step, the ranks' states bit-equal, the
@@ -573,14 +577,36 @@ Phases (any failure exits non-zero before the last line is printed):
              passes half the limit (``SPATIAL_NOISE_FACTOR``: (e)'s GC
              transforms), then 1 warm-up and 2 timed bf16 steps a rank,
              one K8 a rank a step ([1, 258, 512, 64]) and no other port
-             kernel.
+             kernel.  (f) DinoSeg ViT-L/16 (``vitl16_sat493m`` at full width
+             and depth, RoPE rescale on, 7 classes, AdamW at a constant
+             ``SPATIAL_VIT_LR``) on one 1024² tile as two strips of 512 rows:
+             a rank's 2053 queries (the prefix and its 32 patch rows)
+             attend to the tile's 4101 keys, gathered by one broadcast a
+             rank a block; the float32 first step (TF32 off) with ``remat``
+             None and ``'full'`` against one process's on the whole tile
+             with (a)'s gates, and its gradients within
+             ``SPATIAL_GRAD_TOL`` (||Δg|| / ||g||), 24 gathers (and 24 more
+             in the recomputation with ``'full'``), the ranks' states
+             bit-equal; then 1 warm-up and 2 timed bf16 steps a rank:
+             finite losses, exactly 24 K1 and 24 K2 launches a rank a step,
+             all at [1, 2053, 16, 64] queries against [1, 4101, 16, 64]
+             keys, and no other port kernel (they join the kernels line);
+             the gathered MiB, ms/step against one process's and peak
+             memory a rank.
 24. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
-The parallel phases (20-23) share one pair of gloo ranks
-(``phases_parallel``: ``--ddp-worker parallel`` runs the gan, zero,
-layouts and spatial workers in turn after the spatial phase's one-process
-references), which the parent then reads phase by phase.
+The phases run in three streams after ``ddp``.  The parallel phases
+(20-23) share one pair of gloo ranks (``start_parallel``: ``--ddp-worker
+parallel`` runs the gan, zero, layouts and spatial workers in turn after
+the spatial phase's one-process references); the phases zoo, backbones,
+vitencoder and freenet (16-19) run in one process of their own
+(``start_side``: ``--side``, on a generator seeded anew); this process
+runs models, change, user and int8 (12-15) meanwhile, then prints the
+side process's output and reads the ranks phase by phase.  The phases
+before them run alone, so the kernels' times and the trainer's, the
+workflow's and ddp's clocks are a card to themselves; from models on a
+time shares the card and the host's cores with the other streams.
 
 Cuts that keep the script within 1100 s with the ``spatial`` phase (the
 phase took 61.7 s alone on an H100 80GB HBM3 at 700 W, and a whole run
@@ -599,7 +625,21 @@ saves and restores added about 45 s to the parallel phases (181 s against
 ranks 7-25 s more; the whole script took 1166 s on a slow host, its
 `ddp` phase 249 s against 198-213 before them); for them ``spatial`` (a)
 times 2 steps after its warm-up (was 5; 2.4-4.5 s) and ``layouts`` (a)
-2 (was 3; about 3.4 s).
+2 (was 3; about 3.4 s).  (f) added about 35 s (the references 5 s, the
+ranks 29 s; the whole script 1097 s on an H100 80GB HBM3 at 700 W); for it
+(f) builds one model a process and one step a rank, and runs the float32
+steps with ``remat`` None and ``'full'`` and the bf16 steps from the same
+weights (``fresh_start``: each model build and DDP wrapping of ViT-L
+costs a few seconds), and rank 0 compares its states and gradients with
+one process's on the card.  The driver's check stopped that script after
+1200 s on its host, and the same tree took 1269 s on another (913 s of
+serial phases, then the parallel ranks' 323 s): for the streams above
+and the limit, the parallel ranks run beside models to int8 (about 190 s
+of 208-323 hidden), the side phases beside them too (about 150 s),
+``ddp`` (a)'s torchrun and base-trainer runs side by side (82-122 s
+alone, 44 s together), and the trainer phase's fresh 10-step run saves
+its 3.6 GB checkpoint once instead of every 2 steps (5 saves, about 20
+s; the 8-step run's saves give the per-save times).
 
 ``--profile`` adds ``torch.profiler`` traces of one tile batch and one train
 step of each model, and of one fused-LN DinoSeg train step: device busy time
@@ -702,6 +742,10 @@ SPATIAL_POOL_WHOLE = (1, SPATIAL_TILE // 2, SPATIAL_TILE // 2, 64)
 # of 1024² as two strips of 512 rows; K8 at a rank's strip of their stem
 # ([1, 258, 512, 64]) and at the one process's whole stem
 SPATIAL_MORE_TILE = 1024
+# (f) DinoSeg ViT-L/16 on the same tile's two strips: a rank's queries (the
+# 5 prefix tokens and its 32 × 64 patches) against the tile's 5 + 64² keys
+STRIP_Q = 5 + (SPATIAL_MORE_TILE // 32) * (SPATIAL_MORE_TILE // 16)
+STRIP_KV = 5 + (SPATIAL_MORE_TILE // 16) ** 2
 SPATIAL_MORE_POOL_STRIP = (1, SPATIAL_MORE_TILE // 4 + 2, SPATIAL_MORE_TILE // 2, 64)
 SPATIAL_MORE_POOL_WHOLE = (1, SPATIAL_MORE_TILE // 2, SPATIAL_MORE_TILE // 2, 64)
 # (shape, type, ties): the main shape, in float32, the siamese detectors'
@@ -891,6 +935,20 @@ def rope_tables(n_tokens: int, device, dtype=torch.bfloat16,
     return sin.to(dtype), cos.to(dtype)
 
 
+def strip_rope(device, dtype=torch.bfloat16) -> tuple:
+    """The stacked RoPE tables of the spatial phase's (f) attention: the
+    query rows of strip 0 (the 5 prefix tokens and the first 32 of the 64
+    patch rows of a 1024² tile) and the key rows of the whole tile, as
+    ``SelfAttention`` stacks them under a spatial step."""
+    from ever_tpu_torch.module.vit import RopePositionEmbedding, token_rope
+    grid = SPATIAL_MORE_TILE // 16
+    sin, cos = RopePositionEmbedding(EMBED, H, rescale_coords=2.0)(grid, grid, device=device)
+    patches = STRIP_Q - 5
+    q_tabs = token_rope(sin[:patches], cos[:patches], prefix=5, tail=0)
+    k_tabs = token_rope(sin, cos, prefix=5, tail=0)
+    return tuple(torch.cat([a, b]).to(dtype) for a, b in zip(q_tabs, k_tabs))
+
+
 # (batch, heads, tokens, n_valid, head dim, RoPE, type): the main paths'
 # shape, the same with stack padding, ViT-7B's head dim 128 without RoPE,
 # and the main paths' shape from float32 inputs
@@ -898,15 +956,38 @@ KERNEL_CASES = ((B, H, S, None, D, True, torch.bfloat16),
                 (B, H, S + 3, S, D, True, torch.bfloat16),
                 (1, 32, S, S - 100, 128, False, torch.bfloat16),
                 (B, H, S, None, D, True, torch.float32))
+# the spatial phase's (f): a rank's strip of STRIP_Q queries against the
+# whole tile's STRIP_KV keys (an eighth element: the key tokens), bf16 and
+# from float32 inputs; drawn from a generator of their own (phase_kernels)
+STRIP_CASES = tuple((1, H, STRIP_Q, None, D, True, dtype, STRIP_KV)
+                    for dtype in (torch.bfloat16, torch.float32))
 
 
-def case_inputs(gen, b, h, s, d, with_rope, dtype):
+def case_inputs(gen, b, h, s, d, with_rope, dtype, s_kv=None):
     """q/k/v as strided views of one packed [B, N, 3, H, D] tensor, as the
-    model makes them, and the RoPE tables (or None)."""
+    model makes them, and the RoPE tables (or None).  With ``s_kv`` keys
+    (the spatial phase's (f) only), q is a view of a rank's packed [B, S, 3,
+    H, D] projection and k and v of the gathered [B, S_kv, 2, H, D] keys
+    and values, and the tables are :func:`strip_rope`'s."""
     dev = torch.device('cuda')
     qkv = torch.randn(b, s, 3, h, d, generator=gen, device=dev).to(dtype)
     q, k, v = qkv.unbind(2)
-    return q, k, v, rope_tables(s, dev, dtype, head_dim=d) if with_rope else None
+    if s_kv is None:
+        return q, k, v, rope_tables(s, dev, dtype, head_dim=d) if with_rope else None
+    k, v = torch.randn(b, s_kv, 2, h, d, generator=gen, device=dev).to(dtype).unbind(2)
+    return q, k, v, strip_rope(dev, dtype) if with_rope else None
+
+
+def case_rows(case) -> tuple:
+    """A kernel case's name, its unpacked fields with the key tokens (None:
+    as many as the queries), and the query rows and key rows that are real
+    (with one length, the rows past ``n_valid`` are garbage by contract)."""
+    b, h, s, n_valid, d, with_rope, dtype = case[:7]
+    s_kv = case[7] if len(case) > 7 else None
+    name = (f'B={b} H={h} S={s}' + (f' S_kv={s_kv}' if s_kv else '')
+            + f' D={d} n_valid={n_valid} rope={with_rope} {str(dtype)[6:]}')
+    q_rows = s if s_kv else (n_valid or s)
+    return name, (b, h, s, n_valid, d, with_rope, dtype, s_kv), q_rows, n_valid or s_kv or s
 
 
 def f32_rope(rope):
@@ -918,21 +999,20 @@ def check_fwd(gen, cases=KERNEL_CASES) -> float:
     from ever_tpu_torch.ops import attention as A
 
     errs = []
-    for b, h, s, n_valid, d, with_rope, dtype in cases:
-        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
+    for case in cases:
+        label, (b, h, s, n_valid, d, with_rope, dtype, s_kv), n, _ = case_rows(case)
+        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype, s_kv)
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         torch.cuda.synchronize()
         ro, rlse = A.attention_reference(q.float(), k.float(), v.float(),
                                          n_valid=n_valid, rope=f32_rope(rope),
                                          return_lse=True)
-        n = n_valid or s                             # rows past n_valid are garbage
         do = o[:, :n].float() - ro[:, :n]
         err_o = do.abs().max().item()
         rms_o = (do.norm() / ro[:, :n].norm()).item()
         err_l = (lse[..., :n] - rlse[..., :n]).abs().max().item()
         finite = bool(torch.isfinite(o[:, :n]).all() and torch.isfinite(lse[..., :n]).all())
-        name = (f'attention_fwd B={b} H={h} S={s} D={d} n_valid={n_valid} '
-                f'rope={with_rope} {str(dtype)[6:]}')
+        name = f'attention_fwd {label}'
         print(f'kernels: {name}: max|o-plain| {err_o:.3e} (max|o| '
               f'{ro[:, :n].abs().max().item():.3e}), ||do||/||o|| {rms_o:.3e}, '
               f'max|lse-plain| {err_l:.3e} (tolerances {ATTN_O_MAX_TOL}, '
@@ -951,8 +1031,9 @@ def check_bwd(gen, cases=KERNEL_CASES) -> float:
     from ever_tpu_torch.ops import attention as A
 
     errs = []
-    for b, h, s, n_valid, d, with_rope, dtype in cases:
-        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype)
+    for case in cases:
+        label, (b, h, s, n_valid, d, with_rope, dtype, s_kv), q_rows, k_rows = case_rows(case)
+        q, k, v, rope = case_inputs(gen, b, h, s, d, with_rope, dtype, s_kv)
         o, lse = A.fused_attention(q, k, v, n_valid=n_valid, rope=rope)
         do = torch.randn(o.shape, generator=gen, device=o.device).to(dtype)
         grads = A.fused_attention_bwd(q, k, v, o, lse, do, n_valid=n_valid, rope=rope)
@@ -960,11 +1041,9 @@ def check_bwd(gen, cases=KERNEL_CASES) -> float:
         refs = A.attention_bwd_reference(q.float(), k.float(), v.float(), o.float(),
                                          lse, do.float(), n_valid=n_valid,
                                          rope=f32_rope(rope))
-        n = n_valid or s
-        name = (f'attention_bwd B={b} H={h} S={s} D={d} n_valid={n_valid} '
-                f'rope={with_rope} {str(dtype)[6:]}')
+        name = f'attention_bwd {label}'
         parts, fails = [], []
-        for gname, g, r in zip(('dq', 'dk', 'dv'), grads, refs):
+        for gname, g, r, n in zip(('dq', 'dk', 'dv'), grads, refs, (q_rows, k_rows, k_rows)):
             delta = g[:, :n].float() - r[:, :n]
             err, scale = delta.abs().max().item(), r[:, :n].abs().max().item()
             rms = (delta.norm() / r[:, :n].norm()).item()
@@ -975,7 +1054,7 @@ def check_bwd(gen, cases=KERNEL_CASES) -> float:
             if err > ATTN_BWD_MAX_TOL * scale or rms > ATTN_BWD_RMS_TOL:
                 fails.append(f'{gname} disagrees with its plain version')
             errs.append(err)
-        zero_tail = all(not t[:, n:].any() for t in grads[1:])
+        zero_tail = all(not t[:, k_rows:].any() for t in grads[1:])
         print(f'kernels: {name}: {"; ".join(parts)}; dk, dv zero past n_valid: '
               f'{zero_tail} (tolerances {ATTN_BWD_MAX_TOL}·max, {ATTN_BWD_RMS_TOL})',
               flush=True)
@@ -1027,6 +1106,11 @@ def phase_kernels(gen):
     from ever_tpu_torch.ops import attention as A
 
     fwd_err, bwd_err = check_fwd(gen), check_bwd(gen)
+    # the cross-length cases from a generator of their own, so that every
+    # later phase draws what it drew before they joined
+    strip_gen = torch.Generator(device='cuda').manual_seed(gen.initial_seed() + 22)
+    fwd_err = max(fwd_err, check_fwd(strip_gen, STRIP_CASES))
+    bwd_err = max(bwd_err, check_bwd(strip_gen, STRIP_CASES))
 
     # timing at the main paths' shape: S=1029, no pad, RoPE on
     q, k, v, rope = case_inputs(gen, B, H, S, D, True, torch.bfloat16)
@@ -1100,7 +1184,56 @@ def phase_kernels(gen):
                max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
                bound_ms=bwd_bound_ms, bound_by=bwd_bound_by,
                library_ms=bwd_library_ms)
+    del q32, k32, v32, qr, kr, vr, qg, kg, vg, og, dog
+    time_strip(strip_gen)
     return fwd, bwd
+
+
+def time_strip(gen) -> None:
+    """K1 and K2 at the spatial phase's (f) shape (a rank's STRIP_Q queries
+    against the tile's STRIP_KV keys, B=1, H=16, D=64, RoPE), bf16 and from
+    float32 inputs: each timed beside its bound, its plain version and
+    SDPA on the same (rotated) tensors."""
+    from ever_tpu_torch.ops import attention as A
+
+    q, k, v, rope = case_inputs(gen, 1, H, STRIP_Q, D, True, torch.bfloat16, STRIP_KV)
+    o, lse = A.fused_attention(q, k, v, rope=rope)
+    do = torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+    ms = device_ms(lambda: A.fused_attention(q, k, v, rope=rope), iters=50)
+    bwd_ms = device_ms(lambda: A.fused_attention_bwd(q, k, v, o, lse, do, rope=rope), iters=30)
+    q32, k32, v32, o32, do32 = (t.float() for t in (q, k, v, o, do))
+    rope32 = f32_rope(rope)
+    f32_ms = device_ms(lambda: A.fused_attention(q32, k32, v32, rope=rope32), iters=20)
+    bwd32_ms = device_ms(lambda: A.fused_attention_bwd(q32, k32, v32, o32, lse, do32,
+                                                       rope=rope32), iters=10)
+    plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, rope=rope), iters=5)
+    bwd_plain_ms = cuda_ms(lambda: A.attention_bwd_reference(q, k, v, o, lse, do, rope=rope),
+                           iters=3)
+    # yardsticks only: SDPA forward and backward on the rotated tensors
+    qr, kr = A._rope_outside(q, k, rope, 'bnhd')
+    qr, kr, vr = (t.transpose(1, 2).contiguous().requires_grad_() for t in (qr, kr, v))
+    library_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qr.detach(), kr.detach(), vr.detach()), iters=50)
+    og = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr)
+    dog = do.transpose(1, 2).contiguous()
+    bwd_library_ms = device_ms(lambda: torch.autograd.grad(
+        og, (qr, kr, vr), dog, retain_graph=True), iters=30)
+    flops = 4.0 * H * STRIP_Q * STRIP_KV * D
+    # q, o, do, dq: S_q rows; k, v, dk, dv: S_kv rows; lse; both tables
+    tables = 2 * (STRIP_Q + STRIP_KV) * D * 2
+    nbytes = 2 * (STRIP_Q + STRIP_KV) * H * D * 2 + H * STRIP_Q * 4 + tables
+    bbytes = 4 * (STRIP_Q + STRIP_KV) * H * D * 2 + H * STRIP_Q * 4 + tables
+    (fwd_bound, fwd_by), (bwd_bound, bwd_by) = bound(flops, nbytes), bound(2.5 * flops, bbytes)
+    print(f'kernels: attention_fwd at the spatial strip shape (B=1, H={H}, S_q={STRIP_Q}, '
+          f'S_kv={STRIP_KV}, D={D}, RoPE, bf16): {ms:.4f} ms/launch, plain {plain_ms:.4f} ms, '
+          f'SDPA {library_ms:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}; '
+          f'{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), {flops / ms / 1e9:.1f} TFLOP/s; '
+          f'float32 inputs {f32_ms:.4f} ms/launch', flush=True)
+    print(f'kernels: attention_bwd at the spatial strip shape: {bwd_ms:.4f} ms/launch, plain '
+          f'{bwd_plain_ms:.4f} ms, SDPA backward {bwd_library_ms:.4f} ms, bound '
+          f'{bwd_bound:.4f} ms ({bwd_by}; {2.5 * flops / 1e9:.1f} GFLOP, {bbytes / 1e6:.1f} MB), '
+          f'{2.5 * flops / bwd_ms / 1e9:.1f} TFLOP/s; float32 inputs {bwd32_ms:.4f} ms/launch',
+          flush=True)
 
 
 def seeded_init_(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -2224,7 +2357,7 @@ TEMPLATE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                'project_template', 'configs', 'dinoseg_vitl_loveda.py')
 TRAINER_ITERS, RESUME_ITERS, EVAL_SCENE, EVAL_BATCH = 8, 10, 2 * TILE, 2
 # a timing run without periodic checkpoints: every logged interval of the
-# runs above holds one 3.6 GB save
+# first run holds one 3.6 GB save (the fresh 10-step run saves at its end)
 TIMING_ITERS = 12
 # d4 TTA of a 1024² scene against per-tile tta() calls: the same model and
 # kernels, but 16 tiles a forward against 1, so cuBLAS tiles the bf16
@@ -2441,6 +2574,16 @@ def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
               'the evaluation did not count its matrix on the card')
         check(np.array_equal(card_cm, host_cm) and int(host_cm.sum()) == int(valid.sum()),
               "the card's confusion matrix differs from the host's")
+
+        def medians(record):
+            logged = record['logged'][2:]
+            return ([s for s, _, _, _ in logged],
+                    sorted(t for _, _, _, t in logged)[len(logged) // 2],
+                    sorted(d for _, _, d, _ in logged)[len(logged) // 2])
+
+        # the run's times with its save every 2 steps, for e
+        steps_a, per_step_a, data_a = medians(ra)
+        saves = sorted(ra['saves'])
         del la, ra, seen
         torch.cuda.empty_cache()
 
@@ -2453,7 +2596,8 @@ def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
         del lb, rb
         shutil.rmtree(os.path.join(tmp, 'a'))
         torch.cuda.empty_cache()
-        lc, rc = trainer_run(os.path.join(tmp, 'c'), RESUME_ITERS, seed, init_state)
+        lc, rc = trainer_run(os.path.join(tmp, 'c'), RESUME_ITERS, seed, init_state,
+                             opts=('train.save_ckpt_interval_epoch', '1000'))
         check_run('fresh run', lc, rc, RESUME_ITERS, 1)
         # the train step is deterministic (K1, K2, cuBLAS, and DinoSeg's
         # logits upsampled by matrix products, whose backward adds no atomics)
@@ -2466,16 +2610,8 @@ def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
         check(delta == 0.0, 'the resumed run differs from the unbroken run')
         del resumed
 
-        # e: times through the Launcher (with a save every 2 steps, then
-        # without), the checkpoint saves, the evaluation and the TTA scene
-        def medians(record):
-            logged = record['logged'][2:]
-            return ([s for s, _, _, _ in logged],
-                    sorted(t for _, _, _, t in logged)[len(logged) // 2],
-                    sorted(d for _, _, d, _ in logged)[len(logged) // 2])
-
-        steps_c, per_step_c, data_c = medians(rc)
-        saves = sorted(rc['saves'])
+        # e: times through the Launcher (with a save every 2 steps in a,
+        # then without), the checkpoint saves, the evaluation and the TTA scene
         size = os.path.getsize(os.path.join(lc.model_dir, f'checkpoint-{RESUME_ITERS}.ckpt'))
         eval_secs = rc['evals'][0][1]
         model = lc.model
@@ -2495,8 +2631,8 @@ def phase_trainer(gen, seed: int, bare_ms: float, smi: str) -> None:
               f'over logged steps {steps_d} without periodic checkpoints and without a host sync (loading, '
               f'callbacks and copies {data_d * 1e3:.2f} ms/step of it), against '
               f'{bare_ms:.2f} ms/step for build_train_step alone (train phase); with a '
-              f'checkpoint every 2 steps {per_step_c * 1e3:.2f} ms/step over logged steps '
-              f'{steps_c} ({data_c * 1e3:.2f} of it loading and callbacks); '
+              f'checkpoint every 2 steps {per_step_a * 1e3:.2f} ms/step over logged steps '
+              f'{steps_a} ({data_a * 1e3:.2f} of it loading and callbacks); '
               f'{len(saves)} checkpoint saves of {size / 1e9:.2f} GB, median '
               f'{saves[len(saves) // 2]:.2f} s ({size / 1e9 / saves[len(saves) // 2]:.2f} '
               f'GB/s); evaluation {eval_secs / 4:.3f} s per {EVAL_SCENE}² scene', flush=True)
@@ -2992,6 +3128,9 @@ DDP_TILED_STRIDE = 384          # 11 x 11 = 121 overlapping tiles of a 4096² sc
 DDP_FARSEG_TOL, DDP_DINO_LOSS_TOL = 1e-4, 1e-3
 DDP_TILED_TOL = 1e-6            # absolute, when a tile's bits do not depend on its slot
 DDP_WORKER_TIMEOUT = 600
+# the parallel phases' ranks share the card and the host's cores with the
+# serial phases from models on
+PARALLEL_TIMEOUT = 900
 
 def state_digest(state_dict) -> str:
     """sha256 of every tensor's name and bytes, in name order."""
@@ -3167,7 +3306,7 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     4096² scene over the mesh; ``job='resume'`` resumes the FarSeg run's
     step-2 checkpoint to 4; ``job='parallel'`` runs the gan, zero, layouts
     and spatial phases' workers in turn (``gan_worker``, ``zero_worker``,
-    ``layouts_worker``, ``spatial_worker``: :func:`phases_parallel`).  Writes
+    ``layouts_worker``, ``spatial_worker``: :func:`start_parallel`).  Writes
     ``{job}-rank{rank}.json`` and rank r's canvas; any failure raises and
     exits non-zero."""
     from ever_tpu_torch.core import dist
@@ -3220,28 +3359,40 @@ def ddp_worker(job: str, rank: int, world: int, init: str, out: str) -> int:
     return 0
 
 
-def run_ddp_workers(job: str, out: str) -> tuple:
-    """Two gloo ranks of ``job`` (``chip_smoke.py --ddp-worker``) sharing
-    the card; when one fails the other is killed (it would wait in a
-    collective) and the phase fails with both logs.  Returns both ranks'
-    results and the wall seconds."""
+def start_ddp_workers(job: str, out: str, timeout: float = DDP_WORKER_TIMEOUT) -> dict:
+    """Start two gloo ranks of ``job`` (``chip_smoke.py --ddp-worker``)
+    sharing the card; :func:`wait_ddp_workers` collects them, killing them
+    ``timeout`` seconds after their start."""
     init = f'file://{out}/rendezvous-{job}'
     logs = [open(os.path.join(out, f'{job}-rank{r}.log'), 'w+') for r in range(2)]
-    t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), '--ddp-worker', job,
                                str(r), '2', init, out], stdout=logs[r], stderr=subprocess.STDOUT)
              for r in range(2)]
+    return dict(job=job, out=out, logs=logs, procs=procs, t0=time.perf_counter(),
+                timeout=timeout)
+
+
+def stop_ddp_workers(started: dict) -> None:
+    """Kill the ranks of ``started`` that still run, and reap them."""
+    for p in started['procs']:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def wait_ddp_workers(started: dict) -> tuple:
+    """Wait for the ranks of ``started``; when one fails the other is killed
+    (it would wait in a collective) and the phase fails with both logs.
+    Returns both ranks' results and the wall seconds since they started."""
+    job, out, logs, procs, t0 = (started[k] for k in ('job', 'out', 'logs', 'procs', 't0'))
     try:
-        deadline = time.monotonic() + DDP_WORKER_TIMEOUT
+        deadline = time.monotonic() + started['timeout'] - (time.perf_counter() - t0)
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
             if any(p.poll() not in (None, 0) for p in procs):
                 break
             time.sleep(0.5)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
+        stop_ddp_workers(started)
     text = []
     for r, f in enumerate(logs):
         f.seek(0)
@@ -3255,15 +3406,41 @@ def run_ddp_workers(job: str, out: str) -> tuple:
     return results, time.perf_counter() - t0
 
 
-def run_train_py(cmd: list, cwd: str, model_dir: str, world: int) -> dict:
-    """The project's train.py as ``cmd`` (a plain process or torchrun);
-    fails with its output on a non-zero exit; returns rank 0's record."""
-    r = subprocess.run(cmd, cwd=cwd, env=dict(os.environ, PYTHONPATH=os.path.dirname(
-        os.path.abspath(__file__))), capture_output=True, text=True, timeout=DDP_WORKER_TIMEOUT)
-    check(r.returncode == 0, f'{cmd[:6]} exited {r.returncode}:\n{r.stdout[-3000:]}\n'
-          f'{r.stderr[-5000:]}')
-    with open(os.path.join(model_dir, f'record-{world}-0.json')) as f:
-        return json.load(f)
+def run_ddp_workers(job: str, out: str) -> tuple:
+    """Two gloo ranks of ``job`` sharing the card, started and waited for:
+    both ranks' results and the wall seconds."""
+    return wait_ddp_workers(start_ddp_workers(job, out))
+
+
+def run_train_pys(runs: list, cwd: str) -> list:
+    """The project's train.py as each ``(cmd, model_dir, world)`` of
+    ``runs`` (a plain process or torchrun), all at once, side by side on
+    the card; fails with a run's output on its non-zero exit; returns each
+    run's rank-0 record."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    logs = [open(f'{model_dir}.log', 'w+') for _, model_dir, _ in runs]
+    procs = [subprocess.Popen(cmd, cwd=cwd, env=env, stdout=log, stderr=subprocess.STDOUT)
+             for (cmd, _, _), log in zip(runs, logs)]
+    try:
+        deadline = time.monotonic() + DDP_WORKER_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    records = []
+    for (cmd, model_dir, world), p, log in zip(runs, procs, logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(p.returncode == 0, f'{cmd[:6]} exited {p.returncode}:\n{text[-8000:]}')
+        with open(os.path.join(model_dir, f'record-{world}-0.json')) as f:
+            records.append(json.load(f))
+    return records
 
 
 def max_state_diff(got: dict, want: dict) -> float:
@@ -3373,11 +3550,12 @@ def phase_ddp(seed: int, smi: str) -> None:
                 'data.test.params.root', root, 'data.train.params.random_crop', 'False',
                 'train.num_iters', str(DDP_NCCL_ITERS), 'train.log_interval_step', '1']
         t0 = time.perf_counter()
-        ra = run_train_py([sys.executable, '-m', 'torch.distributed.run', '--standalone',
-                           '--nproc_per_node', '1', train_py, '--model_dir',
-                           os.path.join(tmp, 'nccl'), *argv], proj, os.path.join(tmp, 'nccl'), 1)
-        rb = run_train_py([sys.executable, train_py, '--trainer', 'base', '--model_dir',
-                           os.path.join(tmp, 'base'), *argv], proj, os.path.join(tmp, 'base'), 1)
+        ra, rb = run_train_pys([
+            ([sys.executable, '-m', 'torch.distributed.run', '--standalone', '--nproc_per_node',
+              '1', train_py, '--model_dir', os.path.join(tmp, 'nccl'), *argv],
+             os.path.join(tmp, 'nccl'), 1),
+            ([sys.executable, train_py, '--trainer', 'base', '--model_dir',
+              os.path.join(tmp, 'base'), *argv], os.path.join(tmp, 'base'), 1)], proj)
         a_secs = time.perf_counter() - t0
         evals = 1                              # the 3 val scenes in one batch of 8
         want = [24 * (DDP_NCCL_ITERS + evals), 24 * DDP_NCCL_ITERS, 0]
@@ -3389,7 +3567,8 @@ def phase_ddp(seed: int, smi: str) -> None:
               f'{" ".join(f"{d["total_loss"]:.5f}" for _, d, _ in ra["logged"])}; launches '
               f'{ra["launches"]} (expected {want}); {step_ms(ra["logged"]):.2f} ms/step (nccl, '
               f'one rank) against {step_ms(rb["logged"]):.2f} ms/step for the base trainer '
-              f'({rb["trainer"]}, no process group); losses bit-equal {same_losses}, final state '
+              f'({rb["trainer"]}, no process group; the two runs side by side on the card); '
+              f'losses bit-equal {same_losses}, final state '
               f'bit-equal {same_state}', flush=True)
         check(ra['trainer'] == 'SPMDTrainer' and ra['backend'] == 'nccl' and ra['world'] == 1
               and rb['backend'] is None, f'a: {ra["trainer"]} {ra["backend"]} {rb["backend"]}')
@@ -6661,7 +6840,7 @@ def gan_bare_step(cfg: str, seed: int):
 def phase_gan(seed: int, smi: str, tmp: str, cfg: str, ranks: list) -> None:
     """The DCGAN through ``get_trainer('gan_th_ddp')`` (module docstring,
     phase 20) in ``tmp``, from the config file ``cfg``; ``ranks`` are the
-    parallel phases' ranks' results (:func:`phases_parallel`).  It launches
+    parallel phases' ranks' results (:func:`start_parallel`).  It launches
     no kernel of the port."""
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -6916,7 +7095,7 @@ def zero_worker(rank: int, out: str) -> dict:
 def phase_zero(smi: str, parallel: list) -> tuple:
     """ZeRO-1/3 of DinoSeg ViT-L/16 over two gloo ranks on the card (module
     docstring, phase 21) from the parallel phases' ranks' results
-    (:func:`phases_parallel`); returns the ranks' K1 and K2 launches."""
+    (:func:`start_parallel`); returns the ranks' K1 and K2 launches."""
     ranks, secs = [r['zero'] for r in parallel], parallel[0]['seconds']['zero']
     r0 = ranks[0]
     rep = r0['layouts'][0]
@@ -7283,7 +7462,7 @@ def layouts_worker(rank: int, out: str) -> dict:
 def phase_layouts(smi: str, bare_ms: float, parallel: list) -> tuple:
     """The model-parallel layouts over two gloo ranks on the card (module
     docstring, phase 22) from the parallel phases' ranks' results
-    (:func:`phases_parallel`); returns the main paths' K1 and K2 launches
+    (:func:`start_parallel`); returns the main paths' K1 and K2 launches
     (the TP steps and the pipeline's counted run, both ranks)."""
     ranks, secs = [r['layouts'] for r in parallel], parallel[0]['seconds']['layouts']
     backend = 'gloo, 2 ranks sharing one card: correctness and bytes held, not a multi-card speed'
@@ -7410,6 +7589,17 @@ SPATIAL_MORE = (
                                     fpn_decoder=dict(norm='gn')))),
     ('SE+GC FarSeg-R50', dict(encoder=dict(FARSEG['encoder'], se_ratio=16, gc_ratio=1 / 16))))
 SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS = 1, 2
+# (f) DinoSeg ViT-L/16 (vitl16_sat493m: 24 blocks, width 1024, 16 heads, 4
+# storage tokens, RoPE with its rescale augmentation) on one
+# SPATIAL_MORE_TILE² tile as two strips, AdamW (weight decay 0.05) at a
+# constant LR, (a)'s gates on its float32 first step.  Adam's first step
+# moves each element by about lr·sign(g): a gradient near 0 whose sign
+# float32 rounding flips moves it by 2·lr, so lr is atol / 2, and the
+# gradients themselves (left in .grad by the step, DDP's average on the
+# ranks) are held to one process's: ||Δg|| / ||g|| at most SPATIAL_GRAD_TOL
+SPATIAL_VIT_LR = SPATIAL_ATOL / 2
+SPATIAL_GRAD_TOL = 1e-3
+SPATIAL_VIT_WARMUP, SPATIAL_VIT_STEPS = 1, 2
 
 
 class SpatialConvNet(torch.nn.Module):
@@ -7460,6 +7650,169 @@ def spatial_farseg(seed: int, dtype: str, variant: int = -1):
     return model, tx, schedule, x, y
 
 
+def spatial_vit(seed: int):
+    """(f)'s DinoSeg ViT-L/16 at float32 compute (``config.dtype`` and the
+    trunk's ``remat`` are read at each forward, so one model serves every
+    step of the phase), the weights and the tile every process draws from
+    ``seed``, and AdamW at ``SPATIAL_VIT_LR``: (model, tx, x, y, a copy of
+    the weights)."""
+    from ever_tpu_torch.core.builder import make_model, make_optimizer
+
+    gen = torch.Generator(device='cuda').manual_seed(seed + 26)
+    cfg = {'type': 'DinoSeg', 'params': dict(
+        backbone=dict(name='vitl16_sat493m'), classes=CLASSES, dtype='float32')}
+    with torch.device('cuda'):
+        model = make_model(cfg)
+    seeded_init_(model, gen)
+    tx = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})[0].build(
+        SPATIAL_VIT_LR)
+    x = torch.randn(1, SPATIAL_MORE_TILE, SPATIAL_MORE_TILE, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (1, SPATIAL_MORE_TILE, SPATIAL_MORE_TILE), generator=gen,
+                      device='cuda')
+    return model, tx, x, y, {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def fresh_start(model, tx, weights: dict, **settings):
+    """``model`` back at ``weights`` with its DinoSeg ``dtype`` and its
+    trunk's ``remat`` set (``settings``), and a fresh train state (step 0:
+    the step's generator draws what it drew at the first step)."""
+    from ever_tpu_torch.parallel.spmd import create_train_state
+
+    model.config.dtype = settings.get('dtype', model.config.dtype)
+    model.vit.remat = settings.get('remat', model.vit.remat)
+    model.load_state_dict(weights)
+    return create_train_state(model, tx)
+
+
+def float_state(model) -> dict:
+    """The model's floating-point state, where it lies."""
+    return {k: v for k, v in model.state_dict().items() if v.is_floating_point()}
+
+
+def grad_distance(model, ref: dict) -> dict:
+    """The model's gradients against ``ref``'s (name → tensor, on the
+    model's device): the global ||Δg|| / ||g|| and the worst tensor's."""
+    num = den = 0.0
+    worst, worst_name = 0.0, ''
+    for name, p in model.named_parameters():
+        g, w = p.grad.double(), ref[name].double()
+        d2, w2 = float(((g - w) ** 2).sum()), float((w ** 2).sum())
+        num, den = num + d2, den + w2
+        if w2 > 0 and (d2 / w2) ** 0.5 > worst:
+            worst, worst_name = (d2 / w2) ** 0.5, name
+    return dict(grad_rel=(num / den) ** 0.5, grad_worst=worst, grad_worst_name=worst_name)
+
+
+def spatial_vit_reference(seed: int, out: str) -> dict:
+    """(f) in one process on the whole tile: the float32 first step (its
+    loss, state and gradients saved for the ranks), then from the same
+    weights the bf16 steps' ms and peak memory above what the process held
+    before the model."""
+    from ever_tpu_torch.parallel.spmd import build_train_step
+
+    gc.collect()                                    # earlier phases' cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, tx, x, y, weights = spatial_vit(seed)
+    step = build_train_step(model, tx)
+    _, ms, metrics = timed_steps(step, fresh_start(model, tx, weights), (x, y), 1)
+    torch.save(dict(loss=metrics[0]['total_loss'],
+                    state={k: v.cpu() for k, v in float_state(model).items()},
+                    grads={k: p.grad.cpu() for k, p in model.named_parameters()}),
+               os.path.join(out, 'spatial-ref-vit.pt'))
+    res = dict(f32=dict(ms=ms[0], loss=metrics[0]['total_loss']))
+    state = fresh_start(model, tx, weights, dtype='bfloat16')
+    del weights
+    state, _, _ = timed_steps(step, state, (x, y), SPATIAL_VIT_WARMUP)
+    torch.cuda.reset_peak_memory_stats()
+    state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_VIT_STEPS)
+    res['bf16'] = dict(ms=ms, peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                       losses=[m['cls_loss'] for m in metrics])
+    del model, state, step, tx, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
+@contextlib.contextmanager
+def attention_shapes(shapes: set):
+    """While entered, the (q, k) shapes of every K1 and K2 launch are added
+    to ``shapes`` as ('fwd' or 'bwd', q's shape, k's shape)."""
+    from ever_tpu_torch.ops import attention as A
+
+    fwd, bwd = A._launch_fwd, A._launch_bwd
+
+    def rec_fwd(q, k, *args):
+        shapes.add(('fwd', tuple(q.shape), tuple(k.shape)))
+        return fwd(q, k, *args)
+
+    def rec_bwd(q, k, *args):
+        shapes.add(('bwd', tuple(q.shape), tuple(k.shape)))
+        return bwd(q, k, *args)
+
+    A._launch_fwd, A._launch_bwd = rec_fwd, rec_bwd
+    try:
+        yield
+    finally:
+        A._launch_fwd, A._launch_bwd = fwd, bwd
+
+
+def spatial_vit_worker(rank: int, seed: int, mesh, out: str) -> dict:
+    """(f) on one rank of two, one model and one step from the same weights
+    each time: the float32 first step over the strips with ``remat`` None
+    and ``'full'`` (rank 0 holds each against one process: loss, state,
+    gradients), then the bf16 steps with the K1 and K2 launches and their
+    shapes, the keys and values gathered, ms and peak memory above what the
+    process held before the model."""
+    from ever_tpu_torch.ops import attention as A
+    from ever_tpu_torch.parallel.spatial import build_spatial_train_step
+
+    gc.collect()                                    # earlier variants' DDP cycles
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, tx, x, y, weights = spatial_vit(seed)
+    step = build_spatial_train_step(model, tx, mesh=mesh, device='cuda:0')
+    # rank 0 compares on the card, the reference read once
+    ref = (torch.load(os.path.join(out, 'spatial-ref-vit.pt'), map_location='cuda:0')
+           if rank == 0 else None)
+    res = {}
+    for remat in (None, 'full'):
+        sent = dict(step.stats)
+        _, ms, metrics = timed_steps(step, fresh_start(model, tx, weights, remat=remat), (x, y), 1)
+        got = float_state(model)
+        f32 = res[f'f32-{remat}'] = dict(
+            ms=ms[0], loss=metrics[0]['total_loss'], digest=state_digest(got),
+            stats={k: v - sent.get(k, 0) for k, v in step.stats.items()})
+        if ref is not None:
+            f32.update(ref_loss=ref['loss'], tensors=len(ref['state']),
+                       **spatial_distances(got, ref['state'], -1, out),
+                       **grad_distance(model, ref['grads']))
+        del got
+    del ref
+
+    state = fresh_start(model, tx, weights, remat=None, dtype='bfloat16')
+    del weights
+    shapes = set()
+    reset_counts()
+    with attention_shapes(shapes):
+        state, warm, _ = timed_steps(step, state, (x, y), SPATIAL_VIT_WARMUP)
+        torch.cuda.reset_peak_memory_stats()
+        sent = dict(step.stats)
+        state, ms, metrics = timed_steps(step, state, (x, y), SPATIAL_VIT_STEPS)
+    res['bf16'] = dict(
+        ms=warm + ms, metrics=metrics, steps=SPATIAL_VIT_WARMUP + SPATIAL_VIT_STEPS,
+        launches=[A.fused_attention.launches, A.fused_attention_bwd.launches],
+        all_launches=sum(fn.launches for fn in kernel_wrappers()),
+        shapes=sorted(list(t) for t in shapes),
+        peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+        gathers=(step.stats['gathers'] - sent['gathers']) / SPATIAL_VIT_STEPS,
+        gather_bytes=(step.stats['gather_bytes'] - sent['gather_bytes']) / SPATIAL_VIT_STEPS,
+        hops=(step.stats['hops'] - sent['hops']) / SPATIAL_VIT_STEPS,
+        float32=all(p.dtype == torch.float32 for p in model.parameters()))
+    del model, state, step, tx, x, y
+    torch.cuda.empty_cache()
+    return res
+
+
 def spatial_convnet(seed: int):
     """(b)'s net with seeded weights, its 4096² tile and target, and SGD
     momentum 0.9 at 0.05."""
@@ -7493,9 +7846,9 @@ def timed_steps(step, state, batch, n: int) -> tuple:
 
 def spatial_reference(seed: int, out: str) -> dict:
     """One process on the whole tiles: the float32 first step of FarSeg-R50
-    and of (d) and (e) (their states saved for the ranks), the bf16 steps'
-    ms and peak memory, and (b)'s whole forward and one unsharded SGD step
-    (saved)."""
+    and of (d), (e) and (f) (their states saved for the ranks), the bf16
+    steps' ms and peak memory, and (b)'s whole forward and one unsharded
+    SGD step (saved)."""
     from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
     t_start = time.perf_counter()
@@ -7536,6 +7889,8 @@ def spatial_reference(seed: int, out: str) -> dict:
                                  losses=[m['cls_loss'] for m in metrics])
         del model, state, step, x, y
         torch.cuda.empty_cache()
+
+    res['vit'] = spatial_vit_reference(seed, out)
 
     net, x, t, tx = spatial_convnet(seed)
     with torch.no_grad():
@@ -7596,7 +7951,8 @@ def spatial_distances(got: dict, one: dict, variant: int, out: str) -> dict:
 def spatial_worker(rank: int, out: str) -> dict:
     """One of two gloo ranks of the spatial phase on ``make_mesh(('data',))``:
     (a) FarSeg-R50's, (d) FarSeg++-R50's and (e) the SE + GC FarSeg-R50's
-    float32 first step and bf16 steps over the tile's two row strips, (b)
+    float32 first step and bf16 steps over the tile's two row strips, (f)
+    DinoSeg ViT-L/16's (:func:`spatial_vit_worker`), (b)
     ``spatial_partition_apply`` and ``build_halo_train_step`` of the conv
     net at 4096²."""
     from ever_tpu_torch.ops import pool as P
@@ -7644,6 +8000,7 @@ def spatial_worker(rank: int, out: str) -> dict:
             float32=all(p.dtype == torch.float32 for p in model.parameters()))
         del model, state, step, x, y
         torch.cuda.empty_cache()
+    res['vit'] = spatial_vit_worker(rank, seed, mesh, out)
 
     net, x, t, tx = spatial_convnet(seed)
     h = HALO_TILE // 2
@@ -7713,11 +8070,75 @@ def spatial_eda(seed: int, out: str) -> dict:
                 palette=list(palette.shape), first_wins=bool((indices[first] == 1).all()))
 
 
-def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> int:
+def phase_spatial_vit(smi: str, ref: dict, ranks: list) -> tuple:
+    """(f)'s gates and numbers (module docstring, phase 23) from one
+    process's ``ref`` and the ranks' results; returns the ranks' K1 and K2
+    launches."""
+    tile, backend = SPATIAL_MORE_TILE, 'gloo, 2 ranks sharing one card'
+    per_block = H * (STRIP_Q - 5) * 2 * D
+    for remat in (None, 'full'):
+        f32, other = ranks[0]['vit'][f'f32-{remat}'], ranks[1]['vit'][f'f32-{remat}']
+        st = f32['stats']
+        print(f'spatial: (f) {smi}: DinoSeg ViT-L/16 (vitl16_sat493m, 24 blocks, 7 classes, '
+              f'AdamW at {SPATIAL_VIT_LR}) on one {tile}² tile as two strips of {tile // 2} '
+              f'rows ({STRIP_Q} queries a rank against {STRIP_KV} keys), float32, TF32 off, '
+              f'remat={remat!r}: the first step against one process on the whole tile: '
+              f'total_loss {f32["loss"]:.7f} vs {f32["ref_loss"]:.7f} (limit '
+              f'{SPATIAL_LOSS_TOL} relative); {f32["tensors"]} parameters, worst |Δ| / '
+              f'({SPATIAL_ATOL} + {SPATIAL_RTOL}·|value|) {f32["plain"]:.3e} '
+              f'({f32["plain_name"]}), largest |Δ| {f32["max_abs"]:.3e}; gradients '
+              f'||Δg||/||g|| {f32["grad_rel"]:.3e} (limit {SPATIAL_GRAD_TOL}), worst tensor '
+              f'{f32["grad_worst"]:.3e} ({f32["grad_worst_name"]}); the ranks\' states '
+              f'equal: {f32["digest"] == other["digest"]}; keys and values gathered: '
+              f'{st["gathers"]} broadcasts sent ({st["gather_bytes"] / 2**20:.2f} MiB) in the '
+              f'forward, {st.get("remat_gathers", 0)} '
+              f'({st.get("remat_gather_bytes", 0) / 2**20:.2f} MiB) in the recomputation; '
+              f'halo hops {st["hops"]}; step {f32["ms"]:.1f} ms (one process '
+              f'{ref["vit"]["f32"]["ms"]:.1f})', flush=True)
+        check(abs(f32['loss'] - f32['ref_loss']) <= SPATIAL_LOSS_TOL * abs(f32['ref_loss']),
+              f'spatial: (f) remat={remat}: the first step\'s loss differs from one process')
+        check(f32['plain'] <= 1.0 and f32['grad_rel'] <= SPATIAL_GRAD_TOL,
+              f'spatial: (f) remat={remat}: the first step differs from one process')
+        check(f32['digest'] == other['digest'], f'spatial: (f) remat={remat}: the ranks\' '
+              'states differ')
+        check(st['gathers'] == 24 and st['gather_bytes'] == 24 * per_block * 4
+              and st.get('remat_gathers', 0) == (24 if remat else 0),
+              f'spatial: (f) remat={remat}: gathers {st}')
+    one = sorted(ref['vit']['bf16']['ms'])
+    want = sorted([['bwd', [1, STRIP_Q, H, D], [1, STRIP_KV, H, D]],
+                   ['fwd', [1, STRIP_Q, H, D], [1, STRIP_KV, H, D]]])
+    k1 = k2 = 0
+    for r, res in enumerate(ranks):
+        bf = res['vit']['bf16']
+        steady = sorted(bf['ms'][SPATIAL_VIT_WARMUP:])
+        print(f'spatial: (f) {smi}: DinoSeg ViT-L/16: rank {r}: bf16 compute, float32 '
+              f'parameters: ms/step {" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
+              f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
+              f'{one[len(one) // 2]:.1f}); losses '
+              f'{" ".join(f"{m["cls_loss"]:.5f}" for m in bf["metrics"])}; keys and values '
+              f'gathered a step: {bf["gathers"]:.0f} broadcasts sent, '
+              f'{bf["gather_bytes"] / 2**20:.2f} MiB; halo hops {bf["hops"]:.0f}; peak memory '
+              f'above what the process held before {bf["peak_gib"]:.2f} GiB (one process '
+              f'{ref["vit"]["bf16"]["peak_gib"]:.2f}); K1 and K2 launches {bf["launches"]} in '
+              f'{bf["steps"]} steps at q, k shapes {bf["shapes"]}; all port kernels '
+              f'{bf["all_launches"]} ({backend})', flush=True)
+        check(bf['launches'] == [24 * bf['steps']] * 2 and bf['all_launches'] == 48 * bf['steps'],
+              f'spatial: (f) rank {r} launched K1, K2 {bf["launches"]} times and all port '
+              f'kernels {bf["all_launches"]} in {bf["steps"]} steps')
+        check(bf['shapes'] == want, f'spatial: (f) rank {r}: K1/K2 shapes {bf["shapes"]}')
+        check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
+                  for m in bf['metrics']), f'spatial: (f) rank {r}: non-finite metrics')
+        check(bf['float32'] and bf['gathers'] == 24, f'spatial: (f) rank {r}: parameters '
+              f'left float32, 24 gathers a step')
+        k1, k2 = k1 + bf['launches'][0], k2 + bf['launches'][1]
+    return k1, k2
+
+
+def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> tuple:
     """The spatial layouts (module docstring, phase 23): one process's
     references ``ref`` (:func:`spatial_reference`), the parallel phases'
-    ranks' results (:func:`phases_parallel`), then ``util.eda``.  Returns
-    the ranks' K8 launches."""
+    ranks' results (:func:`start_parallel`), then ``util.eda``.  Returns
+    the ranks' K1, K2 and K8 launches."""
     import tempfile
 
     ranks, secs = [r['spatial'] for r in parallel], parallel[0]['seconds']['spatial']
@@ -7775,6 +8196,7 @@ def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> int:
                       for m in bf['metrics']), f'spatial: ({part}) rank {r}: non-finite metrics')
             check(bf['float32'], f'spatial: ({part}) parameters left float32')
             k8 += bf['launches']
+    k1, k2 = phase_spatial_vit(smi, ref, ranks)
     for r, res in enumerate(ranks):
         ex, zs, hs = res['partition_exact'], res['partition_zeros'], res['halo_step']
         print(f'spatial: (b) {smi}: rank {r}: {HALO_DEPTH} 3×3 convs of {HALO_WIDTH} + 1×1 on '
@@ -7798,34 +8220,127 @@ def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> int:
           'spatial: util.eda gave other shapes or values')
     print(f'spatial: {smi}: references {ref["seconds"]:.1f} s, {secs:.1f} s in the ranks',
           flush=True)
-    return k8
+    return k1, k2, k8
 
 
-def phases_parallel(seed: int, smi: str, bare_ms: float) -> tuple:
+def start_parallel(seed: int) -> dict:
     """Phases 20-23 (gan, zero, layouts, spatial), whose gloo ranks are one
     pair of processes started once (``--ddp-worker parallel``: each phase's
-    worker in turn) after the spatial phase's one-process references.
-    Returns the K1, K2 and K8 launches of their main paths."""
+    worker in turn) after the spatial phase's one-process references, and
+    left running while this process goes on with the serial phases
+    (:func:`finish_parallel` collects them)."""
+    import shutil
     import tempfile
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix='chip_smoke_parallel_') as tmp:
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_parallel_')
+    try:
         cfg = gan_config(tmp, seed)
         for job, spec in (('gan', dict(config=cfg)), ('zero', dict(seed=seed)),
                           ('layouts', dict(seed=seed)), ('spatial', dict(seed=seed))):
             with open(os.path.join(tmp, f'{job}-spec.json'), 'w') as f:
                 json.dump(spec, f)
         ref = spatial_reference(seed, tmp)
-        ranks, secs = run_ddp_workers('parallel', tmp)
-        print(f'parallel phases: {smi}: the ranks of gan, zero, layouts and spatial in '
-              f'{secs:.1f} s, started once; '
-              + ', '.join(f'{k} {v:.1f} s' for k, v in ranks[0]['seconds'].items()), flush=True)
-        phase_gan(seed, smi, tmp, cfg, ranks)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    gc.collect()
+    torch.cuda.empty_cache()                 # the ranks share the card from here
+    return dict(tmp=tmp, cfg=cfg, ref=ref, t0=t0, workers=start_ddp_workers('parallel', tmp, PARALLEL_TIMEOUT))
+
+
+def stop_parallel(started: dict) -> None:
+    """Kill the parallel phases' ranks if they still run and remove their
+    directory."""
+    import shutil
+
+    stop_ddp_workers(started['workers'])
+    shutil.rmtree(started['tmp'], ignore_errors=True)
+
+
+def finish_parallel(started: dict, seed: int, smi: str, bare_ms: float) -> tuple:
+    """Wait for the parallel phases' ranks and read them phase by phase
+    (:func:`stop_parallel` removes what they wrote).  Returns the K1, K2
+    and K8 launches of their main paths."""
+    t_wait = time.perf_counter()
+    ranks, secs = wait_ddp_workers(started['workers'])
+    print(f'parallel phases: {smi}: the ranks of gan, zero, layouts and spatial started '
+          f'once, beside the serial phases from models on; joined {secs:.1f} s after '
+          f'their start, of which this process waited {time.perf_counter() - t_wait:.1f} '
+          f's; in the ranks '
+          + ', '.join(f'{k} {v:.1f} s' for k, v in ranks[0]['seconds'].items()), flush=True)
+    phase_gan(seed, smi, started['tmp'], started['cfg'], ranks)
     k1, k2 = phase_zero(smi, ranks)
     l1, l2 = phase_layouts(smi, bare_ms, ranks)
-    k8 = phase_spatial(seed, smi, ref, ranks)
-    print(f'parallel phases: {smi}: wall time {time.perf_counter() - t0:.1f} s', flush=True)
-    return k1 + l1, k2 + l2, k8
+    s1, s2, k8 = phase_spatial(seed, smi, started['ref'], ranks)
+    print(f'parallel phases: {smi}: wall time {time.perf_counter() - started["t0"]:.1f} s '
+          f'from the references to the last check', flush=True)
+    return k1 + l1 + s1, k2 + l2 + s2, k8
+
+
+def side_phases(seed: int, smi: str, profile: bool, out: str) -> int:
+    """The phases zoo, backbones, vitencoder and freenet in a process of
+    their own (``chip_smoke.py --side OUT``), beside this script's serial
+    phases from models on and the parallel phases' ranks: each phase as it
+    runs in one process, on a generator of its own seeded with ``seed``.
+    Writes their K1, K2, K7 and K8 launches to ``OUT/side.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    k8 = phase_zoo(gen, seed, smi, profile)
+    phase_backbones(gen, seed, smi, profile)
+    k1, k2, k7 = phase_vitencoder(gen, smi, profile)
+    phase_freenet(gen, seed, smi)
+    with open(os.path.join(out, 'side.json'), 'w') as f:
+        json.dump(dict(k1=k1, k2=k2, k7=k7, k8=k8), f)
+    return 0
+
+
+def start_side(seed: int, smi: str, profile: bool) -> dict:
+    """Start :func:`side_phases` in a process of its own, its output to a
+    file that :func:`finish_side` prints."""
+    import tempfile
+
+    out = tempfile.mkdtemp(prefix='chip_smoke_side_')
+    log = open(os.path.join(out, 'side.log'), 'w+')
+    cmd = [sys.executable, os.path.abspath(__file__), '--seed', str(seed), '--side', out, smi]
+    if profile:
+        cmd.append('--profile')
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+    return dict(out=out, log=log, proc=proc, t0=time.perf_counter())
+
+
+def finish_side(started: dict) -> dict:
+    """Wait for the side phases, print their output, and return their
+    launches; fails with their output when the process fails."""
+    proc, log = started['proc'], started['log']
+    t_wait = time.perf_counter()
+    try:
+        proc.wait(timeout=max(1.0, PARALLEL_TIMEOUT - (time.perf_counter() - started['t0'])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    print(text, end='' if text.endswith('\n') else '\n', flush=True)
+    check(proc.returncode == 0, f'the side phases exited {proc.returncode}')
+    with open(os.path.join(started['out'], 'side.json')) as f:
+        launches = json.load(f)
+    print(f'side phases: zoo, backbones, vitencoder and freenet in a process of their own: '
+          f'{time.perf_counter() - started["t0"]:.1f} s from their start, of which this process '
+          f'waited {time.perf_counter() - t_wait:.1f} s', flush=True)
+    return launches
+
+
+def stop_side(started: dict) -> None:
+    """Kill the side process if it still runs and remove its directory."""
+    import shutil
+
+    if started['proc'].poll() is None:
+        started['proc'].kill()
+    started['proc'].wait()
+    shutil.rmtree(started['out'], ignore_errors=True)
 
 
 def check_build_notes() -> None:
@@ -7859,7 +8374,12 @@ def main() -> int:
     parser.add_argument('--ddp-worker', nargs=5, metavar=('JOB', 'RANK', 'WORLD', 'INIT', 'OUT'),
                         help='run one rank of the ddp phase or of the parallel phases (gan, '
                              'zero, layouts, spatial; the phases start them)')
+    parser.add_argument('--side', nargs=2, metavar=('OUT', 'SMI'),
+                        help='run the zoo, backbones, vitencoder and freenet phases in a '
+                             'process of their own (the script starts it)')
     args = parser.parse_args()
+    if args.side:
+        return side_phases(args.seed, args.side[1], args.profile, args.side[0])
     if args.ddp_worker:
         job, rank, world, init, out = args.ddp_worker
         return ddp_worker(job, int(rank), int(world), init, out)
@@ -7899,23 +8419,29 @@ def main() -> int:
     phase_trainer(gen, args.seed, bare_ms, smi)
     phase_workflow(gen, args.seed, smi)
     phase_ddp(args.seed, smi)
-    k1, k2, k8 = phase_models(gen, args.seed, smi)
-    fwd['launches'] += k1
-    bwd['launches'] += k2
-    pool['launches'] += k8 + phase_change(gen, args.seed, smi)
-    pool['launches'] += phase_user(gen, args.seed, smi)
-    k1, k7, k8 = phase_int8(args.seed, smi)
-    fwd['launches'] += k1
-    matmul['launches'] += k7
-    pool['launches'] += k8
-    pool['launches'] += phase_zoo(gen, args.seed, smi, args.profile)
-    phase_backbones(gen, args.seed, smi, args.profile)
-    k1, k2, k7 = phase_vitencoder(gen, smi, args.profile)
-    fwd['launches'] += k1
-    bwd['launches'] += k2
-    matmul['launches'] += k7
-    phase_freenet(gen, args.seed, smi)
-    k1, k2, k8 = phases_parallel(args.seed, smi, bare_ms)
+    parallel = start_parallel(args.seed)
+    side = None
+    try:
+        side = start_side(args.seed, smi, args.profile)
+        k1, k2, k8 = phase_models(gen, args.seed, smi)
+        fwd['launches'] += k1
+        bwd['launches'] += k2
+        pool['launches'] += k8 + phase_change(gen, args.seed, smi)
+        pool['launches'] += phase_user(gen, args.seed, smi)
+        k1, k7, k8 = phase_int8(args.seed, smi)
+        fwd['launches'] += k1
+        matmul['launches'] += k7
+        pool['launches'] += k8
+        launches = finish_side(side)
+        fwd['launches'] += launches['k1']
+        bwd['launches'] += launches['k2']
+        matmul['launches'] += launches['k7']
+        pool['launches'] += launches['k8']
+        k1, k2, k8 = finish_parallel(parallel, args.seed, smi, bare_ms)
+    finally:
+        if side is not None:
+            stop_side(side)
+        stop_parallel(parallel)
     fwd['launches'] += k1
     bwd['launches'] += k2
     pool['launches'] += k8

@@ -9,21 +9,26 @@
 // sign goes into the arithmetic and the tables arrive as they are); key
 // columns >= n_valid are masked with -1e30;
 // outputs o (normalised, in the input type) and lse = m + log(l) (f32,
-// [B,H,S]).  Inputs are bf16 or f32; f32 operands are rounded to bf16 for
+// [B,H,S_q]).  q has S_q rows and K/V S_kv, each with its own RoPE rows, as
+// the TPU kernel reads a q block's tables apart from the keys'; a
+// same-length call is S_q = S_kv on the same path.  Under a spatial step a
+// rank's queries are its strip's tokens and its keys the whole tile's
+// (parallel/spatial.py, module/vit.py).  Inputs are bf16 or f32; f32 operands are rounded to bf16 for
 // the tensor cores (q after RoPE and the scale, K after RoPE, V as is),
 // while scores, softmax, accumulation, lse and o stay f32.
 //
 // Bound on an H100 SXM at the ViT-L/16 serving shape (B=8, H=16, S=1029,
-// D=64, bf16): 4*B*H*S^2*D = 34.7 GFLOP, 0.0351 ms at 989 TFLOP/s, against
-// ~68 MB of q/k/v/o/lse traffic, 0.020 ms at 3.35 TB/s.  Compute bounds it,
-// so both products run as ``wgmma`` fed by TMA, and the softmax hides
-// behind them.
+// D=64, bf16): 4*B*H*S_q*S_kv*D = 34.7 GFLOP, 0.0351 ms at 989 TFLOP/s,
+// against ~68 MB of q/k/v/o/lse traffic, 0.020 ms at 3.35 TB/s; at a
+// 1024² tile's strip of two (B=1, S_q=2053, S_kv=4101) 34.5 GFLOP, 0.0349
+// ms.  Compute bounds it, so both products run as ``wgmma`` fed by TMA, and
+// the softmax hides behind them.
 //
 // Design.  The TPU kernel keeps the whole [S,D] K/V of a head resident in
 // VMEM; an SM has 227 KB of shared memory, so here K/V stream through it,
 // FlashAttention-3 style:
 // - K is rotated once per (b, h) by a small memory-bound staging launch
-//   (``stage`` in attention_common.cuh) into a bf16 [B,H,S,D] buffer,
+//   (``stage`` in attention_common.cuh) into a bf16 [B,H,S_kv,D] buffer,
 //   instead of once per q tile (6 times per head at S=1029); with f32
 //   inputs the same launch rounds K and V to bf16, so one main kernel
 //   serves both types.  Without RoPE, bf16 K and V are read in place.
@@ -56,8 +61,8 @@
 //   cores while P V runs on the tensor cores.  (Ping-pong between the
 //   warpgroups on named barriers measured no faster, so there is none.)
 // - key tiles wholly at or past n_valid are never loaded; only the ragged
-//   last tile is masked, by selects; q rows past S compute on zeros and
-//   are never written, and a warpgroup whose 64 rows all lie past S leaves
+//   last tile is masked, by selects; q rows past S_q compute on zeros and
+//   are never written, and a warpgroup whose 64 rows all lie past S_q leaves
 //   at once (the last q tile of each head at S=1029 keeps two of three;
 //   the empty barriers count the warps that stayed).  ptxas serializes a
 //   warpgroup's wgmmas when a branch parts its threads around them, when
@@ -105,12 +110,12 @@ __host__ __device__ constexpr int smem_bytes() {
 template <typename T>
 struct Params {
   const T* q;
-  const T* sin_tab;           // [S, D] RoPE tables for q, or null
-  const T* cos_tab;           // [S, D]
+  const T* sin_tab;           // [S_q, D] RoPE tables for q, or null
+  const T* cos_tab;           // [S_q, D]
   T* o;
-  float* lse;                 // [B, H, S]
+  float* lse;                 // [B, H, S_q]
   int64_t q_sb, q_sh, q_ss, o_sb, o_sh, o_ss;
-  int S, H, n_valid;
+  int S_q, H, n_valid;        // n_valid <= S_kv: the keys read
   float scale;
 };
 
@@ -133,8 +138,8 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap*
 // The A fragments of this warp's 16 q rows (r0 = row g, r0 + 8 = row g + 8),
 // rotated, scaled and rounded to bf16: qa[kk] covers columns 16kk..16kk+15.
 // The thread reads columns c = 16kk + 8j + 2t (+1) and c + D/2 of both rows,
-// so it rotates them itself.  Rows past S are zero; their loads read row
-// S - 1 instead, so that no branch parts the warp.
+// so it rotates them itself.  Rows past S_q are zero; their loads read row
+// S_q - 1 instead, so that no branch parts the warp.
 template <int D, typename T>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const Params<T>& p,
                                        const T* qb, int r0, int t) {
@@ -143,8 +148,8 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const Params<T
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = r0 + 8 * hr;
-    const int rc = min(r, p.S - 1);
-    const float keep = r < p.S ? p.scale : 0.f;
+    const int rc = min(r, p.S_q - 1);
+    const float keep = r < p.S_q ? p.scale : 0.f;
     const T* row = qb + rc * p.q_ss;
     const int64_t tr = static_cast<int64_t>(rc) * D;
 #pragma unroll
@@ -257,7 +262,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[NS / 8][4], const float (&
   }
 }
 
-// grid (ceil(S / BQ), H, B)
+// grid (ceil(S_q / BQ), H, B)
 template <int D, typename T>
 __global__ void __launch_bounds__(Tile<D>::THREADS, 1)
 attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k,
@@ -272,8 +277,8 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int q0 = blockIdx.x * Tile<D>::BQ, h = blockIdx.y, b = blockIdx.z;
   const int n_kt = (p.n_valid + BKV - 1) / BKV;
-  // warpgroups whose 64 rows all lie past S leave at once
-  const int n_wg = min(Tile<D>::WGS, (p.S - q0 + 63) / 64);
+  // warpgroups whose 64 rows all lie past S_q leave at once
+  const int n_wg = min(Tile<D>::WGS, (p.S_q - q0 + 63) / 64);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -358,17 +363,17 @@ attn_fwd_kernel(const __grid_constant__ CUtensorMap map_k,
   fence_regs(pa);
   mbar_arrive(&empty[(n_kt - 1) % STAGES], lane == 0);
 
-  // epilogue: o / l in the input type, lse = m + log(l); rows past S unwritten
+  // epilogue: o / l in the input type, lse = m + log(l); rows past S_q unwritten
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   T* ob = p.o + b * p.o_sb + h * p.o_sh;
-  float* lb = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.S;
+  float* lb = p.lse + (static_cast<int64_t>(b) * p.H + h) * p.S_q;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = r0 + 8 * hr;
-    if (r >= p.S) continue;
+    if (r >= p.S_q) continue;
     const float l = hr ? l1 : l0, inv = 1.f / l;
     T* orow = ob + r * p.o_ss + 2 * t;
 #pragma unroll
@@ -392,19 +397,20 @@ int seq_map(CUtensorMap* map, const void* base, int B, int H, int S, int D,
                          strides, box, true);
 }
 
-// k/v/kbuf/vbuf as in ever_attn_fwd.
+// k/v/sin_k/cos_k/kbuf/vbuf as in ever_attn_fwd; S_kv rows of K and V.
 template <int D, typename T>
-int launch(const Params<T>& p, int B, const T* k, const int64_t ks[3], const T* v,
-           const int64_t vs[3], void* kbuf, void* vbuf, cudaStream_t st) {
+int launch(const Params<T>& p, int B, int S_kv, const T* k, const int64_t ks[3],
+           const T* v, const int64_t vs[3], const T* sin_k, const T* cos_k,
+           void* kbuf, void* vbuf, cudaStream_t st) {
   constexpr bool kF32 = sizeof(T) == 4;
-  const int64_t sb = static_cast<int64_t>(p.H) * p.S * D, sh = static_cast<int64_t>(p.S) * D;
+  const int64_t sb = static_cast<int64_t>(p.H) * S_kv * D, sh = static_cast<int64_t>(S_kv) * D;
   // what the main kernel reads: the staged copies, or the inputs themselves
   const void* kp = k;
   int64_t kst[3] = {ks[0], ks[1], ks[2]};
-  if (p.sin_tab != nullptr || kF32) {
+  if (sin_k != nullptr || kF32) {
     // rotate (and for f32 round) K once into the bf16 scratch buffer
-    const int err = stage<D, T>(k, ks[0], ks[1], ks[2], p.sin_tab, p.cos_tab,
-                                1.f, kbuf, B, p.H, p.S, st);
+    const int err = stage<D, T>(k, ks[0], ks[1], ks[2], sin_k, cos_k,
+                                1.f, kbuf, B, p.H, S_kv, st);
     if (err != 0) return err;
     kp = kbuf;
     kst[0] = sb; kst[1] = sh; kst[2] = D;
@@ -413,43 +419,46 @@ int launch(const Params<T>& p, int B, const T* k, const int64_t ks[3], const T* 
   int64_t vst[3] = {vs[0], vs[1], vs[2]};
   if (kF32) {
     const int err = stage<D, T>(v, vs[0], vs[1], vs[2], nullptr, nullptr, 1.f,
-                                vbuf, B, p.H, p.S, st);
+                                vbuf, B, p.H, S_kv, st);
     if (err != 0) return err;
     vp = vbuf;
     vst[0] = sb; vst[1] = sh; vst[2] = D;
   }
   CUtensorMap map_k, map_v;
-  int err = seq_map(&map_k, kp, B, p.H, p.S, D, kst[0], kst[1], kst[2], BKV);
-  err = err ? err : seq_map(&map_v, vp, B, p.H, p.S, D, vst[0], vst[1], vst[2], BKV);
+  int err = seq_map(&map_k, kp, B, p.H, S_kv, D, kst[0], kst[1], kst[2], BKV);
+  err = err ? err : seq_map(&map_v, vp, B, p.H, S_kv, D, vst[0], vst[1], vst[2], BKV);
   if (err != 0) return err;
   constexpr int smem = smem_bytes<D>();
   const cudaError_t e = cudaFuncSetAttribute(
       attn_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((p.S + Tile<D>::BQ - 1) / Tile<D>::BQ, p.H, B);
+  const dim3 grid((p.S_q + Tile<D>::BQ - 1) / Tile<D>::BQ, p.H, B);
   attn_fwd_kernel<D, T><<<grid, Tile<D>::THREADS, smem, st>>>(map_k, map_v, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* sin_tab,
-             const void* cos_tab, void* kbuf, void* vbuf, void* o, void* lse,
-             int B, int H, int S, int D, int n_valid, const int64_t qs[3],
-             const int64_t ks[3], const int64_t vs[3], const int64_t os[3],
-             float scale, cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, const void* sin_q,
+             const void* cos_q, const void* sin_k, const void* cos_k, void* kbuf,
+             void* vbuf, void* o, void* lse, int B, int H, int S_q, int S_kv, int D,
+             int n_valid, const int64_t qs[3], const int64_t ks[3],
+             const int64_t vs[3], const int64_t os[3], float scale,
+             cudaStream_t st) {
   Params<T> p;
   p.q = static_cast<const T*>(q);
-  p.sin_tab = static_cast<const T*>(sin_tab);
-  p.cos_tab = static_cast<const T*>(cos_tab);
+  p.sin_tab = static_cast<const T*>(sin_q);
+  p.cos_tab = static_cast<const T*>(cos_q);
   p.o = static_cast<T*>(o);
   p.lse = static_cast<float*>(lse);
   p.q_sb = qs[0]; p.q_sh = qs[1]; p.q_ss = qs[2];
   p.o_sb = os[0]; p.o_sh = os[1]; p.o_ss = os[2];
-  p.S = S; p.H = H; p.n_valid = n_valid; p.scale = scale;
+  p.S_q = S_q; p.H = H; p.n_valid = n_valid; p.scale = scale;
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  if (D == 64) return launch<64, T>(p, B, kt, ks, vt, vs, kbuf, vbuf, st);
-  if (D == 128) return launch<128, T>(p, B, kt, ks, vt, vs, kbuf, vbuf, st);
+  const T* sk = static_cast<const T*>(sin_k);
+  const T* ck = static_cast<const T*>(cos_k);
+  if (D == 64) return launch<64, T>(p, B, S_kv, kt, ks, vt, vs, sk, ck, kbuf, vbuf, st);
+  if (D == 128) return launch<128, T>(p, B, S_kv, kt, ks, vt, vs, sk, ck, kbuf, vbuf, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -459,32 +468,36 @@ int dispatch(const void* q, const void* k, const void* v, const void* sin_tab,
 // elements, and the last (D) stride of q/k/v/o is 1; K and V (when read in
 // place: bf16) start on 16 bytes with their other strides multiples of 16
 // bytes, as TMA addresses them.  `dtype` is the element type of q/k/v/o and
-// the tables: 0 = bf16, 1 = f32.  `kbuf` is a [B, H, S, D] bf16 scratch
-// buffer for the staged K, needed with RoPE (sin_tab and cos_tab non-null)
-// or f32; `vbuf` is the same for V, needed with f32.  Launches on `stream`
-// without synchronising and returns the first cudaError_t met (0 =
-// success).
+// the tables: 0 = bf16, 1 = f32.  q and o have S_q rows, k and v S_kv;
+// sin_q/cos_q are [S_q, D] and sin_k/cos_k [S_kv, D] (all four null: no
+// RoPE); keys at or past n_valid <= S_kv are masked.  `kbuf` is a [B, H,
+// S_kv, D] bf16 scratch buffer for the staged K, needed with RoPE or f32;
+// `vbuf` is the same for V, needed with f32.  Launches on `stream` without
+// synchronising and returns the first cudaError_t met (0 = success).
 extern "C" int ever_attn_fwd(
-    const void* q, const void* k, const void* v, const void* sin_tab,
-    const void* cos_tab, void* kbuf, void* vbuf, void* o, void* lse,
-    int dtype, int B, int H, int S, int D, int n_valid, long long q_sb,
+    const void* q, const void* k, const void* v, const void* sin_q,
+    const void* cos_q, const void* sin_k, const void* cos_k, void* kbuf,
+    void* vbuf, void* o, void* lse, int dtype, int B, int H, int S_q,
+    int S_kv, int D, int n_valid, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, float scale,
     void* stream) {
-  if (B < 1 || H < 1 || S < 1 || n_valid < 1 || n_valid > S ||
+  const bool rope = sin_q != nullptr;
+  if (B < 1 || H < 1 || S_q < 1 || S_kv < 1 || n_valid < 1 || n_valid > S_kv ||
       B > 65535 || H > 65535 || (dtype != 0 && dtype != 1) ||
-      (sin_tab == nullptr) != (cos_tab == nullptr) ||
-      ((sin_tab != nullptr || dtype == 1) && kbuf == nullptr) ||
+      (cos_q != nullptr) != rope || (sin_k != nullptr) != rope ||
+      (cos_k != nullptr) != rope || ((rope || dtype == 1) && kbuf == nullptr) ||
       (dtype == 1 && vbuf == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t qs[3] = {q_sb, q_sh, q_ss}, ks[3] = {k_sb, k_sh, k_ss};
   const int64_t vs[3] = {v_sb, v_sh, v_ss}, os[3] = {o_sb, o_sh, o_ss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<__nv_bfloat16>(q, k, v, sin_tab, cos_tab, kbuf, vbuf, o,
-                                   lse, B, H, S, D, n_valid, qs, ks, vs, os,
-                                   scale, st);
-  return dispatch<float>(q, k, v, sin_tab, cos_tab, kbuf, vbuf, o, lse, B, H,
-                         S, D, n_valid, qs, ks, vs, os, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, sin_q, cos_q, sin_k, cos_k, kbuf,
+                                   vbuf, o, lse, B, H, S_q, S_kv, D, n_valid,
+                                   qs, ks, vs, os, scale, st);
+  return dispatch<float>(q, k, v, sin_q, cos_q, sin_k, cos_k, kbuf, vbuf, o,
+                         lse, B, H, S_q, S_kv, D, n_valid, qs, ks, vs, os,
+                         scale, st);
 }

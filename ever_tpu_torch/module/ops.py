@@ -593,9 +593,10 @@ def checkpointed(module: nn.Module, fn, x):
     backward pass recomputes it, and the recomputation leaves the running
     statistics of ``module``'s BatchNorms alone (:func:`running_stats_frozen`),
     so they move once per forward, as under JAX's ``nn.remat``.  Under a
-    spatial step it raises: the recomputation would issue the block's halo
-    exchanges a second time, on one rank."""
-    _spatial.refuse('checkpointed')
+    spatial step the recomputation runs with the forward's strip and mesh
+    contexts (``parallel.spatial.recomputable``), so it issues the block's
+    halo exchanges and BatchNorm reductions again on every rank, in the
+    same order, as ``nn.remat`` does under GSPMD."""
     calls = []
 
     def run(x):
@@ -605,7 +606,7 @@ def checkpointed(module: nn.Module, fn, x):
         with running_stats_frozen(module):
             return fn(x)
 
-    return _ckpt.checkpoint(run, x, use_reentrant=False)
+    return _ckpt.checkpoint(_spatial.recomputable(run), x, use_reentrant=False)
 
 
 class GroupNorm2d(nn.GroupNorm):

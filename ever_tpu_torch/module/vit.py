@@ -57,8 +57,8 @@ from ever_tpu_torch.module import loss as L
 from ever_tpu_torch.module.ops import downsample_bilinear, upsample_bilinear
 from ever_tpu_torch.ops.attention import _rotate_half, attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
+from ever_tpu_torch.parallel import spatial as _spatial
 from ever_tpu_torch.parallel.mesh import data_shard
-from ever_tpu_torch.parallel.spatial import refuse
 
 __all__ = ['Linear', 'LayerNorm', 'RopePositionEmbedding', 'RMSNorm',
            'LayerScale', 'Mlp', 'SwiGLUFFN', 'token_rope', 'drop_path', 'drop_path_mask',
@@ -271,8 +271,9 @@ def drop_path_mask(batch: int, rate: float,
     drawn from ``generator`` on its device.  Inside a data-parallel step
     over R ranks the draws are those of the global batch of R·B, and rank r
     keeps its slice ``[r·B, (r+1)·B)``: the step then draws what one process
-    draws for the global batch."""
-    rank, ranks = data_shard()
+    draws for the global batch.  Under a spatial step every rank holds the
+    same B samples (strips of them) and draws the same B."""
+    rank, ranks = (0, 1) if _spatial.current() is not None else data_shard()
     u = torch.rand(batch * ranks, generator=generator, device=generator.device)
     return (u < 1.0 - rate)[rank * batch:(rank + 1) * batch]
 
@@ -291,7 +292,10 @@ class SelfAttention(nn.Module):
     """Fused-QKV multi-head attention with RoPE on the patch tokens.
 
     q/k/v are strided views of the packed ``[B, N, 3, H, D]`` projection; the
-    attention kernel reads them in place.
+    attention kernel reads them in place.  Under a spatial step the tokens
+    are the prefix and this strip's patch rows, and ``rope`` the whole
+    tile's patch tables: the queries attend to the whole tile's keys
+    (``parallel/spatial.py``, "Attention over strips").
     """
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
@@ -309,18 +313,41 @@ class SelfAttention(nn.Module):
     def _attend(self, qkv, rope, n_valid):
         """The ``num_heads`` heads' attention over a packed ``[B, N, 3·H·D]``
         projection (q, then k, then v, each head by head): ``[B, N, H·D]``."""
-        refuse('attention')
         b, n, width = qkv.shape
         h = self.num_heads
-        q, k, v = qkv.view(b, n, 3, h, width // (3 * h)).unbind(2)   # [B, N, H, D]
-        rope2d = None
+        packed = qkv.view(b, n, 3, h, width // (3 * h))
+        q, k, v = packed.unbind(2)                                   # [B, N, H, D]
+        real = n if n_valid is None else n_valid
+        strips = _spatial.current()
+        if strips is not None:
+            k, v, rope = self._strip_keys(packed, rope, real, n, strips)
+            n_valid = None
+        elif rope is not None:
+            rope = token_rope(*rope, prefix=real - rope[0].shape[0], tail=n - real)
         if rope is not None:
-            real = n if n_valid is None else n_valid
-            sin, cos = token_rope(*rope, prefix=real - rope[0].shape[0], tail=n - real)
-            rope2d = (sin.to(q.dtype), cos.to(q.dtype))
+            rope = tuple(t.to(q.dtype) for t in rope)
         out = attention(q, k, v, impl=self.attn_impl, layout='bnhd',
-                        n_valid=n_valid, rope=rope2d)
+                        n_valid=n_valid, rope=rope)
         return out.reshape(b, n, width // 3)
+
+    @staticmethod
+    def _strip_keys(packed, rope, real: int, n: int, strips):
+        """Under a spatial step: the whole tile's keys and values ``[B,
+        S_kv, H, D]``, the prefix's then every strip's patch rows gathered
+        in strip order, and the stacked RoPE tables of this rank's queries
+        (its strip's rows of the whole tile's ``rope``) and of the keys."""
+        if rope is None:
+            raise ValueError('attention under a spatial step needs the RoPE tables of the '
+                             'whole tile\'s patch grid, to place each strip\'s tokens')
+        patches = rope[0].shape[0] // strips.k          # this strip's patch tokens
+        prefix = real - patches
+        kv = torch.cat([packed[:, :prefix, 1:],
+                        strips.gather_rows(packed[:, prefix:real, 1:])], dim=1)
+        rows = slice(strips.s * patches, (strips.s + 1) * patches)
+        sin_q, cos_q = token_rope(rope[0][rows], rope[1][rows], prefix=prefix, tail=n - real)
+        sin_k, cos_k = token_rope(*rope, prefix=prefix, tail=0)
+        k, v = kv.unbind(2)
+        return k, v, (torch.cat([sin_q, sin_k]), torch.cat([cos_q, cos_k]))
 
 
 class SelfAttentionBlock(nn.Module):
@@ -433,6 +460,11 @@ class DinoVisionTransformer(nn.Module):
     checkpointing), the counterpart of JAX's
     ``dots_with_no_batch_dims_saveable``.
 
+    Under a spatial step (``parallel/spatial.py``) the input is this rank's
+    strip of the tile: the tokens are the prefix and the strip's patch
+    rows, the RoPE tables are made for the whole tile's grid, and each
+    attention layer gathers the other strips' keys and values.
+
     ``forward`` of a list (or tuple) of crops returns a list of feature
     dicts, one a crop, with the same parameters.  With
     ``untie_global_and_local_cls_norm`` and ``train``, crop index 1, and
@@ -525,7 +557,7 @@ class DinoVisionTransformer(nn.Module):
         if self.remat == 'dots':
             context = functools.partial(
                 _ckpt.create_selective_checkpoint_contexts, _save_matmuls)
-        return _ckpt.checkpoint(blk, tokens, rope, n_valid, drop,
+        return _ckpt.checkpoint(_spatial.recomputable(blk), tokens, rope, n_valid, drop,
                                 use_reentrant=False, context_fn=context)
 
     def _run_blocks(self, x, keep, train: bool = False,
@@ -539,11 +571,15 @@ class DinoVisionTransformer(nn.Module):
         if (augs or drops) and generator is None:
             raise ValueError('training with RoPE augmentation or drop-path '
                              'draws from a generator: pass generator=')
-        rope = None if augs else self.rope_embed(*hw, device=tokens.device)
+        # the tables cover the whole tile's patch grid: under a spatial step
+        # hw is this strip's rows of it
+        strips = _spatial.current()
+        grid = hw if strips is None else (hw[0] * strips.k, hw[1])
+        rope = None if augs else self.rope_embed(*grid, device=tokens.device)
         outs = []
         for i, blk in enumerate(self.blocks):
             if augs:
-                rope = self.rope_embed(*hw, device=tokens.device,
+                rope = self.rope_embed(*grid, device=tokens.device,
                                        **self.rope_embed.draw(generator))
             drop = None
             if drops:
@@ -721,7 +757,7 @@ class CausalSelfAttention(nn.Module):
         self.proj = Linear(dim, dim, bias=proj_bias)
 
     def forward(self, x, is_causal: bool = True):
-        refuse('CausalSelfAttention')
+        _spatial.refuse('CausalSelfAttention')
         b, n, c = x.shape
         h = self.num_heads
         q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)

@@ -15,7 +15,12 @@ count (or forced through ``impl``):
   so one pair covers both regimes.
 
 Shapes follow the flax convention: q/k/v are ``[B, N, H, D]`` (``'bnhd'``),
-or ``[B, H, N, D]`` with ``layout='bhnd'``.
+or ``[B, H, N, D]`` with ``layout='bhnd'``.  q may have another length
+than k and v (``S_q`` queries against ``S_kv`` keys, as a rank of a spatial
+step runs its strip's queries against the whole tile's keys); o and the
+log-sum-exp follow q, and ``n_valid`` counts keys.  RoPE tables
+``rope=(sin, cos)`` are ``[S, D]`` rows that q and k share when the two
+lengths are equal, or ``[S_q + S_kv, D]``: q's rows, then k's.
 """
 
 from __future__ import annotations
@@ -91,14 +96,37 @@ def _rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
-def _rope_outside(q, k, rope, layout):
-    """Rotate q and k by ``rope=(sin, cos)`` ([N, D] tables) in q's dtype."""
+def _split_tables(rope, s_q: int, s_kv: int):
+    """q's and k's ``(sin, cos)`` from ``rope``'s tables (module docstring):
+    the same ``[S, D]`` rows when ``S_q == S_kv == S``, or the two parts of
+    ``[S_q + S_kv, D]`` tables."""
     sin, cos = rope
+    rows = sin.shape[0]
+    if rows == s_q + s_kv and cos.shape[0] == rows:
+        return (sin[:s_q], cos[:s_q]), (sin[s_q:], cos[s_q:])
+    if rows == s_q == s_kv and cos.shape[0] == rows:
+        return (sin, cos), (sin, cos)
+    raise ValueError(f'rope tables must have {s_q + s_kv} rows (q\'s {s_q}, then k\'s '
+                     f'{s_kv})' + (f' or {s_q}, shared' if s_q == s_kv else '')
+                     + f', got {tuple(sin.shape)}/{tuple(cos.shape)}')
+
+
+def _seq_len(t: torch.Tensor, layout: str) -> int:
+    return t.shape[2 if layout == 'bhnd' else 1]
+
+
+def _rotate(x, sin, cos, layout):
+    """``x·cos + rotate_half(x)·sin`` with ``[N, D]`` tables, in x's dtype."""
     n, d = sin.shape
     shape = (1, 1, n, d) if layout == 'bhnd' else (1, n, 1, d)
-    sin = sin.to(q.dtype).reshape(shape)
-    cos = cos.to(q.dtype).reshape(shape)
-    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
+    return (x * cos.to(x.dtype).reshape(shape)
+            + _rotate_half(x) * sin.to(x.dtype).reshape(shape))
+
+
+def _rope_outside(q, k, rope, layout):
+    """Rotate q and k by ``rope`` (module docstring) in q's dtype."""
+    tq, tk = _split_tables(rope, _seq_len(q, layout), _seq_len(k, layout))
+    return _rotate(q, *tq, layout), _rotate(k, *tk, layout)
 
 
 def attention_reference(q, k, v, layout: str = 'bnhd',
@@ -109,12 +137,12 @@ def attention_reference(q, k, v, layout: str = 'bnhd',
     The plain version of :func:`fused_attention` (and the ``'xla'`` path):
     q/k rotated by ``rope`` first, scores scaled by 1/sqrt(D), key columns
     at or past ``n_valid`` masked.  Returns o in q's dtype and layout, and
-    with ``return_lse`` also the f32 log-sum-exp ``[B, H, N]``.
+    with ``return_lse`` also the f32 log-sum-exp ``[B, H, S_q]``.
     """
     if rope is not None:
         q, k = _rope_outside(q, k, rope, layout)
     qt, kt, vt = (_to_bhnd(t, layout) for t in (q, k, v))
-    n, d = qt.shape[-2], qt.shape[-1]
+    n, d = kt.shape[-2], qt.shape[-1]
     s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
     if n_valid is not None and n_valid < n:
         s[..., n_valid:] = _MASK
@@ -132,20 +160,22 @@ def attention_bwd_reference(q, k, v, o, lse, do, layout: str = 'bnhd',
     JAX kernel ``_fa_bwd_kernel`` written out in float32: with ``Rq, Rk``
     the rotated q and k and ``scale = 1/sqrt(D)``,
     ``p = exp(scale·Rq·Rkᵀ − lse)`` (0 on key columns at or past
-    ``n_valid``), ``ds = p∘(do·vᵀ − rowsum(do∘o))``, ``dq = Rᵀ(scale·ds·Rk)``,
-    ``dk = Rᵀ(scale·dsᵀ·Rq)``, ``dv = pᵀ·do``, where
-    ``Rᵀ(y) = y·cos − rotate_half(y)·sin`` (the transpose of the rotation for
-    half-tiled tables, the only kind the ViT builds).  ``o`` and ``lse`` are
-    the forward's.  Returns the gradients in q's dtype and layout.
+    ``n_valid``), ``ds = p∘(do·vᵀ − rowsum(do∘o))``, ``dq = R_qᵀ(scale·ds·Rk)``,
+    ``dk = R_kᵀ(scale·dsᵀ·Rq)``, ``dv = pᵀ·do``, where
+    ``Rᵀ(y) = y·cos − rotate_half(y)·sin`` with q's or k's tables (the
+    transpose of the rotation for half-tiled tables, the only kind the ViT
+    builds).  ``o`` and ``lse`` are the forward's.  Returns the gradients in
+    q's dtype and each its input's layout and length.
     """
     dtype = q.dtype
     qt, kt, vt, ot, dot = (_to_bhnd(t, layout).float() for t in (q, k, v, o, do))
-    n, d = qt.shape[-2], qt.shape[-1]
+    n, d = kt.shape[-2], qt.shape[-1]
     scale = 1.0 / math.sqrt(d)
     if rope is not None:
-        sin, cos = (t.float().reshape(1, 1, n, d) for t in rope)
-        qt = qt * cos + _rotate_half(qt) * sin
-        kt = kt * cos + _rotate_half(kt) * sin
+        (sq, cq), (sk, ck) = ((a.float()[None, None], b.float()[None, None]) for a, b in
+                              _split_tables(rope, qt.shape[-2], n))
+        qt = qt * cq + _rotate_half(qt) * sq
+        kt = kt * ck + _rotate_half(kt) * sk
     p = torch.matmul(qt, kt.transpose(-1, -2)).mul_(scale)
     if n_valid is not None and n_valid < n:
         p[..., n_valid:] = _MASK
@@ -157,8 +187,8 @@ def attention_bwd_reference(q, k, v, o, lse, do, layout: str = 'bnhd',
     dq = torch.matmul(ds, kt).mul_(scale)
     dk = torch.matmul(ds.transpose(-1, -2), qt).mul_(scale)
     if rope is not None:
-        dq = dq * cos - _rotate_half(dq) * sin
-        dk = dk * cos - _rotate_half(dk) * sin
+        dq = dq * cq - _rotate_half(dq) * sq
+        dk = dk * ck - _rotate_half(dk) * sk
     return tuple(_to_bhnd(t, layout).to(dtype) for t in (dq, dk, dv))
 
 
@@ -176,35 +206,50 @@ def _kernel_view(t: torch.Tensor) -> torch.Tensor:
 
 def _kernel_inputs(ts, layout, n_valid, rope):
     """Check what both attention kernels take and prepare it: the [B,N,H,D]
-    (or [B,H,N,D]) tensors ``ts`` as kernel views, the dims ``(b, h, s, d,
-    n)``, the (b, h, s) axis order of ``layout`` and the tables in the
-    tensors' type.  Raises before any kernel library is loaded."""
-    q = ts[0]
+    (or [B,H,N,D]) tensors ``ts`` (q, k, v, then o and do, which have q's
+    shape) as kernel views, the dims ``(b, h, s_q, s_kv, d, n)``, the (b,
+    h, s) axis order of ``layout`` and the tables ``(sin_q, cos_q, sin_k,
+    cos_k)`` in the tensors' type (Nones without RoPE; k's are q's tensors
+    when shared).  Raises before any kernel library is loaded."""
+    q, k = ts[0], ts[1]
     if any(t.dtype != q.dtype for t in ts) or q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f'the attention kernels take bfloat16 or float32 '
                         f'tensors of one type, got {[t.dtype for t in ts]}')
-    if any(t.shape != q.shape for t in ts) or q.dim() != 4:
-        raise ValueError(f'attention tensors must share one 4-d shape, got '
-                         f'{[tuple(t.shape) for t in ts]}')
-    if any(t.device != q.device for t in ts):
-        raise ValueError('attention tensors must be on one device')
     if layout not in ('bnhd', 'bhnd'):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     # dims as (b, h, s, d) whatever the layout
     perm = (0, 2, 1, 3) if layout == 'bnhd' else (0, 1, 2, 3)
-    b, h, s, d = (q.shape[i] for i in perm)
+    qd = [q.shape[i] for i in perm] if q.dim() == 4 else None
+    kd = [k.shape[i] for i in perm] if k.dim() == 4 else None
+    if (qd is None or kd is None or ts[2].shape != k.shape
+            or any(t.shape != q.shape for t in ts[3:])
+            or qd[:2] + qd[3:] != kd[:2] + kd[3:]):
+        raise ValueError(f'attention tensors must be 4-d, k and v of one shape and q '
+                         f'(o, do) of one shape, differing only in the sequence '
+                         f'length, got {[tuple(t.shape) for t in ts]}')
+    if any(t.device != q.device for t in ts):
+        raise ValueError('attention tensors must be on one device')
+    b, h, s_q, d = qd
+    s_kv = kd[2]
     if d not in (64, 128):
         raise ValueError(f'the attention kernels take head dim 64 or 128, got {d}')
-    n = s if n_valid is None else int(n_valid)
-    if not 1 <= n <= s:
-        raise ValueError(f'n_valid must lie in [1, {s}], got {n_valid}')
-    sin = cos = None
+    n = s_kv if n_valid is None else int(n_valid)
+    if not 1 <= n <= s_kv:
+        raise ValueError(f'n_valid must lie in [1, {s_kv}], got {n_valid}')
+    tables = (None,) * 4
     if rope is not None:
-        sin, cos = (t.to(q.dtype).contiguous() for t in rope)
-        if tuple(sin.shape) != (s, d) or tuple(cos.shape) != (s, d):
-            raise ValueError(f'rope tables must be [{s}, {d}], got '
-                             f'{tuple(sin.shape)}/{tuple(cos.shape)}')
-    return [_kernel_view(t) for t in ts], (b, h, s, d, n), perm, sin, cos
+        if rope[0].dim() != 2 or rope[0].shape[1] != d or tuple(rope[1].shape) != tuple(
+                rope[0].shape):
+            raise ValueError(f'rope tables must be [rows, {d}], got '
+                             f'{tuple(rope[0].shape)}/{tuple(rope[1].shape)}')
+        (sin_q, cos_q), k_tables = _split_tables(rope, s_q, s_kv)
+        shared = k_tables[0] is sin_q
+        sin_q, cos_q = (t.to(q.dtype).contiguous() for t in (sin_q, cos_q))
+        # shared tables stay one pair of tensors: K2's prologue then stages
+        # a q row and its k row in one pass
+        tables = (sin_q, cos_q) + ((sin_q, cos_q) if shared else
+                                   tuple(t.to(q.dtype).contiguous() for t in k_tables))
+    return [_kernel_view(t) for t in ts], (b, h, s_q, s_kv, d, n), perm, tables
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -212,7 +257,7 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _fwd_scratch(b, h, s, d, rope: bool, f32: bool, device):
-    """K1's scratch, none of it zeroed: the bf16 ``[B, H, S, D]`` buffers
+    """K1's scratch, none of it zeroed: the bf16 ``[B, H, S_kv, D]`` buffers
     its staging launch writes and its main kernel streams by TMA, K
     (rotated, or rounded from float32) with RoPE or float32 inputs and V
     (rounded) with float32 inputs, else None (the main kernel then reads
@@ -225,20 +270,20 @@ def _fwd_scratch(b, h, s, d, rope: bool, f32: bool, device):
 
 
 def _launch_fwd(q, k, v, layout, n_valid, rope):
-    (q, k, v), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
+    (q, k, v), (b, h, s_q, s_kv, d, n), perm, tables = _kernel_inputs(
         (q, k, v), layout, n_valid, rope)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    kbuf, vbuf = _fwd_scratch(b, h, s, d, rope is not None,
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device)
+    kbuf, vbuf = _fwd_scratch(b, h, s_kv, d, rope is not None,
                               q.dtype == torch.float32, q.device)
     st = [[t.stride(i) for i in perm[:3]] for t in (q, k, v, o)]
     fn = _load('attention_fwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(sin), _ptr(cos),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *(_ptr(t) for t in tables),
             _ptr(kbuf), _ptr(vbuf), o.data_ptr(), lse.data_ptr(),
-            _KERNEL_DTYPES[q.dtype], b, h, s, d, n,
+            _KERNEL_DTYPES[q.dtype], b, h, s_q, s_kv, d, n,
             *st[0], *st[1], *st[2], *st[3], 1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f'attention kernel launch failed: CUDA error {err}')
@@ -251,42 +296,45 @@ def _launch_fwd(q, k, v, layout, n_valid, rope):
 _STATS_PAD = 64
 
 
-def _bwd_scratch(b, h, s, d, rope: bool, f32: bool, device):
+def _bwd_scratch(b, h, s_q, d, rope: bool, f32: bool, device, s_kv=None):
     """K2's scratch, none of it zeroed (its prologue writes all of it):
-    bf16 ``[B, H, S, D]`` copies of scale·rope(q) always, of rope(k) with
-    RoPE or float32 inputs, of v and do with float32 inputs (else None); and
-    the float32 ``[B, H, 2, S_pad]`` table of lse·log2(e) and delta =
-    rowsum(do∘o), ``S_pad`` = S rounded up to a multiple of 64."""
-    def seq(needed):
+    bf16 copies of scale·rope(q) ``[B, H, S_q, D]`` always, of rope(k)
+    ``[B, H, S_kv, D]`` (``S_kv`` None: ``S_q``) with RoPE or float32
+    inputs, of v (``S_kv`` rows) and do (``S_q``) with float32 inputs (else
+    None); and the float32 ``[B, H, 2, S_pad]`` table of lse·log2(e) and
+    delta = rowsum(do∘o), ``S_pad`` = S_q rounded up to a multiple of 64."""
+    s_kv = s_q if s_kv is None else s_kv
+    def seq(needed, s):
         return (torch.empty((b, h, s, d), dtype=torch.bfloat16, device=device)
                 if needed else None)
 
-    s_pad = -(-s // _STATS_PAD) * _STATS_PAD
+    s_pad = -(-s_q // _STATS_PAD) * _STATS_PAD
     stats = torch.empty((b, h, 2, s_pad), dtype=torch.float32, device=device)
-    return seq(True), seq(rope or f32), seq(f32), seq(f32), stats
+    return (seq(True, s_q), seq(rope or f32, s_kv), seq(f32, s_kv), seq(f32, s_q),
+            stats)
 
 
 def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
-    (q, k, v, o, do), (b, h, s, d, n), perm, sin, cos = _kernel_inputs(
+    (q, k, v, o, do), (b, h, s_q, s_kv, d, n), perm, tables = _kernel_inputs(
         (q, k, v, o, do), layout, n_valid, rope)
-    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s):
-        raise ValueError(f'lse must be float32 [{b}, {h}, {s}], got '
+    if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s_q):
+        raise ValueError(f'lse must be float32 [{b}, {h}, {s_q}], got '
                          f'{lse.dtype} {tuple(lse.shape)}')
     if lse.device != q.device:
         raise ValueError('lse must be on the device of q')
     lse = lse.contiguous()
-    dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
-                  for _ in range(3))
+    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                  for t in (q, k, v))
     qbuf, kbuf, vbuf, dobuf, stats = _bwd_scratch(
-        b, h, s, d, rope is not None, q.dtype == torch.float32, q.device)
+        b, h, s_q, d, rope is not None, q.dtype == torch.float32, q.device, s_kv)
     st = [t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in perm[:3]]
     fn = _load('attention_bwd')
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            *(_ptr(t) for t in (q, k, v, o, do, lse, sin, cos, qbuf, kbuf,
+            *(_ptr(t) for t in (q, k, v, o, do, lse, *tables, qbuf, kbuf,
                                 vbuf, dobuf, stats, dq, dk, dv)),
-            _KERNEL_DTYPES[q.dtype], b, h, s, d, n, *st,
+            _KERNEL_DTYPES[q.dtype], b, h, s_q, s_kv, d, n, *st,
             1.0 / math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f'attention backward kernel launch failed: CUDA '
@@ -297,8 +345,8 @@ def _launch_bwd(q, k, v, o, lse, do, layout, n_valid, rope):
 
 # ctypes signatures: (pointers, ints, strides) of each C entry
 _SIGNATURES = {
-    'attention_fwd': ('ever_attn_fwd', 9, 6, 12),
-    'attention_bwd': ('ever_attn_bwd', 16, 6, 24),
+    'attention_fwd': ('ever_attn_fwd', 11, 7, 12),
+    'attention_bwd': ('ever_attn_bwd', 18, 7, 24),
 }
 
 
@@ -344,8 +392,8 @@ def _attention_bwd_cuda(q, k, v, o, lse, do, sin, cos, layout, n_valid):
 
 
 def _attention_bwd_fake(q, k, v, o, lse, do, sin, cos, layout, n_valid):
-    return tuple(torch.empty_like(q, memory_format=torch.contiguous_format)
-                 for _ in range(3))
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
 
 
 _attention_fwd_op = define_op(
@@ -386,12 +434,13 @@ def fused_attention(q, k, v, layout: str = 'bnhd',
     """Attention forward through the hand-written kernel: ``(o, lse)``.
 
     Port of the JAX fused kernel (``_fused`` / ``_fa_fwd_kernel``): o in q's
-    layout, lse ``[B, H, N]`` f32.  ``rope=(sin, cos)`` are the unfolded
-    [N, D] tables.  K is rotated once per (b, h) by a staging launch into a
+    layout and length, lse ``[B, H, S_q]`` f32.  ``rope=(sin, cos)`` are the
+    unfolded tables, ``[S, D]`` shared or ``[S_q + S_kv, D]`` (module
+    docstring).  K is rotated once per (b, h) by a staging launch into a
     bf16 scratch buffer; q is rotated and scaled inside the main kernel,
     once per q tile, on its way from device memory into registers.
-    ``n_valid``: only the first ``n_valid`` keys are real; query rows past
-    it are garbage by contract.
+    ``n_valid``: only the first ``n_valid`` keys are real; with q as long
+    as k, query rows past it are garbage by contract.
 
     The op ``ever_tpu_torch::attention_fwd``: on a CUDA tensor it launches
     the kernel (bf16 or f32, head dim 64 or 128) or raises; on a CPU tensor
@@ -416,8 +465,9 @@ def fused_attention_bwd(q, k, v, o, lse, do, layout: str = 'bnhd',
 
     Port of the JAX fused backward (``_fused_bwd_impl`` / ``_fa_bwd_kernel``)
     from the unrotated q/k/v, the forward's o and lse, and the upstream
-    gradient ``do``; dq and dk leave inverse-rotated (half-tiled tables).
-    Key rows at or past ``n_valid`` get zero dk/dv; query rows past it are
+    gradient ``do``; dq and dk leave inverse-rotated (half-tiled tables), each
+    with its own rows of ``rope`` (module docstring).  Key rows at or past
+    ``n_valid`` get zero dk/dv; with q as long as k, query rows past it are
     garbage by contract.
 
     The op ``ever_tpu_torch::attention_bwd``: on a CUDA tensor it launches
@@ -444,9 +494,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the plain path otherwise.  On the kernel path a gradient flows
     through the backward kernel when q, k or v requires one.
     ``n_valid``: only the first ``n_valid`` tokens are real (stack-level
-    padding); pad keys are masked out, pad query rows are garbage.
-    ``rope``: optional ``(sin, cos)`` [N, D] tables (identity rows where
-    tokens must not rotate; half-tiled, as the backward assumes).
+    padding); pad keys are masked out, pad query rows are garbage.  k and v
+    may be longer than q (module docstring); ``n_valid`` counts keys.
+    ``rope``: optional ``(sin, cos)`` tables, ``[S, D]`` shared or ``[S_q +
+    S_kv, D]`` (identity rows where tokens must not rotate; half-tiled, as
+    the backward assumes).
     """
     n = q.shape[2 if layout == 'bhnd' else 1]
     if impl is None:

@@ -26,10 +26,12 @@ Two mechanisms, as in the JAX package:
   geometry (a tile of ``k·h`` rows, this strip at ``s·h``), uses them and
   drops them; a bilinear resize takes the strip's rows of the global weight
   matrix against the strip and one halo row each side; a global pool sums
-  over the axis.  No halo row is carried through a pointwise layer or a
-  BatchNorm, so each rank's activations hold exactly its own rows and every
-  pixel counts once.  BatchNorm, the losses and the gradient average run
-  over the axis (the step's mesh takes it as its batch axis).  The other
+  over the axis; attention gathers every strip's keys and values
+  (:meth:`Strips.gather_rows`, below).  No halo row is carried through a
+  pointwise layer or a BatchNorm, so each rank's activations hold exactly
+  its own rows and every pixel counts once.  BatchNorm, the losses and the
+  gradient average run over the axis (the step's mesh takes it as its
+  batch axis).  The other
   reductions over the whole tile do as the global pool does, with
   differentiable all-reduces of their sums over the axis: GroupNorm's two
   passes (:meth:`Strips.group_norm`), the squeeze-excite squeezes, the
@@ -64,6 +66,27 @@ is added into the edge rows: the transpose JAX gets from ``ppermute``.
 Every rank takes both halos of every exchange into its computation (the
 border strips take the fill that stands for the true border's padding), so
 every rank's backward runs the same hops in the same order.
+
+**Attention over strips.**  A ViT's tokens are the cls and storage tokens
+(the prefix), whole on every rank, and the strip's patch rows.  Each
+attention layer runs this rank's queries, prefix included, against the
+whole tile's keys: every strip's patch keys and values reach every rank of
+the axis by one broadcast from each (:class:`_Gather`; gloo carries only
+all-reduce and broadcast on CUDA tensors), in the whole tile's token order
+``[prefix | strip 0 | … | strip k−1]``.  Backward, the gathered rows'
+gradients are summed over the axis (one all-reduce) and each strip keeps
+its own; the prefix's stay this rank's share, the rule of a whole map
+above.  The step's numbers are the unsharded step's, as GSPMD's are: a ring
+that passes the keys around would give them too, with less memory a rank
+at many strips, and more hops.
+
+**Recomputation.**  A block checkpointed under a strip step
+(:func:`recomputable`: ``remat`` in a ViT, ``with_cp`` in a ResNet) is
+recomputed in the backward with the contexts of its forward (autograd may
+run it on another thread, CUDA's device thread), so it issues its halos,
+gathers and BatchNorm reductions again on every rank in the same order, as
+JAX's ``nn.remat`` does under GSPMD.  ``stats`` counts them apart:
+``remat_`` before the key.
 """
 
 from __future__ import annotations
@@ -83,10 +106,13 @@ from ever_tpu_torch.parallel.mesh import _CURRENT, Mesh, NamedSharding, P, all_r
 
 __all__ = ['halo_exchange', 'halo_exchange_exact', 'spatial_partition_apply',
            'spatial_batch_sharding', 'build_spatial_train_step',
-           'build_halo_train_step', 'Strips', 'current', 'refuse', 'whole']
+           'build_halo_train_step', 'Strips', 'current', 'recomputable', 'refuse', 'whole']
 
 _STRIPS: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_strips',
                                                          default=None)
+# set inside a checkpointed block's recomputation under a strip step
+_RECOMPUTING: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_recomputing',
+                                                              default=False)
 
 
 def current() -> Optional['Strips']:
@@ -106,6 +132,31 @@ def whole():
         _STRIPS.reset(token)
 
 
+def recomputable(fn: Callable) -> Callable:
+    """``fn`` as ``torch.utils.checkpoint`` should call it: under a strip
+    context every call runs in the contexts of the forward that made it
+    (mesh, strips), and the calls after the first, the backward's
+    recomputations, count their collectives apart (module docstring,
+    "Recomputation").  Outside a strip step ``fn`` itself."""
+    if _STRIPS.get() is None:
+        return fn
+    ctx = contextvars.copy_context()
+    calls = []
+
+    def run(*args, **kwargs):
+        calls.append(None)
+        if len(calls) == 1:
+            return ctx.run(fn, *args, **kwargs)
+        return ctx.run(_recompute, fn, args, kwargs)
+
+    return run
+
+
+def _recompute(fn: Callable, args, kwargs):
+    _RECOMPUTING.set(True)
+    return fn(*args, **kwargs)
+
+
 def refuse(what: str) -> None:
     """Raise when a strip context is active: ``what`` reads across rows and
     has no strip form, so it would give a strip-local answer."""
@@ -116,9 +167,12 @@ def refuse(what: str) -> None:
 
 class Strips:
     """This rank's strip of a tile split along its rows over ``mesh``'s
-    ``axis``: its index ``s`` of ``k``, the neighbours' groups, and what its
-    hops sent (``stats``: broadcasts and bytes this rank sent).  ``with
-    strips:`` makes it the context the ops read (module docstring)."""
+    ``axis``: its index ``s`` of ``k``, the neighbours' groups, and what it
+    sent (``stats``: the halo broadcasts and bytes this rank sent,
+    ``hops``/``bytes``, and its broadcasts of keys and values,
+    ``gathers``/``gather_bytes``, from the first gather on; those of a
+    recomputation under ``remat_`` keys).  ``with strips:`` makes it the
+    context the ops read (module docstring)."""
 
     def __init__(self, mesh: Mesh, axis: str):
         if mesh.abstract:
@@ -143,13 +197,16 @@ class Strips:
 
     # -- hops ---------------------------------------------------------------------
 
-    def _cast(self, t: torch.Tensor, src: int, group) -> None:
+    def _cast(self, t: torch.Tensor, src: int, group, keys=('hops', 'bytes')) -> None:
+        """Broadcast ``t`` from strip ``src`` in ``group``; what this rank
+        sends counts under ``keys`` (a count and its bytes)."""
         if t.numel() == 0:
             return
         tdist.broadcast(t, src=self.ranks[src], group=group)
         if src == self.s:
-            self.stats['hops'] += 1
-            self.stats['bytes'] += t.numel() * t.element_size()
+            pre = 'remat_' if _RECOMPUTING.get() else ''
+            for key, add in zip(keys, (1, t.numel() * t.element_size())):
+                self.stats[pre + key] = self.stats.get(pre + key, 0) + add
 
     def exchange(self, to_prev, from_prev, to_next, from_next) -> None:
         """Rows to and from both neighbours, received in place: for each pair
@@ -190,6 +247,13 @@ class Strips:
         if x.dim() == 4 and dim == 2 and x.is_contiguous(memory_format=torch.channels_last):
             out = out.contiguous(memory_format=torch.channels_last)
         return out
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every strip's ``x`` (equal shapes) in strip order along dimension
+        1 (tokens), on every rank: one broadcast from each strip
+        (:class:`_Gather`).  Backward, each strip gets the sum over the axis
+        of its rows' gradients."""
+        return x if self.k == 1 else _Gather.apply(x, self)
 
     # -- the ops' strip forms -----------------------------------------------------
 
@@ -380,6 +444,28 @@ class _Swap(torch.autograd.Function):
         return g_up, g_down, None, None
 
 
+class _Gather(torch.autograd.Function):
+    """:meth:`Strips.gather_rows`: each strip broadcasts its ``x`` to the
+    axis; backward, one all-reduce sums the gathered gradient over the axis
+    and each strip takes its rows."""
+
+    @staticmethod
+    def forward(ctx, x, strips):
+        ctx.strips, ctx.n = strips, x.shape[1]
+        # a copy is sent: a broadcast may write its source (as in _Swap)
+        parts = [x.clone(memory_format=torch.contiguous_format) if r == strips.s
+                 else x.new_empty(x.shape) for r in range(strips.k)]
+        for r, part in enumerate(parts):
+            strips._cast(part, r, strips.group, ('gathers', 'gather_bytes'))
+        return torch.cat(parts, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(grad, group=ctx.strips.group)
+        return grad.narrow(1, ctx.strips.s * ctx.n, ctx.n), None
+
+
 def _strips_of(axis_name: str) -> Strips:
     mesh = _CURRENT.get()
     if mesh is None:
@@ -525,10 +611,13 @@ def build_spatial_train_step(model, tx, lr_schedule=None, mesh: Mesh = None,
     under the strip context, so that every conv, pool and resize takes its
     halo from the neighbours and the BatchNorm statistics, the losses, the
     dropout draws and the gradient average are the whole tile's (module
-    docstring).  The parameters' gradients are the unsharded step's: DDP's
-    average over the axis together with the global loss, as under data
-    parallelism.  Other mesh axes hold replicas of the tile, as JAX's
-    ``P(None, axis)`` replicates it there.
+    docstring).  A ViT's attention runs each strip's queries against the
+    whole tile's keys (module docstring, "Attention over strips"), and a
+    checkpointed block recomputes with its forward's contexts.  The
+    parameters' gradients are the unsharded step's: DDP's average over the
+    axis together with the global loss, as under data parallelism.  Other
+    mesh axes hold replicas of the tile, as JAX's ``P(None, axis)``
+    replicates it there.
 
     ``batch`` is ``(x [N, H, W, C], y [N, H, ...])`` whole on every rank, or
     its ``host_to_global(batch, spatial_batch_sharding(mesh, axis))``; H
@@ -536,7 +625,8 @@ def build_spatial_train_step(model, tx, lr_schedule=None, mesh: Mesh = None,
     each strided op.  ``donate`` is accepted and has no effect (PyTorch
     updates the state in place).  ``device``: where the strips go (the GPU
     unless the caller asks for the CPU); the model must be there.
-    ``step.stats`` counts the halo broadcasts and bytes this rank sent."""
+    ``step.stats`` counts the halo broadcasts and bytes this rank sent and
+    its keys' and values' (:class:`Strips`)."""
     from ever_tpu_torch.core.device import get_device
     from ever_tpu_torch.parallel.spmd import build_train_step
 

@@ -393,12 +393,13 @@ def test_strip_forms_equal_the_op_on_the_whole_tile(ranks, world, name, is_whole
 @pytest.mark.parametrize('world', WORLDS)
 def test_ops_without_a_strip_form_raise_naming_themselves(ranks, world):
     """Under the strip context every op of ``torch_spatial_ranks.refusals``
-    (attention, a checkpointed block, a shrinking or non-integer resize,
-    the s2d stem, FreeNet's spectral attention) raises, naming itself, on
-    every rank: none returns a strip-local answer.  (GroupNorm, the
-    squeezes, the context block and the adaptive pools have strip forms:
-    the test above.)"""
+    (the causal attention, a shrinking or non-integer resize, the s2d
+    stem, FreeNet's spectral attention) raises, naming itself, on every
+    rank: none returns a strip-local answer.  (GroupNorm, the squeezes, the
+    context block and the adaptive pools have strip forms: the test above;
+    the ViT's attention and checkpointed blocks:
+    ``tests/test_torch_spatial_vit.py``.)"""
     for res in ranks[world]:
-        assert len(res['refusals']) == 7
+        assert len(res['refusals']) == 5
         for name, err in res['refusals'].items():
             assert err.startswith(name) and 'has no strip form' in err, (name, err)

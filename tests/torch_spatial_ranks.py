@@ -212,17 +212,15 @@ def refusals(strips) -> dict:
     """{the name an op gives itself: its error} under ``strips`` for each
     op that reads across rows and has no strip form, called on a small
     input (NCHW maps, NHWC for ``module/ops.py``'s functions, tokens for
-    the attentions); 'returned' where one does not raise."""
+    the causal attention); 'returned' where one does not raise."""
     from ever_tpu_torch.module import freenet, resnet, vit
     x, tokens = torch.randn(1, 8, 4, 6), torch.randn(1, 5, 8)
     nhwc = x.permute(0, 2, 3, 1)
     cases = {
         'downsample_bilinear': lambda: ops.downsample_bilinear(nhwc, (2, 3)),
         'resize (bilinear': lambda: ops.resize(nhwc, scale=2, method='bilinear'),
-        'checkpointed': lambda: ops.checkpointed(nn.Identity(), lambda t: t, x),
         'the s2d stem': lambda: resnet.depth_to_space(x),
         'SpectralAttention': lambda: freenet.SpectralAttention(8)(x),
-        'attention': lambda: vit.SelfAttention(8, 2)(tokens),
         'CausalSelfAttention': lambda: vit.CausalSelfAttention(8, 2)(tokens),
     }
     with strips:
