@@ -592,7 +592,25 @@ Phases (any failure exits non-zero before the last line is printed):
              all at [1, 2053, 16, 64] queries against [1, 4101, 16, 64]
              keys, and no other port kernel (they join the kernels line);
              the gathered MiB, ms/step against one process's and peak
-             memory a rank.
+             memory a rank.  (g) a user's ViTEncoder ViT-L/16 (4 storage
+             tokens, 24 blocks) under FPN + AssymetricDecoder
+             (``VITENC_MODEL``) on the same tile and strips with (f)'s
+             optimizer, steps and gates: its taps resized by the strip
+             forms (the os32 tap's antialiased halving), the same 24 K1 and
+             24 K2 launches a rank a step at the same shapes.  (h)
+             FarSeg-R50 with ``stem='s2d_input'`` (K8 at the stem) on the
+             same tile folded to [1, 512, 512, 12]: its float32 strip step
+             against one process's ``stem='conv'`` step on the unfolded
+             tile with (d)'s gates (the limits that one process's float64
+             step sets: the stem conv's gradient sums a 1024² tile through
+             a BatchNorm), and the bits of the same weights' ``stem='conv'``
+             strip step; one K8 a rank a step.  (i) FreeNet
+             at its default widths on one 1024×512 scene of 200 bands, 16
+             classes, 5 % of its pixels labelled: its spectral gates
+             squeezed over the tile, with (a)'s gates, no port kernel.  (h)
+             and (i) take 2 bf16 steps a rank.  Every peak a rank is read
+             above what the process held after a collection (DDP's wrapper
+             holds reference cycles), and printed beside one process's.
 24. report — a ``{"kernels": [...]}`` line, the card's name and power limit,
              and the result line ``{"ok": true, "device": {...}}``.
 
@@ -7577,12 +7595,13 @@ HALO_TOL = 1e-5                       # |Δ| / max(1, max |value|), float32 sums
 # (d) and (e): the models through the strip forms of GroupNorm, the SE
 # squeeze and the GC block's softmax pool, on one SPATIAL_MORE_TILE² tile,
 # with (a)'s gates; 1 warm-up and 2 timed bf16 steps a rank.  Their float32
-# first step is also held against one process's float64 step (max pool by
-# reduce_window: K8 takes no float64): a tensor whose float32 one-process
-# value stands more than half (a)'s limit from float64 (the SE + GC trunk's
-# GC transforms: their LayerNorm over 16 inner channels of a pooled
-# context) is held to twice that distance, which two float32 roundings no
-# worse than one process's stay within; every other tensor to (a)'s limit
+# first step (and (h)'s, below) is also held against one process's float64
+# step (max pool by reduce_window: K8 takes no float64): a tensor whose
+# float32 one-process value stands more than half (a)'s limit from float64
+# (the SE + GC trunk's GC transforms: their LayerNorm over 16 inner
+# channels of a pooled context) is held to twice that distance, which two
+# float32 roundings no worse than one process's stay within; every other
+# tensor to (a)'s limit
 SPATIAL_NOISE_FACTOR = 2.0
 SPATIAL_MORE = (
     ('FarSeg++-R50', dict(head=dict(relation_type='v2', fs_relation=dict(dropout_rate=0.1),
@@ -7600,6 +7619,22 @@ SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS = 1, 2
 SPATIAL_VIT_LR = SPATIAL_ATOL / 2
 SPATIAL_GRAD_TOL = 1e-3
 SPATIAL_VIT_WARMUP, SPATIAL_VIT_STEPS = 1, 2
+# (f) and (g), a user's ViTEncoder ViT-L/16 (4 taps resized to os4-os32, the
+# os32 tap by the antialiased halving) under FPN + AssymetricDecoder
+# (VITENC_MODEL), on the same tile's strips with the same optimizer, steps
+# and gates: (part, name)
+SPATIAL_VITS = (('f', 'DinoSeg ViT-L/16 (vitl16_sat493m'),
+                ('g', 'ViTEncoder ViT-L/16 + FPN + AssymetricDecoder (VITENC_MODEL'))
+# (h) FarSeg-R50 on the folded input (stem='s2d_input', K8 at the stem) on
+# one SPATIAL_MORE_TILE² tile folded to [1, 512, 512, 12], and (i) FreeNet at
+# its default widths on one scene of SPATIAL_FREENET (rows, columns, bands,
+# classes), each as two strips: one float32 step against one process (the
+# folded input's against the conv stem's on the unfolded tile), then two
+# bf16 steps a rank
+SPATIAL_FREENET = (1024, 512, 200, 16)
+SPATIAL_LAST = (('h', 'folded-input FarSeg-R50 (stem=\'s2d_input\', K8'),
+                ('i', 'FreeNet (no port kernel'))
+SPATIAL_LAST_WARMUP, SPATIAL_LAST_STEPS = 1, 1
 
 
 class SpatialConvNet(torch.nn.Module):
@@ -7629,7 +7664,7 @@ def spatial_farseg(seed: int, dtype: str, variant: int = -1):
     tile every process draws from ``seed`` (``'float64'``: float64
     parameters, the max pool by reduce_window): (model, tx, schedule, x,
     y)."""
-    from ever_tpu_torch.core.builder import make_learningrate, make_model, make_optimizer
+    from ever_tpu_torch.core.builder import make_model
 
     gen = torch.Generator(device='cuda').manual_seed(seed + 23 + 10 * (variant + 1))
     cfg, tile = dict(FARSEG, dtype=dtype), SPATIAL_TILE
@@ -7642,28 +7677,82 @@ def spatial_farseg(seed: int, dtype: str, variant: int = -1):
     seeded_conv_init_(model, gen)
     if dtype == 'float64':
         model.double()
+    x = torch.randn(1, tile, tile, 3, generator=gen, device='cuda')
+    y = torch.randint(0, CLASSES, (1, tile, tile), generator=gen, device='cuda')
+    return (model, *spatial_sgd(), x, y)
+
+
+def spatial_sgd() -> tuple:
+    """SGD momentum 0.9 and the poly schedule of (a): (tx, schedule)."""
+    from ever_tpu_torch.core.builder import make_learningrate, make_optimizer
+
     schedule = make_learningrate({'type': 'poly', 'params': dict(
         base_lr=0.01, power=0.9, max_iters=1000)})
     tx = make_optimizer({'type': 'sgd', 'params': dict(momentum=0.9)})[0].build(schedule)
-    x = torch.randn(1, tile, tile, 3, generator=gen, device='cuda')
-    y = torch.randint(0, CLASSES, (1, tile, tile), generator=gen, device='cuda')
-    return model, tx, schedule, x, y
+    return tx, schedule
 
 
-def spatial_vit(seed: int):
-    """(f)'s DinoSeg ViT-L/16 at float32 compute (``config.dtype`` and the
-    trunk's ``remat`` are read at each forward, so one model serves every
-    step of the phase), the weights and the tile every process draws from
-    ``seed``, and AdamW at ``SPATIAL_VIT_LR``: (model, tx, x, y, a copy of
-    the weights)."""
+def fold(x: torch.Tensor) -> torch.Tensor:
+    """The 2×2 space-to-depth of an NHWC batch, channel ``(dy·2 + dx)·C +
+    c`` (``data.SpaceToDepth``'s, what ``stem='s2d_input'`` takes)."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h // 2, w // 2, 4 * c).contiguous())
+
+
+def spatial_last(seed: int, dtype: str, part: str, unfold: bool = False):
+    """``SPATIAL_LAST``'s ``part`` at ``dtype`` compute with SGD as (a):
+    (h) FarSeg-R50 with ``stem='s2d_input'`` on a ``SPATIAL_MORE_TILE``²
+    tile folded to [1, 512, 512, 12] (``unfold``: the same weights with
+    ``stem='conv'`` on the unfolded tile), (i) FreeNet on a seeded
+    ``SPATIAL_FREENET`` scene with 5 % of its pixels labelled: (model, tx,
+    schedule, x, y), every process drawing the same from ``seed``
+    (``'float64'``: float64 parameters, the max pool by reduce_window)."""
+    from ever_tpu_torch.core.builder import make_model
+
+    gen = torch.Generator(device='cuda').manual_seed(seed + (28 if part == 'h' else 29))
+    if part == 'h':
+        encoder = dict(FARSEG['encoder'], stem='conv' if unfold else 's2d_input')
+        if dtype == 'float64':
+            encoder['maxpool_impl'] = 'reduce_window'
+        model = make_model({'type': 'FarSeg', 'params': dict(FARSEG, dtype=dtype,
+                                                             encoder=encoder)})
+        seeded_conv_init_(model, gen)
+        if dtype == 'float64':
+            model.double()
+        x = torch.randn(1, SPATIAL_MORE_TILE, SPATIAL_MORE_TILE, 3, generator=gen, device='cuda')
+        y = torch.randint(0, CLASSES, x.shape[:3], generator=gen, device='cuda')
+        x = x if unfold else fold(x)
+    else:
+        h, w, bands, classes = SPATIAL_FREENET
+        model = make_model({'type': 'FreeNet', 'params': dict(in_channels=bands,
+                                                              classes=classes, dtype=dtype)})
+        seeded_conv_init_(model, gen)
+        x, y = freenet_scene(gen, h, w, bands, classes)
+    return (model, *spatial_sgd(), x, y)
+
+
+def spatial_vit(seed: int, part: str = 'f'):
+    """``SPATIAL_VITS``'s ``part`` at float32 compute: (f) DinoSeg ViT-L/16,
+    (g) the ``VITENC_MODEL`` ZooSeg (``config.dtype`` and the trunk's
+    ``remat`` are read at each forward, so one model serves every step of
+    the phase), the weights and the tile every process draws from ``seed``,
+    and AdamW at ``SPATIAL_VIT_LR``: (model, tx, x, y, a copy of the
+    weights)."""
+    from ever_tpu_torch.core import registry
     from ever_tpu_torch.core.builder import make_model, make_optimizer
 
-    gen = torch.Generator(device='cuda').manual_seed(seed + 26)
-    cfg = {'type': 'DinoSeg', 'params': dict(
-        backbone=dict(name='vitl16_sat493m'), classes=CLASSES, dtype='float32')}
-    with torch.device('cuda'):
-        model = make_model(cfg)
-    seeded_init_(model, gen)
+    gen = torch.Generator(device='cuda').manual_seed(seed + (26 if part == 'f' else 27))
+    if part == 'f':
+        cfg = {'type': 'DinoSeg', 'params': dict(
+            backbone=dict(name='vitl16_sat493m'), classes=CLASSES, dtype='float32')}
+        with torch.device('cuda'):
+            model = make_model(cfg)
+        seeded_init_(model, gen)
+    else:
+        if 'ZooSeg' not in registry.MODEL:
+            register_zoo_model()
+        model = vitenc_model(gen, 'float32')
     tx = make_optimizer({'type': 'adamw', 'params': dict(weight_decay=0.05)})[0].build(
         SPATIAL_VIT_LR)
     x = torch.randn(1, SPATIAL_MORE_TILE, SPATIAL_MORE_TILE, 3, generator=gen, device='cuda')
@@ -7673,13 +7762,16 @@ def spatial_vit(seed: int):
 
 
 def fresh_start(model, tx, weights: dict, **settings):
-    """``model`` back at ``weights`` with its DinoSeg ``dtype`` and its
-    trunk's ``remat`` set (``settings``), and a fresh train state (step 0:
-    the step's generator draws what it drew at the first step)."""
+    """``model`` back at ``weights`` with its compute ``dtype`` and its
+    trunk's ``remat`` set (``settings``; DinoSeg holds its trunk as
+    ``vit`` and reads its own ``dtype``, the ZooSeg's ViTEncoder its own),
+    and a fresh train state (step 0: the step's generator draws what it
+    drew at the first step)."""
     from ever_tpu_torch.parallel.spmd import create_train_state
 
-    model.config.dtype = settings.get('dtype', model.config.dtype)
-    model.vit.remat = settings.get('remat', model.vit.remat)
+    holder = model if hasattr(model, 'vit') else model.encoder
+    model.config.dtype = holder.config.dtype = settings.get('dtype', model.config.dtype)
+    holder.vit.remat = settings.get('remat', holder.vit.remat)
     model.load_state_dict(weights)
     return create_train_state(model, tx)
 
@@ -7703,23 +7795,23 @@ def grad_distance(model, ref: dict) -> dict:
     return dict(grad_rel=(num / den) ** 0.5, grad_worst=worst, grad_worst_name=worst_name)
 
 
-def spatial_vit_reference(seed: int, out: str) -> dict:
-    """(f) in one process on the whole tile: the float32 first step (its
-    loss, state and gradients saved for the ranks), then from the same
-    weights the bf16 steps' ms and peak memory above what the process held
-    before the model."""
+def spatial_vit_reference(seed: int, out: str, part: str) -> dict:
+    """(f) or (g) (``part``) in one process on the whole tile: the float32
+    first step (its loss, state and gradients saved for the ranks), then
+    from the same weights the bf16 steps' ms and peak memory above what the
+    process held before the model."""
     from ever_tpu_torch.parallel.spmd import build_train_step
 
     gc.collect()                                    # earlier phases' cycles
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    model, tx, x, y, weights = spatial_vit(seed)
+    model, tx, x, y, weights = spatial_vit(seed, part)
     step = build_train_step(model, tx)
     _, ms, metrics = timed_steps(step, fresh_start(model, tx, weights), (x, y), 1)
     torch.save(dict(loss=metrics[0]['total_loss'],
                     state={k: v.cpu() for k, v in float_state(model).items()},
                     grads={k: p.grad.cpu() for k, p in model.named_parameters()}),
-               os.path.join(out, 'spatial-ref-vit.pt'))
+               os.path.join(out, f'spatial-ref-{part}.pt'))
     res = dict(f32=dict(ms=ms[0], loss=metrics[0]['total_loss']))
     state = fresh_start(model, tx, weights, dtype='bfloat16')
     del weights
@@ -7756,23 +7848,23 @@ def attention_shapes(shapes: set):
         A._launch_fwd, A._launch_bwd = fwd, bwd
 
 
-def spatial_vit_worker(rank: int, seed: int, mesh, out: str) -> dict:
-    """(f) on one rank of two, one model and one step from the same weights
-    each time: the float32 first step over the strips with ``remat`` None
-    and ``'full'`` (rank 0 holds each against one process: loss, state,
-    gradients), then the bf16 steps with the K1 and K2 launches and their
-    shapes, the keys and values gathered, ms and peak memory above what the
-    process held before the model."""
+def spatial_vit_worker(rank: int, seed: int, mesh, out: str, part: str) -> dict:
+    """(f) or (g) (``part``) on one rank of two, one model and one step from
+    the same weights each time: the float32 first step over the strips
+    with ``remat`` None and ``'full'`` (rank 0 holds each against one
+    process: loss, state, gradients), then the bf16 steps with the K1 and
+    K2 launches and their shapes, the keys and values gathered, ms and peak
+    memory above what the process held before the model."""
     from ever_tpu_torch.ops import attention as A
     from ever_tpu_torch.parallel.spatial import build_spatial_train_step
 
-    gc.collect()                                    # earlier variants' DDP cycles
+    gc.collect()                                    # earlier models' DDP cycles
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    model, tx, x, y, weights = spatial_vit(seed)
+    model, tx, x, y, weights = spatial_vit(seed, part)
     step = build_spatial_train_step(model, tx, mesh=mesh, device='cuda:0')
     # rank 0 compares on the card, the reference read once
-    ref = (torch.load(os.path.join(out, 'spatial-ref-vit.pt'), map_location='cuda:0')
+    ref = (torch.load(os.path.join(out, f'spatial-ref-{part}.pt'), map_location='cuda:0')
            if rank == 0 else None)
     res = {}
     for remat in (None, 'full'):
@@ -7784,7 +7876,7 @@ def spatial_vit_worker(rank: int, seed: int, mesh, out: str) -> dict:
             stats={k: v - sent.get(k, 0) for k, v in step.stats.items()})
         if ref is not None:
             f32.update(ref_loss=ref['loss'], tensors=len(ref['state']),
-                       **spatial_distances(got, ref['state'], -1, out),
+                       **spatial_distances(got, ref['state'], out),
                        **grad_distance(model, ref['grads']))
         del got
     del ref
@@ -7844,53 +7936,79 @@ def timed_steps(step, state, batch, n: int) -> tuple:
     return state, ms, metrics
 
 
-def spatial_reference(seed: int, out: str) -> dict:
-    """One process on the whole tiles: the float32 first step of FarSeg-R50
-    and of (d), (e) and (f) (their states saved for the ranks), the bf16
-    steps' ms and peak memory, and (b)'s whole forward and one unsharded
-    SGD step (saved)."""
+def one_process_steps(make, out: str, key: str, warmup: int, steps: int,
+                      unfold: bool = False) -> tuple:
+    """One process on the whole tile of ``make(dtype)`` (model, tx,
+    schedule, x, y): the float32 first step (its loss and floating-point
+    state saved as ``spatial-ref{key}.pt``; with ``unfold``, of
+    ``make('float32', unfold=True)``: (h)'s conv stem on the unfolded tile), then
+    ``warmup`` and ``steps`` bf16 steps: their ms and peak memory above what
+    the process held before the model, collected first."""
     from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
 
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True              # as the ranks run
+    model, tx, schedule, x, y = make('float32', unfold=True) if unfold else make('float32')
+    state, ms, metrics = timed_steps(build_train_step(model, tx, schedule),
+                                     create_train_state(model, tx), (x, y), 1)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.save(dict(loss=metrics[0]['total_loss'],
+                    state={k: v.cpu() for k, v in float_state(model).items()}),
+               os.path.join(out, f'spatial-ref{key}.pt'))
+    f32 = dict(ms=ms[0], loss=metrics[0]['total_loss'])
+    del model, state, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    model, tx, schedule, x, y = make('bfloat16')
+    step = build_train_step(model, tx, schedule)
+    state, _, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
+    torch.cuda.reset_peak_memory_stats()
+    state, ms, metrics = timed_steps(step, state, (x, y), steps)
+    bf16 = dict(ms=ms, peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+                losses=[m['cls_loss'] for m in metrics])
+    del model, state, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return f32, bf16
+
+
+def float64_step(make, out: str, key: str) -> None:
+    """One process's float64 first step of ``make()`` (model, tx, schedule,
+    x, y; the max pool by reduce_window: K8 takes no float64), its state
+    saved as ``spatial-ref64{key}.pt`` (``SPATIAL_NOISE_FACTOR``)."""
+    from ever_tpu_torch.parallel.spmd import build_train_step, create_train_state
+
+    model, tx, schedule, x, y = make()
+    build_train_step(model, tx, schedule)(create_train_state(model, tx), (x, y))
+    torch.save({k: v.cpu() for k, v in float_state(model).items()},
+               os.path.join(out, f'spatial-ref64{key}.pt'))
+    del model, x, y
+    torch.cuda.empty_cache()
+
+
+def spatial_reference(seed: int, out: str) -> dict:
+    """One process on the whole tiles: the float32 first step of FarSeg-R50
+    and of (d)-(i) (their states saved for the ranks; (d), (e) and (h) also
+    in float64), the bf16 steps' ms and peak memory, and (b)'s whole forward
+    and one unsharded SGD step (saved)."""
     t_start = time.perf_counter()
     res = {}
     for variant in range(-1, len(SPATIAL_MORE)):
         key = '' if variant < 0 else f'-{variant}'
         warmup, steps = ((WARMUP_STEPS, SPATIAL_STEPS) if variant < 0
                          else (SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS))
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True          # as the ranks run
-        model, tx, schedule, x, y = spatial_farseg(seed, 'float32', variant)
-        state, ms, metrics = timed_steps(build_train_step(model, tx, schedule),
-                                         create_train_state(model, tx), (x, y), 1)
-        torch.backends.cudnn.deterministic = deterministic
-        torch.save(dict(loss=metrics[0]['total_loss'],
-                        state={k: v.cpu() for k, v in model.state_dict().items()
-                               if v.is_floating_point()}),
-                   os.path.join(out, f'spatial-ref{key}.pt'))
-        res[f'f32{key}'] = dict(ms=ms[0], loss=metrics[0]['total_loss'])
-        del model, state, x, y
-        torch.cuda.empty_cache()
-        if variant >= 0:                    # the float64 step (SPATIAL_NOISE_FACTOR)
-            model, tx, schedule, x, y = spatial_farseg(seed, 'float64', variant)
-            build_train_step(model, tx, schedule)(create_train_state(model, tx), (x, y))
-            torch.save({k: v.cpu() for k, v in model.state_dict().items()
-                        if v.is_floating_point()}, os.path.join(out, f'spatial-ref64{key}.pt'))
-            del model, x, y
-            torch.cuda.empty_cache()
-
-        held = torch.cuda.memory_allocated()
-        model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16', variant)
-        step = build_train_step(model, tx, schedule)
-        state, _, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
-        torch.cuda.reset_peak_memory_stats()
-        state, ms, metrics = timed_steps(step, state, (x, y), steps)
-        res[f'bf16{key}'] = dict(ms=ms,
-                                 peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
-                                 losses=[m['cls_loss'] for m in metrics])
-        del model, state, step, x, y
-        torch.cuda.empty_cache()
-
-    res['vit'] = spatial_vit_reference(seed, out)
+        res[f'f32{key}'], res[f'bf16{key}'] = one_process_steps(
+            functools.partial(spatial_farseg, seed, variant=variant), out, key, warmup, steps)
+        if variant >= 0:
+            float64_step(functools.partial(spatial_farseg, seed, 'float64', variant), out, key)
+    for part, _ in SPATIAL_VITS:
+        res[part] = spatial_vit_reference(seed, out, part)
+    for part, _ in SPATIAL_LAST:
+        res[f'f32-{part}'], res[f'bf16-{part}'] = one_process_steps(
+            functools.partial(spatial_last, seed, part=part), out, f'-{part}',
+            SPATIAL_LAST_WARMUP, SPATIAL_LAST_STEPS, unfold=part == 'h')
+    float64_step(functools.partial(spatial_last, seed, 'float64', 'h', unfold=True), out, '-h')
 
     net, x, t, tx = spatial_convnet(seed)
     with torch.no_grad():
@@ -7918,7 +8036,7 @@ def spatial_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(((got - want).abs() / (SPATIAL_ATOL + SPATIAL_RTOL * want.abs())).max())
 
 
-def spatial_distances(got: dict, one: dict, variant: int, out: str) -> dict:
+def spatial_distances(got: dict, one: dict, out: str, key: str = None) -> dict:
     """The spatial step's float32 state ``got`` against one process's
     ``one``, tensor by tensor: the worst ratio (limit 1) and the largest
     |Δ|; for (d) and (e) also each tensor's limit from the float64 step
@@ -7926,8 +8044,7 @@ def spatial_distances(got: dict, one: dict, variant: int, out: str) -> dict:
     ratio against float64, and the worst share of its limit (``worst``,
     the gate: at most 1)."""
     res = dict(worst=0.0, worst_name='', max_abs=0.0, plain=0.0, plain_name='')
-    exact = (torch.load(os.path.join(out, f'spatial-ref64-{variant}.pt')) if variant >= 0
-             else None)
+    exact = torch.load(os.path.join(out, f'spatial-ref64{key}.pt')) if key else None
     if exact is not None:
         res.update(one64=0.0, one64_name='', strips64=0.0, widened=0)
     for k, w in one.items():
@@ -7948,19 +8065,83 @@ def spatial_distances(got: dict, one: dict, variant: int, out: str) -> dict:
     return res
 
 
+def strip_steps(make, mesh, rank: int, out: str, key: str, warmup: int, steps: int,
+                wide: bool = False) -> tuple:
+    """One rank's steps over the strips of ``make(dtype)`` (model, tx,
+    schedule, x, y): the float32 first step (rank 0 holds it against one
+    process's ``spatial-ref{key}.pt``; ``wide``: with the limits its
+    float64 step sets, (d), (e) and (h)), then ``warmup`` and ``steps`` bf16 steps with their
+    K8 and port kernel launches, halo hops and bytes, and the peak memory
+    above what the process held before the model, read after a collection
+    (DDP's wrapper holds reference cycles: without one the float32 model,
+    its gradients and its momentum would still be counted as held):
+    (f32, bf16)."""
+    from ever_tpu_torch.ops import pool as P
+    from ever_tpu_torch.parallel.spatial import build_spatial_train_step
+    from ever_tpu_torch.parallel.spmd import create_train_state
+
+    model, tx, schedule, x, y = make('float32')
+    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+    state, ms, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
+    got = {k: v.cpu() for k, v in float_state(model).items()}
+    f32 = dict(ms=ms[0], loss=metrics[0]['total_loss'], digest=state_digest(got))
+    if rank == 0:
+        ref = torch.load(os.path.join(out, f'spatial-ref{key}.pt'))
+        f32.update(ref_loss=ref['loss'], tensors=len(ref['state']),
+                   **spatial_distances(got, ref['state'], out, key if wide else None))
+    del model, state, step, x, y, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    held = torch.cuda.memory_allocated()
+    model, tx, schedule, x, y = make('bfloat16')
+    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+    reset_counts()
+    state, warm, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
+    torch.cuda.reset_peak_memory_stats()
+    sent = dict(step.stats)
+    state, ms, metrics = timed_steps(step, state, (x, y), steps)
+    bf16 = dict(
+        ms=warm + ms, metrics=metrics, launches=P.max_pool_32_bwd.launches,
+        all_launches=sum(fn.launches for fn in kernel_wrappers()), steps=warmup + steps,
+        peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
+        hops=(step.stats['hops'] - sent['hops']) / steps,
+        bytes=(step.stats['bytes'] - sent['bytes']) / steps,
+        float32=all(p.dtype == torch.float32 for p in model.parameters()))
+    del model, state, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return f32, bf16
+
+
+def unfolded_step(seed: int, mesh) -> dict:
+    """(h)'s weights with ``stem='conv'``: one float32 step over the strips
+    of the unfolded tile, its loss and state digest."""
+    from ever_tpu_torch.parallel.spatial import build_spatial_train_step
+    from ever_tpu_torch.parallel.spmd import create_train_state
+
+    model, tx, schedule, x, y = spatial_last(seed, 'float32', 'h', unfold=True)
+    step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
+    _, _, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
+    res = dict(loss=metrics[0]['total_loss'],
+               digest=state_digest({k: v.cpu() for k, v in float_state(model).items()}))
+    del model, step, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def spatial_worker(rank: int, out: str) -> dict:
     """One of two gloo ranks of the spatial phase on ``make_mesh(('data',))``:
     (a) FarSeg-R50's, (d) FarSeg++-R50's and (e) the SE + GC FarSeg-R50's
     float32 first step and bf16 steps over the tile's two row strips, (f)
-    DinoSeg ViT-L/16's (:func:`spatial_vit_worker`), (b)
-    ``spatial_partition_apply`` and ``build_halo_train_step`` of the conv
-    net at 4096²."""
-    from ever_tpu_torch.ops import pool as P
+    DinoSeg ViT-L/16's and (g) ViTEncoder + FPN's
+    (:func:`spatial_vit_worker`), (h) the folded-input FarSeg-R50's (and
+    the same weights' conv-stem step on the unfolded tile) and (i)
+    FreeNet's, (b) ``spatial_partition_apply`` and
+    ``build_halo_train_step`` of the conv net at 4096²."""
     from ever_tpu_torch.parallel.mesh import make_mesh
-    from ever_tpu_torch.parallel.spatial import (build_halo_train_step,
-                                                 build_spatial_train_step,
-                                                 spatial_partition_apply)
-    from ever_tpu_torch.parallel.spmd import create_train_state
+    from ever_tpu_torch.parallel.spatial import build_halo_train_step, spatial_partition_apply
 
     with open(os.path.join(out, 'spatial-spec.json')) as f:
         seed = json.load(f)['seed']
@@ -7970,37 +8151,16 @@ def spatial_worker(rank: int, out: str) -> dict:
         key = '' if variant < 0 else f'-{variant}'
         warmup, steps = ((WARMUP_STEPS, SPATIAL_STEPS) if variant < 0
                          else (SPATIAL_MORE_WARMUP, SPATIAL_MORE_STEPS))
-        model, tx, schedule, x, y = spatial_farseg(seed, 'float32', variant)
-        step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
-        state, ms, metrics = timed_steps(step, create_train_state(model, tx), (x, y), 1)
-        got = {k: v.cpu() for k, v in model.state_dict().items() if v.is_floating_point()}
-        res[f'f32{key}'] = f32 = dict(ms=ms[0], loss=metrics[0]['total_loss'],
-                                      digest=state_digest(got))
-        if rank == 0:
-            ref = torch.load(os.path.join(out, f'spatial-ref{key}.pt'))
-            f32.update(ref_loss=ref['loss'], tensors=len(ref['state']),
-                       **spatial_distances(got, ref['state'], variant, out))
-        del model, state, step, x, y, got
-        torch.cuda.empty_cache()
-
-        held = torch.cuda.memory_allocated()
-        model, tx, schedule, x, y = spatial_farseg(seed, 'bfloat16', variant)
-        step = build_spatial_train_step(model, tx, schedule, mesh=mesh, device='cuda:0')
-        reset_counts()
-        state, warm, _ = timed_steps(step, create_train_state(model, tx), (x, y), warmup)
-        torch.cuda.reset_peak_memory_stats()
-        sent = dict(step.stats)
-        state, ms, metrics = timed_steps(step, state, (x, y), steps)
-        res[f'bf16{key}'] = dict(
-            ms=warm + ms, metrics=metrics, launches=P.max_pool_32_bwd.launches,
-            all_launches=sum(fn.launches for fn in kernel_wrappers()), steps=warmup + steps,
-            peak_gib=(torch.cuda.max_memory_allocated() - held) / 2**30,
-            hops=(step.stats['hops'] - sent['hops']) / steps,
-            bytes=(step.stats['bytes'] - sent['bytes']) / steps,
-            float32=all(p.dtype == torch.float32 for p in model.parameters()))
-        del model, state, step, x, y
-        torch.cuda.empty_cache()
-    res['vit'] = spatial_vit_worker(rank, seed, mesh, out)
+        res[f'f32{key}'], res[f'bf16{key}'] = strip_steps(
+            functools.partial(spatial_farseg, seed, variant=variant), mesh, rank, out, key,
+            warmup, steps, wide=variant >= 0)
+    for part, _ in SPATIAL_VITS:
+        res[part] = spatial_vit_worker(rank, seed, mesh, out, part)
+    for part, _ in SPATIAL_LAST:
+        res[f'f32-{part}'], res[f'bf16-{part}'] = strip_steps(
+            functools.partial(spatial_last, seed, part=part), mesh, rank, out, f'-{part}',
+            SPATIAL_LAST_WARMUP, SPATIAL_LAST_STEPS, wide=part == 'h')
+    res['f32-h']['unfolded'] = unfolded_step(seed, mesh)
 
     net, x, t, tx = spatial_convnet(seed)
     h = HALO_TILE // 2
@@ -8070,16 +8230,16 @@ def spatial_eda(seed: int, out: str) -> dict:
                 palette=list(palette.shape), first_wins=bool((indices[first] == 1).all()))
 
 
-def phase_spatial_vit(smi: str, ref: dict, ranks: list) -> tuple:
-    """(f)'s gates and numbers (module docstring, phase 23) from one
-    process's ``ref`` and the ranks' results; returns the ranks' K1 and K2
-    launches."""
+def phase_spatial_vit(smi: str, ref: dict, ranks: list, part: str, name: str) -> tuple:
+    """(f)'s or (g)'s (``part``, the model ``name``) gates and numbers
+    (module docstring, phase 23) from one process's ``ref`` and the ranks'
+    results; returns the ranks' K1 and K2 launches."""
     tile, backend = SPATIAL_MORE_TILE, 'gloo, 2 ranks sharing one card'
     per_block = H * (STRIP_Q - 5) * 2 * D
     for remat in (None, 'full'):
-        f32, other = ranks[0]['vit'][f'f32-{remat}'], ranks[1]['vit'][f'f32-{remat}']
+        f32, other = ranks[0][part][f'f32-{remat}'], ranks[1][part][f'f32-{remat}']
         st = f32['stats']
-        print(f'spatial: (f) {smi}: DinoSeg ViT-L/16 (vitl16_sat493m, 24 blocks, 7 classes, '
+        print(f'spatial: ({part}) {smi}: {name}, 24 blocks, 7 classes, '
               f'AdamW at {SPATIAL_VIT_LR}) on one {tile}² tile as two strips of {tile // 2} '
               f'rows ({STRIP_Q} queries a rank against {STRIP_KV} keys), float32, TF32 off, '
               f'remat={remat!r}: the first step against one process on the whole tile: '
@@ -8094,24 +8254,24 @@ def phase_spatial_vit(smi: str, ref: dict, ranks: list) -> tuple:
               f'forward, {st.get("remat_gathers", 0)} '
               f'({st.get("remat_gather_bytes", 0) / 2**20:.2f} MiB) in the recomputation; '
               f'halo hops {st["hops"]}; step {f32["ms"]:.1f} ms (one process '
-              f'{ref["vit"]["f32"]["ms"]:.1f})', flush=True)
+              f'{ref[part]["f32"]["ms"]:.1f})', flush=True)
         check(abs(f32['loss'] - f32['ref_loss']) <= SPATIAL_LOSS_TOL * abs(f32['ref_loss']),
-              f'spatial: (f) remat={remat}: the first step\'s loss differs from one process')
+              f'spatial: ({part}) remat={remat}: the first step\'s loss differs from one process')
         check(f32['plain'] <= 1.0 and f32['grad_rel'] <= SPATIAL_GRAD_TOL,
-              f'spatial: (f) remat={remat}: the first step differs from one process')
-        check(f32['digest'] == other['digest'], f'spatial: (f) remat={remat}: the ranks\' '
+              f'spatial: ({part}) remat={remat}: the first step differs from one process')
+        check(f32['digest'] == other['digest'], f'spatial: ({part}) remat={remat}: the ranks\' '
               'states differ')
         check(st['gathers'] == 24 and st['gather_bytes'] == 24 * per_block * 4
               and st.get('remat_gathers', 0) == (24 if remat else 0),
-              f'spatial: (f) remat={remat}: gathers {st}')
-    one = sorted(ref['vit']['bf16']['ms'])
+              f'spatial: ({part}) remat={remat}: gathers {st}')
+    one = sorted(ref[part]['bf16']['ms'])
     want = sorted([['bwd', [1, STRIP_Q, H, D], [1, STRIP_KV, H, D]],
                    ['fwd', [1, STRIP_Q, H, D], [1, STRIP_KV, H, D]]])
     k1 = k2 = 0
     for r, res in enumerate(ranks):
-        bf = res['vit']['bf16']
+        bf = res[part]['bf16']
         steady = sorted(bf['ms'][SPATIAL_VIT_WARMUP:])
-        print(f'spatial: (f) {smi}: DinoSeg ViT-L/16: rank {r}: bf16 compute, float32 '
+        print(f'spatial: ({part}) {smi}: {name.split(" (")[0]}: rank {r}: bf16 compute, float32 '
               f'parameters: ms/step {" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
               f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
               f'{one[len(one) // 2]:.1f}); losses '
@@ -8119,16 +8279,16 @@ def phase_spatial_vit(smi: str, ref: dict, ranks: list) -> tuple:
               f'gathered a step: {bf["gathers"]:.0f} broadcasts sent, '
               f'{bf["gather_bytes"] / 2**20:.2f} MiB; halo hops {bf["hops"]:.0f}; peak memory '
               f'above what the process held before {bf["peak_gib"]:.2f} GiB (one process '
-              f'{ref["vit"]["bf16"]["peak_gib"]:.2f}); K1 and K2 launches {bf["launches"]} in '
+              f'{ref[part]["bf16"]["peak_gib"]:.2f}); K1 and K2 launches {bf["launches"]} in '
               f'{bf["steps"]} steps at q, k shapes {bf["shapes"]}; all port kernels '
               f'{bf["all_launches"]} ({backend})', flush=True)
         check(bf['launches'] == [24 * bf['steps']] * 2 and bf['all_launches'] == 48 * bf['steps'],
-              f'spatial: (f) rank {r} launched K1, K2 {bf["launches"]} times and all port '
+              f'spatial: ({part}) rank {r} launched K1, K2 {bf["launches"]} times and all port '
               f'kernels {bf["all_launches"]} in {bf["steps"]} steps')
-        check(bf['shapes'] == want, f'spatial: (f) rank {r}: K1/K2 shapes {bf["shapes"]}')
+        check(bf['shapes'] == want, f'spatial: ({part}) rank {r}: K1/K2 shapes {bf["shapes"]}')
         check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
-                  for m in bf['metrics']), f'spatial: (f) rank {r}: non-finite metrics')
-        check(bf['float32'] and bf['gathers'] == 24, f'spatial: (f) rank {r}: parameters '
+                  for m in bf['metrics']), f'spatial: ({part}) rank {r}: non-finite metrics')
+        check(bf['float32'] and bf['gathers'] == 24, f'spatial: ({part}) rank {r}: parameters '
               f'left float32, 24 gathers a step')
         k1, k2 = k1 + bf['launches'][0], k2 + bf['launches'][1]
     return k1, k2
@@ -8145,22 +8305,38 @@ def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> tuple:
     with tempfile.TemporaryDirectory(prefix='chip_smoke_eda_') as tmp:
         eda = spatial_eda(seed, tmp)
     backend = 'gloo, 2 ranks sharing one card: correctness and bytes moved, not a multi-card speed'
-    k8 = 0
-    for variant, part in zip(range(-1, len(SPATIAL_MORE)), 'ade'):
-        key = '' if variant < 0 else f'-{variant}'
-        name, tile = (('FarSeg-R50', SPATIAL_TILE) if variant < 0
-                      else (SPATIAL_MORE[variant][0], SPATIAL_MORE_TILE))
+    more = f'one {SPATIAL_MORE_TILE}² tile'
+    rows, cols, bands, classes = SPATIAL_FREENET
+    farsegs = ([('a', '', f'FarSeg-R50 (K8, {CLASSES} classes', f'one {SPATIAL_TILE}² tile',
+                 False)]
+               + [(part, f'-{v}', f'{SPATIAL_MORE[v][0]} (K8, {CLASSES} classes', more, True)
+                  for v, part in zip(range(len(SPATIAL_MORE)), 'de')])
+    last = [('h', '-h', f'{SPATIAL_LAST[0][1]}, {CLASSES} classes',
+             f'{more} folded to [1, {SPATIAL_MORE_TILE // 2}, {SPATIAL_MORE_TILE // 2}, 12]',
+             True),
+            ('i', '-i', f'{SPATIAL_LAST[1][1]}, {classes} classes',
+             f'one {rows}×{cols} scene of {bands} bands', False)]
+    k1 = k2 = k8 = 0
+
+    def report(part, key, name, where, wide) -> int:
+        """A conv net's gates and numbers; returns its K8 launches."""
+        launched = 0
         f32 = ranks[0][f'f32{key}']
-        noise = ('' if variant < 0 else
+        noise = ('' if not wide else
                  f'; against one process\'s float64 step: one float32 process\'s worst ratio '
                  f'{f32["one64"]:.3e} ({f32["one64_name"]}), the spatial step\'s '
                  f'{f32["strips64"]:.3e}; {f32["widened"]} tensors held to '
                  f'{SPATIAL_NOISE_FACTOR} × one process\'s distance from float64 (over '
                  f'half the limit), the worst share of its limit {f32["worst"]:.3e} '
                  f'({f32["worst_name"]}), limit 1')
-        print(f'spatial: ({part}) {smi}: {name} (K8, 7 classes, SGD momentum 0.9 + poly) on '
-              f'one {tile}² tile as two strips of {tile // 2} rows, float32, TF32 off: '
-              f'the first step against one process on the whole tile: total_loss '
+        if part == 'h':
+            unfolded = f32['unfolded']
+            noise += (f'; the same weights\' stem=\'conv\' step over the strips of the unfolded '
+                      f'tile: total_loss {unfolded["loss"]:.7f}, the state equal: '
+                      f'{unfolded["digest"] == f32["digest"]}')
+        print(f'spatial: ({part}) {smi}: {name}, SGD momentum 0.9 + poly) on {where} as two '
+              f'strips, float32, TF32 off: the first step against one process on the whole '
+              f'{"unfolded tile with stem=conv" if part == "h" else "tile"}: total_loss '
               f'{f32["loss"]:.7f} vs {f32["ref_loss"]:.7f} (limit {SPATIAL_LOSS_TOL} relative); '
               f'{f32["tensors"]} parameters and running statistics, worst |Δ| / '
               f'({SPATIAL_ATOL} + {SPATIAL_RTOL}·|value|) {f32["plain"]:.3e} '
@@ -8173,30 +8349,46 @@ def phase_spatial(seed: int, smi: str, ref: dict, parallel: list) -> tuple:
               f'spatial: ({part}) the first step\'s state differs from one process')
         check(f32['digest'] == ranks[1][f'f32{key}']['digest'],
               f'spatial: ({part}) the ranks\' states differ')
+        if part == 'h':
+            check(all(res['f32-h']['unfolded'] == {'loss': res['f32-h']['loss'],
+                                                    'digest': res['f32-h']['digest']}
+                      for res in ranks),
+                  'spatial: (h) the folded input\'s step differs from the conv stem\'s on the '
+                  'unfolded tile')
         one = sorted(ref[f'bf16{key}']['ms'])
         for r, res in enumerate(ranks):
             bf = res[f'bf16{key}']
             warmup = bf['steps'] - len(one)
             steady = sorted(bf['ms'][warmup:])
-            print(f'spatial: ({part}) {smi}: {name}: rank {r}: bf16 compute, float32 '
-                  f'parameters: ms/step {" ".join(f"{t:.1f}" for t in bf["ms"])} (timed median '
-                  f'{steady[len(steady) // 2]:.1f}; one process on the whole tile '
+            print(f'spatial: ({part}) {smi}: {name.split(" (")[0]}: rank {r}: bf16 compute, '
+                  f'float32 parameters: ms/step {" ".join(f"{t:.1f}" for t in bf["ms"])} (timed '
+                  f'median {steady[len(steady) // 2]:.1f}; one process on the whole tile '
                   f'{one[len(one) // 2]:.1f}); losses '
                   f'{" ".join(f"{m["cls_loss"]:.5f}" for m in bf["metrics"])}; grad_norm '
                   f'{" ".join(f"{m["grad_norm"]:.4f}" for m in bf["metrics"])}; halo hops sent '
                   f'a step {bf["hops"]:.0f}, {bf["bytes"] / 2**20:.2f} MiB; peak memory above '
                   f'what the process held before {bf["peak_gib"]:.2f} GiB (one process '
-                  f'{ref[f"bf16{key}"]["peak_gib"]:.2f}); K8 launches {bf["launches"]} in '
-                  f'{bf["steps"]} steps, all port kernels {bf["all_launches"]} ({backend})',
-                  flush=True)
-            check(bf['launches'] == bf['steps'] == bf['all_launches'],
-                  f'spatial: ({part}) rank {r} launched K8 {bf["launches"]} times in '
-                  f'{bf["steps"]} steps')
+                  f'{ref[f"bf16{key}"]["peak_gib"]:.2f}, ratio '
+                  f'{bf["peak_gib"] / ref[f"bf16{key}"]["peak_gib"]:.2f}); K8 launches '
+                  f'{bf["launches"]} in {bf["steps"]} steps, all port kernels '
+                  f'{bf["all_launches"]} ({backend})', flush=True)
+            want = 0 if part == 'i' else bf['steps']
+            check(bf['launches'] == want == bf['all_launches'],
+                  f'spatial: ({part}) rank {r} launched K8 {bf["launches"]} times and all port '
+                  f'kernels {bf["all_launches"]} in {bf["steps"]} steps')
             check(all(math.isfinite(m['cls_loss']) and math.isfinite(m['grad_norm'])
                       for m in bf['metrics']), f'spatial: ({part}) rank {r}: non-finite metrics')
             check(bf['float32'], f'spatial: ({part}) parameters left float32')
-            k8 += bf['launches']
-    k1, k2 = phase_spatial_vit(smi, ref, ranks)
+            launched += bf['launches']
+        return launched
+
+    for model in farsegs:
+        k8 += report(*model)
+    for vit, vit_name in SPATIAL_VITS:
+        l1, l2 = phase_spatial_vit(smi, ref, ranks, vit, vit_name)
+        k1, k2 = k1 + l1, k2 + l2
+    for model in last:
+        k8 += report(*model)
     for r, res in enumerate(ranks):
         ex, zs, hs = res['partition_exact'], res['partition_zeros'], res['halo_step']
         print(f'spatial: (b) {smi}: rank {r}: {HALO_DEPTH} 3×3 convs of {HALO_WIDTH} + 1×1 on '

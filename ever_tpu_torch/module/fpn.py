@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.module.ops import (BatchNorm2d, Conv2d, ConvBlock, SeparableConvBlock,
-                                       bilinear_nchw, dropout, max_pool, resize,
+                                       _scaled_shape, bilinear_nchw, dropout, max_pool, resize,
                                        upsample_nearest_int)
 
 __all__ = ['FPN', 'LastLevelMaxPool', 'LastLevelP6P7', 'AssymetricDecoder', 'Fusion', 'BiFPN',
@@ -64,7 +64,7 @@ def upsample_bilinear_nchw(x: torch.Tensor, scale, align_corners: bool = False
     step's gradients are the same bits every run, as a resumed or
     data-parallel run needs."""
     h, w = x.shape[2:]
-    return bilinear_nchw(x, (int(h * scale), int(w * scale)), align_corners)
+    return bilinear_nchw(x, _scaled_shape(h, w, scale, 'upsample_bilinear_nchw'), align_corners)
 
 
 def logits_nhwc(cls: nn.Module, dense: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,12 @@ gate's global pool accumulates in float32, as the JAX package's
 ``global_avg_pool``, and so do the decoder's resizes.  No kernel of the
 port is on this path: the JAX model reaches no Pallas kernel (its pool is
 2×2, not the 3×3/2 window of K8).
+
+Under a spatial step (``parallel/spatial.py``) the convs and GroupNorms
+take their strip forms, the spectral gate squeezes the whole tile (its
+1×1 convs on the squeezed map, whole on every rank), the pools are
+``module/ops.py``'s ``max_pool`` (a strip of odd height raises, naming it)
+and the decoder's resizes the strips' rows of the whole tile's.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ import torch.nn.functional as F
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
-from ever_tpu_torch.module.ops import Conv2d, ConvBlock, bilinear_nchw
-from ever_tpu_torch.parallel.spatial import refuse
+from ever_tpu_torch.module.ops import Conv2d, ConvBlock, _nchw_mean, bilinear_nchw, max_pool
+from ever_tpu_torch.parallel.spatial import whole
 
 __all__ = ['SpectralAttention', 'FreeNet']
 
@@ -42,7 +48,10 @@ __all__ = ['SpectralAttention', 'FreeNet']
 class SpectralAttention(nn.Module):
     """Band (channel) gate of an NCHW tensor: the global spatial mean, a 1×1
     conv down to ``max(C // reduction, 4)`` channels with ReLU, a 1×1 conv
-    back up with sigmoid, times the input."""
+    back up with sigmoid, times the input.  Under a spatial step the mean
+    is the whole tile's (the strips' sums added over the axis), whole on
+    every rank, and the convs run on it under ``whole()``; a rank's
+    gradient of it is its strip's share, which the all-reduce sums."""
 
     def __init__(self, in_channels: int, reduction: int = 4):
         super().__init__()
@@ -51,9 +60,9 @@ class SpectralAttention(nn.Module):
         self.expand = Conv2d(hidden, in_channels, 1, bias=True)
 
     def forward(self, x):
-        refuse('SpectralAttention')
-        s = torch.mean(x, dim=(2, 3), keepdim=True, dtype=torch.float32).to(x.dtype)
-        s = torch.sigmoid(self.expand(F.relu(self.reduce(s))))
+        s = _nchw_mean(x)
+        with whole():
+            s = torch.sigmoid(self.expand(F.relu(self.reduce(s))))
         return x * s
 
 
@@ -113,7 +122,7 @@ class FreeNet(ERModule):
             h = getattr(self, f'enc{i}')(h)
             laterals.append(h)
             if i != self.n_stages - 1:
-                h = F.max_pool2d(h, 2, 2)
+                h = max_pool(h.permute(0, 2, 3, 1), 2, 2, 'VALID').permute(0, 3, 1, 2)
         out = laterals[-1]
         for i in range(self.n_stages - 2, -1, -1):
             out = bilinear_nchw(out, tuple(laterals[i].shape[2:]))

@@ -13,7 +13,9 @@ The resizes and pools that a train step differentiates are matrix products
 ``adaptive_avg_pool``) or
 a broadcast (``upsample_nearest_int``): ``F.interpolate``'s and
 ``adaptive_avg_pool2d``'s CUDA backwards add with atomics, these do not,
-so a step's gradients are the same bits every run.
+so a step's gradients are the same bits every run.  Under a spatial step
+every resize is a matrix product (``_strip_resize``): the strip's rows of
+the whole tile's weights (``parallel/spatial.py``).
 
 Precision: a layer computes in its input's dtype and casts its float32
 parameters to it, as flax's ``dtype=`` does; BatchNorm computes its
@@ -84,16 +86,22 @@ def resize(x: torch.Tensor, scale: Optional[float] = None,
     float32 except for bfloat16 input, which stays bfloat16 as in the JAX
     package.  Downsampling bilinear antialiases, as ``jax.image.resize``
     does.  ``align_corners=True`` (bilinear only) is
-    :func:`resize_align_corners`.
+    :func:`resize_align_corners`.  Under a spatial step x is a strip and
+    ``shape`` (or ``scale`` of the strip's rows) the strip's output: a
+    nearest resize by an integer factor is row-local; every other is
+    :func:`_strip_resize`, and a ``scale`` whose strips' outputs are not the
+    whole tile's raises (``Strips.share``).
     """
     n, h, w, c = x.shape
     if shape is None:
-        shape = (int(h * scale), int(w * scale))
+        shape = _scaled_shape(h, w, scale, f'resize ({method})')
     if method == 'bilinear' and align_corners:
         return resize_align_corners(x, shape)
-    if _spatial.current() is not None and not (method == 'nearest' and shape[0] % h == 0):
+    strips = _spatial.current()
+    if (strips is not None and method in ('nearest', 'bilinear')
+            and not (method == 'nearest' and shape[0] % h == 0)):
         # nearest by an integer factor is row-local on aligned strips
-        _spatial.refuse(f'resize ({method}, {h} to {shape[0]} rows)')
+        return _strip_resize(x, strips, shape, method)
     xc = x.permute(0, 3, 1, 2)
     if method == 'nearest':
         y = F.interpolate(xc, size=shape, mode='nearest-exact')
@@ -121,7 +129,7 @@ def resize_align_corners(x: torch.Tensor, shape: Tuple[int, int],
     strips = _spatial.current()
     if strips is not None:
         y = (strips.resize_whole_rows if whole else strips.resize_rows)(
-            x.float(), shape[0], True, f32)
+            x.float(), shape[0], 'bilinear', True, f32)
     else:
         y = torch.einsum('oh,nhwc->nowc',
                          _bilinear_weights(x.shape[1], shape[0], f32, x.device, True), x.float())
@@ -162,6 +170,59 @@ def _make_bilinear_weights(n_in, n_out, dtype, device, align_corners):
 _cached_bilinear_weights = functools.lru_cache(maxsize=16)(_make_bilinear_weights)
 
 
+def _make_resize_weights(n_in: int, n_out: int, method: str, align_corners: bool,
+                         dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``[n_out, n_in]`` weights of :func:`resize` along one axis, as the
+    JAX package computes it: nearest as a one-hot matrix of
+    ``jax.image.resize``'s sources ``floor((i + 0.5)·n_in/n_out)`` (in
+    float32, as it computes them); bilinear with ``align_corners``, or
+    half-pixel where the axis grows or keeps its size
+    (:func:`_make_bilinear_weights`), antialiased where it shrinks
+    (:func:`_make_antialias_weights`)."""
+    if method == 'nearest':
+        src = ((torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * n_in
+               / n_out).floor().clamp(max=n_in - 1)
+        cols = torch.arange(n_in, dtype=torch.float32, device=device)
+        return (cols[None] == src[:, None]).to(dtype)
+    if method != 'bilinear':
+        raise ValueError(f"method must be 'nearest' or 'bilinear', got {method!r}")
+    if align_corners or n_out >= n_in:
+        return _make_bilinear_weights(n_in, n_out, dtype, device, align_corners)
+    return _make_antialias_weights(n_in, n_out, dtype, device)
+
+
+_cached_resize_weights = functools.lru_cache(maxsize=16)(_make_resize_weights)
+
+
+def _scaled_shape(h: int, w: int, scale: float, what: str) -> Tuple[int, int]:
+    """``(int(h·scale), int(w·scale))``; under a spatial step h is a strip's
+    rows, and a scale whose strips' outputs are not the whole tile's raises
+    (``Strips.share``)."""
+    strips = _spatial.current()
+    rows = int(h * scale) if strips is None else strips.share(h, scale, what)
+    return rows, int(w * scale)
+
+
+def _strip_resize(x: torch.Tensor, strips, shape: Tuple[int, int], method: str,
+                  whole: bool = False) -> torch.Tensor:
+    """:func:`resize` of NHWC ``x`` under a spatial step, by two matrix
+    products: the rows by ``Strips.resize_rows`` (x a strip) or
+    ``Strips.resize_whole_rows`` (``whole``: x a map whole on every rank),
+    to ``shape[0]`` rows a strip, then the columns by the whole axis's
+    weights (:func:`_make_resize_weights`).  Nearest in x's dtype (a one-hot
+    product is exact), bilinear in float32 except for bfloat16 input, as
+    :func:`resize` computes them; returned in x's dtype.  The backward is
+    the transposed products: no atomics."""
+    if method == 'nearest' or x.dtype == torch.bfloat16:
+        ct = x.dtype
+    else:
+        ct = torch.float32
+    y = (strips.resize_whole_rows if whole else strips.resize_rows)(
+        x.to(ct), shape[0], method, False, ct)
+    cols = _cached_resize_weights(x.shape[2], shape[1], method, False, ct, x.device)
+    return torch.einsum('pw,nowc->nopc', cols, y).to(x.dtype)
+
+
 def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int],
                       whole: bool = False) -> torch.Tensor:
     """Bilinear upsampling of an NHWC tensor to ``shape`` (half-pixel
@@ -180,7 +241,7 @@ def upsample_bilinear(x: torch.Tensor, shape: Tuple[int, int],
                          'shrinks one (resize antialiases that)')
     if strips is not None:
         y = (strips.resize_whole_rows if whole else strips.resize_rows)(
-            x, shape[0], False, x.dtype)
+            x, shape[0], 'bilinear', False, x.dtype)
     else:
         y = torch.einsum('oh,nhwc->nowc', _bilinear_weights(h, shape[0], x.dtype, x.device), x)
     return torch.einsum('pw,nowc->nopc', _bilinear_weights(w, shape[1], x.dtype, x.device), y)
@@ -215,12 +276,15 @@ def downsample_bilinear(x: torch.Tensor, shape: Tuple[int, int]) -> torch.Tensor
     ``jax.image.resize``'s numbers (and ``resize``'s), computed as one
     matrix product per axis in float32 (bfloat16 stays bfloat16) and
     returned in x's dtype.  Its backward is two matrix products: no
-    atomics, unlike ``F.interpolate``'s."""
-    _spatial.refuse('downsample_bilinear')
+    atomics, unlike ``F.interpolate``'s.  Under a spatial step x is a strip
+    and ``shape[0]`` the strip's output rows (:func:`_strip_resize`)."""
     n, h, w, c = x.shape
     if shape[0] > h or shape[1] > w:
         raise ValueError(f'downsample_bilinear shrinks each axis; {(h, w)} -> {tuple(shape)} '
                          'grows one (upsample_bilinear does that)')
+    strips = _spatial.current()
+    if strips is not None:
+        return _strip_resize(x, strips, shape, 'bilinear')
     ct = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     y = torch.einsum('oh,nhwc->nowc', _antialias_weights(h, shape[0], ct, x.device), x.to(ct))
     y = torch.einsum('pw,nowc->nopc', _antialias_weights(w, shape[1], ct, x.device), y)
@@ -234,7 +298,8 @@ def bilinear_nchw(x: torch.Tensor, shape: Tuple[int, int],
     ``align_corners``, else :func:`upsample_bilinear` (float32 unless x is
     bfloat16), which only grows; a shrinking half-pixel resize antialiases
     and goes through :func:`resize`.  ``whole``: under a spatial step, x is
-    whole on every rank and ``shape`` the strip's (``upsample_bilinear``)."""
+    whole on every rank and ``shape`` the strip's (``upsample_bilinear``,
+    and :func:`_strip_resize` where it shrinks)."""
     h, w = x.shape[2:]
     xh = x.permute(0, 2, 3, 1)
     if align_corners:
@@ -242,6 +307,8 @@ def bilinear_nchw(x: torch.Tensor, shape: Tuple[int, int],
     strips = _spatial.current()
     rows = shape[0] * (strips.k if strips is not None and whole else 1)
     if rows < h or shape[1] < w:
+        if strips is not None and whole:
+            return _strip_resize(xh, strips, shape, 'bilinear', whole=True).permute(0, 3, 1, 2)
         return resize(xh, shape=shape, method='bilinear').permute(0, 3, 1, 2)
     xh = xh if xh.dtype == torch.bfloat16 else xh.float()
     return upsample_bilinear(xh, shape, whole).to(x.dtype).permute(0, 3, 1, 2)
@@ -837,7 +904,7 @@ class ConvUpsampling(nn.Module):
 
     def forward(self, x, train: bool = False):
         x = self.conv(x)
-        shape = (int(x.shape[2] * self.scale), int(x.shape[3] * self.scale))
+        shape = _scaled_shape(x.shape[2], x.shape[3], self.scale, 'ConvUpsampling')
         if self.method == 'bilinear':
             return bilinear_nchw(x, shape, self.align_corners)
         return resize(x.permute(0, 2, 3, 1), shape=shape,

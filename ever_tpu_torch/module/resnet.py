@@ -47,7 +47,6 @@ from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module.context_block import ContextBlock2d
 from ever_tpu_torch.module.ops import BatchNorm2d, Conv2d, Sequential, checkpointed, max_pool
 from ever_tpu_torch.module.se_block import SEBlock
-from ever_tpu_torch.parallel import spatial as _spatial
 
 __all__ = ['BasicBlock', 'Bottleneck', 'ResNetStage', 'ResNet', 'ResNetEncoder',
            'RESNET_SPECS', 'depth_to_space', 'make_layer', 'patch_first_conv']
@@ -142,8 +141,9 @@ def depth_to_space(x: torch.Tensor) -> torch.Tensor:
     ``[B, 4C, h, w]`` with channel ``(dy·2 + dx)·C + c`` → ``[B, C, 2h, 2w]``,
     a reshape and a permute, copied into ``channels_last`` memory as the
     unfolded batch lies (the stem conv then takes the same kernel and gives
-    the same bits)."""
-    _spatial.refuse('the s2d stem (depth_to_space)')
+    the same bits).  Row-local: under a spatial step a strip of h folded
+    rows unfolds to exactly its 2h pixel rows (``Strips.check_batch`` keeps
+    the folded input's strips on the labels')."""
     b, c4, h, w = x.shape
     c = c4 // 4
     y = x.reshape(b, 2, 2, c, h, w).permute(0, 3, 4, 1, 5, 2)

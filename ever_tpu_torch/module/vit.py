@@ -54,7 +54,7 @@ from torch.utils import checkpoint as _ckpt
 from ever_tpu_torch.core import registry
 from ever_tpu_torch.interface.module import ERModule
 from ever_tpu_torch.module import loss as L
-from ever_tpu_torch.module.ops import downsample_bilinear, upsample_bilinear
+from ever_tpu_torch.module.ops import _scaled_shape, downsample_bilinear, upsample_bilinear
 from ever_tpu_torch.ops.attention import _rotate_half, attention, pad_target
 from ever_tpu_torch.ops.norm import FusedLayerNorm
 from ever_tpu_torch.parallel import spatial as _spatial
@@ -747,7 +747,16 @@ class LinearKMaskedBias(Linear):
 
 class CausalSelfAttention(nn.Module):
     """Multi-head attention with a fused QKV projection and a causal mask
-    (``is_causal``), by PyTorch's ``scaled_dot_product_attention``."""
+    (``is_causal``), by PyTorch's ``scaled_dot_product_attention`` (the JAX
+    package's is ``jax.nn.dot_product_attention``, a library call).
+
+    Under a spatial step x ``[B, n, C]`` is this rank's strip of the tile's
+    token sequence in row-major order, tokens ``[s·n, (s+1)·n)``: every
+    strip's keys and values are gathered in strip order
+    (``Strips.gather_rows``; backward, each strip gets the sum over the
+    axis of its rows' gradients), and query i attends to key j where ``j ≤
+    s·n + i``, an explicit mask (``is_causal`` aligns the first query with
+    the first key)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  proj_bias: bool = True):
@@ -757,11 +766,21 @@ class CausalSelfAttention(nn.Module):
         self.proj = Linear(dim, dim, bias=proj_bias)
 
     def forward(self, x, is_causal: bool = True):
-        _spatial.refuse('CausalSelfAttention')
         b, n, c = x.shape
         h = self.num_heads
-        q, k, v = self.qkv(x).view(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=is_causal)
+        packed = self.qkv(x).view(b, n, 3, h, c // h)
+        strips = _spatial.current()
+        if strips is None:
+            q, k, v = packed.permute(2, 0, 3, 1, 4)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=is_causal)
+        else:
+            q = packed[:, :, 0].transpose(1, 2)
+            k, v = strips.gather_rows(packed[:, :, 1:]).permute(2, 0, 3, 1, 4)
+            mask = None
+            if is_causal:
+                rows = torch.arange(n, device=x.device)[:, None] + strips.s * n
+                mask = torch.arange(k.shape[2], device=x.device)[None] <= rows
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
         return self.proj(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -884,7 +903,9 @@ class ViTEncoder(ERModule):
     and the halving by :func:`downsample_bilinear` (``jax.image.resize``'s
     antialiased weights), all as matrix products, so a train step's
     gradients are the same bits every run.  They compute in float32 unless
-    the taps are bfloat16, as the JAX package's ``resize``.
+    the taps are bfloat16, as the JAX package's ``resize``.  Under a
+    spatial step each tap is the strip's patch rows and each resize its
+    strip form (``module/ops.py`` ``_strip_resize``).
     """
 
     def set_default_config(self):
@@ -929,7 +950,7 @@ class ViTEncoder(ERModule):
                 f'levels), got {len(taps)} ({indices}); set pyramid=False for a flat tap list')
         out = []
         for t, s in zip(taps, scales):
-            shape = (int(t.shape[1] * s), int(t.shape[2] * s))
+            shape = _scaled_shape(t.shape[1], t.shape[2], s, 'ViTEncoder\'s pyramid')
             if s > 1:
                 t = upsample_bilinear(t if t.dtype == torch.bfloat16 else t.float(),
                                       shape).to(t.dtype)

@@ -24,9 +24,11 @@ Two mechanisms, as in the JAX package:
   reads across rows asks :func:`current` for it: a conv or a pool fetches
   the rows its window reads from the neighbours, from the **global**
   geometry (a tile of ``k·h`` rows, this strip at ``s·h``), uses them and
-  drops them; a bilinear resize takes the strip's rows of the global weight
-  matrix against the strip and one halo row each side; a global pool sums
-  over the axis; attention gathers every strip's keys and values
+  drops them; a resize (bilinear, antialiased where it shrinks, corner
+  aligned, or nearest, at any ratio) takes the strip's rows of the whole
+  tile's weight matrix against the strip and the halo rows that matrix
+  reads (:meth:`Strips.resize_rows`); a global pool sums over the axis;
+  attention gathers every strip's keys and values
   (:meth:`Strips.gather_rows`, below).  No halo row is carried through a
   pointwise layer or a BatchNorm, so each rank's activations hold exactly
   its own rows and every pixel counts once.  BatchNorm, the losses and the
@@ -36,9 +38,15 @@ Two mechanisms, as in the JAX package:
   differentiable all-reduces of their sums over the axis: GroupNorm's two
   passes (:meth:`Strips.group_norm`), the squeeze-excite squeezes, the
   context block's softmax pool (:meth:`Strips.softmax_pool`) and the
-  adaptive pools to any bins (:meth:`Strips.bin_pool`).  An op that reads
-  across rows and has no strip form raises, naming itself
-  (:func:`refuse`).
+  adaptive pools to any bins (:meth:`Strips.bin_pool`).
+
+**What raises.**  A strip's output must be its share of what the whole
+tile gives, so the strips are even: a stride that does not divide a
+strip's height (:meth:`Strips.window`), a resize whose ``k`` strip outputs
+are not the whole tile's output rows (:meth:`Strips.share`), and a folded
+(space-to-depth) input whose strips would not unfold to the labels' strips
+(:meth:`Strips.check_batch`) raise, naming the op; GSPMD computes these
+with uneven strips (ROADMAP.md A.11.2).
 
 **Strips and whole maps.**  Under a strip step most tensors are this rank's
 strip of the tile, but a reduction over the tile (a global or adaptive
@@ -53,7 +61,7 @@ statistics; a BatchNorm there still reduces over the axis, whose ranks all
 hold the same rows, which gives the same mean and variance).  The way back
 from a whole map to the strips is a resize told that it takes a whole map
 (:meth:`Strips.resize_whole_rows`: this strip's rows of the whole tile's
-bilinear weights, no halo), or a broadcast of a 1×1 map.  Gradients follow
+resize weights, no halo), or a broadcast of a 1×1 map.  Gradients follow
 the rule the global pool set: a rank's gradient of a whole map is its
 strip's share of it, and the all-reduce that made the map sums the shares
 on the way back.
@@ -106,7 +114,10 @@ from ever_tpu_torch.parallel.mesh import _CURRENT, Mesh, NamedSharding, P, all_r
 
 __all__ = ['halo_exchange', 'halo_exchange_exact', 'spatial_partition_apply',
            'spatial_batch_sharding', 'build_spatial_train_step',
-           'build_halo_train_step', 'Strips', 'current', 'recomputable', 'refuse', 'whole']
+           'build_halo_train_step', 'Strips', 'current', 'recomputable', 'whole']
+
+# what the uneven strips that GSPMD computes and this engine refuses are filed under
+_UNEVEN = 'ROADMAP.md A.11.2'
 
 _STRIPS: contextvars.ContextVar = contextvars.ContextVar('ever_tpu_torch_strips',
                                                          default=None)
@@ -155,14 +166,6 @@ def recomputable(fn: Callable) -> Callable:
 def _recompute(fn: Callable, args, kwargs):
     _RECOMPUTING.set(True)
     return fn(*args, **kwargs)
-
-
-def refuse(what: str) -> None:
-    """Raise when a strip context is active: ``what`` reads across rows and
-    has no strip form, so it would give a strip-local answer."""
-    if _STRIPS.get() is not None:
-        raise ValueError(f'{what} reads across rows and has no strip form: it cannot run '
-                         f'under a spatial train step (parallel/spatial.py)')
 
 
 class Strips:
@@ -269,27 +272,52 @@ class Strips:
         if h % s:
             raise ValueError(f'{what} (kernel {k}, stride {s}) needs strips whose height the '
                              f'stride divides; got {h} rows a rank on {self.axis!r}: use a '
-                             f'tile height that {s}·{self.k}·(the strides before it) divides')
+                             f'tile height that {s}·{self.k}·(the strides before it) divides '
+                             f'(uneven strips: {_UNEVEN})')
         if top > (k - 1) * d:
             raise ValueError(f'{what}: {top} rows of padding above a window of {k} rows')
         return self.rows(x, top, max((k - 1) * d - top - (s - 1), 0), dim, fill, what)
 
-    def resize_rows(self, x: torch.Tensor, n_out: int, align_corners: bool,
-                    dtype: torch.dtype) -> torch.Tensor:
-        """A bilinear resize along the rows (dimension 1 of NHWC ``x``) to
-        ``n_out`` rows a strip, as a matrix product: the strip's rows of the
-        global weight matrix against the strip and one halo row each side
-        (zeros at the true border, where the edge rows are clamped)."""
-        w = _strip_weights(x.shape[1], n_out, self.k, self.s, align_corners, dtype, x.device)
-        return torch.einsum('oh,nhwc->nowc', w, self.rows(x, 1, 1, 1, 0.0, 'bilinear resize'))
+    def share(self, h: int, scale: float, what: str) -> int:
+        """``int(h·scale)``: the rows a strip of ``h`` gives when ``what``
+        scales it.  Raises where ``k`` of them are not the whole tile's
+        ``int(k·h·scale)``: a strip's output would not be its share of the
+        whole tile's."""
+        m, whole_rows = int(h * scale), int(self.k * h * scale)
+        if self.k * m != whole_rows:
+            raise ValueError(f'{what} scales a strip of {h} rows by {scale} to {m}, but the whole '
+                             f'tile\'s {self.k * h} rows to {whole_rows}, not {self.k} × {m}: a '
+                             f'strip\'s output would not be its share of the whole tile\'s; use '
+                             f'a tile height whose strips scale to whole rows on {self.axis!r} '
+                             f'(uneven strips: {_UNEVEN})')
+        return m
 
-    def resize_whole_rows(self, x: torch.Tensor, n_out: int, align_corners: bool,
+    def resize_rows(self, x: torch.Tensor, n_out: int, method: str, align_corners: bool,
+                    dtype: torch.dtype) -> torch.Tensor:
+        """A resize along the rows (dimension 1 of NHWC ``x``) to ``n_out``
+        rows a strip, as a matrix product: the strip's output rows ``[s·m,
+        (s+1)·m)`` of the whole tile's ``[k·m, k·h]`` weights
+        (``module/ops.py`` ``_make_resize_weights``: ``method`` ``'nearest'``
+        or ``'bilinear'``, half-pixel or ``align_corners``, antialiased where
+        it shrinks) against the strip and the halo rows that the whole
+        matrix's support reads (the same on every strip; fill rows of zero
+        weight at the true border, where the whole matrix's own edge
+        weights apply).  Backward, the transposed product, and the halo
+        rows' gradients go back to their strips (:class:`_Swap`)."""
+        w, top, bottom = _strip_weights(x.shape[1], n_out, self.k, self.s, method,
+                                        align_corners, dtype, x.device)
+        return torch.einsum('oh,nhwc->nowc', w,
+                            self.rows(x, top, bottom, 1, 0.0, f'{method} resize'))
+
+    def resize_whole_rows(self, x: torch.Tensor, n_out: int, method: str, align_corners: bool,
                           dtype: torch.dtype) -> torch.Tensor:
-        """A bilinear resize along the rows of NHWC ``x``, a map whole on
-        every rank, to the whole tile's ``k·n_out`` rows, of which this
-        strip's ``n_out``: its rows of the whole resize's weights against
-        the whole map (no halo)."""
-        w = _whole_weights(x.shape[1], n_out, self.k, self.s, align_corners, dtype, x.device)
+        """A resize along the rows of NHWC ``x``, a map whole on every rank,
+        to the whole tile's ``k·n_out`` rows, of which this strip's
+        ``n_out``: its rows of the whole resize's weights (the families of
+        :meth:`resize_rows`, growing or shrinking) against the whole map (no
+        halo)."""
+        w = _whole_weights(x.shape[1], n_out, self.k, self.s, method, align_corners, dtype,
+                           x.device)
         return torch.einsum('oh,nhwc->nowc', w, x)
 
     def row_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -368,6 +396,37 @@ class Strips:
         u = torch.rand(tuple(full), generator=generator, device=generator.device)
         return (u < 1.0 - rate).narrow(rows_dim, self.s * h, h)
 
+    def check_batch(self, batch) -> None:
+        """JAX's errors for a spatial batch: every leaf ``[N, H, ...]`` with
+        H divisible by the axis size.  A leaf of H rows beside one of 2·H is
+        a space-to-depth folded input (``stem='s2d_input'``) beside its
+        labels: strip s of its ``H/k`` folded rows unfolds to exactly strip s
+        of the labels' ``2H/k`` pixel rows, so where k does not divide H (the
+        labels' strips of an odd height) it raises, naming the fold."""
+        leaves = [leaf for leaf in tree_leaves(batch) if hasattr(leaf, 'shape')]
+        heights = set()
+        for leaf in leaves:
+            shape = tuple(leaf.shape)
+            if len(shape) < 2:
+                raise ValueError(
+                    f'spatial train batch leaves must be rank>=2 '
+                    f'([N, H, ...]); got a rank-{len(shape)} leaf — reshape '
+                    f'or replicate it outside the batch pytree')
+            heights.add(shape[1])
+        for h in sorted(heights):
+            if h % self.k and 2 * h in heights:
+                raise ValueError(
+                    f'the s2d stem\'s folded input of {h} rows (a tile of {2 * h} pixel rows) '
+                    f'over the {self.axis!r} axis size {self.k} would make strips of '
+                    f'{2 * h / self.k:g} pixel rows, which its folded rows cannot cover '
+                    f'exactly; use a tile height that 2·{self.k} divides (uneven strips: '
+                    f'{_UNEVEN})')
+        for leaf in leaves:
+            if leaf.shape[1] % self.k:
+                raise ValueError(
+                    f'tile height {leaf.shape[1]} is not divisible by the '
+                    f'{self.axis!r} axis size {self.k}; pad the tile')
+
     def take(self, t):
         """This strip's rows of a batch leaf: a ``DTensor`` split on dimension 1
         gives its local rows, a whole tile (tensor or array) is narrowed."""
@@ -384,33 +443,37 @@ class Strips:
 
 
 @functools.lru_cache(maxsize=32)
-def _strip_weights(h: int, m: int, k: int, s: int, align_corners: bool, dtype: torch.dtype,
-                   device: torch.device) -> torch.Tensor:
-    """Rows ``[s·m, (s+1)·m)`` of the global ``[k·m, k·h]`` bilinear weights
-    over input columns ``[s·h − 1, (s+1)·h + 1)`` (the strip and one halo
-    row each side; zero columns past the true border), made in float64 and
-    kept on ``device`` in ``dtype``.  Raises if a row reads further than one
-    row past the strip."""
-    from ever_tpu_torch.module.ops import _make_bilinear_weights
-    full = _make_bilinear_weights(k * h, k * m, torch.float64, torch.device('cpu'),
-                                  align_corners)
-    rows = F.pad(full, (1, 1))[s * m:(s + 1) * m]
-    w = rows[:, s * h:(s + 1) * h + 2]
-    if not torch.equal(w.abs().sum(1), rows.abs().sum(1)):
-        raise ValueError(f'a bilinear resize of {k * h} to {k * m} rows reads more than one '
-                         f'row past a strip of {h}')
-    return w.to(dtype=dtype, device=device)
+def _strip_weights(h: int, m: int, k: int, s: int, method: str, align_corners: bool,
+                   dtype: torch.dtype, device: torch.device) -> tuple:
+    """``(w, top, bottom)``: the halo rows above and below that any strip's
+    rows of the whole ``[k·m, k·h]`` resize weights read (the largest over
+    the strips, so that every strip exchanges the same rows), and rows
+    ``[s·m, (s+1)·m)`` of those weights over input rows ``[s·h − top, (s+1)·h
+    + bottom)`` (zero columns past the true border), made in float64 and
+    kept on ``device`` in ``dtype``."""
+    from ever_tpu_torch.module.ops import _make_resize_weights
+    full = _make_resize_weights(k * h, k * m, method, align_corners, torch.float64,
+                                torch.device('cpu'))
+    cols = torch.arange(k * h, dtype=torch.float64)
+    support = full != 0
+    first = torch.where(support, cols, float(k * h)).amin(1)
+    last = torch.where(support, cols, -1.0).amax(1)
+    strip = torch.arange(k * m, dtype=torch.float64) // m * h      # each output row's strip start
+    top = int(max(float((strip - first).amax()), 0.0))
+    bottom = int(max(float((last - (strip + h - 1)).amax()), 0.0))
+    w = F.pad(full, (top, bottom))[s * m:(s + 1) * m, s * h:(s + 1) * h + top + bottom]
+    return w.to(dtype=dtype, device=device), top, bottom
 
 
 @functools.lru_cache(maxsize=32)
-def _whole_weights(n_in: int, m: int, k: int, s: int, align_corners: bool,
+def _whole_weights(n_in: int, m: int, k: int, s: int, method: str, align_corners: bool,
                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Rows ``[s·m, (s+1)·m)`` of the ``[k·m, n_in]`` bilinear weights that
-    resize a whole map of ``n_in`` rows to the tile's ``k·m``, made in
+    """Rows ``[s·m, (s+1)·m)`` of the ``[k·m, n_in]`` resize weights that
+    take a whole map of ``n_in`` rows to the tile's ``k·m``, made in
     float64 and kept on ``device`` in ``dtype``."""
-    from ever_tpu_torch.module.ops import _make_bilinear_weights
-    full = _make_bilinear_weights(n_in, k * m, torch.float64, torch.device('cpu'),
-                                  align_corners)
+    from ever_tpu_torch.module.ops import _make_resize_weights
+    full = _make_resize_weights(n_in, k * m, method, align_corners, torch.float64,
+                                torch.device('cpu'))
     return full[s * m:(s + 1) * m].to(dtype=dtype, device=device)
 
 
@@ -584,24 +647,6 @@ def _check_partition(h: int, k: int, axis: str, halo: int, boundary: str) -> Non
                          f'H/k = {h // k}; lower halo or use fewer devices')
 
 
-def _check_batch(batch, k: int, axis: str) -> None:
-    """JAX's errors for a spatial batch: every leaf ``[N, H, ...]`` with H
-    divisible by the axis size."""
-    for leaf in tree_leaves(batch):
-        if not hasattr(leaf, 'shape'):
-            continue
-        shape = tuple(leaf.shape)
-        if len(shape) < 2:
-            raise ValueError(
-                f'spatial train batch leaves must be rank>=2 '
-                f'([N, H, ...]); got a rank-{len(shape)} leaf — reshape '
-                f'or replicate it outside the batch pytree')
-        if shape[1] % k:
-            raise ValueError(
-                f'tile height {shape[1]} is not divisible by the '
-                f'{axis!r} axis size {k}; pad the tile')
-
-
 def build_spatial_train_step(model, tx, lr_schedule=None, mesh: Mesh = None,
                              axis: str = 'data', rng_seed: int = 0, donate: bool = True, *,
                              device=None) -> Callable:
@@ -639,7 +684,7 @@ def build_spatial_train_step(model, tx, lr_schedule=None, mesh: Mesh = None,
                              rng_seed=rng_seed)
 
     def step(state, batch):
-        _check_batch(batch, strips.k, axis)
+        strips.check_batch(batch)
         local = tree_map(lambda t: strips.take(t).to(dev) if hasattr(t, 'shape') else t, batch)
         with strips:
             return inner(state, local)

@@ -26,8 +26,9 @@ this process computes the JAX side on meshes of 4 and 2 CPU devices:
   6 bins with the pyramid's upsample of the whole pooled map, a pyramid
   bin) against the same modules on the whole tile: values and input
   gradients;
-- the ops that read across rows and have no strip form: each raises under
-  the strip context, naming itself.
+- the ops whose strip output would not be the strip's share of the whole
+  tile's (uneven strips): each raises under the strip context, naming
+  itself.
 """
 
 import functools
@@ -393,13 +394,18 @@ def test_strip_forms_equal_the_op_on_the_whole_tile(ranks, world, name, is_whole
 @pytest.mark.parametrize('world', WORLDS)
 def test_ops_without_a_strip_form_raise_naming_themselves(ranks, world):
     """Under the strip context every op of ``torch_spatial_ranks.refusals``
-    (the causal attention, a shrinking or non-integer resize, the s2d
-    stem, FreeNet's spectral attention) raises, naming itself, on every
-    rank: none returns a strip-local answer.  (GroupNorm, the squeezes, the
-    context block and the adaptive pools have strip forms: the test above;
-    the ViT's attention and checkpointed blocks:
-    ``tests/test_torch_spatial_vit.py``.)"""
+    whose strip output would not be its share of the whole tile's (a resize
+    whose ``h·scale`` is not whole, FreeNet's pool on an odd strip, a folded
+    input whose strips would not unfold to the labels', a stride that does
+    not divide the strip) raises on every rank, naming itself and the
+    queue of uneven strips (ROADMAP.md A.11.2): none returns a strip-local
+    answer.  (Every op that reads across rows has a strip form: the
+    reductions over the tile, the test above; the resizes,
+    ``tests/test_torch_spatial_resize.py``; the ViT's attention and
+    checkpointed blocks, ``tests/test_torch_spatial_vit.py``; ViTEncoder,
+    the folded stem, FreeNet and the causal attention,
+    ``tests/test_torch_spatial_encoders.py``.)"""
     for res in ranks[world]:
-        assert len(res['refusals']) == 5
+        assert len(res['refusals']) == 4
         for name, err in res['refusals'].items():
-            assert err.startswith(name) and 'has no strip form' in err, (name, err)
+            assert err.startswith(name) and 'A.11.2' in err, (name, err)

@@ -210,18 +210,23 @@ def strip_forms(x: torch.Tensor, probes: dict, mesh=None) -> dict:
 
 def refusals(strips) -> dict:
     """{the name an op gives itself: its error} under ``strips`` for each
-    op that reads across rows and has no strip form, called on a small
-    input (NCHW maps, NHWC for ``module/ops.py``'s functions, tokens for
-    the causal attention); 'returned' where one does not raise."""
-    from ever_tpu_torch.module import freenet, resnet, vit
-    x, tokens = torch.randn(1, 8, 4, 6), torch.randn(1, 5, 8)
+    op whose strip output would not be its share of the whole tile's, on a
+    strip of 3 rows (NCHW maps, NHWC for ``module/ops.py``'s functions):
+    a bilinear halving (3 rows to 1 a strip, the tile's 3·k to 3·k/2), a
+    narrow FreeNet's 2×2/2 max pool, a folded (s2d) input of 3 rows a
+    strip beside labels of 6, a 3×3/2 conv; 'returned' where one does not
+    raise."""
+    from ever_tpu_torch.module import freenet
+    torch.manual_seed(0)
+    x = torch.randn(1, 8, 3, 6)
     nhwc = x.permute(0, 2, 3, 1)
+    net = freenet.FreeNet(dict(in_channels=8, stage_channels=(4, 4), classes=2))
     cases = {
-        'downsample_bilinear': lambda: ops.downsample_bilinear(nhwc, (2, 3)),
-        'resize (bilinear': lambda: ops.resize(nhwc, scale=2, method='bilinear'),
-        'the s2d stem': lambda: resnet.depth_to_space(x),
-        'SpectralAttention': lambda: freenet.SpectralAttention(8)(x),
-        'CausalSelfAttention': lambda: vit.CausalSelfAttention(8, 2)(tokens),
+        'resize': lambda: ops.resize(nhwc, scale=0.5, method='bilinear'),
+        'max_pool': lambda: net(nhwc),
+        'the s2d stem': lambda: strips.check_batch((torch.zeros(1, 3, 4, 12),
+                                                    torch.zeros(1, 6, 8))),
+        'Conv2d': lambda: ops.Conv2d(8, 8, 3, stride=2)(x),
     }
     with strips:
         return {name: _raises(fn) for name, fn in cases.items()}
